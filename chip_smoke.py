@@ -11,10 +11,21 @@ Phases, each reported on its own lines; any failure exits non-zero:
    2015 data's shape (39,179 sources, 32 recipients, 233,887 records):
    error, median time of kernel / plain version / one PyTorch library call
    (a yardstick the port never calls), and the bytes-or-operations bound.
+3b. the rank-1 GAT kernels (``r1l_fwd_f32`` at dropout rate 0 and 0.5,
+   ``r1l_bwd_f32``, and ``csr_spmm_f32`` as the backward's dx reduce)
+   against their plain versions on the full-width link-prediction graph
+   (synthetic ogbl-ddi, 4,267 nodes, 328,012 message edges, d = 64), the
+   dropout keep mask bit for bit; times and bounds as in phase 3.
 4. the serving path at full width (GCN, nfeat 128): checkpoint round trip,
    one full-score fill that must launch exactly the path's kernels, the
    fill against the plain path on the card and against a float64 dense
    reference on a small graph, then HTTP requests through ``make_server``.
+5. the link-prediction training path at full width
+   (``LinkPredConfig()``: hidden 64, 2 heads, dropout 0.5, batch 4096):
+   one training step that must launch exactly its kernels, the same step
+   on the plain path from the same parameters and generator state (same
+   dropout masks), one epoch whose loss must fall, the device's idle share
+   over a few steps, and the evaluation (Hits@20, Hits@50, AUC).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -23,6 +34,7 @@ result.
 
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -45,6 +57,15 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6  # f32, another summation order
 SLICE_TOL = 1e-5                       # log-probs, kernel vs plain path
 REF_TOL = 1e-5                         # log-probs vs float64 reference
 DEVICE = "cuda"
+
+LP_SEED = 42                           # the linkpred CLI's default seed
+LP_D = 64                              # LinkPredConfig().hidden
+DROP_SEED = -123457                    # a fixed int32 dropout seed
+# sums of up to 3,842 (dc) and 328,012 (da) terms, in another order
+SUM_RTOL, SUM_ATOL_REL = 1e-4, 1e-5
+STEP_LOSS_RTOL = 1e-5                  # kernel step vs plain step, loss
+STEP_GRAD_RTOL, STEP_GRAD_ATOL = 1e-3, 1e-5  # and gradients: the plain
+                                       # path's index_add_ adds by atomics
 
 
 def log(msg: str) -> None:
@@ -138,6 +159,304 @@ def phase_kernels(op, fg):
             "library_ms": library_ms, "transpose": transpose,
         })
     return results
+
+
+def close(name, got, want, rtol, atol):
+    """Max errors of ``got`` against ``want``; raises past rtol/atol."""
+    abs_err = float((got - want).abs().max())
+    ok = torch.allclose(got, want, rtol=rtol, atol=atol)
+    log(f"  {name}: max abs err {abs_err:.3e} (max |value| "
+        f"{float(want.abs().max()):.3e}; rtol {rtol}, atol {atol:.1e})")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return abs_err
+
+
+def linkpred_split():
+    """The linkpred CLI's data at its defaults: synthetic ogbl-ddi."""
+    from msha_gnn_torch.data import load_ddi, split_edges
+
+    return split_edges(load_ddi(seed=LP_SEED), seed=LP_SEED)
+
+
+def r1l_bounds(n, e, d):
+    """Least times (ms, bound) of the two rank-1 GAT kernels on this
+    data: every input read once (x once: it fits in L2), every output
+    written once, and 4 E d (forward) or 8 E d (backward) flops at the
+    float32 rate."""
+    def bound(nbytes, flops):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOPS_PER_S * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                             "operations")
+    # ptr, col, c, a, x in; out, lse out
+    fwd = bound(4 * (n + 1) + 4 * e + 4 * n + 4 * d + 4 * n * d
+                + 4 * n * d + 4 * n, 4 * e * d)
+    # ptr, col, c, a, x, gout, out, lse in; z, dc, da out
+    bwd = bound(4 * (n + 1) + 4 * e + 4 * n + 4 * d + 3 * 4 * n * d
+                + 4 * n + 4 * e * d + 4 * n + 4 * d, 8 * e * d)
+    return fwd, bwd
+
+
+def phase_rank1_kernels(split):
+    """Phase 3b: r1l_fwd_f32, r1l_bwd_f32 and the dx reduce vs their
+    plain versions at the linkpred shapes."""
+    from msha_gnn_torch.ops.cuda import rank1_gat as r1
+    from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
+
+    g = split["graph"].to(DEVICE)
+    op = r1.Rank1GatOperator(g, dst_linear=True, dropout_rate=0.5)
+    n, e, d = g.n_src, g.num_edges, LP_D
+    deg = (op.ptr[1:] - op.ptr[:-1]).float()
+    log(f"  graph: {n} rows, {e} edges ({g.num_padded_edges} padded), "
+        f"row length mean {float(deg.mean()):.1f}, max {int(deg.max())}, "
+        f"empty rows {int((deg == 0).sum())}; d {d}")
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    c = torch.randn(n, generator=gen, device=DEVICE)
+    a = torch.randn(d, generator=gen, device=DEVICE) * 0.3
+    x = torch.rand((n, d), generator=gen, device=DEVICE) - 0.5
+    gout = torch.rand((n, d), generator=gen, device=DEVICE) - 0.5
+    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=DEVICE)
+
+    keep = r1.keep_scale(g.num_padded_edges, seed, 0.5)
+    keep_plain = r1.keep_scale_plain(
+        torch.arange(g.num_padded_edges, device=DEVICE), seed, 0.5)
+    if not torch.equal(keep, keep_plain):
+        raise AssertionError("the kernels' keep mask differs from "
+                             "keep_scale_plain")
+    log(f"  keep mask, rate 0.5, seed {DROP_SEED}: bit-exact over "
+        f"{g.num_padded_edges} slots, kept share "
+        f"{float((keep > 0).float().mean()):.4f}")
+    log(f"  tolerances: out, lse, z at rtol {KERNEL_RTOL}, atol "
+        f"{KERNEL_ATOL} (f32, another summation order); dc, da at rtol "
+        f"{SUM_RTOL}, atol {SUM_ATOL_REL} x max|value| (sums of up to "
+        f"{int(deg.max())} and {e} terms in another order), and so the "
+        "dx reduce (sums of up to as many rows of z)")
+    (fwd_b, fwd_by), (bwd_b, bwd_by) = r1l_bounds(n, e, d)
+    no_lib = ("none: no single PyTorch call computes the row softmax, the "
+              "hashed dropout and the aggregation together")
+    results = []
+    for rate in (0.0, 0.5):
+        args = (op.ptr, op.col, c, a, x, seed, rate, op.slope, n)
+        out, lse = r1.r1l_fwd(*args)
+        want_out, want_lse = r1.rank1_gat_plain(*args)
+        torch.cuda.synchronize()
+        err = max(close(f"r1l_fwd_f32[rate {rate}] out", out, want_out,
+                        KERNEL_RTOL, KERNEL_ATOL),
+                  close(f"r1l_fwd_f32[rate {rate}] lse", lse, want_lse,
+                        KERNEL_RTOL, KERNEL_ATOL))
+        ms = time_ms(lambda: r1.r1l_fwd(*args))
+        plain_ms = time_ms(lambda: r1.rank1_gat_plain(*args), reps=5,
+                           iters=5)
+        log(f"  r1l_fwd_f32[rate {rate}]: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {fwd_b:.5f} ms ({fwd_by}); library "
+            f"{no_lib}")
+        results.append({
+            "name": f"r1l_fwd_f32[rate {rate}]", "route": "cuda",
+            "source": "msha_gnn_torch/csrc/rank1_gat.cu",
+            "replaces": "msha_gnn_tpu/ops/pallas/rank1_gat.py:234 "
+                        "_r1l_fwd_kernel",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": fwd_b, "bound_by": fwd_by,
+            "library_ms": None})
+    for rate in (0.0, 0.5):
+        out, lse = r1.rank1_gat_plain(op.ptr, op.col, c, a, x, seed, rate,
+                                      op.slope, n)
+        args = (op.ptr, op.col, c, a, x, gout, out, lse, seed, rate,
+                op.slope, n)
+        z, dc, da = r1.r1l_bwd(*args)
+        wz, wdc, wda = r1.rank1_gat_bwd_plain(*args)
+        torch.cuda.synchronize()
+        err = max(
+            close(f"r1l_bwd_f32[rate {rate}] z", z, wz, KERNEL_RTOL,
+                  KERNEL_ATOL),
+            close(f"r1l_bwd_f32[rate {rate}] dc", dc, wdc, SUM_RTOL,
+                  SUM_ATOL_REL * float(wdc.abs().max())),
+            close(f"r1l_bwd_f32[rate {rate}] da", da, wda, SUM_RTOL,
+                  SUM_ATOL_REL * float(wda.abs().max())))
+    ms = time_ms(lambda: r1.r1l_bwd(*args))
+    plain_ms = time_ms(lambda: r1.rank1_gat_bwd_plain(*args), reps=5,
+                       iters=5)
+    log(f"  r1l_bwd_f32[rate 0.5]: kernel {ms:.4f} ms (edge grid + da "
+        f"reduce), plain {plain_ms:.4f} ms, bound {bwd_b:.5f} ms "
+        f"({bwd_by}); library {no_lib}")
+    results.append({
+        "name": "r1l_bwd_f32[rate 0.5]", "route": "cuda",
+        "source": "msha_gnn_torch/csrc/rank1_gat.cu",
+        "replaces": "msha_gnn_tpu/ops/pallas/rank1_gat.py:305 "
+                    "_r1l_bwd_kernel",
+        "launches": None, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bwd_b, "bound_by": bwd_by,
+        "library_ms": None})
+
+    spmm = op.spmm
+    red_args = (spmm.t_ptr, spmm.t_edge, spmm.ones, z, n, spmm.warps_t)
+    got = cuda_spmm.csr_spmm(*red_args)
+    want = cuda_spmm.csr_spmm_plain(*red_args[:5])
+    rcv = g.receivers[:e].long()
+    lib_out = z.new_zeros((n, d)).index_add_(0, rcv, z)
+    torch.cuda.synchronize()
+    # each output sums up to 3,842 rows of z: the sums' tolerance
+    err = close("csr_spmm_f32[dx reduce] out", got, want, SUM_RTOL,
+                SUM_ATOL_REL * float(want.abs().max()))
+    if not torch.allclose(lib_out, want, rtol=1e-4, atol=1e-5):
+        raise AssertionError("index_add_ yardstick disagrees with the "
+                             "plain version")
+    ms = time_ms(lambda: cuda_spmm.csr_spmm(*red_args))
+    plain_ms = time_ms(lambda: cuda_spmm.csr_spmm_plain(*red_args[:5]))
+    library_ms = time_ms(lambda: z.new_zeros((n, d)).index_add_(0, rcv, z))
+    bound_ms, bound_by = spmm_bound(spmm.t_ptr, spmm.t_edge, z, n)
+    log(f"  csr_spmm_f32[dx reduce]: rows {n}, edges {e}, d {d}, warps/"
+        f"block {spmm.warps_t}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, index_add_ {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+        f"({bound_by})")
+    results.append({
+        "name": "csr_spmm_f32[dx reduce]", "route": "cuda",
+        "source": "msha_gnn_torch/csrc/spmm.cu",
+        "replaces": "msha_gnn_tpu/ops/pallas/spmm.py:244 _visit_kernel",
+        "launches": None, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms})
+    return results
+
+
+def read_counts(op=None):
+    from msha_gnn_torch.ops.cuda import rank1_gat as r1
+    from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
+
+    counts = {"r1l_fwd_f32": r1.fwd_launches,
+              "r1l_bwd_f32": r1.bwd_launches,
+              "csr_spmm_f32": cuda_spmm.launches}
+    if op is not None:
+        counts["csr_spmm_f32 transposed"] = op.launches_transposed
+    return counts
+
+
+def zero_counts(op=None):
+    from msha_gnn_torch.ops.cuda import rank1_gat as r1
+    from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
+
+    r1.fwd_launches = r1.bwd_launches = cuda_spmm.launches = 0
+    if op is not None:
+        op.launches = op.launches_transposed = 0
+
+
+def phase_linkpred(split):
+    """Phase 5: the linkpred training path at full width on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from msha_gnn_torch.ops.cuda.spmm import operator_for
+    from msha_gnn_torch.training import (LinkPredConfig,
+                                         build_link_prediction, evaluate,
+                                         linkpred_loss, train_step)
+    from msha_gnn_torch.training.link_prediction import epoch_batches
+
+    t0 = time.perf_counter()
+    run = build_link_prediction(split, LinkPredConfig(epochs=1),
+                                device=DEVICE)
+    op = operator_for(run.graph)
+    if run.impl != "fused":
+        raise AssertionError(f"impl auto resolved to {run.impl} on CUDA")
+    batches = epoch_batches(run)
+    torch.cuda.synchronize()
+    log(f"  set-up {(time.perf_counter() - t0) * 1e3:.1f} ms: impl "
+        f"{run.impl}, {len(batches)} steps of {batches.shape[2]} pairs, "
+        f"parameters {sum(p.numel() for p in run.model.parameters())}")
+
+    plain_model = copy.deepcopy(run.model)
+    gen_state = run.generator.get_state()
+    # the main path: counts set to 0 just before one step, read just after
+    zero_counts(op)
+    t0 = time.perf_counter()
+    loss_k = train_step(run, batches[0])
+    torch.cuda.synchronize()
+    first_step_ms = (time.perf_counter() - t0) * 1e3
+    step_counts = read_counts(op)
+    log(f"  main path launches in one training step: {step_counts}")
+    want = {"r1l_fwd_f32": 3, "r1l_bwd_f32": 3, "csr_spmm_f32": 3,
+            "csr_spmm_f32 transposed": 3}
+    if step_counts != want:
+        raise AssertionError(f"expected {want} launches per step, got "
+                             f"{step_counts}")
+
+    grads_k = {k: p.grad for k, p in run.model.named_parameters()}
+    gen = torch.Generator(device=DEVICE)
+    gen.set_state(gen_state)
+    loss_p = linkpred_loss(plain_model, run.graph, batches[0], impl="torch",
+                           generator=gen)
+    loss_p.backward()
+    torch.cuda.synchronize()
+    if read_counts(op) != step_counts:
+        raise AssertionError("the plain path launched a kernel")
+    loss_p = loss_p.detach()
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    log(f"  step loss: kernel path {float(loss_k):.7f}, plain path "
+        f"{float(loss_p):.7f}, rel err {loss_err:.2e} (rtol "
+        f"{STEP_LOSS_RTOL})")
+    if loss_err > STEP_LOSS_RTOL:
+        raise AssertionError("step loss: kernel path vs plain path")
+    for name, p in plain_model.named_parameters():
+        got, want_g = grads_k[name], p.grad
+        err = float((got - want_g).abs().max())
+        log(f"  grad {name} {tuple(p.shape)}: max abs err {err:.3e} (max "
+            f"|value| {float(want_g.abs().max()):.3e})")
+        if not torch.allclose(got, want_g, rtol=STEP_GRAD_RTOL,
+                              atol=STEP_GRAD_ATOL):
+            raise AssertionError(f"gradient of {name}: kernel path vs "
+                                 "plain path")
+    log(f"  gradients agree at rtol {STEP_GRAD_RTOL}, atol "
+        f"{STEP_GRAD_ATOL}")
+
+    losses, step_ms = [float(loss_k)], []
+    t_epoch = time.perf_counter()
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        losses.append(float(train_step(run, batch)))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    epoch_s = time.perf_counter() - t_epoch + first_step_ms / 1e3
+    first5, last5 = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    log(f"  epoch of {len(losses)} steps: loss first-5 mean {first5:.5f}, "
+        f"last-5 mean {last5:.5f}")
+    if not all(np.isfinite(losses)) or not last5 < first5:
+        raise AssertionError("the epoch's loss did not fall")
+
+    more = epoch_batches(run)[:5]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in more:
+            train_step(run, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels only: a user annotation (Adam's step) spans listed kernels
+    busy_us = sum(
+        getattr(evt, "self_device_time_total", 0.0)
+        or getattr(evt, "self_cuda_time_total", 0.0)
+        for evt in prof.key_averages()
+        if evt.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(evt, "is_user_annotation", False))
+    idle = max(0.0, 1 - busy_us / 1e3 / wall_ms) if busy_us else None
+
+    zero_counts(op)
+    t0 = time.perf_counter()
+    metrics = evaluate(run)
+    eval_s = time.perf_counter() - t0
+    eval_counts = read_counts(op)
+    log(f"  evaluation launches: {eval_counts}")
+    if eval_counts["r1l_fwd_f32"] != 3 or eval_counts["r1l_bwd_f32"] != 0:
+        raise AssertionError("evaluation must run the 3 forward kernels")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"non-finite metrics {metrics}")
+    summary = {
+        "step_ms_p50": statistics.median(step_ms),
+        "first_step_ms": first_step_ms, "epoch_s": epoch_s,
+        "device_idle_share": idle,
+        "device_busy_ms_per_step": busy_us / 1e3 / len(more),
+        "eval_s": eval_s, **metrics,
+    }
+    log(f"  linkpred: {json.dumps(summary)}")
+    return step_counts, eval_counts
 
 
 def dense_reference(fg, model):
@@ -332,11 +651,30 @@ def main() -> int:
     log(f"  {fg.inter.num_edges} unique edges")
     kernels = phase_kernels(op, fg)
 
+    log("phase 3b: rank-1 GAT kernels vs plain, linkpred graph "
+        "(synthetic ogbl-ddi, seed 42)")
+    split = linkpred_split()
+    r1_kernels = phase_rank1_kernels(split)
+
     log("phase 4: GCN serving path")
     launches = phase_slice(fg)
     for k in kernels:
         k["launches"] = launches["transposed" if k.pop("transpose")
                                  else "plain"]
+
+    log("phase 5: linkpred training path (LinkPredConfig defaults)")
+    step, evaluation = phase_linkpred(split)
+    # rate 0.5 runs in training steps, rate 0 in the evaluation's encoding
+    per_name = {"r1l_fwd_f32[rate 0.0]": evaluation["r1l_fwd_f32"],
+                "r1l_fwd_f32[rate 0.5]": step["r1l_fwd_f32"],
+                "r1l_bwd_f32[rate 0.5]": step["r1l_bwd_f32"],
+                "csr_spmm_f32[dx reduce]": step["csr_spmm_f32 transposed"]}
+    for k in r1_kernels:
+        k["launches"] = per_name[k["name"]]
+    kernels += r1_kernels
+    if any(k["launches"] < 1 for k in kernels):
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{kernels}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

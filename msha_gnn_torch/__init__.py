@@ -20,14 +20,17 @@ __version__ = "0.1.0"
 
 
 def resolve_device(device="cuda") -> torch.device:
-    """``device`` as a :class:`torch.device`; raises when CUDA was asked
-    for and is not available."""
+    """``device`` as a :class:`torch.device`, a bare ``"cuda"`` with the
+    current card's index (so it compares equal to its tensors' device);
+    raises when CUDA was asked for and is not available."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(device)!r} requested but CUDA is not available; "
             "pass device='cpu' to run on the CPU"
         )
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -1,9 +1,11 @@
 """Command-line entry points: ``python -m msha_gnn_torch.cli <cmd>``.
 
-The serving commands of ``msha_gnn_tpu/cli.py`` with the same flags, plus
-``--device``: ``predict`` (batch inference from a checkpoint) and
-``serve`` (HTTP server from a checkpoint).  The port serves the models in
-:data:`PORTED_MODELS`; any other model exits with code 2.
+Commands of ``msha_gnn_tpu/cli.py`` with the same flags, plus
+``--device``: ``predict`` (batch inference from a checkpoint), ``serve``
+(HTTP server from a checkpoint) and ``linkpred`` (ogbl-ddi-style link
+prediction, trained and evaluated).  The port serves the models in
+:data:`PORTED_MODELS`; any other model, and any ``linkpred`` option that is
+not ported, exits with code 2.
 """
 
 from __future__ import annotations
@@ -87,6 +89,37 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_linkpred(args) -> int:
+    """Train and evaluate link prediction; prints the result as JSON."""
+    from .data.ogb import load_ddi, split_edges
+    from .training.link_prediction import LinkPredConfig, run_link_prediction
+    from .utils import JsonlLogger
+
+    unported = []
+    if args.neighbor_fanout > 0:
+        unported.append("--neighbor_fanout > 0 (data/sampler.py)")
+    if args.use_kd:
+        unported.append("--use_kd (training/kd.py)")
+    if args.impl not in ("auto", "torch", "fused"):
+        unported.append(f"--impl {args.impl} (the port has auto, torch, "
+                        "fused)")
+    if unported:
+        print(f"not ported: {'; '.join(unported)}", file=sys.stderr)
+        return 2
+    data = load_ddi(root=args.ogb_root, seed=args.seed)
+    split = split_edges(data, seed=args.seed)
+    cfg = LinkPredConfig(
+        hidden=args.hidden, n_heads=args.n_heads, dropout=args.dropout,
+        lr=args.lr, epochs=args.epochs, batch_size=args.batch_size,
+        neighbor_fanout=args.neighbor_fanout, use_kd=bool(args.use_kd),
+        seed=args.seed, impl=args.impl,
+    )
+    result = run_link_prediction(split, cfg, log=JsonlLogger(args.log_path),
+                                 device=args.device)
+    print(json.dumps(result))
+    return 0
+
+
 def main(argv=None) -> int:
     from .utils import TrainConfig
 
@@ -113,7 +146,23 @@ def main(argv=None) -> int:
     p_srv.add_argument("--predict_batch", type=int, default=1024)
     p_srv.set_defaults(fn=cmd_serve)
 
-    for p in (p_pred, p_srv):
+    p_lp = sub.add_parser("linkpred",
+                          help="OGBL-DDI-style link prediction at scale")
+    p_lp.add_argument("--ogb_root", default=None)
+    p_lp.add_argument("--hidden", type=int, default=64)
+    p_lp.add_argument("--n_heads", type=int, default=2)
+    p_lp.add_argument("--dropout", type=float, default=0.5)
+    p_lp.add_argument("--lr", type=float, default=5e-3)
+    p_lp.add_argument("--epochs", type=int, default=10)
+    p_lp.add_argument("--batch_size", type=int, default=4096)
+    p_lp.add_argument("--neighbor_fanout", type=int, default=0)
+    p_lp.add_argument("--use_kd", type=int, default=0)
+    p_lp.add_argument("--seed", type=int, default=42)
+    p_lp.add_argument("--impl", default="auto")
+    p_lp.add_argument("--log_path", default=None)
+    p_lp.set_defaults(fn=cmd_linkpred)
+
+    for p in (p_pred, p_srv, p_lp):
         p.add_argument("--device", default="cuda",
                        help="torch device: cuda (default) or cpu")
 

@@ -12,9 +12,15 @@ serves both and what bounds it (bytes).
 * :class:`SpmmOperator` binds one graph: it builds the CSR arrays of ``A``
   and the CSC arrays of ``A.T`` once, as the JAX operator builds its two
   directions, and keeps the CSC->CSR edge permutation so runtime weights
-  given in CSR order reach the transpose.  It is forward only: the backward
-  lands with the training slice, and until then a CUDA input that requires
-  grad raises rather than silently returning no gradient.
+  given in CSR order reach the transpose.  Its gradient with respect to
+  ``x`` is the transposed launch of the same kernel, as the JAX operator's
+  VJP is (``spmm.py:1599-1682``).  The gradient of a runtime edge weight
+  needs the SDDMM kernels, which are not ported yet: on CUDA such a weight
+  raises rather than silently returning no gradient.
+* :meth:`SpmmOperator.reduce_edges` sums per-edge rows into their
+  receivers, ``out[j] = sum_{e: rcv_e = j} z[e]``: the kernel over the CSC
+  pointer with the CSC->CSR edge ids as columns and unit weights (the
+  rank-1 GAT backward's ``dx``, ``_reduce_z`` in the JAX package).
 """
 
 from __future__ import annotations
@@ -54,10 +60,12 @@ def _kernel_lib() -> ctypes.CDLL:
     return _lib
 
 
-def warps_for(num_edges: int, n_rows: int) -> int:
-    """Warps per block: about one warp per 32 edges of a mean row, 1..8."""
+def warps_for(num_edges: int, n_rows: int, max_row: int = 0) -> int:
+    """Warps per block, 1..8: about one warp per 32 edges of a mean row,
+    and at least one per 512 edges of the longest row, whose block
+    otherwise sets the time of a skewed graph alone."""
     mean = num_edges / max(n_rows, 1)
-    return int(min(MAX_WARPS, max(1, round(mean / 32))))
+    return int(min(MAX_WARPS, max(1, round(mean / 32), -(-max_row // 512))))
 
 
 def csr_spmm_plain(ptr: torch.Tensor, col: torch.Tensor, w: torch.Tensor,
@@ -151,11 +159,40 @@ class SpmmOperator:
         self.t_col = put(s[order], np.int32)
         self.t_w = put(w[order], np.float32)
         self.csc_to_csr = put(order, np.int64)
+        self.t_edge = put(order, np.int32)
+        self.ones = put(np.ones(e), np.float32)
         self.num_edges = e
-        self.warps = warps_for(e, graph.n_src)
-        self.warps_t = warps_for(e, graph.n_dst)
+        row_len = np.diff(graph.row_ptr.cpu().numpy())
+        self.warps = warps_for(e, graph.n_src, int(row_len.max(initial=0)))
+        self.warps_t = warps_for(e, graph.n_dst, int(csc_ptr.max(initial=0)))
         self.launches = 0
         self.launches_transposed = 0
+
+    def _launch(self, ptr, col, w, x, n_out, warps, transpose):
+        before = launches
+        out = csr_spmm(ptr, col, w, x, n_out, warps)
+        if launches != before:
+            self.launches += 1
+            self.launches_transposed += int(transpose)
+        return out
+
+    def _weights(self, edge_weight, transpose):
+        if edge_weight is None:
+            return self.t_w if transpose else self.w
+        if transpose:
+            return edge_weight[self.csc_to_csr].contiguous()
+        return edge_weight[: self.num_edges].contiguous()
+
+    def apply(self, x: torch.Tensor, w: torch.Tensor, w_t: torch.Tensor,
+              transpose: bool) -> torch.Tensor:
+        """``A @ x`` (``A.T @ x`` when ``transpose``) for CSR-order weights
+        ``w`` and their CSC-order copy ``w_t``; no autograd."""
+        g = self.graph
+        if transpose:
+            return self._launch(self.t_ptr, self.t_col, w_t, x, g.n_dst,
+                                self.warps_t, True)
+        return self._launch(self.ptr, self.col, w, x, g.n_src, self.warps,
+                            False)
 
     def __call__(self, x: torch.Tensor, *,
                  edge_weight: Optional[torch.Tensor] = None,
@@ -164,27 +201,53 @@ class SpmmOperator:
         if x.device != self.device:
             raise ValueError(f"x is on {x.device}, the operator on "
                              f"{self.device}")
-        if x.is_cuda and torch.is_grad_enabled() and (
-                x.requires_grad
-                or (edge_weight is not None and edge_weight.requires_grad)):
-            raise NotImplementedError("backward lands with the training slice")
-        n_in, n_out = (g.n_src, g.n_dst) if transpose else (g.n_dst, g.n_src)
+        n_in = g.n_src if transpose else g.n_dst
         if x.dim() != 2 or x.shape[0] != n_in:
             raise ValueError(f"x must be [{n_in}, d], got {tuple(x.shape)}")
-        if transpose:
-            ptr, col, warps = self.t_ptr, self.t_col, self.warps_t
-            w = (self.t_w if edge_weight is None
-                 else edge_weight[self.csc_to_csr].contiguous())
-        else:
-            ptr, col, warps = self.ptr, self.col, self.warps
-            w = (self.w if edge_weight is None
-                 else edge_weight[: self.num_edges].contiguous())
-        before = launches
-        out = csr_spmm(ptr, col, w, x, n_out, warps)
-        if launches != before:
-            self.launches += 1
-            self.launches_transposed += int(transpose)
-        return out
+        weight_grad = (edge_weight is not None and edge_weight.requires_grad
+                       and torch.is_grad_enabled())
+        if weight_grad and x.is_cuda:
+            raise NotImplementedError(
+                "the gradient of a runtime edge weight needs the SDDMM "
+                "kernels _sddmm_kernel and _sddmm_hub_kernel "
+                "(msha_gnn_tpu/ops/pallas/spmm.py:1428, :1294), which are "
+                "not ported yet")
+        if weight_grad:  # the CPU: the plain version's own autograd
+            return self.apply(x, self._weights(edge_weight, False),
+                              self._weights(edge_weight, True), transpose)
+        ew = None if edge_weight is None else edge_weight.detach()
+        return _SpmmFn.apply(x, self._weights(ew, False),
+                             self._weights(ew, True), self, transpose)
+
+    def reduce_edges(self, z: torch.Tensor) -> torch.Tensor:
+        """``out[j] = sum_{e: rcv_e = j} z[e]`` -> [n_dst, d], for ``z``
+        [num_edges, d] in CSR edge order; one transposed kernel launch."""
+        if z.device != self.device:
+            raise ValueError(f"z is on {z.device}, the operator on "
+                             f"{self.device}")
+        if z.dim() != 2 or z.shape[0] != self.num_edges:
+            raise ValueError(f"z must be [{self.num_edges}, d], got "
+                             f"{tuple(z.shape)}")
+        return self._launch(self.t_ptr, self.t_edge, self.ones,
+                            z.contiguous(), self.graph.n_dst, self.warps_t,
+                            True)
+
+
+class _SpmmFn(torch.autograd.Function):
+    """``A @ x`` with ``dx = A.T @ g``, and ``A.T @ x`` with ``dx = A @ g``:
+    the backward is the other direction's launch of the same kernel."""
+
+    @staticmethod
+    def forward(ctx, x, w, w_t, op, transpose):
+        ctx.op, ctx.transpose = op, transpose
+        ctx.save_for_backward(w, w_t)
+        return op.apply(x, w, w_t, transpose)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, w_t = ctx.saved_tensors
+        dx = ctx.op.apply(g.contiguous(), w, w_t, not ctx.transpose)
+        return dx, None, None, None, None
 
 
 # One operator per graph, so repeated layer calls share the CSR/CSC build.

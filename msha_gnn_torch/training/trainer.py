@@ -1,7 +1,8 @@
 """The :class:`Task` a model plugs in as (``msha_gnn_tpu/training/trainer.py``).
 
-Only the task is ported so far; the optimizer and the training loop land
-with the training slice.
+Only the task is ported so far; the flow models' optimizer and training
+loop are still to port (the link-prediction loop is in
+``link_prediction.py``).
 """
 
 from __future__ import annotations

@@ -1,3 +1,4 @@
 from .config import TrainConfig
+from .logging import JsonlLogger
 
-__all__ = ["TrainConfig"]
+__all__ = ["JsonlLogger", "TrainConfig"]

@@ -1,10 +1,12 @@
-"""Where the time of the port's GCN serving path goes, on one CUDA card.
+"""Where the time of the port's paths goes, on one CUDA card.
 
     python3 scripts_torch_profile.py [--fills 20] [--requests 200] \
-        [--trace build/profile/fill_trace.json]
+        [--steps 10] [--trace build/profile/fill_trace.json] \
+        [--step-trace build/profile/step_trace.json]
 
-On a synthetic flow graph of the 2015 data's shape (39,179 sources, 32
-recipients, 233,887 records) with the GCN at full width (nfeat 128):
+GCN serving, on a synthetic flow graph of the 2015 data's shape (39,179
+sources, 32 recipients, 233,887 records) with the GCN at full width
+(nfeat 128):
 
 * one full-score fill (``Task.full_scores``) under ``torch.profiler``:
   device time by kernel, device time per fill, host wall time per fill, and
@@ -12,8 +14,15 @@ recipients, 233,887 records) with the GCN at full width (nfeat 128):
 * a request of 64 nodes (``/v1/predict``, k = 5): p50 of the in-process
   ``ModelService.predict`` and of the same request over HTTP on loopback.
 
+Link-prediction training at ``LinkPredConfig()`` (hidden 64, 2 heads,
+dropout 0.5, batch 4096) on synthetic ogbl-ddi (seed 42):
+
+* ``--steps`` training steps (``train_step``: forward, backward, Adam)
+  under ``torch.profiler``: device time by kernel per step, host wall time
+  per step, and the device's idle share.
+
 Prints the card's name and power limit first and one JSON summary last;
-the Chrome trace of the fills goes to ``--trace``.
+the Chrome traces go to ``--trace`` and ``--step-trace``.
 Needs CUDA; exits 1 without it.
 """
 
@@ -43,11 +52,71 @@ def _device_us(evt, self_only: bool) -> float:
     return 0.0
 
 
+def device_kernels(prof, per: int):
+    """``[(name, device us per unit, launches per unit)]`` of the CUDA
+    events of ``prof``, largest first.  User annotations on the device
+    timeline (``Optimizer.step#Adam.step``) span kernels that are listed
+    on their own, so they are left out."""
+    kernels = []
+    for evt in prof.key_averages():
+        us = _device_us(evt, self_only=True)
+        if getattr(evt, "is_user_annotation", False):
+            continue
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels.append((evt.key, us / per, evt.count / per))
+    kernels.sort(key=lambda k: -k[1])
+    return kernels
+
+
+def profile_linkpred(steps: int, trace: str) -> dict:
+    """Device time by kernel and the idle share of ``steps`` full-width
+    linkpred training steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from msha_gnn_torch.data import load_ddi, split_edges
+    from msha_gnn_torch.training import (LinkPredConfig,
+                                         build_link_prediction, train_step)
+    from msha_gnn_torch.training.link_prediction import epoch_batches
+
+    split = split_edges(load_ddi(seed=42), seed=42)
+    run = build_link_prediction(split, LinkPredConfig(), device="cuda")
+    batches = epoch_batches(run)
+    for batch in batches[:3]:
+        train_step(run, batch)
+    torch.cuda.synchronize()
+    wall = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for batch in batches[3: 3 + steps]:
+            t0 = time.perf_counter()
+            train_step(run, batch)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+    os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
+    prof.export_chrome_trace(trace)
+    kernels = device_kernels(prof, len(wall))
+    device_ms = sum(k[1] for k in kernels) / 1e3
+    wall_ms = statistics.median(wall)
+    print(f"linkpred training step ({run.impl}), device time per step, "
+          "by kernel:")
+    for name, us, calls in kernels:
+        print(f"  {us:9.2f} us  x{calls:g}  {name[:110]}")
+    return {
+        "step_wall_ms_p50": wall_ms,
+        "step_device_ms": device_ms,
+        "step_device_idle_share": max(0.0, 1 - device_ms / wall_ms),
+        "step_kernels_per_step": sum(k[2] for k in kernels),
+        "step_top_kernels_us": {k[0][:80]: k[1] for k in kernels[:12]},
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--fills", type=int, default=20)
     ap.add_argument("--requests", type=int, default=200)
+    ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--trace", default="build/profile/fill_trace.json")
+    ap.add_argument("--step-trace", default="build/profile/step_trace.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("scripts_torch_profile: CUDA is not available", file=sys.stderr)
@@ -82,12 +151,7 @@ def main(argv=None) -> int:
             wall.append((time.perf_counter() - t0) * 1e3)
     os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
     prof.export_chrome_trace(args.trace)
-    kernels = []
-    for evt in prof.key_averages():
-        us = _device_us(evt, self_only=True)
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            kernels.append((evt.key, us / args.fills, evt.count / args.fills))
-    kernels.sort(key=lambda k: -k[1])
+    kernels = device_kernels(prof, args.fills)
     device_ms = sum(k[1] for k in kernels) / 1e3
     wall_ms = statistics.median(wall)
     print("device time per fill, by kernel:")
@@ -126,6 +190,7 @@ def main(argv=None) -> int:
         httpd.server_close()
         thread.join(timeout=30)
 
+    linkpred = profile_linkpred(args.steps, args.step_trace)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "fill_wall_ms_p50": wall_ms,
@@ -135,6 +200,7 @@ def main(argv=None) -> int:
         "predict_64_in_process_ms_p50": statistics.median(local),
         "predict_64_http_ms_p50": statistics.median(http),
         "top_kernels_us": {k[0][:80]: k[1] for k in kernels[:8]},
+        "linkpred": linkpred,
     }), flush=True)
     return 0
 

@@ -147,14 +147,60 @@ def test_cpu_runtime_weights_keep_autograd(graphs):
     assert x.grad is not None and x.grad.shape == x.shape
 
 
+@pytest.mark.parametrize("weights", ["static", "runtime"])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_x_gradient_matches_pallas_vjp(graphs, jax_ops, transpose, weights):
+    """``x.grad`` through the operator's autograd (the other direction's
+    launch of the kernel) against the JAX operator's VJP."""
+    import jax
+
+    gt, _ = graphs
+    rng = np.random.default_rng(3 + 2 * transpose)
+    n_in, n_out = (gt.n_src, gt.n_dst) if transpose else (gt.n_dst, gt.n_src)
+    x = rng.random((n_in, 16)).astype(np.float32)
+    ct = rng.random((n_out, 16)).astype(np.float32)
+    ew = None
+    if weights == "runtime":
+        ew = gt.weight.numpy() * (0.5 + rng.random(gt.num_padded_edges)
+                                  ).astype(np.float32)
+    op_j = jax_ops[0]
+    _, vjp = jax.vjp(
+        lambda x: op_j(x, transpose=transpose,
+                       edge_weight=None if ew is None else jnp.asarray(ew)),
+        jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(ct))[0])
+    op = cuda_spmm.SpmmOperator(gt, device="cpu")
+    xt = torch.from_numpy(x).requires_grad_()
+    out = op(xt, transpose=transpose,
+             edge_weight=None if ew is None else torch.from_numpy(ew))
+    out.backward(torch.from_numpy(ct))
+    np.testing.assert_allclose(xt.grad.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+def test_reduce_edges_sums_rows_into_receivers(graphs):
+    gt, _ = graphs
+    op = cuda_spmm.SpmmOperator(gt, device="cpu")
+    z = torch.randn(gt.num_edges, 5, generator=torch.Generator().manual_seed(1))
+    want = torch.zeros(gt.n_dst, 5).index_add_(
+        0, gt.receivers[: gt.num_edges].long(), z)
+    torch.testing.assert_close(op.reduce_edges(z), want, rtol=1e-5,
+                               atol=1e-6)
+    with pytest.raises(ValueError):
+        op.reduce_edges(z[:-1])
+
+
 def test_warps_for():
     assert cuda_spmm.warps_for(101374, 32) == 8      # GCN gc1 rows
     assert cuda_spmm.warps_for(101374, 39179) == 1   # GCN gc2 rows
     assert cuda_spmm.warps_for(0, 0) == 1
+    # the linkpred graph's columns: mean 77 edges, the longest 3,842
+    assert cuda_spmm.warps_for(328012, 4267) == 2
+    assert cuda_spmm.warps_for(328012, 4267, 3842) == 8
+    assert cuda_spmm.warps_for(101374, 39179, 3) == 1
 
 
 def test_build_layout_and_failure(tmp_path, monkeypatch):
-    assert _build.sources() == ["spmm"]
+    assert _build.sources() == ["rank1_gat", "spmm"]
     path = _build.library_path("spmm")
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert path.parent.parts[-2:] == ("build", "msha_gnn_torch")
@@ -192,6 +238,18 @@ def test_kernel_matches_plain_on_card(graphs):
             want = cuda_spmm.csr_spmm_plain(ptr, col, w, x, n_rows)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    x = torch.randn(g.n_dst, 8, device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        op(x)
+    # x gradients: the transposed launch of the same kernel
+    for transpose, n_in in ((False, g.n_dst), (True, g.n_src)):
+        x = torch.randn(n_in, 8, generator=gen, device="cuda",
+                        requires_grad=True)
+        gout = torch.randn(g.n_src if not transpose else g.n_dst, 8,
+                           generator=gen, device="cuda")
+        before = cuda_spmm.launches
+        op(x, transpose=transpose).backward(gout)
+        assert cuda_spmm.launches == before + 2
+        want = op(gout, transpose=not transpose)
+        torch.testing.assert_close(x.grad, want, rtol=1e-5, atol=1e-6)
+    # runtime weights that need a gradient wait for the SDDMM kernels
+    w = g.weight.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="_sddmm_kernel"):
+        op(torch.randn(g.n_dst, 8, device="cuda"), edge_weight=w)
