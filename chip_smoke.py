@@ -90,16 +90,24 @@ def time_ms(fn, reps: int = 15, iters: int = 20) -> float:
     return statistics.median(times)
 
 
-def spmm_bound(ptr, col, x, n_rows):
+def bound(nbytes, flops):
+    """Least time (ms, what bounds it) of moving ``nbytes`` at the HBM rate
+    and doing ``flops`` at the float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def spmm_bound(ptr, col, x, n_rows, weighted=True):
     """Least time of one CSR SpMM on this data: each input read once (only
-    the rows of x that the edges reference), the output written once, and
-    2 flops per edge and feature at the float32 rate."""
+    the rows of x that the edges reference; no weights when unweighted),
+    the output written once, and 2 flops per edge and feature (1, an add,
+    when unweighted)."""
     e, d = col.numel(), x.shape[1]
     x_rows = int(torch.unique(col).numel())
-    nbytes = 4 * ptr.numel() + 8 * e + 4 * x_rows * d + 4 * n_rows * d
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * e * d / F32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    per_edge = 8 if weighted else 4
+    nbytes = 4 * ptr.numel() + per_edge * e + 4 * x_rows * d + 4 * n_rows * d
+    return bound(nbytes, (2 if weighted else 1) * e * d)
 
 
 def phase_kernels(op, fg):
@@ -180,21 +188,20 @@ def linkpred_split():
 
 
 def r1l_bounds(n, e, d):
-    """Least times (ms, bound) of the two rank-1 GAT kernels on this
-    data: every input read once (x once: it fits in L2), every output
-    written once, and 4 E d (forward) or 8 E d (backward) flops at the
-    float32 rate."""
-    def bound(nbytes, flops):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOPS_PER_S * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
-                                                             "operations")
+    """Least times (ms, bound) of the two rank-1 GAT kernels on this data:
+    every input read once (x once: it fits in L2), every output written
+    once, and the flops the function needs at the float32 rate.  ``t =
+    x @ a`` depends on the column only, so it counts once per node (2 n d),
+    as does ``<gout[r], out[r]>`` per row; per edge and feature the
+    forward needs the aggregation's multiply-add (2 E d), the backward
+    ``<gout[r], x[j]>`` (2), ``z = q gout + dpre a`` (3) and ``da``'s
+    multiply-add (2)."""
     # ptr, col, c, a, x in; out, lse out
     fwd = bound(4 * (n + 1) + 4 * e + 4 * n + 4 * d + 4 * n * d
-                + 4 * n * d + 4 * n, 4 * e * d)
+                + 4 * n * d + 4 * n, 2 * n * d + 2 * e * d)
     # ptr, col, c, a, x, gout, out, lse in; z, dc, da out
     bwd = bound(4 * (n + 1) + 4 * e + 4 * n + 4 * d + 3 * 4 * n * d
-                + 4 * n + 4 * e * d + 4 * n + 4 * d, 8 * e * d)
+                + 4 * n + 4 * e * d + 4 * n + 4 * d, 4 * n * d + 7 * e * d)
     return fwd, bwd
 
 
@@ -290,7 +297,7 @@ def phase_rank1_kernels(split):
         "library_ms": None})
 
     spmm = op.spmm
-    red_args = (spmm.t_ptr, spmm.t_edge, spmm.ones, z, n, spmm.warps_t)
+    red_args = (spmm.t_ptr, spmm.t_edge, None, z, n, spmm.warps_t)
     got = cuda_spmm.csr_spmm(*red_args)
     want = cuda_spmm.csr_spmm_plain(*red_args[:5])
     rcv = g.receivers[:e].long()
@@ -305,7 +312,8 @@ def phase_rank1_kernels(split):
     ms = time_ms(lambda: cuda_spmm.csr_spmm(*red_args))
     plain_ms = time_ms(lambda: cuda_spmm.csr_spmm_plain(*red_args[:5]))
     library_ms = time_ms(lambda: z.new_zeros((n, d)).index_add_(0, rcv, z))
-    bound_ms, bound_by = spmm_bound(spmm.t_ptr, spmm.t_edge, z, n)
+    bound_ms, bound_by = spmm_bound(spmm.t_ptr, spmm.t_edge, z, n,
+                                    weighted=False)
     log(f"  csr_spmm_f32[dx reduce]: rows {n}, edges {e}, d {d}, warps/"
         f"block {spmm.warps_t}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
         f"ms, index_add_ {library_ms:.4f} ms, bound {bound_ms:.5f} ms "

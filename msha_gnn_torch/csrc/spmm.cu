@@ -2,6 +2,8 @@
 //
 //   out[r, :] = sum_{e = ptr[r]}^{ptr[r+1]-1} w[e] * x[col[e], :]
 //
+// with w[e] = 1 when w is null (an unweighted reduce reads no weights).
+//
 // Replaces two TPU kernels of msha_gnn_tpu/ops/pallas/spmm.py, which
 // compute this same function:
 //   * _visit_kernel: a one-hot MXU reduce of CSR edge chunks into 128-row
@@ -14,8 +16,9 @@
 // (the [32, 32] operand of the GCN's second layer) stays in L1/L2, so one
 // CSR kernel serves both.
 //
-// Bound: bytes.  Each edge needs its column index and weight (8 B) and one
-// row of x; the operations (2 * E * d flops) are far below the card's rate.
+// Bound: bytes.  Each edge needs its column index and weight (8 B, or 4 B
+// unweighted) and one row of x; the operations (2 * E * d flops) are far
+// below the card's rate.
 // At the GCN's shapes each call moves about 6 MB at minimum, about 2 us at
 // HBM rate, so the launch and the per-row latency chain dominate.
 //
@@ -35,6 +38,7 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kMaxWarps = 8;
 
+template <bool kWeighted>
 __global__ void __launch_bounds__(kMaxWarps * kWarp)
 csr_spmm_f32_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
                     const float* __restrict__ w, const float* __restrict__ x,
@@ -53,7 +57,8 @@ csr_spmm_f32_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
 #pragma unroll 4
       for (int e = begin + warp; e < end; e += n_warps) {
         const int64_t src = static_cast<int64_t>(__ldg(col + e));
-        acc = fmaf(__ldg(w + e), __ldg(x + src * d + f), acc);
+        const float v = __ldg(x + src * d + f);
+        acc = kWeighted ? fmaf(__ldg(w + e), v, acc) : acc + v;
       }
     }
     partial[warp][lane] = acc;
@@ -69,7 +74,8 @@ csr_spmm_f32_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
 
 }  // namespace
 
-// Launches on `stream`; does not synchronise.  Returns cudaGetLastError()
+// Launches on `stream`; does not synchronise.  A null `w` means unit
+// weights.  Returns cudaGetLastError()
 // after the launch (0 = launched), so a refused launch is reported.
 extern "C" int csr_spmm_f32(const int* ptr, const int* col, const float* w,
                             const float* x, float* out, int n_rows, int d,
@@ -77,8 +83,13 @@ extern "C" int csr_spmm_f32(const int* ptr, const int* col, const float* w,
   if (n_rows <= 0 || d <= 0 || n_warps < 1 || n_warps > kMaxWarps) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  csr_spmm_f32_kernel<<<n_rows, n_warps * kWarp, 0, stream>>>(ptr, col, w, x,
-                                                              out, d);
+  if (w != nullptr) {
+    csr_spmm_f32_kernel<true><<<n_rows, n_warps * kWarp, 0, stream>>>(
+        ptr, col, w, x, out, d);
+  } else {
+    csr_spmm_f32_kernel<false><<<n_rows, n_warps * kWarp, 0, stream>>>(
+        ptr, col, w, x, out, d);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -86,9 +86,11 @@ class SparseGATLayer(nn.Module):
         rate = float(self.dropout) if (train and self.dropout > 0) else 0.0
         seed = draw_seed(generator, x.device) if rate > 0 else None
         if impl == "fused":
-            from ..ops.cuda.rank1_gat import rank1_operator_for
+            from ..ops.cuda.rank1_gat import Rank1GatOperator
 
-            op = rank1_operator_for(graph, self.negative_slope, rate)
+            # cheap: the CSR/CSC build is cached per graph by operator_for
+            op = Rank1GatOperator(graph, negative_slope=self.negative_slope,
+                                  dst_linear=True, dropout_rate=rate)
             if seed is not None:
                 return elu(op.drop(s_src, av[d:], h, seed))
             return elu(op(s_src, av[d:], h))

@@ -391,21 +391,3 @@ class Rank1GatOperator:
             raise ValueError("drop() needs a dst_linear operator")
         seed = seed.reshape(1).to(device=self.device, dtype=torch.int32)
         return self._apply(c, a, x, seed, self.dropout_rate)
-
-
-_OPS: dict = {}
-
-
-def rank1_operator_for(graph: "BipartiteGraph", negative_slope: float,
-                       dropout_rate: float) -> Rank1GatOperator:
-    """The cached dst_linear :class:`Rank1GatOperator` of ``graph``."""
-    key = (id(graph), round(negative_slope, 6), float(dropout_rate))
-    entry = _OPS.get(key)
-    if entry is None or entry[0] is not graph:
-        entry = (graph, Rank1GatOperator(graph, negative_slope=negative_slope,
-                                         dst_linear=True,
-                                         dropout_rate=dropout_rate))
-        _OPS[key] = entry
-        if len(_OPS) > 16:
-            _OPS.pop(next(iter(_OPS)))
-    return entry[1]

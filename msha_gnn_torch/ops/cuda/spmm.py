@@ -19,8 +19,9 @@ serves both and what bounds it (bytes).
   raises rather than silently returning no gradient.
 * :meth:`SpmmOperator.reduce_edges` sums per-edge rows into their
   receivers, ``out[j] = sum_{e: rcv_e = j} z[e]``: the kernel over the CSC
-  pointer with the CSC->CSR edge ids as columns and unit weights (the
-  rank-1 GAT backward's ``dx``, ``_reduce_z`` in the JAX package).
+  pointer with the CSC->CSR edge ids as columns and no weights, which the
+  kernel reads as unit weights (the rank-1 GAT backward's ``dx``,
+  ``_reduce_z`` in the JAX package).
 """
 
 from __future__ import annotations
@@ -68,29 +69,35 @@ def warps_for(num_edges: int, n_rows: int, max_row: int = 0) -> int:
     return int(min(MAX_WARPS, max(1, round(mean / 32), -(-max_row // 512))))
 
 
-def csr_spmm_plain(ptr: torch.Tensor, col: torch.Tensor, w: torch.Tensor,
-                   x: torch.Tensor, n_rows: int) -> torch.Tensor:
+def csr_spmm_plain(ptr: torch.Tensor, col: torch.Tensor,
+                   w: Optional[torch.Tensor], x: torch.Tensor,
+                   n_rows: int) -> torch.Tensor:
     """Plain version: gather the rows, scale, ``index_add_`` into rows."""
     rows = torch.repeat_interleave(
         torch.arange(n_rows, device=x.device), (ptr[1:] - ptr[:-1]).long(),
         output_size=col.numel(),
     )
     out = x.new_zeros((n_rows, x.shape[1]))
-    return out.index_add_(0, rows, w[:, None] * x[col.long()])
+    vals = x[col.long()]
+    return out.index_add_(0, rows, vals if w is None else w[:, None] * vals)
 
 
-def csr_spmm(ptr: torch.Tensor, col: torch.Tensor, w: torch.Tensor,
+def csr_spmm(ptr: torch.Tensor, col: torch.Tensor, w: Optional[torch.Tensor],
              x: torch.Tensor, n_rows: int, n_warps: int) -> torch.Tensor:
     """``out[r] = sum_{e in row r} w[e] * x[col[e]]`` -> [n_rows, d] f32.
 
-    ``ptr`` int32 [n_rows + 1], ``col`` int32 [E], ``w`` f32 [E], ``x`` f32
-    [n_cols, d], all contiguous and on one device; ``n_warps`` per block
+    ``ptr`` int32 [n_rows + 1], ``col`` int32 [E], ``w`` f32 [E] or None
+    for unit weights, ``x`` f32 [n_cols, d], all contiguous and on one
+    device; ``n_warps`` per block
     (1..8, see :func:`warps_for`).  CPU tensors take the plain version;
     CUDA tensors launch the kernel or raise.
     """
     global launches
     dev = x.device
-    for name, t in (("ptr", ptr), ("col", col), ("w", w)):
+    given = [("ptr", ptr), ("col", col), ("x", x)]
+    if w is not None:
+        given.append(("w", w))
+    for name, t in given:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
     if dev.type == "cpu":
@@ -99,15 +106,18 @@ def csr_spmm(ptr: torch.Tensor, col: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"csr_spmm runs on cuda or cpu, not {dev}")
     if ptr.dtype != torch.int32 or col.dtype != torch.int32:
         raise TypeError("ptr and col must be int32")
-    if w.dtype != torch.float32 or x.dtype != torch.float32:
+    if x.dtype != torch.float32 or (w is not None
+                                    and w.dtype != torch.float32):
         raise TypeError("w and x must be float32")
     if x.dim() != 2:
         raise ValueError(f"x must be 2-D, got {tuple(x.shape)}")
-    if ptr.shape != (n_rows + 1,) or col.dim() != 1 or w.shape != col.shape:
+    if ptr.shape != (n_rows + 1,) or col.dim() != 1 or (
+            w is not None and w.shape != col.shape):
         raise ValueError(
             f"shapes: ptr {tuple(ptr.shape)} for {n_rows} rows, "
-            f"col {tuple(col.shape)}, w {tuple(w.shape)}")
-    for name, t in (("ptr", ptr), ("col", col), ("w", w), ("x", x)):
+            f"col {tuple(col.shape)}, "
+            f"w {None if w is None else tuple(w.shape)}")
+    for name, t in given:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     d = x.shape[1]
@@ -117,7 +127,8 @@ def csr_spmm(ptr: torch.Tensor, col: torch.Tensor, w: torch.Tensor,
     lib = _kernel_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.csr_spmm_f32(ptr.data_ptr(), col.data_ptr(), w.data_ptr(),
+        rc = lib.csr_spmm_f32(ptr.data_ptr(), col.data_ptr(),
+                              None if w is None else w.data_ptr(),
                               x.data_ptr(), out.data_ptr(), n_rows, d,
                               n_warps, stream)
     if rc != 0:
@@ -158,9 +169,7 @@ class SpmmOperator:
         self.t_ptr = put(np.cumsum(csc_ptr), np.int32)
         self.t_col = put(s[order], np.int32)
         self.t_w = put(w[order], np.float32)
-        self.csc_to_csr = put(order, np.int64)
-        self.t_edge = put(order, np.int32)
-        self.ones = put(np.ones(e), np.float32)
+        self.t_edge = put(order, np.int32)  # CSC position -> CSR edge id
         self.num_edges = e
         row_len = np.diff(graph.row_ptr.cpu().numpy())
         self.warps = warps_for(e, graph.n_src, int(row_len.max(initial=0)))
@@ -180,7 +189,7 @@ class SpmmOperator:
         if edge_weight is None:
             return self.t_w if transpose else self.w
         if transpose:
-            return edge_weight[self.csc_to_csr].contiguous()
+            return edge_weight[self.t_edge].contiguous()
         return edge_weight[: self.num_edges].contiguous()
 
     def apply(self, x: torch.Tensor, w: torch.Tensor, w_t: torch.Tensor,
@@ -228,9 +237,8 @@ class SpmmOperator:
         if z.dim() != 2 or z.shape[0] != self.num_edges:
             raise ValueError(f"z must be [{self.num_edges}, d], got "
                              f"{tuple(z.shape)}")
-        return self._launch(self.t_ptr, self.t_edge, self.ones,
-                            z.contiguous(), self.graph.n_dst, self.warps_t,
-                            True)
+        return self._launch(self.t_ptr, self.t_edge, None, z.contiguous(),
+                            self.graph.n_dst, self.warps_t, True)
 
 
 class _SpmmFn(torch.autograd.Function):

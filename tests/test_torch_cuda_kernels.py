@@ -104,6 +104,14 @@ def test_spmm_x_gradient_is_the_transposed_launch():
         assert op.launches_transposed == before + 1
         torch.testing.assert_close(x.grad, op(gout, transpose=not transpose),
                                    rtol=1e-5, atol=1e-6)
+    # the dx reduce: no weight array, read as unit weights
+    z = torch.randn(op.num_edges, 16, generator=gen, device="cuda")
+    before = cuda_spmm.launches
+    got = op.reduce_edges(z)
+    assert cuda_spmm.launches == before + 1
+    want = z.new_zeros(g.n_dst, 16).index_add_(
+        0, g.receivers[: op.num_edges].long(), z)
+    sums_close(got, want)
     w = g.weight.clone().requires_grad_()
     with pytest.raises(NotImplementedError, match="_sddmm_hub_kernel"):
         op(torch.randn(g.n_dst, 8, device="cuda"), edge_weight=w)

@@ -114,7 +114,7 @@ def test_operator_csc_arrays_and_permutation(graphs):
     op = cuda_spmm.SpmmOperator(gt, device="cpu")
     e = gt.num_edges
     s, r = gt.senders[:e].long(), gt.receivers[:e].long()
-    perm = op.csc_to_csr
+    perm = op.t_edge
     # CSC order: sorted by (receiver, sender), every edge once
     assert sorted(perm.tolist()) == list(range(e))
     key = r[perm] * gt.n_src + s[perm]
@@ -124,6 +124,7 @@ def test_operator_csc_arrays_and_permutation(graphs):
     counts = np.bincount(r.numpy(), minlength=gt.n_dst)
     np.testing.assert_array_equal(np.diff(op.t_ptr.numpy()), counts)
     assert op.ptr.dtype == op.col.dtype == op.t_ptr.dtype == torch.int32
+    assert op.t_edge.dtype == torch.int32
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_nothing(graphs):
@@ -187,6 +188,16 @@ def test_reduce_edges_sums_rows_into_receivers(graphs):
                                atol=1e-6)
     with pytest.raises(ValueError):
         op.reduce_edges(z[:-1])
+
+
+def test_null_weights_are_unit_weights(graphs):
+    gt, _ = graphs
+    op = cuda_spmm.SpmmOperator(gt, device="cpu")
+    x = torch.randn(gt.n_dst, 3, generator=torch.Generator().manual_seed(2))
+    ones = torch.ones(op.num_edges)
+    got = cuda_spmm.csr_spmm(op.ptr, op.col, None, x, gt.n_src, 1)
+    want = cuda_spmm.csr_spmm_plain(op.ptr, op.col, ones, x, gt.n_src)
+    assert torch.equal(got, want)
 
 
 def test_warps_for():
