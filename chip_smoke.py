@@ -14,18 +14,30 @@ Phases, each reported on its own lines; any failure exits non-zero:
 3b. the rank-1 GAT kernels (``r1l_fwd_f32`` at dropout rate 0 and 0.5,
    ``r1l_bwd_f32``, and ``csr_spmm_f32`` as the backward's dx reduce)
    against their plain versions on the full-width link-prediction graph
-   (synthetic ogbl-ddi, 4,267 nodes, 328,012 message edges, d = 64), the
-   dropout keep mask bit for bit; times and bounds as in phase 3.
+   (synthetic ogbl-ddi, 4,267 nodes, 328,012 message edges, d = 64); times
+   and bounds as in phase 3.
 4. the serving path at full width (GCN, nfeat 128): checkpoint round trip,
    one full-score fill that must launch exactly the path's kernels, the
    fill against the plain path on the card and against a float64 dense
    reference on a small graph, then HTTP requests through ``make_server``.
+3c. the materialised attention pipeline's kernels (the dropout keep mask
+   ``r1l_keep_scale_f32`` bit for bit, ``csr_sddmm_f32`` in both
+   orientations, ``seg_softmax_fwd_f32`` unmasked as the path runs it and,
+   for correctness, with the build mask and with a mask that leaves one
+   row fully masked, ``seg_softmax_bwd_f32``, and ``csr_spmm_f32``
+   weighted by attention, forward and transposed) against their plain
+   versions on the same linkpred graph; times and bounds as in phase 3.
 5. the link-prediction training path at full width
    (``LinkPredConfig()``: hidden 64, 2 heads, dropout 0.5, batch 4096):
    one training step that must launch exactly its kernels, the same step
    on the plain path from the same parameters and generator state (same
    dropout masks), one epoch whose loss must fall, the device's idle share
    over a few steps, and the evaluation (Hits@20, Hits@50, AUC).
+6. the same with ``impl="materialised"``: one step that must launch
+   exactly the materialised pipeline's kernels, held against the plain
+   step and against the fused step from the same state, one epoch whose
+   loss must fall and follow the fused epoch's step by step, the idle
+   share, and the evaluation's launches.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -64,8 +76,16 @@ DROP_SEED = -123457                    # a fixed int32 dropout seed
 # sums of up to 3,842 (dc) and 328,012 (da) terms, in another order
 SUM_RTOL, SUM_ATOL_REL = 1e-4, 1e-5
 STEP_LOSS_RTOL = 1e-5                  # kernel step vs plain step, loss
-STEP_GRAD_RTOL, STEP_GRAD_ATOL = 1e-3, 1e-5  # and gradients: the plain
-                                       # path's index_add_ adds by atomics
+# and gradients, whose leaves' scales run from 1e-6 to 1e-2: rtol, and an
+# atol of this share of each leaf's largest plain value (the plain path's
+# index_add_ adds by atomics)
+STEP_GRAD_RTOL, STEP_GRAD_ATOL_REL = 1e-3, 1e-5
+# materialised vs fused step loss: each is held to the plain step at
+# STEP_LOSS_RTOL, so the two may differ by twice that
+PATHS_LOSS_RTOL = 2 * STEP_LOSS_RTOL
+# materialised vs fused epoch, each step's loss: the same function from the
+# same state, its float32 sums in another order, through 40 Adam steps
+EPOCH_LOSS_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -225,15 +245,6 @@ def phase_rank1_kernels(split):
     gout = torch.rand((n, d), generator=gen, device=DEVICE) - 0.5
     seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=DEVICE)
 
-    keep = r1.keep_scale(g.num_padded_edges, seed, 0.5)
-    keep_plain = r1.keep_scale_plain(
-        torch.arange(g.num_padded_edges, device=DEVICE), seed, 0.5)
-    if not torch.equal(keep, keep_plain):
-        raise AssertionError("the kernels' keep mask differs from "
-                             "keep_scale_plain")
-    log(f"  keep mask, rate 0.5, seed {DROP_SEED}: bit-exact over "
-        f"{g.num_padded_edges} slots, kept share "
-        f"{float((keep > 0).float().mean()):.4f}")
     log(f"  tolerances: out, lse, z at rtol {KERNEL_RTOL}, atol "
         f"{KERNEL_ATOL} (f32, another summation order); dc, da at rtol "
         f"{SUM_RTOL}, atol {SUM_ATOL_REL} x max|value| (sums of up to "
@@ -328,13 +339,246 @@ def phase_rank1_kernels(split):
     return results
 
 
+def sddmm_bound(ptr, col, a, b, n_out):
+    """Least time of one CSR SDDMM on this data: the pointer, the column
+    indices, the rows of ``a`` that own edges and of ``b`` that the edges
+    reference read once, the ``n_out`` outputs (pads included) written
+    once; 2 flops per edge and feature."""
+    e, d = col.numel(), a.shape[1]
+    a_rows = int(((ptr[1:] - ptr[:-1]) > 0).sum())
+    b_rows = int(torch.unique(col).numel())
+    nbytes = 4 * ptr.numel() + 4 * e + 4 * (a_rows + b_rows) * d + 4 * n_out
+    return bound(nbytes, 2 * e * d)
+
+
+def softmax_bounds(n, e, n_out, masked):
+    """Least times of the row softmax and its VJP on this data.  Forward:
+    the pointer, the E logits and (if given) the E mask bytes read once,
+    ``att`` [n_out] and ``lse`` [n] written once; per edge a max, the exp
+    and add of the row sum, and the subtract and exp of ``att`` (5 E).
+    Backward: the pointer, ``att`` and ``g`` read once, ``dl`` [n_out]
+    written once; per edge the multiply-add of the row sum and
+    ``att g - att rs`` (5 E)."""
+    fwd = bound(4 * (n + 1) + 4 * e + (e if masked else 0) + 4 * n_out
+                + 4 * n, 5 * e)
+    bwd = bound(4 * (n + 1) + 8 * e + 4 * n_out, 5 * e)
+    return fwd, bwd
+
+
+def entry(name, source, replaces, err, ms, plain_ms, bnd, library_ms):
+    return {"name": name, "route": "cuda",
+            "source": f"msha_gnn_torch/csrc/{source}", "replaces": replaces,
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": library_ms}
+
+
+def phase_materialised_kernels(split):
+    """Phase 3c: r1l_keep_scale_f32, csr_sddmm_f32, seg_softmax_fwd_f32,
+    seg_softmax_bwd_f32 and the attention-weighted csr_spmm_f32 vs their
+    plain versions at the linkpred shapes."""
+    from msha_gnn_torch.ops.cuda import rank1_gat as r1
+    from msha_gnn_torch.ops.cuda import sddmm as cuda_sddmm
+    from msha_gnn_torch.ops.cuda import softmax as sm
+    from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
+    from msha_gnn_torch.ops.cuda.softmax import softmax_operator_for
+    from msha_gnn_torch.ops.cuda.spmm import operator_for
+
+    g = split["graph"].to(DEVICE)
+    op, sop = operator_for(g), softmax_operator_for(g)
+    n, e, e_pad, d = g.n_src, g.num_edges, g.num_padded_edges, LP_D
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    x = torch.rand((n, d), generator=gen, device=DEVICE) - 0.5
+    gout = torch.rand((n, d), generator=gen, device=DEVICE) - 0.5
+    logits = torch.randn(e_pad, generator=gen, device=DEVICE) * 2
+    gatt = torch.randn(e_pad, generator=gen, device=DEVICE)
+    log(f"  graph: {n} rows, {e} edges ({e_pad} padded), d {d}; softmax "
+        f"warps/block {sop.warps}, SpMM warps/block {op.warps} / "
+        f"{op.warps_t}")
+    longest = int(torch.cat([op.ptr.diff(), op.t_ptr.diff()]).max())
+    log(f"  tolerances: SDDMM and softmax forward at rtol {KERNEL_RTOL}, "
+        f"atol {KERNEL_ATOL} (one d-term dot or one row's sums in another "
+        f"order); the softmax VJP and the SpMMs at rtol {SUM_RTOL}, atol "
+        f"{SUM_ATOL_REL} x max|value| (sums of up to {longest} terms)")
+
+    # the attention's dropout factors, bit for bit
+    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=DEVICE)
+    slots = torch.arange(e_pad, device=DEVICE)
+    keep = r1.keep_scale(e_pad, seed, 0.5)
+    if not torch.equal(keep, r1.keep_scale_plain(slots, seed, 0.5)):
+        raise AssertionError("the kernels' keep mask differs from "
+                             "keep_scale_plain")
+    ms = time_ms(lambda: r1.keep_scale(e_pad, seed, 0.5))
+    plain_ms = time_ms(lambda: r1.keep_scale_plain(slots, seed, 0.5))
+    # the seed read, the factors written; the hash's 14 integer operations
+    # a slot (the table has no int32 peak: counted at the float32 rate)
+    bnd = bound(4 + 4 * e_pad, 14 * e_pad)
+    log(f"  r1l_keep_scale_f32[rate 0.5], seed {DROP_SEED}: bit-exact over "
+        f"{e_pad} slots, kept share {float((keep > 0).float().mean()):.4f}; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.5f} ms "
+        f"({bnd[1]}); library none: no PyTorch call computes this hash")
+    results = [entry(
+        "r1l_keep_scale_f32[rate 0.5]", "rank1_gat.cu",
+        "msha_gnn_tpu/ops/pallas/rank1_gat.py:85 _keep_scale (the keep mask "
+        "that :234 _r1l_fwd_kernel hashes)", 0.0, ms, plain_ms, bnd, None)]
+
+    # SDDMM, both orientations: dw of A @ h is sddmm(g, x), of A.T @ h
+    # sddmm(x, g); the training path runs the first
+    sd_args = (op.ptr, op.col, gout, x, e_pad)
+    errs = []
+    for label, (rows, cols) in (("sddmm(g, x)", (gout, x)),
+                                ("sddmm(x, g)", (x, gout))):
+        got = cuda_sddmm.csr_sddmm(op.ptr, op.col, rows, cols, e_pad)
+        want = cuda_sddmm.csr_sddmm_plain(op.ptr, op.col, rows, cols, e_pad)
+        torch.cuda.synchronize()
+        errs.append(close(f"csr_sddmm_f32[{label}]", got, want, KERNEL_RTOL,
+                          KERNEL_ATOL))
+        if got[e:].any():
+            raise AssertionError("csr_sddmm_f32 wrote a pad slot")
+    ms = time_ms(lambda: cuda_sddmm.csr_sddmm(*sd_args))
+    plain_ms = time_ms(lambda: cuda_sddmm.csr_sddmm_plain(*sd_args))
+    want = cuda_sddmm.csr_sddmm_plain(*sd_args)[:e]
+    library_ms, lib_note = None, ""
+    try:
+        pattern = torch.sparse_csr_tensor(op.ptr, op.col,
+                                          torch.zeros(e, device=DEVICE),
+                                          size=(n, n))
+        xt = x.t()
+        lib_out = torch.sparse.sampled_addmm(pattern, gout, xt, beta=0.0)
+        if not torch.allclose(lib_out.values(), want, rtol=1e-4, atol=1e-5):
+            raise AssertionError("sampled_addmm disagrees with the plain "
+                                 "version")
+        library_ms = time_ms(lambda: torch.sparse.sampled_addmm(
+            pattern, gout, xt, beta=0.0))
+    except (RuntimeError, NotImplementedError) as exc:
+        lib_note = f" (torch.sparse.sampled_addmm does not run: {exc})"
+    bnd = sddmm_bound(op.ptr, op.col, gout, x, e_pad)
+    log(f"  csr_sddmm_f32[dw]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.sparse.sampled_addmm {library_ms} ms{lib_note}, bound "
+        f"{bnd[0]:.5f} ms ({bnd[1]})")
+    results.append(entry(
+        "csr_sddmm_f32[dw]", "sddmm.cu",
+        "msha_gnn_tpu/ops/pallas/spmm.py:1428 _sddmm_kernel and :1294 "
+        "_sddmm_hub_kernel", max(errs), ms, plain_ms, bnd, library_ms))
+
+    # the row softmax: unmasked, as the path runs it (the build mask
+    # senders < n_src is False only on the pads, past ptr[-1]); then, for
+    # correctness only, the build mask and a mask that leaves row 1 fully
+    # masked
+    if sop.mask is not None:
+        raise AssertionError("the path's softmax operator reads a mask")
+    arbitrary = g.edge_mask & (torch.rand(e_pad, generator=gen,
+                                          device=DEVICE) > 0.3)
+    p0, p1 = int(op.ptr[1]), int(op.ptr[2])
+    arbitrary[p0:p1] = False
+    errs = []
+    for label, mask in (("path, no mask", None), ("build mask", g.edge_mask),
+                        ("arbitrary mask", arbitrary)):
+        att, lse = sm.seg_softmax_fwd(op.ptr, logits, mask, e, sop.warps)
+        want_att, want_lse = sm.seg_softmax_fwd_plain(op.ptr, logits, mask, e)
+        torch.cuda.synchronize()
+        errs.append(max(
+            close(f"seg_softmax_fwd_f32[{label}] att", att, want_att,
+                  KERNEL_RTOL, KERNEL_ATOL),
+            close(f"seg_softmax_fwd_f32[{label}] lse", lse, want_lse,
+                  KERNEL_RTOL, KERNEL_ATOL)))
+        if att[e:].any() or (mask is not None and att[~mask].any()):
+            raise AssertionError("a masked edge or pad got attention")
+    if att[p0:p1].any():
+        raise AssertionError("the fully masked row got attention")
+    fwd_args = (op.ptr, logits, None, e)
+    ms = time_ms(lambda: sm.seg_softmax_fwd(*fwd_args, sop.warps))
+    plain_ms = time_ms(lambda: sm.seg_softmax_fwd_plain(*fwd_args))
+    rows = g.senders[:e].long()
+    coo = torch.sparse_coo_tensor(torch.stack([rows, g.receivers[:e].long()]),
+                                  logits[:e], size=(n, n)).coalesce()
+    want_att = sm.seg_softmax_fwd_plain(*fwd_args)[0][:e]
+    if not torch.allclose(torch.sparse.softmax(coo, 1).values(), want_att,
+                          rtol=1e-4, atol=1e-6):
+        raise AssertionError("torch.sparse.softmax yardstick disagrees with "
+                             "the plain version")
+    library_ms = time_ms(lambda: torch.sparse.softmax(coo, 1))
+    (fwd_b, bwd_b) = softmax_bounds(n, e, e_pad, masked=False)
+    log(f"  seg_softmax_fwd_f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, torch.sparse.softmax {library_ms:.4f} ms, bound {fwd_b[0]:.5f} "
+        f"ms ({fwd_b[1]})")
+    results.append(entry(
+        "seg_softmax_fwd_f32", "softmax.cu",
+        "msha_gnn_tpu/ops/pallas/softmax.py:56 _stats_kernel and :86 "
+        "_expand_kernel", max(errs), ms, plain_ms, fwd_b, library_ms))
+
+    att = sm.seg_softmax_fwd_plain(*fwd_args)[0]
+    bwd_args = (op.ptr, att, gatt, e)
+    dl = sm.seg_softmax_bwd(*bwd_args, sop.warps)
+    want_dl = sm.seg_softmax_bwd_plain(*bwd_args)
+    torch.cuda.synchronize()
+    err = close("seg_softmax_bwd_f32 dl", dl, want_dl, SUM_RTOL,
+                SUM_ATOL_REL * float(want_dl.abs().max()))
+    ms = time_ms(lambda: sm.seg_softmax_bwd(*bwd_args, sop.warps))
+    plain_ms = time_ms(lambda: sm.seg_softmax_bwd_plain(*bwd_args))
+    # the yardstick: torch.sparse.softmax's own backward on the forward's COO
+    att_coo = torch.sparse.softmax(coo, 1)
+    g_coo = torch.sparse_coo_tensor(att_coo.indices(), gatt[:e],
+                                    size=(n, n)).coalesce()
+    lib_dl = torch._sparse_softmax_backward_data(g_coo, att_coo, 1, coo)
+    if not torch.allclose(lib_dl.coalesce().values(), want_dl[:e], rtol=1e-4,
+                          atol=1e-5 * float(want_dl.abs().max())):
+        raise AssertionError("the torch.sparse.softmax backward yardstick "
+                             "disagrees with the plain version")
+    library_ms = time_ms(lambda: torch._sparse_softmax_backward_data(
+        g_coo, att_coo, 1, coo))
+    log(f"  seg_softmax_bwd_f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, torch.sparse.softmax backward {library_ms:.4f} ms, bound "
+        f"{bwd_b[0]:.5f} ms ({bwd_b[1]})")
+    results.append(entry(
+        "seg_softmax_bwd_f32", "softmax.cu",
+        "msha_gnn_tpu/ops/pallas/softmax.py:102 _rowsum_kernel and :86 "
+        "_expand_kernel", err, ms, plain_ms, bwd_b, library_ms))
+
+    # the attention-weighted SpMM: A(att) @ h forward, A(att).T @ g for dx
+    w, w_t = op.weights(att, False), op.weights(att, True)
+    for label, transpose, inp in (("att A h", False, x),
+                                  ("att dx A^T g", True, gout)):
+        ptr, col, ww, warps = ((op.t_ptr, op.t_col, w_t, op.warps_t)
+                               if transpose else (op.ptr, op.col, w,
+                                                  op.warps))
+        got = cuda_spmm.csr_spmm(ptr, col, ww, inp, n, warps)
+        want = cuda_spmm.csr_spmm_plain(ptr, col, ww, inp, n)
+        torch.cuda.synchronize()
+        err = close(f"csr_spmm_f32[{label}]", got, want, SUM_RTOL,
+                    SUM_ATOL_REL * float(want.abs().max()))
+        a_csr = torch.sparse_csr_tensor(ptr, col, ww, size=(n, n))
+        if not torch.allclose(torch.sparse.mm(a_csr, inp), want, rtol=1e-4,
+                              atol=1e-5):
+            raise AssertionError("torch.sparse.mm yardstick disagrees")
+        ms = time_ms(lambda: cuda_spmm.csr_spmm(ptr, col, ww, inp, n, warps))
+        plain_ms = time_ms(lambda: cuda_spmm.csr_spmm_plain(ptr, col, ww,
+                                                            inp, n))
+        library_ms = time_ms(lambda: torch.sparse.mm(a_csr, inp))
+        bnd = spmm_bound(ptr, col, inp, n)
+        log(f"  csr_spmm_f32[{label}]: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, torch.sparse.mm {library_ms:.4f} ms, bound "
+            f"{bnd[0]:.5f} ms ({bnd[1]})")
+        results.append(entry(
+            f"csr_spmm_f32[{label}]", "spmm.cu",
+            "msha_gnn_tpu/ops/pallas/spmm.py:244 _visit_kernel", err, ms,
+            plain_ms, bnd, library_ms))
+    return results
+
+
 def read_counts(op=None):
     from msha_gnn_torch.ops.cuda import rank1_gat as r1
+    from msha_gnn_torch.ops.cuda import sddmm as cuda_sddmm
+    from msha_gnn_torch.ops.cuda import softmax as sm
     from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
 
     counts = {"r1l_fwd_f32": r1.fwd_launches,
               "r1l_bwd_f32": r1.bwd_launches,
-              "csr_spmm_f32": cuda_spmm.launches}
+              "r1l_keep_scale_f32": r1.keep_launches,
+              "csr_spmm_f32": cuda_spmm.launches,
+              "csr_sddmm_f32": cuda_sddmm.launches,
+              "seg_softmax_fwd_f32": sm.fwd_launches,
+              "seg_softmax_bwd_f32": sm.bwd_launches}
     if op is not None:
         counts["csr_spmm_f32 transposed"] = op.launches_transposed
     return counts
@@ -342,15 +586,43 @@ def read_counts(op=None):
 
 def zero_counts(op=None):
     from msha_gnn_torch.ops.cuda import rank1_gat as r1
+    from msha_gnn_torch.ops.cuda import sddmm as cuda_sddmm
+    from msha_gnn_torch.ops.cuda import softmax as sm
     from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
 
-    r1.fwd_launches = r1.bwd_launches = cuda_spmm.launches = 0
+    r1.fwd_launches = r1.bwd_launches = r1.keep_launches = 0
+    cuda_spmm.launches = 0
+    cuda_sddmm.launches = sm.fwd_launches = sm.bwd_launches = 0
     if op is not None:
         op.launches = op.launches_transposed = 0
 
 
-def phase_linkpred(split):
-    """Phase 5: the linkpred training path at full width on the card."""
+def expected(**nonzero):
+    """Launch counts with every kernel at 0 but those given."""
+    names = ("r1l_fwd_f32", "r1l_bwd_f32", "r1l_keep_scale_f32",
+             "csr_spmm_f32", "csr_sddmm_f32",
+             "seg_softmax_fwd_f32", "seg_softmax_bwd_f32",
+             "csr_spmm_f32 transposed")
+    return {k: nonzero.get(k.replace(" ", "_"), 0) for k in names}
+
+
+# launches of one training step and of one evaluation, per linkpred impl
+STEP_WANT = {
+    "fused": expected(r1l_fwd_f32=3, r1l_bwd_f32=3, csr_spmm_f32=3,
+                      csr_spmm_f32_transposed=3),
+    "materialised": expected(csr_spmm_f32=6, csr_spmm_f32_transposed=3,
+                             csr_sddmm_f32=3, seg_softmax_fwd_f32=3,
+                             seg_softmax_bwd_f32=3, r1l_keep_scale_f32=3),
+}
+EVAL_WANT = {
+    "fused": expected(r1l_fwd_f32=3),
+    "materialised": expected(csr_spmm_f32=3, seg_softmax_fwd_f32=3),
+}
+
+
+def phase_linkpred(split, impl):
+    """Phases 5 (``impl="fused"``) and 6 (``"materialised"``): the linkpred
+    training path at full width on the card."""
     from torch.profiler import ProfilerActivity, profile
 
     from msha_gnn_torch.ops.cuda.spmm import operator_for
@@ -360,11 +632,13 @@ def phase_linkpred(split):
     from msha_gnn_torch.training.link_prediction import epoch_batches
 
     t0 = time.perf_counter()
-    run = build_link_prediction(split, LinkPredConfig(epochs=1),
-                                device=DEVICE)
+    cfg = LinkPredConfig(epochs=1,
+                         impl="auto" if impl == "fused" else impl)
+    run = build_link_prediction(split, cfg, device=DEVICE)
     op = operator_for(run.graph)
-    if run.impl != "fused":
-        raise AssertionError(f"impl auto resolved to {run.impl} on CUDA")
+    if run.impl != impl:
+        raise AssertionError(f"impl {cfg.impl} resolved to {run.impl} on "
+                             "CUDA")
     batches = epoch_batches(run)
     torch.cuda.synchronize()
     log(f"  set-up {(time.perf_counter() - t0) * 1e3:.1f} ms: impl "
@@ -372,6 +646,7 @@ def phase_linkpred(split):
         f"parameters {sum(p.numel() for p in run.model.parameters())}")
 
     plain_model = copy.deepcopy(run.model)
+    fused_model = copy.deepcopy(run.model) if impl != "fused" else None
     gen_state = run.generator.get_state()
     # the main path: counts set to 0 just before one step, read just after
     zero_counts(op)
@@ -381,8 +656,7 @@ def phase_linkpred(split):
     first_step_ms = (time.perf_counter() - t0) * 1e3
     step_counts = read_counts(op)
     log(f"  main path launches in one training step: {step_counts}")
-    want = {"r1l_fwd_f32": 3, "r1l_bwd_f32": 3, "csr_spmm_f32": 3,
-            "csr_spmm_f32 transposed": 3}
+    want = STEP_WANT[impl]
     if step_counts != want:
         raise AssertionError(f"expected {want} launches per step, got "
                              f"{step_counts}")
@@ -406,14 +680,26 @@ def phase_linkpred(split):
     for name, p in plain_model.named_parameters():
         got, want_g = grads_k[name], p.grad
         err = float((got - want_g).abs().max())
+        scale = float(want_g.abs().max())
         log(f"  grad {name} {tuple(p.shape)}: max abs err {err:.3e} (max "
-            f"|value| {float(want_g.abs().max()):.3e})")
-        if not torch.allclose(got, want_g, rtol=STEP_GRAD_RTOL,
-                              atol=STEP_GRAD_ATOL):
+            f"|value| {scale:.3e})")
+        if not scale > 0 or not torch.allclose(
+                got, want_g, rtol=STEP_GRAD_RTOL,
+                atol=STEP_GRAD_ATOL_REL * scale):
             raise AssertionError(f"gradient of {name}: kernel path vs "
                                  "plain path")
     log(f"  gradients agree at rtol {STEP_GRAD_RTOL}, atol "
-        f"{STEP_GRAD_ATOL}")
+        f"{STEP_GRAD_ATOL_REL} x each leaf's max |value|")
+    if impl != "fused":
+        gen.set_state(gen_state)
+        loss_f = float(linkpred_loss(fused_model, run.graph, batches[0],
+                                     impl="fused", generator=gen).detach())
+        paths_err = abs(float(loss_k) - loss_f) / abs(loss_f)
+        log(f"  step loss: {impl} {float(loss_k):.7f}, fused {loss_f:.7f} "
+            f"from the same state, rel err {paths_err:.2e} (rtol "
+            f"{PATHS_LOSS_RTOL})")
+        if paths_err > PATHS_LOSS_RTOL:
+            raise AssertionError(f"step loss: {impl} vs fused")
 
     losses, step_ms = [float(loss_k)], []
     t_epoch = time.perf_counter()
@@ -452,8 +738,9 @@ def phase_linkpred(split):
     eval_s = time.perf_counter() - t0
     eval_counts = read_counts(op)
     log(f"  evaluation launches: {eval_counts}")
-    if eval_counts["r1l_fwd_f32"] != 3 or eval_counts["r1l_bwd_f32"] != 0:
-        raise AssertionError("evaluation must run the 3 forward kernels")
+    if eval_counts != EVAL_WANT[impl]:
+        raise AssertionError(f"expected {EVAL_WANT[impl]} launches per "
+                             f"evaluation, got {eval_counts}")
     if not all(np.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"non-finite metrics {metrics}")
     summary = {
@@ -463,8 +750,8 @@ def phase_linkpred(split):
         "device_busy_ms_per_step": busy_us / 1e3 / len(more),
         "eval_s": eval_s, **metrics,
     }
-    log(f"  linkpred: {json.dumps(summary)}")
-    return step_counts, eval_counts
+    log(f"  linkpred ({impl}): {json.dumps(summary)}")
+    return step_counts, eval_counts, losses
 
 
 def dense_reference(fg, model):
@@ -664,6 +951,9 @@ def main() -> int:
     split = linkpred_split()
     r1_kernels = phase_rank1_kernels(split)
 
+    log("phase 3c: materialised attention kernels vs plain, linkpred graph")
+    mat_kernels = phase_materialised_kernels(split)
+
     log("phase 4: GCN serving path")
     launches = phase_slice(fg)
     for k in kernels:
@@ -671,7 +961,7 @@ def main() -> int:
                                  else "plain"]
 
     log("phase 5: linkpred training path (LinkPredConfig defaults)")
-    step, evaluation = phase_linkpred(split)
+    step, evaluation, fused_losses = phase_linkpred(split, "fused")
     # rate 0.5 runs in training steps, rate 0 in the evaluation's encoding
     per_name = {"r1l_fwd_f32[rate 0.0]": evaluation["r1l_fwd_f32"],
                 "r1l_fwd_f32[rate 0.5]": step["r1l_fwd_f32"],
@@ -680,6 +970,27 @@ def main() -> int:
     for k in r1_kernels:
         k["launches"] = per_name[k["name"]]
     kernels += r1_kernels
+
+    log("phase 6: linkpred training path, impl materialised")
+    step, _, losses = phase_linkpred(split, "materialised")
+    # the same function from the same state: the fused epoch's curve
+    epoch_err = max(abs(a - b) / abs(b) for a, b in zip(losses, fused_losses))
+    log(f"  epoch: each of {len(losses)} step losses vs the fused epoch's, "
+        f"max rel err {epoch_err:.2e} (rtol {EPOCH_LOSS_RTOL})")
+    if len(losses) != len(fused_losses) or epoch_err > EPOCH_LOSS_RTOL:
+        raise AssertionError("the materialised epoch's losses differ from "
+                             "the fused epoch's")
+    per_name = {
+        "r1l_keep_scale_f32[rate 0.5]": step["r1l_keep_scale_f32"],
+        "csr_sddmm_f32[dw]": step["csr_sddmm_f32"],
+        "seg_softmax_fwd_f32": step["seg_softmax_fwd_f32"],
+        "seg_softmax_bwd_f32": step["seg_softmax_bwd_f32"],
+        "csr_spmm_f32[att A h]": (step["csr_spmm_f32"]
+                                  - step["csr_spmm_f32 transposed"]),
+        "csr_spmm_f32[att dx A^T g]": step["csr_spmm_f32 transposed"]}
+    for k in mat_kernels:
+        k["launches"] = per_name[k["name"]]
+    kernels += mat_kernels
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{kernels}")

@@ -92,6 +92,7 @@ def cmd_serve(args) -> int:
 def cmd_linkpred(args) -> int:
     """Train and evaluate link prediction; prints the result as JSON."""
     from .data.ogb import load_ddi, split_edges
+    from .models.gat import IMPLS
     from .training.link_prediction import LinkPredConfig, run_link_prediction
     from .utils import JsonlLogger
 
@@ -100,9 +101,9 @@ def cmd_linkpred(args) -> int:
         unported.append("--neighbor_fanout > 0 (data/sampler.py)")
     if args.use_kd:
         unported.append("--use_kd (training/kd.py)")
-    if args.impl not in ("auto", "torch", "fused"):
-        unported.append(f"--impl {args.impl} (the port has auto, torch, "
-                        "fused)")
+    if args.impl not in ("auto", *IMPLS):
+        unported.append(f"--impl {args.impl} (the port has auto, "
+                        f"{', '.join(IMPLS)})")
     if unported:
         print(f"not ported: {'; '.join(unported)}", file=sys.stderr)
         return 2

@@ -390,8 +390,8 @@ extern "C" int r1l_bwd_f32(const int* ptr, const int* col, const float* c,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The keep scale of slots 0..n-1, by the kernels' own device function
-// (for checking the mask against its plain version).
+// The keep scale of slots 0..n-1, by the kernels' own device function: the
+// materialised GAT path's attention dropout.
 extern "C" int r1l_keep_scale_f32(const int* seed, float rate, float scale,
                                   int n, float* out, cudaStream_t stream) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);

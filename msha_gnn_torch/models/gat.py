@@ -11,10 +11,18 @@ destination features, elu.  The parameters keep the JAX layout, ``W``
 * ``"fused"``: :class:`~msha_gnn_torch.ops.cuda.rank1_gat.Rank1GatOperator`
   (the hand-written kernels on CUDA), with attention dropout hashed inside
   the kernel from ``(seed, edge slot)``;
-* ``"torch"``: the plain path, ``sddmm`` + ``edge_softmax`` + ``spmm``,
-  with the same hashed keep mask, so from one generator state it computes
-  what ``"fused"`` computes;
+* ``"materialised"``: the JAX package's ``impl="pallas"`` pipeline, the
+  attention weights materialised per edge: the plain ``sddmm`` logits,
+  ``edge_softmax(impl="cuda")`` (the row-softmax kernels), the hashed keep
+  mask on ``att`` (``r1l_keep_scale_f32``, one launch),
+  ``spmm(edge_weight=att, impl="cuda")`` (``csr_spmm_f32``
+  forward and ``dx``, ``csr_sddmm_f32`` for the weights' gradient), elu;
+* ``"torch"``: the same pipeline on the plain versions;
 * ``"auto"``: ``"fused"`` for CUDA tensors, ``"torch"`` on the CPU.
+
+The three compute one function: from one generator state they draw the
+same keep masks.  The JAX package's materialised path draws its attention
+dropout from ``nn.Dropout`` (threefry), which the port does not reproduce.
 
 With dropout in training, a layer draws its int32 seed from the generator
 it is given, as the JAX layer draws it from ``make_rng("dropout")``.
@@ -31,10 +39,11 @@ from ..graph import BipartiteGraph
 from ..ops import edge_softmax, sddmm, spmm
 from .common import dropout, elu, xavier_uniform
 
+IMPLS = ("torch", "fused", "materialised")
 UNPORTED_IMPLS = {
     "xla": "the JAX package's XLA edge path is the port's impl='torch'",
-    "pallas": "the materialised attention pipeline (ROADMAP queue 1 item 6: "
-              "softmax, SDDMM and SpMM-dw kernels)",
+    "pallas": "the JAX package's materialised attention pipeline is the "
+              "port's impl='materialised'",
     "flash": "flash-GAT (ROADMAP queue 1 item 7: _flash_kernel, "
              "_flash_bwd_kernel)",
 }
@@ -48,8 +57,8 @@ def resolve_impl(impl: str, device: torch.device) -> str:
     if impl in UNPORTED_IMPLS:
         raise NotImplementedError(
             f"impl={impl!r} is not ported: {UNPORTED_IMPLS[impl]}")
-    if impl not in ("torch", "fused"):
-        raise ValueError(f"unknown impl {impl!r} (auto | torch | fused)")
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r} (auto | {' | '.join(IMPLS)})")
     return impl
 
 
@@ -94,15 +103,18 @@ class SparseGATLayer(nn.Module):
             if seed is not None:
                 return elu(op.drop(s_src, av[d:], h, seed))
             return elu(op(s_src, av[d:], h))
+        ops_impl = "cuda" if impl == "materialised" else "torch"
         logits = sddmm(graph, s_src, h @ av[d:],
                        negative_slope=self.negative_slope)
-        att = edge_softmax(graph, logits)
+        att = edge_softmax(graph, logits, impl=ops_impl)
         if seed is not None:
-            from ..ops.cuda.rank1_gat import keep_scale_plain
+            from ..ops.cuda.rank1_gat import keep_scale, keep_scale_plain
 
-            slots = torch.arange(graph.num_padded_edges, device=x.device)
-            att = att * keep_scale_plain(slots, seed, rate)
-        return elu(spmm(graph, h, edge_weight=att))
+            n = graph.num_padded_edges
+            att = att * (keep_scale(n, seed, rate) if impl == "materialised"
+                         else keep_scale_plain(torch.arange(n, device=x.device),
+                                               seed, rate))
+        return elu(spmm(graph, h, edge_weight=att, impl=ops_impl))
 
 
 class SparseGAT(nn.Module):

@@ -1,5 +1,5 @@
 from .segment import segment_max, segment_softmax, segment_sum
-from .sparse import edge_softmax, sddmm, spmm
+from .sparse import edge_softmax, sddmm, sddmm_dot, spmm
 
 __all__ = ["segment_max", "segment_softmax", "segment_sum", "edge_softmax",
-           "sddmm", "spmm"]
+           "sddmm", "sddmm_dot", "spmm"]

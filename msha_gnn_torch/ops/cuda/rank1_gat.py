@@ -11,9 +11,10 @@ and what bounds them.
   they run :func:`rank1_gat_plain` and :func:`rank1_gat_bwd_plain`, the
   plain PyTorch versions of the same functions and the kernels' oracles.
 * :func:`keep_scale_plain` is the dropout keep mask, bit for bit the JAX
-  package's ``_hash01``/``_keep_scale``; :func:`keep_scale` runs the
-  kernels' own device function on the card, to check it against the plain
-  one.
+  package's ``_hash01``/``_keep_scale``; :func:`keep_scale` computes it on
+  the card in one launch of the kernels' own device function
+  (``r1l_keep_scale_f32``, counted in :data:`keep_launches`), which the
+  materialised GAT path applies to its attention.
 * :class:`Rank1GatOperator` binds one graph and is differentiable: its
   backward runs ``r1l_bwd_f32`` and then the edge-row reduce of
   :meth:`SpmmOperator.reduce_edges` (``csr_spmm_f32``) for ``dx``.
@@ -27,7 +28,7 @@ from typing import TYPE_CHECKING, Optional
 import numpy as np
 import torch
 
-from .spmm import SpmmOperator, operator_for
+from .spmm import SpmmOperator, edge_rows, operator_for
 
 if TYPE_CHECKING:
     from ...graph import BipartiteGraph
@@ -39,6 +40,7 @@ NEG = -1e30
 # the edge kernel and the fixed-order da reduce.
 fwd_launches = 0
 bwd_launches = 0
+keep_launches = 0
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -115,9 +117,10 @@ def keep_scale_plain(slots: torch.Tensor, seed, rate: float) -> torch.Tensor:
 
 
 def keep_scale(n: int, seed: torch.Tensor, rate: float) -> torch.Tensor:
-    """The keep scale of slots ``0..n-1``: on a CUDA ``seed`` by the
-    kernels' device function (``r1l_keep_scale_f32``, a check entry that
-    the main path never calls), else :func:`keep_scale_plain`."""
+    """The keep scale of slots ``0..n-1``: on a CUDA ``seed`` by one launch
+    of ``r1l_keep_scale_f32`` (the kernels' device function), else
+    :func:`keep_scale_plain`."""
+    global keep_launches
     if seed.device.type == "cpu":
         return keep_scale_plain(torch.arange(n), seed, rate)
     if seed.dtype != torch.int32 or seed.numel() != 1:
@@ -129,6 +132,7 @@ def keep_scale(n: int, seed: torch.Tensor, rate: float) -> torch.Tensor:
         rc = lib.r1l_keep_scale_f32(seed.data_ptr(), rate, _scale(rate), n,
                                     out.data_ptr(), stream)
     _raise_on(lib, rc, "r1l_keep_scale_f32")
+    keep_launches += 1
     return out
 
 
@@ -136,14 +140,8 @@ def keep_scale(n: int, seed: torch.Tensor, rate: float) -> torch.Tensor:
 # Plain versions (the CPU path and the kernels' oracles)
 # ---------------------------------------------------------------------------
 
-def _edge_rows(ptr: torch.Tensor, n_rows: int, n_edges: int) -> torch.Tensor:
-    return torch.repeat_interleave(
-        torch.arange(n_rows, device=ptr.device), (ptr[1:] - ptr[:-1]).long(),
-        output_size=n_edges)
-
-
-def _logits(ptr, col, c, a, x, slope, n_rows):
-    rows = _edge_rows(ptr, n_rows, col.numel())
+def _logits(ptr, col, c, a, x, slope):
+    rows = edge_rows(ptr, col.numel())
     xg = x[col.long()]
     pre = c[rows] + xg @ a
     return rows, xg, pre, torch.where(pre >= 0, pre, slope * pre)
@@ -160,7 +158,7 @@ def rank1_gat_plain(ptr, col, c, a, x, seed, rate: float, slope: float,
                     n_rows: int):
     """Plain version of ``r1l_fwd_f32`` -> ``(out [n_rows, d], lse
     [n_rows])``: gather, ``scatter_reduce`` amax, ``index_add_``."""
-    rows, xg, _, logit = _logits(ptr, col, c, a, x, slope, n_rows)
+    rows, xg, _, logit = _logits(ptr, col, c, a, x, slope)
     m = torch.full((n_rows,), NEG, dtype=x.dtype, device=x.device)
     m = m.scatter_reduce(0, rows, logit, "amax", include_self=True)
     p = torch.exp(logit - m[rows])
@@ -179,7 +177,7 @@ def rank1_gat_bwd_plain(ptr, col, c, a, x, gout, out, lse, seed, rate: float,
                         slope: float, n_rows: int):
     """Plain version of ``r1l_bwd_f32`` -> ``(z [E, d] in CSR order, dc
     [n_rows], da [d])``."""
-    rows, xg, pre, logit = _logits(ptr, col, c, a, x, slope, n_rows)
+    rows, xg, pre, logit = _logits(ptr, col, c, a, x, slope)
     lse_e = lse[rows]
     live = lse_e > NEG / 2
     att = torch.where(live, torch.exp(torch.where(live, logit - lse_e, 0.0)),

@@ -15,8 +15,11 @@ serves both and what bounds it (bytes).
   given in CSR order reach the transpose.  Its gradient with respect to
   ``x`` is the transposed launch of the same kernel, as the JAX operator's
   VJP is (``spmm.py:1599-1682``).  The gradient of a runtime edge weight
-  needs the SDDMM kernels, which are not ported yet: on CUDA such a weight
-  raises rather than silently returning no gradient.
+  (CSR order) is one launch of ``csr_sddmm_f32``
+  (:mod:`msha_gnn_torch.ops.cuda.sddmm`) over the CSR direction, as the JAX
+  VJP runs ``_sddmm_split`` over its forward direction in both cases:
+  ``dw = sddmm(g, x)`` for ``A @ x`` and ``dw = sddmm(x, g)`` for
+  ``A.T @ x``.
 * :meth:`SpmmOperator.reduce_edges` sums per-edge rows into their
   receivers, ``out[j] = sum_{e: rcv_e = j} z[e]``: the kernel over the CSC
   pointer with the CSC->CSR edge ids as columns and no weights, which the
@@ -69,14 +72,18 @@ def warps_for(num_edges: int, n_rows: int, max_row: int = 0) -> int:
     return int(min(MAX_WARPS, max(1, round(mean / 32), -(-max_row // 512))))
 
 
+def edge_rows(ptr: torch.Tensor, n_edges: int) -> torch.Tensor:
+    """The row of each of the first ``n_edges`` CSR slots (int64)."""
+    return torch.repeat_interleave(
+        torch.arange(ptr.numel() - 1, device=ptr.device),
+        (ptr[1:] - ptr[:-1]).long(), output_size=n_edges)
+
+
 def csr_spmm_plain(ptr: torch.Tensor, col: torch.Tensor,
                    w: Optional[torch.Tensor], x: torch.Tensor,
                    n_rows: int) -> torch.Tensor:
     """Plain version: gather the rows, scale, ``index_add_`` into rows."""
-    rows = torch.repeat_interleave(
-        torch.arange(n_rows, device=x.device), (ptr[1:] - ptr[:-1]).long(),
-        output_size=col.numel(),
-    )
+    rows = edge_rows(ptr, col.numel())
     out = x.new_zeros((n_rows, x.shape[1]))
     vals = x[col.long()]
     return out.index_add_(0, rows, vals if w is None else w[:, None] * vals)
@@ -177,6 +184,11 @@ class SpmmOperator:
         self.launches = 0
         self.launches_transposed = 0
 
+    @staticmethod
+    def build(graph: "BipartiteGraph") -> "SpmmOperator":
+        """The operator of ``graph`` on the graph's device."""
+        return SpmmOperator(graph, graph.device)
+
     def _launch(self, ptr, col, w, x, n_out, warps, transpose):
         before = launches
         out = csr_spmm(ptr, col, w, x, n_out, warps)
@@ -185,20 +197,24 @@ class SpmmOperator:
             self.launches_transposed += int(transpose)
         return out
 
-    def _weights(self, edge_weight, transpose):
+    def weights(self, edge_weight: Optional[torch.Tensor],
+                transpose: bool) -> torch.Tensor:
+        """The weights of one direction's edges: the CSR-order
+        ``edge_weight`` (or the graph's own, for None) cut to the real
+        edges, or permuted to CSC order when ``transpose``."""
         if edge_weight is None:
             return self.t_w if transpose else self.w
         if transpose:
             return edge_weight[self.t_edge].contiguous()
         return edge_weight[: self.num_edges].contiguous()
 
-    def apply(self, x: torch.Tensor, w: torch.Tensor, w_t: torch.Tensor,
+    def apply(self, x: torch.Tensor, edge_weight: Optional[torch.Tensor],
               transpose: bool) -> torch.Tensor:
-        """``A @ x`` (``A.T @ x`` when ``transpose``) for CSR-order weights
-        ``w`` and their CSC-order copy ``w_t``; no autograd."""
-        g = self.graph
+        """``A @ x`` (``A.T @ x`` when ``transpose``) for the CSR-order
+        ``edge_weight`` (None: the graph's own); no autograd."""
+        g, w = self.graph, self.weights(edge_weight, transpose)
         if transpose:
-            return self._launch(self.t_ptr, self.t_col, w_t, x, g.n_dst,
+            return self._launch(self.t_ptr, self.t_col, w, x, g.n_dst,
                                 self.warps_t, True)
         return self._launch(self.ptr, self.col, w, x, g.n_src, self.warps,
                             False)
@@ -213,20 +229,13 @@ class SpmmOperator:
         n_in = g.n_src if transpose else g.n_dst
         if x.dim() != 2 or x.shape[0] != n_in:
             raise ValueError(f"x must be [{n_in}, d], got {tuple(x.shape)}")
-        weight_grad = (edge_weight is not None and edge_weight.requires_grad
-                       and torch.is_grad_enabled())
-        if weight_grad and x.is_cuda:
-            raise NotImplementedError(
-                "the gradient of a runtime edge weight needs the SDDMM "
-                "kernels _sddmm_kernel and _sddmm_hub_kernel "
-                "(msha_gnn_tpu/ops/pallas/spmm.py:1428, :1294), which are "
-                "not ported yet")
-        if weight_grad:  # the CPU: the plain version's own autograd
-            return self.apply(x, self._weights(edge_weight, False),
-                              self._weights(edge_weight, True), transpose)
-        ew = None if edge_weight is None else edge_weight.detach()
-        return _SpmmFn.apply(x, self._weights(ew, False),
-                             self._weights(ew, True), self, transpose)
+        if edge_weight is not None and (
+                edge_weight.dim() != 1 or edge_weight.shape[0] < self.num_edges
+                or edge_weight.device != self.device):
+            raise ValueError(f"edge_weight must be [>= {self.num_edges}] on "
+                             f"{self.device}, got {tuple(edge_weight.shape)} "
+                             f"on {edge_weight.device}")
+        return _SpmmFn.apply(x, edge_weight, self, transpose)
 
     def reduce_edges(self, z: torch.Tensor) -> torch.Tensor:
         """``out[j] = sum_{e: rcv_e = j} z[e]`` -> [n_dst, d], for ``z``
@@ -243,34 +252,54 @@ class SpmmOperator:
 
 class _SpmmFn(torch.autograd.Function):
     """``A @ x`` with ``dx = A.T @ g``, and ``A.T @ x`` with ``dx = A @ g``:
-    the backward is the other direction's launch of the same kernel."""
+    the backward is the other direction's launch of the same kernel.  A
+    runtime edge weight (``edge_weight`` [E_pad], CSR order, or None for
+    the graph's own) gets ``dw`` [E_pad] from one ``csr_sddmm_f32`` launch
+    over the CSR direction, pads 0."""
 
     @staticmethod
-    def forward(ctx, x, w, w_t, op, transpose):
+    def forward(ctx, x, edge_weight, op, transpose):
         ctx.op, ctx.transpose = op, transpose
-        ctx.save_for_backward(w, w_t)
-        return op.apply(x, w, w_t, transpose)
+        ctx.save_for_backward(x, edge_weight)
+        return op.apply(x, edge_weight, transpose)
 
     @staticmethod
     def backward(ctx, g):
-        w, w_t = ctx.saved_tensors
-        dx = ctx.op.apply(g.contiguous(), w, w_t, not ctx.transpose)
-        return dx, None, None, None, None
+        x, edge_weight = ctx.saved_tensors
+        op, g = ctx.op, g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = op.apply(g, edge_weight, not ctx.transpose)
+        if ctx.needs_input_grad[1]:
+            from .sddmm import csr_sddmm
+
+            # rows of the CSR direction are A's rows: g's for A @ x, x's
+            # for A.T @ x
+            rows, cols = (x, g) if ctx.transpose else (g, x)
+            dw = csr_sddmm(op.ptr, op.col, rows, cols, edge_weight.shape[0])
+        return dx, dw, None, None
 
 
-# One operator per graph, so repeated layer calls share the CSR/CSC build.
+# One operator per graph and kind, so repeated layer calls share the build
+# (host-side sorts and copies to the device).
 _OPS: dict = {}
+
+
+def cached_for(graph: "BipartiteGraph", build):
+    """``build(graph)``, made once per graph and builder (the last 16)."""
+    key = (id(graph), build)
+    entry = _OPS.get(key)
+    if entry is None or entry[0] is not graph:
+        entry = (graph, build(graph))
+        _OPS[key] = entry
+        if len(_OPS) > 16:
+            _OPS.pop(next(iter(_OPS)))
+    return entry[1]
 
 
 def operator_for(graph: "BipartiteGraph") -> SpmmOperator:
     """The cached :class:`SpmmOperator` of ``graph``, on its device."""
-    entry = _OPS.get(id(graph))
-    if entry is None or entry[0] is not graph:
-        entry = (graph, SpmmOperator(graph, graph.device))
-        _OPS[id(graph)] = entry
-        if len(_OPS) > 16:
-            _OPS.pop(next(iter(_OPS)))
-    return entry[1]
+    return cached_for(graph, SpmmOperator.build)
 
 
 def spmm_cuda(graph: "BipartiteGraph", x: torch.Tensor, *,

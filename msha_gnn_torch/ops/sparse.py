@@ -2,10 +2,12 @@
 (``msha_gnn_tpu/ops/sparse.py``).
 
 ``impl="torch"`` is the plain version, gather + ``index_add_``: the CPU
-path and the oracle of the CUDA kernel.  ``impl="cuda"`` goes to the
-hand-written CSR kernel through :mod:`msha_gnn_torch.ops.cuda.spmm`.
-:func:`sddmm` and :func:`edge_softmax` are plain only: they make the
-plain GAT path (``SparseGATLayer(impl="torch")``).
+path and the oracle of the CUDA kernels.  ``impl="cuda"`` goes to the
+hand-written kernels: :func:`spmm` through :mod:`.cuda.spmm`,
+:func:`sddmm_dot` through :mod:`.cuda.sddmm` and :func:`edge_softmax`
+through :mod:`.cuda.softmax` (the JAX package's ``impl="pallas"``).
+:func:`sddmm`, the rank-1 GAT logits, is plain only, as in the JAX
+package, where it is always XLA.
 """
 
 from __future__ import annotations
@@ -65,10 +67,35 @@ def sddmm(graph: "BipartiteGraph", src_vec: torch.Tensor,
     return torch.nn.functional.leaky_relu(e, negative_slope)
 
 
+def sddmm_dot(graph: "BipartiteGraph", src_feat: torch.Tensor,
+              dst_feat: torch.Tensor, *, impl: str = "torch") -> torch.Tensor:
+    """Per-edge inner products ``<src_feat[s], dst_feat[r]>`` -> [E_pad]
+    (padding entries 0)."""
+    if impl == "cuda":
+        from .cuda.sddmm import SddmmOperator
+
+        return SddmmOperator(graph)(src_feat, dst_feat)
+    if impl != "torch":
+        raise ValueError(f"unknown sddmm_dot impl {impl!r} (torch | cuda)")
+    s = _gather_rows(src_feat, graph.senders, graph.n_src)
+    d = _gather_rows(dst_feat, graph.receivers, graph.n_dst)
+    return (s * d).sum(-1)
+
+
 def edge_softmax(graph: "BipartiteGraph", logits: torch.Tensor, *,
-                 per: str = "src") -> torch.Tensor:
+                 per: str = "src", impl: str = "torch") -> torch.Tensor:
     """Softmax of per-edge logits over each source row (``per="src"``) or
-    destination column (``per="dst"``); padding edges get 0."""
+    destination column (``per="dst"``); padding edges get 0.
+    ``impl="cuda"`` runs the row-softmax kernels and takes ``per="src"``
+    only, as the JAX package's ``impl="pallas"``."""
+    if impl == "cuda":
+        if per != "src":
+            raise ValueError('edge_softmax(impl="cuda") takes per="src" only')
+        from .cuda.softmax import softmax_operator_for
+
+        return softmax_operator_for(graph)(logits)
+    if impl != "torch":
+        raise ValueError(f"unknown edge_softmax impl {impl!r} (torch | cuda)")
     if per == "src":
         return segment_softmax(logits, graph.senders, graph.n_src,
                                mask=graph.edge_mask)

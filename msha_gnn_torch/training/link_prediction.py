@@ -4,8 +4,10 @@ negatives, evaluated by OGB Hits@K and AUC
 (``msha_gnn_tpu/training/link_prediction.py``).
 
 On CUDA ``impl="auto"`` resolves to ``"fused"``: every ``SparseGATLayer``
-runs the hand-written rank-1 GAT kernels, attention dropout included.  On
-the CPU it resolves to ``"torch"``, the plain path.  Training is a plain
+runs the hand-written rank-1 GAT kernels, attention dropout included.
+``impl="materialised"`` runs the materialised attention pipeline (the
+row-softmax, SpMM and SDDMM kernels).  On the CPU ``"auto"`` resolves to
+``"torch"``, the plain path.  Training is a plain
 loop of steps (:func:`train_step`); the JAX package's ``lax.scan`` over an
 epoch is a dispatch device of its own and has no counterpart here.  The
 numpy draws (batch order, negatives) are the JAX package's, so one seed
@@ -45,7 +47,7 @@ class LinkPredConfig:
     neighbor_fanout: int = 0      # 0 = full graph; > 0 is not ported
     use_kd: bool = False          # not ported (nor its weights)
     seed: int = 42
-    impl: str = "auto"            # auto | torch | fused
+    impl: str = "auto"            # auto | torch | fused | materialised
 
 
 class LinkPredModel(nn.Module):
@@ -105,7 +107,7 @@ class LinkPredRun:
 def build_link_prediction(split, cfg: LinkPredConfig,
                           device="cuda") -> LinkPredRun:
     """Set-up of a run: the model initialised from ``cfg.seed`` (on the
-    CPU, then moved), Adam, and, for ``impl="fused"``, the graph's
+    CPU, then moved), Adam, and, for the kernel paths, the graph's
     operators built once."""
     dev = resolve_device(device)
     if cfg.neighbor_fanout > 0:
@@ -121,10 +123,14 @@ def build_link_prediction(split, cfg: LinkPredConfig,
     model = LinkPredModel(split["n"], cfg,
                           generator=torch.Generator().manual_seed(cfg.seed))
     model = model.to(dev)
-    if impl == "fused":
+    if impl in ("fused", "materialised"):
         from ..ops.cuda.spmm import operator_for
 
         operator_for(graph)  # the CSR/CSC build is set-up, not a step
+    if impl == "materialised":
+        from ..ops.cuda.softmax import softmax_operator_for
+
+        softmax_operator_for(graph)
     return LinkPredRun(
         cfg=cfg, split=split, graph=graph, model=model,
         optimizer=adam_l2(model.parameters(), cfg.lr),

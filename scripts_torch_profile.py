@@ -2,7 +2,8 @@
 
     python3 scripts_torch_profile.py [--fills 20] [--requests 200] \
         [--steps 10] [--trace build/profile/fill_trace.json] \
-        [--step-trace build/profile/step_trace.json]
+        [--step-trace build/profile/step_trace.json] \
+        [--materialised-step-trace build/profile/step_trace_mat.json]
 
 GCN serving, on a synthetic flow graph of the 2015 data's shape (39,179
 sources, 32 recipients, 233,887 records) with the GCN at full width
@@ -19,10 +20,13 @@ dropout 0.5, batch 4096) on synthetic ogbl-ddi (seed 42):
 
 * ``--steps`` training steps (``train_step``: forward, backward, Adam)
   under ``torch.profiler``: device time by kernel per step, host wall time
-  per step, and the device's idle share.
+  per step, and the device's idle share; once for the fused path
+  (``impl="auto"``) and once for the materialised attention pipeline
+  (``impl="materialised"``).
 
 Prints the card's name and power limit first and one JSON summary last;
-the Chrome traces go to ``--trace`` and ``--step-trace``.
+the Chrome traces go to ``--trace``, ``--step-trace`` and
+``--materialised-step-trace``.
 Needs CUDA; exits 1 without it.
 """
 
@@ -68,9 +72,9 @@ def device_kernels(prof, per: int):
     return kernels
 
 
-def profile_linkpred(steps: int, trace: str) -> dict:
+def profile_linkpred(steps: int, trace: str, impl: str = "auto") -> dict:
     """Device time by kernel and the idle share of ``steps`` full-width
-    linkpred training steps."""
+    linkpred training steps of ``impl``."""
     from torch.profiler import ProfilerActivity, profile
 
     from msha_gnn_torch.data import load_ddi, split_edges
@@ -79,7 +83,8 @@ def profile_linkpred(steps: int, trace: str) -> dict:
     from msha_gnn_torch.training.link_prediction import epoch_batches
 
     split = split_edges(load_ddi(seed=42), seed=42)
-    run = build_link_prediction(split, LinkPredConfig(), device="cuda")
+    run = build_link_prediction(split, LinkPredConfig(impl=impl),
+                                device="cuda")
     batches = epoch_batches(run)
     for batch in batches[:3]:
         train_step(run, batch)
@@ -117,6 +122,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--trace", default="build/profile/fill_trace.json")
     ap.add_argument("--step-trace", default="build/profile/step_trace.json")
+    ap.add_argument("--materialised-step-trace",
+                    default="build/profile/step_trace_mat.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("scripts_torch_profile: CUDA is not available", file=sys.stderr)
@@ -191,6 +198,8 @@ def main(argv=None) -> int:
         thread.join(timeout=30)
 
     linkpred = profile_linkpred(args.steps, args.step_trace)
+    materialised = profile_linkpred(args.steps, args.materialised_step_trace,
+                                    impl="materialised")
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "fill_wall_ms_p50": wall_ms,
@@ -201,6 +210,7 @@ def main(argv=None) -> int:
         "predict_64_http_ms_p50": statistics.median(http),
         "top_kernels_us": {k[0][:80]: k[1] for k in kernels[:8]},
         "linkpred": linkpred,
+        "linkpred_materialised": materialised,
     }), flush=True)
     return 0
 

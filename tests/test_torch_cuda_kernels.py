@@ -1,4 +1,4 @@
-"""The rank-1 GAT kernels and the SpMM autograd on the card.
+"""The kernels and the operators' autograd on the card.
 
 This file imports nothing of JAX (and the tests here need no fixture of
 ``conftest.py``), so the card's machine, which has no JAX, runs it with
@@ -11,7 +11,9 @@ training path's.  Tolerances: ``out`` and ``lse`` at rtol 1e-5, atol 1e-6
 (float32, another summation order); ``z`` the same with atol growing as
 d / 64 past d = 64, since each ``z`` holds two d-term dot products;
 ``dc``, ``da`` and the dx reduce, which sum many terms in another order,
-at rtol 1e-4 and atol 1e-5 of the largest value.
+at rtol 1e-4 and atol 1e-5 of the largest value.  The SDDMM and the row
+softmax at rtol 1e-5, atol 1e-6 (one d-term dot, or one row's exp and sum,
+in another order); the softmax's VJP with the sums' tolerance.
 """
 
 import numpy as np
@@ -19,7 +21,10 @@ import pytest
 import torch
 
 import msha_gnn_torch.graph as tg
+from msha_gnn_torch.ops import edge_softmax, spmm
 from msha_gnn_torch.ops.cuda import rank1_gat as r1
+from msha_gnn_torch.ops.cuda import sddmm as cuda_sddmm
+from msha_gnn_torch.ops.cuda import softmax as sm
 from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
 
 
@@ -66,8 +71,10 @@ def test_rank1_kernels_match_plain(d, rate):
     sums_close(dc, wdc)
     sums_close(da, wda)
     n = g.num_padded_edges
+    before = r1.keep_launches
     assert torch.equal(r1.keep_scale(n, seed, 0.5).cpu(),
                        r1.keep_scale_plain(torch.arange(n), -5, 0.5))
+    assert r1.keep_launches == before + 1
 
 
 @pytest.mark.cuda
@@ -112,6 +119,92 @@ def test_spmm_x_gradient_is_the_transposed_launch():
     want = z.new_zeros(g.n_dst, 16).index_add_(
         0, g.receivers[: op.num_edges].long(), z)
     sums_close(got, want)
-    w = g.weight.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="_sddmm_hub_kernel"):
-        op(torch.randn(g.n_dst, 8, device="cuda"), edge_weight=w)
+    # a runtime weight's gradient is one csr_sddmm_f32 launch
+    for transpose in (False, True):
+        n_in, n_out = (g.n_src, g.n_dst) if transpose else (g.n_dst, g.n_src)
+        x = torch.randn(n_in, 8, generator=gen, device="cuda",
+                        requires_grad=True)
+        w = (g.weight * 0.5).requires_grad_()
+        gout = torch.randn(n_out, 8, generator=gen, device="cuda")
+        before = cuda_sddmm.launches
+        op(x, transpose=transpose, edge_weight=w).backward(gout)
+        assert cuda_sddmm.launches == before + 1
+        x_ref = x.detach().clone().requires_grad_()
+        w_ref = w.detach().clone().requires_grad_()
+        spmm(g, x_ref, edge_weight=w_ref, transpose=transpose,
+             impl="torch").backward(gout)
+        sums_close(w.grad, w_ref.grad)
+        sums_close(x.grad, x_ref.grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 64, 129])
+def test_sddmm_kernel_matches_plain(d):
+    g = card_graph(d + 1, 300, 120, 0.05, empty_rows=(0, 150, 299))
+    op = cuda_spmm.SpmmOperator(g, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    a = torch.rand(300, d, generator=gen, device="cuda") - 0.5
+    b = torch.rand(120, d, generator=gen, device="cuda") - 0.5
+    n_out = g.num_padded_edges
+    before = cuda_sddmm.launches
+    got = cuda_sddmm.csr_sddmm(op.ptr, op.col, a, b, n_out)
+    assert cuda_sddmm.launches == before + 1
+    want = cuda_sddmm.csr_sddmm_plain(op.ptr, op.col, a, b, n_out)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert not got[op.num_edges:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", ["none", "build", "arbitrary"])
+def test_softmax_kernels_match_plain(masked):
+    g = card_graph(7, 260, 200, 0.06, empty_rows=(0, 129, 259))
+    ptr = g.row_ptr
+    e, e_pad = g.num_edges, g.num_padded_edges
+    mask = None
+    if masked != "none":
+        mask = g.edge_mask.clone()
+        if masked == "arbitrary":
+            gen_m = torch.Generator(device="cuda").manual_seed(3)
+            mask &= torch.rand(e_pad, generator=gen_m, device="cuda") > 0.3
+            mask[int(ptr[5]):int(ptr[6])] = False    # row 5 fully masked
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    logits = torch.randn(e_pad, generator=gen, device="cuda") * 3
+    gout = torch.randn(e_pad, generator=gen, device="cuda")
+    # one warp, and the most: every row shorter than a block, and not
+    for warps in (1, 8):
+        before = (sm.fwd_launches, sm.bwd_launches)
+        att, lse = sm.seg_softmax_fwd(ptr, logits, mask, e, warps)
+        dl = sm.seg_softmax_bwd(ptr, att, gout, e, warps)
+        assert (sm.fwd_launches, sm.bwd_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+        want_att, want_lse = sm.seg_softmax_fwd_plain(ptr, logits, mask, e)
+        want_dl = sm.seg_softmax_bwd_plain(ptr, want_att, gout, e)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(att, want_att, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-6)
+        sums_close(dl, want_dl)
+        assert not att[e:].any() and not dl[e:].any()
+        if mask is not None:
+            assert not att[~mask].any()
+
+
+@pytest.mark.cuda
+def test_materialised_layer_matches_plain_on_card():
+    """The materialised GAT pipeline's pieces through autograd on the
+    card: the row softmax (two kernels) then the att-weighted SpMM (its
+    forward, dx and dw kernels), against the plain versions."""
+    g = card_graph(9, 200, 200, 0.05, empty_rows=(3,))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    logits = torch.randn(g.num_padded_edges, generator=gen, device="cuda")
+    h = torch.rand(200, 16, generator=gen, device="cuda") - 0.5
+    gout = torch.randn(200, 16, generator=gen, device="cuda")
+    grads = []
+    for impl in ("cuda", "torch"):
+        l = logits.clone().requires_grad_()
+        x = h.clone().requires_grad_()
+        att = edge_softmax(g, l, impl=impl)
+        spmm(g, x, edge_weight=att, impl=impl).backward(gout)
+        grads.append((l.grad, x.grad))
+    for got, want in zip(*grads):
+        sums_close(got, want)

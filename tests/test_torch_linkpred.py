@@ -4,11 +4,14 @@
   one seed, the message graph included;
 * the model: JAX parameters converted by ``linkpred_params_from_jax``
   give the same loss and gradients on a fixed batch.  The JAX model runs
-  ``impl="fused"`` (its Pallas rank-1 GAT kernels in interpret mode) with
-  dropout 0, so no PRNG takes part; the port runs ``fused`` (the kernels'
-  plain versions on the CPU) and ``torch`` (the plain path).  Loss rtol
-  1e-4; gradients rtol 2e-3, atol 1e-3, the JAX package's tolerances for
-  the fused operator's gradients (its f32 path sums through a bf16 hi/lo
+  with dropout 0, so no PRNG takes part, in two modes: ``impl="fused"``
+  (its Pallas rank-1 GAT kernels in interpret mode), against which the
+  port's ``fused`` (the kernels' plain versions on the CPU) and ``torch``
+  (the plain path) are held, and ``impl="pallas"`` (the materialised
+  pipeline: the Pallas softmax, SpMM and SDDMM kernels in interpret mode),
+  against which the port's ``materialised`` is held.  Loss rtol 1e-4;
+  gradients rtol 2e-3, atol 1e-3, the JAX package's tolerances for the
+  fused operator's gradients (its f32 paths sum through a bf16 hi/lo
   split);
 * Adam, Hits@K, AUC, BCE, the training loop and the CLI on the CPU.
 """
@@ -93,7 +96,7 @@ def test_load_ogbl_ddi_matches_jax(tmp_path):
 @pytest.fixture(scope="module")
 def jax_linkpred():
     """The JAX run's model at hidden 8, dropout 0: parameters, a batch,
-    and the loss and gradients of ``impl="fused"``."""
+    and the loss and gradients of ``impl="fused"`` and ``"pallas"``."""
     split = tiny_split(jax_ogb, seed=3)
     n, hidden = split["n"], 8
     encoder = JaxSparseGAT(in_features=hidden, hidden=hidden,
@@ -116,9 +119,9 @@ def jax_linkpred():
     ns, nr = rng.integers(0, n, (2, 256))
     batch = [np.asarray(v, np.int64) for v in (ps, pr, ns, nr)]
 
-    def loss_fn(params):
+    def loss_fn(params, impl):
         h = encoder.apply({"params": params["encoder"]}, graph,
-                          params["features"], train=True, impl="fused")
+                          params["features"], train=True, impl=impl)
         pos = predictor.apply({"params": params["predictor"]},
                               h[batch[0]], h[batch[1]], train=True)
         neg = predictor.apply({"params": params["predictor"]},
@@ -126,13 +129,21 @@ def jax_linkpred():
         return 0.5 * (jax_bce_loss(pos, jnp.ones_like(pos))
                       + jax_bce_loss(neg, jnp.zeros_like(neg)))
 
-    loss, grads = jax.value_and_grad(loss_fn)(params)
-    return params, batch, float(loss), grads
+    results = {}
+    for impl in ("fused", "pallas"):
+        loss, grads = jax.value_and_grad(loss_fn)(params, impl)
+        results[impl] = (float(loss), grads)
+    return params, batch, results
 
 
-@pytest.mark.parametrize("impl", ["fused", "torch"])
+# the port's impl -> the JAX run it is held against
+JAX_IMPL = {"fused": "fused", "torch": "fused", "materialised": "pallas"}
+
+
+@pytest.mark.parametrize("impl", ["fused", "torch", "materialised"])
 def test_loss_and_gradients_match_jax(jax_linkpred, impl):
-    params, batch, want_loss, want_grads = jax_linkpred
+    params, batch, results = jax_linkpred
+    want_loss, want_grads = results[JAX_IMPL[impl]]
     split = tiny_split(ogb, seed=3)
     cfg = LinkPredConfig(hidden=8, dropout=0.0, seed=0)
     model = LinkPredModel(split["n"], cfg)
@@ -148,6 +159,34 @@ def test_loss_and_gradients_match_jax(jax_linkpred, impl):
         np.testing.assert_allclose(got[name].grad.numpy(), g.numpy(),
                                    rtol=GRAD_RTOL, atol=GRAD_ATOL,
                                    err_msg=name)
+
+
+def test_impls_draw_the_same_dropout_masks():
+    """At dropout 0.5, one generator state gives the three paths the same
+    keep masks: ``fused`` and ``materialised`` (their kernels' plain
+    versions on the CPU) compute the plain path's loss and gradients."""
+    split = tiny_split(ogb, seed=5)
+    cfg = LinkPredConfig(hidden=8, dropout=0.5, seed=0)
+    model = LinkPredModel(split["n"], cfg,
+                          generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(6)
+    batch = [torch.from_numpy(v) for v in rng.integers(0, split["n"],
+                                                          (4, 128))]
+    results = {}
+    for impl in ("torch", "fused", "materialised"):
+        model.zero_grad(set_to_none=True)
+        loss = linkpred_loss(model, split["graph"], batch, impl=impl,
+                             generator=torch.Generator().manual_seed(7))
+        loss.backward()
+        results[impl] = (loss.item(), {k: p.grad.clone() for k, p in
+                                       model.named_parameters()})
+    want_loss, want_grads = results["torch"]
+    for impl in ("fused", "materialised"):
+        loss, grads = results[impl]
+        np.testing.assert_allclose(loss, want_loss, rtol=1e-6)
+        for name, g in grads.items():
+            torch.testing.assert_close(g, want_grads[name], rtol=1e-4,
+                                       atol=1e-6, msg=f"{impl} {name}")
 
 
 def _dense_params(tree):
@@ -297,6 +336,27 @@ def test_cli_linkpred(tmp_path, capsys):
     assert result["impl"] == "torch" and result["dataset"] == "ogbl-ddi"
     assert np.isfinite(result["auc"])
     for flags in (["--use_kd", "1"], ["--neighbor_fanout", "4"],
-                  ["--impl", "pallas"]):
+                  ["--impl", "flash"]):
         assert cli.main(["linkpred", "--device", "cpu", *flags]) == 2
         assert "not ported" in capsys.readouterr().err
+
+
+def test_cli_linkpred_materialised_on_cpu(tmp_path, capsys):
+    """``--impl materialised`` on the CPU: the softmax, SpMM and SDDMM
+    operators' bookkeeping with their kernels' plain versions."""
+    rng = np.random.default_rng(9)
+    raw = tmp_path / "ogbl_ddi" / "raw"
+    raw.mkdir(parents=True)
+    np.savetxt(raw / "edge.csv", rng.integers(0, 80, (600, 2)),
+               delimiter=",", fmt="%d")
+    rc = cli.main(["linkpred", "--ogb_root", str(tmp_path), "--hidden", "8",
+                   "--epochs", "2", "--batch_size", "128", "--impl",
+                   "materialised", "--device", "cpu"])
+    assert rc == 0
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert result["impl"] == "materialised"
+    for key in ("hits@20", "hits@50", "auc", "final_train_loss"):
+        assert np.isfinite(result[key]), key
+    with pytest.raises(NotImplementedError, match="impl='materialised'"):
+        run_link_prediction(tiny_split(ogb), LinkPredConfig(impl="pallas"),
+                            device="cpu")

@@ -16,6 +16,11 @@ flow counts normalised by column, and x is U[0, 1) like the GCN's input
 features.  Signed inputs are held against dense products below.  The kernel itself is held
 against its plain version on the card (``cuda`` marker), at rtol 1e-5 and
 atol 1e-6 for a different float32 summation order.
+
+The gradient of a runtime edge weight is held against the JAX VJP with
+the same tolerance and non-negative inputs: the JAX side's SDDMM (and its
+fused dx + dw kernels) gather through the same bf16 hi/lo split
+(``spmm.py:1446-1450``).
 """
 
 import jax.numpy as jnp
@@ -178,6 +183,51 @@ def test_x_gradient_matches_pallas_vjp(graphs, jax_ops, transpose, weights):
     np.testing.assert_allclose(xt.grad.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
+@pytest.fixture(scope="module")
+def jax_bwd_ops(graphs):
+    _, gj = graphs
+    return {(hub, fused): JaxSpmmOperator.build(gj, interpret=True,
+                                                hub_split=hub,
+                                                fused_bwd=fused)
+            for hub in (0, None) for fused in (False, True)}
+
+
+@pytest.mark.parametrize("fused_bwd", [False, True],
+                         ids=["sddmm_dw", "fused_dw"])
+@pytest.mark.parametrize("hub", [0, None], ids=["no_hub", "auto_hub"])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_weight_gradient_matches_pallas_vjp(graphs, jax_bwd_ops, transpose,
+                                            hub, fused_bwd):
+    """``dw`` of a runtime edge weight (the port: one ``csr_sddmm_f32``
+    over the CSR direction, its plain version here) against the JAX
+    operator's VJP in both of its backward modes: the SDDMM kernels
+    (``fused_bwd=False``) and the fused dx + dw kernels."""
+    import jax
+
+    gt, _ = graphs
+    rng = np.random.default_rng(11 + 2 * transpose)
+    n_in, n_out = (gt.n_src, gt.n_dst) if transpose else (gt.n_dst, gt.n_src)
+    x = rng.random((n_in, 24)).astype(np.float32)
+    ct = rng.random((n_out, 24)).astype(np.float32)
+    ew = gt.weight.numpy() * (0.5 + rng.random(gt.num_padded_edges)
+                              ).astype(np.float32)
+    op_j = jax_bwd_ops[(hub, fused_bwd)]
+    _, vjp = jax.vjp(lambda x, w: op_j(x, transpose=transpose,
+                                       edge_weight=w),
+                     jnp.asarray(x), jnp.asarray(ew))
+    want_dx, want_dw = (np.asarray(v) for v in vjp(jnp.asarray(ct)))
+    op = cuda_spmm.SpmmOperator(gt, device="cpu")
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(ew).requires_grad_()
+    op(xt, transpose=transpose, edge_weight=wt).backward(torch.from_numpy(ct))
+    assert wt.grad.shape == wt.shape
+    np.testing.assert_allclose(wt.grad.numpy(), want_dw, rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(xt.grad.numpy(), want_dx, rtol=RTOL,
+                               atol=ATOL)
+    assert not wt.grad[gt.num_edges:].any()    # pad slots get no gradient
+
+
 def test_reduce_edges_sums_rows_into_receivers(graphs):
     gt, _ = graphs
     op = cuda_spmm.SpmmOperator(gt, device="cpu")
@@ -211,7 +261,7 @@ def test_warps_for():
 
 
 def test_build_layout_and_failure(tmp_path, monkeypatch):
-    assert _build.sources() == ["rank1_gat", "spmm"]
+    assert _build.sources() == ["rank1_gat", "sddmm", "softmax", "spmm"]
     path = _build.library_path("spmm")
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert path.parent.parts[-2:] == ("build", "msha_gnn_torch")
@@ -260,7 +310,18 @@ def test_kernel_matches_plain_on_card(graphs):
         assert cuda_spmm.launches == before + 2
         want = op(gout, transpose=not transpose)
         torch.testing.assert_close(x.grad, want, rtol=1e-5, atol=1e-6)
-    # runtime weights that need a gradient wait for the SDDMM kernels
-    w = g.weight.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="_sddmm_kernel"):
-        op(torch.randn(g.n_dst, 8, device="cuda"), edge_weight=w)
+    # runtime weights that need a gradient: dw from csr_sddmm_f32
+    from msha_gnn_torch.ops.cuda import sddmm as cuda_sddmm
+
+    for transpose, n_in in ((False, g.n_dst), (True, g.n_src)):
+        x = torch.rand(n_in, 8, generator=gen, device="cuda")
+        w = g.weight.clone().requires_grad_()
+        gout = torch.rand(g.n_src if not transpose else g.n_dst, 8,
+                          generator=gen, device="cuda")
+        before = cuda_sddmm.launches
+        op(x, transpose=transpose, edge_weight=w).backward(gout)
+        assert cuda_sddmm.launches == before + 1
+        rows, cols = (x, gout) if transpose else (gout, x)
+        want = cuda_sddmm.csr_sddmm_plain(op.ptr, op.col, rows, cols,
+                                          g.num_padded_edges)
+        torch.testing.assert_close(w.grad, want, rtol=1e-5, atol=1e-6)
