@@ -27,6 +27,13 @@ Phases, each reported on its own lines; any failure exits non-zero:
    row fully masked, ``seg_softmax_bwd_f32``, and ``csr_spmm_f32``
    weighted by attention, forward and transposed) against their plain
    versions on the same linkpred graph; times and bounds as in phase 3.
+3d. the flash-GAT kernels (``flash_fwd_f32`` at dropout rate 0 and 0.5,
+   ``flash_bwd_f32`` at 0.5, and ``csr_spmm_f32`` weighted by the
+   backward's ``q`` as its dx) against their plain versions on the same
+   linkpred graph, on the path's logits and on the same logits x30 (the
+   online renormalisation), and on a small graph with empty rows and n not
+   a multiple of 128 (an empty row's 0 and NEG, the zeroed pad slots);
+   times and bounds as in phase 3.
 5. the link-prediction training path at full width
    (``LinkPredConfig()``: hidden 64, 2 heads, dropout 0.5, batch 4096):
    one training step that must launch exactly its kernels, the same step
@@ -38,6 +45,10 @@ Phases, each reported on its own lines; any failure exits non-zero:
    step and against the fused step from the same state, one epoch whose
    loss must fall and follow the fused epoch's step by step, the idle
    share, and the evaluation's launches.
+7. the same with ``impl="flash"``: one step that must launch exactly the
+   flash path's kernels, held against the plain step and against the fused
+   step from the same state, one epoch that must follow the fused epoch's
+   step by step, the idle share, and the evaluation's launches.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -80,12 +91,17 @@ STEP_LOSS_RTOL = 1e-5                  # kernel step vs plain step, loss
 # atol of this share of each leaf's largest plain value (the plain path's
 # index_add_ adds by atomics)
 STEP_GRAD_RTOL, STEP_GRAD_ATOL_REL = 1e-3, 1e-5
-# materialised vs fused step loss: each is held to the plain step at
-# STEP_LOSS_RTOL, so the two may differ by twice that
+# materialised or flash vs fused step loss: each is held to the plain step
+# at STEP_LOSS_RTOL, so the two may differ by twice that
 PATHS_LOSS_RTOL = 2 * STEP_LOSS_RTOL
-# materialised vs fused epoch, each step's loss: the same function from the
-# same state, its float32 sums in another order, through 40 Adam steps
-EPOCH_LOSS_RTOL = 1e-4
+# materialised or flash vs fused epoch, each step's loss: the same function
+# from the same state, its float32 sums in another order, through 40 Adam
+# steps.  That rounding alone moves a float32 epoch off a float64 one, and
+# the ways (the plain path among them) off each other, by up to 1.6e-4
+# (PERF.md, from scripts_torch_epoch_drift.py), so 3e-4.  A wrong kernel
+# shows on the first step, held to the plain step at STEP_LOSS_RTOL and
+# STEP_GRAD_*; this check catches what grows over the steps
+EPOCH_LOSS_RTOL = 3e-4
 
 
 def log(msg: str) -> None:
@@ -566,7 +582,157 @@ def phase_materialised_kernels(split):
     return results
 
 
+def flash_bounds(n, e, n_out, d, x_rows):
+    """Least times (ms, bound) of the flash-GAT kernels on this data: every
+    input read once (``logits`` and ``col`` for the E real edges, the
+    ``x_rows`` rows of x that the edges reference), every output written
+    once.  Forward: ``out`` and ``lse``; 2 E d flops (the aggregation's
+    multiply-add).  Backward: ``gout``, ``out`` and ``lse`` read too, ``dl``
+    and ``q`` [n_out] written; 2 E d flops (``<gout[r], x[j]>``) and 2 n d
+    (``<gout[r], out[r]>``)."""
+    common = 4 * (n + 1) + 8 * e + 4 * x_rows * d + 4 * n
+    fwd = bound(common + 4 * n * d, 2 * e * d)
+    bwd = bound(common + 2 * 4 * n * d + 8 * n_out, 2 * e * d + 2 * n * d)
+    return fwd, bwd
+
+
+def phase_flash_kernels(split):
+    """Phase 3d: flash_fwd_f32, flash_bwd_f32 and the q-weighted dx SpMM
+    vs their plain versions at the linkpred shapes, and on a small graph
+    with empty rows."""
+    from msha_gnn_torch.graph import BipartiteGraph
+    from msha_gnn_torch.ops import sddmm
+    from msha_gnn_torch.ops.cuda import flash_gat as fg
+    from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
+
+    g = split["graph"].to(DEVICE)
+    op = fg.FlashGatOperator(g, dropout_rate=0.5)
+    spmm = op.spmm
+    n, e, e_pad, d = g.n_src, g.num_edges, g.num_padded_edges, LP_D
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    x = torch.rand((n, d), generator=gen, device=DEVICE) - 0.5
+    gout = torch.rand((n, d), generator=gen, device=DEVICE) - 0.5
+    # the path's logits: the plain rank-1 sddmm of s_src = h a_src, t = h a_dst
+    logits = sddmm(g, torch.randn(n, generator=gen, device=DEVICE),
+                   torch.randn(n, generator=gen, device=DEVICE))
+    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=DEVICE)
+    log(f"  graph: {n} rows, {e} edges ({e_pad} padded), d {d}; logits "
+        f"in [{float(logits[:e].min()):.2f}, {float(logits[:e].max()):.2f}]")
+    log(f"  tolerances: out, lse, q at rtol {KERNEL_RTOL}, atol "
+        f"{KERNEL_ATOL} (f32, another summation order); dl (a difference "
+        f"of two d-term dots) and the dx SpMM at rtol {SUM_RTOL}, atol "
+        f"{SUM_ATOL_REL} x max|value|")
+
+    def check(label, graph_op, lg, xx, gg, rate, n_rows):
+        """Both kernels vs plain on one input; returns the max errors."""
+        args = (graph_op.ptr, graph_op.col, lg, xx, seed, rate, n_rows)
+        out, lse = fg.flash_fwd(*args)
+        want_out, want_lse = fg.flash_gat_plain(*args)
+        bwd_args = (graph_op.ptr, graph_op.col, lg, xx, gg, want_out,
+                    want_lse, seed, rate, n_rows)
+        junk = torch.full((2, lg.numel()), float("nan"), device=DEVICE)
+        del junk  # a pad slot the kernel does not write shows as NaN
+        dl, q = fg.flash_bwd(*bwd_args)
+        want_dl, want_q = fg.flash_gat_bwd_plain(*bwd_args)
+        torch.cuda.synchronize()
+        fwd_err = max(
+            close(f"flash_fwd_f32[{label}, rate {rate}] out", out, want_out,
+                  KERNEL_RTOL, KERNEL_ATOL),
+            close(f"flash_fwd_f32[{label}, rate {rate}] lse", lse, want_lse,
+                  KERNEL_RTOL, KERNEL_ATOL))
+        bwd_err = max(
+            close(f"flash_bwd_f32[{label}, rate {rate}] q", q, want_q,
+                  KERNEL_RTOL, KERNEL_ATOL),
+            close(f"flash_bwd_f32[{label}, rate {rate}] dl", dl, want_dl,
+                  SUM_RTOL, SUM_ATOL_REL * float(want_dl.abs().max())))
+        n_edges = graph_op.col.numel()
+        if dl[n_edges:].any() or q[n_edges:].any():
+            raise AssertionError("flash_bwd_f32 left a pad slot nonzero")
+        empty = graph_op.ptr[1:] == graph_op.ptr[:-1]
+        if out[empty].any() or not bool((lse[empty] == fg.NEG).all()):
+            raise AssertionError("an empty row got output or a finite lse")
+        return fwd_err, bwd_err, int(empty.sum())
+
+    errs = {}
+    for label, lg in (("path logits", logits), ("logits x30", logits * 30)):
+        for rate in (0.0, 0.5):
+            errs[label, rate] = check(label, op, lg, x, gout, rate, n)[:2]
+    rng = np.random.default_rng(5)
+    dense = ((rng.random((300, 120)) < 0.05)
+             * rng.integers(1, 5, (300, 120))).astype(np.float32)
+    dense[[0, 151, 299]] = 0.0
+    small = BipartiteGraph.from_dense(dense, pad_to_multiple=128).to(DEVICE)
+    small_op = fg.FlashGatOperator(small)
+    s_logits = torch.randn(small.num_padded_edges, generator=gen,
+                           device=DEVICE) * 3
+    s_x = torch.rand((120, d), generator=gen, device=DEVICE) - 0.5
+    s_g = torch.rand((300, d), generator=gen, device=DEVICE) - 0.5
+    for rate in (0.0, 0.5):
+        small_err = check("small graph", small_op, s_logits, s_x, s_g, rate,
+                          300)
+    log(f"  small graph: 300 x 120, {small.num_edges} edges "
+        f"({small.num_padded_edges} padded), {small_err[2]} empty rows: 0 "
+        "and NEG, pads 0")
+
+    x_rows = int(torch.unique(op.col).numel())
+    (fwd_b, fwd_by), (bwd_b, bwd_by) = flash_bounds(n, e, e_pad, d, x_rows)
+    no_lib = ("none: no single PyTorch call computes the row softmax, the "
+              "hashed dropout and the aggregation together")
+    results = []
+    for rate in (0.0, 0.5):
+        args = (op.ptr, op.col, logits, x, seed, rate, n)
+        ms = time_ms(lambda: fg.flash_fwd(*args))
+        plain_ms = time_ms(lambda: fg.flash_gat_plain(*args))
+        log(f"  flash_fwd_f32[rate {rate}]: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {fwd_b:.5f} ms ({fwd_by}); library "
+            f"{no_lib}")
+        err = max(errs[label, rate][0] for label in ("path logits",
+                                                     "logits x30"))
+        results.append(entry(
+            f"flash_fwd_f32[rate {rate}]", "flash_gat.cu",
+            "msha_gnn_tpu/ops/pallas/flash_gat.py:51 _flash_kernel", err, ms,
+            plain_ms, (fwd_b, fwd_by), None))
+    out, lse = fg.flash_gat_plain(op.ptr, op.col, logits, x, seed, 0.5, n)
+    bwd_args = (op.ptr, op.col, logits, x, gout, out, lse, seed, 0.5, n)
+    ms = time_ms(lambda: fg.flash_bwd(*bwd_args))
+    plain_ms = time_ms(lambda: fg.flash_gat_bwd_plain(*bwd_args))
+    log(f"  flash_bwd_f32[rate 0.5]: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+        f" ms, bound {bwd_b:.5f} ms ({bwd_by}); library {no_lib}")
+    err = max(errs[label, 0.5][1] for label in ("path logits", "logits x30"))
+    results.append(entry(
+        "flash_bwd_f32[rate 0.5]", "flash_gat.cu",
+        "msha_gnn_tpu/ops/pallas/flash_gat.py:167 _flash_bwd_kernel", err,
+        ms, plain_ms, (bwd_b, bwd_by), None))
+
+    # dx = A(q).T gout: the q-weighted transposed SpMM, as the operator runs it
+    _, q = fg.flash_gat_bwd_plain(*bwd_args)
+    w_t = spmm.weights(q, True)
+    dx_args = (spmm.t_ptr, spmm.t_col, w_t, gout, n)
+    got = cuda_spmm.csr_spmm(*dx_args, spmm.warps_t)
+    want = cuda_spmm.csr_spmm_plain(*dx_args)
+    torch.cuda.synchronize()
+    err = close("csr_spmm_f32[flash dx]", got, want, SUM_RTOL,
+                SUM_ATOL_REL * float(want.abs().max()))
+    a_csr = torch.sparse_csr_tensor(spmm.t_ptr, spmm.t_col, w_t, size=(n, n))
+    if not torch.allclose(torch.sparse.mm(a_csr, gout), want, rtol=1e-4,
+                          atol=1e-5):
+        raise AssertionError("torch.sparse.mm yardstick disagrees")
+    ms = time_ms(lambda: cuda_spmm.csr_spmm(*dx_args, spmm.warps_t))
+    plain_ms = time_ms(lambda: cuda_spmm.csr_spmm_plain(*dx_args))
+    library_ms = time_ms(lambda: torch.sparse.mm(a_csr, gout))
+    bnd = spmm_bound(spmm.t_ptr, spmm.t_col, gout, n)
+    log(f"  csr_spmm_f32[flash dx]: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+        f" ms, torch.sparse.mm {library_ms:.4f} ms, bound {bnd[0]:.5f} ms "
+        f"({bnd[1]})")
+    results.append(entry(
+        "csr_spmm_f32[flash dx]", "spmm.cu",
+        "msha_gnn_tpu/ops/pallas/spmm.py:244 _visit_kernel", err, ms,
+        plain_ms, bnd, library_ms))
+    return results
+
+
 def read_counts(op=None):
+    from msha_gnn_torch.ops.cuda import flash_gat as fg
     from msha_gnn_torch.ops.cuda import rank1_gat as r1
     from msha_gnn_torch.ops.cuda import sddmm as cuda_sddmm
     from msha_gnn_torch.ops.cuda import softmax as sm
@@ -578,13 +744,16 @@ def read_counts(op=None):
               "csr_spmm_f32": cuda_spmm.launches,
               "csr_sddmm_f32": cuda_sddmm.launches,
               "seg_softmax_fwd_f32": sm.fwd_launches,
-              "seg_softmax_bwd_f32": sm.bwd_launches}
+              "seg_softmax_bwd_f32": sm.bwd_launches,
+              "flash_fwd_f32": fg.fwd_launches,
+              "flash_bwd_f32": fg.bwd_launches}
     if op is not None:
         counts["csr_spmm_f32 transposed"] = op.launches_transposed
     return counts
 
 
 def zero_counts(op=None):
+    from msha_gnn_torch.ops.cuda import flash_gat as fg
     from msha_gnn_torch.ops.cuda import rank1_gat as r1
     from msha_gnn_torch.ops.cuda import sddmm as cuda_sddmm
     from msha_gnn_torch.ops.cuda import softmax as sm
@@ -593,6 +762,7 @@ def zero_counts(op=None):
     r1.fwd_launches = r1.bwd_launches = r1.keep_launches = 0
     cuda_spmm.launches = 0
     cuda_sddmm.launches = sm.fwd_launches = sm.bwd_launches = 0
+    fg.fwd_launches = fg.bwd_launches = 0
     if op is not None:
         op.launches = op.launches_transposed = 0
 
@@ -602,7 +772,7 @@ def expected(**nonzero):
     names = ("r1l_fwd_f32", "r1l_bwd_f32", "r1l_keep_scale_f32",
              "csr_spmm_f32", "csr_sddmm_f32",
              "seg_softmax_fwd_f32", "seg_softmax_bwd_f32",
-             "csr_spmm_f32 transposed")
+             "flash_fwd_f32", "flash_bwd_f32", "csr_spmm_f32 transposed")
     return {k: nonzero.get(k.replace(" ", "_"), 0) for k in names}
 
 
@@ -613,16 +783,19 @@ STEP_WANT = {
     "materialised": expected(csr_spmm_f32=6, csr_spmm_f32_transposed=3,
                              csr_sddmm_f32=3, seg_softmax_fwd_f32=3,
                              seg_softmax_bwd_f32=3, r1l_keep_scale_f32=3),
+    "flash": expected(flash_fwd_f32=3, flash_bwd_f32=3, csr_spmm_f32=3,
+                      csr_spmm_f32_transposed=3),
 }
 EVAL_WANT = {
     "fused": expected(r1l_fwd_f32=3),
     "materialised": expected(csr_spmm_f32=3, seg_softmax_fwd_f32=3),
+    "flash": expected(flash_fwd_f32=3),
 }
 
 
 def phase_linkpred(split, impl):
-    """Phases 5 (``impl="fused"``) and 6 (``"materialised"``): the linkpred
-    training path at full width on the card."""
+    """Phases 5 (``impl="fused"``), 6 (``"materialised"``) and 7
+    (``"flash"``): the linkpred training path at full width on the card."""
     from torch.profiler import ProfilerActivity, profile
 
     from msha_gnn_torch.ops.cuda.spmm import operator_for
@@ -752,6 +925,20 @@ def phase_linkpred(split, impl):
     }
     log(f"  linkpred ({impl}): {json.dumps(summary)}")
     return step_counts, eval_counts, losses
+
+
+def follow_fused_epoch(impl, losses, fused_losses):
+    """Each step loss of ``impl``'s epoch against the fused epoch's: the
+    same function from the same state."""
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses, fused_losses)]
+    epoch_err = max(errs)
+    shown = sorted({*range(0, len(errs), 8), len(errs) - 1})
+    log(f"  epoch: each of {len(losses)} step losses vs the fused epoch's, "
+        f"max rel err {epoch_err:.2e} (rtol {EPOCH_LOSS_RTOL}); by step: "
+        + ", ".join(f"{i} {errs[i]:.1e}" for i in shown))
+    if len(losses) != len(fused_losses) or epoch_err > EPOCH_LOSS_RTOL:
+        raise AssertionError(f"the {impl} epoch's losses differ from the "
+                             "fused epoch's")
 
 
 def dense_reference(fg, model):
@@ -954,6 +1141,9 @@ def main() -> int:
     log("phase 3c: materialised attention kernels vs plain, linkpred graph")
     mat_kernels = phase_materialised_kernels(split)
 
+    log("phase 3d: flash-GAT kernels vs plain, linkpred graph")
+    flash_kernels = phase_flash_kernels(split)
+
     log("phase 4: GCN serving path")
     launches = phase_slice(fg)
     for k in kernels:
@@ -973,13 +1163,7 @@ def main() -> int:
 
     log("phase 6: linkpred training path, impl materialised")
     step, _, losses = phase_linkpred(split, "materialised")
-    # the same function from the same state: the fused epoch's curve
-    epoch_err = max(abs(a - b) / abs(b) for a, b in zip(losses, fused_losses))
-    log(f"  epoch: each of {len(losses)} step losses vs the fused epoch's, "
-        f"max rel err {epoch_err:.2e} (rtol {EPOCH_LOSS_RTOL})")
-    if len(losses) != len(fused_losses) or epoch_err > EPOCH_LOSS_RTOL:
-        raise AssertionError("the materialised epoch's losses differ from "
-                             "the fused epoch's")
+    follow_fused_epoch("materialised", losses, fused_losses)
     per_name = {
         "r1l_keep_scale_f32[rate 0.5]": step["r1l_keep_scale_f32"],
         "csr_sddmm_f32[dw]": step["csr_sddmm_f32"],
@@ -991,6 +1175,18 @@ def main() -> int:
     for k in mat_kernels:
         k["launches"] = per_name[k["name"]]
     kernels += mat_kernels
+
+    log("phase 7: linkpred training path, impl flash")
+    step, evaluation, losses = phase_linkpred(split, "flash")
+    follow_fused_epoch("flash", losses, fused_losses)
+    # rate 0.5 runs in training steps, rate 0 in the evaluation's encoding
+    per_name = {"flash_fwd_f32[rate 0.0]": evaluation["flash_fwd_f32"],
+                "flash_fwd_f32[rate 0.5]": step["flash_fwd_f32"],
+                "flash_bwd_f32[rate 0.5]": step["flash_bwd_f32"],
+                "csr_spmm_f32[flash dx]": step["csr_spmm_f32 transposed"]}
+    for k in flash_kernels:
+        k["launches"] = per_name[k["name"]]
+    kernels += flash_kernels
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{kernels}")

@@ -159,7 +159,9 @@ def main(argv=None) -> int:
     p_lp.add_argument("--neighbor_fanout", type=int, default=0)
     p_lp.add_argument("--use_kd", type=int, default=0)
     p_lp.add_argument("--seed", type=int, default=42)
-    p_lp.add_argument("--impl", default="auto")
+    p_lp.add_argument("--impl", default="auto",
+                      help="auto (fused on cuda, torch on cpu) | torch | "
+                           "fused | materialised | flash")
     p_lp.add_argument("--log_path", default=None)
     p_lp.set_defaults(fn=cmd_linkpred)
 

@@ -25,10 +25,10 @@
 // hi/lo split; none of that carries over.  Here the work is plain f32.
 //
 // The keep mask is a pure function of (seed, slot) with slot = e, the
-// edge's index in the padded CSR array: the murmur3 finalizer of
-// _hash01 (rank1_gat.py:66-82) in uint32 arithmetic (wrapping, logical
-// shifts), bit for bit.  Forward and backward hash the same slots, so they
-// see the same mask and no mask is stored.
+// edge's index in the padded CSR array: gat::keep_scale of gat_common.cuh,
+// the murmur3 finalizer of _hash01 (rank1_gat.py:66-82) in uint32
+// arithmetic, bit for bit.  Forward and backward hash the same slots, so
+// they see the same mask and no mask is stored.
 //
 // Bound.  Forward: operations at the linkpred shapes (4 E d flops against
 // a few MB of bytes, x staying in L2).  Backward: bytes, the E x d write
@@ -40,7 +40,9 @@
 // a group are in flight together; lanes run over 32-wide feature tiles, so
 // any d works.  A warp keeps its own online-softmax state (m, s) and
 // accumulates into its own row of shared memory; the warps merge in a
-// fixed order.  No float atomics anywhere, so results are deterministic.
+// fixed order (gat::fold_group and gat::merge_row of gat_common.cuh,
+// shared with flash_fwd_f32).  No float atomics anywhere, so results are
+// deterministic.
 // da: each block writes its row's partial, and a second grid in the same
 // entry point adds the partials in a fixed order (full f32, as the TPU
 // kernel keeps it on purpose, rank1_gat.py:384-388).
@@ -49,36 +51,20 @@
 
 #include <cstdint>
 
+#include "gat_common.cuh"
+
 namespace {
 
-constexpr int kWarp = 32;
+using gat::fold_group;
+using gat::keep_scale;
+using gat::kNeg;
+using gat::kWarp;
+using gat::leaky;
+using gat::merge_row;
+using gat::warp_sum;
+
 constexpr int kMaxWarps = 8;
 constexpr int kUnroll = 4;
-constexpr float kNeg = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = kWarp / 2; o > 0; o /= 2) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float leaky(float pre, float slope) {
-  return pre >= 0.0f ? pre : slope * pre;
-}
-
-// _hash01 + _keep_scale of rank1_gat.py, on uint32.
-__device__ __forceinline__ float keep_scale(uint32_t slot, uint32_t seed,
-                                            float rate, float scale) {
-  uint32_t h = slot * 0x9E3779B9u + seed;
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  const float u = static_cast<float>(h & 0xFFFFFFu) * (1.0f / 16777216.0f);
-  return u >= rate ? scale : 0.0f;
-}
 
 // Dynamic shared memory: a[d] | acc[n_warps][d] | m[n_warps] | s[n_warps]
 template <bool kDrop>
@@ -126,55 +112,15 @@ r1l_fwd_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
       }
     }
     float l[kUnroll];
-    float m_new = m;
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       t[u] = warp_sum(t[u]);
       l[u] = xrow[u] >= 0 ? leaky(c_row + t[u], slope) : kNeg;
-      m_new = fmaxf(m_new, l[u]);
     }
-    const float rescale = expf(m - m_new);
-    float w[kUnroll];
-    float p_sum = 0.0f;
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const float p = xrow[u] >= 0 ? expf(l[u] - m_new) : 0.0f;
-      p_sum += p;
-      w[u] = kDrop ? p * keep_scale(static_cast<uint32_t>(e0 + u), seed, rate,
-                                    scale)
-                   : p;
-    }
-    s = s * rescale + p_sum;
-    m = m_new;
-    for (int f = lane; f < d; f += kWarp) {
-      float v = acc[f] * rescale;
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (xrow[u] >= 0) v = fmaf(w[u], __ldg(x + xrow[u] + f), v);
-      }
-      acc[f] = v;
-    }
+    fold_group<kUnroll, kDrop>(l, xrow, e0, seed, rate, scale, x, acc, d,
+                               lane, m, s);
   }
-  if (lane == 0) {
-    m_s[warp] = m;
-    s_s[warp] = s;
-  }
-  __syncthreads();
-
-  // merge the warps' (m, s, acc) in warp order
-  float m_row = kNeg;
-  for (int k = 0; k < n_warps; ++k) m_row = fmaxf(m_row, m_s[k]);
-  float s_row = 0.0f;
-  for (int k = 0; k < n_warps; ++k) s_row += s_s[k] * expf(m_s[k] - m_row);
-  const float inv = s_row > 0.0f ? 1.0f / s_row : 0.0f;
-  for (int f = threadIdx.x; f < d; f += blockDim.x) {
-    float v = 0.0f;
-    for (int k = 0; k < n_warps; ++k) {
-      v += acc_all[k * d + f] * expf(m_s[k] - m_row);
-    }
-    out[static_cast<int64_t>(row) * d + f] = s_row > 0.0f ? v * inv : 0.0f;
-  }
-  if (threadIdx.x == 0) lse[row] = s_row > 0.0f ? m_row + logf(s_row) : kNeg;
+  merge_row(m, s, acc_all, m_s, s_s, row, d, out, lse);
 }
 
 // Dynamic shared memory: a[d] | g[d] | da[n_warps][d] | dc[n_warps]
@@ -332,8 +278,9 @@ size_t bwd_smem(int d, int n_warps) {
 
 constexpr size_t kMaxSmem = 48 * 1024;
 
+// d = 0 is a shape: the logits are c[r] and dc does not vanish.
 bool bad_shape(int n_rows, int d, int n_warps) {
-  return n_rows <= 0 || d <= 0 || n_warps < 1 || n_warps > kMaxWarps;
+  return n_rows <= 0 || d < 0 || n_warps < 1 || n_warps > kMaxWarps;
 }
 
 }  // namespace
@@ -384,7 +331,7 @@ extern "C" int r1l_bwd_f32(const int* ptr, const int* col, const float* c,
         da_part, d);
   }
   const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess || d == 0) return static_cast<int>(err);
   r1l_da_reduce_kernel<<<(d + kWarp - 1) / kWarp, kWarp * kWarp, 0, stream>>>(
       da_part, da, n_rows, d);
   return static_cast<int>(cudaGetLastError());

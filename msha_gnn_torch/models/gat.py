@@ -17,12 +17,18 @@ destination features, elu.  The parameters keep the JAX layout, ``W``
   mask on ``att`` (``r1l_keep_scale_f32``, one launch),
   ``spmm(edge_weight=att, impl="cuda")`` (``csr_spmm_f32``
   forward and ``dx``, ``csr_sddmm_f32`` for the weights' gradient), elu;
-* ``"torch"``: the same pipeline on the plain versions;
+* ``"flash"``: the plain ``sddmm`` logits, then
+  :class:`~msha_gnn_torch.ops.cuda.flash_gat.FlashGatOperator`
+  (``flash_fwd_f32``: the row softmax, the hashed attention dropout and
+  the aggregation in one kernel; backward ``flash_bwd_f32`` and the
+  ``q``-weighted transposed ``csr_spmm_f32`` for ``dx``), elu;
+* ``"torch"``: the materialised pipeline on the plain versions;
 * ``"auto"``: ``"fused"`` for CUDA tensors, ``"torch"`` on the CPU.
 
-The three compute one function: from one generator state they draw the
-same keep masks.  The JAX package's materialised path draws its attention
-dropout from ``nn.Dropout`` (threefry), which the port does not reproduce.
+The four compute one function: from one generator state they draw the
+same keep masks, each hashed from ``(seed, CSR edge index)``.  The JAX
+package's materialised path draws its attention dropout from
+``nn.Dropout`` (threefry), which the port does not reproduce.
 
 With dropout in training, a layer draws its int32 seed from the generator
 it is given, as the JAX layer draws it from ``make_rng("dropout")``.
@@ -39,13 +45,11 @@ from ..graph import BipartiteGraph
 from ..ops import edge_softmax, sddmm, spmm
 from .common import dropout, elu, xavier_uniform
 
-IMPLS = ("torch", "fused", "materialised")
+IMPLS = ("torch", "fused", "materialised", "flash")
 UNPORTED_IMPLS = {
     "xla": "the JAX package's XLA edge path is the port's impl='torch'",
     "pallas": "the JAX package's materialised attention pipeline is the "
               "port's impl='materialised'",
-    "flash": "flash-GAT (ROADMAP queue 1 item 7: _flash_kernel, "
-             "_flash_bwd_kernel)",
 }
 
 
@@ -103,9 +107,16 @@ class SparseGATLayer(nn.Module):
             if seed is not None:
                 return elu(op.drop(s_src, av[d:], h, seed))
             return elu(op(s_src, av[d:], h))
-        ops_impl = "cuda" if impl == "materialised" else "torch"
         logits = sddmm(graph, s_src, h @ av[d:],
                        negative_slope=self.negative_slope)
+        if impl == "flash":
+            from ..ops.cuda.flash_gat import FlashGatOperator
+
+            op = FlashGatOperator(graph, dropout_rate=rate)
+            if seed is not None:
+                return elu(op.drop(logits, h, seed))
+            return elu(op(logits, h))
+        ops_impl = "cuda" if impl == "materialised" else "torch"
         att = edge_softmax(graph, logits, impl=ops_impl)
         if seed is not None:
             from ..ops.cuda.rank1_gat import keep_scale, keep_scale_plain

@@ -23,6 +23,7 @@ and what bounds them.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import TYPE_CHECKING, Optional
 
 import numpy as np
@@ -211,8 +212,10 @@ def _check(dev, rate, **tensors):
         raise ValueError(f"rate must be in [0, 1), got {rate}")
 
 
+@functools.lru_cache(maxsize=None)
 def _warps(d: int) -> int:
-    """Warps per block: the most (up to 8) whose shared memory fits."""
+    """Warps per block: the most (up to 8) whose shared memory fits (asked
+    of the library once per ``d``)."""
     w = _kernel_lib().r1l_max_warps(d)
     if w < 1:
         raise ValueError(f"feature width {d} does not fit the kernels' "
@@ -246,7 +249,7 @@ def r1l_fwd(ptr, col, c, a, x, seed, rate: float, slope: float, n_rows: int):
     d = _shapes(ptr, col, c, a, x, n_rows)
     out = torch.empty((n_rows, d), dtype=torch.float32, device=x.device)
     lse = torch.empty(n_rows, dtype=torch.float32, device=x.device)
-    if n_rows == 0 or d == 0:
+    if n_rows == 0:
         return out, lse
     lib = _kernel_lib()
     with torch.cuda.device(x.device):
@@ -281,8 +284,8 @@ def r1l_bwd(ptr, col, c, a, x, gout, out, lse, seed, rate: float,
     z = torch.empty((col.numel(), d), dtype=torch.float32, device=dev)
     dc = torch.empty(n_rows, dtype=torch.float32, device=dev)
     da = torch.empty(d, dtype=torch.float32, device=dev)
-    if n_rows == 0 or d == 0:
-        return z, dc, da
+    if n_rows == 0:
+        return z, dc, da.zero_()
     da_part = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
     lib = _kernel_lib()
     with torch.cuda.device(dev):

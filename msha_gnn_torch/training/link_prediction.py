@@ -6,8 +6,9 @@ negatives, evaluated by OGB Hits@K and AUC
 On CUDA ``impl="auto"`` resolves to ``"fused"``: every ``SparseGATLayer``
 runs the hand-written rank-1 GAT kernels, attention dropout included.
 ``impl="materialised"`` runs the materialised attention pipeline (the
-row-softmax, SpMM and SDDMM kernels).  On the CPU ``"auto"`` resolves to
-``"torch"``, the plain path.  Training is a plain
+row-softmax, SpMM and SDDMM kernels), ``impl="flash"`` flash-GAT (the
+fused softmax-aggregation kernels over the plain logits).  On the CPU
+``"auto"`` resolves to ``"torch"``, the plain path.  Training is a plain
 loop of steps (:func:`train_step`); the JAX package's ``lax.scan`` over an
 epoch is a dispatch device of its own and has no counterpart here.  The
 numpy draws (batch order, negatives) are the JAX package's, so one seed
@@ -47,7 +48,8 @@ class LinkPredConfig:
     neighbor_fanout: int = 0      # 0 = full graph; > 0 is not ported
     use_kd: bool = False          # not ported (nor its weights)
     seed: int = 42
-    impl: str = "auto"            # auto | torch | fused | materialised
+    # auto | torch | fused | materialised | flash
+    impl: str = "auto"
 
 
 class LinkPredModel(nn.Module):
@@ -123,7 +125,7 @@ def build_link_prediction(split, cfg: LinkPredConfig,
     model = LinkPredModel(split["n"], cfg,
                           generator=torch.Generator().manual_seed(cfg.seed))
     model = model.to(dev)
-    if impl in ("fused", "materialised"):
+    if impl in ("fused", "materialised", "flash"):
         from ..ops.cuda.spmm import operator_for
 
         operator_for(graph)  # the CSR/CSC build is set-up, not a step

@@ -3,7 +3,8 @@
     python3 scripts_torch_profile.py [--fills 20] [--requests 200] \
         [--steps 10] [--trace build/profile/fill_trace.json] \
         [--step-trace build/profile/step_trace.json] \
-        [--materialised-step-trace build/profile/step_trace_mat.json]
+        [--materialised-step-trace build/profile/step_trace_mat.json] \
+        [--flash-step-trace build/profile/step_trace_flash.json]
 
 GCN serving, on a synthetic flow graph of the 2015 data's shape (39,179
 sources, 32 recipients, 233,887 records) with the GCN at full width
@@ -21,12 +22,16 @@ dropout 0.5, batch 4096) on synthetic ogbl-ddi (seed 42):
 * ``--steps`` training steps (``train_step``: forward, backward, Adam)
   under ``torch.profiler``: device time by kernel per step, host wall time
   per step, and the device's idle share; once for the fused path
-  (``impl="auto"``) and once for the materialised attention pipeline
-  (``impl="materialised"``).
+  (``impl="auto"``), once for the materialised attention pipeline
+  (``impl="materialised"``) and once for flash-GAT (``impl="flash"``);
+* the three ways' unprofiled step wall side by side: ``ROUNDS`` rounds
+  of ``--steps`` synchronised steps of each, the order of materialised and
+  flash alternating from round to round; per way the median step of each
+  round, the median and quartiles of those, and the rounds flash won.
 
 Prints the card's name and power limit first and one JSON summary last;
-the Chrome traces go to ``--trace``, ``--step-trace`` and
-``--materialised-step-trace``.
+the Chrome traces go to ``--trace``, ``--step-trace``,
+``--materialised-step-trace`` and ``--flash-step-trace``.
 Needs CUDA; exits 1 without it.
 """
 
@@ -44,6 +49,10 @@ import urllib.request
 
 import numpy as np
 import torch
+
+# rounds of the side-by-side step timing: the pair count at which flash is
+# read against materialised (PERF.md counts it faster if it wins 9 of 10)
+ROUNDS = 10
 
 
 def _device_us(evt, self_only: bool) -> float:
@@ -115,6 +124,53 @@ def profile_linkpred(steps: int, trace: str, impl: str = "auto") -> dict:
     }
 
 
+def compare_steps(steps: int) -> dict:
+    """Unprofiled wall time of ``train_step`` for fused, materialised and
+    flash from one process: ``ROUNDS`` rounds of ``steps`` synchronised
+    steps of each way (fused first, then materialised and flash in an order
+    that alternates), each way's median step per round."""
+    from msha_gnn_torch.data import load_ddi, split_edges
+    from msha_gnn_torch.training import (LinkPredConfig,
+                                         build_link_prediction, train_step)
+    from msha_gnn_torch.training.link_prediction import epoch_batches
+
+    split = split_edges(load_ddi(seed=42), seed=42)
+    impls = ("fused", "materialised", "flash")
+    runs = {impl: build_link_prediction(
+        split, LinkPredConfig(impl="auto" if impl == "fused" else impl),
+        device="cuda") for impl in impls}
+    batches = {impl: epoch_batches(run) for impl, run in runs.items()}
+    for impl in impls:  # warm-up
+        for batch in batches[impl][:3]:
+            train_step(runs[impl], batch)
+    torch.cuda.synchronize()
+    medians = {impl: [] for impl in impls}
+    for r in range(ROUNDS):
+        pair = ["materialised", "flash"][::1 if r % 2 == 0 else -1]
+        for impl in ["fused", *pair]:
+            wall = []
+            for i in range(steps):
+                batch = batches[impl][(3 + r * steps + i)
+                                      % len(batches[impl])]
+                t0 = time.perf_counter()
+                train_step(runs[impl], batch)
+                torch.cuda.synchronize()
+                wall.append((time.perf_counter() - t0) * 1e3)
+            medians[impl].append(statistics.median(wall))
+    summary = {"rounds": ROUNDS, "steps_per_round": steps,
+               "round_medians_ms": medians,
+               "flash_faster_than_materialised_rounds": sum(
+                   f < m for f, m in zip(medians["flash"],
+                                         medians["materialised"]))}
+    for impl, meds in medians.items():
+        q = statistics.quantiles(meds, n=4) if len(meds) > 1 else meds * 3
+        summary[f"{impl}_ms_p50"] = statistics.median(meds)
+        summary[f"{impl}_ms_quartiles"] = [q[0], q[2]]
+    print(f"linkpred step wall, unprofiled, {ROUNDS} rounds of {steps} "
+          f"steps: {json.dumps(summary)}", flush=True)
+    return summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--fills", type=int, default=20)
@@ -124,6 +180,8 @@ def main(argv=None) -> int:
     ap.add_argument("--step-trace", default="build/profile/step_trace.json")
     ap.add_argument("--materialised-step-trace",
                     default="build/profile/step_trace_mat.json")
+    ap.add_argument("--flash-step-trace",
+                    default="build/profile/step_trace_flash.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("scripts_torch_profile: CUDA is not available", file=sys.stderr)
@@ -200,6 +258,8 @@ def main(argv=None) -> int:
     linkpred = profile_linkpred(args.steps, args.step_trace)
     materialised = profile_linkpred(args.steps, args.materialised_step_trace,
                                     impl="materialised")
+    flash = profile_linkpred(args.steps, args.flash_step_trace, impl="flash")
+    steps_side_by_side = compare_steps(args.steps)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "fill_wall_ms_p50": wall_ms,
@@ -211,6 +271,8 @@ def main(argv=None) -> int:
         "top_kernels_us": {k[0][:80]: k[1] for k in kernels[:8]},
         "linkpred": linkpred,
         "linkpred_materialised": materialised,
+        "linkpred_flash": flash,
+        "linkpred_steps_side_by_side": steps_side_by_side,
     }), flush=True)
     return 0
 

@@ -7,13 +7,16 @@ This file imports nothing of JAX (and the tests here need no fixture of
         tests/test_torch_cuda_kernels.py
 
 Elsewhere the tests skip.  Inputs are U[-0.5, 0.5), the scale of the
-training path's.  Tolerances: ``out`` and ``lse`` at rtol 1e-5, atol 1e-6
+training path's; d = 0 is a shape (the logits and the softmax statistics
+do not need features).  Tolerances: ``out`` and ``lse`` at rtol 1e-5, atol 1e-6
 (float32, another summation order); ``z`` the same with atol growing as
 d / 64 past d = 64, since each ``z`` holds two d-term dot products;
 ``dc``, ``da`` and the dx reduce, which sum many terms in another order,
 at rtol 1e-4 and atol 1e-5 of the largest value.  The SDDMM and the row
 softmax at rtol 1e-5, atol 1e-6 (one d-term dot, or one row's exp and sum,
-in another order); the softmax's VJP with the sums' tolerance.
+in another order); the softmax's VJP with the sums' tolerance.  The
+flash-GAT kernels: ``out``, ``lse`` and ``q`` at rtol 1e-5, atol 1e-6;
+``dl``, a difference of two d-term dots, with the sums' tolerance.
 """
 
 import numpy as np
@@ -22,6 +25,7 @@ import torch
 
 import msha_gnn_torch.graph as tg
 from msha_gnn_torch.ops import edge_softmax, spmm
+from msha_gnn_torch.ops.cuda import flash_gat as fg
 from msha_gnn_torch.ops.cuda import rank1_gat as r1
 from msha_gnn_torch.ops.cuda import sddmm as cuda_sddmm
 from msha_gnn_torch.ops.cuda import softmax as sm
@@ -39,13 +43,13 @@ def card_graph(seed, n_src, n_dst, density, empty_rows=()):
 
 
 def sums_close(got, want):
-    torch.testing.assert_close(got, want, rtol=1e-4,
-                               atol=1e-5 * float(want.abs().max()))
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * scale)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,rate", [(8, 0.0), (16, 0.5), (64, 0.5),
-                                    (129, 0.25)])
+@pytest.mark.parametrize("d,rate", [(0, 0.5), (8, 0.0), (16, 0.5),
+                                    (64, 0.5), (129, 0.25)])
 def test_rank1_kernels_match_plain(d, rate):
     g = card_graph(d, 300, 120, 0.05, empty_rows=(0, 299))
     op = r1.Rank1GatOperator(g, dst_linear=True, dropout_rate=rate)
@@ -208,3 +212,66 @@ def test_materialised_layer_matches_plain_on_card():
         grads.append((l.grad, x.grad))
     for got, want in zip(*grads):
         sums_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,rate", [(0, 0.5), (8, 0.0), (64, 0.5),
+                                    (129, 0.25)])
+def test_flash_kernels_match_plain(d, rate):
+    """flash_fwd_f32 and flash_bwd_f32 against their plain versions, on a
+    graph with empty rows and n_src not a multiple of 128: an empty row
+    gets 0 and NEG, the pad slots of dl and q get 0."""
+    g = card_graph(d + 2, 300, 120, 0.05, empty_rows=(0, 150, 299))
+    op = fg.FlashGatOperator(g, dropout_rate=rate)
+    e, e_pad = g.num_edges, g.num_padded_edges
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    logits = torch.randn(e_pad, generator=gen, device="cuda") * 3
+    x, gout = (torch.rand(s, generator=gen, device="cuda") - 0.5
+               for s in ((120, d), (300, d)))
+    seed = torch.tensor([-5], dtype=torch.int32, device="cuda")
+    args = (op.ptr, op.col, logits, x, seed, rate, 300)
+    before = (fg.fwd_launches, fg.bwd_launches)
+    out, lse = fg.flash_fwd(*args)
+    want_out, want_lse = fg.flash_gat_plain(*args)
+    bwd_args = (op.ptr, op.col, logits, x, gout, want_out, want_lse, seed,
+                rate, 300)
+    # hand the caching allocator blocks full of NaN, so that a pad slot the
+    # kernel does not write shows
+    junk = torch.full((2, e_pad), float("nan"), device="cuda")
+    del junk
+    dl, q = fg.flash_bwd(*bwd_args)
+    want_dl, want_q = fg.flash_gat_bwd_plain(*bwd_args)
+    torch.cuda.synchronize()
+    assert (fg.fwd_launches, fg.bwd_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(q, want_q, rtol=1e-5, atol=1e-6)
+    sums_close(dl, want_dl)
+    assert not dl[e:].any() and not q[e:].any()
+    empty = [0, 150, 299]
+    assert not out[empty].any() and bool((lse[empty] == fg.NEG).all())
+
+
+@pytest.mark.cuda
+def test_flash_operator_gradients_match_plain_on_card():
+    """The operator's autograd on the card (flash_fwd_f32, flash_bwd_f32,
+    then the q-weighted transposed csr_spmm_f32 for dx) against torch's
+    autograd through the plain forward."""
+    g = card_graph(5, 200, 90, 0.08, empty_rows=(3,))
+    op = fg.FlashGatOperator(g, dropout_rate=0.5)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    ins = [torch.randn(g.num_padded_edges, generator=gen,
+                       device="cuda").requires_grad_(),
+           (torch.rand(90, 16, generator=gen, device="cuda") - 0.5)
+           .requires_grad_()]
+    ref = [t.detach().clone().requires_grad_() for t in ins]
+    seed = torch.tensor([11], dtype=torch.int32, device="cuda")
+    gout = torch.randn(200, 16, generator=gen, device="cuda")
+    before = op.spmm.launches_transposed
+    op.drop(*ins, seed).backward(gout)
+    assert op.spmm.launches_transposed == before + 1
+    out, _ = fg.flash_gat_plain(op.ptr, op.col, *ref, seed, 0.5, 200)
+    out.backward(gout)
+    for t, w in zip(ins, ref):
+        sums_close(t.grad, w.grad)

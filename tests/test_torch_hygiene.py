@@ -1,9 +1,9 @@
 """The port stands alone: no JAX, no flax/optax/orbax, nothing of
 ``msha_gnn_tpu``.
 
-One test imports every module of ``msha_gnn_torch`` (and the port's two
-scripts, ``chip_smoke`` and ``scripts_torch_profile``)
-in a fresh interpreter in which a ``sys.meta_path`` finder refuses those
+One test imports every module of ``msha_gnn_torch`` (and the port's
+scripts, ``chip_smoke``, ``scripts_torch_profile`` and
+``scripts_torch_epoch_drift``) in a fresh interpreter in which a ``sys.meta_path`` finder refuses those
 packages; another scans the sources for such imports.
 """
 
@@ -15,11 +15,12 @@ import textwrap
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "msha_gnn_tpu")
+SCRIPTS = ("chip_smoke", "scripts_torch_profile", "scripts_torch_epoch_drift")
 
 
 def _port_sources():
     return sorted((ROOT / "msha_gnn_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "scripts_torch_profile.py"]
+        ROOT / f"{name}.py" for name in SCRIPTS]
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -36,7 +37,7 @@ def test_every_module_imports_with_jax_blocked():
 
         sys.meta_path.insert(0, Refuse())
         import msha_gnn_torch
-        names = ["msha_gnn_torch", "chip_smoke", "scripts_torch_profile"] + [
+        names = ["msha_gnn_torch", *{SCRIPTS!r}] + [
             m.name for m in pkgutil.walk_packages(
                 msha_gnn_torch.__path__, "msha_gnn_torch.")]
         for name in names:

@@ -9,7 +9,9 @@
   port's ``fused`` (the kernels' plain versions on the CPU) and ``torch``
   (the plain path) are held, and ``impl="pallas"`` (the materialised
   pipeline: the Pallas softmax, SpMM and SDDMM kernels in interpret mode),
-  against which the port's ``materialised`` is held.  Loss rtol 1e-4;
+  against which the port's ``materialised`` is held, and ``impl="flash"``
+  (the Pallas flash-GAT kernels in interpret mode), against which the
+  port's ``flash`` is held.  Loss rtol 1e-4;
   gradients rtol 2e-3, atol 1e-3, the JAX package's tolerances for the
   fused operator's gradients (its f32 paths sum through a bf16 hi/lo
   split);
@@ -96,7 +98,8 @@ def test_load_ogbl_ddi_matches_jax(tmp_path):
 @pytest.fixture(scope="module")
 def jax_linkpred():
     """The JAX run's model at hidden 8, dropout 0: parameters, a batch,
-    and the loss and gradients of ``impl="fused"`` and ``"pallas"``."""
+    and the loss and gradients of ``impl="fused"``, ``"pallas"`` and
+    ``"flash"``."""
     split = tiny_split(jax_ogb, seed=3)
     n, hidden = split["n"], 8
     encoder = JaxSparseGAT(in_features=hidden, hidden=hidden,
@@ -130,17 +133,18 @@ def jax_linkpred():
                       + jax_bce_loss(neg, jnp.zeros_like(neg)))
 
     results = {}
-    for impl in ("fused", "pallas"):
+    for impl in ("fused", "pallas", "flash"):
         loss, grads = jax.value_and_grad(loss_fn)(params, impl)
         results[impl] = (float(loss), grads)
     return params, batch, results
 
 
 # the port's impl -> the JAX run it is held against
-JAX_IMPL = {"fused": "fused", "torch": "fused", "materialised": "pallas"}
+JAX_IMPL = {"fused": "fused", "torch": "fused", "materialised": "pallas",
+            "flash": "flash"}
 
 
-@pytest.mark.parametrize("impl", ["fused", "torch", "materialised"])
+@pytest.mark.parametrize("impl", ["fused", "torch", "materialised", "flash"])
 def test_loss_and_gradients_match_jax(jax_linkpred, impl):
     params, batch, results = jax_linkpred
     want_loss, want_grads = results[JAX_IMPL[impl]]
@@ -162,9 +166,10 @@ def test_loss_and_gradients_match_jax(jax_linkpred, impl):
 
 
 def test_impls_draw_the_same_dropout_masks():
-    """At dropout 0.5, one generator state gives the three paths the same
-    keep masks: ``fused`` and ``materialised`` (their kernels' plain
-    versions on the CPU) compute the plain path's loss and gradients."""
+    """At dropout 0.5, one generator state gives the four paths the same
+    keep masks: ``fused``, ``materialised`` and ``flash`` (their kernels'
+    plain versions on the CPU) compute the plain path's loss and
+    gradients."""
     split = tiny_split(ogb, seed=5)
     cfg = LinkPredConfig(hidden=8, dropout=0.5, seed=0)
     model = LinkPredModel(split["n"], cfg,
@@ -173,7 +178,7 @@ def test_impls_draw_the_same_dropout_masks():
     batch = [torch.from_numpy(v) for v in rng.integers(0, split["n"],
                                                           (4, 128))]
     results = {}
-    for impl in ("torch", "fused", "materialised"):
+    for impl in ("torch", "fused", "materialised", "flash"):
         model.zero_grad(set_to_none=True)
         loss = linkpred_loss(model, split["graph"], batch, impl=impl,
                              generator=torch.Generator().manual_seed(7))
@@ -181,7 +186,7 @@ def test_impls_draw_the_same_dropout_masks():
         results[impl] = (loss.item(), {k: p.grad.clone() for k, p in
                                        model.named_parameters()})
     want_loss, want_grads = results["torch"]
-    for impl in ("fused", "materialised"):
+    for impl in ("fused", "materialised", "flash"):
         loss, grads = results[impl]
         np.testing.assert_allclose(loss, want_loss, rtol=1e-6)
         for name, g in grads.items():
@@ -317,8 +322,8 @@ def test_run_link_prediction_on_cpu(tmp_path):
     with pytest.raises(NotImplementedError, match="sampler"):
         run_link_prediction(tiny_split(ogb), LinkPredConfig(
             neighbor_fanout=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="flash"):
-        run_link_prediction(tiny_split(ogb), LinkPredConfig(impl="flash"),
+    with pytest.raises(NotImplementedError, match="xla"):
+        run_link_prediction(tiny_split(ogb), LinkPredConfig(impl="xla"),
                             device="cpu")
 
 
@@ -336,14 +341,16 @@ def test_cli_linkpred(tmp_path, capsys):
     assert result["impl"] == "torch" and result["dataset"] == "ogbl-ddi"
     assert np.isfinite(result["auc"])
     for flags in (["--use_kd", "1"], ["--neighbor_fanout", "4"],
-                  ["--impl", "flash"]):
+                  ["--impl", "xla"]):
         assert cli.main(["linkpred", "--device", "cpu", *flags]) == 2
         assert "not ported" in capsys.readouterr().err
 
 
-def test_cli_linkpred_materialised_on_cpu(tmp_path, capsys):
-    """``--impl materialised`` on the CPU: the softmax, SpMM and SDDMM
-    operators' bookkeeping with their kernels' plain versions."""
+@pytest.mark.parametrize("impl", ["materialised", "flash"])
+def test_cli_linkpred_materialised_on_cpu(tmp_path, capsys, impl):
+    """``--impl materialised`` and ``--impl flash`` on the CPU: the
+    operators' bookkeeping (softmax, SpMM and SDDMM; flash-GAT and its
+    ``q``-weighted dx SpMM) with their kernels' plain versions."""
     rng = np.random.default_rng(9)
     raw = tmp_path / "ogbl_ddi" / "raw"
     raw.mkdir(parents=True)
@@ -351,10 +358,10 @@ def test_cli_linkpred_materialised_on_cpu(tmp_path, capsys):
                delimiter=",", fmt="%d")
     rc = cli.main(["linkpred", "--ogb_root", str(tmp_path), "--hidden", "8",
                    "--epochs", "2", "--batch_size", "128", "--impl",
-                   "materialised", "--device", "cpu"])
+                   impl, "--device", "cpu"])
     assert rc == 0
     result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert result["impl"] == "materialised"
+    assert result["impl"] == impl
     for key in ("hits@20", "hits@50", "auc", "final_train_loss"):
         assert np.isfinite(result[key]), key
     with pytest.raises(NotImplementedError, match="impl='materialised'"):

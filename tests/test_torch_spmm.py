@@ -261,7 +261,8 @@ def test_warps_for():
 
 
 def test_build_layout_and_failure(tmp_path, monkeypatch):
-    assert _build.sources() == ["rank1_gat", "sddmm", "softmax", "spmm"]
+    assert _build.sources() == ["flash_gat", "rank1_gat", "sddmm", "softmax",
+                                "spmm"]
     path = _build.library_path("spmm")
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert path.parent.parts[-2:] == ("build", "msha_gnn_torch")
@@ -271,6 +272,21 @@ def test_build_layout_and_failure(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc failed on csrc/spmm.cu"):
         _build.build(["spmm"])
     assert not _build.library_path("spmm").exists()
+
+
+def test_library_names_hash_the_shared_header(tmp_path, monkeypatch):
+    """Every library's name hashes ``csrc/*.cuh`` too, so an edit of the
+    dropout hash in ``gat_common.cuh`` rebuilds both GAT sources."""
+    for src in _build.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build.library_path(n) for n in _build.sources()}
+    with open(tmp_path / "gat_common.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: _build.library_path(n) for n in _build.sources()}
+    assert all(before[n] != after[n] for n in before)
+    for name in ("flash_gat.cu", "rank1_gat.cu"):
+        assert '#include "gat_common.cuh"' in (tmp_path / name).read_text()
 
 
 def test_unknown_impl_raises(graphs):
