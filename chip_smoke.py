@@ -34,6 +34,14 @@ Phases, each reported on its own lines; any failure exits non-zero:
    online renormalisation), and on a small graph with empty rows and n not
    a multiple of 128 (an empty row's 0 and NEG, the zeroed pad slots);
    times and bounds as in phase 3.
+3e. the generic rank-1 GAT kernels (``r1_fwd_f32``, ``r1_bwd_f32``, on
+   ``c = h a_src`` and ``t = h a_dst`` of a seeded layer, then x30, and on
+   a small rectangular graph with empty rows), ``seg_reduce_f32`` on
+   ``[E, 64]`` edge values over the linkpred row pointer (pads NaN), and
+   ``csr_spmm_dw_f32`` in both directions with attention weights (its
+   ``dw`` element by element against the unfused ``csr_sddmm_f32``)
+   against their plain versions on the same linkpred graph; times and
+   bounds as in phase 3.
 5. the link-prediction training path at full width
    (``LinkPredConfig()``: hidden 64, 2 heads, dropout 0.5, batch 4096):
    one training step that must launch exactly its kernels, the same step
@@ -49,6 +57,13 @@ Phases, each reported on its own lines; any failure exits non-zero:
    flash path's kernels, held against the plain step and against the fused
    step from the same state, one epoch that must follow the fused epoch's
    step by step, the idle share, and the evaluation's launches.
+8. the operator paths of phase 3e's kernels under autograd at full width,
+   each with exact launch counts: the generic ``Rank1GatOperator`` against
+   the dst_linear one at ``t = x a`` (output, ``dc``, ``da = x^T dt``,
+   ``dx_lin = dx + dt a^T``); five Adam steps of a one-layer rank-1 GAT
+   link loss through each, whose losses must agree; ``SpmmOperator(
+   fused_bwd=True)`` against ``fused_bwd=False`` in both directions; and
+   ``segment_reduce_sorted``.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -102,6 +117,9 @@ PATHS_LOSS_RTOL = 2 * STEP_LOSS_RTOL
 # shows on the first step, held to the plain step at STEP_LOSS_RTOL and
 # STEP_GRAD_*; this check catches what grows over the steps
 EPOCH_LOSS_RTOL = 3e-4
+# generic vs dst_linear rank-1 GAT, five Adam steps from one state: the same
+# function, t = h a by a GEMM against a dot in the kernel (float32 rounding)
+GENERIC_LOSS_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -214,6 +232,13 @@ def close(name, got, want, rtol, atol):
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version")
     return abs_err
+
+
+def prime_nan(*shapes):
+    """Hand the caching allocator blocks full of NaN, so that an output
+    slot a kernel does not write shows."""
+    junk = [torch.full(s, float("nan"), device=DEVICE) for s in shapes]
+    del junk
 
 
 def linkpred_split():
@@ -630,8 +655,7 @@ def phase_flash_kernels(split):
         want_out, want_lse = fg.flash_gat_plain(*args)
         bwd_args = (graph_op.ptr, graph_op.col, lg, xx, gg, want_out,
                     want_lse, seed, rate, n_rows)
-        junk = torch.full((2, lg.numel()), float("nan"), device=DEVICE)
-        del junk  # a pad slot the kernel does not write shows as NaN
+        prime_nan((2, lg.numel()))
         dl, q = fg.flash_bwd(*bwd_args)
         want_dl, want_q = fg.flash_gat_bwd_plain(*bwd_args)
         torch.cuda.synchronize()
@@ -731,6 +755,392 @@ def phase_flash_kernels(split):
     return results
 
 
+def generic_bounds(n, e, d, x_rows, t_rows):
+    """Least times (ms, bound) of the generic rank-1 GAT kernels on this
+    data: every input read once (``col`` for the E edges, ``c`` per row,
+    ``t`` and ``x`` for the ``t_rows``/``x_rows`` columns the edges
+    reference), every output written once.  Forward: ``out`` and ``lse``;
+    2 E d flops (the aggregation's multiply-add).  Backward: ``gout``,
+    ``out`` and ``lse`` read too, ``att`` and ``dpre`` [E] and ``dc`` [n]
+    written; 2 E d flops (``<gout[r], x[j]>``) and 2 n d (``<gout[r],
+    out[r]>``)."""
+    common = 4 * (n + 1) + 4 * e + 4 * n + 4 * t_rows + 4 * x_rows * d + 4 * n
+    fwd = bound(common + 4 * n * d, 2 * e * d)
+    bwd = bound(common + 2 * 4 * n * d + 8 * e + 4 * n, 2 * e * d + 2 * n * d)
+    return fwd, bwd
+
+
+def dw_bound(ptr, col, eid, g, n_dw):
+    """Least time of one fused SpMM backward on this data: the pointer, the
+    column indices, the edge ids (when given) and the weights read once
+    per edge, the rows of ``g`` that the edges reference and of ``x`` that
+    own edges read once, ``dx`` and ``dw`` [n_dw] written once; 4 flops per
+    edge and feature (the dx multiply-add and the dw dot)."""
+    e, d = col.numel(), g.shape[1]
+    g_rows = int(torch.unique(col).numel())
+    x_rows = int(((ptr[1:] - ptr[:-1]) > 0).sum())
+    per_edge = 12 if eid is not None else 8
+    nbytes = (4 * ptr.numel() + per_edge * e + 4 * (g_rows + x_rows) * d
+              + 4 * (ptr.numel() - 1) * d + 4 * n_dw)
+    return bound(nbytes, 4 * e * d)
+
+
+def phase_generic_kernels(split):
+    """Phase 3e: r1_fwd_f32, r1_bwd_f32, seg_reduce_f32 and csr_spmm_dw_f32
+    vs their plain versions at the linkpred shapes."""
+    from msha_gnn_torch.graph import BipartiteGraph
+    from msha_gnn_torch.models.gat import SparseGATLayer
+    from msha_gnn_torch.ops.cuda import rank1_gat as r1
+    from msha_gnn_torch.ops.cuda import sddmm as cuda_sddmm
+    from msha_gnn_torch.ops.cuda import softmax as sm
+    from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
+
+    g = split["graph"].to(DEVICE)
+    op = r1.Rank1GatOperator(g)
+    spmm = op.spmm
+    n, e, e_pad, d = g.n_src, g.num_edges, g.num_padded_edges, LP_D
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    # the layer draws its weights on the host, from a host generator
+    layer = SparseGATLayer(d, d, generator=torch.Generator().manual_seed(4))
+    layer = layer.to(DEVICE)
+    with torch.no_grad():
+        h = (torch.rand((n, d), generator=gen, device=DEVICE) - 0.5) @ layer.W
+        av = layer.a.reshape(2 * d)
+        c, t = h @ av[:d], h @ av[d:]
+    gout = torch.rand((n, d), generator=gen, device=DEVICE) - 0.5
+    log(f"  graph: {n} rows, {e} edges ({e_pad} padded), d {d}; c = h a_src "
+        f"in [{float(c.min()):.3f}, {float(c.max()):.3f}], t = h a_dst in "
+        f"[{float(t.min()):.3f}, {float(t.max()):.3f}]")
+    log(f"  tolerances: out, lse, att and dw at rtol {KERNEL_RTOL}, atol "
+        f"{KERNEL_ATOL} (f32, another summation order); dpre (a difference "
+        f"of two d-term dots), dc, the segment sums and the fused dx at rtol "
+        f"{SUM_RTOL}, atol {SUM_ATOL_REL} x max|value|")
+
+    def check(label, graph_op, cc, tt, xx, gg, n_rows):
+        """Both generic kernels vs plain on one input; the max errors."""
+        args = (graph_op.ptr, graph_op.col, cc, tt, xx, graph_op.slope,
+                n_rows)
+        prime_nan((n_rows, d), (n_rows,))
+        out, lse = r1.r1_fwd(*args)
+        want_out, want_lse = r1.rank1_gat_generic_plain(*args)
+        bwd_args = (graph_op.ptr, graph_op.col, cc, tt, xx, gg, want_out,
+                    want_lse, graph_op.slope, n_rows)
+        n_edges = graph_op.col.numel()
+        prime_nan((n_edges,), (n_edges,), (n_rows,))
+        att, dpre, dc = r1.r1_bwd(*bwd_args)
+        want_att, want_dpre, want_dc = r1.rank1_gat_generic_bwd_plain(
+            *bwd_args)
+        torch.cuda.synchronize()
+        fwd_err = max(
+            close(f"r1_fwd_f32[{label}] out", out, want_out, KERNEL_RTOL,
+                  KERNEL_ATOL),
+            close(f"r1_fwd_f32[{label}] lse", lse, want_lse, KERNEL_RTOL,
+                  KERNEL_ATOL))
+        bwd_err = max(
+            close(f"r1_bwd_f32[{label}] att", att, want_att, KERNEL_RTOL,
+                  KERNEL_ATOL),
+            close(f"r1_bwd_f32[{label}] dpre", dpre, want_dpre, SUM_RTOL,
+                  SUM_ATOL_REL * float(want_dpre.abs().max())),
+            close(f"r1_bwd_f32[{label}] dc", dc, want_dc, SUM_RTOL,
+                  SUM_ATOL_REL * float(want_dc.abs().max())))
+        empty = graph_op.ptr[1:] == graph_op.ptr[:-1]
+        if out[empty].any() or not bool((lse[empty] == r1.NEG).all()) \
+                or dc[empty].any():
+            raise AssertionError("an empty row got output, a finite lse or "
+                                 "a dc")
+        return fwd_err, bwd_err, int(empty.sum())
+
+    errs = [check("path c, t", op, c, t, h, gout, n),
+            check("c, t x30", op, c * 30, t * 30, h, gout, n)]
+    rng = np.random.default_rng(6)
+    dense = ((rng.random((300, 120)) < 0.05)
+             * rng.integers(1, 5, (300, 120))).astype(np.float32)
+    dense[[0, 151, 299]] = 0.0
+    small = BipartiteGraph.from_dense(dense, pad_to_multiple=128).to(DEVICE)
+    small_op = r1.Rank1GatOperator(small)
+    s_c, s_t = (torch.randn(k, generator=gen, device=DEVICE) * 3
+                for k in (300, 120))
+    s_x = torch.rand((120, d), generator=gen, device=DEVICE) - 0.5
+    s_g = torch.rand((300, d), generator=gen, device=DEVICE) - 0.5
+    small_err = check("small graph", small_op, s_c, s_t, s_x, s_g, 300)
+    log(f"  small graph: 300 x 120, {small.num_edges} edges "
+        f"({small.num_padded_edges} padded), {small_err[2]} empty rows: 0, "
+        "NEG and no dc")
+
+    x_rows = int(torch.unique(op.col).numel())
+    (fwd_b, fwd_by), (bwd_b, bwd_by) = generic_bounds(n, e, d, x_rows, x_rows)
+    no_lib = ("none: no single PyTorch call computes the row softmax of the "
+              "rank-1 logits and the aggregation (or its backward) together")
+    args = (op.ptr, op.col, c, t, h, op.slope, n)
+    out, lse = r1.rank1_gat_generic_plain(*args)
+    bwd_args = (op.ptr, op.col, c, t, h, gout, out, lse, op.slope, n)
+    results = []
+    for name, fn, plain, bnd, err, replaces in (
+            ("r1_fwd_f32", r1.r1_fwd, r1.rank1_gat_generic_plain,
+             (fwd_b, fwd_by), max(x[0] for x in errs + [small_err]),
+             "msha_gnn_tpu/ops/pallas/rank1_gat.py:94 _r1_fwd_kernel"),
+            ("r1_bwd_f32", r1.r1_bwd, r1.rank1_gat_generic_bwd_plain,
+             (bwd_b, bwd_by), max(x[1] for x in errs + [small_err]),
+             "msha_gnn_tpu/ops/pallas/rank1_gat.py:160 _r1_bwd_kernel")):
+        a = args if name == "r1_fwd_f32" else bwd_args
+        ms = time_ms(lambda: fn(*a))
+        plain_ms = time_ms(lambda: plain(*a))
+        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bnd[0]:.5f} ms ({bnd[1]}); library {no_lib}")
+        results.append(entry(name, "flash_gat.cu", replaces, err, ms,
+                             plain_ms, bnd, None))
+
+    # the sorted segment sum: [E_pad, d] edge values over the row pointer,
+    # the pads past ptr[n] NaN (never read)
+    values = torch.rand((e_pad, d), generator=gen, device=DEVICE) - 0.5
+    values[e:] = float("nan")
+    seg_args = (values, g.senders, spmm.ptr)
+    prime_nan((n, d))
+    got = cuda_spmm.segment_reduce_sorted(*seg_args, n_src=n)
+    want = cuda_spmm.segment_reduce_sorted_plain(*seg_args, n_src=n)
+    torch.cuda.synchronize()
+    err = close("seg_reduce_f32 out", got, want, SUM_RTOL,
+                SUM_ATOL_REL * float(want.abs().max()))
+    offsets, rows = spmm.ptr.long(), g.senders[:e].long()
+
+    def library():
+        return torch.segment_reduce(values[:e], "sum", offsets=offsets)
+
+    lib_name = "torch.segment_reduce"
+    try:
+        lib_out = library()
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"  torch.segment_reduce does not run here ({exc}): index_add_")
+        lib_name = "index_add_"
+
+        def library():
+            return values.new_zeros((n, d)).index_add_(0, rows, values[:e])
+
+        lib_out = library()
+    # sums of up to 3,842 rows in another order: the sums' tolerance
+    if not torch.allclose(lib_out, want, rtol=SUM_RTOL,
+                          atol=SUM_ATOL_REL * float(want.abs().max())):
+        raise AssertionError(f"{lib_name} yardstick disagrees with the plain "
+                             "version")
+    ms = time_ms(lambda: cuda_spmm.segment_reduce_sorted(*seg_args, n_src=n))
+    plain_ms = time_ms(lambda: cuda_spmm.segment_reduce_sorted_plain(
+        *seg_args, n_src=n))
+    library_ms = time_ms(library)
+    # the pointer, the E rows of values, the output; one add an element
+    bnd = bound(4 * (n + 1) + 4 * e * d + 4 * n * d, e * d)
+    log(f"  seg_reduce_f32: rows {n}, edges {e}, d {d}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, {lib_name} {library_ms:.4f} ms, bound "
+        f"{bnd[0]:.5f} ms ({bnd[1]})")
+    results.append(entry(
+        "seg_reduce_f32", "spmm.cu",
+        "msha_gnn_tpu/ops/pallas/spmm.py:81 _reduce_kernel", err, ms,
+        plain_ms, bnd, library_ms))
+
+    # the fused dx + dw of the att-weighted SpMM, both directions: dx of
+    # A @ x walks the CSC and writes dw through t_edge, of A.T @ x the CSR
+    logits = torch.randn(e_pad, generator=gen, device=DEVICE) * 2
+    att = sm.seg_softmax_fwd_plain(spmm.ptr, logits, None, e)[0]
+    for label, transpose in (("dw of A x", False), ("dw of A^T x", True)):
+        if transpose:
+            args = (spmm.ptr, spmm.col, None, att, gout, h, n, e_pad)
+            warps, rows, cols = spmm.warps, h, gout
+        else:
+            args = (spmm.t_ptr, spmm.t_col, spmm.t_edge, att, gout, h, n,
+                    e_pad)
+            warps, rows, cols = spmm.warps_t, gout, h
+        prime_nan((e_pad,), (n, d))
+        dx, dw = cuda_spmm.csr_spmm_dw(*args, warps)
+        want_dx, want_dw = cuda_spmm.csr_spmm_dw_plain(*args)
+        sd = cuda_sddmm.csr_sddmm(spmm.ptr, spmm.col, rows, cols, e_pad)
+        unfused_dx = spmm.apply(gout, att, not transpose)
+        torch.cuda.synchronize()
+        err = max(
+            close(f"csr_spmm_dw_f32[{label}] dx", dx, want_dx, SUM_RTOL,
+                  SUM_ATOL_REL * float(want_dx.abs().max())),
+            close(f"csr_spmm_dw_f32[{label}] dw", dw, want_dw, KERNEL_RTOL,
+                  KERNEL_ATOL))
+        close(f"csr_spmm_dw_f32[{label}] dw vs csr_sddmm_f32", dw, sd,
+              KERNEL_RTOL, KERNEL_ATOL)
+        close(f"csr_spmm_dw_f32[{label}] dx vs csr_spmm_f32", dx, unfused_dx,
+              SUM_RTOL, SUM_ATOL_REL * float(unfused_dx.abs().max()))
+        if dw[e:].any():
+            raise AssertionError("csr_spmm_dw_f32 left a pad slot nonzero")
+        ms = time_ms(lambda: cuda_spmm.csr_spmm_dw(*args, warps))
+        plain_ms = time_ms(lambda: cuda_spmm.csr_spmm_dw_plain(*args))
+        unfused_ms = time_ms(lambda: (
+            spmm.apply(gout, att, not transpose),
+            cuda_sddmm.csr_sddmm(spmm.ptr, spmm.col, rows, cols, e_pad)))
+        bnd = dw_bound(args[0], args[1], args[2], gout, e_pad)
+        log(f"  csr_spmm_dw_f32[{label}]: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, the unfused pair (csr_spmm_f32 + "
+            f"csr_sddmm_f32, with the weights' permute) {unfused_ms:.4f} ms, "
+            f"bound {bnd[0]:.5f} ms ({bnd[1]}); library none: no PyTorch "
+            "call computes dx and dw together")
+        results.append(entry(
+            f"csr_spmm_dw_f32[{label}]", "spmm.cu",
+            "msha_gnn_tpu/ops/pallas/spmm.py:282 _visit_dw_kernel and :340 "
+            "_hub_dw_kernel", err, ms, plain_ms, bnd, None))
+    return results
+
+
+def phase_operators(split):
+    """Phase 8: the generic rank-1 GAT, the fused SpMM backward and the
+    sorted segment sum through their operators under autograd at full
+    width, each run with its counts set to 0 just before and read just
+    after; returns the launches by kernel entry of phase 3e."""
+    from msha_gnn_torch.models.gat import SparseGATLayer
+    from msha_gnn_torch.ops import segment_reduce_sorted
+    from msha_gnn_torch.ops.cuda import rank1_gat as r1
+    from msha_gnn_torch.ops.cuda import softmax as sm
+    from msha_gnn_torch.ops.cuda.spmm import SpmmOperator
+
+    g = split["graph"].to(DEVICE)
+    gen_op, lin_op = r1.Rank1GatOperator(g), r1.Rank1GatOperator(
+        g, dst_linear=True)
+    spmm = gen_op.spmm
+    n, e, e_pad, d = g.n_src, g.num_edges, g.num_padded_edges, LP_D
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    layer = SparseGATLayer(d, d, generator=torch.Generator().manual_seed(8))
+    layer = layer.to(DEVICE)
+    av = layer.a.detach().reshape(2 * d)
+    x = torch.rand((n, d), generator=gen, device=DEVICE) - 0.5
+    h = (x @ layer.W.detach()).contiguous()
+    c, a = h @ av[:d], av[d:].contiguous()
+    gout = torch.rand((n, d), generator=gen, device=DEVICE) - 0.5
+    launches = {}
+
+    # the generic operator against the dst_linear one at t = h a
+    gen_in = [v.clone().requires_grad_() for v in (c, h @ a, h)]
+    zero_counts(spmm)
+    out_gen = gen_op(*gen_in)
+    out_gen.backward(gout)
+    torch.cuda.synchronize()
+    counts = read_counts(spmm)
+    log(f"  generic operator, one forward and backward: {counts}")
+    want = expected(r1_fwd_f32=1, r1_bwd_f32=1, csr_spmm_f32=2,
+                    csr_spmm_f32_transposed=2)
+    if counts != want:
+        raise AssertionError(f"expected {want} launches, got {counts}")
+    lin_in = [v.clone().requires_grad_() for v in (c, a, h)]
+    out_lin = lin_op(*lin_in)
+    out_lin.backward(gout)
+    torch.cuda.synchronize()
+    dc, dt, dx = (v.grad for v in gen_in)
+    close("generic vs dst_linear out", out_gen.detach(), out_lin.detach(),
+          KERNEL_RTOL, KERNEL_ATOL)
+    for label, got, want_g in (
+            ("dc", dc, lin_in[0].grad), ("h^T dt vs da", h.T @ dt,
+                                         lin_in[1].grad),
+            ("dx + dt a^T vs dx_lin", dx + dt[:, None] * a[None, :],
+             lin_in[2].grad)):
+        close(f"generic vs dst_linear {label}", got, want_g, SUM_RTOL,
+              SUM_ATOL_REL * float(want_g.abs().max()))
+
+    # five Adam steps of a one-layer rank-1 GAT link loss, each way
+    pos = torch.as_tensor(np.stack(split["train_pos"]), device=DEVICE)
+    k = min(4096, pos.shape[1])  # LinkPredConfig().batch_size positives
+    pos = pos[:, torch.randperm(pos.shape[1], generator=gen,
+                                device=DEVICE)[:k]].long()
+    neg = torch.randint(0, n, (2, k), generator=gen, device=DEVICE)
+    pairs = torch.cat([pos, neg], 1)
+    labels = torch.cat([torch.ones(k, device=DEVICE),
+                        torch.zeros(k, device=DEVICE)])
+    init = [x.clone(), layer.W.detach().clone(), av.clone()]
+
+    def train(form):
+        emb, w, avec = (p.clone().requires_grad_() for p in init)
+        opt = torch.optim.Adam([emb, w, avec], lr=0.01)
+        losses = []
+        for _ in range(5):
+            hh = emb @ w
+            cc = hh @ avec[:d]
+            if form == "generic":
+                z = gen_op(cc, hh @ avec[d:], hh)
+            else:
+                z = lin_op(cc, avec[d:], hh)
+            z = torch.nn.functional.elu(z)
+            score = (z[pairs[0]] * z[pairs[1]]).sum(1)
+            loss = torch.nn.functional.binary_cross_entropy_with_logits(
+                score, labels)
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+        return losses
+
+    zero_counts(spmm)
+    losses_gen = train("generic")
+    torch.cuda.synchronize()
+    counts = read_counts(spmm)
+    log(f"  five generic Adam steps: {counts}")
+    want = expected(r1_fwd_f32=5, r1_bwd_f32=5, csr_spmm_f32=10,
+                    csr_spmm_f32_transposed=10)
+    if counts != want:
+        raise AssertionError(f"expected {want} launches, got {counts}")
+    launches["r1_fwd_f32"] = counts["r1_fwd_f32"]
+    launches["r1_bwd_f32"] = counts["r1_bwd_f32"]
+    losses_lin = train("dst_linear")
+    errs = [abs(p - q) / abs(q) for p, q in zip(losses_gen, losses_lin)]
+    log(f"  five Adam steps, generic vs dst_linear losses: "
+        + ", ".join(f"{p:.7f}/{q:.7f}" for p, q in zip(losses_gen,
+                                                       losses_lin))
+        + f"; max rel err {max(errs):.2e} (rtol {GENERIC_LOSS_RTOL})")
+    if max(errs) > GENERIC_LOSS_RTOL or not losses_gen[-1] < losses_gen[0]:
+        raise AssertionError("the generic and dst_linear steps differ, or "
+                             "the loss did not fall")
+
+    # SpmmOperator(fused_bwd=True) against fused_bwd=False, both directions
+    fused_op = SpmmOperator(g, DEVICE, fused_bwd=True)
+    logits = torch.randn(e_pad, generator=gen, device=DEVICE) * 2
+    att = sm.seg_softmax_fwd_plain(spmm.ptr, logits, None, e)[0]
+    for label, transpose in (("dw of A x", False), ("dw of A^T x", True)):
+        grads = {}
+        for fused, op in ((False, spmm), (True, fused_op)):
+            xx, ww = h.clone().requires_grad_(), att.clone().requires_grad_()
+            out = op(xx, transpose=transpose, edge_weight=ww)
+            zero_counts(op)
+            out.backward(gout)
+            torch.cuda.synchronize()
+            counts = read_counts(op)
+            want = (expected(csr_spmm_dw_f32=1) if fused else
+                    expected(csr_spmm_f32=1, csr_sddmm_f32=1,
+                             csr_spmm_f32_transposed=int(not transpose)))
+            log(f"  SpmmOperator(fused_bwd={fused}) backward of "
+                f"{'A^T' if transpose else 'A'} x: {counts}")
+            if counts != want:
+                raise AssertionError(f"expected {want} launches, got "
+                                     f"{counts}")
+            grads[fused] = (xx.grad, ww.grad)
+        launches[f"csr_spmm_dw_f32[{label}]"] = 1
+        for name, got, want_g in zip(("dx", "dw"), grads[True],
+                                     grads[False]):
+            close(f"fused_bwd vs unfused {label}: {name}", got, want_g,
+                  SUM_RTOL if name == "dx" else KERNEL_RTOL,
+                  SUM_ATOL_REL * float(want_g.abs().max())
+                  if name == "dx" else KERNEL_ATOL)
+        if grads[True][1][e:].any():
+            raise AssertionError("the fused dw has a nonzero pad slot")
+
+    # segment_reduce_sorted
+    values = torch.rand((e_pad, d), generator=gen, device=DEVICE) - 0.5
+    zero_counts(spmm)
+    got = segment_reduce_sorted(values, g.senders, spmm.ptr, n_src=n)
+    torch.cuda.synchronize()
+    counts = read_counts(spmm)
+    log(f"  segment_reduce_sorted: {counts}")
+    if counts != expected(seg_reduce_f32=1):
+        raise AssertionError(f"expected one seg_reduce_f32 launch, got "
+                             f"{counts}")
+    launches["seg_reduce_f32"] = 1
+    want = torch.zeros((n, d), device=DEVICE).index_add_(
+        0, g.senders[:e].long(), values[:e])
+    close("segment_reduce_sorted vs index_add_", got, want, SUM_RTOL,
+          SUM_ATOL_REL * float(want.abs().max()))
+    if tuple(got.shape) != (n, d) or not bool(torch.isfinite(got).all()):
+        raise AssertionError("segment sums: shape or non-finite values")
+    return launches
+
+
 def read_counts(op=None):
     from msha_gnn_torch.ops.cuda import flash_gat as fg
     from msha_gnn_torch.ops.cuda import rank1_gat as r1
@@ -746,7 +1156,11 @@ def read_counts(op=None):
               "seg_softmax_fwd_f32": sm.fwd_launches,
               "seg_softmax_bwd_f32": sm.bwd_launches,
               "flash_fwd_f32": fg.fwd_launches,
-              "flash_bwd_f32": fg.bwd_launches}
+              "flash_bwd_f32": fg.bwd_launches,
+              "r1_fwd_f32": r1.r1_fwd_launches,
+              "r1_bwd_f32": r1.r1_bwd_launches,
+              "seg_reduce_f32": cuda_spmm.seg_launches,
+              "csr_spmm_dw_f32": cuda_spmm.dw_launches}
     if op is not None:
         counts["csr_spmm_f32 transposed"] = op.launches_transposed
     return counts
@@ -760,7 +1174,8 @@ def zero_counts(op=None):
     from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
 
     r1.fwd_launches = r1.bwd_launches = r1.keep_launches = 0
-    cuda_spmm.launches = 0
+    r1.r1_fwd_launches = r1.r1_bwd_launches = 0
+    cuda_spmm.launches = cuda_spmm.seg_launches = cuda_spmm.dw_launches = 0
     cuda_sddmm.launches = sm.fwd_launches = sm.bwd_launches = 0
     fg.fwd_launches = fg.bwd_launches = 0
     if op is not None:
@@ -772,7 +1187,8 @@ def expected(**nonzero):
     names = ("r1l_fwd_f32", "r1l_bwd_f32", "r1l_keep_scale_f32",
              "csr_spmm_f32", "csr_sddmm_f32",
              "seg_softmax_fwd_f32", "seg_softmax_bwd_f32",
-             "flash_fwd_f32", "flash_bwd_f32", "csr_spmm_f32 transposed")
+             "flash_fwd_f32", "flash_bwd_f32", "r1_fwd_f32", "r1_bwd_f32",
+             "seg_reduce_f32", "csr_spmm_dw_f32", "csr_spmm_f32 transposed")
     return {k: nonzero.get(k.replace(" ", "_"), 0) for k in names}
 
 
@@ -1144,6 +1560,10 @@ def main() -> int:
     log("phase 3d: flash-GAT kernels vs plain, linkpred graph")
     flash_kernels = phase_flash_kernels(split)
 
+    log("phase 3e: generic rank-1 GAT, sorted segment sum and fused SpMM "
+        "backward kernels vs plain, linkpred graph")
+    generic_kernels = phase_generic_kernels(split)
+
     log("phase 4: GCN serving path")
     launches = phase_slice(fg)
     for k in kernels:
@@ -1187,6 +1607,13 @@ def main() -> int:
     for k in flash_kernels:
         k["launches"] = per_name[k["name"]]
     kernels += flash_kernels
+
+    log("phase 8: generic rank-1 GAT, fused SpMM backward and sorted "
+        "segment sum through their operators")
+    per_name = phase_operators(split)
+    for k in generic_kernels:
+        k["launches"] = per_name[k["name"]]
+    kernels += generic_kernels
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{kernels}")

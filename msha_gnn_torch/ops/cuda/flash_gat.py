@@ -1,5 +1,7 @@
 """Flash-GAT through the hand-written kernels ``flash_fwd_f32`` and
-``flash_bwd_f32`` (``msha_gnn_torch/csrc/flash_gat.cu``).
+``flash_bwd_f32`` (``msha_gnn_torch/csrc/flash_gat.cu``; the same source's
+``r1_fwd_f32`` and ``r1_bwd_f32``, the generic rank-1 GAT, are wrapped in
+:mod:`msha_gnn_torch.ops.cuda.rank1_gat`).
 
 The kernels replace ``_flash_kernel`` and ``_flash_bwd_kernel`` of
 ``msha_gnn_tpu/ops/pallas/flash_gat.py``; the source says what they
@@ -48,8 +50,12 @@ def _kernel_lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_fwd_f32.argtypes = [p] * 5 + [f] * 2 + [p] * 2 + [i] * 3 + [p]
         lib.flash_bwd_f32.argtypes = [p] * 8 + [f] * 2 + [p] * 2 + [i] * 4 + [p]
+        # the generic rank-1 GAT's entries (wrapped in rank1_gat.py)
+        lib.r1_fwd_f32.argtypes = [p] * 5 + [f] + [p] * 2 + [i] * 3 + [p]
+        lib.r1_bwd_f32.argtypes = [p] * 8 + [f] + [p] * 3 + [i] * 4 + [p]
         lib.flash_max_warps.argtypes = [i]
-        for fn in (lib.flash_fwd_f32, lib.flash_bwd_f32, lib.flash_max_warps):
+        for fn in (lib.flash_fwd_f32, lib.flash_bwd_f32, lib.r1_fwd_f32,
+                   lib.r1_bwd_f32, lib.flash_max_warps):
             fn.restype = ctypes.c_int
         lib.flash_error_string.argtypes = [i]
         lib.flash_error_string.restype = ctypes.c_char_p

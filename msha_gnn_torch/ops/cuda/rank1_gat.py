@@ -1,9 +1,13 @@
-"""Fused rank-1 GAT through the hand-written kernels ``r1l_fwd_f32`` and
-``r1l_bwd_f32`` (``msha_gnn_torch/csrc/rank1_gat.cu``).
+"""Fused rank-1 GAT through hand-written kernels: ``r1l_fwd_f32`` and
+``r1l_bwd_f32`` (``msha_gnn_torch/csrc/rank1_gat.cu``) for the dst_linear
+form, ``r1_fwd_f32`` and ``r1_bwd_f32`` (``msha_gnn_torch/csrc/
+flash_gat.cu``, the flash-GAT kernels with their logits formed in-kernel)
+for the generic form.
 
-The kernels replace ``_r1l_fwd_kernel`` and ``_r1l_bwd_kernel`` of
-``msha_gnn_tpu/ops/pallas/rank1_gat.py``; the source says what they compute
-and what bounds them.
+The kernels replace ``_r1l_fwd_kernel``, ``_r1l_bwd_kernel``,
+``_r1_fwd_kernel`` and ``_r1_bwd_kernel`` of
+``msha_gnn_tpu/ops/pallas/rank1_gat.py``; the sources say what they
+compute and what bounds them.
 
 * :func:`r1l_fwd` and :func:`r1l_bwd` are the kernels' wrappers: they check
   their inputs, launch on the current stream and count their launches in
@@ -15,9 +19,16 @@ and what bounds them.
   the card in one launch of the kernels' own device function
   (``r1l_keep_scale_f32``, counted in :data:`keep_launches`), which the
   materialised GAT path applies to its attention.
-* :class:`Rank1GatOperator` binds one graph and is differentiable: its
-  backward runs ``r1l_bwd_f32`` and then the edge-row reduce of
-  :meth:`SpmmOperator.reduce_edges` (``csr_spmm_f32``) for ``dx``.
+* :func:`r1_fwd` and :func:`r1_bwd` wrap the generic kernels (counted in
+  :data:`r1_fwd_launches`, :data:`r1_bwd_launches`); their plain versions
+  are :func:`rank1_gat_generic_plain` and
+  :func:`rank1_gat_generic_bwd_plain`.
+* :class:`Rank1GatOperator` binds one graph and is differentiable.  The
+  dst_linear backward runs ``r1l_bwd_f32`` and then the edge-row reduce of
+  :meth:`SpmmOperator.reduce_edges` (``csr_spmm_f32``) for ``dx``; the
+  generic backward runs ``r1_bwd_f32`` (``att``, ``dpre``, ``dc``), then
+  ``dx`` as the ``att``-weighted transposed ``csr_spmm_f32`` of ``gout``
+  and ``dt`` as the edge-row reduce of ``dpre``.
 """
 
 from __future__ import annotations
@@ -42,6 +53,9 @@ NEG = -1e30
 fwd_launches = 0
 bwd_launches = 0
 keep_launches = 0
+# Launches of the generic form's r1_fwd_f32 / r1_bwd_f32.
+r1_fwd_launches = 0
+r1_bwd_launches = 0
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -192,6 +206,37 @@ def rank1_gat_bwd_plain(ptr, col, c, a, x, gout, out, lse, seed, rate: float,
     return z, dc, (dpre[:, None] * xg).sum(0)
 
 
+def _generic_pre(ptr, col, c, t):
+    rows = edge_rows(ptr, col.numel())
+    return rows, c[rows] + t[col.long()]
+
+
+def rank1_gat_generic_plain(ptr, col, c, t, x, slope: float, n_rows: int):
+    """Plain version of ``r1_fwd_f32`` -> ``(out [n_rows, d], lse
+    [n_rows])``: the logits ``leaky(c[r] + t[col_e])``, then flash-GAT's
+    plain forward on them (no dropout)."""
+    from .flash_gat import flash_gat_plain
+
+    _, pre = _generic_pre(ptr, col, c, t)
+    logit = torch.where(pre >= 0, pre, slope * pre)
+    return flash_gat_plain(ptr, col, logit, x, None, 0.0, n_rows)
+
+
+def rank1_gat_generic_bwd_plain(ptr, col, c, t, x, gout, out, lse,
+                                slope: float, n_rows: int):
+    """Plain version of ``r1_bwd_f32`` -> ``(att [E], dpre [E], dc
+    [n_rows])``: flash-GAT's plain backward on the logits, ``dl`` times
+    the leaky slope, and its row sums."""
+    from .flash_gat import flash_gat_bwd_plain
+
+    rows, pre = _generic_pre(ptr, col, c, t)
+    logit = torch.where(pre >= 0, pre, slope * pre)
+    dl, att = flash_gat_bwd_plain(ptr, col, logit, x, gout, out, lse, None,
+                                  0.0, n_rows)
+    dpre = torch.where(pre >= 0, dl, slope * dl)
+    return att, dpre, x.new_zeros(n_rows).index_add_(0, rows, dpre)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -301,6 +346,85 @@ def r1l_bwd(ptr, col, c, a, x, gout, out, lse, seed, rate: float,
     return z, dc, da
 
 
+def _generic_shapes(ptr, col, c, t, x, n_rows):
+    if (x.dim() != 2 or ptr.shape != (n_rows + 1,) or col.dim() != 1
+            or c.shape != (n_rows,) or t.shape != x.shape[:1]):
+        raise ValueError(
+            f"shapes: ptr {tuple(ptr.shape)} for {n_rows} rows, col "
+            f"{tuple(col.shape)}, c {tuple(c.shape)}, t {tuple(t.shape)}, "
+            f"x {tuple(x.shape)}")
+    return x.shape[1]
+
+
+def r1_fwd(ptr, col, c, t, x, slope: float, n_rows: int):
+    """Generic forward -> ``(out [n_rows, d], lse [n_rows])`` float32 of the
+    logits ``leaky(c[r] + t[col_e])``.
+
+    ``ptr`` int32 [n_rows + 1], ``col`` int32 [E] (CSR), ``c`` f32
+    [n_rows], ``t`` f32 [n_cols], ``x`` f32 [n_cols, d].  CPU tensors take
+    the plain version; CUDA tensors launch ``r1_fwd_f32`` or raise.
+    """
+    global r1_fwd_launches
+    if x.device.type == "cpu":
+        return rank1_gat_generic_plain(ptr, col, c, t, x, slope, n_rows)
+    from . import flash_gat
+
+    _check(x.device, 0.0, ptr=ptr, col=col, c=c, t=t, x=x)
+    d = _generic_shapes(ptr, col, c, t, x, n_rows)
+    out = torch.empty((n_rows, d), dtype=torch.float32, device=x.device)
+    lse = torch.empty(n_rows, dtype=torch.float32, device=x.device)
+    if n_rows == 0:
+        return out, lse
+    lib = flash_gat._kernel_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.r1_fwd_f32(
+            ptr.data_ptr(), col.data_ptr(), c.data_ptr(), t.data_ptr(),
+            x.data_ptr(), slope, out.data_ptr(), lse.data_ptr(), n_rows, d,
+            flash_gat._warps(d), stream)
+    flash_gat._raise_on(lib, rc, "r1_fwd_f32")
+    r1_fwd_launches += 1
+    return out, lse
+
+
+def r1_bwd(ptr, col, c, t, x, gout, out, lse, slope: float, n_rows: int):
+    """Generic recompute backward -> ``(att [E], dpre [E], dc [n_rows])``
+    float32; ``gout``, ``out`` [n_rows, d] and ``lse`` [n_rows] as the
+    forward gave them.  CPU tensors take the plain version; CUDA tensors
+    launch ``r1_bwd_f32`` or raise."""
+    global r1_bwd_launches
+    if x.device.type == "cpu":
+        return rank1_gat_generic_bwd_plain(ptr, col, c, t, x, gout, out, lse,
+                                           slope, n_rows)
+    from . import flash_gat
+
+    _check(x.device, 0.0, ptr=ptr, col=col, c=c, t=t, x=x, gout=gout,
+           out=out, lse=lse)
+    d = _generic_shapes(ptr, col, c, t, x, n_rows)
+    if gout.shape != (n_rows, d) or out.shape != (n_rows, d) or \
+            lse.shape != (n_rows,):
+        raise ValueError(f"gout {tuple(gout.shape)}, out {tuple(out.shape)} "
+                         f"and lse {tuple(lse.shape)} must be [{n_rows}, "
+                         f"{d}] and [{n_rows}]")
+    dev, e = x.device, col.numel()
+    att = torch.empty(e, dtype=torch.float32, device=dev)
+    dpre = torch.empty(e, dtype=torch.float32, device=dev)
+    dc = torch.empty(n_rows, dtype=torch.float32, device=dev)
+    if n_rows == 0:
+        return att, dpre, dc
+    lib = flash_gat._kernel_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.r1_bwd_f32(
+            ptr.data_ptr(), col.data_ptr(), c.data_ptr(), t.data_ptr(),
+            x.data_ptr(), gout.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            slope, att.data_ptr(), dpre.data_ptr(), dc.data_ptr(), n_rows, e,
+            d, flash_gat._warps(d), stream)
+    flash_gat._raise_on(lib, rc, "r1_bwd_f32")
+    r1_bwd_launches += 1
+    return att, dpre, dc
+
+
 # ---------------------------------------------------------------------------
 # The operator
 # ---------------------------------------------------------------------------
@@ -326,35 +450,62 @@ class _Rank1Lin(torch.autograd.Function):
         return dc, da, op.spmm.reduce_edges(z), None, None, None
 
 
+class _Rank1Generic(torch.autograd.Function):
+    """``out = rank1_gat(c, t, x)`` with the recompute backward: ``dc`` from
+    ``r1_bwd_f32``, ``dx`` the att-weighted transposed SpMM of ``gout``,
+    ``dt`` the edge-row reduce of ``dpre``."""
+
+    @staticmethod
+    def forward(ctx, c, t, x, op):
+        out, lse = r1_fwd(op.ptr, op.col, c, t, x, op.slope, op.graph.n_src)
+        ctx.save_for_backward(c, t, x, out, lse)
+        ctx.op = op
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        c, t, x, out, lse = ctx.saved_tensors
+        op, gout = ctx.op, gout.contiguous()
+        att, dpre, dc = r1_bwd(op.ptr, op.col, c, t, x, gout, out, lse,
+                               op.slope, op.graph.n_src)
+        dt = op.spmm.reduce_edges(dpre[:, None])[:, 0] \
+            if ctx.needs_input_grad[1] else None
+        dx = op.spmm.apply(gout, att, transpose=True) \
+            if ctx.needs_input_grad[2] else None
+        return dc, dt, dx, None
+
+
 class Rank1GatOperator:
     """Differentiable fused rank-1 GAT layer bound to one graph
-    (``rank1_gat.py::Rank1GatOperator`` with ``dst_linear=True``).
+    (``rank1_gat.py::Rank1GatOperator``).
 
-    ``op(c, a, x)`` with ``c`` [n_src], ``a`` [d], ``x`` [n_dst, d]::
+    Generic form (``dst_linear=False``, the default): ``op(c, t, x)`` with
+    ``c`` [n_src], ``t`` [n_dst], ``x`` [n_dst, d]::
 
-        t = x @ a                                    # in the kernel
         att = softmax_per_src_row(leaky_relu(c[snd] + t[rcv]))
         out[i] = sum_e att_e * x[rcv_e]              # [n_src, d]
 
-    and its gradient ``(dc, da, dx)``.  ``op.drop(c, a, x, seed)`` applies
-    inverted attention dropout at ``dropout_rate`` after the normalisation,
-    with the keep mask hashed from ``(seed, edge slot)``.  Rows with no
-    edges give zeros.
+    and its gradient ``(dc, dt, dx)``.  ``dst_linear=True``: ``op(c, a, x)``
+    with ``a`` [d] and ``t = x @ a`` formed in the kernel, gradient ``(dc,
+    da, dx)``; ``op.drop(c, a, x, seed)`` applies inverted attention dropout
+    at ``dropout_rate`` after the normalisation, with the keep mask hashed
+    from ``(seed, edge slot)``.  ``drop`` on a generic operator raises (the
+    JAX operator's silently runs the dst_linear form,
+    ``rank1_gat.py:861-891``).  Rows with no edges give zeros.
 
-    Only ``dst_linear=True`` is ported: the generic ``(c, t, x)`` mode runs
-    TPU kernels that have no counterpart yet, so building without it raises
-    (and ``drop`` can never run on a generic operator, the hazard of
-    ``rank1_gat.py:861-891``).
+    ``precision``: only ``"f32"``; the JAX operator's ``"bf16"`` (rows
+    streamed in bfloat16) is not ported, as ``SparseGATLayer``'s is not.
     """
 
     def __init__(self, graph: "BipartiteGraph", *,
-                 negative_slope: float = 0.2, dst_linear: bool = False,
-                 dropout_rate: float = 0.0):
-        if not dst_linear:
+                 negative_slope: float = 0.2, precision: str = "f32",
+                 dst_linear: bool = False, dropout_rate: float = 0.0):
+        if precision != "f32":
             raise NotImplementedError(
-                "Rank1GatOperator(dst_linear=False) needs _r1_fwd_kernel and "
-                "_r1_bwd_kernel (msha_gnn_tpu/ops/pallas/rank1_gat.py:94, "
-                ":160), which are not ported yet (ROADMAP queue 2)")
+                f"precision={precision!r}: the port's rank-1 GAT computes in "
+                "float32 only (precision='f32'); bfloat16 rows wait with "
+                "SparseGATLayer's precision option (ROADMAP.md, modules to "
+                "port, item 3)")
         r = float(dropout_rate)
         if not 0.0 <= r < 1.0:
             raise ValueError(f"dropout_rate must be in [0, 1), got {r}")
@@ -366,22 +517,33 @@ class Rank1GatOperator:
         self.dst_linear = dst_linear
         self.dropout_rate = r
 
-    def _apply(self, c, a, x, seed, rate):
+    def _check(self, c, t_or_a, x):
         g = self.graph
         if x.device != self.device:
             raise ValueError(f"x is on {x.device}, the operator on "
                              f"{self.device}")
+        want = (x.shape[1],) if self.dst_linear else (g.n_dst,)
         if c.shape != (g.n_src,) or x.dim() != 2 or x.shape[0] != g.n_dst \
-                or a.shape != (x.shape[1],):
-            raise ValueError(f"c {tuple(c.shape)}, a {tuple(a.shape)}, x "
-                             f"{tuple(x.shape)} for a {g.n_src} x {g.n_dst} "
-                             "graph")
+                or t_or_a.shape != want:
+            name = "a" if self.dst_linear else "t"
+            raise ValueError(f"c {tuple(c.shape)}, {name} "
+                             f"{tuple(t_or_a.shape)}, x {tuple(x.shape)} for "
+                             f"a {g.n_src} x {g.n_dst} graph")
+
+    def _apply(self, c, a, x, seed, rate):
+        self._check(c, a, x)
         return _Rank1Lin.apply(c.contiguous(), a.contiguous(),
                                x.contiguous(), seed, self, rate)
 
-    def __call__(self, c: torch.Tensor, a: torch.Tensor,
+    def __call__(self, c: torch.Tensor, t_or_a: torch.Tensor,
                  x: torch.Tensor) -> torch.Tensor:
-        return self._apply(c, a, x, self.ptr.new_zeros(1), 0.0)
+        """``(c, t, x)`` in the generic form; ``(c, a, x)`` with ``t = x @
+        a`` when ``dst_linear``."""
+        if self.dst_linear:
+            return self._apply(c, t_or_a, x, self.ptr.new_zeros(1), 0.0)
+        self._check(c, t_or_a, x)
+        return _Rank1Generic.apply(c.contiguous(), t_or_a.contiguous(),
+                                   x.contiguous(), self)
 
     def drop(self, c: torch.Tensor, a: torch.Tensor, x: torch.Tensor,
              seed: torch.Tensor) -> torch.Tensor:
@@ -389,6 +551,7 @@ class Rank1GatOperator:
         ``seed``: int32 [1] on the operator's device.  At rate 0 this
         equals ``__call__`` exactly."""
         if not self.dst_linear:
-            raise ValueError("drop() needs a dst_linear operator")
+            raise ValueError("drop() needs a dst_linear operator: the "
+                             "generic form has no attention dropout")
         seed = seed.reshape(1).to(device=self.device, dtype=torch.int32)
         return self._apply(c, a, x, seed, self.dropout_rate)

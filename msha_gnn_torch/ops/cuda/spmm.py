@@ -1,9 +1,12 @@
-"""CSR SpMM through the hand-written kernel ``csr_spmm_f32``
-(``msha_gnn_torch/csrc/spmm.cu``).
+"""CSR SpMM through the hand-written kernels of
+``msha_gnn_torch/csrc/spmm.cu``: ``csr_spmm_f32``, ``seg_reduce_f32`` and
+``csr_spmm_dw_f32``.
 
-The kernel replaces two TPU kernels of ``msha_gnn_tpu/ops/pallas/spmm.py``,
-``_visit_kernel`` and ``_hub_kernel``; the source says why one kernel
-serves both and what bounds it (bytes).
+They replace five TPU kernels of ``msha_gnn_tpu/ops/pallas/spmm.py``:
+``_visit_kernel`` and ``_hub_kernel`` (``csr_spmm_f32``), ``_reduce_kernel``
+(``seg_reduce_f32``), ``_visit_dw_kernel`` and ``_hub_dw_kernel``
+(``csr_spmm_dw_f32``); the source says why one CSR walk serves them all
+and what bounds it (bytes).
 
 * :func:`csr_spmm` is the kernel's wrapper: it checks its inputs, launches
   on the current stream and counts the launch in :data:`launches`.  For
@@ -20,16 +23,27 @@ serves both and what bounds it (bytes).
   VJP runs ``_sddmm_split`` over its forward direction in both cases:
   ``dw = sddmm(g, x)`` for ``A @ x`` and ``dw = sddmm(x, g)`` for
   ``A.T @ x``.
+  With ``fused_bwd=True`` (the JAX operator's flag, off by default there
+  too) that backward is one launch of ``csr_spmm_dw_f32`` instead, which
+  gives ``dx`` and ``dw`` together.
 * :meth:`SpmmOperator.reduce_edges` sums per-edge rows into their
   receivers, ``out[j] = sum_{e: rcv_e = j} z[e]``: the kernel over the CSC
   pointer with the CSC->CSR edge ids as columns and no weights, which the
   kernel reads as unit weights (the rank-1 GAT backward's ``dx``,
   ``_reduce_z`` in the JAX package).
+* :func:`segment_reduce_sorted` (``spmm.py::segment_reduce_sorted``) sums
+  rows of values sorted by segment over their CSR pointer, one launch of
+  ``seg_reduce_f32``.
+
+Each wrapper counts its launches (:data:`launches`, :data:`seg_launches`,
+:data:`dw_launches`) and runs its plain PyTorch version, the kernel's
+oracle, for tensors on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import TYPE_CHECKING, Optional
 
 import numpy as np
@@ -42,9 +56,11 @@ if TYPE_CHECKING:
 
 MAX_WARPS = 8
 
-# Launches of csr_spmm_f32 in this process (a plain count, reset by callers
-# that measure a run).
+# Launches of csr_spmm_f32, seg_reduce_f32 and csr_spmm_dw_f32 in this
+# process (plain counts, reset by callers that measure a run).
 launches = 0
+seg_launches = 0
+dw_launches = 0
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -55,9 +71,14 @@ def _kernel_lib() -> ctypes.CDLL:
         from . import _build
 
         lib = _build.load("spmm")
-        lib.csr_spmm_f32.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.csr_spmm_f32.restype = ctypes.c_int
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.csr_spmm_f32.argtypes = [p] * 5 + [i] * 3 + [p]
+        lib.seg_reduce_f32.argtypes = [p] * 3 + [i] * 3 + [p]
+        lib.csr_spmm_dw_f32.argtypes = [p] * 8 + [i] * 4 + [p]
+        lib.csr_spmm_dw_max_warps.argtypes = [i]
+        for fn in (lib.csr_spmm_f32, lib.seg_reduce_f32, lib.csr_spmm_dw_f32,
+                   lib.csr_spmm_dw_max_warps):
+            fn.restype = ctypes.c_int
         lib.csr_spmm_error_string.argtypes = [ctypes.c_int]
         lib.csr_spmm_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -138,23 +159,179 @@ def csr_spmm(ptr: torch.Tensor, col: torch.Tensor, w: Optional[torch.Tensor],
                               None if w is None else w.data_ptr(),
                               x.data_ptr(), out.data_ptr(), n_rows, d,
                               n_warps, stream)
-    if rc != 0:
-        msg = lib.csr_spmm_error_string(rc).decode()
-        raise RuntimeError(f"csr_spmm_f32 launch failed: {msg} (error {rc})")
+    _raise_on(lib, rc, "csr_spmm_f32")
     launches += 1
     return out
+
+
+def _raise_on(lib, rc: int, name: str) -> None:
+    if rc != 0:
+        msg = lib.csr_spmm_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} (error {rc})")
+
+
+def _on_card(dev, kernel: str, given, ints=("ptr", "col", "eid")) -> None:
+    """Raises unless every tensor of ``given`` lies on the CUDA device
+    ``dev``, contiguous, int32 (the names in ``ints``) or float32."""
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel} runs on cuda or cpu, not {dev}")
+    for name, t in given:
+        want = torch.int32 if name in ints else torch.float32
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, not {dev}")
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+# ---------------------------------------------------------------------------
+# The sorted segment sum (seg_reduce_f32)
+# ---------------------------------------------------------------------------
+
+def segment_reduce_sorted_plain(values: torch.Tensor, senders: torch.Tensor,
+                                row_ptr: torch.Tensor, *,
+                                n_src: int) -> torch.Tensor:
+    """Plain version of :func:`segment_reduce_sorted`: ``index_add_`` of
+    the rows ``[0, row_ptr[n_src])`` into the row each lies in."""
+    e = int(row_ptr[n_src])
+    out = values.new_zeros((n_src, values.shape[1]))
+    return out.index_add_(0, edge_rows(row_ptr, e), values[:e])
+
+
+def segment_reduce_sorted(values: torch.Tensor, senders: torch.Tensor,
+                          row_ptr: torch.Tensor, *,
+                          n_src: int) -> torch.Tensor:
+    """``out[s] = sum_{e: senders[e] == s} values[e]`` -> [n_src, d] f32,
+    for ``values`` [E_pad, d] f32 sorted by segment, ``senders`` [E_pad]
+    (pads ``>= n_src``) and ``row_ptr`` [n_src + 1] their CSR offsets.
+
+    The contract of ``segment_sum`` on sorted ids; the kernel walks
+    ``row_ptr`` (``senders`` is taken for the JAX signature and must agree
+    with it) and reads no row past ``row_ptr[n_src]``.  CPU tensors take
+    :func:`segment_reduce_sorted_plain`; CUDA tensors launch
+    ``seg_reduce_f32`` (8 warps a row, so a long row needs no host-side
+    look at the pointer) or raise.
+    """
+    global seg_launches
+    if values.dim() != 2 or row_ptr.shape != (n_src + 1,) or \
+            senders.shape != values.shape[:1]:
+        raise ValueError(f"shapes: values {tuple(values.shape)}, senders "
+                         f"{tuple(senders.shape)}, row_ptr "
+                         f"{tuple(row_ptr.shape)} for {n_src} segments")
+    dev = values.device
+    if dev.type == "cpu":
+        return segment_reduce_sorted_plain(values, senders, row_ptr,
+                                           n_src=n_src)
+    ptr = row_ptr.to(torch.int32).contiguous()
+    _on_card(dev, "segment_reduce_sorted", (("row_ptr", ptr),
+                                             ("values", values)),
+             ints=("row_ptr",))
+    d = values.shape[1]
+    out = torch.empty((n_src, d), dtype=torch.float32, device=dev)
+    if n_src == 0 or d == 0:
+        return out
+    lib = _kernel_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.seg_reduce_f32(ptr.data_ptr(), values.data_ptr(),
+                                out.data_ptr(), n_src, d, MAX_WARPS, stream)
+    _raise_on(lib, rc, "seg_reduce_f32")
+    seg_launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The weighted SpMM's backward in one pass (csr_spmm_dw_f32)
+# ---------------------------------------------------------------------------
+
+def csr_spmm_dw_plain(ptr, col, eid, w, g, x, n_rows: int, n_dw: int):
+    """Plain version of :func:`csr_spmm_dw`: gather, ``index_add_``, and the
+    per-edge dots scattered to their ids."""
+    e = col.numel()
+    rows = edge_rows(ptr, e)
+    ids = torch.arange(e, device=g.device) if eid is None else eid.long()
+    gg = g[col.long()]
+    dx = g.new_zeros((n_rows, g.shape[1])).index_add_(
+        0, rows, w[ids][:, None] * gg)
+    dw = g.new_zeros(n_dw)
+    dw[ids] = (gg * x[rows]).sum(1)
+    return dx, dw
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_warps(d: int) -> int:
+    """The most warps per block whose shared memory fits ``csr_spmm_dw_f32``
+    at width ``d`` (asked of the library once per ``d``)."""
+    w = _kernel_lib().csr_spmm_dw_max_warps(d)
+    if w < 1:
+        raise ValueError(f"feature width {d} does not fit csr_spmm_dw_f32's "
+                         "shared memory")
+    return w
+
+
+def csr_spmm_dw(ptr, col, eid, w, g, x, n_rows: int, n_dw: int,
+                n_warps: int):
+    """A weighted SpMM's backward in one pass -> ``(dx [n_rows, d], dw
+    [n_dw])`` f32::
+
+        dx[r]    = sum_{e in row r} w[id_e] * g[col[e]]
+        dw[id_e] = <g[col[e]], x[r]>,   id_e = eid[e] (e when eid is None)
+
+    with ``dw``'s other slots 0.  ``ptr`` int32 [n_rows + 1], ``col`` and
+    ``eid`` int32 [E], ``w`` f32 indexed by ``id_e``, ``g`` f32 [n_cols, d],
+    ``x`` f32 [n_rows, d].  ``n_warps`` per block, at most what fits the
+    shared memory at ``d``.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise.
+    """
+    global dw_launches
+    dev = g.device
+    if dev.type == "cpu":
+        return csr_spmm_dw_plain(ptr, col, eid, w, g, x, n_rows, n_dw)
+    given = [("ptr", ptr), ("col", col), ("w", w), ("g", g), ("x", x)]
+    if eid is not None:
+        given.append(("eid", eid))
+    _on_card(dev, "csr_spmm_dw", given)
+    d = g.shape[1] if g.dim() == 2 else -1
+    if (g.dim() != 2 or x.shape != (n_rows, d) or ptr.shape != (n_rows + 1,)
+            or col.dim() != 1 or n_dw < col.numel()
+            or (eid is not None and eid.shape != col.shape)):
+        raise ValueError(
+            f"shapes: ptr {tuple(ptr.shape)} for {n_rows} rows, col "
+            f"{tuple(col.shape)}, g {tuple(g.shape)}, x {tuple(x.shape)}, "
+            f"n_dw {n_dw}")
+    dx = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
+    dw = torch.empty(n_dw, dtype=torch.float32, device=dev)
+    if n_rows == 0:
+        return dx, dw.zero_()
+    lib = _kernel_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.csr_spmm_dw_f32(
+            ptr.data_ptr(), col.data_ptr(),
+            None if eid is None else eid.data_ptr(), w.data_ptr(),
+            g.data_ptr(), x.data_ptr(), dx.data_ptr(), dw.data_ptr(), n_rows,
+            n_dw, d, min(n_warps, _dw_warps(d)), stream)
+    _raise_on(lib, rc, "csr_spmm_dw_f32")
+    dw_launches += 1
+    return dx, dw
 
 
 class SpmmOperator:
     """``A @ x`` and ``A.T @ x`` for one graph, on one device.
 
-    ``launches`` counts this operator's kernel launches and
+    ``launches`` counts this operator's ``csr_spmm_f32`` launches and
     ``launches_transposed`` those of them that ran ``A.T``.
+    ``fused_bwd``: a runtime edge weight's gradient and ``dx`` come from
+    one ``csr_spmm_dw_f32`` launch (``spmm.py::SpmmOperator``'s flag of
+    the same name), not from ``csr_spmm_f32`` and ``csr_sddmm_f32``.
     """
 
-    def __init__(self, graph: "BipartiteGraph", device="cuda"):
+    def __init__(self, graph: "BipartiteGraph", device="cuda",
+                 fused_bwd: bool = False):
         self.device = resolve_device(device)
         self.graph = graph
+        self.fused_bwd = bool(fused_bwd)
         e = graph.num_edges
         if e >= 2**31:
             raise ValueError(f"{e} edges overflow the kernel's int32 offsets")
@@ -185,9 +362,10 @@ class SpmmOperator:
         self.launches_transposed = 0
 
     @staticmethod
-    def build(graph: "BipartiteGraph") -> "SpmmOperator":
+    def build(graph: "BipartiteGraph",
+              fused_bwd: bool = False) -> "SpmmOperator":
         """The operator of ``graph`` on the graph's device."""
-        return SpmmOperator(graph, graph.device)
+        return SpmmOperator(graph, graph.device, fused_bwd)
 
     def _launch(self, ptr, col, w, x, n_out, warps, transpose):
         before = launches
@@ -218,6 +396,20 @@ class SpmmOperator:
                                 self.warps_t, True)
         return self._launch(self.ptr, self.col, w, x, g.n_src, self.warps,
                             False)
+
+    def backward_dw(self, g: torch.Tensor, x: torch.Tensor,
+                    edge_weight: torch.Tensor, transpose: bool):
+        """``(dx, dw)`` of ``A(w) @ x`` (``A(w).T @ x`` when ``transpose``)
+        for the cotangent ``g`` and the CSR-order ``edge_weight`` [E_pad], by
+        one ``csr_spmm_dw_f32`` launch: the dx direction's walk, whose rows
+        are ``x``'s own.  For ``A @ x`` that is the CSC, and ``dw`` lands in
+        CSR order through ``t_edge``; for ``A.T @ x`` the CSR itself."""
+        gr, n_dw = self.graph, edge_weight.shape[0]
+        if transpose:
+            return csr_spmm_dw(self.ptr, self.col, None, edge_weight, g, x,
+                               gr.n_src, n_dw, self.warps)
+        return csr_spmm_dw(self.t_ptr, self.t_col, self.t_edge, edge_weight,
+                           g, x, gr.n_dst, n_dw, self.warps_t)
 
     def __call__(self, x: torch.Tensor, *,
                  edge_weight: Optional[torch.Tensor] = None,
@@ -255,7 +447,8 @@ class _SpmmFn(torch.autograd.Function):
     the backward is the other direction's launch of the same kernel.  A
     runtime edge weight (``edge_weight`` [E_pad], CSR order, or None for
     the graph's own) gets ``dw`` [E_pad] from one ``csr_sddmm_f32`` launch
-    over the CSR direction, pads 0."""
+    over the CSR direction, pads 0; with the operator's ``fused_bwd``, one
+    ``csr_spmm_dw_f32`` launch gives ``dx`` and ``dw`` together."""
 
     @staticmethod
     def forward(ctx, x, edge_weight, op, transpose):
@@ -268,6 +461,10 @@ class _SpmmFn(torch.autograd.Function):
         x, edge_weight = ctx.saved_tensors
         op, g = ctx.op, g.contiguous()
         dx = dw = None
+        if op.fused_bwd and ctx.needs_input_grad[1]:
+            dx, dw = op.backward_dw(g, x, edge_weight.contiguous(),
+                                    ctx.transpose)
+            return (dx if ctx.needs_input_grad[0] else None), dw, None, None
         if ctx.needs_input_grad[0]:
             dx = op.apply(g, edge_weight, not ctx.transpose)
         if ctx.needs_input_grad[1]:

@@ -275,3 +275,182 @@ def test_flash_operator_gradients_match_plain_on_card():
     out.backward(gout)
     for t, w in zip(ins, ref):
         sums_close(t.grad, w.grad)
+
+
+def prime_nan(*shapes):
+    """Hand the caching allocator blocks full of NaN, so that an output
+    slot a kernel does not write shows."""
+    junk = [torch.full(s, float("nan"), device="cuda") for s in shapes]
+    del junk
+
+
+SHAPES = {"rect": (300, 120), "square": (200, 200)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("d", [0, 8, 64, 129])
+def test_seg_reduce_kernel_matches_plain(d, shape):
+    """seg_reduce_f32 against its plain version: pad rows past the pointer
+    hold NaN and are not read; empty rows give 0; d = 0 launches nothing."""
+    n_src, n_dst = SHAPES[shape]
+    g = card_graph(d + 3, n_src, n_dst, 0.05, empty_rows=(0, 150, n_src - 1))
+    e, e_pad = g.num_edges, g.num_padded_edges
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    values = torch.rand(e_pad, d, generator=gen, device="cuda") - 0.5
+    values[e:] = float("nan")
+    args = (values, g.senders, g.row_ptr)
+    prime_nan((n_src, max(d, 1)))
+    before = cuda_spmm.seg_launches
+    got = cuda_spmm.segment_reduce_sorted(*args, n_src=n_src)
+    assert cuda_spmm.seg_launches == before + (1 if d else 0)
+    want = cuda_spmm.segment_reduce_sorted_plain(*args, n_src=n_src)
+    torch.cuda.synchronize()
+    assert got.shape == (n_src, d)
+    sums_close(got, want)
+    assert not got[[0, 150, n_src - 1]].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("d", [0, 8, 64, 129])
+def test_spmm_dw_kernel_matches_plain_and_sddmm(d, shape):
+    """csr_spmm_dw_f32 in both directions against its plain version, and
+    its dw element by element against the unfused csr_sddmm_f32 (a wrong
+    edge map still gives a plausible dw); pads 0 over NaN-primed blocks."""
+    n_src, n_dst = SHAPES[shape]
+    g = card_graph(d + 5, n_src, n_dst, 0.05, empty_rows=(0, 150, n_src - 1))
+    op = cuda_spmm.SpmmOperator(g, device="cuda")
+    e, e_pad = g.num_edges, g.num_padded_edges
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    w = g.weight * (0.5 + torch.rand(e_pad, generator=gen, device="cuda"))
+    for transpose in (False, True):
+        n_in, n_out = (n_src, n_dst) if transpose else (n_dst, n_src)
+        x = torch.rand(n_in, d, generator=gen, device="cuda") - 0.5
+        gg = torch.rand(n_out, d, generator=gen, device="cuda") - 0.5
+        if transpose:   # dx of A.T @ x walks the CSR
+            args = (op.ptr, op.col, None, w, gg, x, n_src, e_pad)
+            warps = op.warps
+        else:           # dx of A @ x walks the CSC, dw through t_edge
+            args = (op.t_ptr, op.t_col, op.t_edge, w, gg, x, n_dst, e_pad)
+            warps = op.warps_t
+        prime_nan((e_pad,), (n_in, max(d, 1)))
+        before = cuda_spmm.dw_launches
+        dx, dw = cuda_spmm.csr_spmm_dw(*args, warps)
+        assert cuda_spmm.dw_launches == before + 1
+        want_dx, want_dw = cuda_spmm.csr_spmm_dw_plain(*args)
+        torch.cuda.synchronize()
+        sums_close(dx, want_dx)
+        torch.testing.assert_close(dw, want_dw, rtol=1e-5,
+                                   atol=1e-6 * max(1, d / 64))
+        assert not dw[e:].any()
+        rows, cols = (x, gg) if transpose else (gg, x)
+        sd = cuda_sddmm.csr_sddmm(op.ptr, op.col, rows, cols, e_pad)
+        torch.testing.assert_close(dw, sd, rtol=1e-5,
+                                   atol=1e-6 * max(1, d / 64))
+        sums_close(dx, op.apply(gg, w, not transpose))
+
+
+@pytest.mark.cuda
+def test_spmm_fused_bwd_is_one_dw_launch():
+    """SpmmOperator(fused_bwd=True): one csr_spmm_dw_f32 launch per
+    backward and no csr_sddmm_f32, with the unfused operator's dx and dw."""
+    g = card_graph(11, 300, 150, 0.05, empty_rows=(3,))
+    ops = {f: cuda_spmm.SpmmOperator(g, device="cuda", fused_bwd=f)
+           for f in (False, True)}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for transpose in (False, True):
+        n_in, n_out = (g.n_src, g.n_dst) if transpose else (g.n_dst, g.n_src)
+        x0 = torch.rand(n_in, 16, generator=gen, device="cuda") - 0.5
+        w0 = g.weight * torch.rand(g.num_padded_edges, generator=gen,
+                                   device="cuda")
+        gout = torch.randn(n_out, 16, generator=gen, device="cuda")
+        grads = {}
+        for fused, op in ops.items():
+            x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+            out = op(x, transpose=transpose, edge_weight=w)
+            before = (cuda_spmm.dw_launches, cuda_sddmm.launches,
+                      cuda_spmm.launches)
+            out.backward(gout)
+            after = (cuda_spmm.dw_launches, cuda_sddmm.launches,
+                     cuda_spmm.launches)
+            assert [b - a for a, b in zip(before, after)] == (
+                [1, 0, 0] if fused else [0, 1, 1])
+            grads[fused] = (x.grad, w.grad)
+        for got, want in zip(grads[True], grads[False]):
+            sums_close(got, want)
+        assert not grads[True][1][g.num_edges:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("d", [0, 8, 64, 129])
+def test_rank1_generic_kernels_match_plain(d, shape):
+    """r1_fwd_f32 and r1_bwd_f32 against their plain versions: an empty row
+    gets 0 and NEG and contributes nothing; every slot of att and dpre is
+    written over NaN-primed blocks."""
+    n_src, n_dst = SHAPES[shape]
+    g = card_graph(d + 7, n_src, n_dst, 0.05, empty_rows=(0, 150, n_src - 1))
+    op = r1.Rank1GatOperator(g)
+    e = g.num_edges
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    c = (torch.rand(n_src, generator=gen, device="cuda") - 0.5) * 4
+    t = (torch.rand(n_dst, generator=gen, device="cuda") - 0.5) * 4
+    x = torch.rand(n_dst, d, generator=gen, device="cuda") - 0.5
+    gout = torch.rand(n_src, d, generator=gen, device="cuda") - 0.5
+    args = (op.ptr, op.col, c, t, x, 0.2, n_src)
+    before = (r1.r1_fwd_launches, r1.r1_bwd_launches)
+    prime_nan((n_src, max(d, 1)), (n_src,))
+    out, lse = r1.r1_fwd(*args)
+    want_out, want_lse = r1.rank1_gat_generic_plain(*args)
+    bwd_args = (op.ptr, op.col, c, t, x, gout, want_out, want_lse, 0.2,
+                n_src)
+    prime_nan((e,), (e,), (n_src,))
+    att, dpre, dc = r1.r1_bwd(*bwd_args)
+    want_att, want_dpre, want_dc = r1.rank1_gat_generic_bwd_plain(*bwd_args)
+    torch.cuda.synchronize()
+    assert (r1.r1_fwd_launches, r1.r1_bwd_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(att, want_att, rtol=1e-5, atol=1e-6)
+    sums_close(dpre, want_dpre)
+    sums_close(dc, want_dc)
+    empty = [0, 150, n_src - 1]
+    assert not out[empty].any() and bool((lse[empty] == r1.NEG).all())
+    assert not dc[empty].any()
+
+
+@pytest.mark.cuda
+def test_rank1_generic_operator_gradients_match_plain_on_card():
+    """The generic operator's autograd on the card (r1_fwd_f32, r1_bwd_f32,
+    then the att-weighted transposed csr_spmm_f32 for dx and the dpre
+    reduce for dt) against torch's autograd through the plain forward, and
+    the dst_linear operator's through da = x^T dt, dx_lin = dx + dt a^T."""
+    g = card_graph(13, 200, 90, 0.08, empty_rows=(3,))
+    op = r1.Rank1GatOperator(g)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    c = torch.rand(200, generator=gen, device="cuda") - 0.5
+    a = (torch.rand(16, generator=gen, device="cuda") - 0.5) * 0.6
+    x = torch.rand(90, 16, generator=gen, device="cuda") - 0.5
+    gout = torch.randn(200, 16, generator=gen, device="cuda")
+    ins = [v.clone().requires_grad_() for v in (c, x @ a, x)]
+    ref = [v.detach().clone().requires_grad_() for v in ins]
+    before = (r1.r1_fwd_launches, r1.r1_bwd_launches, cuda_spmm.launches)
+    out = op(*ins)
+    out.backward(gout)
+    assert (r1.r1_fwd_launches, r1.r1_bwd_launches, cuda_spmm.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 2)
+    want, _ = r1.rank1_gat_generic_plain(op.ptr, op.col, *ref, 0.2, 200)
+    want.backward(gout)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
+    for v, w in zip(ins, ref):
+        sums_close(v.grad, w.grad)
+    lin = [v.clone().requires_grad_() for v in (c, a, x)]
+    out_lin = r1.Rank1GatOperator(g, dst_linear=True)(*lin)
+    out_lin.backward(gout)
+    torch.testing.assert_close(out, out_lin, rtol=1e-5, atol=1e-6)
+    dc, dt, dx = (v.grad for v in ins)
+    sums_close(dc, lin[0].grad)
+    sums_close(x.T @ dt, lin[1].grad)
+    sums_close(dx + dt[:, None] * a[None, :], lin[2].grad)

@@ -2,9 +2,10 @@
 ``msha_gnn_tpu``.
 
 One test imports every module of ``msha_gnn_torch`` (and the port's
-scripts, ``chip_smoke``, ``scripts_torch_profile`` and
-``scripts_torch_epoch_drift``) in a fresh interpreter in which a ``sys.meta_path`` finder refuses those
-packages; another scans the sources for such imports.
+scripts, ``chip_smoke``, ``scripts_torch_profile``,
+``scripts_torch_epoch_drift`` and ``scripts_torch_kernel_ab``) in a fresh
+interpreter in which a ``sys.meta_path`` finder refuses those packages;
+another scans the sources for such imports.
 """
 
 import pathlib
@@ -15,7 +16,8 @@ import textwrap
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "msha_gnn_tpu")
-SCRIPTS = ("chip_smoke", "scripts_torch_profile", "scripts_torch_epoch_drift")
+SCRIPTS = ("chip_smoke", "scripts_torch_profile", "scripts_torch_epoch_drift",
+           "scripts_torch_kernel_ab")
 
 
 def _port_sources():

@@ -150,18 +150,26 @@ def test_plain_backward_is_the_autograd_of_the_plain_forward():
     assert bool((lse[[5, 199]] == r1.NEG).all())
 
 
-def test_generic_mode_is_not_ported_and_drop_needs_dst_linear():
+def test_drop_needs_dst_linear():
+    """``drop`` on a generic operator raises: the JAX operator's runs the
+    dst_linear form on ``(c, t, x)`` without a word
+    (``rank1_gat.py:861-891``).  A dst_linear operator drops; the other
+    arguments are checked."""
     gt, _ = dense_graph(6, 40, 20, 0.2)
-    with pytest.raises(NotImplementedError,
-                       match="_r1_fwd_kernel and _r1_bwd_kernel"):
-        r1.Rank1GatOperator(gt, dropout_rate=0.5)
-    op = r1.Rank1GatOperator(gt, dst_linear=True, dropout_rate=0.5)
-    op.dst_linear = False
+    seed = torch.tensor([1], dtype=torch.int32)
+    op = r1.Rank1GatOperator(gt, dropout_rate=0.5)
+    assert not op.dst_linear
     with pytest.raises(ValueError, match="dst_linear"):
-        op.drop(torch.zeros(40), torch.zeros(4), torch.zeros(20, 4),
-                torch.tensor([1], dtype=torch.int32))
+        op.drop(torch.zeros(40), torch.zeros(4), torch.zeros(20, 4), seed)
+    lin = r1.Rank1GatOperator(gt, dst_linear=True, dropout_rate=0.5)
+    assert lin.drop(torch.zeros(40), torch.zeros(4), torch.zeros(20, 4),
+                    seed).shape == (40, 4)
     with pytest.raises(ValueError, match="dropout_rate"):
-        r1.Rank1GatOperator(gt, dst_linear=True, dropout_rate=1.0)
+        r1.Rank1GatOperator(gt, dropout_rate=1.0)
+    with pytest.raises(NotImplementedError, match="float32"):
+        r1.Rank1GatOperator(gt, precision="bf16")
+    with pytest.raises(ValueError, match="t"):
+        op(torch.zeros(40), torch.zeros(4), torch.zeros(20, 4))
 
 
 def test_segment_ops_and_edge_softmax_match_jax():

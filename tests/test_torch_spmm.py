@@ -197,12 +197,22 @@ def jax_bwd_ops(graphs):
 @pytest.mark.parametrize("hub", [0, None], ids=["no_hub", "auto_hub"])
 @pytest.mark.parametrize("transpose", [False, True])
 def test_weight_gradient_matches_pallas_vjp(graphs, jax_bwd_ops, transpose,
-                                            hub, fused_bwd):
-    """``dw`` of a runtime edge weight (the port: one ``csr_sddmm_f32``
-    over the CSR direction, its plain version here) against the JAX
-    operator's VJP in both of its backward modes: the SDDMM kernels
-    (``fused_bwd=False``) and the fused dx + dw kernels."""
+                                            hub, fused_bwd, monkeypatch):
+    """``dw`` and ``dx`` of a runtime edge weight against the JAX operator's
+    VJP, each backward mode against its counterpart: ``fused_bwd=False``,
+    the port's ``csr_spmm_f32`` + ``csr_sddmm_f32`` against the JAX SDDMM
+    kernels, and ``fused_bwd=True``, the port's one ``csr_spmm_dw_f32``
+    against the JAX fused dx + dw kernels (``_visit_dw_kernel``,
+    ``_hub_dw_kernel``); the kernels' plain versions here."""
     import jax
+
+    from msha_gnn_torch.ops.cuda import sddmm as cuda_sddmm
+
+    calls = []
+    for mod, name in ((cuda_spmm, "csr_spmm_dw"), (cuda_sddmm, "csr_sddmm")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _f=real, _n=name:
+                            calls.append(_n) or _f(*a))
 
     gt, _ = graphs
     rng = np.random.default_rng(11 + 2 * transpose)
@@ -216,10 +226,11 @@ def test_weight_gradient_matches_pallas_vjp(graphs, jax_bwd_ops, transpose,
                                        edge_weight=w),
                      jnp.asarray(x), jnp.asarray(ew))
     want_dx, want_dw = (np.asarray(v) for v in vjp(jnp.asarray(ct)))
-    op = cuda_spmm.SpmmOperator(gt, device="cpu")
+    op = cuda_spmm.SpmmOperator(gt, device="cpu", fused_bwd=fused_bwd)
     xt = torch.from_numpy(x).requires_grad_()
     wt = torch.from_numpy(ew).requires_grad_()
     op(xt, transpose=transpose, edge_weight=wt).backward(torch.from_numpy(ct))
+    assert calls == (["csr_spmm_dw"] if fused_bwd else ["csr_sddmm"])
     assert wt.grad.shape == wt.shape
     np.testing.assert_allclose(wt.grad.numpy(), want_dw, rtol=RTOL,
                                atol=ATOL)
