@@ -12,10 +12,18 @@ Phases, each reported on its own lines; any failure exits non-zero:
    error, median time of kernel / plain version / one PyTorch library call
    (a yardstick the port never calls), and the bytes-or-operations bound.
 3b. the rank-1 GAT kernels (``r1l_fwd_f32`` at dropout rate 0 and 0.5,
-   ``r1l_bwd_f32``, and ``csr_spmm_f32`` as the backward's dx reduce)
-   against their plain versions on the full-width link-prediction graph
-   (synthetic ogbl-ddi, 4,267 nodes, 328,012 message edges, d = 64); times
-   and bounds as in phase 3.
+   ``r1l_bwd_f32`` at 0 and 0.5 with its keep mask, and the backward's dx:
+   ``csr_spmm_f32`` weighted by ``q`` and the d = 1 column sum of
+   ``dpre``) against their plain versions on the full-width
+   link-prediction graph (synthetic ogbl-ddi, 4,267 nodes, 328,012 message
+   edges, d = 64); times and bounds as in phase 3.
+
+The kernels that sum edges by runs of slots (``csr_spmm_f32``,
+``seg_reduce_f32``, ``r1l_bwd_f32``) are launched twice on the same
+inputs and must give the same bits, and are timed twice: by CUDA events
+(back-to-back calls, which under about 20 us measure the host's launch
+rate) and by ``torch.profiler``'s device time over the same 20 calls, as
+is their library yardstick.
 4. the serving path at full width (GCN, nfeat 128): checkpoint round trip,
    one full-score fill that must launch exactly the path's kernels, the
    fill against the plain path on the card and against a float64 dense
@@ -120,6 +128,10 @@ EPOCH_LOSS_RTOL = 3e-4
 # generic vs dst_linear rank-1 GAT, five Adam steps from one state: the same
 # function, t = h a by a GEMM against a dot in the kernel (float32 rounding)
 GENERIC_LOSS_RTOL = 1e-5
+# the fused epoch's metrics before the redesign of csr_spmm_f32 and
+# r1l_bwd_f32 (the same data, seed and state), for comparison by eye
+BEFORE_METRICS = ("before the edge-run kernels: Hits@20 0.0090, Hits@50 "
+               "0.0288, AUC 0.932571")
 
 
 def log(msg: str) -> None:
@@ -142,6 +154,44 @@ def time_ms(fn, reps: int = 15, iters: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return statistics.median(times)
+
+
+def device_ms(fn, iters: int = 20):
+    """Device time of one call (ms): the CUDA kernels' own time over
+    ``iters`` back-to-back calls under ``torch.profiler``, over ``iters``;
+    None when the profiler saw no device time.  Event times of calls under
+    about 20 us measure the host's launch rate; this does not."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(
+        getattr(evt, "self_device_time_total", 0.0)
+        or getattr(evt, "self_cuda_time_total", 0.0)
+        for evt in prof.key_averages()
+        if evt.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(evt, "is_user_annotation", False))
+    return us / 1e3 / iters if us else None
+
+
+def same_bits(name, fn):
+    """Two launches of ``fn`` on the same inputs give the same bits."""
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    firsts = first if isinstance(first, tuple) else (first,)
+    seconds = second if isinstance(second, tuple) else (second,)
+    if not all(torch.equal(u, v) for u, v in zip(firsts, seconds)):
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
+    log(f"  {name}: two launches bit for bit equal")
+
+
+def fmt(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def bound(nbytes, flops):
@@ -180,12 +230,13 @@ def phase_kernels(op, fg):
     for name, replaces, transpose, n_in in cases:
         x = torch.rand((n_in, M), generator=gen, device=DEVICE) - 0.5
         if transpose:
-            ptr, col, w, warps = op.t_ptr, op.t_col, op.t_w, op.warps_t
+            ptr, col, w = op.t_ptr, op.t_col, op.t_w
             n_rows, n_cols = fg.n_dst, fg.n_src
         else:
-            ptr, col, w, warps = op.ptr, op.col, op.w, op.warps
+            ptr, col, w = op.ptr, op.col, op.w
             n_rows, n_cols = fg.n_src, fg.n_dst
-        got = cuda_spmm.csr_spmm(ptr, col, w, x, n_rows, warps)
+        run = cuda_spmm.run_for(col.numel(), M)
+        got = cuda_spmm.csr_spmm(ptr, col, w, x, n_rows)
         want = cuda_spmm.csr_spmm_plain(ptr, col, w, x, n_rows)
         torch.cuda.synchronize()
         abs_err = float((got - want).abs().max())
@@ -193,32 +244,35 @@ def phase_kernels(op, fg):
                         .max())
         ok = torch.allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
         log(f"  {name}: rows {n_rows}, edges {col.numel()}, d {M}, "
-            f"warps/block {warps}: max abs err {abs_err:.3e}, max rel err "
+            f"{run} slots a run: max abs err {abs_err:.3e}, max rel err "
             f"{rel_err:.3e} (rtol {KERNEL_RTOL}, atol {KERNEL_ATOL})")
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version")
+        same_bits(name, lambda: cuda_spmm.csr_spmm(ptr, col, w, x, n_rows))
         a = torch.sparse_csr_tensor(ptr, col, w, size=(n_rows, n_cols),
                                     check_invariants=True)
         lib_out = torch.sparse.mm(a, x)
         if not torch.allclose(lib_out, want, rtol=1e-4, atol=1e-5):
             raise AssertionError(f"{name}: torch.sparse.mm yardstick "
                                  "disagrees with the plain version")
-        ms = time_ms(lambda: cuda_spmm.csr_spmm(ptr, col, w, x, n_rows,
-                                                warps))
+        kernel = (lambda: cuda_spmm.csr_spmm(ptr, col, w, x, n_rows))
+        ms, dev_ms = time_ms(kernel), device_ms(kernel)
         plain_ms = time_ms(lambda: cuda_spmm.csr_spmm_plain(ptr, col, w, x,
                                                             n_rows))
         library_ms = time_ms(lambda: torch.sparse.mm(a, x))
+        lib_dev_ms = device_ms(lambda: torch.sparse.mm(a, x))
         bound_ms, bound_by = spmm_bound(ptr, col, x, n_rows)
-        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"torch.sparse.mm {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
-            f"({bound_by})")
+        log(f"  {name}: kernel {ms:.4f} ms (device {fmt(dev_ms)}), plain "
+            f"{plain_ms:.4f} ms, torch.sparse.mm {library_ms:.4f} ms (device "
+            f"{fmt(lib_dev_ms)}), bound {bound_ms:.5f} ms ({bound_by})")
         results.append({
             "name": name, "route": "cuda",
             "source": "msha_gnn_torch/csrc/spmm.cu",
             "replaces": replaces, "launches": None,
             "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "transpose": transpose,
+            "library_ms": library_ms, "device_ms": dev_ms,
+            "library_device_ms": lib_dev_ms, "transpose": transpose,
         })
     return results
 
@@ -255,14 +309,15 @@ def r1l_bounds(n, e, d):
     x @ a`` depends on the column only, so it counts once per node (2 n d),
     as does ``<gout[r], out[r]>`` per row; per edge and feature the
     forward needs the aggregation's multiply-add (2 E d), the backward
-    ``<gout[r], x[j]>`` (2), ``z = q gout + dpre a`` (3) and ``da``'s
-    multiply-add (2)."""
+    ``<gout[r], x[j]>`` (2) and ``da``'s multiply-add (2).  The backward
+    writes ``q`` and ``dpre`` (8 B an edge), not the ``[E, d]`` rows of
+    ``z = q gout + dpre a`` that its dx sums."""
     # ptr, col, c, a, x in; out, lse out
     fwd = bound(4 * (n + 1) + 4 * e + 4 * n + 4 * d + 4 * n * d
                 + 4 * n * d + 4 * n, 2 * n * d + 2 * e * d)
-    # ptr, col, c, a, x, gout, out, lse in; z, dc, da out
+    # ptr, col, c, a, x, gout, out, lse in; q, dpre, dc, da out
     bwd = bound(4 * (n + 1) + 4 * e + 4 * n + 4 * d + 3 * 4 * n * d
-                + 4 * n + 4 * e * d + 4 * n + 4 * d, 4 * n * d + 7 * e * d)
+                + 4 * n + 8 * e + 4 * n + 4 * d, 4 * n * d + 4 * e * d)
     return fwd, bwd
 
 
@@ -286,11 +341,11 @@ def phase_rank1_kernels(split):
     gout = torch.rand((n, d), generator=gen, device=DEVICE) - 0.5
     seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=DEVICE)
 
-    log(f"  tolerances: out, lse, z at rtol {KERNEL_RTOL}, atol "
-        f"{KERNEL_ATOL} (f32, another summation order); dc, da at rtol "
-        f"{SUM_RTOL}, atol {SUM_ATOL_REL} x max|value| (sums of up to "
-        f"{int(deg.max())} and {e} terms in another order), and so the "
-        "dx reduce (sums of up to as many rows of z)")
+    log(f"  tolerances: out, lse, q at rtol {KERNEL_RTOL}, atol "
+        f"{KERNEL_ATOL} (f32, another summation order); dpre (a difference "
+        f"of two d-term dots), dc, da at rtol {SUM_RTOL}, atol "
+        f"{SUM_ATOL_REL} x max|value| (sums of up to {int(deg.max())} and "
+        f"{e} terms in another order), and so the dx SpMMs")
     (fwd_b, fwd_by), (bwd_b, bwd_by) = r1l_bounds(n, e, d)
     no_lib = ("none: no single PyTorch call computes the row softmax, the "
               "hashed dropout and the aggregation together")
@@ -318,27 +373,43 @@ def phase_rank1_kernels(split):
             "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": fwd_b, "bound_by": fwd_by,
             "library_ms": None})
+    keep = r1.keep_scale_plain(torch.arange(e, device=DEVICE), seed, 0.5)
     for rate in (0.0, 0.5):
         out, lse = r1.rank1_gat_plain(op.ptr, op.col, c, a, x, seed, rate,
                                       op.slope, n)
         args = (op.ptr, op.col, c, a, x, gout, out, lse, seed, rate,
                 op.slope, n)
-        z, dc, da = r1.r1l_bwd(*args)
-        wz, wdc, wda = r1.rank1_gat_bwd_plain(*args)
+        prime_nan((e,), (e,), (n,), (e * (2 + d),))
+        q, dpre, dc, da = r1.r1l_bwd(*args)
+        wq, wdpre, wdc, wda = r1.rank1_gat_bwd_plain(*args)
         torch.cuda.synchronize()
         err = max(
-            close(f"r1l_bwd_f32[rate {rate}] z", z, wz, KERNEL_RTOL,
+            close(f"r1l_bwd_f32[rate {rate}] q", q, wq, KERNEL_RTOL,
                   KERNEL_ATOL),
+            close(f"r1l_bwd_f32[rate {rate}] dpre", dpre, wdpre, SUM_RTOL,
+                  SUM_ATOL_REL * float(wdpre.abs().max())),
             close(f"r1l_bwd_f32[rate {rate}] dc", dc, wdc, SUM_RTOL,
                   SUM_ATOL_REL * float(wdc.abs().max())),
             close(f"r1l_bwd_f32[rate {rate}] da", da, wda, SUM_RTOL,
                   SUM_ATOL_REL * float(wda.abs().max())))
-    ms = time_ms(lambda: r1.r1l_bwd(*args))
+        if rate > 0:
+            # the keep mask: q is 0 exactly on the dropped slots
+            dropped = keep == 0
+            if q[dropped].any() or not bool((q[~dropped & (wq > 1e-30)]
+                                             > 0).all()):
+                raise AssertionError("r1l_bwd_f32's keep mask differs from "
+                                     "keep_scale_plain")
+            log(f"  r1l_bwd_f32[rate 0.5]: keep mask bit-exact, "
+                f"{int(dropped.sum())} of {e} slots dropped")
+        same_bits(f"r1l_bwd_f32[rate {rate}]", lambda: r1.r1l_bwd(*args))
+    kernel = (lambda: r1.r1l_bwd(*args))
+    ms, dev_ms = time_ms(kernel), device_ms(kernel)
     plain_ms = time_ms(lambda: r1.rank1_gat_bwd_plain(*args), reps=5,
                        iters=5)
-    log(f"  r1l_bwd_f32[rate 0.5]: kernel {ms:.4f} ms (edge grid + da "
-        f"reduce), plain {plain_ms:.4f} ms, bound {bwd_b:.5f} ms "
-        f"({bwd_by}); library {no_lib}")
+    log(f"  r1l_bwd_f32[rate 0.5]: {e} edges, {cuda_spmm.warp_run(e)} slots "
+        f"a run: kernel {ms:.4f} ms (device {fmt(dev_ms)}; the runs grid and "
+        f"the da / dc fix-up grid), plain {plain_ms:.4f} ms, bound "
+        f"{bwd_b:.5f} ms ({bwd_by}); library {no_lib}")
     results.append({
         "name": "r1l_bwd_f32[rate 0.5]", "route": "cuda",
         "source": "msha_gnn_torch/csrc/rank1_gat.cu",
@@ -346,38 +417,69 @@ def phase_rank1_kernels(split):
                     "_r1l_bwd_kernel",
         "launches": None, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bwd_b, "bound_by": bwd_by,
-        "library_ms": None})
+        "library_ms": None, "device_ms": dev_ms, "library_device_ms": None})
 
+    # dx = A(q).T gout + (A.T dpre) a^T, as the operator assembles it: the
+    # q-weighted transposed SpMM and the d = 1 column sum of dpre
     spmm = op.spmm
-    red_args = (spmm.t_ptr, spmm.t_edge, None, z, n, spmm.warps_t)
-    got = cuda_spmm.csr_spmm(*red_args)
-    want = cuda_spmm.csr_spmm_plain(*red_args[:5])
+    got_dx = r1.assemble_dx(spmm, gout, a, q, dpre)
     rcv = g.receivers[:e].long()
-    lib_out = z.new_zeros((n, d)).index_add_(0, rcv, z)
+    z = wq[:, None] * gout[cuda_spmm.edge_rows(op.ptr, e)] + wdpre[:, None] * a
+    want_dx = z.new_zeros((n, d)).index_add_(0, rcv, z)
+    del z
     torch.cuda.synchronize()
-    # each output sums up to 3,842 rows of z: the sums' tolerance
-    err = close("csr_spmm_f32[dx reduce] out", got, want, SUM_RTOL,
-                SUM_ATOL_REL * float(want.abs().max()))
-    if not torch.allclose(lib_out, want, rtol=1e-4, atol=1e-5):
-        raise AssertionError("index_add_ yardstick disagrees with the "
-                             "plain version")
-    ms = time_ms(lambda: cuda_spmm.csr_spmm(*red_args))
-    plain_ms = time_ms(lambda: cuda_spmm.csr_spmm_plain(*red_args[:5]))
-    library_ms = time_ms(lambda: z.new_zeros((n, d)).index_add_(0, rcv, z))
-    bound_ms, bound_by = spmm_bound(spmm.t_ptr, spmm.t_edge, z, n,
-                                    weighted=False)
-    log(f"  csr_spmm_f32[dx reduce]: rows {n}, edges {e}, d {d}, warps/"
-        f"block {spmm.warps_t}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, index_add_ {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
-        f"({bound_by})")
-    results.append({
-        "name": "csr_spmm_f32[dx reduce]", "route": "cuda",
-        "source": "msha_gnn_torch/csrc/spmm.cu",
-        "replaces": "msha_gnn_tpu/ops/pallas/spmm.py:244 _visit_kernel",
-        "launches": None, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms})
+    close("dx assembled from q and dpre vs the plain z reduce", got_dx,
+          want_dx, SUM_RTOL, SUM_ATOL_REL * float(want_dx.abs().max()))
+    w_t = spmm.weights(q, True)
+    dcol = dpre[:, None].contiguous()
+    a_csr = torch.sparse_csr_tensor(spmm.t_ptr, spmm.t_col, w_t, size=(n, n))
+    results.append(spmm_use(
+        "r1l dx q A^T g", (spmm.t_ptr, spmm.t_col, w_t, gout, n),
+        lambda: torch.sparse.mm(a_csr, gout), "torch.sparse.mm"))
+    results.append(spmm_use(
+        "r1l dpre column sum", (spmm.t_ptr, spmm.t_edge, None, dcol, n),
+        lambda: dcol.new_zeros((n, 1)).index_add_(0, rcv, dcol),
+        "index_add_"))
     return results
+
+
+def spmm_use(label, args, library, lib_name):
+    """One use of ``csr_spmm_f32`` on the card: against its plain version
+    at the sums' tolerance (sums of up to 3,842 terms), two launches bit
+    for bit, the library yardstick against the plain version, event and
+    device times of the kernel and the yardstick, the bound; returns its
+    entry of the kernels line."""
+    from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
+
+    ptr, col, w, x, n_rows = args
+    got = cuda_spmm.csr_spmm(*args)
+    want = cuda_spmm.csr_spmm_plain(*args)
+    torch.cuda.synchronize()
+    err = close(f"csr_spmm_f32[{label}]", got, want, SUM_RTOL,
+                SUM_ATOL_REL * float(want.abs().max()))
+    same_bits(f"csr_spmm_f32[{label}]", lambda: cuda_spmm.csr_spmm(*args))
+    if not torch.allclose(library(), want, rtol=1e-4, atol=1e-5 * max(
+            1.0, float(want.abs().max()))):
+        raise AssertionError(f"{lib_name} yardstick disagrees with the "
+                             "plain version")
+    kernel = (lambda: cuda_spmm.csr_spmm(*args))
+    ms, dev_ms = time_ms(kernel), device_ms(kernel)
+    plain_ms = time_ms(lambda: cuda_spmm.csr_spmm_plain(*args))
+    library_ms, lib_dev_ms = time_ms(library), device_ms(library)
+    bnd = spmm_bound(ptr, col, x, n_rows, weighted=w is not None)
+    e, d = col.numel(), x.shape[1]
+    log(f"  csr_spmm_f32[{label}]: rows {n_rows}, edges {e}, d {d}, "
+        f"{cuda_spmm.run_for(e, d)} slots a run: kernel {ms:.4f} ms (device "
+        f"{fmt(dev_ms)}), plain {plain_ms:.4f} ms, {lib_name} "
+        f"{library_ms:.4f} ms (device {fmt(lib_dev_ms)}), bound "
+        f"{bnd[0]:.5f} ms ({bnd[1]})")
+    return {"name": f"csr_spmm_f32[{label}]", "route": "cuda",
+            "source": "msha_gnn_torch/csrc/spmm.cu",
+            "replaces": "msha_gnn_tpu/ops/pallas/spmm.py:244 _visit_kernel",
+            "launches": None, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": library_ms, "device_ms": dev_ms,
+            "library_device_ms": lib_dev_ms}
 
 
 def sddmm_bound(ptr, col, a, b, n_out):
@@ -434,8 +536,8 @@ def phase_materialised_kernels(split):
     logits = torch.randn(e_pad, generator=gen, device=DEVICE) * 2
     gatt = torch.randn(e_pad, generator=gen, device=DEVICE)
     log(f"  graph: {n} rows, {e} edges ({e_pad} padded), d {d}; softmax "
-        f"warps/block {sop.warps}, SpMM warps/block {op.warps} / "
-        f"{op.warps_t}")
+        f"warps/block {sop.warps}, SpMM runs of "
+        f"{cuda_spmm.warp_run(e)} slots")
     longest = int(torch.cat([op.ptr.diff(), op.t_ptr.diff()]).max())
     log(f"  tolerances: SDDMM and softmax forward at rtol {KERNEL_RTOL}, "
         f"atol {KERNEL_ATOL} (one d-term dot or one row's sums in another "
@@ -580,30 +682,12 @@ def phase_materialised_kernels(split):
     w, w_t = op.weights(att, False), op.weights(att, True)
     for label, transpose, inp in (("att A h", False, x),
                                   ("att dx A^T g", True, gout)):
-        ptr, col, ww, warps = ((op.t_ptr, op.t_col, w_t, op.warps_t)
-                               if transpose else (op.ptr, op.col, w,
-                                                  op.warps))
-        got = cuda_spmm.csr_spmm(ptr, col, ww, inp, n, warps)
-        want = cuda_spmm.csr_spmm_plain(ptr, col, ww, inp, n)
-        torch.cuda.synchronize()
-        err = close(f"csr_spmm_f32[{label}]", got, want, SUM_RTOL,
-                    SUM_ATOL_REL * float(want.abs().max()))
+        ptr, col, ww = ((op.t_ptr, op.t_col, w_t) if transpose
+                        else (op.ptr, op.col, w))
         a_csr = torch.sparse_csr_tensor(ptr, col, ww, size=(n, n))
-        if not torch.allclose(torch.sparse.mm(a_csr, inp), want, rtol=1e-4,
-                              atol=1e-5):
-            raise AssertionError("torch.sparse.mm yardstick disagrees")
-        ms = time_ms(lambda: cuda_spmm.csr_spmm(ptr, col, ww, inp, n, warps))
-        plain_ms = time_ms(lambda: cuda_spmm.csr_spmm_plain(ptr, col, ww,
-                                                            inp, n))
-        library_ms = time_ms(lambda: torch.sparse.mm(a_csr, inp))
-        bnd = spmm_bound(ptr, col, inp, n)
-        log(f"  csr_spmm_f32[{label}]: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, torch.sparse.mm {library_ms:.4f} ms, bound "
-            f"{bnd[0]:.5f} ms ({bnd[1]})")
-        results.append(entry(
-            f"csr_spmm_f32[{label}]", "spmm.cu",
-            "msha_gnn_tpu/ops/pallas/spmm.py:244 _visit_kernel", err, ms,
-            plain_ms, bnd, library_ms))
+        results.append(spmm_use(
+            label, (ptr, col, ww, inp, n),
+            lambda: torch.sparse.mm(a_csr, inp), "torch.sparse.mm"))
     return results
 
 
@@ -731,27 +815,10 @@ def phase_flash_kernels(split):
     # dx = A(q).T gout: the q-weighted transposed SpMM, as the operator runs it
     _, q = fg.flash_gat_bwd_plain(*bwd_args)
     w_t = spmm.weights(q, True)
-    dx_args = (spmm.t_ptr, spmm.t_col, w_t, gout, n)
-    got = cuda_spmm.csr_spmm(*dx_args, spmm.warps_t)
-    want = cuda_spmm.csr_spmm_plain(*dx_args)
-    torch.cuda.synchronize()
-    err = close("csr_spmm_f32[flash dx]", got, want, SUM_RTOL,
-                SUM_ATOL_REL * float(want.abs().max()))
     a_csr = torch.sparse_csr_tensor(spmm.t_ptr, spmm.t_col, w_t, size=(n, n))
-    if not torch.allclose(torch.sparse.mm(a_csr, gout), want, rtol=1e-4,
-                          atol=1e-5):
-        raise AssertionError("torch.sparse.mm yardstick disagrees")
-    ms = time_ms(lambda: cuda_spmm.csr_spmm(*dx_args, spmm.warps_t))
-    plain_ms = time_ms(lambda: cuda_spmm.csr_spmm_plain(*dx_args))
-    library_ms = time_ms(lambda: torch.sparse.mm(a_csr, gout))
-    bnd = spmm_bound(spmm.t_ptr, spmm.t_col, gout, n)
-    log(f"  csr_spmm_f32[flash dx]: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-        f" ms, torch.sparse.mm {library_ms:.4f} ms, bound {bnd[0]:.5f} ms "
-        f"({bnd[1]})")
-    results.append(entry(
-        "csr_spmm_f32[flash dx]", "spmm.cu",
-        "msha_gnn_tpu/ops/pallas/spmm.py:244 _visit_kernel", err, ms,
-        plain_ms, bnd, library_ms))
+    results.append(spmm_use(
+        "flash dx", (spmm.t_ptr, spmm.t_col, w_t, gout, n),
+        lambda: torch.sparse.mm(a_csr, gout), "torch.sparse.mm"))
     return results
 
 
@@ -901,6 +968,8 @@ def phase_generic_kernels(split):
     torch.cuda.synchronize()
     err = close("seg_reduce_f32 out", got, want, SUM_RTOL,
                 SUM_ATOL_REL * float(want.abs().max()))
+    same_bits("seg_reduce_f32", lambda: cuda_spmm.segment_reduce_sorted(
+        *seg_args, n_src=n))
     offsets, rows = spmm.ptr.long(), g.senders[:e].long()
 
     def library():
@@ -922,19 +991,27 @@ def phase_generic_kernels(split):
                           atol=SUM_ATOL_REL * float(want.abs().max())):
         raise AssertionError(f"{lib_name} yardstick disagrees with the plain "
                              "version")
-    ms = time_ms(lambda: cuda_spmm.segment_reduce_sorted(*seg_args, n_src=n))
+    kernel = (lambda: cuda_spmm.segment_reduce_sorted(*seg_args, n_src=n))
+    ms, dev_ms = time_ms(kernel), device_ms(kernel)
     plain_ms = time_ms(lambda: cuda_spmm.segment_reduce_sorted_plain(
         *seg_args, n_src=n))
-    library_ms = time_ms(library)
+    library_ms, lib_dev_ms = time_ms(library), device_ms(library)
+    index_add = (lambda: values.new_zeros((n, d)).index_add_(0, rows,
+                                                             values[:e]))
+    ia_ms, ia_dev_ms = time_ms(index_add), device_ms(index_add)
     # the pointer, the E rows of values, the output; one add an element
     bnd = bound(4 * (n + 1) + 4 * e * d + 4 * n * d, e * d)
-    log(f"  seg_reduce_f32: rows {n}, edges {e}, d {d}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, {lib_name} {library_ms:.4f} ms, bound "
-        f"{bnd[0]:.5f} ms ({bnd[1]})")
-    results.append(entry(
+    log(f"  seg_reduce_f32: rows {n}, edges {e} ({e_pad} slots), d {d}, "
+        f"{cuda_spmm.run_for(e_pad, d)} slots a run: kernel {ms:.4f} ms "
+        f"(device {fmt(dev_ms)}), plain {plain_ms:.4f} ms, {lib_name} "
+        f"{library_ms:.4f} ms (device {fmt(lib_dev_ms)}), index_add_ "
+        f"{ia_ms:.4f} ms (device {fmt(ia_dev_ms)}), bound {bnd[0]:.5f} ms "
+        f"({bnd[1]})")
+    results.append({**entry(
         "seg_reduce_f32", "spmm.cu",
         "msha_gnn_tpu/ops/pallas/spmm.py:81 _reduce_kernel", err, ms,
-        plain_ms, bnd, library_ms))
+        plain_ms, bnd, library_ms), "device_ms": dev_ms,
+        "library_device_ms": lib_dev_ms})
 
     # the fused dx + dw of the att-weighted SpMM, both directions: dx of
     # A @ x walks the CSC and writes dw through t_edge, of A.T @ x the CSR
@@ -1018,7 +1095,7 @@ def phase_operators(split):
     counts = read_counts(spmm)
     log(f"  generic operator, one forward and backward: {counts}")
     want = expected(r1_fwd_f32=1, r1_bwd_f32=1, csr_spmm_f32=2,
-                    csr_spmm_f32_transposed=2)
+                    csr_spmm_f32_transposed=2, csr_spmm_f32_reduce_edges=1)
     if counts != want:
         raise AssertionError(f"expected {want} launches, got {counts}")
     lin_in = [v.clone().requires_grad_() for v in (c, a, h)]
@@ -1074,7 +1151,7 @@ def phase_operators(split):
     counts = read_counts(spmm)
     log(f"  five generic Adam steps: {counts}")
     want = expected(r1_fwd_f32=5, r1_bwd_f32=5, csr_spmm_f32=10,
-                    csr_spmm_f32_transposed=10)
+                    csr_spmm_f32_transposed=10, csr_spmm_f32_reduce_edges=5)
     if counts != want:
         raise AssertionError(f"expected {want} launches, got {counts}")
     launches["r1_fwd_f32"] = counts["r1_fwd_f32"]
@@ -1163,6 +1240,7 @@ def read_counts(op=None):
               "csr_spmm_dw_f32": cuda_spmm.dw_launches}
     if op is not None:
         counts["csr_spmm_f32 transposed"] = op.launches_transposed
+        counts["csr_spmm_f32 reduce_edges"] = op.launches_reduce
     return counts
 
 
@@ -1179,7 +1257,7 @@ def zero_counts(op=None):
     cuda_sddmm.launches = sm.fwd_launches = sm.bwd_launches = 0
     fg.fwd_launches = fg.bwd_launches = 0
     if op is not None:
-        op.launches = op.launches_transposed = 0
+        op.launches = op.launches_transposed = op.launches_reduce = 0
 
 
 def expected(**nonzero):
@@ -1188,14 +1266,19 @@ def expected(**nonzero):
              "csr_spmm_f32", "csr_sddmm_f32",
              "seg_softmax_fwd_f32", "seg_softmax_bwd_f32",
              "flash_fwd_f32", "flash_bwd_f32", "r1_fwd_f32", "r1_bwd_f32",
-             "seg_reduce_f32", "csr_spmm_dw_f32", "csr_spmm_f32 transposed")
+             "seg_reduce_f32", "csr_spmm_dw_f32", "csr_spmm_f32 transposed",
+             "csr_spmm_f32 reduce_edges")
     return {k: nonzero.get(k.replace(" ", "_"), 0) for k in names}
 
 
 # launches of one training step and of one evaluation, per linkpred impl
 STEP_WANT = {
-    "fused": expected(r1l_fwd_f32=3, r1l_bwd_f32=3, csr_spmm_f32=3,
-                      csr_spmm_f32_transposed=3),
+    # each backward: r1l_bwd_f32, then dx from the q-weighted transposed
+    # csr_spmm_f32 and the d = 1 column sum of dpre (reduce_edges; no
+    # [E, d] z)
+    "fused": expected(r1l_fwd_f32=3, r1l_bwd_f32=3, csr_spmm_f32=6,
+                      csr_spmm_f32_transposed=6,
+                      csr_spmm_f32_reduce_edges=3),
     "materialised": expected(csr_spmm_f32=6, csr_spmm_f32_transposed=3,
                              csr_sddmm_f32=3, seg_softmax_fwd_f32=3,
                              seg_softmax_bwd_f32=3, r1l_keep_scale_f32=3),
@@ -1340,6 +1423,10 @@ def phase_linkpred(split, impl):
         "eval_s": eval_s, **metrics,
     }
     log(f"  linkpred ({impl}): {json.dumps(summary)}")
+    if impl == "fused":
+        log(f"  after one epoch: Hits@20 {metrics.get('hits@20')}, Hits@50 "
+            f"{metrics.get('hits@50')}, AUC {metrics.get('auc')}; the same "
+            f"epoch {BEFORE_METRICS}")
     return step_counts, eval_counts, losses
 
 
@@ -1573,10 +1660,16 @@ def main() -> int:
     log("phase 5: linkpred training path (LinkPredConfig defaults)")
     step, evaluation, fused_losses = phase_linkpred(split, "fused")
     # rate 0.5 runs in training steps, rate 0 in the evaluation's encoding
+    # the d = 1 column sums of dpre are the step's reduce_edges launches,
+    # the q-weighted dx SpMMs its other transposed ones
     per_name = {"r1l_fwd_f32[rate 0.0]": evaluation["r1l_fwd_f32"],
                 "r1l_fwd_f32[rate 0.5]": step["r1l_fwd_f32"],
                 "r1l_bwd_f32[rate 0.5]": step["r1l_bwd_f32"],
-                "csr_spmm_f32[dx reduce]": step["csr_spmm_f32 transposed"]}
+                "csr_spmm_f32[r1l dx q A^T g]":
+                    (step["csr_spmm_f32 transposed"]
+                     - step["csr_spmm_f32 reduce_edges"]),
+                "csr_spmm_f32[r1l dpre column sum]":
+                    step["csr_spmm_f32 reduce_edges"]}
     for k in r1_kernels:
         k["launches"] = per_name[k["name"]]
     kernels += r1_kernels

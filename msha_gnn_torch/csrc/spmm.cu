@@ -1,4 +1,4 @@
-// CSR walks in float32, one block per output row:
+// CSR walks in float32:
 //
 // csr_spmm_f32: sparse (CSR) times dense,
 //
@@ -43,22 +43,36 @@
 // unweighted) and one row of x (seg_reduce_f32: its own row of values;
 // csr_spmm_dw_f32 adds eid and the dw write, 8 B); the operations (2 E d
 // flops, 4 E d with dw) are far below the card's rate.  At the GCN's
-// shapes each call moves about 6 MB at minimum, about 2 us at HBM rate, so
-// the launch and the per-row latency chain dominate.
+// shapes each call moves about 6 MB at minimum, about 2 us at HBM rate;
+// seg_reduce_f32 on [E, 64] values reads 84 MB, about 25 us.
 //
-// Design (simple and right first): one block per output row.  The block's
-// warps stride over the row's edges, each lane owns one feature of a
-// 32-wide feature tile, and the warps' partial sums are added in shared
-// memory in a fixed order.  No atomics: the result is deterministic.  The
-// caller picks the warps per block (1..8) from the row lengths.
-// csr_spmm_dw_f32 holds x[r] in shared memory for the whole row; each warp
-// takes groups of kUnroll edges, forms the group's dots with x[r] (one warp
-// sum each) while it accumulates w g into its own row of shared memory.
-// Splitting very long rows over several blocks is left for later.
+// Design of csr_spmm_f32 and seg_reduce_f32: the edge-run schedule of
+// runs.cuh.  The first design, one block per output row, walked the longest
+// row serially: the linkpred graph's 3,842-edge row, or the GCN's 32 CSC
+// rows of about 3,168 edges on 32 of the 132 SMs, set the kernel's time
+// alone, each warp reloading col and w for every 32-feature tile and each
+// x load waiting on its own col load.  Now each warp takes a run of `run`
+// consecutive slots, whatever the rows; a row crossing runs is added up by
+// a second grid of the same entry point from the runs' head and tail
+// partials in run order.  Inside a run, edges are the outer loop and
+// features the inner: the warp loads 32 edges' col and w in one coalesced
+// load and hands them to the lanes with __shfl_sync, then keeps kGroup
+// edges' rows of x in flight; each lane loads kVec floats of a row (float4
+// where d % 4 == 0 and d >= 128, float2 where d is even and d >= 64).  At
+// d = 1 (a column sum of per-edge scalars) a warp would leave 31 lanes
+// idle, so there a thread takes a run of its own.  No atomics: two
+// launches on the same inputs give the same bits.
+//
+// csr_spmm_dw_f32 (one block per row) holds x[r] in shared memory for the
+// whole row; each warp takes groups of kUnroll edges, forms the group's
+// dots with x[r] (one warp sum each) while it accumulates w g into its own
+// row of shared memory.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "runs.cuh"
 
 namespace {
 
@@ -68,40 +82,267 @@ constexpr int kUnroll = 4;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t kMaxSmem = 48 * 1024;
 
+constexpr int kWarpsPerBlock = 4;  // measured: 4 beat 8 on the att SpMM and segment sum
+constexpr int kGroup = 8;     // edges whose rows of x are in flight together
+constexpr int kD1Threads = 256;
+
+// The row the piece [begin, end) of run k goes to: out's row, or the run's
+// head or tail partial (each [n_runs, d]).
+__device__ __forceinline__ float* piece_dst(float* out, float* head,
+                                            float* tail, int row, int begin,
+                                            int end, int first, int last,
+                                            int64_t k, int d) {
+  switch (runs::target(begin, end, first, last)) {
+    case runs::kHead:
+      return head + k * d;
+    case runs::kTail:
+      return tail + k * d;
+    default:
+      return out + static_cast<int64_t>(row) * d;
+  }
+}
+
+// One warp per run; lanes over kVec-wide slices of 32 kVec-feature tiles.
 // kIdentity: the edge's own index is its row of x (col is not read).
-template <bool kWeighted, bool kIdentity>
-__global__ void __launch_bounds__(kMaxWarps * kWarp)
-csr_spmm_f32_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
-                    const float* __restrict__ w, const float* __restrict__ x,
-                    float* __restrict__ out, int d) {
-  __shared__ float partial[kMaxWarps][kWarp];
-  const int row = blockIdx.x;
+template <int kVec, bool kWeighted, bool kIdentity>
+__global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
+csr_spmm_runs_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
+                     const float* __restrict__ w, const float* __restrict__ x,
+                     float* __restrict__ out, float* __restrict__ head,
+                     float* __restrict__ tail, int* __restrict__ cross,
+                     int n_rows, int run, int d) {
   const int lane = threadIdx.x % kWarp;
-  const int warp = threadIdx.x / kWarp;
-  const int n_warps = blockDim.x / kWarp;
-  const int begin = ptr[row];
-  const int end = ptr[row + 1];
-  for (int f0 = 0; f0 < d; f0 += kWarp) {
-    const int f = f0 + lane;
-    float acc = 0.0f;
-    if (f < d) {
-#pragma unroll 4
-      for (int e = begin + warp; e < end; e += n_warps) {
-        const int64_t src = kIdentity ? static_cast<int64_t>(e)
-                                      : static_cast<int64_t>(__ldg(col + e));
-        const float v = __ldg(x + src * d + f);
-        acc = kWeighted ? fmaf(__ldg(w + e), v, acc) : acc + v;
+  const int64_t k = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock +
+                    threadIdx.x / kWarp;
+  const int n_edges = __ldg(ptr + n_rows);
+  int first = 0;
+  int last = 0;
+  if (!runs::bounds(k, run, n_edges, first, last)) {
+    if (k == 0) {  // no edges: every row is empty
+      for (int64_t i = lane; i < static_cast<int64_t>(n_rows) * d;
+           i += kWarp) {
+        out[i] = 0.0f;
       }
     }
-    partial[warp][lane] = acc;
-    __syncthreads();
-    if (warp == 0 && f < d) {
-      float sum = partial[0][lane];
-      for (int k = 1; k < n_warps; ++k) sum += partial[k][lane];
-      out[static_cast<int64_t>(row) * d + f] = sum;
-    }
-    __syncthreads();
+    return;
   }
+  const int r0 = runs::warp_row_of(ptr, n_rows, first, lane);
+  const int r_owned = runs::first_owned(ptr, r0, first);
+  for (int f0 = 0; f0 < d; f0 += kWarp * kVec) {
+    const int f = f0 + lane * kVec;
+    const bool mine = f < d;
+    float acc[kVec];
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) acc[i] = 0.0f;
+    if (mine) {
+      for (int r = r_owned; r < r0; ++r) {
+        runs::store_vec<kVec>(out + static_cast<int64_t>(r) * d + f, acc);
+      }
+    }
+    int row = r0;
+    int begin = __ldg(ptr + row);
+    int end = __ldg(ptr + row + 1);
+    // each batch of 32 edges' col and w in one coalesced load, the next
+    // batch's loaded while this one's rows of x are summed
+    int next_src = 0;
+    float next_w = 1.0f;
+    if (first + lane < last) {
+      next_src = kIdentity ? first + lane : __ldg(col + first + lane);
+      if (kWeighted) next_w = __ldg(w + first + lane);
+    }
+    for (int b = first; b < last; b += kWarp) {
+      const int n_b = min(kWarp, last - b);
+      const int my_src = next_src;
+      const float my_w = next_w;
+      const int nb = b + kWarp + lane;
+      if (nb < last) {
+        next_src = kIdentity ? nb : __ldg(col + nb);
+        if (kWeighted) next_w = __ldg(w + nb);
+      }
+      for (int g = 0; g < n_b; g += kGroup) {
+        float v[kGroup][kVec];
+        float wt[kGroup];
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u) {
+          const int src = __shfl_sync(kFull, my_src, g + u);
+          wt[u] = kWeighted ? __shfl_sync(kFull, my_w, g + u) : 1.0f;
+          if (g + u < n_b && mine) {
+            runs::ldg_vec<kVec>(x + static_cast<int64_t>(src) * d + f, v[u]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < kVec; ++i) v[u][i] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u) {
+          if (g + u < n_b) {
+            const int e = b + g + u;
+            while (e >= end) {  // the row ends inside the run
+              if (mine) {
+                runs::store_vec<kVec>(piece_dst(out, head, tail, row, begin,
+                                                end, first, last, k, d) + f,
+                                      acc);
+              }
+#pragma unroll
+              for (int i = 0; i < kVec; ++i) acc[i] = 0.0f;
+              ++row;
+              begin = end;
+              end = __ldg(ptr + row + 1);
+            }
+#pragma unroll
+            for (int i = 0; i < kVec; ++i) {
+              acc[i] = kWeighted ? fmaf(wt[u], v[u][i], acc[i])
+                                 : acc[i] + v[u][i];
+            }
+          }
+        }
+      }
+    }
+    if (lane == 0 && f0 == 0) {
+      cross[k] = runs::target(begin, end, first, last) == runs::kTail ? row
+                                                                      : -1;
+    }
+    if (mine) {
+      runs::store_vec<kVec>(piece_dst(out, head, tail, row, begin, end,
+                                      first, last, k, d) + f, acc);
+      if (last == n_edges) {  // the empty rows after the last edge
+#pragma unroll
+        for (int i = 0; i < kVec; ++i) acc[i] = 0.0f;
+        for (int r = row + 1; r < n_rows; ++r) {
+          runs::store_vec<kVec>(out + static_cast<int64_t>(r) * d + f, acc);
+        }
+      }
+    }
+  }
+}
+
+// d = 1: one thread per run, kGroup edges' loads in flight.
+template <bool kWeighted, bool kIdentity>
+__global__ void __launch_bounds__(kD1Threads)
+csr_spmm_runs_d1_kernel(const int* __restrict__ ptr,
+                        const int* __restrict__ col,
+                        const float* __restrict__ w,
+                        const float* __restrict__ x, float* __restrict__ out,
+                        float* __restrict__ head, float* __restrict__ tail,
+                        int* __restrict__ cross, int n_rows, int run) {
+  const int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  const int n_edges = __ldg(ptr + n_rows);
+  int first = 0;
+  int last = 0;
+  if (!runs::bounds(k, run, n_edges, first, last)) {
+    if (k == 0) {
+      for (int r = 0; r < n_rows; ++r) out[r] = 0.0f;
+    }
+    return;
+  }
+  const int r0 = runs::row_of(ptr, n_rows, first);
+  for (int r = runs::first_owned(ptr, r0, first); r < r0; ++r) out[r] = 0.0f;
+  int row = r0;
+  int begin = __ldg(ptr + row);
+  int end = __ldg(ptr + row + 1);
+  float acc = 0.0f;
+  for (int e0 = first; e0 < last; e0 += kGroup) {
+    float v[kGroup];
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      const int e = e0 + u;
+      v[u] = 0.0f;
+      if (e < last) {
+        const float xv = __ldg(x + (kIdentity ? e : __ldg(col + e)));
+        v[u] = kWeighted ? __ldg(w + e) * xv : xv;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kGroup; ++u) {
+      const int e = e0 + u;
+      if (e < last) {
+        while (e >= end) {
+          *piece_dst(out, head, tail, row, begin, end, first, last, k, 1) =
+              acc;
+          acc = 0.0f;
+          ++row;
+          begin = end;
+          end = __ldg(ptr + row + 1);
+        }
+        acc += v[u];
+      }
+    }
+  }
+  *piece_dst(out, head, tail, row, begin, end, first, last, k, 1) = acc;
+  cross[k] = runs::target(begin, end, first, last) == runs::kTail ? row : -1;
+  if (last == n_edges) {
+    for (int r = row + 1; r < n_rows; ++r) out[r] = 0.0f;
+  }
+}
+
+// The rows that cross runs: out[r] = tail[k] + head[k + 1] + ... +
+// head[k_end], by the run k where r begins; kLanes workers per run (a warp,
+// lanes over features, or one thread at d = 1).
+template <int kLanes>
+__global__ void csr_spmm_fixup_kernel(const int* __restrict__ ptr,
+                                      const float* __restrict__ head,
+                                      const float* __restrict__ tail,
+                                      const int* __restrict__ cross,
+                                      float* __restrict__ out, int n_rows,
+                                      int run, int d) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  const int64_t k = t / kLanes;
+  const int lane = static_cast<int>(t % kLanes);
+  int64_t k_end = 0;
+  const int r = runs::crossing_row(ptr, cross, __ldg(ptr + n_rows), run, k,
+                                   k_end);
+  if (r < 0) return;
+  for (int f = lane; f < d; f += kLanes) {
+    float v = tail[k * d + f];
+#pragma unroll 8
+    for (int64_t j = k + 1; j <= k_end; ++j) v += head[j * d + f];
+    out[static_cast<int64_t>(r) * d + f] = v;
+  }
+}
+
+// Both grids of one CSR sum; ws holds head [n_runs, d] | tail [n_runs, d] |
+// cross [n_runs] (int32).
+template <bool kWeighted, bool kIdentity>
+int launch_runs(const int* ptr, const int* col, const float* w,
+                const float* x, float* out, float* ws, int n_rows,
+                int n_slots, int run, int d, cudaStream_t stream) {
+  const int64_t n_runs = runs::count(n_slots, run);
+  float* head = ws;
+  float* tail = ws + n_runs * d;
+  int* cross = reinterpret_cast<int*>(ws + 2 * n_runs * d);
+  if (d == 1) {
+    const int64_t blocks = (n_runs + kD1Threads - 1) / kD1Threads;
+    csr_spmm_runs_d1_kernel<kWeighted, kIdentity>
+        <<<static_cast<unsigned>(blocks), kD1Threads, 0, stream>>>(
+            ptr, col, w, x, out, head, tail, cross, n_rows, run);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    csr_spmm_fixup_kernel<1>
+        <<<static_cast<unsigned>(blocks), kD1Threads, 0, stream>>>(
+            ptr, head, tail, cross, out, n_rows, run, d);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const uintptr_t at = reinterpret_cast<uintptr_t>(x);
+  const int64_t blocks = (n_runs + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const unsigned grid = static_cast<unsigned>(blocks);
+  const int threads = kWarpsPerBlock * kWarp;
+  if (d >= 128 && d % 4 == 0 && at % 16 == 0) {
+    csr_spmm_runs_kernel<4, kWeighted, kIdentity><<<grid, threads, 0, stream>>>(
+        ptr, col, w, x, out, head, tail, cross, n_rows, run, d);
+  } else if (d >= 64 && d % 2 == 0 && at % 8 == 0) {
+    csr_spmm_runs_kernel<2, kWeighted, kIdentity><<<grid, threads, 0, stream>>>(
+        ptr, col, w, x, out, head, tail, cross, n_rows, run, d);
+  } else {
+    csr_spmm_runs_kernel<1, kWeighted, kIdentity><<<grid, threads, 0, stream>>>(
+        ptr, col, w, x, out, head, tail, cross, n_rows, run, d);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  csr_spmm_fixup_kernel<kWarp><<<grid, threads, 0, stream>>>(
+      ptr, head, tail, cross, out, n_rows, run, d);
+  return static_cast<int>(cudaGetLastError());
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -194,34 +435,37 @@ size_t dw_smem(int d, int n_warps) {
 // cudaGetLastError() after its launch (0 = launched), so a refused launch
 // is reported.
 
-// A null `w` means unit weights.
+// Both sums take ws [2 n_runs d + n_runs] float32 with n_runs = max(1,
+// ceil(n_slots / run)): n_slots >= ptr[n_rows] bounds the slots (the
+// number of edges itself is read from ptr on the card), run >= 1 is the
+// run length in slots.  Two grids: the runs, then the fix-up of the rows
+// that cross runs.  Every row of out is written.
+
+// out[r] = sum_{e in row r} w[e] x[col[e]]; a null `w` means unit weights.
 extern "C" int csr_spmm_f32(const int* ptr, const int* col, const float* w,
-                            const float* x, float* out, int n_rows, int d,
-                            int n_warps, cudaStream_t stream) {
-  if (n_rows <= 0 || d <= 0 || n_warps < 1 || n_warps > kMaxWarps) {
+                            const float* x, float* out, float* ws, int n_rows,
+                            int n_slots, int run, int d, cudaStream_t stream) {
+  if (n_rows <= 0 || d <= 0 || n_slots < 0 || run < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (w != nullptr) {
-    csr_spmm_f32_kernel<true, false>
-        <<<n_rows, n_warps * kWarp, 0, stream>>>(ptr, col, w, x, out, d);
-  } else {
-    csr_spmm_f32_kernel<false, false>
-        <<<n_rows, n_warps * kWarp, 0, stream>>>(ptr, col, w, x, out, d);
+    return launch_runs<true, false>(ptr, col, w, x, out, ws, n_rows, n_slots,
+                                    run, d, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_runs<false, false>(ptr, col, w, x, out, ws, n_rows, n_slots,
+                                   run, d, stream);
 }
 
 // out[r] = sum of values' rows [ptr[r], ptr[r+1]); values [>= ptr[n_rows],
 // d].
 extern "C" int seg_reduce_f32(const int* ptr, const float* values,
-                              float* out, int n_rows, int d, int n_warps,
-                              cudaStream_t stream) {
-  if (n_rows <= 0 || d <= 0 || n_warps < 1 || n_warps > kMaxWarps) {
+                              float* out, float* ws, int n_rows, int n_slots,
+                              int run, int d, cudaStream_t stream) {
+  if (n_rows <= 0 || d <= 0 || n_slots < 0 || run < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  csr_spmm_f32_kernel<false, true><<<n_rows, n_warps * kWarp, 0, stream>>>(
-      ptr, nullptr, nullptr, values, out, d);
-  return static_cast<int>(cudaGetLastError());
+  return launch_runs<false, true>(ptr, nullptr, nullptr, values, out, ws,
+                                  n_rows, n_slots, run, d, stream);
 }
 
 // dx [n_rows, d] and dw [n_dw] (n_dw >= ptr[n_rows], the slots past it 0)

@@ -34,14 +34,22 @@ def gcn_params_from_jax(params: Mapping) -> dict:
     return sd
 
 
+def sparse_gat_layer_params_from_jax(params: Mapping) -> dict:
+    """A flax ``SparseGATLayer``'s ``{"W", "a"}`` -> the port's layer
+    ``state_dict`` (the same layout: ``W`` [in, out], ``a`` [2 out, 1])."""
+    if "params" in params:
+        params = params["params"]
+    return {"W": _tensor(params["W"]), "a": _tensor(params["a"])}
+
+
 def linkpred_params_from_jax(params: Mapping) -> dict:
     """The ``{"encoder", "predictor", "features"}`` tree of
     ``msha_gnn_tpu.training.link_prediction.run_link_prediction`` -> the
     ``state_dict`` of the port's ``LinkPredModel``."""
     sd = {"features": _tensor(params["features"])}
     for name, layer in params["encoder"].items():
-        sd[f"encoder.{name}.W"] = _tensor(layer["W"])
-        sd[f"encoder.{name}.a"] = _tensor(layer["a"])
+        for k, v in sparse_gat_layer_params_from_jax(layer).items():
+            sd[f"encoder.{name}.{k}"] = v
     for name, dense in params["predictor"].items():
         i = int(name.rsplit("_", 1)[1])
         sd[f"predictor.lins.{i}.weight"] = _tensor(dense["kernel"]).T.contiguous()

@@ -88,16 +88,24 @@ class SparseGATLayer(nn.Module):
         self.a = nn.Parameter(xavier_uniform((2 * out_features, 1),
                                              generator))
 
-    def forward(self, graph: BipartiteGraph, x: torch.Tensor, *,
-                train: bool, impl: str = "auto",
+    def forward(self, graph: BipartiteGraph, x_src: torch.Tensor,
+                x_dst: Optional[torch.Tensor] = None, *, train: bool,
+                impl: str = "auto",
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        impl = resolve_impl(impl, x.device)
+        """``x_src`` [n_src, in] gives the rows' logit term, ``x_dst``
+        [n_dst, in] (default ``x_src``, for a square graph) the columns'
+        logit term and the features aggregated, as the JAX layer's
+        ``(graph, x_src, x_dst)``."""
+        impl = resolve_impl(impl, x_src.device)
         d = self.out_features
-        h = x @ self.W
+        h_src = x_src @ self.W
+        # one GEMM when the two sides are the same tensor (eager PyTorch
+        # does not merge the duplicate)
+        h_dst = h_src if x_dst is None or x_dst is x_src else x_dst @ self.W
         av = self.a.reshape(2 * d)
-        s_src = h @ av[:d]
+        s_src = h_src @ av[:d]
         rate = float(self.dropout) if (train and self.dropout > 0) else 0.0
-        seed = draw_seed(generator, x.device) if rate > 0 else None
+        seed = draw_seed(generator, x_src.device) if rate > 0 else None
         if impl == "fused":
             from ..ops.cuda.rank1_gat import Rank1GatOperator
 
@@ -105,17 +113,17 @@ class SparseGATLayer(nn.Module):
             op = Rank1GatOperator(graph, negative_slope=self.negative_slope,
                                   dst_linear=True, dropout_rate=rate)
             if seed is not None:
-                return elu(op.drop(s_src, av[d:], h, seed))
-            return elu(op(s_src, av[d:], h))
-        logits = sddmm(graph, s_src, h @ av[d:],
+                return elu(op.drop(s_src, av[d:], h_dst, seed))
+            return elu(op(s_src, av[d:], h_dst))
+        logits = sddmm(graph, s_src, h_dst @ av[d:],
                        negative_slope=self.negative_slope)
         if impl == "flash":
             from ..ops.cuda.flash_gat import FlashGatOperator
 
             op = FlashGatOperator(graph, dropout_rate=rate)
             if seed is not None:
-                return elu(op.drop(logits, h, seed))
-            return elu(op(logits, h))
+                return elu(op.drop(logits, h_dst, seed))
+            return elu(op(logits, h_dst))
         ops_impl = "cuda" if impl == "materialised" else "torch"
         att = edge_softmax(graph, logits, impl=ops_impl)
         if seed is not None:
@@ -123,9 +131,10 @@ class SparseGATLayer(nn.Module):
 
             n = graph.num_padded_edges
             att = att * (keep_scale(n, seed, rate) if impl == "materialised"
-                         else keep_scale_plain(torch.arange(n, device=x.device),
-                                               seed, rate))
-        return elu(spmm(graph, h, edge_weight=att, impl=ops_impl))
+                         else keep_scale_plain(
+                             torch.arange(n, device=x_src.device), seed,
+                             rate))
+        return elu(spmm(graph, h_dst, edge_weight=att, impl=ops_impl))
 
 
 class SparseGAT(nn.Module):
@@ -149,7 +158,7 @@ class SparseGAT(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         kw = dict(train=train, impl=impl, generator=generator)
         x = dropout(x, self.dropout, train, generator)
-        h = torch.cat([getattr(self, f"attention_{i}")(graph, x, **kw)
+        h = torch.cat([getattr(self, f"attention_{i}")(graph, x, x, **kw)
                        for i in range(self.n_heads)], dim=1)
         h = dropout(h, self.dropout, train, generator)
-        return self.out_att(graph, h, **kw)
+        return self.out_att(graph, h, h, **kw)

@@ -24,8 +24,10 @@ compute and what bounds them.
   are :func:`rank1_gat_generic_plain` and
   :func:`rank1_gat_generic_bwd_plain`.
 * :class:`Rank1GatOperator` binds one graph and is differentiable.  The
-  dst_linear backward runs ``r1l_bwd_f32`` and then the edge-row reduce of
-  :meth:`SpmmOperator.reduce_edges` (``csr_spmm_f32``) for ``dx``; the
+  dst_linear backward runs ``r1l_bwd_f32`` (``q``, ``dpre``, ``dc``,
+  ``da``), then ``dx`` by :func:`assemble_dx`: the ``q``-weighted
+  transposed ``csr_spmm_f32`` of ``gout`` plus ``a`` times the d = 1
+  edge-row reduce of ``dpre``; the
   generic backward runs ``r1_bwd_f32`` (``att``, ``dpre``, ``dc``), then
   ``dx`` as the ``att``-weighted transposed ``csr_spmm_f32`` of ``gout``
   and ``dt`` as the edge-row reduce of ``dpre``.
@@ -40,7 +42,7 @@ from typing import TYPE_CHECKING, Optional
 import numpy as np
 import torch
 
-from .spmm import SpmmOperator, edge_rows, operator_for
+from .spmm import SpmmOperator, edge_rows, n_runs, operator_for, warp_run
 
 if TYPE_CHECKING:
     from ...graph import BipartiteGraph
@@ -49,7 +51,7 @@ NEG = -1e30
 
 # Launches of r1l_fwd_f32 / r1l_bwd_f32 in this process (plain counts, reset
 # by callers that measure a run).  One r1l_bwd_f32 launch runs two grids:
-# the edge kernel and the fixed-order da reduce.
+# the edge runs, then the fixed-order da reduce and dc of crossing rows.
 fwd_launches = 0
 bwd_launches = 0
 keep_launches = 0
@@ -68,7 +70,7 @@ def _kernel_lib() -> ctypes.CDLL:
         lib = _build.load("rank1_gat")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.r1l_fwd_f32.argtypes = [p] * 6 + [f] * 3 + [p] * 2 + [i] * 3 + [p]
-        lib.r1l_bwd_f32.argtypes = ([p] * 9 + [f] * 3 + [p] * 4 + [i] * 3
+        lib.r1l_bwd_f32.argtypes = ([p] * 9 + [f] * 3 + [p] * 5 + [i] * 5
                                     + [p])
         lib.r1l_keep_scale_f32.argtypes = [p, f, f, i, p, p]
         lib.r1l_max_warps.argtypes = [i]
@@ -190,8 +192,9 @@ def rank1_gat_plain(ptr, col, c, a, x, seed, rate: float, slope: float,
 
 def rank1_gat_bwd_plain(ptr, col, c, a, x, gout, out, lse, seed, rate: float,
                         slope: float, n_rows: int):
-    """Plain version of ``r1l_bwd_f32`` -> ``(z [E, d] in CSR order, dc
-    [n_rows], da [d])``."""
+    """Plain version of ``r1l_bwd_f32`` -> ``(q [E], dpre [E]`` in CSR
+    order``, dc [n_rows], da [d])``; ``dx`` is :func:`assemble_dx` of
+    ``q`` and ``dpre``."""
     rows, xg, pre, logit = _logits(ptr, col, c, a, x, slope)
     lse_e = lse[rows]
     live = lse_e > NEG / 2
@@ -201,9 +204,18 @@ def rank1_gat_bwd_plain(ptr, col, c, a, x, gout, out, lse, seed, rate: float,
     g = gout[rows]
     dl = q * (g * xg).sum(1) - att * (gout * out).sum(1)[rows]
     dpre = torch.where(pre >= 0, dl, slope * dl)
-    z = q[:, None] * g + dpre[:, None] * a
     dc = x.new_zeros(n_rows).index_add_(0, rows, dpre)
-    return z, dc, (dpre[:, None] * xg).sum(0)
+    return q, dpre, dc, (dpre[:, None] * xg).sum(0)
+
+
+def assemble_dx(spmm: SpmmOperator, gout, a, q, dpre) -> torch.Tensor:
+    """``dx[j] = sum_{e: col_e = j} (q_e gout[r_e] + dpre_e a)``, the
+    dst_linear backward's ``dx`` from ``r1l_bwd_f32``'s per-edge ``q`` and
+    ``dpre``: the ``q``-weighted transposed SpMM of ``gout`` plus ``a``
+    times the column sums of ``dpre`` (two ``csr_spmm_f32`` launches, the
+    second at d = 1), without the ``[E, d]`` rows of the sum."""
+    dx = spmm.apply(gout, q, transpose=True)
+    return dx.addcmul_(spmm.reduce_edges(dpre[:, None]), a[None, :])
 
 
 def _generic_pre(ptr, col, c, t):
@@ -309,10 +321,15 @@ def r1l_fwd(ptr, col, c, a, x, seed, rate: float, slope: float, n_rows: int):
 
 
 def r1l_bwd(ptr, col, c, a, x, gout, out, lse, seed, rate: float,
-            slope: float, n_rows: int):
-    """Recompute backward -> ``(z [E, d], dc [n_rows], da [d])`` float32;
-    ``gout``, ``out`` [n_rows, d] and ``lse`` [n_rows] as the forward gave
-    them.  CPU tensors take the plain version."""
+            slope: float, n_rows: int, run: Optional[int] = None):
+    """Recompute backward -> ``(q [E], dpre [E], dc [n_rows], da [d])``
+    float32, ``q`` and ``dpre`` in CSR order; ``gout``, ``out`` [n_rows,
+    d] and ``lse`` [n_rows] as the forward gave them.  ``col`` [E] may
+    run past ``ptr[n_rows]`` (a padded edge array): the kernel reads the
+    edge count from ``ptr`` on the card and gives ``q`` and ``dpre`` 0 on
+    the pads.  ``run`` slots a warp (default :func:`~.spmm.warp_run`).
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     global bwd_launches
     if x.device.type == "cpu":
         return rank1_gat_bwd_plain(ptr, col, c, a, x, gout, out, lse, seed,
@@ -325,25 +342,28 @@ def r1l_bwd(ptr, col, c, a, x, gout, out, lse, seed, rate: float,
         raise ValueError(f"gout {tuple(gout.shape)}, out {tuple(out.shape)} "
                          f"and lse {tuple(lse.shape)} must be [{n_rows}, "
                          f"{d}] and [{n_rows}]")
-    dev = x.device
-    z = torch.empty((col.numel(), d), dtype=torch.float32, device=dev)
+    dev, e = x.device, col.numel()  # slots: a bound on the edges
+    q = torch.empty(e, dtype=torch.float32, device=dev)
+    dpre = torch.empty(e, dtype=torch.float32, device=dev)
     dc = torch.empty(n_rows, dtype=torch.float32, device=dev)
     da = torch.empty(d, dtype=torch.float32, device=dev)
     if n_rows == 0:
-        return z, dc, da.zero_()
-    da_part = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
+        return q.zero_(), dpre.zero_(), dc, da.zero_()
+    run = warp_run(e) if run is None else int(run)
+    ws = torch.empty(n_runs(e, run) * (3 + d), dtype=torch.float32,
+                     device=dev)
     lib = _kernel_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.r1l_bwd_f32(
             ptr.data_ptr(), col.data_ptr(), c.data_ptr(), a.data_ptr(),
             x.data_ptr(), gout.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            seed.data_ptr(), rate, _scale(rate), slope, z.data_ptr(),
-            dc.data_ptr(), da_part.data_ptr(), da.data_ptr(), n_rows, d,
-            _warps(d), stream)
+            seed.data_ptr(), rate, _scale(rate), slope, q.data_ptr(),
+            dpre.data_ptr(), dc.data_ptr(), ws.data_ptr(), da.data_ptr(),
+            n_rows, e, run, d, _warps(d), stream)
     _raise_on(lib, rc, "r1l_bwd_f32")
     bwd_launches += 1
-    return z, dc, da
+    return q, dpre, dc, da
 
 
 def _generic_shapes(ptr, col, c, t, x, n_rows):
@@ -444,10 +464,12 @@ class _Rank1Lin(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gout):
         c, a, x, out, lse, seed = ctx.saved_tensors
-        op = ctx.op
-        z, dc, da = r1l_bwd(op.ptr, op.col, c, a, x, gout.contiguous(), out,
-                            lse, seed, ctx.rate, op.slope, op.graph.n_src)
-        return dc, da, op.spmm.reduce_edges(z), None, None, None
+        op, gout = ctx.op, gout.contiguous()
+        q, dpre, dc, da = r1l_bwd(op.ptr, op.col, c, a, x, gout, out, lse,
+                                  seed, ctx.rate, op.slope, op.graph.n_src)
+        dx = assemble_dx(op.spmm, gout, a, q, dpre) \
+            if ctx.needs_input_grad[2] else None
+        return dc, da, dx, None, None, None
 
 
 class _Rank1Generic(torch.autograd.Function):
@@ -505,7 +527,7 @@ class Rank1GatOperator:
                 f"precision={precision!r}: the port's rank-1 GAT computes in "
                 "float32 only (precision='f32'); bfloat16 rows wait with "
                 "SparseGATLayer's precision option (ROADMAP.md, modules to "
-                "port, item 3)")
+                "port, item 5)")
         r = float(dropout_rate)
         if not 0.0 <= r < 1.0:
             raise ValueError(f"dropout_rate must be in [0, 1), got {r}")

@@ -29,8 +29,8 @@ and what bounds it (bytes).
 * :meth:`SpmmOperator.reduce_edges` sums per-edge rows into their
   receivers, ``out[j] = sum_{e: rcv_e = j} z[e]``: the kernel over the CSC
   pointer with the CSC->CSR edge ids as columns and no weights, which the
-  kernel reads as unit weights (the rank-1 GAT backward's ``dx``,
-  ``_reduce_z`` in the JAX package).
+  kernel reads as unit weights (the rank-1 GAT backwards' column sums of
+  ``dpre``, at d = 1).
 * :func:`segment_reduce_sorted` (``spmm.py::segment_reduce_sorted``) sums
   rows of values sorted by segment over their CSR pointer, one launch of
   ``seg_reduce_f32``.
@@ -55,6 +55,11 @@ if TYPE_CHECKING:
     from ...graph import BipartiteGraph
 
 MAX_WARPS = 8
+# Run lengths (CSR slots a warp sums) of csr_spmm_f32 and seg_reduce_f32,
+# and the runs that fill the card: 132 SMs x 32 warps.
+RUN_SLOTS = (32, 64, 128, 256)
+RUNS_TARGET = 132 * 32
+RUN_D1 = 32     # at d = 1 a thread takes a run
 
 # Launches of csr_spmm_f32, seg_reduce_f32 and csr_spmm_dw_f32 in this
 # process (plain counts, reset by callers that measure a run).
@@ -72,8 +77,8 @@ def _kernel_lib() -> ctypes.CDLL:
 
         lib = _build.load("spmm")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.csr_spmm_f32.argtypes = [p] * 5 + [i] * 3 + [p]
-        lib.seg_reduce_f32.argtypes = [p] * 3 + [i] * 3 + [p]
+        lib.csr_spmm_f32.argtypes = [p] * 6 + [i] * 4 + [p]
+        lib.seg_reduce_f32.argtypes = [p] * 4 + [i] * 4 + [p]
         lib.csr_spmm_dw_f32.argtypes = [p] * 8 + [i] * 4 + [p]
         lib.csr_spmm_dw_max_warps.argtypes = [i]
         for fn in (lib.csr_spmm_f32, lib.seg_reduce_f32, lib.csr_spmm_dw_f32,
@@ -110,15 +115,115 @@ def csr_spmm_plain(ptr: torch.Tensor, col: torch.Tensor,
     return out.index_add_(0, rows, vals if w is None else w[:, None] * vals)
 
 
+def warp_run(n_slots: int) -> int:
+    """Run length of a walk with a warp per run over ``n_slots`` CSR
+    slots: the shortest of :data:`RUN_SLOTS` whose runs do not outnumber
+    :data:`RUNS_TARGET` warps (a longer run adds rounds of loads a warp, a
+    shorter one more partials to add up)."""
+    for run in RUN_SLOTS:
+        if -(-n_slots // run) <= RUNS_TARGET:
+            return run
+    return RUN_SLOTS[-1]
+
+
+def run_for(n_slots: int, d: int) -> int:
+    """Run length of ``csr_spmm_f32`` / ``seg_reduce_f32`` for ``n_slots``
+    CSR slots of width ``d``: :func:`warp_run`, or :data:`RUN_D1` slots a
+    thread at ``d = 1``."""
+    return RUN_D1 if d == 1 else warp_run(n_slots)
+
+
+def n_runs(n_slots: int, run: int) -> int:
+    """Runs of ``run`` slots over ``n_slots`` (at least one)."""
+    return max(1, -(-n_slots // run))
+
+
+def csr_spmm_runs_plain(ptr: torch.Tensor, col: Optional[torch.Tensor],
+                        w: Optional[torch.Tensor], x: torch.Tensor,
+                        n_rows: int, run: int):
+    """The schedule of ``csr_spmm_f32`` and ``seg_reduce_f32`` in plain
+    PyTorch, step by step as the kernels take it (``msha_gnn_torch/csrc/
+    runs.cuh``): each run of ``run`` consecutive slots sums its pieces of
+    rows, writing a row that lies inside it and leaving the head and tail
+    partials of rows that cross its ends; empty rows are zeroed by the run
+    that holds their slot; then the crossing rows are added up in run
+    order.  ``col`` None: the identity (``seg_reduce_f32``).
+
+    Returns ``(out [n_rows, d], writes [n_rows])``, ``writes`` counting how
+    often each row was written (the kernels write each row once).  Slow: a
+    Python loop over the runs, for tests.
+    """
+    pl = [int(v) for v in ptr.tolist()]
+    n_edges, d = pl[n_rows], x.shape[1]
+    idx = (torch.arange(n_edges, device=x.device) if col is None
+           else col[:n_edges].long())
+    vals = x[idx] if w is None else w[:n_edges, None] * x[idx]
+    rows = edge_rows(ptr, n_edges)
+    out = x.new_full((n_rows, d), float("nan"))
+    writes = torch.zeros(n_rows, dtype=torch.int64)
+    n = n_runs(n_edges, run)
+    head, tail = x.new_zeros((n, d)), x.new_zeros((n, d))
+
+    def put(r, v):
+        out[r] = v
+        writes[r] += 1
+
+    if n_edges == 0:
+        for r in range(n_rows):
+            put(r, 0.0)
+    for k in range(n):
+        first, last = k * run, min(k * run + run, n_edges)
+        if first >= n_edges:
+            break
+        r0 = int(rows[first])
+        r = r0
+        while r > 0 and pl[r - 1] == first:
+            r -= 1
+        for empty in range(r, r0):
+            put(empty, 0.0)
+        piece_rows, counts = torch.unique_consecutive(rows[first:last],
+                                                      return_counts=True)
+        local = torch.repeat_interleave(torch.arange(len(counts)), counts)
+        sums = x.new_zeros((len(counts), d)).index_add_(0, local,
+                                                        vals[first:last])
+        prev = None
+        for rr, s in zip(piece_rows.tolist(), sums):
+            if prev is not None:
+                for empty in range(prev + 1, rr):
+                    put(empty, 0.0)
+            begin, end = pl[rr], pl[rr + 1]
+            if begin < first:
+                head[k] = s
+            elif end > last:
+                tail[k] = s
+            else:
+                put(rr, s)
+            prev = rr
+        if last == n_edges:
+            for empty in range(prev + 1, n_rows):
+                put(empty, 0.0)
+    for k in range(n):
+        first, last = k * run, min(k * run + run, n_edges)
+        if first >= n_edges:
+            break
+        r = int(rows[last - 1])
+        if pl[r + 1] > last and pl[r] >= first:
+            v = tail[k].clone()
+            for j in range(k + 1, (pl[r + 1] - 1) // run + 1):
+                v = v + head[j]
+            put(r, v)
+    return out, writes
+
+
 def csr_spmm(ptr: torch.Tensor, col: torch.Tensor, w: Optional[torch.Tensor],
-             x: torch.Tensor, n_rows: int, n_warps: int) -> torch.Tensor:
+             x: torch.Tensor, n_rows: int,
+             run: Optional[int] = None) -> torch.Tensor:
     """``out[r] = sum_{e in row r} w[e] * x[col[e]]`` -> [n_rows, d] f32.
 
     ``ptr`` int32 [n_rows + 1], ``col`` int32 [E], ``w`` f32 [E] or None
     for unit weights, ``x`` f32 [n_cols, d], all contiguous and on one
-    device; ``n_warps`` per block
-    (1..8, see :func:`warps_for`).  CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise.
+    device; ``run`` slots a warp (default :func:`run_for`).  CPU tensors
+    take the plain version; CUDA tensors launch the kernel or raise.
     """
     global launches
     dev = x.device
@@ -148,17 +253,20 @@ def csr_spmm(ptr: torch.Tensor, col: torch.Tensor, w: Optional[torch.Tensor],
     for name, t in given:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    d = x.shape[1]
+    d, n_slots = x.shape[1], col.numel()
     out = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
     if n_rows == 0 or d == 0:
         return out
+    run = run_for(n_slots, d) if run is None else int(run)
+    ws = torch.empty(n_runs(n_slots, run) * (2 * d + 1), dtype=torch.float32,
+                     device=dev)
     lib = _kernel_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.csr_spmm_f32(ptr.data_ptr(), col.data_ptr(),
                               None if w is None else w.data_ptr(),
-                              x.data_ptr(), out.data_ptr(), n_rows, d,
-                              n_warps, stream)
+                              x.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                              n_rows, n_slots, run, d, stream)
     _raise_on(lib, rc, "csr_spmm_f32")
     launches += 1
     return out
@@ -200,8 +308,8 @@ def segment_reduce_sorted_plain(values: torch.Tensor, senders: torch.Tensor,
 
 
 def segment_reduce_sorted(values: torch.Tensor, senders: torch.Tensor,
-                          row_ptr: torch.Tensor, *,
-                          n_src: int) -> torch.Tensor:
+                          row_ptr: torch.Tensor, *, n_src: int,
+                          run: Optional[int] = None) -> torch.Tensor:
     """``out[s] = sum_{e: senders[e] == s} values[e]`` -> [n_src, d] f32,
     for ``values`` [E_pad, d] f32 sorted by segment, ``senders`` [E_pad]
     (pads ``>= n_src``) and ``row_ptr`` [n_src + 1] their CSR offsets.
@@ -210,8 +318,10 @@ def segment_reduce_sorted(values: torch.Tensor, senders: torch.Tensor,
     ``row_ptr`` (``senders`` is taken for the JAX signature and must agree
     with it) and reads no row past ``row_ptr[n_src]``.  CPU tensors take
     :func:`segment_reduce_sorted_plain`; CUDA tensors launch
-    ``seg_reduce_f32`` (8 warps a row, so a long row needs no host-side
-    look at the pointer) or raise.
+    ``seg_reduce_f32`` or raise.  Its runs (``run`` slots each, default
+    :func:`run_for`) cover ``values``' rows, a bound the host has: the
+    number of edges is read from ``row_ptr`` on the card, so a long row
+    needs no host-side look at the pointer.
     """
     global seg_launches
     if values.dim() != 2 or row_ptr.shape != (n_src + 1,) or \
@@ -227,15 +337,19 @@ def segment_reduce_sorted(values: torch.Tensor, senders: torch.Tensor,
     _on_card(dev, "segment_reduce_sorted", (("row_ptr", ptr),
                                              ("values", values)),
              ints=("row_ptr",))
-    d = values.shape[1]
+    n_slots, d = values.shape
     out = torch.empty((n_src, d), dtype=torch.float32, device=dev)
     if n_src == 0 or d == 0:
         return out
+    run = run_for(n_slots, d) if run is None else int(run)
+    ws = torch.empty(n_runs(n_slots, run) * (2 * d + 1), dtype=torch.float32,
+                     device=dev)
     lib = _kernel_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.seg_reduce_f32(ptr.data_ptr(), values.data_ptr(),
-                                out.data_ptr(), n_src, d, MAX_WARPS, stream)
+                                out.data_ptr(), ws.data_ptr(), n_src,
+                                n_slots, run, d, stream)
     _raise_on(lib, rc, "seg_reduce_f32")
     seg_launches += 1
     return out
@@ -320,8 +434,9 @@ def csr_spmm_dw(ptr, col, eid, w, g, x, n_rows: int, n_dw: int,
 class SpmmOperator:
     """``A @ x`` and ``A.T @ x`` for one graph, on one device.
 
-    ``launches`` counts this operator's ``csr_spmm_f32`` launches and
-    ``launches_transposed`` those of them that ran ``A.T``.
+    ``launches`` counts this operator's ``csr_spmm_f32`` launches,
+    ``launches_transposed`` those of them that ran ``A.T`` and
+    ``launches_reduce`` those of :meth:`reduce_edges` (transposed too).
     ``fused_bwd``: a runtime edge weight's gradient and ``dx`` come from
     one ``csr_spmm_dw_f32`` launch (``spmm.py::SpmmOperator``'s flag of
     the same name), not from ``csr_spmm_f32`` and ``csr_sddmm_f32``.
@@ -360,6 +475,7 @@ class SpmmOperator:
         self.warps_t = warps_for(e, graph.n_dst, int(csc_ptr.max(initial=0)))
         self.launches = 0
         self.launches_transposed = 0
+        self.launches_reduce = 0
 
     @staticmethod
     def build(graph: "BipartiteGraph",
@@ -367,9 +483,9 @@ class SpmmOperator:
         """The operator of ``graph`` on the graph's device."""
         return SpmmOperator(graph, graph.device, fused_bwd)
 
-    def _launch(self, ptr, col, w, x, n_out, warps, transpose):
+    def _launch(self, ptr, col, w, x, n_out, transpose):
         before = launches
-        out = csr_spmm(ptr, col, w, x, n_out, warps)
+        out = csr_spmm(ptr, col, w, x, n_out)
         if launches != before:
             self.launches += 1
             self.launches_transposed += int(transpose)
@@ -392,10 +508,8 @@ class SpmmOperator:
         ``edge_weight`` (None: the graph's own); no autograd."""
         g, w = self.graph, self.weights(edge_weight, transpose)
         if transpose:
-            return self._launch(self.t_ptr, self.t_col, w, x, g.n_dst,
-                                self.warps_t, True)
-        return self._launch(self.ptr, self.col, w, x, g.n_src, self.warps,
-                            False)
+            return self._launch(self.t_ptr, self.t_col, w, x, g.n_dst, True)
+        return self._launch(self.ptr, self.col, w, x, g.n_src, False)
 
     def backward_dw(self, g: torch.Tensor, x: torch.Tensor,
                     edge_weight: torch.Tensor, transpose: bool):
@@ -438,8 +552,11 @@ class SpmmOperator:
         if z.dim() != 2 or z.shape[0] != self.num_edges:
             raise ValueError(f"z must be [{self.num_edges}, d], got "
                              f"{tuple(z.shape)}")
-        return self._launch(self.t_ptr, self.t_edge, None, z.contiguous(),
-                            self.graph.n_dst, self.warps_t, True)
+        before = self.launches
+        out = self._launch(self.t_ptr, self.t_edge, None, z.contiguous(),
+                           self.graph.n_dst, True)
+        self.launches_reduce += self.launches - before
+        return out
 
 
 class _SpmmFn(torch.autograd.Function):

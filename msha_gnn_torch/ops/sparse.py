@@ -86,16 +86,15 @@ def edge_softmax(graph: "BipartiteGraph", logits: torch.Tensor, *,
                  per: str = "src", impl: str = "torch") -> torch.Tensor:
     """Softmax of per-edge logits over each source row (``per="src"``) or
     destination column (``per="dst"``); padding edges get 0.
-    ``impl="cuda"`` runs the row-softmax kernels and takes ``per="src"``
-    only, as the JAX package's ``impl="pallas"``."""
-    if impl == "cuda":
-        if per != "src":
-            raise ValueError('edge_softmax(impl="cuda") takes per="src" only')
+    ``impl="cuda"`` runs the row-softmax kernels for ``per="src"``; the
+    column softmax takes the plain path, as the JAX package's
+    ``impl="pallas"`` takes its XLA path there."""
+    if impl not in ("torch", "cuda"):
+        raise ValueError(f"unknown edge_softmax impl {impl!r} (torch | cuda)")
+    if impl == "cuda" and per == "src":
         from .cuda.softmax import softmax_operator_for
 
         return softmax_operator_for(graph)(logits)
-    if impl != "torch":
-        raise ValueError(f"unknown edge_softmax impl {impl!r} (torch | cuda)")
     if per == "src":
         return segment_softmax(logits, graph.senders, graph.n_src,
                                mask=graph.edge_mask)

@@ -115,11 +115,11 @@ def build_link_prediction(split, cfg: LinkPredConfig,
     if cfg.neighbor_fanout > 0:
         raise NotImplementedError(
             "neighbor_fanout > 0 needs data/sampler.py, not ported yet "
-            "(ROADMAP queue 1 item 4)")
+            "(ROADMAP queue 1 item 6)")
     if cfg.use_kd:
         raise NotImplementedError(
             "use_kd needs the KD student loop of training/kd.py, not ported "
-            "yet (ROADMAP queue 1 item 8)")
+            "yet (ROADMAP queue 1 item 6)")
     impl = resolve_impl(cfg.impl, dev)
     graph = split["graph"].to(dev)
     model = LinkPredModel(split["n"], cfg,

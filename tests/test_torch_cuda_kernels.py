@@ -8,11 +8,13 @@ This file imports nothing of JAX (and the tests here need no fixture of
 
 Elsewhere the tests skip.  Inputs are U[-0.5, 0.5), the scale of the
 training path's; d = 0 is a shape (the logits and the softmax statistics
-do not need features).  Tolerances: ``out`` and ``lse`` at rtol 1e-5, atol 1e-6
-(float32, another summation order); ``z`` the same with atol growing as
-d / 64 past d = 64, since each ``z`` holds two d-term dot products;
-``dc``, ``da`` and the dx reduce, which sum many terms in another order,
-at rtol 1e-4 and atol 1e-5 of the largest value.  The SDDMM and the row
+do not need features).  Tolerances: ``out``, ``lse`` and ``q`` at rtol
+1e-5, atol 1e-6 (float32, another summation order); ``dpre`` (a
+difference of two d-term dots), ``dc``, ``da``, the SpMMs and the dx
+reduce, which sum many terms in another order, at rtol 1e-4 and atol 1e-5
+of the largest value.  The kernels that sum edges by runs of slots
+(``csr_spmm_f32``, ``seg_reduce_f32``, ``r1l_bwd_f32``) are also launched
+twice on the same inputs and must give the same bits.  The SDDMM and the row
 softmax at rtol 1e-5, atol 1e-6 (one d-term dot, or one row's exp and sum,
 in another order); the softmax's VJP with the sums' tolerance.  The
 flash-GAT kernels: ``out``, ``lse`` and ``q`` at rtol 1e-5, atol 1e-6;
@@ -48,8 +50,8 @@ def sums_close(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,rate", [(0, 0.5), (8, 0.0), (16, 0.5),
-                                    (64, 0.5), (129, 0.25)])
+@pytest.mark.parametrize("d,rate", [(0, 0.5), (1, 0.5), (8, 0.0), (16, 0.5),
+                                    (32, 0.0), (64, 0.5), (129, 0.25)])
 def test_rank1_kernels_match_plain(d, rate):
     g = card_graph(d, 300, 120, 0.05, empty_rows=(0, 299))
     op = r1.Rank1GatOperator(g, dst_linear=True, dropout_rate=rate)
@@ -64,14 +66,15 @@ def test_rank1_kernels_match_plain(d, rate):
     want_out, want_lse = r1.rank1_gat_plain(*args)
     bwd_args = (op.ptr, op.col, c, a, x, gout, want_out, want_lse, seed,
                 rate, 0.2, 300)
-    z, dc, da = r1.r1l_bwd(*bwd_args)
-    wz, wdc, wda = r1.rank1_gat_bwd_plain(*bwd_args)
+    q, dpre, dc, da = r1.r1l_bwd(*bwd_args)
+    wq, wdpre, wdc, wda = r1.rank1_gat_bwd_plain(*bwd_args)
     torch.cuda.synchronize()
     assert (r1.fwd_launches, r1.bwd_launches) == (before[0] + 1,
                                                   before[1] + 1)
     torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(z, wz, rtol=1e-5, atol=1e-6 * max(1, d / 64))
+    torch.testing.assert_close(q, wq, rtol=1e-5, atol=1e-6)
+    sums_close(dpre, wdpre)
     sums_close(dc, wdc)
     sums_close(da, wda)
     n = g.num_padded_edges
@@ -454,3 +457,247 @@ def test_rank1_generic_operator_gradients_match_plain_on_card():
     sums_close(dc, lin[0].grad)
     sums_close(x.T @ dt, lin[1].grad)
     sums_close(dx + dt[:, None] * a[None, :], lin[2].grad)
+
+
+def long_row_graph(n_src, n_dst, long_rows=(1,), length=700, seed=0):
+    """A graph whose ``long_rows`` hold ``length`` edges each (to n_dst
+    columns, so repeated columns), beside rows of a few edges and empty
+    rows (0, the middle one and the last)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, 6, n_src)
+    lengths[[0, n_src // 2, n_src - 1]] = 0
+    lengths[list(long_rows)] = length
+    src = np.repeat(np.arange(n_src), lengths)
+    dst = rng.integers(0, n_dst, src.size)
+    w = (rng.random(src.size) + 0.5).astype(np.float32)
+    return tg.BipartiteGraph.from_coo(src, dst, w, n_src=n_src, n_dst=n_dst,
+                                      pad_to_multiple=16).to("cuda")
+
+
+def twice_same(fn):
+    """``fn()`` launched twice gives the same bits; returns the first."""
+    first = fn()
+    second = fn()
+    torch.cuda.synchronize()
+    firsts = first if isinstance(first, tuple) else (first,)
+    seconds = second if isinstance(second, tuple) else (second,)
+    for u, v in zip(firsts, seconds):
+        assert torch.equal(u, v), "two launches differ"
+    return first
+
+
+RUNS = [None, 1, 32, 256]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", RUNS, ids=lambda r: f"run{r}")
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("d", [1, 8, 32, 64, 129])
+def test_spmm_runs_kernel_matches_plain(d, shape, run):
+    """csr_spmm_f32 (weighted, unweighted, both directions) against its
+    plain version on a graph with long rows that cross many runs, empty
+    rows and empty columns, over NaN-primed outputs, twice bit for bit."""
+    n_src, n_dst = SHAPES[shape]
+    g = long_row_graph(n_src, n_dst, long_rows=(1, n_src - 2), seed=d)
+    op = cuda_spmm.SpmmOperator(g, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    for transpose in (False, True):
+        n_in, n_out = (n_src, n_dst) if transpose else (n_dst, n_src)
+        ptr, col, w = ((op.t_ptr, op.t_col, op.t_w) if transpose
+                       else (op.ptr, op.col, op.w))
+        x = torch.rand(n_in, d, generator=gen, device="cuda") - 0.5
+        for ww in (w, None):
+            prime_nan((n_out, d), (2 * n_out * d,))
+            before = cuda_spmm.launches
+            got = twice_same(lambda: cuda_spmm.csr_spmm(ptr, col, ww, x,
+                                                        n_out, run))
+            assert cuda_spmm.launches == before + 2
+            want = cuda_spmm.csr_spmm_plain(ptr, col, ww, x, n_out)
+            assert got.shape == (n_out, d)
+            sums_close(got, want)
+    # the schedule's mirror computes the same function
+    x = torch.rand(n_dst, d, generator=gen, device="cuda") - 0.5
+    mirror, writes = cuda_spmm.csr_spmm_runs_plain(
+        op.ptr.cpu(), op.col.cpu(), op.w.cpu(), x.cpu(), n_src,
+        run or cuda_spmm.run_for(op.num_edges, d))
+    assert bool((writes == 1).all())
+    sums_close(cuda_spmm.csr_spmm(op.ptr, op.col, op.w, x, n_src, run).cpu(),
+               mirror)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", RUNS, ids=lambda r: f"run{r}")
+@pytest.mark.parametrize("d", [1, 32, 64])
+def test_seg_reduce_runs_kernel_matches_plain(d, run):
+    """seg_reduce_f32 over a pointer with long rows, empty rows and NaN pad
+    rows, at several run lengths, twice bit for bit."""
+    g = long_row_graph(300, 120, long_rows=(1, 298), seed=d + 1)
+    e, e_pad = g.num_edges, g.num_padded_edges
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    values = torch.rand(e_pad + 40, d, generator=gen, device="cuda") - 0.5
+    values[e:] = float("nan")
+    senders = torch.cat([g.senders, torch.full((40,), 300, device="cuda",
+                                               dtype=g.senders.dtype)])
+    prime_nan((300, d))
+    got = twice_same(lambda: cuda_spmm.segment_reduce_sorted(
+        values, senders, g.row_ptr, n_src=300, run=run))
+    want = cuda_spmm.segment_reduce_sorted_plain(values, senders, g.row_ptr,
+                                                 n_src=300)
+    sums_close(got, want)
+    assert not got[[0, 150, 299]].any()
+
+
+@pytest.mark.cuda
+def test_spmm_runs_kernel_with_no_edges():
+    """A graph without edges: every row written as 0, at d 1 and d 64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dense = np.zeros((40, 9), np.float32)
+    g = tg.BipartiteGraph.from_dense(dense, pad_to_multiple=16).to("cuda")
+    op = cuda_spmm.SpmmOperator(g, device="cuda")
+    for d in (1, 64):
+        prime_nan((40, d), (2 * 40 * d,))
+        x = torch.ones(9, d, device="cuda")
+        assert not op(x).any()
+        assert not op(torch.ones(40, d, device="cuda"), transpose=True).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", RUNS, ids=lambda r: f"run{r}")
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("d", [0, 1, 8, 32, 64, 129])
+def test_rank1_bwd_runs_kernel_matches_plain(d, shape, run):
+    """r1l_bwd_f32 at dropout 0.5 on a graph with rows longer than a run,
+    empty rows and a square or rectangular shape: q, dpre, dc and da
+    against the plain backward over NaN-primed blocks, twice bit for bit,
+    and the operator's dx (assembled from q and dpre) against the plain
+    autograd."""
+    n_src, n_dst = SHAPES[shape]
+    g = long_row_graph(n_src, n_dst, long_rows=(1, n_src - 2), length=600,
+                       seed=d + 2)
+    op = r1.Rank1GatOperator(g, dst_linear=True, dropout_rate=0.5)
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    c = torch.rand(n_src, generator=gen, device="cuda") - 0.5
+    a = (torch.rand(d, generator=gen, device="cuda") - 0.5) * 0.5
+    x = torch.rand(n_dst, d, generator=gen, device="cuda") - 0.5
+    gout = torch.rand(n_src, d, generator=gen, device="cuda") - 0.5
+    seed = torch.tensor([77], dtype=torch.int32, device="cuda")
+    out, lse = r1.rank1_gat_plain(op.ptr, op.col, c, a, x, seed, 0.5, 0.2,
+                                  n_src)
+    args = (op.ptr, op.col, c, a, x, gout, out, lse, seed, 0.5, 0.2, n_src)
+    e = op.col.numel()
+    prime_nan((e,), (e,), (n_src,), (e * (2 + d),))
+    q, dpre, dc, da = twice_same(lambda: r1.r1l_bwd(*args, run=run))
+    wq, wdpre, wdc, wda = r1.rank1_gat_bwd_plain(*args)
+    torch.testing.assert_close(q, wq, rtol=1e-5, atol=1e-6)
+    sums_close(dpre, wdpre)
+    sums_close(dc, wdc)
+    sums_close(da, wda)
+    empty = [0, n_src // 2, n_src - 1]
+    assert not dc[empty].any()
+    if d:
+        ins = [v.clone().requires_grad_() for v in (c, a, x)]
+        op.drop(*ins, seed).backward(gout)
+        ref = [v.clone().requires_grad_() for v in (c, a, x)]
+        r1.rank1_gat_plain(op.ptr, op.col, *ref, seed, 0.5, 0.2,
+                           n_src)[0].backward(gout)
+        for u, v in zip(ins, ref):
+            sums_close(u.grad, v.grad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", [None, 32], ids=lambda r: f"run{r}")
+@pytest.mark.parametrize("d", [1, 64])
+def test_rank1_bwd_reads_its_edge_count_from_ptr(d, run):
+    """r1l_bwd_f32 given a ``col`` padded past ``ptr[n_rows]`` (as a
+    graph's padded receivers are): the pads of q and dpre come out 0 over
+    NaN-primed memory, and q, dpre, dc and da on the edges are those of
+    the unpadded call."""
+    g = long_row_graph(200, 90, long_rows=(1,), length=600, seed=d)
+    op = r1.Rank1GatOperator(g, dst_linear=True, dropout_rate=0.5)
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    c = torch.rand(200, generator=gen, device="cuda") - 0.5
+    a = torch.rand(d, generator=gen, device="cuda") - 0.5
+    x = torch.rand(90, d, generator=gen, device="cuda") - 0.5
+    gout = torch.rand(200, d, generator=gen, device="cuda") - 0.5
+    seed = torch.tensor([9], dtype=torch.int32, device="cuda")
+    out, lse = r1.rank1_gat_plain(op.ptr, op.col, c, a, x, seed, 0.5, 0.2,
+                                  200)
+    e = op.col.numel()
+    padded = torch.cat([op.col, torch.full((300,), 89, dtype=op.col.dtype,
+                                           device="cuda")])
+    rest = (c, a, x, gout, out, lse, seed, 0.5, 0.2, 200)
+    prime_nan((e + 300,), (e + 300,), (200,), ((e + 300) * (3 + d),))
+    q, dpre, dc, da = twice_same(lambda: r1.r1l_bwd(op.ptr, padded, *rest,
+                                                    run=run))
+    assert not q[e:].any() and not dpre[e:].any()
+    wq, wdpre, wdc, wda = r1.rank1_gat_bwd_plain(op.ptr, op.col, *rest)
+    torch.testing.assert_close(q[:e], wq, rtol=1e-5, atol=1e-6)
+    sums_close(dpre[:e], wdpre)
+    sums_close(dc, wdc)
+    sums_close(da, wda)
+
+
+@pytest.mark.cuda
+def test_dst_linear_backward_counts_its_two_dx_launches():
+    """One dst_linear backward launches r1l_bwd_f32 once and two
+    transposed csr_spmm_f32: the q-weighted dx and the d = 1 column sum of
+    dpre, the one counted in ``launches_reduce``."""
+    g = card_graph(4, 200, 90, 0.08, empty_rows=(3,))
+    op = r1.Rank1GatOperator(g, dst_linear=True)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    ins = [(torch.rand(s, generator=gen, device="cuda") - 0.5)
+           .requires_grad_() for s in ((200,), (16,), (90, 16))]
+    out = op(*ins)
+    spmm_op = op.spmm
+    before = (r1.bwd_launches, spmm_op.launches,
+              spmm_op.launches_transposed, spmm_op.launches_reduce)
+    out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    after = (r1.bwd_launches, spmm_op.launches,
+             spmm_op.launches_transposed, spmm_op.launches_reduce)
+    assert [v - u for u, v in zip(before, after)] == [1, 2, 2, 1]
+
+
+@pytest.mark.cuda
+def test_rectangular_gat_layer_impls_match_torch_on_card():
+    """SparseGATLayer(graph, x_src, x_dst) on a 30 x 12 graph: fused,
+    materialised and flash against impl="torch", in training (the same
+    keep masks from one generator state) and in evaluation, outputs and
+    gradients."""
+    from msha_gnn_torch.models import SparseGATLayer
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(0)
+    keys = rng.choice(29 * 11, 100, replace=False)
+    g = tg.BipartiteGraph.from_coo(keys // 11 + 1, keys % 11,
+                                   np.ones(100, np.float32), n_src=30,
+                                   n_dst=12, pad_to_multiple=16).to("cuda")
+    layer = SparseGATLayer(6, 8, dropout=0.5,
+                           generator=torch.Generator().manual_seed(1))
+    layer = layer.to("cuda")
+    x_src = torch.from_numpy(rng.standard_normal((30, 6)).astype(
+        np.float32)).cuda()
+    x_dst = torch.from_numpy(rng.standard_normal((12, 6)).astype(
+        np.float32)).cuda()
+    gout = torch.from_numpy(rng.standard_normal((30, 8)).astype(
+        np.float32)).cuda()
+    for train in (False, True):
+        got = {}
+        for impl in ("torch", "fused", "materialised", "flash"):
+            layer.zero_grad()
+            xs = x_src.clone().requires_grad_()
+            xd = x_dst.clone().requires_grad_()
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            out = layer(g, xs, xd, train=train, impl=impl, generator=gen)
+            out.backward(gout)
+            got[impl] = (out.detach(), xs.grad, xd.grad, layer.W.grad.clone(),
+                         layer.a.grad.clone())
+        for impl in ("fused", "materialised", "flash"):
+            torch.testing.assert_close(got[impl][0], got["torch"][0],
+                                       rtol=1e-5, atol=1e-6)
+            for u, v in zip(got[impl][1:], got["torch"][1:]):
+                sums_close(u, v)

@@ -3,8 +3,8 @@
 
 One test imports every module of ``msha_gnn_torch`` (and the port's
 scripts, ``chip_smoke``, ``scripts_torch_profile``,
-``scripts_torch_epoch_drift`` and ``scripts_torch_kernel_ab``) in a fresh
-interpreter in which a ``sys.meta_path`` finder refuses those packages;
+``scripts_torch_epoch_drift`` and ``scripts_torch_kernel_ab``) in a
+fresh interpreter in which a ``sys.meta_path`` finder refuses those packages;
 another scans the sources for such imports.
 """
 

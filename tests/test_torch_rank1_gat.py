@@ -126,10 +126,12 @@ def test_drop_at_rate_zero_equals_call():
 
 
 def test_plain_backward_is_the_autograd_of_the_plain_forward():
-    """``rank1_gat_bwd_plain`` plus the edge-row reduce equals torch's
-    autograd through ``rank1_gat_plain``, with dropout.  In float64: the
-    autograd path carries the softmax's max and sum terms, which cancel
-    only up to rounding."""
+    """``rank1_gat_bwd_plain``'s ``(q, dpre, dc, da)``, with ``dx``
+    assembled from ``q`` and ``dpre`` as the operator does (the
+    ``q``-weighted transposed SpMM of ``gout`` plus ``a`` times the column
+    sums of ``dpre``), equals torch's autograd through ``rank1_gat_plain``,
+    with dropout.  In float64: the autograd path carries the softmax's max
+    and sum terms, which cancel only up to rounding."""
     gt, _ = dense_graph(4, 200, 80, 0.06, empty_rows=(5, 199))
     op = cuda_spmm.SpmmOperator(gt, device="cpu")
     rng = np.random.default_rng(5)
@@ -140,12 +142,13 @@ def test_plain_backward_is_the_autograd_of_the_plain_forward():
     out, lse = r1.rank1_gat_plain(op.ptr, op.col, c, a, x, seed, rate, slope,
                                   200)
     out.backward(gout)
-    z, dc, da = r1.rank1_gat_bwd_plain(op.ptr, op.col, c.detach(),
-                                       a.detach(), x.detach(), gout,
-                                       out.detach(), lse, seed, rate, slope,
-                                       200)
-    for got, want in ((dc, c.grad), (da, a.grad),
-                      (op.reduce_edges(z), x.grad)):
+    q, dpre, dc, da = r1.rank1_gat_bwd_plain(op.ptr, op.col, c.detach(),
+                                             a.detach(), x.detach(), gout,
+                                             out.detach(), lse, seed, rate,
+                                             slope, 200)
+    assert q.shape == dpre.shape == (gt.num_edges,)
+    dx = r1.assemble_dx(op, gout, a.detach(), q, dpre)
+    for got, want in ((dc, c.grad), (da, a.grad), (dx, x.grad)):
         torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-12)
     assert bool((lse[[5, 199]] == r1.NEG).all())
 

@@ -256,7 +256,7 @@ def test_null_weights_are_unit_weights(graphs):
     op = cuda_spmm.SpmmOperator(gt, device="cpu")
     x = torch.randn(gt.n_dst, 3, generator=torch.Generator().manual_seed(2))
     ones = torch.ones(op.num_edges)
-    got = cuda_spmm.csr_spmm(op.ptr, op.col, None, x, gt.n_src, 1)
+    got = cuda_spmm.csr_spmm(op.ptr, op.col, None, x, gt.n_src)
     want = cuda_spmm.csr_spmm_plain(op.ptr, op.col, ones, x, gt.n_src)
     assert torch.equal(got, want)
 
