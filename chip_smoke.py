@@ -11,19 +11,20 @@ Phases, each reported on its own lines; any failure exits non-zero:
    2015 data's shape (39,179 sources, 32 recipients, 233,887 records):
    error, median time of kernel / plain version / one PyTorch library call
    (a yardstick the port never calls), and the bytes-or-operations bound.
-3b. the rank-1 GAT kernels (``r1l_fwd_f32`` at dropout rate 0 and 0.5,
-   ``r1l_bwd_f32`` at 0 and 0.5 with its keep mask, and the backward's dx:
-   ``csr_spmm_f32`` weighted by ``q`` and the d = 1 column sum of
-   ``dpre``) against their plain versions on the full-width
+3b. the rank-1 GAT kernels (``r1l_fwd_f32`` at dropout rate 0 and 0.5, on
+   the path's inputs, with the logits x30 and on a small graph with empty
+   rows, ``r1l_bwd_f32`` at 0 and 0.5 with its keep mask, and the
+   backward's dx: ``csr_spmm_f32`` weighted by ``q`` and the d = 1 column
+   sum of ``dpre``) against their plain versions on the full-width
    link-prediction graph (synthetic ogbl-ddi, 4,267 nodes, 328,012 message
    edges, d = 64); times and bounds as in phase 3.
 
-The kernels that sum edges by runs of slots (``csr_spmm_f32``,
-``seg_reduce_f32``, ``r1l_bwd_f32``) are launched twice on the same
-inputs and must give the same bits, and are timed twice: by CUDA events
-(back-to-back calls, which under about 20 us measure the host's launch
-rate) and by ``torch.profiler``'s device time over the same 20 calls, as
-is their library yardstick.
+The kernels on the edge-run schedule (``csr_spmm_f32``,
+``seg_reduce_f32``, ``r1l_fwd_f32``, ``r1l_bwd_f32``, ``flash_bwd_f32``)
+are launched twice on the same inputs and must give the same bits, and
+are timed twice: by CUDA events (back-to-back calls, which under about 20
+us measure the host's launch rate) and by ``torch.profiler``'s device time
+over the same 20 calls, as is their library yardstick.
 4. the serving path at full width (GCN, nfeat 128): checkpoint round trip,
    one full-score fill that must launch exactly the path's kernels, the
    fill against the plain path on the card and against a float64 dense
@@ -36,12 +37,12 @@ is their library yardstick.
    weighted by attention, forward and transposed) against their plain
    versions on the same linkpred graph; times and bounds as in phase 3.
 3d. the flash-GAT kernels (``flash_fwd_f32`` at dropout rate 0 and 0.5,
-   ``flash_bwd_f32`` at 0.5, and ``csr_spmm_f32`` weighted by the
-   backward's ``q`` as its dx) against their plain versions on the same
-   linkpred graph, on the path's logits and on the same logits x30 (the
-   online renormalisation), and on a small graph with empty rows and n not
-   a multiple of 128 (an empty row's 0 and NEG, the zeroed pad slots);
-   times and bounds as in phase 3.
+   ``flash_bwd_f32`` at 0 and 0.5 with its keep mask, and ``csr_spmm_f32``
+   weighted by the backward's ``q`` as its dx) against their plain
+   versions on the same linkpred graph, on the path's logits and on the
+   same logits x30 (the online renormalisation), and on a small graph with
+   empty rows and n not a multiple of 128 (an empty row's 0 and NEG, the
+   zeroed pad slots); times and bounds as in phase 3.
 3e. the generic rank-1 GAT kernels (``r1_fwd_f32``, ``r1_bwd_f32``, on
    ``c = h a_src`` and ``t = h a_dst`` of a seeded layer, then x30, and on
    a small rectangular graph with empty rows), ``seg_reduce_f32`` on
@@ -295,6 +296,18 @@ def prime_nan(*shapes):
     del junk
 
 
+def small_graph(seed):
+    """A 300 x 120 graph of density 0.05 with empty rows (first, middle,
+    last), n not a multiple of 128, edges padded to a multiple of 128."""
+    from msha_gnn_torch.graph import BipartiteGraph
+
+    rng = np.random.default_rng(seed)
+    dense = ((rng.random((300, 120)) < 0.05)
+             * rng.integers(1, 5, (300, 120))).astype(np.float32)
+    dense[[0, 151, 299]] = 0.0
+    return BipartiteGraph.from_dense(dense, pad_to_multiple=128).to(DEVICE)
+
+
 def linkpred_split():
     """The linkpred CLI's data at its defaults: synthetic ogbl-ddi."""
     from msha_gnn_torch.data import load_ddi, split_edges
@@ -350,19 +363,58 @@ def phase_rank1_kernels(split):
     no_lib = ("none: no single PyTorch call computes the row softmax, the "
               "hashed dropout and the aggregation together")
     results = []
+    small = small_graph(4)
+    s_op = r1.Rank1GatOperator(small, dst_linear=True)
+    s_c, s_a, s_x = (torch.rand(shape, generator=gen, device=DEVICE) - 0.5
+                     for shape in ((300,), (d,), (120, d)))
+    empty = small.row_ptr[1:] == small.row_ptr[:-1]
     for rate in (0.0, 0.5):
         args = (op.ptr, op.col, c, a, x, seed, rate, op.slope, n)
-        out, lse = r1.r1l_fwd(*args)
-        want_out, want_lse = r1.rank1_gat_plain(*args)
+        errs = []
+        for label, scale in (("path", 1.0), ("logits x30", 30.0)):
+            big = (op.ptr, op.col, c * scale, a * scale, x, seed, rate,
+                   op.slope, n)
+            prime_nan((n, d), (n,))
+            out, lse = r1.r1l_fwd(*big)
+            want_out, want_lse = r1.rank1_gat_plain(*big)
+            torch.cuda.synchronize()
+            # x30, the logit's own dot <x[j], a>, rounded in another order
+            # by the kernel and the plain version, is 30 times larger: out
+            # and lse at the sums' tolerance (the one-block-per-row kernel
+            # and the plain float32 version miss KERNEL_* there too, by
+            # about as much: scripts_torch_kernel_ab.py, PERF.md)
+            for name, got, want in (("out", out, want_out),
+                                    ("lse", lse, want_lse)):
+                live = want[want > r1.NEG / 2]  # lse: the rows with edges
+                rtol, atol = ((KERNEL_RTOL, KERNEL_ATOL) if scale == 1.0
+                              else (SUM_RTOL, SUM_ATOL_REL
+                                    * float(live.abs().max())))
+                errs.append(close(f"r1l_fwd_f32[{label}, rate {rate}] "
+                                  f"{name}", got, want, rtol, atol))
+        s_args = (s_op.ptr, s_op.col, s_c, s_a, s_x, seed, rate, s_op.slope,
+                  300)
+        prime_nan((300, d), (300,))
+        out, lse = r1.r1l_fwd(*s_args)
+        want_out, want_lse = r1.rank1_gat_plain(*s_args)
         torch.cuda.synchronize()
-        err = max(close(f"r1l_fwd_f32[rate {rate}] out", out, want_out,
-                        KERNEL_RTOL, KERNEL_ATOL),
-                  close(f"r1l_fwd_f32[rate {rate}] lse", lse, want_lse,
-                        KERNEL_RTOL, KERNEL_ATOL))
-        ms = time_ms(lambda: r1.r1l_fwd(*args))
+        errs += [close(f"r1l_fwd_f32[small graph, rate {rate}] out", out,
+                       want_out, KERNEL_RTOL, KERNEL_ATOL),
+                 close(f"r1l_fwd_f32[small graph, rate {rate}] lse", lse,
+                       want_lse, KERNEL_RTOL, KERNEL_ATOL)]
+        if out[empty].any() or not bool((lse[empty] == r1.NEG).all()):
+            raise AssertionError("r1l_fwd_f32: an empty row got output or a "
+                                 "finite lse")
+        log(f"  r1l_fwd_f32[small graph, rate {rate}]: 300 x 120, "
+            f"{int(empty.sum())} empty rows: 0 and NEG")
+        same_bits(f"r1l_fwd_f32[rate {rate}]", lambda: r1.r1l_fwd(*args))
+        kernel = (lambda: r1.r1l_fwd(*args))
+        ms, dev_ms = time_ms(kernel), device_ms(kernel)
         plain_ms = time_ms(lambda: r1.rank1_gat_plain(*args), reps=5,
                            iters=5)
-        log(f"  r1l_fwd_f32[rate {rate}]: kernel {ms:.4f} ms, plain "
+        log(f"  r1l_fwd_f32[rate {rate}]: {e} edges, "
+            f"{cuda_spmm.warp_run(op.col.numel())} slots a run, "
+            f"{r1.group_for(d)} lanes an edge: kernel {ms:.4f} ms (device "
+            f"{fmt(dev_ms)}; the runs grid and the fix-up grid), plain "
             f"{plain_ms:.4f} ms, bound {fwd_b:.5f} ms ({fwd_by}); library "
             f"{no_lib}")
         results.append({
@@ -370,9 +422,10 @@ def phase_rank1_kernels(split):
             "source": "msha_gnn_torch/csrc/rank1_gat.cu",
             "replaces": "msha_gnn_tpu/ops/pallas/rank1_gat.py:234 "
                         "_r1l_fwd_kernel",
-            "launches": None, "max_abs_err": err, "ms": ms,
+            "launches": None, "max_abs_err": max(errs), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": fwd_b, "bound_by": fwd_by,
-            "library_ms": None})
+            "library_ms": None, "device_ms": dev_ms,
+            "library_device_ms": None})
     keep = r1.keep_scale_plain(torch.arange(e, device=DEVICE), seed, 0.5)
     for rate in (0.0, 0.5):
         out, lse = r1.rank1_gat_plain(op.ptr, op.col, c, a, x, seed, rate,
@@ -709,9 +762,9 @@ def phase_flash_kernels(split):
     """Phase 3d: flash_fwd_f32, flash_bwd_f32 and the q-weighted dx SpMM
     vs their plain versions at the linkpred shapes, and on a small graph
     with empty rows."""
-    from msha_gnn_torch.graph import BipartiteGraph
     from msha_gnn_torch.ops import sddmm
     from msha_gnn_torch.ops.cuda import flash_gat as fg
+    from msha_gnn_torch.ops.cuda import rank1_gat as r1
     from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
 
     g = split["graph"].to(DEVICE)
@@ -756,6 +809,15 @@ def phase_flash_kernels(split):
         n_edges = graph_op.col.numel()
         if dl[n_edges:].any() or q[n_edges:].any():
             raise AssertionError("flash_bwd_f32 left a pad slot nonzero")
+        if rate > 0:
+            # the keep mask: q is 0 exactly on the dropped slots
+            dropped = r1.keep_scale_plain(
+                torch.arange(n_edges, device=DEVICE), seed, rate) == 0
+            kept = ~dropped & (want_q[:n_edges] > 1e-30)
+            if q[:n_edges][dropped].any() or not bool(
+                    (q[:n_edges][kept] > 0).all()):
+                raise AssertionError("flash_bwd_f32's keep mask differs "
+                                     "from keep_scale_plain")
         empty = graph_op.ptr[1:] == graph_op.ptr[:-1]
         if out[empty].any() or not bool((lse[empty] == fg.NEG).all()):
             raise AssertionError("an empty row got output or a finite lse")
@@ -765,11 +827,7 @@ def phase_flash_kernels(split):
     for label, lg in (("path logits", logits), ("logits x30", logits * 30)):
         for rate in (0.0, 0.5):
             errs[label, rate] = check(label, op, lg, x, gout, rate, n)[:2]
-    rng = np.random.default_rng(5)
-    dense = ((rng.random((300, 120)) < 0.05)
-             * rng.integers(1, 5, (300, 120))).astype(np.float32)
-    dense[[0, 151, 299]] = 0.0
-    small = BipartiteGraph.from_dense(dense, pad_to_multiple=128).to(DEVICE)
+    small = small_graph(5)
     small_op = fg.FlashGatOperator(small)
     s_logits = torch.randn(small.num_padded_edges, generator=gen,
                            device=DEVICE) * 3
@@ -800,17 +858,24 @@ def phase_flash_kernels(split):
             f"flash_fwd_f32[rate {rate}]", "flash_gat.cu",
             "msha_gnn_tpu/ops/pallas/flash_gat.py:51 _flash_kernel", err, ms,
             plain_ms, (fwd_b, fwd_by), None))
+    log("  flash_bwd_f32[rate 0.5]: keep mask bit-exact (q 0 exactly on "
+        "the dropped slots)")
     out, lse = fg.flash_gat_plain(op.ptr, op.col, logits, x, seed, 0.5, n)
     bwd_args = (op.ptr, op.col, logits, x, gout, out, lse, seed, 0.5, n)
-    ms = time_ms(lambda: fg.flash_bwd(*bwd_args))
+    kernel = (lambda: fg.flash_bwd(*bwd_args))
+    same_bits("flash_bwd_f32[rate 0.5]", kernel)
+    ms, dev_ms = time_ms(kernel), device_ms(kernel)
     plain_ms = time_ms(lambda: fg.flash_gat_bwd_plain(*bwd_args))
-    log(f"  flash_bwd_f32[rate 0.5]: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-        f" ms, bound {bwd_b:.5f} ms ({bwd_by}); library {no_lib}")
+    log(f"  flash_bwd_f32[rate 0.5]: {fg.BWD_RUN} slots a "
+        f"run, {r1.group_for(d)} lanes an edge: kernel {ms:.4f} ms (device "
+        f"{fmt(dev_ms)}), plain {plain_ms:.4f} ms, bound {bwd_b:.5f} ms "
+        f"({bwd_by}); library {no_lib}")
     err = max(errs[label, 0.5][1] for label in ("path logits", "logits x30"))
-    results.append(entry(
+    results.append({**entry(
         "flash_bwd_f32[rate 0.5]", "flash_gat.cu",
         "msha_gnn_tpu/ops/pallas/flash_gat.py:167 _flash_bwd_kernel", err,
-        ms, plain_ms, (bwd_b, bwd_by), None))
+        ms, plain_ms, (bwd_b, bwd_by), None), "device_ms": dev_ms,
+        "library_device_ms": None})
 
     # dx = A(q).T gout: the q-weighted transposed SpMM, as the operator runs it
     _, q = fg.flash_gat_bwd_plain(*bwd_args)
@@ -855,7 +920,6 @@ def dw_bound(ptr, col, eid, g, n_dw):
 def phase_generic_kernels(split):
     """Phase 3e: r1_fwd_f32, r1_bwd_f32, seg_reduce_f32 and csr_spmm_dw_f32
     vs their plain versions at the linkpred shapes."""
-    from msha_gnn_torch.graph import BipartiteGraph
     from msha_gnn_torch.models.gat import SparseGATLayer
     from msha_gnn_torch.ops.cuda import rank1_gat as r1
     from msha_gnn_torch.ops.cuda import sddmm as cuda_sddmm
@@ -919,11 +983,7 @@ def phase_generic_kernels(split):
 
     errs = [check("path c, t", op, c, t, h, gout, n),
             check("c, t x30", op, c * 30, t * 30, h, gout, n)]
-    rng = np.random.default_rng(6)
-    dense = ((rng.random((300, 120)) < 0.05)
-             * rng.integers(1, 5, (300, 120))).astype(np.float32)
-    dense[[0, 151, 299]] = 0.0
-    small = BipartiteGraph.from_dense(dense, pad_to_multiple=128).to(DEVICE)
+    small = small_graph(6)
     small_op = r1.Rank1GatOperator(small)
     s_c, s_t = (torch.randn(k, generator=gen, device=DEVICE) * 3
                 for k in (300, 120))

@@ -53,19 +53,31 @@
 // Bound, at the linkpred shapes (n 4,267, E 328,012, d 64): bytes.
 // Forward 4.8 MB (col, logits, x once, out, ptr, lse) against 2 E d flops;
 // backward 8.6 MB (adds gout, out and the dl, q writes).  The rank-1 forms
-// read c and t (per node) in place of the E logits.  All sit far above it:
-// one block per row serialises the 3,842-edge row.
+// read c and t (per node) in place of the E logits.  The one-block-per-row
+// kernels sit far above it: a block serialises the 3,842-edge row.
 //
-// Design (simple and right first): one block per row, as r1l_fwd_f32.
-// Each warp takes every n_warps-th group of kUnroll edges, so the loads of
-// a group are in flight together; lanes run over 32-wide feature tiles, so
-// any d works.  Forward: r1l_fwd_f32's online-softmax aggregation
-// (gat::fold_group, gat::merge_row), fed with logits read from memory or,
-// for the rank-1 form, formed from c and t (logit_of): a warp keeps its
-// own state (m, s) and accumulates into its own row of shared memory; the
-// warps merge in a fixed order.  Backward: the block holds gout[r] in
-// shared memory, each warp forms <gout[r], out[r]> once, then one d-wide
-// dot per edge; the rank-1 form's dc is a lane, warp, then warp-order sum.
+// Design.  flash_fwd_f32, r1_fwd_f32 and r1_bwd_f32 (simple and right
+// first): one block per row.  Each warp takes every n_warps-th group of
+// kUnroll edges, so the loads of a group are in flight together; lanes run
+// over 32-wide feature tiles, so any d works.  Forward: the online-softmax
+// aggregation of gat_common.cuh (gat::fold_group, gat::merge_row), fed with
+// logits read from memory or, for the rank-1 form, formed from c and t
+// (logit_of): a warp keeps its own state (m, s) and accumulates into its
+// own row of shared memory; the warps merge in a fixed order.  r1_bwd_f32:
+// the block holds gout[r] in shared memory, each warp forms <gout[r],
+// out[r]> once, then one d-wide dot per edge; dc is a lane, warp, then
+// warp-order sum.
+//
+// flash_bwd_f32 has no output that sums over a row, so it runs on the
+// edge-run schedule of runs.cuh in one grid: a warp per run of `run`
+// consecutive CSR slots (a long row spread over as many warps as it has
+// runs), split into groups of G lanes (8, 16 or 32), one edge a group
+// (gat_runs.cuh).  For each row piece the warp holds gout[r] in registers
+// (d / G floats a lane) and forms <gout[r], out[r]> and lse[r] once; a
+// group's dot <gout[r], x[j]> is a float4-wide multiply-add a lane and a
+// log2(G)-round shuffle sum, and one lane of the group does the edge's
+// scalar work and its two stores.  The same grid zeroes the pads.
+//
 // No float atomics, so results are deterministic.
 
 #include <cuda_runtime.h>
@@ -73,6 +85,8 @@
 #include <cstdint>
 
 #include "gat_common.cuh"
+#include "gat_runs.cuh"
+#include "runs.cuh"
 
 namespace {
 
@@ -141,20 +155,121 @@ flash_fwd_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
   merge_row(m, s, acc_all, m_s, s_s, row, d, out, lse);
 }
 
-// Dynamic shared memory: g[d] | dc[n_warps].  One block per row (gridDim.x
-// = n_rows); the same grid zeroes the pad slots [ptr[n_rows], n_out) of dl
-// and q.  kRank1: dl holds dpre, q holds att, and dc[row] is written.
-template <bool kDrop, bool kRank1>
+// flash_bwd_f32: one warp per run of `run` slots of [0, n_slots), groups
+// of kG lanes one edge each (gat_runs.cuh).  For each row piece it enters,
+// the warp holds gout[r] in registers (its lanes' features of it) and forms
+// lse[r] and <gout[r], out[r]> once; then each group takes every
+// (32 / kG)-th edge of the piece: one kG-lane dot <gout[r], x[j]>, then one
+// lane of the group the edge's scalars and its two stores.  The same grid
+// zeroes the pad slots [ptr[n_rows], n_slots) of dl and q.  Nothing sums
+// over a row, so there is no second grid.
+template <int kG, int kPer, bool kDrop>
 __global__ void __launch_bounds__(kMaxWarps * kWarp)
 flash_bwd_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
                  const float* __restrict__ logits,
-                 const float* __restrict__ c, const float* __restrict__ t,
-                 float slope, const float* __restrict__ x,
-                 const float* __restrict__ gout,
+                 const float* __restrict__ x, const float* __restrict__ gout,
                  const float* __restrict__ out, const float* __restrict__ lse,
                  const int* __restrict__ seed_ptr, float rate, float scale,
-                 float* __restrict__ dl, float* __restrict__ q,
-                 float* __restrict__ dc, int n_out, int d) {
+                 float* __restrict__ dl, float* __restrict__ q, int n_rows,
+                 int n_slots, int64_t n_runs, int run, int d) {
+  using L = gat_runs::Layout<kG, kPer>;
+  constexpr int kGroups = kWarp / kG;
+  constexpr int kSteps = L::kSteps;
+  const int n_warps = blockDim.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int li = lane % kG;
+  const int grp = lane / kG;
+  const int64_t k =
+      static_cast<int64_t>(blockIdx.x) * n_warps + threadIdx.x / kWarp;
+  if (k >= n_runs) return;
+  const int n_edges = __ldg(ptr + n_rows);
+  // the pads in the run's slots
+  const int64_t slot_end =
+      (k + 1) * run < n_slots ? (k + 1) * run : static_cast<int64_t>(n_slots);
+  for (int64_t e = (k * run > n_edges ? k * run : n_edges) + lane;
+       e < slot_end; e += kWarp) {
+    dl[e] = 0.0f;
+    q[e] = 0.0f;
+  }
+  int first = 0;
+  int last = 0;
+  if (!runs::bounds(k, run, n_edges, first, last)) return;
+  const uint32_t seed = kDrop ? static_cast<uint32_t>(__ldg(seed_ptr)) : 0u;
+  int row = runs::warp_row_of(ptr, n_rows, first, lane);
+  int rb = __ldg(ptr + row);
+  int re = __ldg(ptr + row + 1);
+  while (true) {
+    const int64_t off = static_cast<int64_t>(row) * d;
+    float gv[kPer];
+    float ov[kPer];
+    gat_runs::load_lane<kG, kPer>(gout + off, 0, d, li, gv);
+    gat_runs::load_lane<kG, kPer>(out + off, 0, d, li, ov);
+    const float d_row = gat_runs::group_sum<kG>(gat_runs::lane_dot<kG, kPer>(
+        gv, ov, gout + off, out + off, 0, d, li));
+    const float lse_row = __ldg(lse + row);
+    const bool live = lse_row > 0.5f * kNeg;
+    const int pe = min(re, last);
+    for (int eb = max(rb, first); eb < pe; eb += kGroups * kSteps) {
+      bool ok[kSteps];
+      int64_t xrow[kSteps];
+      float l[kSteps];
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        const int e = eb + u * kGroups + grp;
+        ok[u] = e < pe;
+        xrow[u] = ok[u] ? static_cast<int64_t>(__ldg(col + e)) * d : 0;
+        l[u] = ok[u] ? __ldg(logits + e) : 0.0f;
+      }
+      float xv[kSteps][kPer];
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        if (ok[u]) {
+          gat_runs::load_lane<kG, kPer>(x + xrow[u], 0, d, li, xv[u]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < kPer; ++i) xv[u][i] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        const float gx = gat_runs::group_sum<kG>(
+            ok[u] ? gat_runs::lane_dot<kG, kPer>(xv[u], gv, x + xrow[u],
+                                                  gout + off, 0, d, li)
+                  : 0.0f);
+        if (ok[u] && li == u % kG) {
+          const int e = eb + u * kGroups + grp;
+          const float att = live ? expf(l[u] - lse_row) : 0.0f;
+          const float qe =
+              kDrop ? att * keep_scale(static_cast<uint32_t>(e), seed, rate,
+                                       scale)
+                    : att;
+          dl[e] = qe * gx - att * d_row;
+          q[e] = qe;
+        }
+      }
+    }
+    if (re >= last) break;  // the piece reached the run's end
+    ++row;                  // the next row with an edge
+    rb = re;
+    re = __ldg(ptr + row + 1);
+    while (re == rb) {
+      ++row;
+      re = __ldg(ptr + row + 1);
+    }
+  }
+}
+
+// r1_bwd_f32: one block per row (gridDim.x = n_rows); the same grid zeroes
+// the pad slots [ptr[n_rows], n_out) of att and dpre.  Dynamic shared
+// memory: g[d] | dc[n_warps].
+__global__ void __launch_bounds__(kMaxWarps * kWarp)
+r1_bwd_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
+              const float* __restrict__ c, const float* __restrict__ t,
+              float slope, const float* __restrict__ x,
+              const float* __restrict__ gout, const float* __restrict__ out,
+              const float* __restrict__ lse, float* __restrict__ dpre,
+              float* __restrict__ att, float* __restrict__ dc, int n_out,
+              int d) {
   extern __shared__ float g_s[];
   float* dc_s = g_s + d;
   const int row = blockIdx.x;
@@ -168,8 +283,8 @@ flash_bwd_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
   for (int64_t i = n_edges + static_cast<int64_t>(row) * blockDim.x +
                    threadIdx.x;
        i < n_out; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    dl[i] = 0.0f;
-    q[i] = 0.0f;
+    dpre[i] = 0.0f;
+    att[i] = 0.0f;
   }
   __syncthreads();
 
@@ -184,9 +299,8 @@ flash_bwd_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
   const int end = ptr[row + 1];
   const float lse_row = lse[row];
   const bool live = lse_row > 0.5f * kNeg;
-  const uint32_t seed = kDrop ? static_cast<uint32_t>(seed_ptr[0]) : 0u;
-  const float c_row = kRank1 ? c[row] : 0.0f;
-  float dc_lane = 0.0f;  // kRank1: this lane's edges' dpre
+  const float c_row = c[row];
+  float dc_lane = 0.0f;  // this lane's edges' dpre
   for (int e0 = begin + warp * kUnroll; e0 < end;
        e0 += n_warps * kUnroll) {
     int64_t xrow[kUnroll];
@@ -200,8 +314,8 @@ flash_bwd_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
       const int j = ok ? __ldg(col + e) : 0;
       xrow[u] = ok ? static_cast<int64_t>(j) * d : -1;
       // loaded with the column, so its latency hides behind the x loads
-      pre[u] = kRank1 && ok ? c_row + __ldg(t + j) : 0.0f;
-      l[u] = !ok ? 0.0f : kRank1 ? leaky(pre[u], slope) : __ldg(logits + e);
+      pre[u] = ok ? c_row + __ldg(t + j) : 0.0f;
+      l[u] = ok ? leaky(pre[u], slope) : 0.0f;
       gx[u] = 0.0f;
     }
     for (int f = lane; f < d; f += kWarp) {
@@ -216,32 +330,22 @@ flash_bwd_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
       gx[u] = warp_sum(gx[u]);
       const int e = e0 + u;
       if (lane == u && e < end) {
-        const float att = live ? expf(l[u] - lse_row) : 0.0f;
-        const float qe =
-            kDrop ? att * keep_scale(static_cast<uint32_t>(e), seed, rate,
-                                     scale)
-                  : att;
-        const float dle = qe * gx[u] - att * d_row;
-        if (kRank1) {
-          const float dpre = pre[u] >= 0.0f ? dle : slope * dle;
-          dl[e] = dpre;
-          dc_lane += dpre;
-        } else {
-          dl[e] = dle;
-        }
-        q[e] = qe;
+        const float a_e = live ? expf(l[u] - lse_row) : 0.0f;
+        const float dle = a_e * gx[u] - a_e * d_row;
+        const float dp = pre[u] >= 0.0f ? dle : slope * dle;
+        dpre[e] = dp;
+        dc_lane += dp;
+        att[e] = a_e;
       }
     }
   }
-  if (kRank1) {
-    const float dc_w = warp_sum(dc_lane);
-    if (lane == 0) dc_s[warp] = dc_w;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float v = 0.0f;
-      for (int k = 0; k < n_warps; ++k) v += dc_s[k];
-      dc[row] = v;
-    }
+  const float dc_w = warp_sum(dc_lane);
+  if (lane == 0) dc_s[warp] = dc_w;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float v = 0.0f;
+    for (int k = 0; k < n_warps; ++k) v += dc_s[k];
+    dc[row] = v;
   }
 }
 
@@ -254,6 +358,37 @@ size_t bwd_smem(int d, int n_warps) {
 }
 
 constexpr size_t kMaxSmem = 48 * 1024;
+
+using BwdKernel = void (*)(const int*, const int*, const float*, const float*,
+                           const float*, const float*, const float*,
+                           const int*, float, float, float*, float*, int, int,
+                           int64_t, int, int);
+
+template <int kG, bool kDrop>
+BwdKernel bwd_kernel_per(int per) {
+  switch (per) {
+    case 1:
+      return flash_bwd_kernel<kG, 1, kDrop>;
+    case 2:
+      return flash_bwd_kernel<kG, 2, kDrop>;
+    case 4:
+      return flash_bwd_kernel<kG, 4, kDrop>;
+    default:
+      return flash_bwd_kernel<kG, 8, kDrop>;
+  }
+}
+
+template <bool kDrop>
+BwdKernel bwd_kernel(int group, int per) {
+  switch (group) {
+    case 8:
+      return bwd_kernel_per<8, kDrop>(per);
+    case 16:
+      return bwd_kernel_per<16, kDrop>(per);
+    default:
+      return bwd_kernel_per<32, kDrop>(per);
+  }
+}
 
 // d = 0 is a shape: the softmax statistics (lse, dl's second term, q) do
 // not depend on the features.
@@ -289,28 +424,31 @@ extern "C" int flash_fwd_f32(const int* ptr, const int* col,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dl and q are [n_out] with n_out >= ptr[n_rows]; the pads get 0.
+// dl and q are [n_out] with n_out >= ptr[n_rows] (the edge count is read
+// from ptr on the card); the pads get 0.  One grid of warps over runs of
+// `run` slots of [0, n_out); group the lanes an edge, 8, 16 or 32.
 extern "C" int flash_bwd_f32(const int* ptr, const int* col,
                              const float* logits, const float* x,
                              const float* gout, const float* out,
                              const float* lse, const int* seed, float rate,
                              float scale, float* dl, float* q, int n_rows,
-                             int n_out, int d, int n_warps,
-                             cudaStream_t stream) {
-  if (bad_shape(n_rows, d, n_warps) || n_out < 0 ||
-      bwd_smem(d, n_warps) > kMaxSmem) {
+                             int n_out, int run, int group, int d,
+                             int n_warps, cudaStream_t stream) {
+  if (bad_shape(n_rows, d, n_warps) || n_out < 0 || run < 1 ||
+      !(group == 8 || group == 16 || group == 32)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = bwd_smem(d, n_warps);
-  if (rate > 0.0f) {
-    flash_bwd_kernel<true, false><<<n_rows, n_warps * kWarp, smem, stream>>>(
-        ptr, col, logits, nullptr, nullptr, 0.0f, x, gout, out, lse, seed,
-        rate, scale, dl, q, nullptr, n_out, d);
-  } else {
-    flash_bwd_kernel<false, false><<<n_rows, n_warps * kWarp, smem, stream>>>(
-        ptr, col, logits, nullptr, nullptr, 0.0f, x, gout, out, lse, seed,
-        rate, scale, dl, q, nullptr, n_out, d);
-  }
+  const int64_t n_runs = runs::count(n_out, run);
+  const uintptr_t at = reinterpret_cast<uintptr_t>(x) |
+                       reinterpret_cast<uintptr_t>(gout) |
+                       reinterpret_cast<uintptr_t>(out);
+  const int per = gat_runs::per_lane(group, d, at);
+  const BwdKernel kernel = rate > 0.0f ? bwd_kernel<true>(group, per)
+                                       : bwd_kernel<false>(group, per);
+  kernel<<<static_cast<unsigned>((n_runs + n_warps - 1) / n_warps),
+           n_warps * kWarp, 0, stream>>>(ptr, col, logits, x, gout, out, lse,
+                                         seed, rate, scale, dl, q, n_rows,
+                                         n_out, n_runs, run, d);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -343,15 +481,14 @@ extern "C" int r1_bwd_f32(const int* ptr, const int* col, const float* c,
       bwd_smem(d, n_warps) > kMaxSmem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  flash_bwd_kernel<false, true>
-      <<<n_rows, n_warps * kWarp, bwd_smem(d, n_warps), stream>>>(
-          ptr, col, nullptr, c, t, slope, x, gout, out, lse, nullptr, 0.0f,
-          1.0f, dpre, att, dc, n_out, d);
+  r1_bwd_kernel<<<n_rows, n_warps * kWarp, bwd_smem(d, n_warps), stream>>>(
+      ptr, col, c, t, slope, x, gout, out, lse, dpre, att, dc, n_out, d);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The largest warps per block (1..8) whose shared memory fits both kernels
-// (in either form) at feature width d; 0 when even one warp does not fit.
+// The largest warps per block (1..8) whose shared memory fits the
+// one-block-per-row kernels (flash_bwd_f32 keeps none) at feature width d;
+// 0 when even one warp does not fit.
 extern "C" int flash_max_warps(int d) {
   for (int w = kMaxWarps; w >= 1; --w) {
     if (fwd_smem(d, w) <= kMaxSmem && bwd_smem(d, w) <= kMaxSmem) return w;

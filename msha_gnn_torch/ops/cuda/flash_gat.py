@@ -12,6 +12,8 @@ compute and what bounds them (bytes).
   in :data:`fwd_launches` and :data:`bwd_launches`.  For tensors on the CPU
   they run :func:`flash_gat_plain` and :func:`flash_gat_bwd_plain`, the
   plain PyTorch versions of the same functions and the kernels' oracles.
+  :func:`flash_gat_bwd_runs_plain` mirrors the backward's edge-run walk
+  step by step, for tests.
 * :class:`FlashGatOperator` binds one graph and is differentiable: softmax
   of given per-edge logits over each row, the hashed attention dropout and
   the aggregation in one kernel, with a recompute backward.  Its ``dx`` is
@@ -27,11 +29,17 @@ from typing import TYPE_CHECKING, Optional
 
 import torch
 
-from .rank1_gat import NEG, _keep, _scale
-from .spmm import SpmmOperator, edge_rows, operator_for
+from .rank1_gat import NEG, WARP, _group, _keep, _scale, _steps
+from .spmm import SpmmOperator, edge_rows, n_runs, operator_for
 
 if TYPE_CHECKING:
     from ...graph import BipartiteGraph
+
+# Slots a warp of flash_bwd_f32 by default.  Nothing of it sums over a
+# row, so a shorter run costs no fix-up: 32 was the fastest of RUN_SLOTS on
+# the card at the linkpred shapes (PERF.md, the sweep of RUN_SLOTS and
+# GROUPS).
+BWD_RUN = 32
 
 # Launches of flash_fwd_f32 / flash_bwd_f32 in this process (plain counts,
 # reset by callers that measure a run).
@@ -49,7 +57,7 @@ def _kernel_lib() -> ctypes.CDLL:
         lib = _build.load("flash_gat")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_fwd_f32.argtypes = [p] * 5 + [f] * 2 + [p] * 2 + [i] * 3 + [p]
-        lib.flash_bwd_f32.argtypes = [p] * 8 + [f] * 2 + [p] * 2 + [i] * 4 + [p]
+        lib.flash_bwd_f32.argtypes = [p] * 8 + [f] * 2 + [p] * 2 + [i] * 6 + [p]
         # the generic rank-1 GAT's entries (wrapped in rank1_gat.py)
         lib.r1_fwd_f32.argtypes = [p] * 5 + [f] + [p] * 2 + [i] * 3 + [p]
         lib.r1_bwd_f32.argtypes = [p] * 8 + [f] + [p] * 3 + [i] * 4 + [p]
@@ -111,6 +119,61 @@ def flash_gat_bwd_plain(ptr, col, logits, x, gout, out, lse, seed,
     q_out = logits.new_zeros(logits.shape[0])
     q_out[:e] = q
     return dl, q_out
+
+
+def flash_gat_bwd_runs_plain(ptr, col, logits, x, gout, out, lse, seed,
+                             rate: float, n_rows: int, run: int, group: int):
+    """The walk of ``flash_bwd_f32`` in plain PyTorch, step by step as the
+    kernel takes it (``msha_gnn_torch/csrc/flash_gat.cu``, ``runs.cuh``):
+    runs of ``run`` consecutive slots of ``[0, n_out)``, each zeroing its
+    pad slots past ``ptr[n_rows]`` and walking its row pieces, with the
+    row's ``<gout[r], out[r]>`` and ``lse[r]`` taken once a piece and the
+    edges handed to ``32 / group`` groups, a step at a time.
+
+    Returns ``(dl [n_out], q [n_out], writes [n_out])``, ``writes``
+    counting how often each slot was written (the kernel writes each
+    once).  Slow: Python loops over runs and steps, for tests.
+    """
+    pl = [int(v) for v in ptr.tolist()]
+    n_edges, n_out = pl[n_rows], logits.shape[0]
+    n_groups, steps = WARP // group, _steps(group, x.shape[1])
+    keep = _keep(n_edges, seed, rate, x.device)
+    rows = edge_rows(ptr, n_edges)
+    dl = logits.new_full((n_out,), float("nan"))
+    q = logits.new_full((n_out,), float("nan"))
+    writes = torch.zeros(n_out, dtype=torch.int64)
+    lanes = (torch.arange(steps)[None, :] * n_groups
+             + torch.arange(n_groups)[:, None]).reshape(-1)
+    for k in range(n_runs(n_out, run)):
+        lo, hi = k * run, min(k * run + run, n_out)
+        pads = torch.arange(min(max(lo, n_edges), hi), hi)
+        dl[pads], q[pads] = 0.0, 0.0
+        writes[pads] += 1
+        first, last = lo, min(hi, n_edges)
+        if first >= n_edges:
+            continue
+        row = int(rows[first])
+        while True:
+            rb, re = pl[row], pl[row + 1]
+            g_row, lse_row = gout[row], lse[row]
+            d_row = (g_row * out[row]).sum()
+            live = bool(lse_row > NEG / 2)
+            pe = min(re, last)
+            for eb in range(max(rb, first), pe, n_groups * steps):
+                idx = eb + lanes
+                idx = idx[idx < pe]
+                gx = (x[col[idx].long()] * g_row).sum(1)
+                att = (torch.exp(logits[idx] - lse_row) if live
+                       else logits.new_zeros(idx.numel()))
+                qe = att * keep[idx]
+                dl[idx], q[idx] = qe * gx - att * d_row, qe
+                writes.index_add_(0, idx, torch.ones_like(idx))
+            if re >= last:
+                break
+            row += 1
+            while pl[row + 1] == pl[row]:
+                row += 1
+    return dl, q, writes
 
 
 # ---------------------------------------------------------------------------
@@ -185,11 +248,15 @@ def flash_fwd(ptr, col, logits, x, seed, rate: float, n_rows: int):
 
 
 def flash_bwd(ptr, col, logits, x, gout, out, lse, seed, rate: float,
-              n_rows: int):
+              n_rows: int, run: Optional[int] = None,
+              group: Optional[int] = None):
     """Recompute backward -> ``(dl [n_out], q [n_out])`` float32 for
     ``logits`` [n_out], pads 0; ``gout``, ``out`` [n_rows, d] and ``lse``
-    [n_rows] as the forward gave them.  CPU tensors take the plain
-    version."""
+    [n_rows] as the forward gave them.  ``run`` slots a warp (default
+    :data:`BWD_RUN`), ``group`` lanes an edge (one of
+    :data:`~.rank1_gat.GROUPS`, default :func:`~.rank1_gat.group_for`).
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     global bwd_launches
     if x.device.type == "cpu":
         return flash_gat_bwd_plain(ptr, col, logits, x, gout, out, lse, seed,
@@ -203,10 +270,12 @@ def flash_bwd(ptr, col, logits, x, gout, out, lse, seed, rate: float,
                          f"and lse {tuple(lse.shape)} must be [{n_rows}, "
                          f"{d}] and [{n_rows}]")
     dev, n_out = x.device, logits.shape[0]
+    group = _group(group, d)
     dl = torch.empty(n_out, dtype=torch.float32, device=dev)
     q = torch.empty(n_out, dtype=torch.float32, device=dev)
     if n_rows == 0:
         return dl.zero_(), q.zero_()
+    run = BWD_RUN if run is None else int(run)
     lib = _kernel_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -214,7 +283,7 @@ def flash_bwd(ptr, col, logits, x, gout, out, lse, seed, rate: float,
             ptr.data_ptr(), col.data_ptr(), logits.data_ptr(), x.data_ptr(),
             gout.data_ptr(), out.data_ptr(), lse.data_ptr(), seed.data_ptr(),
             rate, _scale(rate), dl.data_ptr(), q.data_ptr(), n_rows, n_out,
-            d, _warps(d), stream)
+            run, group, d, _warps(d), stream)
     _raise_on(lib, rc, "flash_bwd_f32")
     bwd_launches += 1
     return dl, q

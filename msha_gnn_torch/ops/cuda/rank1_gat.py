@@ -14,6 +14,8 @@ compute and what bounds them.
   :data:`fwd_launches` and :data:`bwd_launches`.  For tensors on the CPU
   they run :func:`rank1_gat_plain` and :func:`rank1_gat_bwd_plain`, the
   plain PyTorch versions of the same functions and the kernels' oracles.
+  :func:`rank1_gat_runs_plain` mirrors the forward's edge-run schedule
+  step by step, for tests.
 * :func:`keep_scale_plain` is the dropout keep mask, bit for bit the JAX
   package's ``_hash01``/``_keep_scale``; :func:`keep_scale` computes it on
   the card in one launch of the kernels' own device function
@@ -49,9 +51,15 @@ if TYPE_CHECKING:
 
 NEG = -1e30
 
+# Lanes an edge in the kernels on the edge-run schedule (r1l_fwd_f32,
+# flash_bwd_f32; csrc/gat_runs.cuh).
+GROUPS = (8, 16, 32)
+WARP = 32
+
 # Launches of r1l_fwd_f32 / r1l_bwd_f32 in this process (plain counts, reset
-# by callers that measure a run).  One r1l_bwd_f32 launch runs two grids:
-# the edge runs, then the fixed-order da reduce and dc of crossing rows.
+# by callers that measure a run).  Each launch runs two grids: the edge
+# runs, then the fix-up of the rows that cross runs (the forward's pieces
+# merged in run order; the backward's dc pieces and the da reduce).
 fwd_launches = 0
 bwd_launches = 0
 keep_launches = 0
@@ -69,7 +77,7 @@ def _kernel_lib() -> ctypes.CDLL:
 
         lib = _build.load("rank1_gat")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.r1l_fwd_f32.argtypes = [p] * 6 + [f] * 3 + [p] * 2 + [i] * 3 + [p]
+        lib.r1l_fwd_f32.argtypes = [p] * 6 + [f] * 3 + [p] * 3 + [i] * 6 + [p]
         lib.r1l_bwd_f32.argtypes = ([p] * 9 + [f] * 3 + [p] * 5 + [i] * 5
                                     + [p])
         lib.r1l_keep_scale_f32.argtypes = [p, f, f, i, p, p]
@@ -190,6 +198,154 @@ def rank1_gat_plain(ptr, col, c, a, x, seed, rate: float, slope: float,
     return out, lse
 
 
+def group_for(d: int) -> int:
+    """Lanes an edge at width ``d`` in ``r1l_fwd_f32`` and
+    ``flash_bwd_f32``: the fewest of :data:`GROUPS` whose lanes hold the
+    row at 8 floats each, else the widest.  At d 64 that is 8, the fastest
+    of 8, 16 and 32 for both kernels on the card (``PERF.md``, the
+    sweep)."""
+    for g in GROUPS:
+        if 8 * g >= d:
+            return g
+    return GROUPS[-1]
+
+
+def _lane_floats(group: int, d: int) -> int:
+    """Floats of a row a lane holds (``gat_runs.cuh::per_lane`` for aligned
+    rows)."""
+    most = 8 if d % 4 == 0 else 2 if d % 2 == 0 else 1
+    per = 1
+    while per < most and group * per < d:
+        per *= 2
+    return per
+
+
+def _steps(group: int, d: int) -> int:
+    """Edges a group takes a step (``gat_runs.cuh::Layout::kSteps``)."""
+    return max(1, 16 // _lane_floats(group, d))
+
+
+def _merge(m, s, acc, m2, s2, acc2):
+    """The online-softmax merge of ``(m2, s2, acc2)`` into ``(m, s, acc)``
+    (``gat_runs.cuh::merge``); a piece without edges is ``(NEG, 0, 0)``."""
+    m_new = torch.maximum(m, m2)
+    r1, r2 = torch.exp(m - m_new), torch.exp(m2 - m_new)
+    return (m_new, s2 * r2 + s * r1,
+            acc2 * r2[..., None] + acc * r1[..., None])
+
+
+def _fold_piece(logit, keep, xg, n_groups: int, steps: int):
+    """The online softmax of one row piece as the kernel's groups take it:
+    group g folds edges g, g + n_groups, ..., ``steps`` of them a step; then
+    the groups merge in the kernel's order (``gat_runs.cuh::merge_groups``:
+    groups 1 apart, then 2 apart, ...).  Returns group 0's ``(m, s,
+    acc)``."""
+    length, d = xg.shape
+    g = torch.arange(n_groups)
+    m = xg.new_full((n_groups,), NEG)
+    s = xg.new_zeros(n_groups)
+    acc = xg.new_zeros((n_groups, d))
+    for eb in range(0, length, n_groups * steps):
+        idx = eb + torch.arange(steps)[None, :] * n_groups + g[:, None]
+        ok = idx < length
+        idx = idx.clamp(max=length - 1)
+        lg = torch.where(ok, logit[idx], NEG)
+        m_new = torch.maximum(m, lg.max(1).values)
+        rescale = torch.exp(m - m_new)
+        p = torch.where(ok, torch.exp(lg - m_new[:, None]), 0.0)
+        s = s * rescale + p.sum(1)
+        m = m_new
+        acc = acc * rescale[:, None] + ((p * keep[idx])[:, :, None]
+                                        * xg[idx]).sum(1)
+    o = 1
+    while o < n_groups:
+        m, s, acc = _merge(m, s, acc, m[g ^ o], s[g ^ o], acc[g ^ o])
+        o *= 2
+    return m[0], s[0], acc[0]
+
+
+def rank1_gat_runs_plain(ptr, col, c, a, x, seed, rate: float, slope: float,
+                         n_rows: int, run: int, group: int):
+    """The schedule of ``r1l_fwd_f32`` in plain PyTorch, step by step as the
+    kernel takes it (``msha_gnn_torch/csrc/rank1_gat.cu``, ``runs.cuh``,
+    ``gat_runs.cuh``): runs of ``run`` consecutive slots, ``32 / group``
+    groups taking every n-th edge of a row piece, the groups' fixed-order
+    merge; a row inside a run is written, a crossing row leaves head and
+    tail pieces that the fix-up merges in run order; empty rows are zeroed
+    by the run that holds their slot.  ``col`` may run past
+    ``ptr[n_rows]``.
+
+    Returns ``(out [n_rows, d], lse [n_rows], writes [n_rows])``,
+    ``writes`` counting how often each row was written (the kernel writes
+    each once).  Slow: Python loops over runs and steps, for tests.
+    """
+    pl = [int(v) for v in ptr.tolist()]
+    n_edges, d = pl[n_rows], x.shape[1]
+    rows = edge_rows(ptr, n_edges)
+    xg = x[col[:n_edges].long()]
+    pre = c[rows] + xg @ a
+    logit = torch.where(pre >= 0, pre, slope * pre)
+    keep = _keep(n_edges, seed, rate, x.device)
+    n_groups, steps = WARP // group, _steps(group, d)
+    out = x.new_full((n_rows, d), float("nan"))
+    lse = x.new_full((n_rows,), float("nan"))
+    writes = torch.zeros(n_rows, dtype=torch.int64)
+    n = n_runs(n_edges, run)
+    head, tail, cross = [None] * n, [None] * n, [-1] * n
+
+    def put(r, m, s, acc):
+        live = bool(s > 0)
+        out[r] = acc / s if live else 0.0
+        lse[r] = m + torch.log(s) if live else NEG
+        writes[r] += 1
+
+    def zero(r):
+        out[r], lse[r] = 0.0, NEG
+        writes[r] += 1
+
+    if n_edges == 0:
+        for r in range(n_rows):
+            zero(r)
+    for k in range(n):
+        first, last = k * run, min(k * run + run, n_edges)
+        if first >= n_edges:
+            break
+        row = int(rows[first])
+        r = row
+        while r > 0 and pl[r - 1] == first:
+            r -= 1
+        for empty in range(r, row):
+            zero(empty)
+        while True:
+            rb, re = pl[row], pl[row + 1]
+            pb, pe = max(rb, first), min(re, last)
+            piece = _fold_piece(logit[pb:pe], keep[pb:pe], xg[pb:pe],
+                                n_groups, steps)
+            if rb < first:
+                head[k] = piece
+            elif re > last:
+                tail[k], cross[k] = piece, row
+            else:
+                put(row, *piece)
+            if re >= last:
+                break
+            row += 1
+            while pl[row + 1] == pl[row]:
+                zero(row)
+                row += 1
+        if last == n_edges:
+            for empty in range(row + 1, n_rows):
+                zero(empty)
+    for k in range(n):
+        if cross[k] < 0:
+            continue
+        m, s, acc = tail[k]
+        for j in range(k + 1, (pl[cross[k] + 1] - 1) // run + 1):
+            m, s, acc = _merge(m, s, acc, *head[j])
+        put(cross[k], m, s, acc)
+    return out, lse, writes
+
+
 def rank1_gat_bwd_plain(ptr, col, c, a, x, gout, out, lse, seed, rate: float,
                         slope: float, n_rows: int):
     """Plain version of ``r1l_bwd_f32`` -> ``(q [E], dpre [E]`` in CSR
@@ -291,30 +447,47 @@ def _shapes(ptr, col, c, a, x, n_rows):
     return d
 
 
-def r1l_fwd(ptr, col, c, a, x, seed, rate: float, slope: float, n_rows: int):
+def _group(group: Optional[int], d: int) -> int:
+    g = group_for(d) if group is None else int(group)
+    if g not in GROUPS:
+        raise ValueError(f"group must be one of {GROUPS}, got {g}")
+    return g
+
+
+def r1l_fwd(ptr, col, c, a, x, seed, rate: float, slope: float, n_rows: int,
+            run: Optional[int] = None, group: Optional[int] = None):
     """Forward -> ``(out [n_rows, d], lse [n_rows])`` float32.
 
-    ``ptr`` int32 [n_rows + 1], ``col`` int32 [E] (CSR, slot = index),
-    ``c`` f32 [n_rows], ``a`` f32 [d], ``x`` f32 [n_cols, d], ``seed``
-    int32 [1] (read when ``rate > 0``).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise.
+    ``ptr`` int32 [n_rows + 1], ``col`` int32 [E] (CSR, slot = index; it
+    may run past ``ptr[n_rows]``: the kernel reads the edge count from
+    ``ptr`` on the card), ``c`` f32 [n_rows], ``a`` f32 [d], ``x`` f32
+    [n_cols, d], ``seed`` int32 [1] (read when ``rate > 0``).  ``run``
+    slots a warp (default :func:`~.spmm.warp_run`), ``group`` lanes an edge
+    (one of :data:`GROUPS`, default :func:`group_for`).  CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise.
     """
     global fwd_launches
     if x.device.type == "cpu":
         return rank1_gat_plain(ptr, col, c, a, x, seed, rate, slope, n_rows)
     _check(x.device, rate, ptr=ptr, col=col, c=c, a=a, x=x, seed=seed)
     d = _shapes(ptr, col, c, a, x, n_rows)
+    group = _group(group, d)
     out = torch.empty((n_rows, d), dtype=torch.float32, device=x.device)
     lse = torch.empty(n_rows, dtype=torch.float32, device=x.device)
     if n_rows == 0:
         return out, lse
+    e = col.numel()  # slots: a bound on the edges
+    run = warp_run(e) if run is None else int(run)
+    ws = torch.empty(n_runs(e, run) * (2 * d + 5), dtype=torch.float32,
+                     device=x.device)
     lib = _kernel_lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.r1l_fwd_f32(
             ptr.data_ptr(), col.data_ptr(), c.data_ptr(), a.data_ptr(),
             x.data_ptr(), seed.data_ptr(), rate, _scale(rate), slope,
-            out.data_ptr(), lse.data_ptr(), n_rows, d, _warps(d), stream)
+            out.data_ptr(), lse.data_ptr(), ws.data_ptr(), n_rows, e, run,
+            group, d, _warps(d), stream)
     _raise_on(lib, rc, "r1l_fwd_f32")
     fwd_launches += 1
     return out, lse

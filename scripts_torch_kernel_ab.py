@@ -1,35 +1,38 @@
-"""The CSR-sum and flash-GAT kernels of two ``csrc`` trees side by side on
-one CUDA card: each tree's build, called through its own C signatures, on
-the same inputs.
+"""The CSR-sum and GAT kernels of two ``csrc`` trees side by side on one
+CUDA card: each tree's build, called through its own C signatures, on the
+same inputs.
 
     python3 scripts_torch_kernel_ab.py BASE_CSRC
 
 ``BASE_CSRC`` is another tree's ``msha_gnn_torch/csrc`` (for example the
 parent commit's, unpacked with ``git archive`` into a directory that
-``.gitignore`` lists), whose ``spmm.cu`` and ``rank1_gat.cu`` have the
-one-block-per-row signatures: ``csr_spmm_f32(ptr, col, w, x, out, n_rows,
-d, n_warps, stream)``, ``seg_reduce_f32(ptr, values, out, n_rows, d,
-n_warps, stream)`` and ``r1l_bwd_f32`` writing ``z [E, d]``.  This tree's
-are the edge-run kernels.  On the path's shapes (the GCN graph of the 2015
+``.gitignore`` lists), whose ``r1l_fwd_f32`` and ``flash_bwd_f32`` have the
+one-block-per-row signatures: ``r1l_fwd_f32(ptr, col, c, a, x, seed, rate,
+scale, slope, out, lse, n_rows, d, n_warps, stream)`` and
+``flash_bwd_f32(ptr, col, logits, x, gout, out, lse, seed, rate, scale,
+dl, q, n_rows, n_out, d, n_warps, stream)``.  This tree's are the edge-run
+kernels, which take a workspace (the forward), the slot count, the run
+length and the lanes an edge.  Its other entry points (``csr_spmm_f32``,
+``seg_reduce_f32``, ``r1l_bwd_f32``, ``flash_fwd_f32``) have the same
+signatures in both trees and run through this tree's wrappers with each
+build's library in turn.  On the path's shapes (the GCN graph of the 2015
 flow data's shape, d 32; the linkpred graph, synthetic ogbl-ddi seed 42,
-d 64) the script runs every ``csr_spmm_f32`` use (gc1 ``A^T x``, gc2 ``A
-x``, the att-weighted ``A h`` and ``A^T g``, the ``q``-weighted flash dx,
-the unweighted ``[E, 64]`` dx reduce and the d = 1 column sum),
-``seg_reduce_f32`` on ``[E_pad, 64]`` values and ``r1l_bwd_f32`` at
-dropout 0.5 (base: ``z``, ``dc``, ``da``; this: ``q``, ``dpre``, ``dc``,
-``da``), and ``flash_fwd_f32`` (dropout rates 0 and 0.5) and
-``flash_bwd_f32`` (0.5) of both builds of ``flash_gat.cu``, whose C
-signatures did not change.  It prints:
+d 64) the script runs ``r1l_fwd_f32`` at dropout rates 0 and 0.5,
+``flash_bwd_f32`` at 0.5, and, as controls, every ``csr_spmm_f32`` use
+(gc1 ``A^T x``, gc2 ``A x``, the att-weighted ``A h`` and ``A^T g``, the
+``q``-weighted dx, the d = 1 column sum), ``seg_reduce_f32`` on
+``[E_pad, 64]`` values, ``r1l_bwd_f32`` at 0.5 and ``flash_fwd_f32`` at 0
+and 0.5.  It prints:
 
-* whether each build's outputs equal the plain versions' (rtol 1e-4, atol
-  1e-5 of the largest value: float32 sums of up to 3,842 terms), and for
-  the flash kernels whether the two builds' outputs are the same bit for
-  bit;
+* whether each build's outputs equal the plain versions' (``out``,
+  ``lse`` and ``q`` at rtol 1e-5, atol 1e-6; sums and ``dl`` at rtol
+  1e-4, atol 1e-5 of the largest value: float32 sums of up to 3,842
+  terms);
 * each kernel's time in four rounds in the order base, this, this, base:
   the median of 15 means of 20 launches by CUDA events, and the device
   time over 20 launches by ``torch.profiler``, with the medians of each;
-* this build's time at each run length of ``RUN_SLOTS`` for the SpMM and
-  segment-sum uses (device time);
+* this build's ``r1l_fwd_f32`` and ``flash_bwd_f32`` at each run length of
+  ``RUN_SLOTS`` and each group of ``GROUPS`` lanes (device time);
 * ptxas's register, spill and stack counts of both builds.
 
 The card's name and power limit come first, one JSON summary last.  Needs
@@ -57,40 +60,42 @@ def build_base(csrc: Path) -> dict:
 
     out_dir = _build.BUILD_DIR.parent / "ab"
     out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {name: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+         str(out_dir / f"lib{name}-base.so"), str(csrc / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in SOURCES}
     libs = {}
-    for name in SOURCES:
-        target = out_dir / f"lib{name}-base.so"
-        proc = subprocess.run(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(target),
-             str(csrc / f"{name}.cu")], capture_output=True, text=True,
-            check=False)
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {csrc / name}.cu:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        libs[name] = (ctypes.CDLL(str(target)), proc.stdout + proc.stderr)
+            raise RuntimeError(f"nvcc failed on {csrc / name}.cu:\n{log}")
+        libs[name] = (ctypes.CDLL(str(out_dir / f"lib{name}-base.so")), log)
     return libs
 
 
-def bind_base(spmm_lib: ctypes.CDLL, r1_lib: ctypes.CDLL,
-              flash_lib: ctypes.CDLL) -> None:
-    """The one-block-per-row signatures of the base tree, and its flash
-    kernels' (the same as this tree's)."""
+def bind_base(base: dict, this: dict) -> None:
+    """The base build's entry points: those whose signature this tree kept
+    typed as this tree's wrappers type them, and the one-block-per-row
+    ``r1l_fwd_f32`` and ``flash_bwd_f32``."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    flash_lib.flash_fwd_f32.argtypes = ([p] * 5 + [f] * 2 + [p] * 2 + [i] * 3
-                                        + [p])
-    flash_lib.flash_bwd_f32.argtypes = ([p] * 8 + [f] * 2 + [p] * 2 + [i] * 4
-                                        + [p])
-    flash_lib.flash_max_warps.argtypes = [i]
-    flash_lib.flash_error_string.argtypes = [i]
-    flash_lib.flash_error_string.restype = ctypes.c_char_p
-    spmm_lib.csr_spmm_f32.argtypes = [p] * 5 + [i] * 3 + [p]
-    spmm_lib.seg_reduce_f32.argtypes = [p] * 3 + [i] * 3 + [p]
-    r1_lib.r1l_bwd_f32.argtypes = [p] * 9 + [f] * 3 + [p] * 4 + [i] * 3 + [p]
-    r1_lib.r1l_max_warps.argtypes = [i]
-    for fn in (spmm_lib.csr_spmm_f32, spmm_lib.seg_reduce_f32,
-               r1_lib.r1l_bwd_f32, r1_lib.r1l_max_warps,
-               flash_lib.flash_fwd_f32, flash_lib.flash_bwd_f32,
-               flash_lib.flash_max_warps):
+    for name, lib in base.items():
+        for fn in ("csr_spmm_f32", "seg_reduce_f32", "csr_spmm_dw_f32",
+                   "csr_spmm_dw_max_warps", "r1l_bwd_f32",
+                   "r1l_keep_scale_f32", "r1l_max_warps", "r1l_error_string",
+                   "flash_fwd_f32", "r1_fwd_f32", "r1_bwd_f32",
+                   "flash_max_warps", "flash_error_string",
+                   "csr_spmm_error_string"):
+            if hasattr(this[name], fn):
+                ours = getattr(this[name], fn)
+                getattr(lib, fn).argtypes = ours.argtypes
+                getattr(lib, fn).restype = ours.restype
+    base["rank1_gat"].r1l_fwd_f32.argtypes = ([p] * 6 + [f] * 3 + [p] * 2
+                                              + [i] * 3 + [p])
+    base["flash_gat"].flash_bwd_f32.argtypes = ([p] * 8 + [f] * 2 + [p] * 2
+                                                + [i] * 4 + [p])
+    for fn in (base["rank1_gat"].r1l_fwd_f32,
+               base["flash_gat"].flash_bwd_f32):
         fn.restype = ctypes.c_int
 
 
@@ -127,6 +132,17 @@ def sums_equal(got, want) -> bool:
                                atol=1e-5 * max(scale, 1.0)))
 
 
+def lib_case(module, libs, fn):
+    """``fn`` (a wrapper of ``module``) with each build's library: each
+    call sets the module's library first."""
+    def with_lib(lib):
+        def call():
+            module._lib = lib
+            return fn()
+        return call
+    return {"base": with_lib(libs["base"]), "this": with_lib(libs["this"])}
+
+
 def main() -> int:
     if not torch.cuda.is_available() or len(sys.argv) != 2:
         print("usage: scripts_torch_kernel_ab.py BASE_CSRC (needs CUDA)",
@@ -146,11 +162,11 @@ def main() -> int:
                          text=True, check=True).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     base = build_base(Path(sys.argv[1]))
-    base_spmm, base_r1 = base["spmm"][0], base["rank1_gat"][0]
-    base_flash = base["flash_gat"][0]
-    bind_base(base_spmm, base_r1, base_flash)
     _build.build(SOURCES)
-    this_flash = flash._kernel_lib()
+    this = {"spmm": cuda_spmm._kernel_lib(), "rank1_gat": r1._kernel_lib(),
+            "flash_gat": flash._kernel_lib()}
+    base_libs = {n: lib for n, (lib, _) in base.items()}
+    bind_base(base_libs, this)
     for label, logs in (("base", {n: log for n, (_, log) in base.items()}),
                         ("this", {n: _build.build_log(n) for n in SOURCES})):
         for n in SOURCES:
@@ -175,127 +191,141 @@ def main() -> int:
     logits = torch.randn(e_pad, generator=gen, device=dev) * 2
     att = seg_softmax_fwd_plain(spmm.ptr, logits, None, e)[0][:e]
     q = att * r1.keep_scale_plain(torch.arange(e, device=dev), 7, 0.5)
-    z = torch.rand((e, d), generator=gen, device=dev) - 0.5
     dcol = torch.rand((e, 1), generator=gen, device=dev) - 0.5
     values = torch.rand((e_pad, d), generator=gen, device=dev) - 0.5
     values[e:] = float("nan")
+    libs = {name: {"base": base_libs[name], "this": this[name]}
+            for name in SOURCES}
 
-    # (ptr, col, w, x, n_rows, base warps) of each csr_spmm_f32 use
+    # (ptr, col, w, x, n_rows) of each csr_spmm_f32 use
     spmm_uses = {
-        "gc1 A^T x": (gcn.t_ptr, gcn.t_col, gcn.t_w, x1, fg.n_dst,
-                      gcn.warps_t),
-        "gc2 A x": (gcn.ptr, gcn.col, gcn.w, x2, fg.n_src, gcn.warps),
-        "att A h": (spmm.ptr, spmm.col, att, x, n, spmm.warps),
+        "gc1 A^T x": (gcn.t_ptr, gcn.t_col, gcn.t_w, x1, fg.n_dst),
+        "gc2 A x": (gcn.ptr, gcn.col, gcn.w, x2, fg.n_src),
+        "att A h": (spmm.ptr, spmm.col, att, x, n),
         "att dx A^T g": (spmm.t_ptr, spmm.t_col, spmm.weights(att, True),
-                         gout, n, spmm.warps_t),
+                         gout, n),
         "q dx A^T g": (spmm.t_ptr, spmm.t_col, spmm.weights(q, True), gout,
-                       n, spmm.warps_t),
-        "dx reduce [E, 64]": (spmm.t_ptr, spmm.t_edge, None, z, n,
-                              spmm.warps_t),
-        "dpre column sum": (spmm.t_ptr, spmm.t_edge, None, dcol, n,
-                            spmm.warps_t),
+                       n),
+        "dpre column sum": (spmm.t_ptr, spmm.t_edge, None, dcol, n),
     }
-
-    def base_spmm_fn(ptr, col, w, xx, n_rows, warps):
-        def fn():
-            out = torch.empty((n_rows, xx.shape[1]), device=dev)
-            checked(base_spmm.csr_spmm_f32(
-                ptr.data_ptr(), col.data_ptr(),
-                None if w is None else w.data_ptr(), xx.data_ptr(),
-                out.data_ptr(), n_rows, xx.shape[1], warps, stream()))
-            return out
-        return fn
-
-    def base_seg():
-        out = torch.empty((n, d), device=dev)
-        checked(base_spmm.seg_reduce_f32(spmm.ptr.data_ptr(),
-                                         values.data_ptr(), out.data_ptr(),
-                                         n, d, 8, stream()))
-        return out
+    cases, want = {}, {}
+    for label, (ptr, col, w, xx, n_rows) in spmm_uses.items():
+        k = f"csr_spmm_f32[{label}]"
+        cases[k] = lib_case(cuda_spmm, libs["spmm"],
+                            lambda ptr=ptr, col=col, w=w, xx=xx,
+                            n_rows=n_rows: cuda_spmm.csr_spmm(ptr, col, w,
+                                                              xx, n_rows))
+        want[k] = (cuda_spmm.csr_spmm_plain(ptr, col, w, xx, n_rows),)
+    cases["seg_reduce_f32[E_pad, 64]"] = lib_case(
+        cuda_spmm, libs["spmm"], lambda: cuda_spmm.segment_reduce_sorted(
+            values, g.senders, spmm.ptr, n_src=n))
+    want["seg_reduce_f32[E_pad, 64]"] = (
+        cuda_spmm.segment_reduce_sorted_plain(values, g.senders, spmm.ptr,
+                                              n_src=n),)
 
     seed = torch.tensor([cs.DROP_SEED], dtype=torch.int32, device=dev)
     c = torch.randn(n, generator=gen, device=dev)
     a = torch.randn(d, generator=gen, device=dev) * 0.3
-    out5, lse5 = r1.rank1_gat_plain(op.ptr, op.col, c, a, x, seed, 0.5,
-                                    op.slope, n)
+    warps = r1._warps(d)
+
+    def base_fwd(rate, c=c, a=a):
+        def fn():
+            out = torch.empty((n, d), device=dev)
+            lse = torch.empty(n, device=dev)
+            checked(base_libs["rank1_gat"].r1l_fwd_f32(
+                op.ptr.data_ptr(), op.col.data_ptr(), c.data_ptr(),
+                a.data_ptr(), x.data_ptr(), seed.data_ptr(), rate,
+                r1._scale(rate), op.slope, out.data_ptr(), lse.data_ptr(), n,
+                d, warps, stream()))
+            return out, lse
+        return fn
+
+    for rate in (0.0, 0.5):
+        fwd_args = (op.ptr, op.col, c, a, x, seed, rate, op.slope, n)
+        k = f"r1l_fwd_f32[rate {rate}]"
+        cases[k] = {"base": base_fwd(rate), "this": lib_case(
+            r1, libs["rank1_gat"],
+            lambda fwd_args=fwd_args: r1.r1l_fwd(*fwd_args))["this"]}
+        want[k] = r1.rank1_gat_plain(*fwd_args)
+    out5, lse5 = want["r1l_fwd_f32[rate 0.5]"]
     bwd_args = (op.ptr, op.col, c, a, x, gout, out5, lse5, seed, 0.5,
                 op.slope, n)
-    warps = base_r1.r1l_max_warps(d)
+    cases["r1l_bwd_f32[rate 0.5]"] = lib_case(
+        r1, libs["rank1_gat"], lambda: r1.r1l_bwd(*bwd_args))
+    want["r1l_bwd_f32[rate 0.5]"] = r1.rank1_gat_bwd_plain(*bwd_args)
 
-    def base_bwd():
-        zz = torch.empty((e, d), device=dev)
-        dc = torch.empty(n, device=dev)
-        da = torch.empty(d, device=dev)
-        part = torch.empty((n, d), device=dev)
-        checked(base_r1.r1l_bwd_f32(
-            op.ptr.data_ptr(), op.col.data_ptr(), c.data_ptr(), a.data_ptr(),
-            x.data_ptr(), gout.data_ptr(), out5.data_ptr(), lse5.data_ptr(),
-            seed.data_ptr(), 0.5, r1._scale(0.5), op.slope, zz.data_ptr(),
-            dc.data_ptr(), part.data_ptr(), da.data_ptr(), n, d, warps,
-            stream()))
-        return zz, dc, da
-
-    cases = {}
-    plain = {}
-    for label, (ptr, col, w, xx, n_rows, bw) in spmm_uses.items():
-        cases[f"csr_spmm_f32[{label}]"] = {
-            "base": base_spmm_fn(ptr, col, w, xx, n_rows, bw),
-            "this": (lambda ptr=ptr, col=col, w=w, xx=xx, n_rows=n_rows:
-                     cuda_spmm.csr_spmm(ptr, col, w, xx, n_rows))}
-        plain[f"csr_spmm_f32[{label}]"] = cuda_spmm.csr_spmm_plain(
-            ptr, col, w, xx, n_rows)
-    cases["seg_reduce_f32[E_pad, 64]"] = {
-        "base": base_seg,
-        "this": lambda: cuda_spmm.segment_reduce_sorted(
-            values, g.senders, spmm.ptr, n_src=n)}
-    plain["seg_reduce_f32[E_pad, 64]"] = \
-        cuda_spmm.segment_reduce_sorted_plain(values, g.senders, spmm.ptr,
-                                              n_src=n)
-    cases["r1l_bwd_f32[rate 0.5]"] = {
-        "base": base_bwd, "this": lambda: r1.r1l_bwd(*bwd_args)}
-
-    # the flash kernels: one wrapper, each build's library in turn
-    def flash_case(fn):
-        def with_lib(lib):
-            def call():
-                flash._lib = lib
-                return fn()
-            return call
-        return {"base": with_lib(base_flash), "this": with_lib(this_flash)}
-
-    out_f5, lse_f5 = flash.flash_gat_plain(op.ptr, op.col, logits, x, seed,
-                                           0.5, n)
     for rate in (0.0, 0.5):
-        cases[f"flash_fwd_f32[rate {rate}]"] = flash_case(
-            lambda rate=rate: flash.flash_fwd(op.ptr, op.col, logits, x,
-                                              seed, rate, n))
-    cases["flash_bwd_f32[rate 0.5]"] = flash_case(
-        lambda: flash.flash_bwd(op.ptr, op.col, logits, x, gout, out_f5,
-                                lse_f5, seed, 0.5, n))
-    wq, wdpre, wdc, wda = r1.rank1_gat_bwd_plain(*bwd_args)
-    wz = (wq[:, None] * gout[cuda_spmm.edge_rows(op.ptr, e)]
-          + wdpre[:, None] * a)
+        f_args = (op.ptr, op.col, logits, x, seed, rate, n)
+        k = f"flash_fwd_f32[rate {rate}]"
+        cases[k] = lib_case(flash, libs["flash_gat"],
+                            lambda f_args=f_args: flash.flash_fwd(*f_args))
+        want[k] = flash.flash_gat_plain(*f_args)
+    out_f5, lse_f5 = want["flash_fwd_f32[rate 0.5]"]
+    fb_args = (op.ptr, op.col, logits, x, gout, out_f5, lse_f5, seed, 0.5, n)
+
+    def base_flash_bwd():
+        dl = torch.empty(e_pad, device=dev)
+        qq = torch.empty(e_pad, device=dev)
+        checked(base_libs["flash_gat"].flash_bwd_f32(
+            op.ptr.data_ptr(), op.col.data_ptr(), logits.data_ptr(),
+            x.data_ptr(), gout.data_ptr(), out_f5.data_ptr(),
+            lse_f5.data_ptr(), seed.data_ptr(), 0.5, r1._scale(0.5),
+            dl.data_ptr(), qq.data_ptr(), n, e_pad, d, flash._warps(d),
+            stream()))
+        return dl, qq
+
+    cases["flash_bwd_f32[rate 0.5]"] = {
+        "base": base_flash_bwd, "this": lib_case(
+            flash, libs["flash_gat"],
+            lambda: flash.flash_bwd(*fb_args))["this"]}
+    want["flash_bwd_f32[rate 0.5]"] = flash.flash_gat_bwd_plain(*fb_args)
+    # outputs held at the kernel tolerance (the rest as sums)
+    exact = {"r1l_fwd": (0, 1), "flash_fwd": (0, 1), "flash_bwd": (1,),
+             "r1l_bwd": (0,)}
+
+    def equal(k, got):
+        tight = exact.get(k.split("_f32")[0], ())
+        got = got if isinstance(got, tuple) else (got,)
+        return all(
+            bool(torch.allclose(u, v, rtol=1e-5, atol=1e-6)) if i in tight
+            else sums_equal(u, v)
+            for i, (u, v) in enumerate(zip(got, want[k])))
 
     same = {}
     for k, fns in cases.items():
         got_b, got_t = fns["base"](), fns["this"]()
         torch.cuda.synchronize()
-        if k.startswith("flash"):
-            bits = all(torch.equal(u, v) for u, v in zip(got_b, got_t))
-            same[k] = {"same_bits": bits}
-            print(f"  {k}: outputs bit for bit equal: {bits}", flush=True)
-            continue
-        if k.startswith("r1l_bwd"):
-            ok_b = all(sums_equal(u, v) for u, v in zip(got_b,
-                                                        (wz, wdc, wda)))
-            ok_t = all(sums_equal(u, v) for u, v in zip(
-                got_t, (wq, wdpre, wdc, wda)))
-        else:
-            ok_b, ok_t = (sums_equal(got_b, plain[k]),
-                          sums_equal(got_t, plain[k]))
-        same[k] = {"base_equals_plain": ok_b, "this_equals_plain": ok_t}
-        print(f"  {k}: base equals plain {ok_b}, this equals plain {ok_t}",
+        same[k] = {"base_equals_plain": equal(k, got_b),
+                   "this_equals_plain": equal(k, got_t)}
+        print(f"  {k}: base equals plain {same[k]['base_equals_plain']}, "
+              f"this equals plain {same[k]['this_equals_plain']}",
               flush=True)
+
+    # r1l_fwd_f32 with c and a x30: the logit's dot <x[j], a>, rounded in
+    # another order by each build and the plain version, grows 30 times
+    # before the exp.  Each build's out against the plain float32 and
+    # float64 versions.
+    c30, a30 = c * 30, a * 30
+    r1._lib = this["rank1_gat"]
+    x30 = {"base": base_fwd(0.0, c30, a30)(),
+           "this": r1.r1l_fwd(op.ptr, op.col, c30, a30, x, seed, 0.0,
+                              op.slope, n)}
+    ref32 = r1.rank1_gat_plain(op.ptr, op.col, c30, a30, x, seed, 0.0,
+                               op.slope, n)
+    ref64 = r1.rank1_gat_plain(op.ptr, op.col, c30.double(), a30.double(),
+                               x.double(), seed, 0.0, op.slope, n)
+    logits_x30 = {}
+    for label, got in (*x30.items(), ("plain float32", ref32)):
+        logits_x30[label] = {
+            f"{name} max abs err vs {ref}": float(
+                (u.double() - w.double()).abs().max())
+            for name, u, w32, w64 in zip(("out", "lse"), got, ref32, ref64)
+            for ref, w in (("f32", w32), ("f64", w64))}
+        logits_x30[label]["within_1e-5_1e-6"] = all(
+            bool(torch.allclose(u, w, rtol=1e-5, atol=1e-6))
+            for u, w in zip(got, ref32))
+        print(f"  r1l_fwd_f32[logits x30, rate 0.0] {label}: "
+              f"{logits_x30[label]}", flush=True)
 
     times = {k: {"base": [], "this": []} for k in cases}
     dev_times = {k: {"base": [], "this": []} for k in cases}
@@ -318,27 +348,27 @@ def main() -> int:
                       "base_device_ms": dmed["base"],
                       "this_device_ms": dmed["this"]}
 
-    # this build at each run length
+    # this build at each run length and group of lanes
+    cuda_spmm._lib, r1._lib, flash._lib = (this["spmm"], this["rank1_gat"],
+                                           this["flash_gat"])
     sweep = {}
-    for label, (ptr, col, w, xx, n_rows, _) in spmm_uses.items():
-        sweep[f"csr_spmm_f32[{label}]"] = {
-            run: cs.device_ms(lambda: cuda_spmm.csr_spmm(ptr, col, w, xx,
-                                                         n_rows, run))
-            for run in (*cuda_spmm.RUN_SLOTS, 512)}
-    sweep["seg_reduce_f32[E_pad, 64]"] = {
-        run: cs.device_ms(lambda: cuda_spmm.segment_reduce_sorted(
-            values, g.senders, spmm.ptr, n_src=n, run=run))
-        for run in (*cuda_spmm.RUN_SLOTS, 512)}
-    sweep["r1l_bwd_f32[rate 0.5]"] = {
-        run: cs.device_ms(lambda: r1.r1l_bwd(*bwd_args, run=run))
-        for run in (*cuda_spmm.RUN_SLOTS, 512)}
+    for rate in (0.0, 0.5):
+        fwd_args = (op.ptr, op.col, c, a, x, seed, rate, op.slope, n)
+        sweep[f"r1l_fwd_f32[rate {rate}]"] = {
+            f"run {run}, group {grp}": cs.device_ms(
+                lambda: r1.r1l_fwd(*fwd_args, run=run, group=grp))
+            for run in cuda_spmm.RUN_SLOTS for grp in r1.GROUPS}
+    sweep["flash_bwd_f32[rate 0.5]"] = {
+        f"run {run}, group {grp}": cs.device_ms(
+            lambda: flash.flash_bwd(*fb_args, run=run, group=grp))
+        for run in cuda_spmm.RUN_SLOTS for grp in r1.GROUPS}
     for k, v in sweep.items():
-        print(f"  run lengths, device ms, {k}: "
-              + ", ".join(f"{run} {ms:.4f}" if ms is not None
-                          else f"{run} not measured"
-                          for run, ms in v.items()), flush=True)
-    print(json.dumps({"ab": summary, "run_sweep_device_ms": sweep}),
-          flush=True)
+        print(f"  run lengths and groups, device ms, {k}: "
+              + ", ".join(f"{key} {ms:.4f}" if ms is not None
+                          else f"{key} not measured"
+                          for key, ms in v.items()), flush=True)
+    print(json.dumps({"ab": summary, "r1l_fwd_logits_x30": logits_x30,
+                      "run_group_sweep_device_ms": sweep}), flush=True)
     return 0
 
 

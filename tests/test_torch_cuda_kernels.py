@@ -701,3 +701,168 @@ def test_rectangular_gat_layer_impls_match_torch_on_card():
                                        rtol=1e-5, atol=1e-6)
             for u, v in zip(got[impl][1:], got["torch"][1:]):
                 sums_close(u, v)
+
+
+# the edge-run GAT kernels: every run length the wrappers may pick, and run 1
+# (every slot a run, so each row crosses runs), at each group of lanes
+EDGE_RUNS = [None, 1, *cuda_spmm.RUN_SLOTS]
+
+
+def rank1_inputs(g, n_src, n_dst, d, seed, scale=1.0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c = (torch.rand(n_src, generator=gen, device="cuda") - 0.5) * scale
+    a = (torch.rand(d, generator=gen, device="cuda") - 0.5) * 0.5 * scale
+    x = torch.rand(n_dst, d, generator=gen, device="cuda") - 0.5
+    return c, a, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", r1.GROUPS, ids=lambda g: f"group{g}")
+@pytest.mark.parametrize("run", EDGE_RUNS, ids=lambda r: f"run{r}")
+@pytest.mark.parametrize("d", [1, 64, 129])
+def test_rank1_fwd_runs_kernel_matches_plain(d, run, group):
+    """r1l_fwd_f32 at dropout 0 and 0.5 on a graph with rows longer than
+    many runs and empty rows (first, middle, last): out and lse against
+    the plain forward over NaN-primed blocks, twice bit for bit, empty rows
+    0 and NEG; the same with the logits x30; and against the schedule's
+    mirror."""
+    g = long_row_graph(300, 120, long_rows=(1, 298), length=600, seed=d + 3)
+    op = r1.Rank1GatOperator(g, dst_linear=True)
+    empty = [0, 150, 299]
+    seed = torch.tensor([-77], dtype=torch.int32, device="cuda")
+    for scale in (1.0, 30.0):
+        c, a, x = rank1_inputs(g, 300, 120, d, d, scale)
+        for rate in (0.0, 0.5):
+            args = (op.ptr, op.col, c, a, x, seed, rate, 0.2, 300)
+            prime_nan((300, d), (300,), (2 * 300 * (2 * d + 5),))
+            before = r1.fwd_launches
+            out, lse = twice_same(lambda: r1.r1l_fwd(*args, run=run,
+                                                     group=group))
+            assert r1.fwd_launches == before + 2
+            want_out, want_lse = r1.rank1_gat_plain(*args)
+            torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-6)
+            assert not out[empty].any()
+            assert bool((lse[empty] == r1.NEG).all())
+    cpu = [v.cpu() for v in (op.ptr, op.col, c, a, x, seed)]
+    mirror, mirror_lse, writes = r1.rank1_gat_runs_plain(
+        *cpu, 0.5, 0.2, 300, run or cuda_spmm.warp_run(op.col.numel()),
+        group)
+    assert bool((writes == 1).all())
+    sums_close(out.cpu(), mirror)
+    sums_close(lse.cpu(), mirror_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", r1.GROUPS, ids=lambda g: f"group{g}")
+@pytest.mark.parametrize("run", EDGE_RUNS, ids=lambda r: f"run{r}")
+def test_rank1_fwd_runs_kernel_on_small_graph(run, group):
+    """r1l_fwd_f32 on the 300 x 120 graph with empty rows, d 0, 8 and 64,
+    and with its col padded past ptr[n_rows]: the pads change no bit."""
+    g = card_graph(run or 7, 300, 120, 0.05, empty_rows=(0, 150, 299))
+    op = r1.Rank1GatOperator(g, dst_linear=True)
+    seed = torch.tensor([5], dtype=torch.int32, device="cuda")
+    padded = torch.cat([op.col, torch.full((300,), 119, dtype=op.col.dtype,
+                                           device="cuda")])
+    for d in (0, 8, 64):
+        c, a, x = rank1_inputs(g, 300, 120, d, d + 1)
+        for rate in (0.0, 0.5):
+            rest = (c, a, x, seed, rate, 0.2, 300)
+            prime_nan((300, d), (300,))
+            out, lse = twice_same(lambda: r1.r1l_fwd(
+                op.ptr, op.col, *rest, run=run, group=group))
+            want_out, want_lse = r1.rank1_gat_plain(op.ptr, op.col, *rest)
+            torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-6)
+            assert not out[[0, 150, 299]].any()
+            assert bool((lse[[0, 150, 299]] == r1.NEG).all())
+            # a padded col adds runs past the last edge and nothing else
+            prime_nan((300, d), (300,))
+            out_p, lse_p = r1.r1l_fwd(op.ptr, padded, *rest, run=run,
+                                      group=group)
+            assert torch.equal(out_p, out) and torch.equal(lse_p, lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", r1.GROUPS, ids=lambda g: f"group{g}")
+@pytest.mark.parametrize("run", EDGE_RUNS, ids=lambda r: f"run{r}")
+@pytest.mark.parametrize("d", [0, 1, 64, 129])
+def test_flash_bwd_runs_kernel_matches_plain(d, run, group):
+    """flash_bwd_f32 at dropout 0.5 (and 0 at d 64) on a graph with rows
+    longer than many runs and empty rows, with pad slots past ptr[n_rows]
+    and a padded col: dl and q against the plain backward over NaN-primed
+    blocks, twice bit for bit, pads 0, q 0 exactly on the dropped slots;
+    the same with the logits x30; and against the walk's mirror."""
+    g = long_row_graph(300, 120, long_rows=(1, 298), length=600, seed=d + 4)
+    op = fg.FlashGatOperator(g)
+    e, e_pad = g.num_edges, g.num_padded_edges + 40
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    x = torch.rand(120, d, generator=gen, device="cuda") - 0.5
+    gout = torch.rand(300, d, generator=gen, device="cuda") - 0.5
+    base = torch.randn(e_pad, generator=gen, device="cuda") * 3
+    padded = torch.cat([op.col, torch.zeros(40, dtype=op.col.dtype,
+                                            device="cuda")])
+    seed = torch.tensor([31], dtype=torch.int32, device="cuda")
+    keep = r1.keep_scale_plain(torch.arange(e, device="cuda"), seed, 0.5)
+    for logits in (base, base * 30):
+        for rate in ((0.0, 0.5) if d == 64 else (0.5,)):
+            out, lse = fg.flash_gat_plain(op.ptr, op.col, logits, x, seed,
+                                          rate, 300)
+            rest = (logits, x, gout, out, lse, seed, rate, 300)
+            prime_nan((2, e_pad))
+            before = fg.bwd_launches
+            dl, q = twice_same(lambda: fg.flash_bwd(op.ptr, op.col, *rest,
+                                                    run=run, group=group))
+            assert fg.bwd_launches == before + 2
+            want_dl, want_q = fg.flash_gat_bwd_plain(op.ptr, op.col, *rest)
+            torch.testing.assert_close(q, want_q, rtol=1e-5, atol=1e-6)
+            sums_close(dl, want_dl)
+            assert not dl[e:].any() and not q[e:].any()
+            if rate:
+                dropped = keep == 0
+                assert not q[:e][dropped].any()
+                assert bool((q[:e][~dropped & (want_q[:e] > 1e-30)]
+                             > 0).all())
+            prime_nan((2, e_pad))
+            dl_p, q_p = fg.flash_bwd(op.ptr, padded, *rest, run=run,
+                                     group=group)
+            assert torch.equal(dl_p, dl) and torch.equal(q_p, q)
+    cpu = [v.cpu() for v in (op.ptr, op.col, *rest[:6])]
+    mirror_dl, mirror_q, writes = fg.flash_gat_bwd_runs_plain(
+        *cpu, rate, 300, run or fg.BWD_RUN, group)
+    assert bool((writes == 1).all())
+    sums_close(dl.cpu(), mirror_dl)
+    torch.testing.assert_close(q.cpu(), mirror_q, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_one_block_per_row_gat_kernels_still_match_plain():
+    """r1_fwd_f32, r1_bwd_f32 and flash_fwd_f32 keep their one-block-per-row
+    kernels beside the edge-run ones: each against its plain version on a
+    graph with a long row and empty rows, at d 64."""
+    g = long_row_graph(300, 120, long_rows=(1,), length=600, seed=9)
+    op = fg.FlashGatOperator(g)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    c = torch.rand(300, generator=gen, device="cuda") - 0.5
+    t = torch.rand(120, generator=gen, device="cuda") - 0.5
+    x = torch.rand(120, 64, generator=gen, device="cuda") - 0.5
+    gout = torch.rand(300, 64, generator=gen, device="cuda") - 0.5
+    logits = torch.randn(g.num_padded_edges, generator=gen,
+                         device="cuda") * 3
+    seed = torch.tensor([3], dtype=torch.int32, device="cuda")
+    out, lse = fg.flash_fwd(op.ptr, op.col, logits, x, seed, 0.5, 300)
+    want_out, want_lse = fg.flash_gat_plain(op.ptr, op.col, logits, x, seed,
+                                            0.5, 300)
+    torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-6)
+    gargs = (op.ptr, op.col, c, t, x)
+    out, lse = r1.r1_fwd(*gargs, 0.2, 300)
+    want_out, want_lse = r1.rank1_gat_generic_plain(*gargs, 0.2, 300)
+    torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-6)
+    bargs = (*gargs, gout, want_out, want_lse, 0.2, 300)
+    att, dpre, dc = r1.r1_bwd(*bargs)
+    watt, wdpre, wdc = r1.rank1_gat_generic_bwd_plain(*bargs)
+    torch.testing.assert_close(att, watt, rtol=1e-5, atol=1e-6)
+    sums_close(dpre, wdpre)
+    sums_close(dc, wdc)
