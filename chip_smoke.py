@@ -20,8 +20,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
    edges, d = 64); times and bounds as in phase 3.
 
 The kernels on the edge-run schedule (``csr_spmm_f32``,
-``seg_reduce_f32``, ``r1l_fwd_f32``, ``r1l_bwd_f32``, ``flash_bwd_f32``)
-are launched twice on the same inputs and must give the same bits, and
+``seg_reduce_f32``, ``r1l_fwd_f32``, ``r1l_bwd_f32``, ``flash_fwd_f32``,
+``flash_bwd_f32``, ``r1_fwd_f32``) are launched twice on the same inputs and must give the same bits, and
 are timed twice: by CUDA events (back-to-back calls, which under about 20
 us measure the host's launch rate) and by ``torch.profiler``'s device time
 over the same 20 calls, as is their library yardstick.
@@ -42,10 +42,13 @@ over the same 20 calls, as is their library yardstick.
    versions on the same linkpred graph, on the path's logits and on the
    same logits x30 (the online renormalisation), and on a small graph with
    empty rows and n not a multiple of 128 (an empty row's 0 and NEG, the
-   zeroed pad slots); times and bounds as in phase 3.
+   zeroed pad slots); ``flash_fwd_f32`` also once through its C entry into
+   NaN-filled outputs (every row written); times and bounds as in phase
+   3.
 3e. the generic rank-1 GAT kernels (``r1_fwd_f32``, ``r1_bwd_f32``, on
    ``c = h a_src`` and ``t = h a_dst`` of a seeded layer, then x30, and on
-   a small rectangular graph with empty rows), ``seg_reduce_f32`` on
+   a small rectangular graph with empty rows; ``r1_fwd_f32`` also once
+   through its C entry into NaN-filled outputs), ``seg_reduce_f32`` on
    ``[E, 64]`` edge values over the linkpred row pointer (pads NaN), and
    ``csr_spmm_dw_f32`` in both directions with attention weights (its
    ``dw`` element by element against the unfused ``csr_sddmm_f32``)
@@ -294,6 +297,27 @@ def prime_nan(*shapes):
     slot a kernel does not write shows."""
     junk = [torch.full(s, float("nan"), device=DEVICE) for s in shapes]
     del junk
+
+
+def nan_filled(name, n_rows, d, ws_floats, launch, want):
+    """One launch of an edge-run forward through its C entry,
+    ``launch(out, lse, ws)``, into ``out`` [n_rows, d], ``lse`` and the
+    workspace filled with NaN: every row must be written, with the bits of
+    ``want`` (the wrapper's launch on the same inputs)."""
+    out = torch.full((n_rows, d), float("nan"), device=DEVICE)
+    lse = torch.full((n_rows,), float("nan"), device=DEVICE)
+    ws = torch.full((ws_floats,), float("nan"), device=DEVICE)
+    rc = launch(out, lse, ws)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"{name}: the C entry returned {rc}")
+    if out.isnan().any() or lse.isnan().any():
+        raise AssertionError(f"{name} left a row of out or lse unwritten")
+    if not (torch.equal(out, want[0]) and torch.equal(lse, want[1])):
+        raise AssertionError(f"{name}: the C entry's launch differs from "
+                             "the wrapper's")
+    log(f"  {name}: a launch through the C entry into NaN-filled out, lse "
+        "and workspace wrote every row, the wrapper's bits")
 
 
 def small_graph(seed):
@@ -788,6 +812,7 @@ def phase_flash_kernels(split):
     def check(label, graph_op, lg, xx, gg, rate, n_rows):
         """Both kernels vs plain on one input; returns the max errors."""
         args = (graph_op.ptr, graph_op.col, lg, xx, seed, rate, n_rows)
+        prime_nan((n_rows, d), (n_rows,))
         out, lse = fg.flash_fwd(*args)
         want_out, want_lse = fg.flash_gat_plain(*args)
         bwd_args = (graph_op.ptr, graph_op.col, lg, xx, gg, want_out,
@@ -845,19 +870,36 @@ def phase_flash_kernels(split):
     no_lib = ("none: no single PyTorch call computes the row softmax, the "
               "hashed dropout and the aggregation together")
     results = []
+    n_slots = op.col.numel()
+    run, group = cuda_spmm.warp_run(n_slots), r1.group_for(d)
+    lib = fg._kernel_lib()
     for rate in (0.0, 0.5):
         args = (op.ptr, op.col, logits, x, seed, rate, n)
-        ms = time_ms(lambda: fg.flash_fwd(*args))
+        kernel = (lambda: fg.flash_fwd(*args))
+        same_bits(f"flash_fwd_f32[rate {rate}]", kernel)
+        nan_filled(
+            f"flash_fwd_f32[rate {rate}]", n, d,
+            cuda_spmm.n_runs(n_slots, run) * (2 * d + 5),
+            lambda out, lse, ws: lib.flash_fwd_f32(
+                op.ptr.data_ptr(), op.col.data_ptr(), logits.data_ptr(),
+                x.data_ptr(), seed.data_ptr(), rate, r1._scale(rate),
+                out.data_ptr(), lse.data_ptr(), ws.data_ptr(), n, n_slots,
+                run, group, d, fg._warps(d),
+                torch.cuda.current_stream().cuda_stream),
+            kernel())
+        ms, dev_ms = time_ms(kernel), device_ms(kernel)
         plain_ms = time_ms(lambda: fg.flash_gat_plain(*args))
-        log(f"  flash_fwd_f32[rate {rate}]: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {fwd_b:.5f} ms ({fwd_by}); library "
-            f"{no_lib}")
+        log(f"  flash_fwd_f32[rate {rate}]: {run} slots a run, {group} lanes "
+            f"an edge: kernel {ms:.4f} ms (device {fmt(dev_ms)}; the runs "
+            f"grid and the fix-up grid), plain {plain_ms:.4f} ms, bound "
+            f"{fwd_b:.5f} ms ({fwd_by}); library {no_lib}")
         err = max(errs[label, rate][0] for label in ("path logits",
                                                      "logits x30"))
-        results.append(entry(
+        results.append({**entry(
             f"flash_fwd_f32[rate {rate}]", "flash_gat.cu",
             "msha_gnn_tpu/ops/pallas/flash_gat.py:51 _flash_kernel", err, ms,
-            plain_ms, (fwd_b, fwd_by), None))
+            plain_ms, (fwd_b, fwd_by), None), "device_ms": dev_ms,
+            "library_device_ms": None})
     log("  flash_bwd_f32[rate 0.5]: keep mask bit-exact (q 0 exactly on "
         "the dropped slots)")
     out, lse = fg.flash_gat_plain(op.ptr, op.col, logits, x, seed, 0.5, n)
@@ -999,6 +1041,17 @@ def phase_generic_kernels(split):
     no_lib = ("none: no single PyTorch call computes the row softmax of the "
               "rank-1 logits and the aggregation (or its backward) together")
     args = (op.ptr, op.col, c, t, h, op.slope, n)
+    n_slots = op.col.numel()
+    run, group = cuda_spmm.warp_run(n_slots), r1.group_for(d)
+    same_bits("r1_fwd_f32", lambda: r1.r1_fwd(*args))
+    nan_filled(
+        "r1_fwd_f32", n, d, cuda_spmm.n_runs(n_slots, run) * (2 * d + 5),
+        lambda out, lse, ws: r1._kernel_lib().r1_fwd_f32(
+            op.ptr.data_ptr(), op.col.data_ptr(), c.data_ptr(), t.data_ptr(),
+            h.data_ptr(), op.slope, out.data_ptr(), lse.data_ptr(),
+            ws.data_ptr(), n, n_slots, run, group, d, r1._warps(d),
+            torch.cuda.current_stream().cuda_stream),
+        r1.r1_fwd(*args))
     out, lse = r1.rank1_gat_generic_plain(*args)
     bwd_args = (op.ptr, op.col, c, t, h, gout, out, lse, op.slope, n)
     results = []
@@ -1010,12 +1063,18 @@ def phase_generic_kernels(split):
              (bwd_b, bwd_by), max(x[1] for x in errs + [small_err]),
              "msha_gnn_tpu/ops/pallas/rank1_gat.py:160 _r1_bwd_kernel")):
         a = args if name == "r1_fwd_f32" else bwd_args
-        ms = time_ms(lambda: fn(*a))
+        ms, dev_ms = time_ms(lambda: fn(*a)), device_ms(lambda: fn(*a))
         plain_ms = time_ms(lambda: plain(*a))
-        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bnd[0]:.5f} ms ({bnd[1]}); library {no_lib}")
-        results.append(entry(name, "flash_gat.cu", replaces, err, ms,
-                             plain_ms, bnd, None))
+        how = (f"{run} slots a run, {group} lanes an edge, the runs grid and "
+               "the fix-up grid" if name == "r1_fwd_f32"
+               else "one block a row")
+        log(f"  {name} ({how}): kernel {ms:.4f} ms (device {fmt(dev_ms)}), "
+            f"plain {plain_ms:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}); "
+            f"library {no_lib}")
+        source = "rank1_gat.cu" if name == "r1_fwd_f32" else "flash_gat.cu"
+        results.append({**entry(name, source, replaces, err, ms, plain_ms,
+                                bnd, None), "device_ms": dev_ms,
+                        "library_device_ms": None})
 
     # the sorted segment sum: [E_pad, d] edge values over the row pointer,
     # the pads past ptr[n] NaN (never read)

@@ -1,8 +1,8 @@
 // Flash-GAT in float32: the softmax of given per-edge logits over each CSR
 // row, the hashed attention dropout and the aggregation in one pass
-// (flash_fwd_f32), and its recompute backward (flash_bwd_f32); and, from
-// the same two kernels with the logits formed in-kernel, the generic
-// rank-1 GAT (r1_fwd_f32, r1_bwd_f32; see below).
+// (flash_fwd_f32), and its recompute backward (flash_bwd_f32); and the
+// generic rank-1 GAT's backward (r1_bwd_f32; its forward, r1_fwd_f32, is
+// in rank1_gat.cu).
 //
 // For a CSR graph (row r has edges e in [ptr[r], ptr[r+1]), j = col[e]) and
 // logits l [>= E] in CSR order:
@@ -24,49 +24,42 @@
 // caller takes dx[j] = sum_{e: col_e = j} q_e gout[r_e], the transposed
 // csr_spmm_f32 of gout weighted by q.
 //
-// Generic rank-1 GAT (kRank1, no dropout): the logits are
+// Generic rank-1 GAT backward (no dropout): the logits are
 //
 //   pre_e = c[r] + t[j],   l_e = leaky(pre_e, slope)
 //
-// with c [n_rows] per row and t [n_cols] per column, read per edge; the
-// forward is the flash forward on them.  The backward writes att_e (as q)
-// and dpre_e = dl_e * (pre_e >= 0 ? 1 : slope) (in dl's place), and
-// dc[r] = sum_{e in r} dpre_e, summed in the row's block in a fixed order;
-// the caller takes dx = the att-weighted transposed csr_spmm_f32 of gout
-// and dt[j] = sum_{e: col_e = j} dpre_e.
+// with c [n_rows] per row and t [n_cols] per column, read per edge.  It
+// writes att_e (as q) and dpre_e = dl_e * (pre_e >= 0 ? 1 : slope) (in
+// dl's place), and dc[r] = sum_{e in r} dpre_e, summed in the row's block
+// in a fixed order; the caller takes dx = the att-weighted transposed
+// csr_spmm_f32 of gout and dt[j] = sum_{e: col_e = j} dpre_e.
 //
-// Replaces four TPU kernels:
+// Replaces three TPU kernels:
 //   * msha_gnn_tpu/ops/pallas/flash_gat.py:51 _flash_kernel, the forward
 //     above;
 //   * flash_gat.py:167 _flash_bwd_kernel, which writes dl and
 //     z_e = q_e gout[r_e] ([E, d], reduced by column for dx afterwards).
 //     Only the operator's function (dl, dx) is kept: z is not written;
-//   * msha_gnn_tpu/ops/pallas/rank1_gat.py:94 _r1_fwd_kernel, the generic
-//     rank-1 forward, whose t rides the row gather as an extra column;
-//   * rank1_gat.py:160 _r1_bwd_kernel, which writes [z || dpre] ([E, d+1])
-//     for one transpose reduce of dx and dt, and dc.  Here 2 floats an edge
-//     (att, dpre), not d + 1: dx and dt are two reduces that read them.
+//   * msha_gnn_tpu/ops/pallas/rank1_gat.py:160 _r1_bwd_kernel, which writes
+//     [z || dpre] ([E, d+1]) for one transpose reduce of dx and dt, and dc.
+//     Here 2 floats an edge (att, dpre), not d + 1: dx and dt are two
+//     reduces that read them.
 // The TPU kernels walk 128-row visit blocks with one-hot MXU scatters and
 // a bf16 hi/lo split; none of that carries over.  Here the work is plain
 // f32.
 //
 // Bound, at the linkpred shapes (n 4,267, E 328,012, d 64): bytes.
 // Forward 4.8 MB (col, logits, x once, out, ptr, lse) against 2 E d flops;
-// backward 8.6 MB (adds gout, out and the dl, q writes).  The rank-1 forms
-// read c and t (per node) in place of the E logits.  The one-block-per-row
-// kernels sit far above it: a block serialises the 3,842-edge row.
+// backward 8.6 MB (adds gout, out and the dl, q writes).  The rank-1
+// backward reads c and t (per node) in place of the E logits.
 //
-// Design.  flash_fwd_f32, r1_fwd_f32 and r1_bwd_f32 (simple and right
-// first): one block per row.  Each warp takes every n_warps-th group of
-// kUnroll edges, so the loads of a group are in flight together; lanes run
-// over 32-wide feature tiles, so any d works.  Forward: the online-softmax
-// aggregation of gat_common.cuh (gat::fold_group, gat::merge_row), fed with
-// logits read from memory or, for the rank-1 form, formed from c and t
-// (logit_of): a warp keeps its own state (m, s) and accumulates into its
-// own row of shared memory; the warps merge in a fixed order.  r1_bwd_f32:
-// the block holds gout[r] in shared memory, each warp forms <gout[r],
-// out[r]> once, then one d-wide dot per edge; dc is a lane, warp, then
-// warp-order sum.
+// flash_fwd_f32: the edge-run walk of gat_fwd.cuh with the logit source
+// kRead (logits[e], one load beside the edge's row of x): a warp per run
+// of `run` consecutive CSR slots, split into groups of G lanes, one edge a
+// group, each group an online softmax (m, s, acc) in registers, the
+// groups merged in a fixed order, and a second grid that merges the rows
+// crossing runs in run order.  A wide d takes tiles on blockIdx.y; the
+// logits are read, so the tiles agree on the softmax trivially.
 //
 // flash_bwd_f32 has no output that sums over a row, so it runs on the
 // edge-run schedule of runs.cuh in one grid: a warp per run of `run`
@@ -78,6 +71,12 @@
 // log2(G)-round shuffle sum, and one lane of the group does the edge's
 // scalar work and its two stores.  The same grid zeroes the pads.
 //
+// r1_bwd_f32 (simple and right first): one block per row.  The block holds
+// gout[r] in shared memory, each warp forms <gout[r], out[r]> once and
+// takes every n_warps-th group of kUnroll edges, one d-wide dot per edge
+// (lanes over 32-wide feature tiles, so any d works); dc is a lane, warp,
+// then warp-order sum.
+//
 // No float atomics, so results are deterministic.
 
 #include <cuda_runtime.h>
@@ -85,75 +84,20 @@
 #include <cstdint>
 
 #include "gat_common.cuh"
+#include "gat_fwd.cuh"
 #include "gat_runs.cuh"
 #include "runs.cuh"
 
 namespace {
 
-using gat::fold_group;
 using gat::keep_scale;
 using gat::kNeg;
 using gat::kWarp;
 using gat::leaky;
-using gat::merge_row;
 using gat::warp_sum;
 
 constexpr int kMaxWarps = 8;
 constexpr int kUnroll = 4;
-
-// The logit of slot e, column j, in a row whose c is c_row: read from
-// memory (flash-GAT) or formed from the rank-1 terms (kRank1).
-template <bool kRank1>
-__device__ __forceinline__ float logit_of(const float* __restrict__ logits,
-                                          float c_row,
-                                          const float* __restrict__ t,
-                                          float slope, int e, int j) {
-  return kRank1 ? leaky(c_row + __ldg(t + j), slope) : __ldg(logits + e);
-}
-
-// Dynamic shared memory: acc[n_warps][d] | m[n_warps] | s[n_warps]
-template <bool kDrop, bool kRank1>
-__global__ void __launch_bounds__(kMaxWarps * kWarp)
-flash_fwd_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
-                 const float* __restrict__ logits,
-                 const float* __restrict__ c, const float* __restrict__ t,
-                 float slope, const float* __restrict__ x,
-                 const int* __restrict__ seed_ptr, float rate, float scale,
-                 float* __restrict__ out, float* __restrict__ lse, int d) {
-  extern __shared__ float smem[];
-  const int n_warps = blockDim.x / kWarp;
-  float* acc_all = smem;
-  float* m_s = acc_all + n_warps * d;
-  float* s_s = m_s + n_warps;
-  const int row = blockIdx.x;
-  const int lane = threadIdx.x % kWarp;
-  const int warp = threadIdx.x / kWarp;
-  float* acc = acc_all + warp * d;
-  for (int f = lane; f < d; f += kWarp) acc[f] = 0.0f;
-
-  const int begin = ptr[row];
-  const int end = ptr[row + 1];
-  const uint32_t seed = kDrop ? static_cast<uint32_t>(seed_ptr[0]) : 0u;
-  const float c_row = kRank1 ? c[row] : 0.0f;
-  float m = kNeg;
-  float s = 0.0f;
-  for (int e0 = begin + warp * kUnroll; e0 < end;
-       e0 += n_warps * kUnroll) {
-    int64_t xrow[kUnroll];
-    float l[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int e = e0 + u;
-      const bool ok = e < end;
-      const int j = ok ? __ldg(col + e) : 0;
-      xrow[u] = ok ? static_cast<int64_t>(j) * d : -1;
-      l[u] = ok ? logit_of<kRank1>(logits, c_row, t, slope, e, j) : kNeg;
-    }
-    fold_group<kUnroll, kDrop>(l, xrow, e0, seed, rate, scale, x, acc, d,
-                               lane, m, s);
-  }
-  merge_row(m, s, acc_all, m_s, s_s, row, d, out, lse);
-}
 
 // flash_bwd_f32: one warp per run of `run` slots of [0, n_slots), groups
 // of kG lanes one edge each (gat_runs.cuh).  For each row piece it enters,
@@ -349,10 +293,6 @@ r1_bwd_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
   }
 }
 
-size_t fwd_smem(int d, int n_warps) {
-  return sizeof(float) * (static_cast<size_t>(d) * n_warps + 2 * n_warps);
-}
-
 size_t bwd_smem(int d, int n_warps) {
   return sizeof(float) * (static_cast<size_t>(d) + n_warps);
 }
@@ -403,25 +343,23 @@ bool bad_shape(int n_rows, int d, int n_warps) {
 // pointer to one int32, read only when rate > 0.  `scale` is the kept
 // edges' factor 1/(1-rate), given by the caller in float32.
 
+// Two grids (gat_fwd.cuh): the runs (rows inside a run, head and tail
+// pieces of the others), then the crossing rows' pieces merged in run
+// order.  col [n_slots] in CSR order, n_slots >= ptr[n_rows] (the edge
+// count is read from ptr on the card); logits [>= ptr[n_rows]], x [n_cols,
+// d]; out [n_rows, d], lse [n_rows]; ws [n_runs (2 d + 5)] float32 with
+// n_runs = max(1, ceil(n_slots / run)); group the lanes an edge, 8, 16 or
+// 32.
 extern "C" int flash_fwd_f32(const int* ptr, const int* col,
                              const float* logits, const float* x,
                              const int* seed, float rate, float scale,
-                             float* out, float* lse, int n_rows, int d,
+                             float* out, float* lse, float* ws, int n_rows,
+                             int n_slots, int run, int group, int d,
                              int n_warps, cudaStream_t stream) {
-  if (bad_shape(n_rows, d, n_warps) || fwd_smem(d, n_warps) > kMaxSmem) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = fwd_smem(d, n_warps);
-  if (rate > 0.0f) {
-    flash_fwd_kernel<true, false><<<n_rows, n_warps * kWarp, smem, stream>>>(
-        ptr, col, logits, nullptr, nullptr, 0.0f, x, seed, rate, scale, out,
-        lse, d);
-  } else {
-    flash_fwd_kernel<false, false><<<n_rows, n_warps * kWarp, smem, stream>>>(
-        ptr, col, logits, nullptr, nullptr, 0.0f, x, seed, rate, scale, out,
-        lse, d);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const gat_fwd::LogitArgs args{logits, nullptr, nullptr, nullptr, 0.0f};
+  return gat_fwd::launch<gat_fwd::Logit::kRead>(
+      ptr, col, args, x, seed, rate, scale, out, lse, ws, n_rows, n_slots,
+      run, group, d, n_warps, stream);
 }
 
 // dl and q are [n_out] with n_out >= ptr[n_rows] (the edge count is read
@@ -452,25 +390,9 @@ extern "C" int flash_bwd_f32(const int* ptr, const int* col,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The generic rank-1 GAT forward: out [n_rows, d] and lse [n_rows] of the
-// logits leaky(c[r] + t[col_e]); c [n_rows], t [n_cols], x [n_cols, d].
-extern "C" int r1_fwd_f32(const int* ptr, const int* col, const float* c,
-                          const float* t, const float* x, float slope,
-                          float* out, float* lse, int n_rows, int d,
-                          int n_warps, cudaStream_t stream) {
-  if (bad_shape(n_rows, d, n_warps) || fwd_smem(d, n_warps) > kMaxSmem) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  flash_fwd_kernel<false, true>
-      <<<n_rows, n_warps * kWarp, fwd_smem(d, n_warps), stream>>>(
-          ptr, col, nullptr, c, t, slope, x, nullptr, 0.0f, 1.0f, out, lse,
-          d);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Its recompute backward: att and dpre [n_out] (n_out >= ptr[n_rows], the
-// pads 0) and dc [n_rows]; gout, out [n_rows, d] and lse [n_rows] as the
-// forward gave them.
+// The generic rank-1 GAT backward: att and dpre [n_out] (n_out >=
+// ptr[n_rows], the pads 0) and dc [n_rows]; gout, out [n_rows, d] and lse
+// [n_rows] as r1_fwd_f32 gave them.
 extern "C" int r1_bwd_f32(const int* ptr, const int* col, const float* c,
                           const float* t, const float* x, const float* gout,
                           const float* out, const float* lse, float slope,
@@ -486,12 +408,12 @@ extern "C" int r1_bwd_f32(const int* ptr, const int* col, const float* c,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The largest warps per block (1..8) whose shared memory fits the
-// one-block-per-row kernels (flash_bwd_f32 keeps none) at feature width d;
-// 0 when even one warp does not fit.
+// The largest warps per block (1..8) whose shared memory fits r1_bwd_f32,
+// the one kernel here that keeps any, at feature width d; 0 when even one
+// warp does not fit.
 extern "C" int flash_max_warps(int d) {
   for (int w = kMaxWarps; w >= 1; --w) {
-    if (fwd_smem(d, w) <= kMaxSmem && bwd_smem(d, w) <= kMaxSmem) return w;
+    if (bwd_smem(d, w) <= kMaxSmem) return w;
   }
   return 0;
 }

@@ -1,6 +1,7 @@
 // The GAT kernels on the edge-run schedule (runs.cuh) with the warp split
-// into groups of kG lanes, one edge a group: r1l_fwd_f32 (rank1_gat.cu) and
-// flash_bwd_f32 (flash_gat.cu).
+// into groups of kG lanes, one edge a group: the forward walk of
+// gat_fwd.cuh (r1l_fwd_f32, r1_fwd_f32, flash_fwd_f32) and flash_bwd_f32
+// (flash_gat.cu).
 //
 // A group's lanes hold a row's features in registers: lane li of the group
 // holds kPer floats, in chunks of kVec consecutive features, chunk i at

@@ -1,18 +1,23 @@
-// Fused rank-1 GAT layer with a destination-linear logit, in float32:
-// the forward r1l_fwd_f32 and its recompute backward r1l_bwd_f32.
+// The rank-1 GAT kernels in float32: the fused layer with a
+// destination-linear logit (the forward r1l_fwd_f32 and its recompute
+// backward r1l_bwd_f32) and the generic form's forward r1_fwd_f32 (its
+// backward, r1_bwd_f32, is in flash_gat.cu).
 //
 // For a CSR graph (row r has edges e in [ptr[r], ptr[r+1]), j = col[e]):
 //
-//   t_e   = <x[j], a>                      (computed here, per edge)
+//   t_e   = <x[j], a>        (r1l: computed here, per edge; r1: t[j], given)
 //   pre_e = c[r] + t_e,   l_e = leaky(pre_e, slope)
 //   p_e   = exp(l_e - max_row l)           (softmax stats over UNdropped p)
 //   k_e   = keep scale of slot e: 1/(1-rate) if kept, 0 if dropped, 1 at rate 0
 //   out[r] = sum_e p_e k_e x[j] / sum_e p_e,   lse[r] = max + log(sum p)
 //
-// An empty row gets out = 0 and lse = NEG (-1e30).
+// An empty row gets out = 0 and lse = NEG (-1e30).  The generic form has no
+// dropout.
 //
-// Replaces two TPU kernels of msha_gnn_tpu/ops/pallas/rank1_gat.py:
+// Replaces three TPU kernels of msha_gnn_tpu/ops/pallas/rank1_gat.py:
 //   * _r1l_fwd_kernel (forward, above);
+//   * _r1_fwd_kernel, the generic forward, whose t rides the row gather as
+//     an extra column;
 //   * _r1l_bwd_kernel (backward): for each edge
 //       att_e = exp(l_e - lse[r]) (0 where lse[r] <= NEG/2),  q_e = att_e k_e,
 //       dl_e  = q_e <gout[r], x[j]> - att_e <gout[r], out[r]>,
@@ -33,28 +38,20 @@
 // arithmetic, bit for bit.  Forward and backward hash the same slots, so
 // they see the same mask and no mask is stored.
 //
-// Bound: bytes at the linkpred shapes.  Forward: the CSR arrays, c, x and
-// out (a few MB, x staying in L2) against 4 E d flops; its workspace of
-// crossing-row pieces (about 1.4 MB at d 64) is the schedule's, not the
-// function's.  Backward: the CSR arrays, c, x, gout, out and lse in, q
-// and dpre (8 B an edge), dc and da out, about 6 MB; 7 E d flops, a few us
-// at the float32 rate.
+// Bound: bytes at the linkpred shapes.  Forward: the CSR arrays, c, x (and
+// t) and out (a few MB, x staying in L2) against 2 E d flops; its
+// workspace of crossing-row pieces (about 1.4 MB at d 64) is the
+// schedule's, not the function's.  Backward: the CSR arrays, c, x, gout,
+// out and lse in, q and dpre (8 B an edge), dc and da out, about 6 MB;
+// 7 E d flops, a few us at the float32 rate.
 //
-// Forward: on the edge-run schedule of runs.cuh, a warp per run of `run`
-// consecutive CSR slots, so a long row is spread over as many warps as it
-// has runs.  The warp is split into groups of G lanes (8, 16 or 32), one
-// edge a group (gat_runs.cuh): a lane holds d / G of the features of x[j]
-// in registers (a float4 at d 64, G 16), the dot <x[j], a> is a
-// log2(G)-round shuffle sum within the group, and each group keeps its own
-// online softmax (m, s, acc) of the row piece in registers, taking every
-// (32 / G)-th edge of it.  At the end of a row piece the groups merge in a
-// fixed order by shuffles; a row that lies inside the run is written, a
-// row that crosses the run's ends leaves its piece (m, s, acc[d]) in the
-// run's head or tail partial, and a second grid of the same entry point
-// merges those in run order (runs.cuh says which run writes what, and who
-// zeroes the empty rows).  A width d that one group's registers do not
-// cover takes several tiles of features (blockIdx.y), each forming the
-// full logits in the same order.
+// Forward (both forms): the edge-run walk of gat_fwd.cuh, a warp per run
+// of `run` consecutive CSR slots split into groups of G lanes, one edge a
+// group, each group an online softmax in registers, and a second grid
+// that merges the rows crossing runs in run order.  The logit source is
+// kDot for r1l_fwd_f32 (<x[j], a> a group dot of the x[j] the group holds
+// anyway, a log2(G)-round shuffle sum) and kRank1 for r1_fwd_f32 (t[j],
+// one gather beside the row of x).
 //
 // Backward: edge-parallel on the edge-run schedule of runs.cuh, so a long
 // row is spread over as many warps as it has runs.  Apart from dc[r] and
@@ -76,7 +73,7 @@
 #include <cstdint>
 
 #include "gat_common.cuh"
-#include "gat_runs.cuh"
+#include "gat_fwd.cuh"
 #include "runs.cuh"
 
 namespace {
@@ -89,227 +86,6 @@ using gat::warp_sum;
 
 constexpr int kMaxWarps = 8;
 constexpr int kEdges = 4;   // r1l_bwd_f32: edges whose rows are in flight
-
-// Where r1l_fwd_f32's workspace keeps the pieces of the rows that cross
-// runs: [n_runs, d] of acc for the head and the tail pieces, then m and s
-// of each, then cross (int32), all [n_runs].
-struct FwdWs {
-  float* head_acc;
-  float* tail_acc;
-  float* head_m;
-  float* head_s;
-  float* tail_m;
-  float* tail_s;
-  int* cross;
-};
-
-FwdWs fwd_ws(float* ws, int64_t n_runs, int d) {
-  float* scalars = ws + 2 * n_runs * d;
-  return {ws,
-          ws + n_runs * d,
-          scalars,
-          scalars + n_runs,
-          scalars + 2 * n_runs,
-          scalars + 3 * n_runs,
-          reinterpret_cast<int*>(scalars + 4 * n_runs)};
-}
-
-// One warp per run of `run` CSR slots, groups of kG lanes one edge each
-// (gat_runs.cuh), blockIdx.y the tile of kG kPer features this block
-// aggregates; every tile forms the full logits, in the same order, so all
-// tiles see the same softmax.  A row piece's state is the groups' pieces
-// merged in a fixed order; a row inside the run is written, a crossing row
-// leaves its piece in the run's head or tail partial for the fix-up grid.
-template <int kG, int kPer, bool kDrop>
-__global__ void __launch_bounds__(kMaxWarps * kWarp)
-r1l_fwd_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
-               const float* __restrict__ c, const float* __restrict__ a,
-               const float* __restrict__ x, const int* __restrict__ seed_ptr,
-               float rate, float scale, float slope, float* __restrict__ out,
-               float* __restrict__ lse, FwdWs ws, int n_rows,
-               int64_t n_runs, int run, int d) {
-  using L = gat_runs::Layout<kG, kPer>;
-  constexpr int kGroups = kWarp / kG;
-  constexpr int kSteps = L::kSteps;
-  const int n_warps = blockDim.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int li = lane % kG;
-  const int grp = lane / kG;
-  const int64_t k =
-      static_cast<int64_t>(blockIdx.x) * n_warps + threadIdx.x / kWarp;
-  if (k >= n_runs) return;
-  const int base = blockIdx.y * L::kTile;
-  const bool lead = blockIdx.y == 0;  // writes lse, m, s and cross
-  const int tile_end = min(d, base + L::kTile);
-  // an empty row: this tile of out, and lse
-  auto zero_row = [&](int r) {
-    for (int f = base + lane; f < tile_end; f += kWarp) {
-      out[static_cast<int64_t>(r) * d + f] = 0.0f;
-    }
-    if (lead && lane == 0) lse[r] = kNeg;
-  };
-
-  const int n_edges = __ldg(ptr + n_rows);
-  int first = 0;
-  int last = 0;
-  if (!runs::bounds(k, run, n_edges, first, last)) {  // past the last edge
-    if (k == 0) {  // no edges at all
-      for (int r = 0; r < n_rows; ++r) zero_row(r);
-    }
-    return;
-  }
-  const int r0 = runs::warp_row_of(ptr, n_rows, first, lane);
-  for (int r = runs::first_owned(ptr, r0, first); r < r0; ++r) zero_row(r);
-  float av[kPer];
-  gat_runs::load_lane<kG, kPer>(a, base, d, li, av);
-  const uint32_t seed = kDrop ? static_cast<uint32_t>(__ldg(seed_ptr)) : 0u;
-  int row = r0;
-  int rb = __ldg(ptr + row);
-  int re = __ldg(ptr + row + 1);
-  while (true) {
-    // the piece [pb, pe) of the row: group grp takes every kGroups-th edge
-    const int pb = max(rb, first);
-    const int pe = min(re, last);
-    const float c_row = __ldg(c + row);
-    gat_runs::Piece<kPer> st;
-    st.reset();
-    // a step's columns are loaded a step ahead, so their latency hides
-    // behind the step before
-    int j_next[kSteps];
-    gat_runs::load_step<kSteps, kGroups>(col, pb, pe, grp, j_next);
-    for (int eb = pb; eb < pe; eb += kGroups * kSteps) {
-      bool ok[kSteps];
-      int64_t xrow[kSteps];
-#pragma unroll
-      for (int u = 0; u < kSteps; ++u) {
-        ok[u] = eb + u * kGroups + grp < pe;
-        xrow[u] = static_cast<int64_t>(j_next[u]) * d;
-      }
-      gat_runs::load_step<kSteps, kGroups>(col, eb + kGroups * kSteps, pe,
-                                           grp, j_next);
-      float xv[kSteps][kPer];
-#pragma unroll
-      for (int u = 0; u < kSteps; ++u) {
-        if (ok[u]) {
-          gat_runs::load_lane<kG, kPer>(x + xrow[u], base, d, li, xv[u]);
-        } else {
-#pragma unroll
-          for (int i = 0; i < kPer; ++i) xv[u][i] = 0.0f;
-        }
-      }
-      float l[kSteps];
-      float keep[kSteps];
-#pragma unroll
-      for (int u = 0; u < kSteps; ++u) {
-        const float t = gat_runs::group_sum<kG>(
-            ok[u] ? gat_runs::lane_dot<kG, kPer>(xv[u], av, x + xrow[u], a,
-                                                  base, d, li)
-                  : 0.0f);
-        l[u] = leaky(c_row + t, slope);
-        keep[u] = kDrop ? keep_scale(static_cast<uint32_t>(
-                                         eb + u * kGroups + grp),
-                                     seed, rate, scale)
-                        : 1.0f;
-      }
-      gat_runs::fold<kSteps, kPer>(st, l, keep, ok, xv);
-    }
-    gat_runs::merge_groups<kG, kPer>(st);
-    const runs::Target to = runs::target(rb, re, first, last);
-    if (grp == 0) {
-      if (to == runs::kOut) {
-        float v[kPer];
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) {
-          v[i] = st.s > 0.0f ? st.acc[i] / st.s : 0.0f;
-        }
-        gat_runs::store_lane<kG, kPer>(out + static_cast<int64_t>(row) * d,
-                                       base, d, li, v);
-        if (lead && li == 0) {
-          lse[row] = st.s > 0.0f ? st.m + logf(st.s) : kNeg;
-        }
-      } else {
-        const bool head = to == runs::kHead;
-        gat_runs::store_lane<kG, kPer>(
-            (head ? ws.head_acc : ws.tail_acc) + k * d, base, d, li, st.acc);
-        if (lead && li == 0) {
-          (head ? ws.head_m : ws.tail_m)[k] = st.m;
-          (head ? ws.head_s : ws.tail_s)[k] = st.s;
-        }
-      }
-    }
-    if (re >= last) break;  // the piece reached the run's end
-    // the next row with an edge; the empty ones before it begin in the run
-    ++row;
-    rb = re;
-    re = __ldg(ptr + row + 1);
-    while (re == rb) {
-      zero_row(row);
-      ++row;
-      re = __ldg(ptr + row + 1);
-    }
-  }
-  if (lead && lane == 0) {
-    ws.cross[k] = runs::target(rb, re, first, last) == runs::kTail ? row : -1;
-  }
-  if (last == n_edges) {  // the empty rows after the last edge
-    for (int r = row + 1; r < n_rows; ++r) zero_row(r);
-  }
-}
-
-// r1l_fwd_f32's second grid: a warp per run k, which merges the row r that
-// begins in it and ends after it (cross[k]) in run order, tail[k] (+)
-// head[k + 1] (+) ... (+) head[k_end], and writes out[r] = acc / s and
-// lse[r] = m + log s.  A lane merges kFixFeatures features at once (lanes
-// over features, 128 a pass: one pass at d <= 128), and the chain's loop
-// is unrolled so that the loads of several pieces are in flight together:
-// a long row's chain (30 pieces for the 3,842-edge row at 128 slots a
-// run) is not walked at one memory latency a piece.
-constexpr int kFixFeatures = 4;
-
-__global__ void __launch_bounds__(kMaxWarps * kWarp)
-r1l_fwd_fixup_kernel(const int* __restrict__ ptr, FwdWs ws,
-                     float* __restrict__ out, float* __restrict__ lse,
-                     int n_rows, int64_t n_runs, int run, int d) {
-  const int lane = threadIdx.x % kWarp;
-  const int64_t k = static_cast<int64_t>(blockIdx.x) * (blockDim.x / kWarp) +
-                    threadIdx.x / kWarp;
-  if (k >= n_runs) return;
-  int64_t k_end = 0;
-  const int r = runs::crossing_row(ptr, ws.cross, __ldg(ptr + n_rows), run, k,
-                                   k_end);
-  if (r < 0) return;
-  for (int f0 = 0; f0 == 0 || f0 < d; f0 += kWarp * kFixFeatures) {
-    float m = __ldg(ws.tail_m + k);
-    float s = __ldg(ws.tail_s + k);
-    float acc[kFixFeatures];
-#pragma unroll
-    for (int i = 0; i < kFixFeatures; ++i) {
-      const int f = f0 + i * kWarp + lane;
-      acc[i] = f < d ? __ldg(ws.tail_acc + k * d + f) : 0.0f;
-    }
-#pragma unroll 4
-    for (int64_t j = k + 1; j <= k_end; ++j) {
-      float r1;
-      float r2;
-      gat_runs::merge(m, s, __ldg(ws.head_m + j), __ldg(ws.head_s + j), r1,
-                      r2);
-#pragma unroll
-      for (int i = 0; i < kFixFeatures; ++i) {
-        const int f = f0 + i * kWarp + lane;
-        if (f < d) acc[i] = fmaf(__ldg(ws.head_acc + j * d + f), r2,
-                                 acc[i] * r1);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kFixFeatures; ++i) {
-      const int f = f0 + i * kWarp + lane;
-      if (f < d) {
-        out[static_cast<int64_t>(r) * d + f] = s > 0.0f ? acc[i] / s : 0.0f;
-      }
-    }
-    if (f0 == 0 && lane == 0) lse[r] = s > 0.0f ? m + logf(s) : kNeg;
-  }
-}
 
 // The scalars of one row that every edge of it needs.
 struct RowState {
@@ -599,41 +375,6 @@ bool bad_shape(int n_rows, int d, int n_warps) {
   return n_rows <= 0 || d < 0 || n_warps < 1 || n_warps > kMaxWarps;
 }
 
-using FwdKernel = void (*)(const int*, const int*, const float*,
-                          const float*, const float*, const int*, float,
-                          float, float, float*, float*, FwdWs, int, int64_t,
-                          int, int);
-
-template <int kG, bool kDrop>
-FwdKernel fwd_kernel_per(int per) {
-  switch (per) {
-    case 1:
-      return r1l_fwd_kernel<kG, 1, kDrop>;
-    case 2:
-      return r1l_fwd_kernel<kG, 2, kDrop>;
-    case 4:
-      return r1l_fwd_kernel<kG, 4, kDrop>;
-    default:
-      return r1l_fwd_kernel<kG, 8, kDrop>;
-  }
-}
-
-template <bool kDrop>
-FwdKernel fwd_kernel(int group, int per) {
-  switch (group) {
-    case 8:
-      return fwd_kernel_per<8, kDrop>(per);
-    case 16:
-      return fwd_kernel_per<16, kDrop>(per);
-    default:
-      return fwd_kernel_per<32, kDrop>(per);
-  }
-}
-
-bool good_group(int group) {
-  return group == 8 || group == 16 || group == 32;
-}
-
 }  // namespace
 
 // All entry points launch on `stream`, do not synchronise, and return
@@ -641,43 +382,36 @@ bool good_group(int group) {
 // device pointer to one int32, read only when rate > 0.  `scale` is the
 // kept edges' factor 1/(1-rate), given by the caller in float32.
 
-// Two grids: the runs (rows inside a run, head and tail pieces of the
-// others), then the crossing rows' pieces merged in run order.  col
-// [n_slots] in CSR order, n_slots >= ptr[n_rows] (the edge count is read
-// from ptr on the card); out [n_rows, d], lse [n_rows]; ws [n_runs (2 d +
-// 5)] float32 with n_runs = max(1, ceil(n_slots / run)); group the lanes an
-// edge, 8, 16 or 32.
+// Two grids (gat_fwd.cuh): the runs (rows inside a run, head and tail
+// pieces of the others), then the crossing rows' pieces merged in run
+// order.  col [n_slots] in CSR order, n_slots >= ptr[n_rows] (the edge
+// count is read from ptr on the card); c [n_rows], a [d], x [n_cols, d];
+// out [n_rows, d], lse [n_rows]; ws [n_runs (2 d + 5)] float32 with n_runs
+// = max(1, ceil(n_slots / run)); group the lanes an edge, 8, 16 or 32.
 extern "C" int r1l_fwd_f32(const int* ptr, const int* col, const float* c,
                            const float* a, const float* x, const int* seed,
                            float rate, float scale, float slope, float* out,
                            float* lse, float* ws, int n_rows, int n_slots,
                            int run, int group, int d, int n_warps,
                            cudaStream_t stream) {
-  if (bad_shape(n_rows, d, n_warps) || n_slots < 0 || run < 1 ||
-      !good_group(group)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int64_t n_runs = runs::count(n_slots, run);
-  const FwdWs w = fwd_ws(ws, n_runs, d);
-  const uintptr_t at = reinterpret_cast<uintptr_t>(x) |
-                       reinterpret_cast<uintptr_t>(a) |
-                       reinterpret_cast<uintptr_t>(out) |
-                       reinterpret_cast<uintptr_t>(w.head_acc) |
-                       reinterpret_cast<uintptr_t>(w.tail_acc);
-  const int per = gat_runs::per_lane(group, d, at);
-  const int tile = group * per;
-  const dim3 grid(static_cast<unsigned>((n_runs + n_warps - 1) / n_warps),
-                  static_cast<unsigned>(d > tile ? (d + tile - 1) / tile : 1));
-  const FwdKernel kernel =
-      rate > 0.0f ? fwd_kernel<true>(group, per) : fwd_kernel<false>(group, per);
-  kernel<<<grid, n_warps * kWarp, 0, stream>>>(ptr, col, c, a, x, seed, rate,
-                                               scale, slope, out, lse, w,
-                                               n_rows, n_runs, run, d);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  r1l_fwd_fixup_kernel<<<grid.x, n_warps * kWarp, 0, stream>>>(
-      ptr, w, out, lse, n_rows, n_runs, run, d);
-  return static_cast<int>(cudaGetLastError());
+  const gat_fwd::LogitArgs args{nullptr, c, a, nullptr, slope};
+  return gat_fwd::launch<gat_fwd::Logit::kDot>(
+      ptr, col, args, x, seed, rate, scale, out, lse, ws, n_rows, n_slots,
+      run, group, d, n_warps, stream);
+}
+
+// The generic forward, the same two grids on the logits leaky(c[r] +
+// t[col_e]); c [n_rows], t [n_cols], x [n_cols, d]; the rest as
+// r1l_fwd_f32's, without dropout.
+extern "C" int r1_fwd_f32(const int* ptr, const int* col, const float* c,
+                          const float* t, const float* x, float slope,
+                          float* out, float* lse, float* ws, int n_rows,
+                          int n_slots, int run, int group, int d, int n_warps,
+                          cudaStream_t stream) {
+  const gat_fwd::LogitArgs args{nullptr, c, nullptr, t, slope};
+  return gat_fwd::launch<gat_fwd::Logit::kRank1>(
+      ptr, col, args, x, nullptr, 0.0f, 1.0f, out, lse, ws, n_rows, n_slots,
+      run, group, d, n_warps, stream);
 }
 
 // Two grids: the runs (q, dpre, dc pieces and da partials), then the
@@ -741,8 +475,8 @@ extern "C" int r1l_keep_scale_f32(const int* seed, float rate, float scale,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The largest warps per block (1..8) for both kernels at feature width d:
-// the forward takes any (it keeps no shared memory), the backward as many
+// The largest warps per block (1..8) for the kernels at feature width d:
+// the forwards take any (they keep no shared memory), r1l_bwd_f32 as many
 // as its shared memory fits; 0 when even one warp does not fit.
 extern "C" int r1l_max_warps(int d) {
   for (int w = kMaxWarps; w >= 1; --w) {

@@ -1,6 +1,6 @@
 // The edge-run schedule of the CSR walks that sum edges into their rows:
-// csr_spmm_f32 and seg_reduce_f32 (spmm.cu) and r1l_bwd_f32's dc
-// (rank1_gat.cu).
+// csr_spmm_f32 and seg_reduce_f32 (spmm.cu), r1l_bwd_f32's dc
+// (rank1_gat.cu) and the GAT forwards' online softmaxes (gat_fwd.cuh).
 //
 // The CSR slots [0, n_edges) are cut into runs of `run` consecutive slots,
 // whatever the row lengths, and each run goes to one worker (a warp, or one

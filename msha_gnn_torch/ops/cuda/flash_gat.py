@@ -1,6 +1,8 @@
 """Flash-GAT through the hand-written kernels ``flash_fwd_f32`` and
-``flash_bwd_f32`` (``msha_gnn_torch/csrc/flash_gat.cu``; the same source's
-``r1_fwd_f32`` and ``r1_bwd_f32``, the generic rank-1 GAT, are wrapped in
+``flash_bwd_f32`` (``msha_gnn_torch/csrc/flash_gat.cu``; the forward is
+the edge-run walk of ``csrc/gat_fwd.cuh`` with the logits read, which
+``r1l_fwd_f32`` and ``r1_fwd_f32`` share; the same source's
+``r1_bwd_f32``, the generic rank-1 GAT's backward, is wrapped in
 :mod:`msha_gnn_torch.ops.cuda.rank1_gat`).
 
 The kernels replace ``_flash_kernel`` and ``_flash_bwd_kernel`` of
@@ -12,8 +14,8 @@ compute and what bounds them (bytes).
   in :data:`fwd_launches` and :data:`bwd_launches`.  For tensors on the CPU
   they run :func:`flash_gat_plain` and :func:`flash_gat_bwd_plain`, the
   plain PyTorch versions of the same functions and the kernels' oracles.
-  :func:`flash_gat_bwd_runs_plain` mirrors the backward's edge-run walk
-  step by step, for tests.
+  :func:`flash_gat_runs_plain` and :func:`flash_gat_bwd_runs_plain` mirror
+  the kernels' edge-run walks step by step, for tests.
 * :class:`FlashGatOperator` binds one graph and is differentiable: softmax
   of given per-edge logits over each row, the hashed attention dropout and
   the aggregation in one kernel, with a recompute backward.  Its ``dx`` is
@@ -29,8 +31,9 @@ from typing import TYPE_CHECKING, Optional
 
 import torch
 
-from .rank1_gat import NEG, WARP, _group, _keep, _scale, _steps
-from .spmm import SpmmOperator, edge_rows, n_runs, operator_for
+from .rank1_gat import (NEG, WARP, _fwd_runs_plain, _group, _keep, _scale,
+                        _steps)
+from .spmm import SpmmOperator, edge_rows, n_runs, operator_for, warp_run
 
 if TYPE_CHECKING:
     from ...graph import BipartiteGraph
@@ -42,7 +45,8 @@ if TYPE_CHECKING:
 BWD_RUN = 32
 
 # Launches of flash_fwd_f32 / flash_bwd_f32 in this process (plain counts,
-# reset by callers that measure a run).
+# reset by callers that measure a run).  A flash_fwd_f32 launch runs two
+# grids: the edge runs, then the merge of the rows that cross runs.
 fwd_launches = 0
 bwd_launches = 0
 
@@ -56,14 +60,13 @@ def _kernel_lib() -> ctypes.CDLL:
 
         lib = _build.load("flash_gat")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_fwd_f32.argtypes = [p] * 5 + [f] * 2 + [p] * 2 + [i] * 3 + [p]
+        lib.flash_fwd_f32.argtypes = [p] * 5 + [f] * 2 + [p] * 3 + [i] * 6 + [p]
         lib.flash_bwd_f32.argtypes = [p] * 8 + [f] * 2 + [p] * 2 + [i] * 6 + [p]
-        # the generic rank-1 GAT's entries (wrapped in rank1_gat.py)
-        lib.r1_fwd_f32.argtypes = [p] * 5 + [f] + [p] * 2 + [i] * 3 + [p]
+        # the generic rank-1 GAT's backward (wrapped in rank1_gat.py)
         lib.r1_bwd_f32.argtypes = [p] * 8 + [f] + [p] * 3 + [i] * 4 + [p]
         lib.flash_max_warps.argtypes = [i]
-        for fn in (lib.flash_fwd_f32, lib.flash_bwd_f32, lib.r1_fwd_f32,
-                   lib.r1_bwd_f32, lib.flash_max_warps):
+        for fn in (lib.flash_fwd_f32, lib.flash_bwd_f32, lib.r1_bwd_f32,
+                   lib.flash_max_warps):
             fn.restype = ctypes.c_int
         lib.flash_error_string.argtypes = [i]
         lib.flash_error_string.restype = ctypes.c_char_p
@@ -119,6 +122,19 @@ def flash_gat_bwd_plain(ptr, col, logits, x, gout, out, lse, seed,
     q_out = logits.new_zeros(logits.shape[0])
     q_out[:e] = q
     return dl, q_out
+
+
+def flash_gat_runs_plain(ptr, col, logits, x, seed, rate: float,
+                         n_rows: int, run: int, group: int):
+    """The walk of ``flash_fwd_f32`` (the logit source ``kRead``: the
+    logits as given) in plain PyTorch, step by step as the kernel takes it
+    (``rank1_gat._fwd_runs_plain``).  ``col`` and ``logits`` may run past
+    ``ptr[n_rows]``.  Returns ``(out [n_rows, d], lse [n_rows], writes
+    [n_rows])``, ``writes`` counting how often each row was written."""
+    n_edges = int(ptr[n_rows])
+    return _fwd_runs_plain(ptr, logits[:n_edges],
+                           _keep(n_edges, seed, rate, x.device),
+                           x[col[:n_edges].long()], n_rows, run, group)
 
 
 def flash_gat_bwd_runs_plain(ptr, col, logits, x, gout, out, lse, seed,
@@ -198,8 +214,9 @@ def _check(dev, rate, **tensors):
 
 @functools.lru_cache(maxsize=None)
 def _warps(d: int) -> int:
-    """Warps per block: the most (up to 8) whose shared memory fits (asked
-    of the library once per ``d``)."""
+    """Warps per block: the most (up to 8) whose shared memory fits
+    ``r1_bwd_f32``, the one kernel of the library that keeps any (asked
+    of the library once per ``d``); the edge-run kernels take any."""
     w = _kernel_lib().flash_max_warps(d)
     if w < 1:
         raise ValueError(f"feature width {d} does not fit the kernels' "
@@ -218,30 +235,41 @@ def _shapes(ptr, col, logits, x, n_rows):
     return d
 
 
-def flash_fwd(ptr, col, logits, x, seed, rate: float, n_rows: int):
+def flash_fwd(ptr, col, logits, x, seed, rate: float, n_rows: int,
+              run: Optional[int] = None, group: Optional[int] = None):
     """Forward -> ``(out [n_rows, d], lse [n_rows])`` float32.
 
-    ``ptr`` int32 [n_rows + 1], ``col`` int32 [E] (CSR, slot = index),
-    ``logits`` f32 [>= E] in CSR order, ``x`` f32 [n_cols, d], ``seed``
-    int32 [1] (read when ``rate > 0``).  CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise.
+    ``ptr`` int32 [n_rows + 1], ``col`` int32 [E] (CSR, slot = index; it
+    may run past ``ptr[n_rows]``: the kernel reads the edge count from
+    ``ptr`` on the card), ``logits`` f32 [>= E] in CSR order, ``x`` f32
+    [n_cols, d], ``seed`` int32 [1] (read when ``rate > 0``).  ``run``
+    slots a warp (default :func:`~.spmm.warp_run`), ``group`` lanes an edge
+    (one of :data:`~.rank1_gat.GROUPS`, default
+    :func:`~.rank1_gat.group_for`).  CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise.
     """
     global fwd_launches
     if x.device.type == "cpu":
         return flash_gat_plain(ptr, col, logits, x, seed, rate, n_rows)
     _check(x.device, rate, ptr=ptr, col=col, logits=logits, x=x, seed=seed)
     d = _shapes(ptr, col, logits, x, n_rows)
+    group = _group(group, d)
     out = torch.empty((n_rows, d), dtype=torch.float32, device=x.device)
     lse = torch.empty(n_rows, dtype=torch.float32, device=x.device)
     if n_rows == 0:
         return out, lse
+    e = col.numel()  # slots: a bound on the edges
+    run = warp_run(e) if run is None else int(run)
+    ws = torch.empty(n_runs(e, run) * (2 * d + 5), dtype=torch.float32,
+                     device=x.device)
     lib = _kernel_lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.flash_fwd_f32(
             ptr.data_ptr(), col.data_ptr(), logits.data_ptr(), x.data_ptr(),
             seed.data_ptr(), rate, _scale(rate), out.data_ptr(),
-            lse.data_ptr(), n_rows, d, _warps(d), stream)
+            lse.data_ptr(), ws.data_ptr(), n_rows, e, run, group, d,
+            _warps(d), stream)
     _raise_on(lib, rc, "flash_fwd_f32")
     fwd_launches += 1
     return out, lse

@@ -1,8 +1,9 @@
 """Fused rank-1 GAT through hand-written kernels: ``r1l_fwd_f32`` and
 ``r1l_bwd_f32`` (``msha_gnn_torch/csrc/rank1_gat.cu``) for the dst_linear
-form, ``r1_fwd_f32`` and ``r1_bwd_f32`` (``msha_gnn_torch/csrc/
-flash_gat.cu``, the flash-GAT kernels with their logits formed in-kernel)
-for the generic form.
+form, ``r1_fwd_f32`` (``rank1_gat.cu``, the same edge-run forward walk of
+``csrc/gat_fwd.cuh`` with the logits formed from ``c`` and ``t``) and
+``r1_bwd_f32`` (``msha_gnn_torch/csrc/flash_gat.cu``) for the generic
+form.
 
 The kernels replace ``_r1l_fwd_kernel``, ``_r1l_bwd_kernel``,
 ``_r1_fwd_kernel`` and ``_r1_bwd_kernel`` of
@@ -14,8 +15,8 @@ compute and what bounds them.
   :data:`fwd_launches` and :data:`bwd_launches`.  For tensors on the CPU
   they run :func:`rank1_gat_plain` and :func:`rank1_gat_bwd_plain`, the
   plain PyTorch versions of the same functions and the kernels' oracles.
-  :func:`rank1_gat_runs_plain` mirrors the forward's edge-run schedule
-  step by step, for tests.
+  :func:`rank1_gat_runs_plain` and :func:`rank1_gat_generic_runs_plain`
+  mirror the forwards' edge-run walk step by step, for tests.
 * :func:`keep_scale_plain` is the dropout keep mask, bit for bit the JAX
   package's ``_hash01``/``_keep_scale``; :func:`keep_scale` computes it on
   the card in one launch of the kernels' own device function
@@ -51,8 +52,9 @@ if TYPE_CHECKING:
 
 NEG = -1e30
 
-# Lanes an edge in the kernels on the edge-run schedule (r1l_fwd_f32,
-# flash_bwd_f32; csrc/gat_runs.cuh).
+# Lanes an edge in the kernels on the edge-run schedule (the forwards
+# r1l_fwd_f32, r1_fwd_f32 and flash_fwd_f32, and flash_bwd_f32;
+# csrc/gat_runs.cuh).
 GROUPS = (8, 16, 32)
 WARP = 32
 
@@ -63,7 +65,9 @@ WARP = 32
 fwd_launches = 0
 bwd_launches = 0
 keep_launches = 0
-# Launches of the generic form's r1_fwd_f32 / r1_bwd_f32.
+# Launches of the generic form's r1_fwd_f32 / r1_bwd_f32.  An r1_fwd_f32
+# launch runs two grids, as r1l_fwd_f32's does: the edge runs, then the
+# merge of the rows that cross runs.
 r1_fwd_launches = 0
 r1_bwd_launches = 0
 
@@ -80,10 +84,11 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.r1l_fwd_f32.argtypes = [p] * 6 + [f] * 3 + [p] * 3 + [i] * 6 + [p]
         lib.r1l_bwd_f32.argtypes = ([p] * 9 + [f] * 3 + [p] * 5 + [i] * 5
                                     + [p])
+        lib.r1_fwd_f32.argtypes = [p] * 5 + [f] + [p] * 3 + [i] * 6 + [p]
         lib.r1l_keep_scale_f32.argtypes = [p, f, f, i, p, p]
         lib.r1l_max_warps.argtypes = [i]
-        for fn in (lib.r1l_fwd_f32, lib.r1l_bwd_f32, lib.r1l_keep_scale_f32,
-                   lib.r1l_max_warps):
+        for fn in (lib.r1l_fwd_f32, lib.r1l_bwd_f32, lib.r1_fwd_f32,
+                   lib.r1l_keep_scale_f32, lib.r1l_max_warps):
             fn.restype = ctypes.c_int
         lib.r1l_error_string.argtypes = [i]
         lib.r1l_error_string.restype = ctypes.c_char_p
@@ -199,10 +204,10 @@ def rank1_gat_plain(ptr, col, c, a, x, seed, rate: float, slope: float,
 
 
 def group_for(d: int) -> int:
-    """Lanes an edge at width ``d`` in ``r1l_fwd_f32`` and
-    ``flash_bwd_f32``: the fewest of :data:`GROUPS` whose lanes hold the
-    row at 8 floats each, else the widest.  At d 64 that is 8, the fastest
-    of 8, 16 and 32 for both kernels on the card (``PERF.md``, the
+    """Lanes an edge at width ``d`` in the edge-run GAT kernels: the fewest
+    of :data:`GROUPS` whose lanes hold the row at 8 floats each, else the
+    widest.  At d 64 that is 8, the fastest of 8, 16 and 32 for
+    ``r1l_fwd_f32`` and ``flash_bwd_f32`` on the card (``PERF.md``, the
     sweep)."""
     for g in GROUPS:
         if 8 * g >= d:
@@ -264,31 +269,28 @@ def _fold_piece(logit, keep, xg, n_groups: int, steps: int):
     return m[0], s[0], acc[0]
 
 
-def rank1_gat_runs_plain(ptr, col, c, a, x, seed, rate: float, slope: float,
-                         n_rows: int, run: int, group: int):
-    """The schedule of ``r1l_fwd_f32`` in plain PyTorch, step by step as the
-    kernel takes it (``msha_gnn_torch/csrc/rank1_gat.cu``, ``runs.cuh``,
-    ``gat_runs.cuh``): runs of ``run`` consecutive slots, ``32 / group``
-    groups taking every n-th edge of a row piece, the groups' fixed-order
-    merge; a row inside a run is written, a crossing row leaves head and
-    tail pieces that the fix-up merges in run order; empty rows are zeroed
-    by the run that holds their slot.  ``col`` may run past
-    ``ptr[n_rows]``.
+def _fwd_runs_plain(ptr, logit, keep, xg, n_rows: int, run: int,
+                    group: int):
+    """The forward walk of ``csrc/gat_fwd.cuh`` in plain PyTorch, step by
+    step as the kernels take it (``runs.cuh``, ``gat_runs.cuh``), on the
+    first ``E = ptr[n_rows]`` edges' logits ``logit`` [E], keep scales
+    ``keep`` [E] and gathered rows ``xg`` [E, d]: runs of ``run``
+    consecutive slots, ``32 / group`` groups taking every n-th edge of a
+    row piece, the groups' fixed-order merge; a row inside a run is
+    written, a crossing row leaves head and tail pieces that the fix-up
+    merges in run order; empty rows are zeroed by the run that holds their
+    slot.
 
     Returns ``(out [n_rows, d], lse [n_rows], writes [n_rows])``,
     ``writes`` counting how often each row was written (the kernel writes
     each once).  Slow: Python loops over runs and steps, for tests.
     """
     pl = [int(v) for v in ptr.tolist()]
-    n_edges, d = pl[n_rows], x.shape[1]
+    n_edges, d = pl[n_rows], xg.shape[1]
     rows = edge_rows(ptr, n_edges)
-    xg = x[col[:n_edges].long()]
-    pre = c[rows] + xg @ a
-    logit = torch.where(pre >= 0, pre, slope * pre)
-    keep = _keep(n_edges, seed, rate, x.device)
     n_groups, steps = WARP // group, _steps(group, d)
-    out = x.new_full((n_rows, d), float("nan"))
-    lse = x.new_full((n_rows,), float("nan"))
+    out = xg.new_full((n_rows, d), float("nan"))
+    lse = xg.new_full((n_rows,), float("nan"))
     writes = torch.zeros(n_rows, dtype=torch.int64)
     n = n_runs(n_edges, run)
     head, tail, cross = [None] * n, [None] * n, [-1] * n
@@ -344,6 +346,34 @@ def rank1_gat_runs_plain(ptr, col, c, a, x, seed, rate: float, slope: float,
             m, s, acc = _merge(m, s, acc, *head[j])
         put(cross[k], m, s, acc)
     return out, lse, writes
+
+
+def rank1_gat_runs_plain(ptr, col, c, a, x, seed, rate: float, slope: float,
+                         n_rows: int, run: int, group: int):
+    """The walk of ``r1l_fwd_f32`` (the logit source ``kDot``:
+    ``leaky(c[r] + <x[j], a>)``) in plain PyTorch, step by step as the
+    kernel takes it (:func:`_fwd_runs_plain`).  ``col`` may run past
+    ``ptr[n_rows]``.  Returns ``(out, lse, writes)``."""
+    n_edges = int(ptr[n_rows])
+    rows = edge_rows(ptr, n_edges)
+    xg = x[col[:n_edges].long()]
+    pre = c[rows] + xg @ a
+    logit = torch.where(pre >= 0, pre, slope * pre)
+    return _fwd_runs_plain(ptr, logit, _keep(n_edges, seed, rate, x.device),
+                           xg, n_rows, run, group)
+
+
+def rank1_gat_generic_runs_plain(ptr, col, c, t, x, slope: float,
+                                 n_rows: int, run: int, group: int):
+    """The walk of ``r1_fwd_f32`` (the logit source ``kRank1``:
+    ``leaky(c[r] + t[j])``, no dropout) in plain PyTorch, step by step as
+    the kernel takes it (:func:`_fwd_runs_plain`).  ``col`` may run past
+    ``ptr[n_rows]``.  Returns ``(out, lse, writes)``."""
+    n_edges = int(ptr[n_rows])
+    _, pre = _generic_pre(ptr, col[:n_edges], c, t)
+    logit = torch.where(pre >= 0, pre, slope * pre)
+    return _fwd_runs_plain(ptr, logit, _keep(n_edges, None, 0.0, x.device),
+                           x[col[:n_edges].long()], n_rows, run, group)
 
 
 def rank1_gat_bwd_plain(ptr, col, c, a, x, gout, out, lse, seed, rate: float,
@@ -549,33 +579,41 @@ def _generic_shapes(ptr, col, c, t, x, n_rows):
     return x.shape[1]
 
 
-def r1_fwd(ptr, col, c, t, x, slope: float, n_rows: int):
+def r1_fwd(ptr, col, c, t, x, slope: float, n_rows: int,
+           run: Optional[int] = None, group: Optional[int] = None):
     """Generic forward -> ``(out [n_rows, d], lse [n_rows])`` float32 of the
     logits ``leaky(c[r] + t[col_e])``.
 
-    ``ptr`` int32 [n_rows + 1], ``col`` int32 [E] (CSR), ``c`` f32
-    [n_rows], ``t`` f32 [n_cols], ``x`` f32 [n_cols, d].  CPU tensors take
-    the plain version; CUDA tensors launch ``r1_fwd_f32`` or raise.
+    ``ptr`` int32 [n_rows + 1], ``col`` int32 [E] (CSR; it may run past
+    ``ptr[n_rows]``: the kernel reads the edge count from ``ptr`` on the
+    card), ``c`` f32 [n_rows], ``t`` f32 [n_cols], ``x`` f32 [n_cols, d].
+    ``run`` slots a warp (default :func:`~.spmm.warp_run`), ``group`` lanes
+    an edge (one of :data:`GROUPS`, default :func:`group_for`).  CPU
+    tensors take the plain version; CUDA tensors launch ``r1_fwd_f32`` or
+    raise.
     """
     global r1_fwd_launches
     if x.device.type == "cpu":
         return rank1_gat_generic_plain(ptr, col, c, t, x, slope, n_rows)
-    from . import flash_gat
-
     _check(x.device, 0.0, ptr=ptr, col=col, c=c, t=t, x=x)
     d = _generic_shapes(ptr, col, c, t, x, n_rows)
+    group = _group(group, d)
     out = torch.empty((n_rows, d), dtype=torch.float32, device=x.device)
     lse = torch.empty(n_rows, dtype=torch.float32, device=x.device)
     if n_rows == 0:
         return out, lse
-    lib = flash_gat._kernel_lib()
+    e = col.numel()  # slots: a bound on the edges
+    run = warp_run(e) if run is None else int(run)
+    ws = torch.empty(n_runs(e, run) * (2 * d + 5), dtype=torch.float32,
+                     device=x.device)
+    lib = _kernel_lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.r1_fwd_f32(
             ptr.data_ptr(), col.data_ptr(), c.data_ptr(), t.data_ptr(),
-            x.data_ptr(), slope, out.data_ptr(), lse.data_ptr(), n_rows, d,
-            flash_gat._warps(d), stream)
-    flash_gat._raise_on(lib, rc, "r1_fwd_f32")
+            x.data_ptr(), slope, out.data_ptr(), lse.data_ptr(),
+            ws.data_ptr(), n_rows, e, run, group, d, _warps(d), stream)
+    _raise_on(lib, rc, "r1_fwd_f32")
     r1_fwd_launches += 1
     return out, lse
 

@@ -6,33 +6,36 @@ same inputs.
 
 ``BASE_CSRC`` is another tree's ``msha_gnn_torch/csrc`` (for example the
 parent commit's, unpacked with ``git archive`` into a directory that
-``.gitignore`` lists), whose ``r1l_fwd_f32`` and ``flash_bwd_f32`` have the
-one-block-per-row signatures: ``r1l_fwd_f32(ptr, col, c, a, x, seed, rate,
-scale, slope, out, lse, n_rows, d, n_warps, stream)`` and
-``flash_bwd_f32(ptr, col, logits, x, gout, out, lse, seed, rate, scale,
-dl, q, n_rows, n_out, d, n_warps, stream)``.  This tree's are the edge-run
-kernels, which take a workspace (the forward), the slot count, the run
-length and the lanes an edge.  Its other entry points (``csr_spmm_f32``,
-``seg_reduce_f32``, ``r1l_bwd_f32``, ``flash_fwd_f32``) have the same
-signatures in both trees and run through this tree's wrappers with each
-build's library in turn.  On the path's shapes (the GCN graph of the 2015
-flow data's shape, d 32; the linkpred graph, synthetic ogbl-ddi seed 42,
-d 64) the script runs ``r1l_fwd_f32`` at dropout rates 0 and 0.5,
-``flash_bwd_f32`` at 0.5, and, as controls, every ``csr_spmm_f32`` use
-(gc1 ``A^T x``, gc2 ``A x``, the att-weighted ``A h`` and ``A^T g``, the
-``q``-weighted dx, the d = 1 column sum), ``seg_reduce_f32`` on
-``[E_pad, 64]`` values, ``r1l_bwd_f32`` at 0.5 and ``flash_fwd_f32`` at 0
-and 0.5.  It prints:
+``.gitignore`` lists), whose ``flash_fwd_f32`` and ``r1_fwd_f32`` (both in
+its ``flash_gat.cu``) have the one-block-per-row signatures:
+``flash_fwd_f32(ptr, col, logits, x, seed, rate, scale, out, lse, n_rows,
+d, n_warps, stream)`` and ``r1_fwd_f32(ptr, col, c, t, x, slope, out, lse,
+n_rows, d, n_warps, stream)``.  This tree's are the edge-run forwards
+(``r1_fwd_f32`` in ``rank1_gat.cu``), which take a workspace, the slot
+count, the run length and the lanes an edge.  The other entry points
+(``csr_spmm_f32``, ``seg_reduce_f32``, ``r1l_fwd_f32``, ``r1l_bwd_f32``,
+``flash_bwd_f32``) have the same signatures in both trees and run through
+this tree's wrappers with each build's library in turn.  On the path's
+shapes (the GCN graph of the 2015 flow data's shape, d 32; the linkpred
+graph, synthetic ogbl-ddi seed 42, d 64) the script runs
+``flash_fwd_f32`` at dropout rates 0 and 0.5, ``r1_fwd_f32``, and, as
+controls, ``r1l_fwd_f32`` at 0 and 0.5 (the walk that the forwards now
+share), every ``csr_spmm_f32`` use (gc1 ``A^T x``, gc2 ``A x``, the
+att-weighted ``A h`` and ``A^T g``, the ``q``-weighted dx, the d = 1
+column sum), ``seg_reduce_f32`` on ``[E_pad, 64]`` values, ``r1l_bwd_f32``
+and ``flash_bwd_f32`` at 0.5.  It prints:
 
 * whether each build's outputs equal the plain versions' (``out``,
   ``lse`` and ``q`` at rtol 1e-5, atol 1e-6; sums and ``dl`` at rtol
   1e-4, atol 1e-5 of the largest value: float32 sums of up to 3,842
-  terms);
+  terms), and each build's ``r1l_fwd_f32`` at logits x30 against the
+  float32 and float64 plain versions;
 * each kernel's time in four rounds in the order base, this, this, base:
   the median of 15 means of 20 launches by CUDA events, and the device
   time over 20 launches by ``torch.profiler``, with the medians of each;
-* this build's ``r1l_fwd_f32`` and ``flash_bwd_f32`` at each run length of
-  ``RUN_SLOTS`` and each group of ``GROUPS`` lanes (device time);
+* this build's ``flash_fwd_f32``, ``r1_fwd_f32`` and ``r1l_fwd_f32`` at
+  each run length of ``RUN_SLOTS`` and each group of ``GROUPS`` lanes
+  (device time);
 * ptxas's register, spill and stack counts of both builds.
 
 The card's name and power limit come first, one JSON summary last.  Needs
@@ -77,25 +80,24 @@ def build_base(csrc: Path) -> dict:
 def bind_base(base: dict, this: dict) -> None:
     """The base build's entry points: those whose signature this tree kept
     typed as this tree's wrappers type them, and the one-block-per-row
-    ``r1l_fwd_f32`` and ``flash_bwd_f32``."""
+    ``flash_fwd_f32`` and ``r1_fwd_f32`` of its ``flash_gat.cu``."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, lib in base.items():
         for fn in ("csr_spmm_f32", "seg_reduce_f32", "csr_spmm_dw_f32",
-                   "csr_spmm_dw_max_warps", "r1l_bwd_f32",
+                   "csr_spmm_dw_max_warps", "r1l_fwd_f32", "r1l_bwd_f32",
                    "r1l_keep_scale_f32", "r1l_max_warps", "r1l_error_string",
-                   "flash_fwd_f32", "r1_fwd_f32", "r1_bwd_f32",
-                   "flash_max_warps", "flash_error_string",
-                   "csr_spmm_error_string"):
+                   "flash_bwd_f32", "r1_bwd_f32", "flash_max_warps",
+                   "flash_error_string", "csr_spmm_error_string"):
             if hasattr(this[name], fn):
                 ours = getattr(this[name], fn)
                 getattr(lib, fn).argtypes = ours.argtypes
                 getattr(lib, fn).restype = ours.restype
-    base["rank1_gat"].r1l_fwd_f32.argtypes = ([p] * 6 + [f] * 3 + [p] * 2
-                                              + [i] * 3 + [p])
-    base["flash_gat"].flash_bwd_f32.argtypes = ([p] * 8 + [f] * 2 + [p] * 2
-                                                + [i] * 4 + [p])
-    for fn in (base["rank1_gat"].r1l_fwd_f32,
-               base["flash_gat"].flash_bwd_f32):
+    base["flash_gat"].flash_fwd_f32.argtypes = ([p] * 5 + [f] * 2 + [p] * 2
+                                                + [i] * 3 + [p])
+    base["flash_gat"].r1_fwd_f32.argtypes = ([p] * 5 + [f] + [p] * 2
+                                             + [i] * 3 + [p])
+    for fn in (base["flash_gat"].flash_fwd_f32,
+               base["flash_gat"].r1_fwd_f32):
         fn.restype = ctypes.c_int
 
 
@@ -226,26 +228,14 @@ def main() -> int:
     seed = torch.tensor([cs.DROP_SEED], dtype=torch.int32, device=dev)
     c = torch.randn(n, generator=gen, device=dev)
     a = torch.randn(d, generator=gen, device=dev) * 0.3
-    warps = r1._warps(d)
-
-    def base_fwd(rate, c=c, a=a):
-        def fn():
-            out = torch.empty((n, d), device=dev)
-            lse = torch.empty(n, device=dev)
-            checked(base_libs["rank1_gat"].r1l_fwd_f32(
-                op.ptr.data_ptr(), op.col.data_ptr(), c.data_ptr(),
-                a.data_ptr(), x.data_ptr(), seed.data_ptr(), rate,
-                r1._scale(rate), op.slope, out.data_ptr(), lse.data_ptr(), n,
-                d, warps, stream()))
-            return out, lse
-        return fn
+    t = torch.randn(n, generator=gen, device=dev)
+    base_warps = base_libs["flash_gat"].flash_max_warps(d)
 
     for rate in (0.0, 0.5):
         fwd_args = (op.ptr, op.col, c, a, x, seed, rate, op.slope, n)
         k = f"r1l_fwd_f32[rate {rate}]"
-        cases[k] = {"base": base_fwd(rate), "this": lib_case(
-            r1, libs["rank1_gat"],
-            lambda fwd_args=fwd_args: r1.r1l_fwd(*fwd_args))["this"]}
+        cases[k] = lib_case(r1, libs["rank1_gat"],
+                            lambda fwd_args=fwd_args: r1.r1l_fwd(*fwd_args))
         want[k] = r1.rank1_gat_plain(*fwd_args)
     out5, lse5 = want["r1l_fwd_f32[rate 0.5]"]
     bwd_args = (op.ptr, op.col, c, a, x, gout, out5, lse5, seed, 0.5,
@@ -254,34 +244,47 @@ def main() -> int:
         r1, libs["rank1_gat"], lambda: r1.r1l_bwd(*bwd_args))
     want["r1l_bwd_f32[rate 0.5]"] = r1.rank1_gat_bwd_plain(*bwd_args)
 
+    def base_flash_fwd(rate):
+        def fn():
+            out = torch.empty((n, d), device=dev)
+            lse = torch.empty(n, device=dev)
+            checked(base_libs["flash_gat"].flash_fwd_f32(
+                op.ptr.data_ptr(), op.col.data_ptr(), logits.data_ptr(),
+                x.data_ptr(), seed.data_ptr(), rate, r1._scale(rate),
+                out.data_ptr(), lse.data_ptr(), n, d, base_warps, stream()))
+            return out, lse
+        return fn
+
     for rate in (0.0, 0.5):
         f_args = (op.ptr, op.col, logits, x, seed, rate, n)
         k = f"flash_fwd_f32[rate {rate}]"
-        cases[k] = lib_case(flash, libs["flash_gat"],
-                            lambda f_args=f_args: flash.flash_fwd(*f_args))
+        cases[k] = {"base": base_flash_fwd(rate), "this": lib_case(
+            flash, libs["flash_gat"],
+            lambda f_args=f_args: flash.flash_fwd(*f_args))["this"]}
         want[k] = flash.flash_gat_plain(*f_args)
+
+    def base_r1_fwd():
+        out = torch.empty((n, d), device=dev)
+        lse = torch.empty(n, device=dev)
+        checked(base_libs["flash_gat"].r1_fwd_f32(
+            op.ptr.data_ptr(), op.col.data_ptr(), c.data_ptr(), t.data_ptr(),
+            x.data_ptr(), op.slope, out.data_ptr(), lse.data_ptr(), n, d,
+            base_warps, stream()))
+        return out, lse
+
+    g_args = (op.ptr, op.col, c, t, x, op.slope, n)
+    cases["r1_fwd_f32"] = {"base": base_r1_fwd, "this": lib_case(
+        r1, libs["rank1_gat"], lambda: r1.r1_fwd(*g_args))["this"]}
+    want["r1_fwd_f32"] = r1.rank1_gat_generic_plain(*g_args)
+
     out_f5, lse_f5 = want["flash_fwd_f32[rate 0.5]"]
     fb_args = (op.ptr, op.col, logits, x, gout, out_f5, lse_f5, seed, 0.5, n)
-
-    def base_flash_bwd():
-        dl = torch.empty(e_pad, device=dev)
-        qq = torch.empty(e_pad, device=dev)
-        checked(base_libs["flash_gat"].flash_bwd_f32(
-            op.ptr.data_ptr(), op.col.data_ptr(), logits.data_ptr(),
-            x.data_ptr(), gout.data_ptr(), out_f5.data_ptr(),
-            lse_f5.data_ptr(), seed.data_ptr(), 0.5, r1._scale(0.5),
-            dl.data_ptr(), qq.data_ptr(), n, e_pad, d, flash._warps(d),
-            stream()))
-        return dl, qq
-
-    cases["flash_bwd_f32[rate 0.5]"] = {
-        "base": base_flash_bwd, "this": lib_case(
-            flash, libs["flash_gat"],
-            lambda: flash.flash_bwd(*fb_args))["this"]}
+    cases["flash_bwd_f32[rate 0.5]"] = lib_case(
+        flash, libs["flash_gat"], lambda: flash.flash_bwd(*fb_args))
     want["flash_bwd_f32[rate 0.5]"] = flash.flash_gat_bwd_plain(*fb_args)
     # outputs held at the kernel tolerance (the rest as sums)
-    exact = {"r1l_fwd": (0, 1), "flash_fwd": (0, 1), "flash_bwd": (1,),
-             "r1l_bwd": (0,)}
+    exact = {"r1l_fwd": (0, 1), "flash_fwd": (0, 1), "r1_fwd": (0, 1),
+             "flash_bwd": (1,), "r1l_bwd": (0,)}
 
     def equal(k, got):
         tight = exact.get(k.split("_f32")[0], ())
@@ -306,10 +309,9 @@ def main() -> int:
     # before the exp.  Each build's out against the plain float32 and
     # float64 versions.
     c30, a30 = c * 30, a * 30
-    r1._lib = this["rank1_gat"]
-    x30 = {"base": base_fwd(0.0, c30, a30)(),
-           "this": r1.r1l_fwd(op.ptr, op.col, c30, a30, x, seed, 0.0,
-                              op.slope, n)}
+    x30 = {label: fn() for label, fn in lib_case(
+        r1, libs["rank1_gat"], lambda: r1.r1l_fwd(
+            op.ptr, op.col, c30, a30, x, seed, 0.0, op.slope, n)).items()}
     ref32 = r1.rank1_gat_plain(op.ptr, op.col, c30, a30, x, seed, 0.0,
                                op.slope, n)
     ref64 = r1.rank1_gat_plain(op.ptr, op.col, c30.double(), a30.double(),
@@ -354,13 +356,18 @@ def main() -> int:
     sweep = {}
     for rate in (0.0, 0.5):
         fwd_args = (op.ptr, op.col, c, a, x, seed, rate, op.slope, n)
-        sweep[f"r1l_fwd_f32[rate {rate}]"] = {
-            f"run {run}, group {grp}": cs.device_ms(
-                lambda: r1.r1l_fwd(*fwd_args, run=run, group=grp))
-            for run in cuda_spmm.RUN_SLOTS for grp in r1.GROUPS}
-    sweep["flash_bwd_f32[rate 0.5]"] = {
+        f_args = (op.ptr, op.col, logits, x, seed, rate, n)
+        for k, fn, args in ((f"flash_fwd_f32[rate {rate}]", flash.flash_fwd,
+                             f_args),
+                            (f"r1l_fwd_f32[rate {rate}]", r1.r1l_fwd,
+                             fwd_args)):
+            sweep[k] = {
+                f"run {run}, group {grp}": cs.device_ms(
+                    lambda: fn(*args, run=run, group=grp))
+                for run in cuda_spmm.RUN_SLOTS for grp in r1.GROUPS}
+    sweep["r1_fwd_f32"] = {
         f"run {run}, group {grp}": cs.device_ms(
-            lambda: flash.flash_bwd(*fb_args, run=run, group=grp))
+            lambda: r1.r1_fwd(*g_args, run=run, group=grp))
         for run in cuda_spmm.RUN_SLOTS for grp in r1.GROUPS}
     for k, v in sweep.items():
         print(f"  run lengths and groups, device ms, {k}: "

@@ -836,30 +836,104 @@ def test_flash_bwd_runs_kernel_matches_plain(d, run, group):
 
 
 @pytest.mark.cuda
-def test_one_block_per_row_gat_kernels_still_match_plain():
-    """r1_fwd_f32, r1_bwd_f32 and flash_fwd_f32 keep their one-block-per-row
-    kernels beside the edge-run ones: each against its plain version on a
-    graph with a long row and empty rows, at d 64."""
-    g = long_row_graph(300, 120, long_rows=(1,), length=600, seed=9)
+@pytest.mark.parametrize("group", r1.GROUPS, ids=lambda g: f"group{g}")
+@pytest.mark.parametrize("run", EDGE_RUNS, ids=lambda r: f"run{r}")
+@pytest.mark.parametrize("d", [0, 1, 64, 129])
+def test_flash_fwd_runs_kernel_matches_plain(d, run, group):
+    """flash_fwd_f32 at dropout 0 and 0.5 on a graph with rows longer than
+    many runs and empty rows (first, middle, last): out and lse against
+    the plain forward over NaN-primed blocks, twice bit for bit, empty rows
+    0 and NEG; the same with the logits x30; a col padded past ptr[n_rows]
+    changes no bit; and against the walk's mirror."""
+    g = long_row_graph(300, 120, long_rows=(1, 298), length=600, seed=d + 5)
     op = fg.FlashGatOperator(g)
+    empty = [0, 150, 299]
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    x = torch.rand(120, d, generator=gen, device="cuda") - 0.5
+    base = torch.randn(g.num_padded_edges + 40, generator=gen,
+                       device="cuda") * 3
+    padded = torch.cat([op.col, torch.full((40,), 119, dtype=op.col.dtype,
+                                           device="cuda")])
+    seed = torch.tensor([-77], dtype=torch.int32, device="cuda")
+    for logits in (base, base * 30):
+        for rate in (0.0, 0.5):
+            args = (op.ptr, op.col, logits, x, seed, rate, 300)
+            prime_nan((300, max(d, 1)), (300,), (2 * 300 * (2 * d + 5),))
+            before = fg.fwd_launches
+            out, lse = twice_same(lambda: fg.flash_fwd(*args, run=run,
+                                                       group=group))
+            assert fg.fwd_launches == before + 2
+            want_out, want_lse = fg.flash_gat_plain(*args)
+            torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-6)
+            assert not out[empty].any()
+            assert bool((lse[empty] == fg.NEG).all())
+            prime_nan((300, max(d, 1)), (300,))
+            out_p, lse_p = fg.flash_fwd(op.ptr, padded, *args[2:], run=run,
+                                        group=group)
+            assert torch.equal(out_p, out) and torch.equal(lse_p, lse)
+    cpu = [v.cpu() for v in (op.ptr, op.col, logits, x, seed)]
+    mirror, mirror_lse, writes = fg.flash_gat_runs_plain(
+        *cpu, 0.5, 300, run or cuda_spmm.warp_run(op.col.numel()), group)
+    assert bool((writes == 1).all())
+    sums_close(out.cpu(), mirror)
+    sums_close(lse.cpu(), mirror_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", r1.GROUPS, ids=lambda g: f"group{g}")
+@pytest.mark.parametrize("run", EDGE_RUNS, ids=lambda r: f"run{r}")
+@pytest.mark.parametrize("d", [0, 1, 64, 129])
+def test_r1_fwd_runs_kernel_matches_plain(d, run, group):
+    """r1_fwd_f32 on a graph with rows longer than many runs and empty rows:
+    out and lse against the plain generic forward over NaN-primed blocks,
+    twice bit for bit, empty rows 0 and NEG; the same with c and t x30; a
+    padded col changes no bit; and against the walk's mirror."""
+    g = long_row_graph(300, 120, long_rows=(1, 298), length=600, seed=d + 6)
+    op = r1.Rank1GatOperator(g)
+    empty = [0, 150, 299]
+    padded = torch.cat([op.col, torch.zeros(40, dtype=op.col.dtype,
+                                            device="cuda")])
+    for scale in (1.0, 30.0):
+        c, _, x = rank1_inputs(g, 300, 120, d, d + 9, scale)
+        gen = torch.Generator(device="cuda").manual_seed(d + 10)
+        t = (torch.rand(120, generator=gen, device="cuda") - 0.5) * scale
+        args = (op.ptr, op.col, c, t, x, 0.2, 300)
+        prime_nan((300, max(d, 1)), (300,), (2 * 300 * (2 * d + 5),))
+        before = r1.r1_fwd_launches
+        out, lse = twice_same(lambda: r1.r1_fwd(*args, run=run, group=group))
+        assert r1.r1_fwd_launches == before + 2
+        want_out, want_lse = r1.rank1_gat_generic_plain(*args)
+        torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-6)
+        assert not out[empty].any()
+        assert bool((lse[empty] == r1.NEG).all())
+        prime_nan((300, max(d, 1)), (300,))
+        out_p, lse_p = r1.r1_fwd(op.ptr, padded, *args[2:], run=run,
+                                 group=group)
+        assert torch.equal(out_p, out) and torch.equal(lse_p, lse)
+    cpu = [v.cpu() for v in (op.ptr, op.col, c, t, x)]
+    mirror, mirror_lse, writes = r1.rank1_gat_generic_runs_plain(
+        *cpu, 0.2, 300, run or cuda_spmm.warp_run(op.col.numel()), group)
+    assert bool((writes == 1).all())
+    sums_close(out.cpu(), mirror)
+    sums_close(lse.cpu(), mirror_lse)
+
+
+@pytest.mark.cuda
+def test_one_block_per_row_gat_kernels_still_match_plain():
+    """r1_bwd_f32, the one GAT kernel left with one block per row: against
+    its plain version on a graph with a long row and empty rows, at d 64,
+    on the plain forward's out and lse."""
+    g = long_row_graph(300, 120, long_rows=(1,), length=600, seed=9)
+    op = r1.Rank1GatOperator(g)
     gen = torch.Generator(device="cuda").manual_seed(9)
     c = torch.rand(300, generator=gen, device="cuda") - 0.5
     t = torch.rand(120, generator=gen, device="cuda") - 0.5
     x = torch.rand(120, 64, generator=gen, device="cuda") - 0.5
     gout = torch.rand(300, 64, generator=gen, device="cuda") - 0.5
-    logits = torch.randn(g.num_padded_edges, generator=gen,
-                         device="cuda") * 3
-    seed = torch.tensor([3], dtype=torch.int32, device="cuda")
-    out, lse = fg.flash_fwd(op.ptr, op.col, logits, x, seed, 0.5, 300)
-    want_out, want_lse = fg.flash_gat_plain(op.ptr, op.col, logits, x, seed,
-                                            0.5, 300)
-    torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-6)
     gargs = (op.ptr, op.col, c, t, x)
-    out, lse = r1.r1_fwd(*gargs, 0.2, 300)
     want_out, want_lse = r1.rank1_gat_generic_plain(*gargs, 0.2, 300)
-    torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-6)
     bargs = (*gargs, gout, want_out, want_lse, 0.2, 300)
     att, dpre, dc = r1.r1_bwd(*bargs)
     watt, wdpre, wdc = r1.rank1_gat_generic_bwd_plain(*bargs)
