@@ -21,7 +21,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
 
 The kernels on the edge-run schedule (``csr_spmm_f32``,
 ``seg_reduce_f32``, ``r1l_fwd_f32``, ``r1l_bwd_f32``, ``flash_fwd_f32``,
-``flash_bwd_f32``, ``r1_fwd_f32``) are launched twice on the same inputs and must give the same bits, and
+``flash_bwd_f32``, ``r1_fwd_f32``, ``r1_bwd_f32``, ``csr_sddmm_f32``) are
+launched twice on the same inputs and must give the same bits.  Kernels
 are timed twice: by CUDA events (back-to-back calls, which under about 20
 us measure the host's launch rate) and by ``torch.profiler``'s device time
 over the same 20 calls, as is their library yardstick.
@@ -31,7 +32,8 @@ over the same 20 calls, as is their library yardstick.
    reference on a small graph, then HTTP requests through ``make_server``.
 3c. the materialised attention pipeline's kernels (the dropout keep mask
    ``r1l_keep_scale_f32`` bit for bit, ``csr_sddmm_f32`` in both
-   orientations, ``seg_softmax_fwd_f32`` unmasked as the path runs it and,
+   orientations, each also once through its C entry into a NaN-filled
+   output (every slot written, the pads 0), ``seg_softmax_fwd_f32`` unmasked as the path runs it and,
    for correctness, with the build mask and with a mask that leaves one
    row fully masked, ``seg_softmax_bwd_f32``, and ``csr_spmm_f32``
    weighted by attention, forward and transposed) against their plain
@@ -47,8 +49,8 @@ over the same 20 calls, as is their library yardstick.
    3.
 3e. the generic rank-1 GAT kernels (``r1_fwd_f32``, ``r1_bwd_f32``, on
    ``c = h a_src`` and ``t = h a_dst`` of a seeded layer, then x30, and on
-   a small rectangular graph with empty rows; ``r1_fwd_f32`` also once
-   through its C entry into NaN-filled outputs), ``seg_reduce_f32`` on
+   a small rectangular graph with empty rows; each also once through its
+   C entry into NaN-filled outputs and workspace), ``seg_reduce_f32`` on
    ``[E, 64]`` edge values over the linkpred row pointer (pads NaN), and
    ``csr_spmm_dw_f32`` in both directions with attention weights (its
    ``dw`` element by element against the unfused ``csr_sddmm_f32``)
@@ -299,25 +301,25 @@ def prime_nan(*shapes):
     del junk
 
 
-def nan_filled(name, n_rows, d, ws_floats, launch, want):
-    """One launch of an edge-run forward through its C entry,
-    ``launch(out, lse, ws)``, into ``out`` [n_rows, d], ``lse`` and the
-    workspace filled with NaN: every row must be written, with the bits of
-    ``want`` (the wrapper's launch on the same inputs)."""
-    out = torch.full((n_rows, d), float("nan"), device=DEVICE)
-    lse = torch.full((n_rows,), float("nan"), device=DEVICE)
-    ws = torch.full((ws_floats,), float("nan"), device=DEVICE)
-    rc = launch(out, lse, ws)
+def nan_filled(name, shapes, launch, want, what="out, lse"):
+    """One launch of a kernel through its C entry, ``launch(*buffers)``,
+    into buffers of ``shapes`` filled with NaN (its outputs, then its
+    workspace): every element of the outputs must be written, with the
+    bits of ``want`` (the wrapper's launch on the same inputs, one tensor
+    an output)."""
+    bufs = [torch.full(s, float("nan"), device=DEVICE) for s in shapes]
+    rc = launch(*bufs)
     torch.cuda.synchronize()
     if rc != 0:
         raise AssertionError(f"{name}: the C entry returned {rc}")
-    if out.isnan().any() or lse.isnan().any():
-        raise AssertionError(f"{name} left a row of out or lse unwritten")
-    if not (torch.equal(out, want[0]) and torch.equal(lse, want[1])):
+    outs = bufs[:len(want)]
+    if any(o.isnan().any() for o in outs):
+        raise AssertionError(f"{name} left an element of {what} unwritten")
+    if not all(torch.equal(o, w) for o, w in zip(outs, want)):
         raise AssertionError(f"{name}: the C entry's launch differs from "
                              "the wrapper's")
-    log(f"  {name}: a launch through the C entry into NaN-filled out, lse "
-        "and workspace wrote every row, the wrapper's bits")
+    log(f"  {name}: a launch through the C entry into NaN-filled {what} and "
+        "workspace wrote every element, the wrapper's bits")
 
 
 def small_graph(seed):
@@ -629,57 +631,86 @@ def phase_materialised_kernels(split):
         raise AssertionError("the kernels' keep mask differs from "
                              "keep_scale_plain")
     ms = time_ms(lambda: r1.keep_scale(e_pad, seed, 0.5))
+    keep_dev_ms = device_ms(lambda: r1.keep_scale(e_pad, seed, 0.5))
     plain_ms = time_ms(lambda: r1.keep_scale_plain(slots, seed, 0.5))
     # the seed read, the factors written; the hash's 14 integer operations
     # a slot (the table has no int32 peak: counted at the float32 rate)
     bnd = bound(4 + 4 * e_pad, 14 * e_pad)
     log(f"  r1l_keep_scale_f32[rate 0.5], seed {DROP_SEED}: bit-exact over "
         f"{e_pad} slots, kept share {float((keep > 0).float().mean()):.4f}; "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.5f} ms "
-        f"({bnd[1]}); library none: no PyTorch call computes this hash")
-    results = [entry(
+        f"kernel {ms:.4f} ms (device {fmt(keep_dev_ms)}), plain "
+        f"{plain_ms:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}); library none: "
+        "no PyTorch call computes this hash")
+    results = [{**entry(
         "r1l_keep_scale_f32[rate 0.5]", "rank1_gat.cu",
         "msha_gnn_tpu/ops/pallas/rank1_gat.py:85 _keep_scale (the keep mask "
-        "that :234 _r1l_fwd_kernel hashes)", 0.0, ms, plain_ms, bnd, None)]
+        "that :234 _r1l_fwd_kernel hashes)", 0.0, ms, plain_ms, bnd, None),
+        "device_ms": keep_dev_ms, "library_device_ms": None}]
 
     # SDDMM, both orientations: dw of A @ h is sddmm(g, x), of A.T @ h
-    # sddmm(x, g); the training path runs the first
-    sd_args = (op.ptr, op.col, gout, x, e_pad)
-    errs = []
+    # sddmm(x, g); the training path runs the first, which alone has an
+    # entry in the kernels line (with the larger error of the two)
+    sd_run, sd_group = cuda_sddmm.RUN, r1.group_for(d)
+    sd_errs, sd_entry = [], None
+    log(f"  csr_sddmm_f32: the edge-run walk, {sd_run} slots a run, "
+        f"{sd_group} lanes an edge")
+    pattern = torch.sparse_csr_tensor(op.ptr, op.col,
+                                      torch.zeros(e, device=DEVICE),
+                                      size=(n, n))
     for label, (rows, cols) in (("sddmm(g, x)", (gout, x)),
                                 ("sddmm(x, g)", (x, gout))):
-        got = cuda_sddmm.csr_sddmm(op.ptr, op.col, rows, cols, e_pad)
-        want = cuda_sddmm.csr_sddmm_plain(op.ptr, op.col, rows, cols, e_pad)
+        sd_args = (op.ptr, op.col, rows, cols, e_pad)
+        prime_nan((e_pad,))
+        got = cuda_sddmm.csr_sddmm(*sd_args)
+        want = cuda_sddmm.csr_sddmm_plain(*sd_args)
         torch.cuda.synchronize()
-        errs.append(close(f"csr_sddmm_f32[{label}]", got, want, KERNEL_RTOL,
-                          KERNEL_ATOL))
+        sd_errs.append(close(f"csr_sddmm_f32[{label}]", got, want,
+                             KERNEL_RTOL, KERNEL_ATOL))
         if got[e:].any():
             raise AssertionError("csr_sddmm_f32 wrote a pad slot")
-    ms = time_ms(lambda: cuda_sddmm.csr_sddmm(*sd_args))
-    plain_ms = time_ms(lambda: cuda_sddmm.csr_sddmm_plain(*sd_args))
-    want = cuda_sddmm.csr_sddmm_plain(*sd_args)[:e]
-    library_ms, lib_note = None, ""
-    try:
-        pattern = torch.sparse_csr_tensor(op.ptr, op.col,
-                                          torch.zeros(e, device=DEVICE),
-                                          size=(n, n))
-        xt = x.t()
-        lib_out = torch.sparse.sampled_addmm(pattern, gout, xt, beta=0.0)
-        if not torch.allclose(lib_out.values(), want, rtol=1e-4, atol=1e-5):
-            raise AssertionError("sampled_addmm disagrees with the plain "
-                                 "version")
-        library_ms = time_ms(lambda: torch.sparse.sampled_addmm(
-            pattern, gout, xt, beta=0.0))
-    except (RuntimeError, NotImplementedError) as exc:
-        lib_note = f" (torch.sparse.sampled_addmm does not run: {exc})"
-    bnd = sddmm_bound(op.ptr, op.col, gout, x, e_pad)
-    log(f"  csr_sddmm_f32[dw]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"torch.sparse.sampled_addmm {library_ms} ms{lib_note}, bound "
-        f"{bnd[0]:.5f} ms ({bnd[1]})")
-    results.append(entry(
-        "csr_sddmm_f32[dw]", "sddmm.cu",
-        "msha_gnn_tpu/ops/pallas/spmm.py:1428 _sddmm_kernel and :1294 "
-        "_sddmm_hub_kernel", max(errs), ms, plain_ms, bnd, library_ms))
+        kernel = (lambda sd_args=sd_args: cuda_sddmm.csr_sddmm(*sd_args))
+        same_bits(f"csr_sddmm_f32[{label}]", kernel)
+        nan_filled(
+            f"csr_sddmm_f32[{label}]", ((e_pad,),),
+            lambda out, rows=rows, cols=cols:
+            cuda_sddmm._kernel_lib().csr_sddmm_f32(
+                op.ptr.data_ptr(), op.col.data_ptr(), rows.data_ptr(),
+                cols.data_ptr(), out.data_ptr(), n, e_pad, sd_run, sd_group,
+                d, torch.cuda.current_stream().cuda_stream),
+            (kernel(),), what="out (pads included)")
+        ms, dev_ms = time_ms(kernel), device_ms(kernel)
+        plain_ms = time_ms(lambda sd_args=sd_args:
+                           cuda_sddmm.csr_sddmm_plain(*sd_args))
+        library_ms = lib_dev_ms = None
+        lib_note = ""
+        try:
+            colst = cols.t()
+            lib_out = torch.sparse.sampled_addmm(pattern, rows, colst,
+                                                 beta=0.0)
+            if not torch.allclose(lib_out.values(), want[:e], rtol=1e-4,
+                                  atol=1e-5):
+                raise AssertionError("sampled_addmm disagrees with the "
+                                     "plain version")
+
+            def library(rows=rows, colst=colst):
+                return torch.sparse.sampled_addmm(pattern, rows, colst,
+                                                  beta=0.0)
+
+            library_ms, lib_dev_ms = time_ms(library), device_ms(library)
+        except (RuntimeError, NotImplementedError) as exc:
+            lib_note = f" (torch.sparse.sampled_addmm does not run: {exc})"
+        bnd = sddmm_bound(op.ptr, op.col, rows, cols, e_pad)
+        log(f"  csr_sddmm_f32[{label}]: kernel {ms:.4f} ms (device "
+            f"{fmt(dev_ms)}), plain {plain_ms:.4f} ms, "
+            f"torch.sparse.sampled_addmm {library_ms} ms (device "
+            f"{fmt(lib_dev_ms)}){lib_note}, bound {bnd[0]:.5f} ms "
+            f"({bnd[1]})")
+        sd_entry = sd_entry or {**entry(
+            "csr_sddmm_f32[dw]", "sddmm.cu",
+            "msha_gnn_tpu/ops/pallas/spmm.py:1428 _sddmm_kernel and :1294 "
+            "_sddmm_hub_kernel", None, ms, plain_ms, bnd, library_ms),
+            "device_ms": dev_ms, "library_device_ms": lib_dev_ms}
+    results.append({**sd_entry, "max_abs_err": max(sd_errs)})
 
     # the row softmax: unmasked, as the path runs it (the build mask
     # senders < n_src is False only on the pads, past ptr[-1]); then, for
@@ -708,6 +739,7 @@ def phase_materialised_kernels(split):
         raise AssertionError("the fully masked row got attention")
     fwd_args = (op.ptr, logits, None, e)
     ms = time_ms(lambda: sm.seg_softmax_fwd(*fwd_args, sop.warps))
+    dev_ms = device_ms(lambda: sm.seg_softmax_fwd(*fwd_args, sop.warps))
     plain_ms = time_ms(lambda: sm.seg_softmax_fwd_plain(*fwd_args))
     rows = g.senders[:e].long()
     coo = torch.sparse_coo_tensor(torch.stack([rows, g.receivers[:e].long()]),
@@ -719,13 +751,14 @@ def phase_materialised_kernels(split):
                              "the plain version")
     library_ms = time_ms(lambda: torch.sparse.softmax(coo, 1))
     (fwd_b, bwd_b) = softmax_bounds(n, e, e_pad, masked=False)
-    log(f"  seg_softmax_fwd_f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, torch.sparse.softmax {library_ms:.4f} ms, bound {fwd_b[0]:.5f} "
-        f"ms ({fwd_b[1]})")
-    results.append(entry(
+    log(f"  seg_softmax_fwd_f32: kernel {ms:.4f} ms (device {fmt(dev_ms)}), "
+        f"plain {plain_ms:.4f} ms, torch.sparse.softmax {library_ms:.4f} ms, "
+        f"bound {fwd_b[0]:.5f} ms ({fwd_b[1]})")
+    results.append({**entry(
         "seg_softmax_fwd_f32", "softmax.cu",
         "msha_gnn_tpu/ops/pallas/softmax.py:56 _stats_kernel and :86 "
-        "_expand_kernel", max(errs), ms, plain_ms, fwd_b, library_ms))
+        "_expand_kernel", max(errs), ms, plain_ms, fwd_b, library_ms),
+        "device_ms": dev_ms})
 
     att = sm.seg_softmax_fwd_plain(*fwd_args)[0]
     bwd_args = (op.ptr, att, gatt, e)
@@ -735,6 +768,7 @@ def phase_materialised_kernels(split):
     err = close("seg_softmax_bwd_f32 dl", dl, want_dl, SUM_RTOL,
                 SUM_ATOL_REL * float(want_dl.abs().max()))
     ms = time_ms(lambda: sm.seg_softmax_bwd(*bwd_args, sop.warps))
+    dev_ms = device_ms(lambda: sm.seg_softmax_bwd(*bwd_args, sop.warps))
     plain_ms = time_ms(lambda: sm.seg_softmax_bwd_plain(*bwd_args))
     # the yardstick: torch.sparse.softmax's own backward on the forward's COO
     att_coo = torch.sparse.softmax(coo, 1)
@@ -747,13 +781,14 @@ def phase_materialised_kernels(split):
                              "disagrees with the plain version")
     library_ms = time_ms(lambda: torch._sparse_softmax_backward_data(
         g_coo, att_coo, 1, coo))
-    log(f"  seg_softmax_bwd_f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, torch.sparse.softmax backward {library_ms:.4f} ms, bound "
-        f"{bwd_b[0]:.5f} ms ({bwd_b[1]})")
-    results.append(entry(
+    log(f"  seg_softmax_bwd_f32: kernel {ms:.4f} ms (device {fmt(dev_ms)}), "
+        f"plain {plain_ms:.4f} ms, torch.sparse.softmax backward "
+        f"{library_ms:.4f} ms, bound {bwd_b[0]:.5f} ms ({bwd_b[1]})")
+    results.append({**entry(
         "seg_softmax_bwd_f32", "softmax.cu",
         "msha_gnn_tpu/ops/pallas/softmax.py:102 _rowsum_kernel and :86 "
-        "_expand_kernel", err, ms, plain_ms, bwd_b, library_ms))
+        "_expand_kernel", err, ms, plain_ms, bwd_b, library_ms),
+        "device_ms": dev_ms})
 
     # the attention-weighted SpMM: A(att) @ h forward, A(att).T @ g for dx
     w, w_t = op.weights(att, False), op.weights(att, True)
@@ -878,13 +913,13 @@ def phase_flash_kernels(split):
         kernel = (lambda: fg.flash_fwd(*args))
         same_bits(f"flash_fwd_f32[rate {rate}]", kernel)
         nan_filled(
-            f"flash_fwd_f32[rate {rate}]", n, d,
-            cuda_spmm.n_runs(n_slots, run) * (2 * d + 5),
+            f"flash_fwd_f32[rate {rate}]",
+            ((n, d), (n,), (cuda_spmm.n_runs(n_slots, run) * (2 * d + 5),)),
             lambda out, lse, ws: lib.flash_fwd_f32(
                 op.ptr.data_ptr(), op.col.data_ptr(), logits.data_ptr(),
                 x.data_ptr(), seed.data_ptr(), rate, r1._scale(rate),
                 out.data_ptr(), lse.data_ptr(), ws.data_ptr(), n, n_slots,
-                run, group, d, fg._warps(d),
+                run, group, d, fg.WARPS,
                 torch.cuda.current_stream().cuda_stream),
             kernel())
         ms, dev_ms = time_ms(kernel), device_ms(kernel)
@@ -963,6 +998,7 @@ def phase_generic_kernels(split):
     """Phase 3e: r1_fwd_f32, r1_bwd_f32, seg_reduce_f32 and csr_spmm_dw_f32
     vs their plain versions at the linkpred shapes."""
     from msha_gnn_torch.models.gat import SparseGATLayer
+    from msha_gnn_torch.ops.cuda import flash_gat as fg
     from msha_gnn_torch.ops.cuda import rank1_gat as r1
     from msha_gnn_torch.ops.cuda import sddmm as cuda_sddmm
     from msha_gnn_torch.ops.cuda import softmax as sm
@@ -1045,7 +1081,8 @@ def phase_generic_kernels(split):
     run, group = cuda_spmm.warp_run(n_slots), r1.group_for(d)
     same_bits("r1_fwd_f32", lambda: r1.r1_fwd(*args))
     nan_filled(
-        "r1_fwd_f32", n, d, cuda_spmm.n_runs(n_slots, run) * (2 * d + 5),
+        "r1_fwd_f32",
+        ((n, d), (n,), (cuda_spmm.n_runs(n_slots, run) * (2 * d + 5),)),
         lambda out, lse, ws: r1._kernel_lib().r1_fwd_f32(
             op.ptr.data_ptr(), op.col.data_ptr(), c.data_ptr(), t.data_ptr(),
             h.data_ptr(), op.slope, out.data_ptr(), lse.data_ptr(),
@@ -1054,6 +1091,19 @@ def phase_generic_kernels(split):
         r1.r1_fwd(*args))
     out, lse = r1.rank1_gat_generic_plain(*args)
     bwd_args = (op.ptr, op.col, c, t, h, gout, out, lse, op.slope, n)
+    b_run = r1.R1_BWD_RUN
+    same_bits("r1_bwd_f32", lambda: r1.r1_bwd(*bwd_args))
+    nan_filled(
+        "r1_bwd_f32",
+        ((n_slots,), (n_slots,), (n,),
+         (3 * cuda_spmm.n_runs(n_slots, b_run),)),
+        lambda att, dpre, dc, ws: fg._kernel_lib().r1_bwd_f32(
+            op.ptr.data_ptr(), op.col.data_ptr(), c.data_ptr(), t.data_ptr(),
+            h.data_ptr(), gout.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            op.slope, att.data_ptr(), dpre.data_ptr(), dc.data_ptr(),
+            ws.data_ptr(), n, n_slots, b_run, group, d, fg.WARPS,
+            torch.cuda.current_stream().cuda_stream),
+        r1.r1_bwd(*bwd_args), what="att, dpre (pads included), dc")
     results = []
     for name, fn, plain, bnd, err, replaces in (
             ("r1_fwd_f32", r1.r1_fwd, r1.rank1_gat_generic_plain,
@@ -1065,9 +1115,8 @@ def phase_generic_kernels(split):
         a = args if name == "r1_fwd_f32" else bwd_args
         ms, dev_ms = time_ms(lambda: fn(*a)), device_ms(lambda: fn(*a))
         plain_ms = time_ms(lambda: plain(*a))
-        how = (f"{run} slots a run, {group} lanes an edge, the runs grid and "
-               "the fix-up grid" if name == "r1_fwd_f32"
-               else "one block a row")
+        how = (f"{run if name == 'r1_fwd_f32' else b_run} slots a run, "
+               f"{group} lanes an edge, the runs grid and the fix-up grid")
         log(f"  {name} ({how}): kernel {ms:.4f} ms (device {fmt(dev_ms)}), "
             f"plain {plain_ms:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}); "
             f"library {no_lib}")
@@ -1162,20 +1211,23 @@ def phase_generic_kernels(split):
         if dw[e:].any():
             raise AssertionError("csr_spmm_dw_f32 left a pad slot nonzero")
         ms = time_ms(lambda: cuda_spmm.csr_spmm_dw(*args, warps))
+        dev_ms = device_ms(lambda: cuda_spmm.csr_spmm_dw(*args, warps))
         plain_ms = time_ms(lambda: cuda_spmm.csr_spmm_dw_plain(*args))
         unfused_ms = time_ms(lambda: (
             spmm.apply(gout, att, not transpose),
             cuda_sddmm.csr_sddmm(spmm.ptr, spmm.col, rows, cols, e_pad)))
         bnd = dw_bound(args[0], args[1], args[2], gout, e_pad)
-        log(f"  csr_spmm_dw_f32[{label}]: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, the unfused pair (csr_spmm_f32 + "
-            f"csr_sddmm_f32, with the weights' permute) {unfused_ms:.4f} ms, "
+        log(f"  csr_spmm_dw_f32[{label}]: kernel {ms:.4f} ms (device "
+            f"{fmt(dev_ms)}), plain {plain_ms:.4f} ms, the unfused pair "
+            f"(csr_spmm_f32 + csr_sddmm_f32, with the weights' permute) "
+            f"{unfused_ms:.4f} ms, "
             f"bound {bnd[0]:.5f} ms ({bnd[1]}); library none: no PyTorch "
             "call computes dx and dw together")
-        results.append(entry(
+        results.append({**entry(
             f"csr_spmm_dw_f32[{label}]", "spmm.cu",
             "msha_gnn_tpu/ops/pallas/spmm.py:282 _visit_dw_kernel and :340 "
-            "_hub_dw_kernel", err, ms, plain_ms, bnd, None))
+            "_hub_dw_kernel", err, ms, plain_ms, bnd, None),
+            "device_ms": dev_ms, "library_device_ms": None})
     return results
 
 

@@ -1,0 +1,354 @@
+// The per-edge walks on the edge-run schedule whose main outputs are one
+// value an edge: flash_bwd_f32 and r1_bwd_f32 (flash_gat.cu) and
+// csr_sddmm_f32 (sddmm.cu), one walk that differs only in what it does
+// with an edge's dot (the source, a template tag).  For a CSR graph (row r
+// has edges e in [ptr[r], ptr[r+1]), j = col[e]) every edge forms
+//
+//   gx_e = <a[r], b[j]>
+//
+// and then, by source:
+//
+//   kNone   out_e = gx_e                                   (csr_sddmm_f32)
+//   kRead   l_e = logits[e]                                (flash_bwd_f32)
+//   kRank1  pre_e = c[r] + t[j],  l_e = leaky(pre_e)       (r1_bwd_f32)
+//
+// with, for the two softmax backwards (a = gout, b = x, `out` and `lse` the
+// forward's),
+//
+//   att_e = exp(l_e - lse[r]), 0 where lse[r] <= NEG/2,   q_e = att_e k_e,
+//   dl_e  = q_e gx_e - att_e <gout[r], out[r]>
+//
+// (k_e the keep scale of slot e, kRead only; 1 without dropout).  kRead
+// writes dl and q; kRank1 writes att and dpre_e = dl_e (pre_e >= 0 ? 1 :
+// slope), and dc[r] = sum_{e in r} dpre_e, the one output that sums over
+// a row.
+//
+// Grid 1: a warp per run of `run` consecutive slots of [0, n_slots)
+// (runs.cuh), so a long row is spread over as many warps as it has runs;
+// the run's slots past ptr[n_rows] (pads) get 0.  The warp is split into
+// groups of G lanes (8, 16 or 32), one edge a group (gat_runs.cuh).  For
+// each row piece the warp holds a[r] in registers (d / G floats a lane)
+// and, for the softmax backwards, forms <gout[r], out[r]> and reads lse[r]
+// (and c[r]) once; a group's dot <a[r], b[j]> is a float4-wide multiply-add
+// a lane and a log2(G)-round shuffle sum, and one lane of the group does
+// the edge's scalar work and its stores.  The per-edge input (logits[e],
+// t[j]) is loaded beside the edge's column.
+//
+// kRank1's dc: the lanes sum their edges' dpre, and at the end of a row
+// piece the warp adds them by a butterfly (a fixed order).  runs.cuh says
+// where the piece goes (its row, or the run's head or tail partial with
+// cross[k]) and which run zeroes an empty row; grid 2, a thread a run, adds
+// the rows that cross runs in run order (runs::add_crossing, as
+// r1l_bwd_f32's fix-up does).  The other sources sum nothing over a row and
+// have one grid.
+//
+// A width d above what one group's registers hold takes several tiles:
+// the lanes keep the first tile of a[r] and stream the others
+// (gat_runs::lane_dot).  No float atomics: two launches give the same bits.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "gat_common.cuh"
+#include "gat_runs.cuh"
+#include "runs.cuh"
+
+namespace gat_bwd {
+
+using gat::kNeg;
+using gat::kWarp;
+
+constexpr int kMaxWarps = 8;
+
+enum class Src { kNone, kRead, kRank1 };
+
+// The inputs and outputs besides ptr, col, a and b, as the entry points
+// give them; a source reads and writes only its own.  The kernel takes
+// them as __restrict__ parameters.
+struct Args {
+  const float* logits;  // kRead: [>= E], CSR order
+  const float* c;       // kRank1: [n_rows]
+  const float* t;       // kRank1: [n_cols]
+  const float* out;     // kRead, kRank1: the forward's out [n_rows, d]
+  const float* lse;     // kRead, kRank1: [n_rows]
+  const int* seed;      // kRead at rate > 0: one int32 on the card
+  float rate;
+  float scale;          // kRead: 1/(1-rate)
+  float slope;          // kRank1
+  float* o1;            // [n_slots] kNone: out; kRead: dl; kRank1: dpre
+  float* o2;            // [n_slots] kRead: q; kRank1: att
+  float* dc;            // kRank1: [n_rows]
+  float* ws;            // kRank1: dc_head | dc_tail | cross, [n_runs] each
+};
+
+// Grid 1: one warp per run of `run` slots, groups of kG lanes one edge
+// each.
+template <Src kSrc, int kG, int kPer, bool kDrop>
+__global__ void __launch_bounds__(kMaxWarps * kWarp)
+runs_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
+            const float* __restrict__ a, const float* __restrict__ b,
+            const float* __restrict__ logits, const float* __restrict__ c,
+            const float* __restrict__ t, const float* __restrict__ out,
+            const float* __restrict__ lse, const int* __restrict__ seed_ptr,
+            float rate, float scale, float slope, float* __restrict__ o1,
+            float* __restrict__ o2, float* __restrict__ dc,
+            float* __restrict__ ws, int n_rows, int n_slots, int64_t n_runs,
+            int run, int d) {
+  using L = gat_runs::Layout<kG, kPer>;
+  constexpr bool kSoftmax = kSrc != Src::kNone;
+  constexpr bool kRowSum = kSrc == Src::kRank1;
+  constexpr int kGroups = kWarp / kG;
+  constexpr int kSteps = L::kSteps;
+  const int n_warps = blockDim.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int li = lane % kG;
+  const int grp = lane / kG;
+  const int64_t k =
+      static_cast<int64_t>(blockIdx.x) * n_warps + threadIdx.x / kWarp;
+  if (k >= n_runs) return;
+  const int n_edges = __ldg(ptr + n_rows);
+  // the pads in the run's slots
+  const int64_t slot_end =
+      (k + 1) * run < n_slots ? (k + 1) * run : static_cast<int64_t>(n_slots);
+  for (int64_t e = (k * run > n_edges ? k * run : n_edges) + lane;
+       e < slot_end; e += kWarp) {
+    o1[e] = 0.0f;
+    if constexpr (kSoftmax) o2[e] = 0.0f;
+  }
+  int first = 0;
+  int last = 0;
+  if (!runs::bounds(k, run, n_edges, first, last)) {  // past the last edge
+    if constexpr (kRowSum) {
+      if (k == 0) {  // no edges at all
+        for (int r = lane; r < n_rows; r += kWarp) dc[r] = 0.0f;
+      }
+    }
+    return;
+  }
+  const uint32_t seed = kDrop ? static_cast<uint32_t>(__ldg(seed_ptr)) : 0u;
+  int row = runs::warp_row_of(ptr, n_rows, first, lane);
+  if constexpr (kRowSum) {
+    if (lane == 0) {
+      for (int r = runs::first_owned(ptr, row, first); r < row; ++r) {
+        dc[r] = 0.0f;
+      }
+    }
+  }
+  int rb = __ldg(ptr + row);
+  int re = __ldg(ptr + row + 1);
+  while (true) {
+    const int64_t off = static_cast<int64_t>(row) * d;
+    float av[kPer];
+    gat_runs::load_lane<kG, kPer>(a + off, 0, d, li, av);
+    float d_row = 0.0f;
+    float lse_row = 0.0f;
+    float c_row = 0.0f;
+    bool live = false;
+    if constexpr (kSoftmax) {
+      float ov[kPer];
+      gat_runs::load_lane<kG, kPer>(out + off, 0, d, li, ov);
+      d_row = gat_runs::group_sum<kG>(gat_runs::lane_dot<kG, kPer>(
+          av, ov, a + off, out + off, 0, d, li));
+      lse_row = __ldg(lse + row);
+      live = lse_row > 0.5f * kNeg;
+    }
+    if constexpr (kRowSum) c_row = __ldg(c + row);
+    float dc_lane = 0.0f;  // kRank1: this lane's edges' dpre in the piece
+    const int pe = min(re, last);
+    for (int eb = max(rb, first); eb < pe; eb += kGroups * kSteps) {
+      bool ok[kSteps];
+      int64_t brow[kSteps];
+      float v[kSteps];  // the edge's own input: logits[e] or t[j]
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        const int e = eb + u * kGroups + grp;
+        ok[u] = e < pe;
+        if constexpr (kSrc == Src::kRank1) {
+          const int j = ok[u] ? __ldg(col + e) : 0;
+          brow[u] = static_cast<int64_t>(j) * d;
+          v[u] = ok[u] ? __ldg(t + j) : 0.0f;
+        } else {
+          // as the 64-bit product of the column: ptxas keeps it once
+          brow[u] = ok[u] ? static_cast<int64_t>(__ldg(col + e)) * d : 0;
+          v[u] = kSrc == Src::kRead && ok[u] ? __ldg(logits + e) : 0.0f;
+        }
+      }
+      float bv[kSteps][kPer];
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        if (ok[u]) {
+          gat_runs::load_lane<kG, kPer>(b + brow[u], 0, d, li, bv[u]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < kPer; ++i) bv[u][i] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        const float gx = gat_runs::group_sum<kG>(
+            ok[u] ? gat_runs::lane_dot<kG, kPer>(bv[u], av, b + brow[u],
+                                                  a + off, 0, d, li)
+                  : 0.0f);
+        if (ok[u] && li == u % kG) {
+          const int e = eb + u * kGroups + grp;
+          if constexpr (kSrc == Src::kNone) {
+            o1[e] = gx;
+          } else {
+            float pre = 0.0f;
+            float l = v[u];
+            if constexpr (kRowSum) {
+              pre = c_row + v[u];
+              l = gat::leaky(pre, slope);
+            }
+            const float att = live ? expf(l - lse_row) : 0.0f;
+            const float qe =
+                kDrop ? att * gat::keep_scale(static_cast<uint32_t>(e), seed,
+                                              rate, scale)
+                      : att;
+            const float dl = qe * gx - att * d_row;
+            if constexpr (kRowSum) {
+              const float dp = pre >= 0.0f ? dl : slope * dl;
+              o1[e] = dp;
+              o2[e] = att;
+              dc_lane += dp;
+            } else {
+              o1[e] = dl;
+              o2[e] = qe;
+            }
+          }
+        }
+      }
+    }
+    if constexpr (kRowSum) {
+      const float dc_piece = gat::warp_sum(dc_lane);
+      if (lane == 0) {
+        switch (runs::target(rb, re, first, last)) {
+          case runs::kHead:
+            ws[k] = dc_piece;
+            break;
+          case runs::kTail:
+            ws[n_runs + k] = dc_piece;
+            break;
+          default:
+            dc[row] = dc_piece;
+        }
+      }
+    }
+    if (re >= last) break;  // the piece reached the run's end
+    // the next row with an edge; the empty ones before it begin in the run
+    ++row;
+    rb = re;
+    re = __ldg(ptr + row + 1);
+    while (re == rb) {
+      if constexpr (kRowSum) {
+        if (lane == 0) dc[row] = 0.0f;
+      }
+      ++row;
+      re = __ldg(ptr + row + 1);
+    }
+  }
+  if constexpr (kRowSum) {
+    if (lane == 0) {
+      reinterpret_cast<int*>(ws + 2 * n_runs)[k] =
+          runs::target(rb, re, first, last) == runs::kTail ? row : -1;
+      if (last == n_edges) {  // the empty rows after the last edge
+        for (int r = row + 1; r < n_rows; ++r) dc[r] = 0.0f;
+      }
+    }
+  }
+}
+
+// Grid 2 of kRank1: a thread per run k adds the dc pieces of the row that
+// begins in it and ends after it, in run order.
+__global__ void dc_fixup_kernel(const int* __restrict__ ptr,
+                                const float* __restrict__ ws,
+                                float* __restrict__ dc, int n_rows,
+                                int64_t n_runs, int run) {
+  const int64_t k =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (k >= n_runs) return;
+  runs::add_crossing(ptr, ws, ws + n_runs,
+                     reinterpret_cast<const int*>(ws + 2 * n_runs), dc,
+                     n_rows, run, k);
+}
+
+using Kernel = void (*)(const int*, const int*, const float*, const float*,
+                        const float*, const float*, const float*,
+                        const float*, const float*, const int*, float, float,
+                        float, float*, float*, float*, float*, int, int,
+                        int64_t, int, int);
+
+template <Src kSrc, int kG, bool kDrop>
+Kernel kernel_per(int per) {
+  switch (per) {
+    case 1:
+      return runs_kernel<kSrc, kG, 1, kDrop>;
+    case 2:
+      return runs_kernel<kSrc, kG, 2, kDrop>;
+    case 4:
+      return runs_kernel<kSrc, kG, 4, kDrop>;
+    default:
+      return runs_kernel<kSrc, kG, 8, kDrop>;
+  }
+}
+
+template <Src kSrc, bool kDrop>
+Kernel kernel_for(int group, int per) {
+  switch (group) {
+    case 8:
+      return kernel_per<kSrc, 8, kDrop>(per);
+    case 16:
+      return kernel_per<kSrc, 16, kDrop>(per);
+    default:
+      return kernel_per<kSrc, 32, kDrop>(per);
+  }
+}
+
+constexpr int kFixThreads = 256;
+
+// The grids on `stream`, no synchronisation; returns cudaGetLastError()
+// after the launches (0 = launched).  col [>= ptr[n_rows]] in CSR order (the
+// edge count is read from ptr on the card), a [n_rows, d], b [n_cols, d];
+// o1 (and o2) [n_slots] with n_slots >= ptr[n_rows]; for kRank1, dc
+// [n_rows] and ws [3 n_runs] float32 with n_runs = max(1, ceil(n_slots /
+// run)); group the lanes an edge, 8, 16 or 32.  Dropout (rate > 0) is
+// kRead's only.
+template <Src kSrc>
+int launch(const int* ptr, const int* col, const float* a, const float* b,
+           const Args& p, int n_rows, int n_slots, int run, int group, int d,
+           int n_warps, cudaStream_t stream) {
+  if (n_rows <= 0 || d < 0 || n_warps < 1 || n_warps > kMaxWarps ||
+      n_slots < 0 || run < 1 || !(group == 8 || group == 16 || group == 32) ||
+      (kSrc != Src::kRead && p.rate > 0.0f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t n_runs = runs::count(n_slots, run);
+  uintptr_t at = reinterpret_cast<uintptr_t>(a) |
+                 reinterpret_cast<uintptr_t>(b);
+  if constexpr (kSrc != Src::kNone) at |= reinterpret_cast<uintptr_t>(p.out);
+  const int per = gat_runs::per_lane(group, d, at);
+  Kernel kernel = kernel_for<kSrc, false>(group, per);
+  if constexpr (kSrc == Src::kRead) {
+    if (p.rate > 0.0f) kernel = kernel_for<kSrc, true>(group, per);
+  }
+  kernel<<<static_cast<unsigned>((n_runs + n_warps - 1) / n_warps),
+           n_warps * kWarp, 0, stream>>>(
+      ptr, col, a, b, p.logits, p.c, p.t, p.out, p.lse, p.seed, p.rate,
+      p.scale, p.slope, p.o1, p.o2, p.dc, p.ws, n_rows, n_slots, n_runs, run,
+      d);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if constexpr (kSrc == Src::kRank1) {
+    dc_fixup_kernel<<<static_cast<unsigned>((n_runs + kFixThreads - 1) /
+                                            kFixThreads),
+                      kFixThreads, 0, stream>>>(ptr, p.ws, p.dc, n_rows,
+                                                n_runs, run);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return 0;
+}
+
+}  // namespace gat_bwd

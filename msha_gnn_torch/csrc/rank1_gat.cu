@@ -327,14 +327,7 @@ r1l_bwd_fixup_kernel(const int* __restrict__ ptr,
     const int64_t k =
         static_cast<int64_t>(blockIdx.x - da_blocks) * blockDim.x +
         threadIdx.x;
-    int64_t k_end = 0;
-    const int r = runs::crossing_row(ptr, cross, __ldg(ptr + n_rows), run, k,
-                                     k_end);
-    if (r < 0) return;
-    float v = dc_tail[k];
-#pragma unroll 8
-    for (int64_t j = k + 1; j <= k_end; ++j) v += dc_head[j];
-    dc[r] = v;
+    runs::add_crossing(ptr, dc_head, dc_tail, cross, dc, n_rows, run, k);
     return;
   }
   __shared__ float partial[kWarp][kWarp];

@@ -1,6 +1,8 @@
 // The edge-run schedule of the CSR walks that sum edges into their rows:
-// csr_spmm_f32 and seg_reduce_f32 (spmm.cu), r1l_bwd_f32's dc
-// (rank1_gat.cu) and the GAT forwards' online softmaxes (gat_fwd.cuh).
+// csr_spmm_f32 and seg_reduce_f32 (spmm.cu), r1l_bwd_f32's and
+// r1_bwd_f32's dc (rank1_gat.cu, gat_bwd.cuh) and the GAT forwards' online
+// softmaxes (gat_fwd.cuh); the per-edge walks of gat_bwd.cuh use its runs
+// too.
 //
 // The CSR slots [0, n_edges) are cut into runs of `run` consecutive slots,
 // whatever the row lengths, and each run goes to one worker (a warp, or one
@@ -116,6 +118,24 @@ __device__ __forceinline__ int crossing_row(const int* __restrict__ ptr,
   const int r = cross[k];
   if (r >= 0) k_end = (__ldg(ptr + r + 1) - 1) / run;
   return r;
+}
+
+// The d = 1 sum of the row that begins in run k and ends after it:
+// out[r] = tail[k] + head[k + 1] + ... + head[k_end], added in run order;
+// nothing when no row crosses out of run k.
+__device__ __forceinline__ void add_crossing(const int* __restrict__ ptr,
+                                             const float* __restrict__ head,
+                                             const float* __restrict__ tail,
+                                             const int* __restrict__ cross,
+                                             float* __restrict__ out,
+                                             int n_rows, int run, int64_t k) {
+  int64_t k_end = 0;
+  const int r = crossing_row(ptr, cross, __ldg(ptr + n_rows), run, k, k_end);
+  if (r < 0) return;
+  float v = tail[k];
+#pragma unroll 8
+  for (int64_t j = k + 1; j <= k_end; ++j) v += head[j];
+  out[r] = v;
 }
 
 // kVec consecutive floats of a read-only global row, through the

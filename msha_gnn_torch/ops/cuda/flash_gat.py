@@ -1,9 +1,10 @@
 """Flash-GAT through the hand-written kernels ``flash_fwd_f32`` and
 ``flash_bwd_f32`` (``msha_gnn_torch/csrc/flash_gat.cu``; the forward is
 the edge-run walk of ``csrc/gat_fwd.cuh`` with the logits read, which
-``r1l_fwd_f32`` and ``r1_fwd_f32`` share; the same source's
-``r1_bwd_f32``, the generic rank-1 GAT's backward, is wrapped in
-:mod:`msha_gnn_torch.ops.cuda.rank1_gat`).
+``r1l_fwd_f32`` and ``r1_fwd_f32`` share; the backward is the per-edge walk
+of ``csrc/gat_bwd.cuh``, which the same source's ``r1_bwd_f32``, the
+generic rank-1 GAT's backward, wrapped in
+:mod:`msha_gnn_torch.ops.cuda.rank1_gat`, and ``csr_sddmm_f32`` share).
 
 The kernels replace ``_flash_kernel`` and ``_flash_bwd_kernel`` of
 ``msha_gnn_tpu/ops/pallas/flash_gat.py``; the source says what they
@@ -15,7 +16,8 @@ compute and what bounds them (bytes).
   they run :func:`flash_gat_plain` and :func:`flash_gat_bwd_plain`, the
   plain PyTorch versions of the same functions and the kernels' oracles.
   :func:`flash_gat_runs_plain` and :func:`flash_gat_bwd_runs_plain` mirror
-  the kernels' edge-run walks step by step, for tests.
+  the kernels' edge-run walks step by step, for tests, and
+  :func:`rank1_gat_generic_bwd_runs_plain` the walk of ``r1_bwd_f32``.
 * :class:`FlashGatOperator` binds one graph and is differentiable: softmax
   of given per-edge logits over each row, the hashed attention dropout and
   the aggregation in one kernel, with a recompute backward.  Its ``dx`` is
@@ -26,13 +28,12 @@ compute and what bounds them (bytes).
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import TYPE_CHECKING, Optional
 
 import torch
 
-from .rank1_gat import (NEG, WARP, _fwd_runs_plain, _group, _keep, _scale,
-                        _steps)
+from .rank1_gat import (NEG, _edge_walk, _fwd_runs_plain, _group, _keep,
+                        _scale)
 from .spmm import SpmmOperator, edge_rows, n_runs, operator_for, warp_run
 
 if TYPE_CHECKING:
@@ -43,6 +44,10 @@ if TYPE_CHECKING:
 # the card at the linkpred shapes (PERF.md, the sweep of RUN_SLOTS and
 # GROUPS).
 BWD_RUN = 32
+
+# Warps a block in every launch of this library: no kernel of it keeps
+# shared memory, so the block's size limits nothing.
+WARPS = 8
 
 # Launches of flash_fwd_f32 / flash_bwd_f32 in this process (plain counts,
 # reset by callers that measure a run).  A flash_fwd_f32 launch runs two
@@ -63,10 +68,8 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.flash_fwd_f32.argtypes = [p] * 5 + [f] * 2 + [p] * 3 + [i] * 6 + [p]
         lib.flash_bwd_f32.argtypes = [p] * 8 + [f] * 2 + [p] * 2 + [i] * 6 + [p]
         # the generic rank-1 GAT's backward (wrapped in rank1_gat.py)
-        lib.r1_bwd_f32.argtypes = [p] * 8 + [f] + [p] * 3 + [i] * 4 + [p]
-        lib.flash_max_warps.argtypes = [i]
-        for fn in (lib.flash_fwd_f32, lib.flash_bwd_f32, lib.r1_bwd_f32,
-                   lib.flash_max_warps):
+        lib.r1_bwd_f32.argtypes = [p] * 8 + [f] + [p] * 4 + [i] * 6 + [p]
+        for fn in (lib.flash_fwd_f32, lib.flash_bwd_f32, lib.r1_bwd_f32):
             fn.restype = ctypes.c_int
         lib.flash_error_string.argtypes = [i]
         lib.flash_error_string.restype = ctypes.c_char_p
@@ -139,57 +142,96 @@ def flash_gat_runs_plain(ptr, col, logits, x, seed, rate: float,
 
 def flash_gat_bwd_runs_plain(ptr, col, logits, x, gout, out, lse, seed,
                              rate: float, n_rows: int, run: int, group: int):
-    """The walk of ``flash_bwd_f32`` in plain PyTorch, step by step as the
-    kernel takes it (``msha_gnn_torch/csrc/flash_gat.cu``, ``runs.cuh``):
-    runs of ``run`` consecutive slots of ``[0, n_out)``, each zeroing its
-    pad slots past ``ptr[n_rows]`` and walking its row pieces, with the
-    row's ``<gout[r], out[r]>`` and ``lse[r]`` taken once a piece and the
-    edges handed to ``32 / group`` groups, a step at a time.
+    """The walk of ``flash_bwd_f32`` (``csrc/gat_bwd.cuh``, the source
+    ``kRead``) in plain PyTorch, step by step as the kernel takes it
+    (``rank1_gat._edge_walk``): runs of ``run`` consecutive slots of
+    ``[0, n_out)``, each zeroing its pad slots past ``ptr[n_rows]`` and
+    walking its row pieces, with the row's ``<gout[r], out[r]>`` and
+    ``lse[r]`` and the edges handed to ``32 / group`` groups, a step at a
+    time.
 
     Returns ``(dl [n_out], q [n_out], writes [n_out])``, ``writes``
     counting how often each slot was written (the kernel writes each
     once).  Slow: Python loops over runs and steps, for tests.
     """
-    pl = [int(v) for v in ptr.tolist()]
-    n_edges, n_out = pl[n_rows], logits.shape[0]
-    n_groups, steps = WARP // group, _steps(group, x.shape[1])
+    n_edges, n_out = int(ptr[n_rows]), logits.shape[0]
     keep = _keep(n_edges, seed, rate, x.device)
-    rows = edge_rows(ptr, n_edges)
     dl = logits.new_full((n_out,), float("nan"))
     q = logits.new_full((n_out,), float("nan"))
     writes = torch.zeros(n_out, dtype=torch.int64)
-    lanes = (torch.arange(steps)[None, :] * n_groups
-             + torch.arange(n_groups)[:, None]).reshape(-1)
-    for k in range(n_runs(n_out, run)):
-        lo, hi = k * run, min(k * run + run, n_out)
-        pads = torch.arange(min(max(lo, n_edges), hi), hi)
-        dl[pads], q[pads] = 0.0, 0.0
-        writes[pads] += 1
-        first, last = lo, min(hi, n_edges)
-        if first >= n_edges:
-            continue
-        row = int(rows[first])
-        while True:
-            rb, re = pl[row], pl[row + 1]
-            g_row, lse_row = gout[row], lse[row]
-            d_row = (g_row * out[row]).sum()
-            live = bool(lse_row > NEG / 2)
-            pe = min(re, last)
-            for eb in range(max(rb, first), pe, n_groups * steps):
-                idx = eb + lanes
-                idx = idx[idx < pe]
-                gx = (x[col[idx].long()] * g_row).sum(1)
-                att = (torch.exp(logits[idx] - lse_row) if live
-                       else logits.new_zeros(idx.numel()))
-                qe = att * keep[idx]
-                dl[idx], q[idx] = qe * gx - att * d_row, qe
-                writes.index_add_(0, idx, torch.ones_like(idx))
-            if re >= last:
-                break
-            row += 1
-            while pl[row + 1] == pl[row]:
-                row += 1
+    for event, *at in _edge_walk(ptr, n_out, run, group, x.shape[1]):
+        if event == "pads":
+            dl[at[0]], q[at[0]] = 0.0, 0.0
+            writes[at[0]] += 1
+        elif event == "step":
+            row, idx = at
+            lse_row = lse[row]
+            d_row = (gout[row] * out[row]).sum()
+            gx = (x[col[idx].long()] * gout[row]).sum(1)
+            att = (torch.exp(logits[idx] - lse_row) if lse_row > NEG / 2
+                   else logits.new_zeros(idx.numel()))
+            qe = att * keep[idx]
+            dl[idx], q[idx] = qe * gx - att * d_row, qe
+            writes.index_add_(0, idx, torch.ones_like(idx))
     return dl, q, writes
+
+
+def rank1_gat_generic_bwd_runs_plain(ptr, col, c, t, x, gout, out, lse,
+                                     slope: float, n_rows: int, run: int,
+                                     group: int):
+    """The walk of ``r1_bwd_f32`` (``csrc/gat_bwd.cuh``, the source
+    ``kRank1``) in plain PyTorch, step by step as the kernel takes it:
+    :func:`flash_gat_bwd_runs_plain` on the logits ``leaky(c[r] + t[j])``,
+    ``dpre`` from its ``dl``, and ``dc`` summed by row piece
+    (``rank1_gat._edge_walk``): a row inside a run is written, a crossing
+    row leaves head and tail pieces that the fix-up adds in run order, and
+    the empty rows are zeroed by the runs that own them.  ``col`` [n_out]
+    may run past ``ptr[n_rows]``.
+
+    Returns ``(att [n_out], dpre [n_out], dc [n_rows], writes [n_out],
+    dc_writes [n_rows])``, the ``writes`` counting how often each slot and
+    each row of ``dc`` was written (the kernel writes each once).  Slow:
+    Python loops over runs and steps, for tests.
+    """
+    n_edges, n_out = int(ptr[n_rows]), col.numel()
+    pre = x.new_zeros(n_out)
+    pre[:n_edges] = (c[edge_rows(ptr, n_edges)]
+                     + t[col[:n_edges].long()])
+    logits = torch.where(pre >= 0, pre, slope * pre)
+    dl, att, writes = flash_gat_bwd_runs_plain(
+        ptr, col, logits, x, gout, out, lse, None, 0.0, n_rows, run, group)
+    dpre = torch.where(pre >= 0, dl, slope * dl)
+    dc = x.new_full((n_rows,), float("nan"))
+    dc_writes = torch.zeros(n_rows, dtype=torch.int64)
+    n = n_runs(n_out, run)
+    head, tail, cross = [None] * n, [None] * n, [-1] * n
+    piece = x.new_zeros(())
+    for event, *at in _edge_walk(ptr, n_out, run, group, x.shape[1]):
+        if event == "empty":
+            dc[at[0]] = 0.0
+            dc_writes[at[0]] += 1
+        elif event == "step":
+            piece = piece + dpre[at[1]].sum()
+        elif event == "piece":
+            k, row, target = at
+            if target == "out":
+                dc[row] = piece
+                dc_writes[row] += 1
+            elif target == "head":
+                head[k] = piece
+            else:
+                tail[k], cross[k] = piece, row
+            piece = x.new_zeros(())
+    ends = [int(v) for v in ptr[1:].tolist()]
+    for k, r in enumerate(cross):
+        if r < 0:
+            continue
+        v = tail[k]
+        for j in range(k + 1, (ends[r] - 1) // run + 1):
+            v = v + head[j]
+        dc[r] = v
+        dc_writes[r] += 1
+    return att, dpre, dc, writes, dc_writes
 
 
 # ---------------------------------------------------------------------------
@@ -210,18 +252,6 @@ def _check(dev, rate, **tensors):
             raise ValueError(f"{name} must be contiguous")
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"rate must be in [0, 1), got {rate}")
-
-
-@functools.lru_cache(maxsize=None)
-def _warps(d: int) -> int:
-    """Warps per block: the most (up to 8) whose shared memory fits
-    ``r1_bwd_f32``, the one kernel of the library that keeps any (asked
-    of the library once per ``d``); the edge-run kernels take any."""
-    w = _kernel_lib().flash_max_warps(d)
-    if w < 1:
-        raise ValueError(f"feature width {d} does not fit the kernels' "
-                         "shared memory")
-    return w
 
 
 def _shapes(ptr, col, logits, x, n_rows):
@@ -268,8 +298,8 @@ def flash_fwd(ptr, col, logits, x, seed, rate: float, n_rows: int,
         rc = lib.flash_fwd_f32(
             ptr.data_ptr(), col.data_ptr(), logits.data_ptr(), x.data_ptr(),
             seed.data_ptr(), rate, _scale(rate), out.data_ptr(),
-            lse.data_ptr(), ws.data_ptr(), n_rows, e, run, group, d,
-            _warps(d), stream)
+            lse.data_ptr(), ws.data_ptr(), n_rows, e, run, group, d, WARPS,
+            stream)
     _raise_on(lib, rc, "flash_fwd_f32")
     fwd_launches += 1
     return out, lse
@@ -311,7 +341,7 @@ def flash_bwd(ptr, col, logits, x, gout, out, lse, seed, rate: float,
             ptr.data_ptr(), col.data_ptr(), logits.data_ptr(), x.data_ptr(),
             gout.data_ptr(), out.data_ptr(), lse.data_ptr(), seed.data_ptr(),
             rate, _scale(rate), dl.data_ptr(), q.data_ptr(), n_rows, n_out,
-            run, group, d, _warps(d), stream)
+            run, group, d, WARPS, stream)
     _raise_on(lib, rc, "flash_bwd_f32")
     bwd_launches += 1
     return dl, q

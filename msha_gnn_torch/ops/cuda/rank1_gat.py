@@ -2,7 +2,8 @@
 ``r1l_bwd_f32`` (``msha_gnn_torch/csrc/rank1_gat.cu``) for the dst_linear
 form, ``r1_fwd_f32`` (``rank1_gat.cu``, the same edge-run forward walk of
 ``csrc/gat_fwd.cuh`` with the logits formed from ``c`` and ``t``) and
-``r1_bwd_f32`` (``msha_gnn_torch/csrc/flash_gat.cu``) for the generic
+``r1_bwd_f32`` (``msha_gnn_torch/csrc/flash_gat.cu``, the per-edge walk
+of ``csrc/gat_bwd.cuh`` that ``flash_bwd_f32`` shares) for the generic
 form.
 
 The kernels replace ``_r1l_fwd_kernel``, ``_r1l_bwd_kernel``,
@@ -16,7 +17,8 @@ compute and what bounds them.
   they run :func:`rank1_gat_plain` and :func:`rank1_gat_bwd_plain`, the
   plain PyTorch versions of the same functions and the kernels' oracles.
   :func:`rank1_gat_runs_plain` and :func:`rank1_gat_generic_runs_plain`
-  mirror the forwards' edge-run walk step by step, for tests.
+  mirror the forwards' edge-run walk step by step, for tests
+  (``flash_gat.rank1_gat_generic_bwd_runs_plain`` the backward's).
 * :func:`keep_scale_plain` is the dropout keep mask, bit for bit the JAX
   package's ``_hash01``/``_keep_scale``; :func:`keep_scale` computes it on
   the card in one launch of the kernels' own device function
@@ -38,6 +40,7 @@ compute and what bounds them.
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 import functools
 from typing import TYPE_CHECKING, Optional
@@ -53,10 +56,14 @@ if TYPE_CHECKING:
 NEG = -1e30
 
 # Lanes an edge in the kernels on the edge-run schedule (the forwards
-# r1l_fwd_f32, r1_fwd_f32 and flash_fwd_f32, and flash_bwd_f32;
-# csrc/gat_runs.cuh).
+# r1l_fwd_f32, r1_fwd_f32 and flash_fwd_f32, the per-edge walks
+# flash_bwd_f32, r1_bwd_f32 and csr_sddmm_f32; csrc/gat_runs.cuh).
 GROUPS = (8, 16, 32)
 WARP = 32
+
+# Slots a warp of r1_bwd_f32 by default (PERF.md, the sweep of RUN_SLOTS
+# and GROUPS at the linkpred shapes).
+R1_BWD_RUN = 64
 
 # Launches of r1l_fwd_f32 / r1l_bwd_f32 in this process (plain counts, reset
 # by callers that measure a run).  Each launch runs two grids: the edge
@@ -65,9 +72,10 @@ WARP = 32
 fwd_launches = 0
 bwd_launches = 0
 keep_launches = 0
-# Launches of the generic form's r1_fwd_f32 / r1_bwd_f32.  An r1_fwd_f32
-# launch runs two grids, as r1l_fwd_f32's does: the edge runs, then the
-# merge of the rows that cross runs.
+# Launches of the generic form's r1_fwd_f32 / r1_bwd_f32.  Each launch runs
+# two grids, as r1l_fwd_f32's and r1l_bwd_f32's do: the edge runs, then the
+# fix-up of the rows that cross runs (the forward's pieces merged, the
+# backward's dc pieces added, in run order).
 r1_fwd_launches = 0
 r1_bwd_launches = 0
 
@@ -348,6 +356,63 @@ def _fwd_runs_plain(ptr, logit, keep, xg, n_rows: int, run: int,
     return out, lse, writes
 
 
+def _edge_walk(ptr, n_out: int, run: int, group: int, d: int):
+    """The schedule of the per-edge walks of ``csrc/gat_bwd.cuh``
+    (``flash_bwd_f32``, ``r1_bwd_f32``, ``csr_sddmm_f32``), step by step as
+    the kernels take it (``runs.cuh``, ``gat_runs.cuh``): runs of ``run``
+    consecutive slots of ``[0, n_out)``, each zeroing its pad slots past
+    ``ptr[n_rows]`` and walking its row pieces, the edges of a piece handed
+    to ``32 / group`` groups a step at a time.
+
+    Yields, in a run's order: ``("pads", slots)``; ``("empty", row)`` for
+    each empty row, by the run that owns it (the run holding slot
+    ``ptr[row]``, the last run with edges for the rows after the last edge,
+    run 0 for every row when there are no edges); ``("step", row, slots)``;
+    and ``("piece", k, row, target)`` at the end of each row piece of run
+    ``k``, ``target`` one of ``"out"``, ``"head"`` and ``"tail"``
+    (``runs::target``).
+    """
+    pl = [int(v) for v in ptr.tolist()]
+    n_rows = len(pl) - 1
+    n_edges = pl[n_rows]
+    n_groups, steps = WARP // group, _steps(group, d)
+    lanes = (torch.arange(steps)[None, :] * n_groups
+             + torch.arange(n_groups)[:, None]).reshape(-1)
+    for k in range(n_runs(n_out, run)):
+        lo, hi = k * run, min(k * run + run, n_out)
+        yield "pads", torch.arange(min(max(lo, n_edges), hi), hi)
+        first, last = lo, min(hi, n_edges)
+        if first >= n_edges:
+            if k == 0:
+                for r in range(n_rows):
+                    yield "empty", r
+            continue
+        # the last row with ptr[row] <= first: past the empty rows before it
+        row = bisect.bisect_right(pl, first, 0, n_rows) - 1
+        r = row
+        while r > 0 and pl[r - 1] == first:
+            r -= 1
+        for empty in range(r, row):
+            yield "empty", empty
+        while True:
+            rb, re = pl[row], pl[row + 1]
+            pe = min(re, last)
+            for eb in range(max(rb, first), pe, n_groups * steps):
+                idx = eb + lanes
+                yield "step", row, idx[idx < pe]
+            yield "piece", k, row, ("head" if rb < first
+                                    else "tail" if re > last else "out")
+            if re >= last:
+                break
+            row += 1
+            while pl[row + 1] == pl[row]:
+                yield "empty", row
+                row += 1
+        if last == n_edges:
+            for empty in range(row + 1, n_rows):
+                yield "empty", empty
+
+
 def rank1_gat_runs_plain(ptr, col, c, a, x, seed, rate: float, slope: float,
                          n_rows: int, run: int, group: int):
     """The walk of ``r1l_fwd_f32`` (the logit source ``kDot``:
@@ -618,11 +683,17 @@ def r1_fwd(ptr, col, c, t, x, slope: float, n_rows: int,
     return out, lse
 
 
-def r1_bwd(ptr, col, c, t, x, gout, out, lse, slope: float, n_rows: int):
+def r1_bwd(ptr, col, c, t, x, gout, out, lse, slope: float, n_rows: int,
+           run: Optional[int] = None, group: Optional[int] = None):
     """Generic recompute backward -> ``(att [E], dpre [E], dc [n_rows])``
     float32; ``gout``, ``out`` [n_rows, d] and ``lse`` [n_rows] as the
-    forward gave them.  CPU tensors take the plain version; CUDA tensors
-    launch ``r1_bwd_f32`` or raise."""
+    forward gave them.  ``col`` [E] may run past ``ptr[n_rows]``: the
+    kernel reads the edge count from ``ptr`` on the card and gives ``att``
+    and ``dpre`` 0 on the pads.  ``run`` slots a warp (default
+    :data:`R1_BWD_RUN`), ``group`` lanes an edge (one of :data:`GROUPS`,
+    default :func:`group_for`).  CPU tensors take the plain version; CUDA
+    tensors launch ``r1_bwd_f32`` (two grids: the edge runs, then the dc of
+    the rows that cross runs) or raise."""
     global r1_bwd_launches
     if x.device.type == "cpu":
         return rank1_gat_generic_bwd_plain(ptr, col, c, t, x, gout, out, lse,
@@ -638,19 +709,23 @@ def r1_bwd(ptr, col, c, t, x, gout, out, lse, slope: float, n_rows: int):
                          f"and lse {tuple(lse.shape)} must be [{n_rows}, "
                          f"{d}] and [{n_rows}]")
     dev, e = x.device, col.numel()
+    group = _group(group, d)
     att = torch.empty(e, dtype=torch.float32, device=dev)
     dpre = torch.empty(e, dtype=torch.float32, device=dev)
     dc = torch.empty(n_rows, dtype=torch.float32, device=dev)
     if n_rows == 0:
-        return att, dpre, dc
+        return att.zero_(), dpre.zero_(), dc
+    run = R1_BWD_RUN if run is None else int(run)
+    ws = torch.empty(3 * n_runs(e, run), dtype=torch.float32, device=dev)
     lib = flash_gat._kernel_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.r1_bwd_f32(
             ptr.data_ptr(), col.data_ptr(), c.data_ptr(), t.data_ptr(),
             x.data_ptr(), gout.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            slope, att.data_ptr(), dpre.data_ptr(), dc.data_ptr(), n_rows, e,
-            d, flash_gat._warps(d), stream)
+            slope, att.data_ptr(), dpre.data_ptr(), dc.data_ptr(),
+            ws.data_ptr(), n_rows, e, run, group, d, flash_gat.WARPS,
+            stream)
     flash_gat._raise_on(lib, rc, "r1_bwd_f32")
     r1_bwd_launches += 1
     return att, dpre, dc

@@ -9,6 +9,9 @@ both and what bounds it (bytes).
   on the current stream and counts the launch in :data:`launches`.  For
   tensors on the CPU it runs :func:`csr_sddmm_plain`, the plain PyTorch
   version of the same function and the kernel's oracle.
+  :func:`csr_sddmm_runs_plain` mirrors the kernel's edge-run walk (the one
+  of ``csrc/gat_bwd.cuh``, shared with ``flash_bwd_f32`` and
+  ``r1_bwd_f32``) step by step, for tests.
 * :class:`SddmmOperator` (``msha_gnn_tpu/ops/pallas/sddmm.py``) binds one
   graph and is differentiable: ``op(h_src, h_dst)[e] = <h_src[snd_e],
   h_dst[rcv_e]>`` in CSR edge order, pads 0; its backward is the two
@@ -25,6 +28,7 @@ from typing import TYPE_CHECKING, Optional
 
 import torch
 
+from .rank1_gat import _edge_walk, _group
 from .spmm import edge_rows, operator_for
 
 if TYPE_CHECKING:
@@ -33,6 +37,10 @@ if TYPE_CHECKING:
 # Launches of csr_sddmm_f32 in this process (a plain count, reset by callers
 # that measure a run).
 launches = 0
+
+# Slots a warp by default (PERF.md, the sweep of RUN_SLOTS and GROUPS at
+# the linkpred shapes).
+RUN = 32
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -44,7 +52,7 @@ def _kernel_lib() -> ctypes.CDLL:
 
         lib = _build.load("sddmm")
         lib.csr_sddmm_f32.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_int] * 4 + [ctypes.c_void_p]
+            ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.csr_sddmm_f32.restype = ctypes.c_int
         lib.csr_sddmm_error_string.argtypes = [ctypes.c_int]
         lib.csr_sddmm_error_string.restype = ctypes.c_char_p
@@ -62,15 +70,44 @@ def csr_sddmm_plain(ptr: torch.Tensor, col: torch.Tensor, a: torch.Tensor,
     return out
 
 
+def csr_sddmm_runs_plain(ptr: torch.Tensor, col: torch.Tensor,
+                         a: torch.Tensor, b: torch.Tensor, n_out: int,
+                         run: int, group: int):
+    """The walk of ``csr_sddmm_f32`` (``csrc/gat_bwd.cuh``, the source
+    ``kNone``) in plain PyTorch, step by step as the kernel takes it
+    (``rank1_gat._edge_walk``): runs of ``run`` slots of ``[0, n_out)``,
+    each zeroing its pads past ``ptr[n_rows]`` and handing the edges of
+    each row piece to ``32 / group`` groups, one dot an edge.
+
+    Returns ``(out [n_out], writes [n_out])``, ``writes`` counting how
+    often each slot was written (the kernel writes each once).  Slow:
+    Python loops over runs and steps, for tests.
+    """
+    out = a.new_full((n_out,), float("nan"))
+    writes = torch.zeros(n_out, dtype=torch.int64)
+    for event, *at in _edge_walk(ptr, n_out, run, group, a.shape[1]):
+        if event == "pads":
+            out[at[0]] = 0.0
+            writes[at[0]] += 1
+        elif event == "step":
+            row, idx = at
+            out[idx] = (b[col[idx].long()] * a[row]).sum(1)
+            writes.index_add_(0, idx, torch.ones_like(idx))
+    return out, writes
+
+
 def csr_sddmm(ptr: torch.Tensor, col: torch.Tensor, a: torch.Tensor,
-              b: torch.Tensor, n_out: int) -> torch.Tensor:
+              b: torch.Tensor, n_out: int, run: Optional[int] = None,
+              group: Optional[int] = None) -> torch.Tensor:
     """``out[e] = <a[row(e)], b[col[e]]>`` for the CSR edges, 0 for the
     slots ``col.numel() <= e < n_out`` -> [n_out] f32.
 
     ``ptr`` int32 [n_rows + 1], ``col`` int32 [E] with ``E = ptr[-1]``,
     ``a`` f32 [n_rows, d], ``b`` f32 [n_cols, d], all contiguous and on one
-    device.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise.
+    device.  ``run`` slots a warp (default :data:`RUN`), ``group`` lanes an
+    edge (one of :data:`~.rank1_gat.GROUPS`, default
+    :func:`~.rank1_gat.group_for`).  CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise.
     """
     global launches
     dev = a.device
@@ -96,6 +133,8 @@ def csr_sddmm(ptr: torch.Tensor, col: torch.Tensor, a: torch.Tensor,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     d = a.shape[1]
+    group = _group(group, d)
+    run = RUN if run is None else int(run)
     if n_rows == 0 or d == 0:
         return torch.zeros(n_out, dtype=torch.float32, device=dev)
     out = torch.empty(n_out, dtype=torch.float32, device=dev)
@@ -103,8 +142,8 @@ def csr_sddmm(ptr: torch.Tensor, col: torch.Tensor, a: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.csr_sddmm_f32(ptr.data_ptr(), col.data_ptr(), a.data_ptr(),
-                               b.data_ptr(), out.data_ptr(), n_rows, e,
-                               n_out, d, stream)
+                               b.data_ptr(), out.data_ptr(), n_rows, n_out,
+                               run, group, d, stream)
     if rc != 0:
         msg = lib.csr_sddmm_error_string(rc).decode()
         raise RuntimeError(f"csr_sddmm_f32 launch failed: {msg} (error {rc})")

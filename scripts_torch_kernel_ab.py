@@ -1,41 +1,42 @@
-"""The CSR-sum and GAT kernels of two ``csrc`` trees side by side on one
-CUDA card: each tree's build, called through its own C signatures, on the
-same inputs.
+"""The CSR-sum and GAT kernels and the SDDMM of two ``csrc`` trees side by
+side on one CUDA card: each tree's build, called through its own C
+signatures, on the same inputs.
 
     python3 scripts_torch_kernel_ab.py BASE_CSRC
 
 ``BASE_CSRC`` is another tree's ``msha_gnn_torch/csrc`` (for example the
 parent commit's, unpacked with ``git archive`` into a directory that
-``.gitignore`` lists), whose ``flash_fwd_f32`` and ``r1_fwd_f32`` (both in
-its ``flash_gat.cu``) have the one-block-per-row signatures:
-``flash_fwd_f32(ptr, col, logits, x, seed, rate, scale, out, lse, n_rows,
-d, n_warps, stream)`` and ``r1_fwd_f32(ptr, col, c, t, x, slope, out, lse,
-n_rows, d, n_warps, stream)``.  This tree's are the edge-run forwards
-(``r1_fwd_f32`` in ``rank1_gat.cu``), which take a workspace, the slot
-count, the run length and the lanes an edge.  The other entry points
+``.gitignore`` lists), whose ``r1_bwd_f32`` (in its ``flash_gat.cu``) and
+``csr_sddmm_f32`` (``sddmm.cu``) have the one-block-per-row and
+chunk-per-warp signatures: ``r1_bwd_f32(ptr, col, c, t, x, gout, out, lse,
+slope, att, dpre, dc, n_rows, n_out, d, n_warps, stream)`` with
+``n_warps`` from its ``flash_max_warps(d)``, and ``csr_sddmm_f32(ptr, col,
+a, b, out, n_rows, n_edges, n_out, d, stream)``.  This tree's are the
+per-edge walks of ``csrc/gat_bwd.cuh``, which take a workspace (``dc``
+pieces), the run length and the lanes an edge.  The other entry points
 (``csr_spmm_f32``, ``seg_reduce_f32``, ``r1l_fwd_f32``, ``r1l_bwd_f32``,
-``flash_bwd_f32``) have the same signatures in both trees and run through
-this tree's wrappers with each build's library in turn.  On the path's
-shapes (the GCN graph of the 2015 flow data's shape, d 32; the linkpred
-graph, synthetic ogbl-ddi seed 42, d 64) the script runs
-``flash_fwd_f32`` at dropout rates 0 and 0.5, ``r1_fwd_f32``, and, as
-controls, ``r1l_fwd_f32`` at 0 and 0.5 (the walk that the forwards now
-share), every ``csr_spmm_f32`` use (gc1 ``A^T x``, gc2 ``A x``, the
-att-weighted ``A h`` and ``A^T g``, the ``q``-weighted dx, the d = 1
-column sum), ``seg_reduce_f32`` on ``[E_pad, 64]`` values, ``r1l_bwd_f32``
-and ``flash_bwd_f32`` at 0.5.  It prints:
+``flash_fwd_f32``, ``flash_bwd_f32``, ``r1_fwd_f32``) have the same
+signatures in both trees and run through this tree's wrappers with each
+build's library in turn.  On the path's shapes (the GCN graph of the 2015
+flow data's shape, d 32; the linkpred graph, synthetic ogbl-ddi seed 42,
+d 64) the script runs ``r1_bwd_f32``, ``csr_sddmm_f32`` in both
+orientations (``sddmm(g, x)``, ``sddmm(x, g)``) and, as controls,
+``flash_bwd_f32`` at 0.5 (the walk it now shares), every ``csr_spmm_f32``
+use (gc1 ``A^T x``, gc2 ``A x``, the att-weighted ``A h`` and ``A^T g``,
+the ``q``-weighted dx, the d = 1 column sum), ``seg_reduce_f32`` on
+``[E_pad, 64]`` values, ``r1l_fwd_f32`` at 0 and 0.5, ``r1l_bwd_f32`` at
+0.5, ``flash_fwd_f32`` at 0 and 0.5 and ``r1_fwd_f32``.  It prints:
 
 * whether each build's outputs equal the plain versions' (``out``,
-  ``lse`` and ``q`` at rtol 1e-5, atol 1e-6; sums and ``dl`` at rtol
-  1e-4, atol 1e-5 of the largest value: float32 sums of up to 3,842
-  terms), and each build's ``r1l_fwd_f32`` at logits x30 against the
-  float32 and float64 plain versions;
+  ``lse``, ``q``, ``att`` and the SDDMM at rtol 1e-5, atol 1e-6; sums,
+  ``dl`` and ``dpre`` at rtol 1e-4, atol 1e-5 of the largest value:
+  float32 sums of up to 3,842 terms);
 * each kernel's time in four rounds in the order base, this, this, base:
   the median of 15 means of 20 launches by CUDA events, and the device
   time over 20 launches by ``torch.profiler``, with the medians of each;
-* this build's ``flash_fwd_f32``, ``r1_fwd_f32`` and ``r1l_fwd_f32`` at
-  each run length of ``RUN_SLOTS`` and each group of ``GROUPS`` lanes
-  (device time);
+* this build's ``r1_bwd_f32``, ``csr_sddmm_f32`` (``sddmm(g, x)``) and
+  ``flash_bwd_f32`` at each run length of ``RUN_SLOTS`` and each group of
+  ``GROUPS`` lanes (device time);
 * ptxas's register, spill and stack counts of both builds.
 
 The card's name and power limit come first, one JSON summary last.  Needs
@@ -53,7 +54,7 @@ from pathlib import Path
 
 import torch
 
-SOURCES = ("spmm", "rank1_gat", "flash_gat")
+SOURCES = ("spmm", "rank1_gat", "flash_gat", "sddmm")
 
 
 def build_base(csrc: Path) -> dict:
@@ -80,24 +81,26 @@ def build_base(csrc: Path) -> dict:
 def bind_base(base: dict, this: dict) -> None:
     """The base build's entry points: those whose signature this tree kept
     typed as this tree's wrappers type them, and the one-block-per-row
-    ``flash_fwd_f32`` and ``r1_fwd_f32`` of its ``flash_gat.cu``."""
+    ``r1_bwd_f32`` (with ``flash_max_warps``) and chunk-per-warp
+    ``csr_sddmm_f32``."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, lib in base.items():
         for fn in ("csr_spmm_f32", "seg_reduce_f32", "csr_spmm_dw_f32",
                    "csr_spmm_dw_max_warps", "r1l_fwd_f32", "r1l_bwd_f32",
-                   "r1l_keep_scale_f32", "r1l_max_warps", "r1l_error_string",
-                   "flash_bwd_f32", "r1_bwd_f32", "flash_max_warps",
-                   "flash_error_string", "csr_spmm_error_string"):
+                   "r1_fwd_f32", "r1l_keep_scale_f32", "r1l_max_warps",
+                   "r1l_error_string", "flash_fwd_f32", "flash_bwd_f32",
+                   "flash_error_string", "csr_spmm_error_string",
+                   "csr_sddmm_error_string"):
             if hasattr(this[name], fn):
                 ours = getattr(this[name], fn)
                 getattr(lib, fn).argtypes = ours.argtypes
                 getattr(lib, fn).restype = ours.restype
-    base["flash_gat"].flash_fwd_f32.argtypes = ([p] * 5 + [f] * 2 + [p] * 2
-                                                + [i] * 3 + [p])
-    base["flash_gat"].r1_fwd_f32.argtypes = ([p] * 5 + [f] + [p] * 2
-                                             + [i] * 3 + [p])
-    for fn in (base["flash_gat"].flash_fwd_f32,
-               base["flash_gat"].r1_fwd_f32):
+    flash = base["flash_gat"]
+    flash.r1_bwd_f32.argtypes = [p] * 8 + [f] + [p] * 3 + [i] * 4 + [p]
+    flash.flash_max_warps.argtypes = [i]
+    base["sddmm"].csr_sddmm_f32.argtypes = [p] * 5 + [i] * 4 + [p]
+    for fn in (flash.r1_bwd_f32, flash.flash_max_warps,
+               base["sddmm"].csr_sddmm_f32):
         fn.restype = ctypes.c_int
 
 
@@ -156,6 +159,7 @@ def main() -> int:
     from msha_gnn_torch.ops.cuda import _build
     from msha_gnn_torch.ops.cuda import flash_gat as flash
     from msha_gnn_torch.ops.cuda import rank1_gat as r1
+    from msha_gnn_torch.ops.cuda import sddmm as sd
     from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
     from msha_gnn_torch.ops.cuda.softmax import seg_softmax_fwd_plain
 
@@ -166,7 +170,7 @@ def main() -> int:
     base = build_base(Path(sys.argv[1]))
     _build.build(SOURCES)
     this = {"spmm": cuda_spmm._kernel_lib(), "rank1_gat": r1._kernel_lib(),
-            "flash_gat": flash._kernel_lib()}
+            "flash_gat": flash._kernel_lib(), "sddmm": sd._kernel_lib()}
     base_libs = {n: lib for n, (lib, _) in base.items()}
     bind_base(base_libs, this)
     for label, logs in (("base", {n: log for n, (_, log) in base.items()}),
@@ -229,7 +233,6 @@ def main() -> int:
     c = torch.randn(n, generator=gen, device=dev)
     a = torch.randn(d, generator=gen, device=dev) * 0.3
     t = torch.randn(n, generator=gen, device=dev)
-    base_warps = base_libs["flash_gat"].flash_max_warps(d)
 
     for rate in (0.0, 0.5):
         fwd_args = (op.ptr, op.col, c, a, x, seed, rate, op.slope, n)
@@ -243,48 +246,62 @@ def main() -> int:
     cases["r1l_bwd_f32[rate 0.5]"] = lib_case(
         r1, libs["rank1_gat"], lambda: r1.r1l_bwd(*bwd_args))
     want["r1l_bwd_f32[rate 0.5]"] = r1.rank1_gat_bwd_plain(*bwd_args)
-
-    def base_flash_fwd(rate):
-        def fn():
-            out = torch.empty((n, d), device=dev)
-            lse = torch.empty(n, device=dev)
-            checked(base_libs["flash_gat"].flash_fwd_f32(
-                op.ptr.data_ptr(), op.col.data_ptr(), logits.data_ptr(),
-                x.data_ptr(), seed.data_ptr(), rate, r1._scale(rate),
-                out.data_ptr(), lse.data_ptr(), n, d, base_warps, stream()))
-            return out, lse
-        return fn
-
     for rate in (0.0, 0.5):
         f_args = (op.ptr, op.col, logits, x, seed, rate, n)
         k = f"flash_fwd_f32[rate {rate}]"
-        cases[k] = {"base": base_flash_fwd(rate), "this": lib_case(
-            flash, libs["flash_gat"],
-            lambda f_args=f_args: flash.flash_fwd(*f_args))["this"]}
+        cases[k] = lib_case(flash, libs["flash_gat"],
+                            lambda f_args=f_args: flash.flash_fwd(*f_args))
         want[k] = flash.flash_gat_plain(*f_args)
-
-    def base_r1_fwd():
-        out = torch.empty((n, d), device=dev)
-        lse = torch.empty(n, device=dev)
-        checked(base_libs["flash_gat"].r1_fwd_f32(
-            op.ptr.data_ptr(), op.col.data_ptr(), c.data_ptr(), t.data_ptr(),
-            x.data_ptr(), op.slope, out.data_ptr(), lse.data_ptr(), n, d,
-            base_warps, stream()))
-        return out, lse
-
     g_args = (op.ptr, op.col, c, t, x, op.slope, n)
-    cases["r1_fwd_f32"] = {"base": base_r1_fwd, "this": lib_case(
-        r1, libs["rank1_gat"], lambda: r1.r1_fwd(*g_args))["this"]}
+    cases["r1_fwd_f32"] = lib_case(r1, libs["rank1_gat"],
+                                   lambda: r1.r1_fwd(*g_args))
     want["r1_fwd_f32"] = r1.rank1_gat_generic_plain(*g_args)
-
     out_f5, lse_f5 = want["flash_fwd_f32[rate 0.5]"]
     fb_args = (op.ptr, op.col, logits, x, gout, out_f5, lse_f5, seed, 0.5, n)
     cases["flash_bwd_f32[rate 0.5]"] = lib_case(
         flash, libs["flash_gat"], lambda: flash.flash_bwd(*fb_args))
     want["flash_bwd_f32[rate 0.5]"] = flash.flash_gat_bwd_plain(*fb_args)
+
+    # the parent's r1_bwd_f32 and csr_sddmm_f32, through their own C entries
+    out_g, lse_g = want["r1_fwd_f32"]
+    gb_args = (op.ptr, op.col, c, t, x, gout, out_g, lse_g, op.slope, n)
+    base_warps = base_libs["flash_gat"].flash_max_warps(d)
+
+    def base_r1_bwd():
+        att_, dpre_, dc_ = (torch.empty(e, device=dev),
+                            torch.empty(e, device=dev),
+                            torch.empty(n, device=dev))
+        checked(base_libs["flash_gat"].r1_bwd_f32(
+            op.ptr.data_ptr(), op.col.data_ptr(), c.data_ptr(), t.data_ptr(),
+            x.data_ptr(), gout.data_ptr(), out_g.data_ptr(),
+            lse_g.data_ptr(), op.slope, att_.data_ptr(), dpre_.data_ptr(),
+            dc_.data_ptr(), n, e, d, base_warps, stream()))
+        return att_, dpre_, dc_
+
+    # r1_bwd (rank1_gat.py) launches from flash_gat's library
+    cases["r1_bwd_f32"] = {"base": base_r1_bwd, "this": lib_case(
+        flash, libs["flash_gat"], lambda: r1.r1_bwd(*gb_args))["this"]}
+    want["r1_bwd_f32"] = r1.rank1_gat_generic_bwd_plain(*gb_args)
+
+    def base_sddmm(rows, cols):
+        def fn():
+            out_ = torch.empty(e_pad, device=dev)
+            checked(base_libs["sddmm"].csr_sddmm_f32(
+                spmm.ptr.data_ptr(), spmm.col.data_ptr(), rows.data_ptr(),
+                cols.data_ptr(), out_.data_ptr(), n, e, e_pad, d, stream()))
+            return out_
+        return fn
+
+    for label, (rows, cols) in (("g, x", (gout, x)), ("x, g", (x, gout))):
+        k = f"csr_sddmm_f32[sddmm({label})]"
+        cases[k] = {"base": base_sddmm(rows, cols), "this": lib_case(
+            sd, libs["sddmm"], lambda rows=rows, cols=cols: sd.csr_sddmm(
+                spmm.ptr, spmm.col, rows, cols, e_pad))["this"]}
+        want[k] = (sd.csr_sddmm_plain(spmm.ptr, spmm.col, rows, cols, e_pad),)
     # outputs held at the kernel tolerance (the rest as sums)
     exact = {"r1l_fwd": (0, 1), "flash_fwd": (0, 1), "r1_fwd": (0, 1),
-             "flash_bwd": (1,), "r1l_bwd": (0,)}
+             "flash_bwd": (1,), "r1l_bwd": (0,), "r1_bwd": (0,),
+             "csr_sddmm": (0,)}
 
     def equal(k, got):
         tight = exact.get(k.split("_f32")[0], ())
@@ -303,31 +320,6 @@ def main() -> int:
         print(f"  {k}: base equals plain {same[k]['base_equals_plain']}, "
               f"this equals plain {same[k]['this_equals_plain']}",
               flush=True)
-
-    # r1l_fwd_f32 with c and a x30: the logit's dot <x[j], a>, rounded in
-    # another order by each build and the plain version, grows 30 times
-    # before the exp.  Each build's out against the plain float32 and
-    # float64 versions.
-    c30, a30 = c * 30, a * 30
-    x30 = {label: fn() for label, fn in lib_case(
-        r1, libs["rank1_gat"], lambda: r1.r1l_fwd(
-            op.ptr, op.col, c30, a30, x, seed, 0.0, op.slope, n)).items()}
-    ref32 = r1.rank1_gat_plain(op.ptr, op.col, c30, a30, x, seed, 0.0,
-                               op.slope, n)
-    ref64 = r1.rank1_gat_plain(op.ptr, op.col, c30.double(), a30.double(),
-                               x.double(), seed, 0.0, op.slope, n)
-    logits_x30 = {}
-    for label, got in (*x30.items(), ("plain float32", ref32)):
-        logits_x30[label] = {
-            f"{name} max abs err vs {ref}": float(
-                (u.double() - w.double()).abs().max())
-            for name, u, w32, w64 in zip(("out", "lse"), got, ref32, ref64)
-            for ref, w in (("f32", w32), ("f64", w64))}
-        logits_x30[label]["within_1e-5_1e-6"] = all(
-            bool(torch.allclose(u, w, rtol=1e-5, atol=1e-6))
-            for u, w in zip(got, ref32))
-        print(f"  r1l_fwd_f32[logits x30, rate 0.0] {label}: "
-              f"{logits_x30[label]}", flush=True)
 
     times = {k: {"base": [], "this": []} for k in cases}
     dev_times = {k: {"base": [], "this": []} for k in cases}
@@ -351,31 +343,27 @@ def main() -> int:
                       "this_device_ms": dmed["this"]}
 
     # this build at each run length and group of lanes
-    cuda_spmm._lib, r1._lib, flash._lib = (this["spmm"], this["rank1_gat"],
-                                           this["flash_gat"])
-    sweep = {}
-    for rate in (0.0, 0.5):
-        fwd_args = (op.ptr, op.col, c, a, x, seed, rate, op.slope, n)
-        f_args = (op.ptr, op.col, logits, x, seed, rate, n)
-        for k, fn, args in ((f"flash_fwd_f32[rate {rate}]", flash.flash_fwd,
-                             f_args),
-                            (f"r1l_fwd_f32[rate {rate}]", r1.r1l_fwd,
-                             fwd_args)):
-            sweep[k] = {
-                f"run {run}, group {grp}": cs.device_ms(
-                    lambda: fn(*args, run=run, group=grp))
-                for run in cuda_spmm.RUN_SLOTS for grp in r1.GROUPS}
-    sweep["r1_fwd_f32"] = {
-        f"run {run}, group {grp}": cs.device_ms(
-            lambda: r1.r1_fwd(*g_args, run=run, group=grp))
+    cuda_spmm._lib, r1._lib, flash._lib, sd._lib = (
+        this["spmm"], this["rank1_gat"], this["flash_gat"], this["sddmm"])
+    walks = {
+        "r1_bwd_f32": lambda run, grp: r1.r1_bwd(*gb_args, run=run,
+                                                 group=grp),
+        "csr_sddmm_f32[sddmm(g, x)]": lambda run, grp: sd.csr_sddmm(
+            spmm.ptr, spmm.col, gout, x, e_pad, run=run, group=grp),
+        "flash_bwd_f32[rate 0.5]": lambda run, grp: flash.flash_bwd(
+            *fb_args, run=run, group=grp),
+    }
+    sweep = {k: {f"run {run}, group {grp}": cs.device_ms(
+        lambda fn=fn, run=run, grp=grp: fn(run, grp))
         for run in cuda_spmm.RUN_SLOTS for grp in r1.GROUPS}
+        for k, fn in walks.items()}
     for k, v in sweep.items():
         print(f"  run lengths and groups, device ms, {k}: "
               + ", ".join(f"{key} {ms:.4f}" if ms is not None
                           else f"{key} not measured"
                           for key, ms in v.items()), flush=True)
-    print(json.dumps({"ab": summary, "r1l_fwd_logits_x30": logits_x30,
-                      "run_group_sweep_device_ms": sweep}), flush=True)
+    print(json.dumps({"ab": summary, "run_group_sweep_device_ms": sweep}),
+          flush=True)
     return 0
 
 

@@ -12,9 +12,10 @@ do not need features).  Tolerances: ``out``, ``lse`` and ``q`` at rtol
 1e-5, atol 1e-6 (float32, another summation order); ``dpre`` (a
 difference of two d-term dots), ``dc``, ``da``, the SpMMs and the dx
 reduce, which sum many terms in another order, at rtol 1e-4 and atol 1e-5
-of the largest value.  The kernels that sum edges by runs of slots
-(``csr_spmm_f32``, ``seg_reduce_f32``, ``r1l_bwd_f32``) are also launched
-twice on the same inputs and must give the same bits.  The SDDMM and the row
+of the largest value.  The kernels on edge runs of slots
+(``csr_spmm_f32``, ``seg_reduce_f32``, the GAT kernels and
+``csr_sddmm_f32``) are also launched twice on the same inputs and must
+give the same bits.  The SDDMM and the row
 softmax at rtol 1e-5, atol 1e-6 (one d-term dot, or one row's exp and sum,
 in another order); the softmax's VJP with the sums' tolerance.  The
 flash-GAT kernels: ``out``, ``lse`` and ``q`` at rtol 1e-5, atol 1e-6;
@@ -922,7 +923,8 @@ def test_r1_fwd_runs_kernel_matches_plain(d, run, group):
 
 @pytest.mark.cuda
 def test_one_block_per_row_gat_kernels_still_match_plain():
-    """r1_bwd_f32, the one GAT kernel left with one block per row: against
+    """r1_bwd_f32, the last GAT kernel that ran one block per row (now the
+    per-edge walk of gat_bwd.cuh), at its default run and group: against
     its plain version on a graph with a long row and empty rows, at d 64,
     on the plain forward's out and lse."""
     g = long_row_graph(300, 120, long_rows=(1,), length=600, seed=9)
@@ -940,3 +942,116 @@ def test_one_block_per_row_gat_kernels_still_match_plain():
     torch.testing.assert_close(att, watt, rtol=1e-5, atol=1e-6)
     sums_close(dpre, wdpre)
     sums_close(dc, wdc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", r1.GROUPS, ids=lambda g: f"group{g}")
+@pytest.mark.parametrize("run", EDGE_RUNS, ids=lambda r: f"run{r}")
+@pytest.mark.parametrize("d", [0, 1, 64, 129])
+def test_r1_bwd_runs_kernel_matches_plain(d, run, group):
+    """r1_bwd_f32 on a graph with rows longer than many runs and empty rows
+    (first, middle, last), with a col padded past ptr[n_rows] (pad slots):
+    att, dpre and dc against the plain generic backward over NaN-primed
+    blocks, twice bit for bit, pads 0, empty rows' dc 0; the same with c
+    and t x30; rows whose lse is NEG (no live edge) give att, dpre and dc 0
+    and no NaN; and against the walk's mirror."""
+    g = long_row_graph(300, 120, long_rows=(1, 298), length=600, seed=d + 8)
+    op = r1.Rank1GatOperator(g)
+    e, empty, dead = g.num_edges, [0, 150, 299], [1, 7]
+    padded = torch.cat([op.col, torch.zeros(40, dtype=op.col.dtype,
+                                            device="cuda")])
+    gen = torch.Generator(device="cuda").manual_seed(d + 11)
+    gout = torch.rand(300, d, generator=gen, device="cuda") - 0.5
+    for scale in (1.0, 30.0):
+        c, _, x = rank1_inputs(g, 300, 120, d, d + 12, scale)
+        t = (torch.rand(120, generator=gen, device="cuda") - 0.5) * scale
+        out, lse = r1.rank1_gat_generic_plain(op.ptr, op.col, c, t, x, 0.2,
+                                              300)
+        lse[dead] = r1.NEG          # rows with edges and no live softmax
+        rest = (c, t, x, gout, out, lse, 0.2, 300)
+        prime_nan((2, e + 40), (300,), (3 * (e + 40),))
+        before = r1.r1_bwd_launches
+        att, dpre, dc = twice_same(lambda: r1.r1_bwd(
+            op.ptr, op.col, *rest, run=run, group=group))
+        assert r1.r1_bwd_launches == before + 2
+        want_att, want_dpre, want_dc = r1.rank1_gat_generic_bwd_plain(
+            op.ptr, op.col, *rest)
+        torch.testing.assert_close(att, want_att, rtol=1e-5, atol=1e-6)
+        sums_close(dpre, want_dpre)
+        sums_close(dc, want_dc)
+        assert not dc[empty].any() and not dc[dead].any()
+        for r in dead:
+            assert not att[op.ptr[r]:op.ptr[r + 1]].any()
+            assert not dpre[op.ptr[r]:op.ptr[r + 1]].any()
+        prime_nan((2, e + 40), (300,), (3 * (e + 40),))
+        att_p, dpre_p, dc_p = r1.r1_bwd(op.ptr, padded, *rest, run=run,
+                                        group=group)
+        assert torch.equal(att_p[:e], att) and torch.equal(dpre_p[:e], dpre)
+        assert not att_p[e:].any() and not dpre_p[e:].any()
+        assert torch.equal(dc_p, dc)
+    cpu = [v.cpu() for v in (op.ptr, padded, *rest[:6])]
+    m_att, m_dpre, m_dc, writes, dc_writes = \
+        fg.rank1_gat_generic_bwd_runs_plain(
+            *cpu, 0.2, 300, run or r1.R1_BWD_RUN, group)
+    assert bool((writes == 1).all()) and bool((dc_writes == 1).all())
+    torch.testing.assert_close(att_p.cpu(), m_att, rtol=1e-5, atol=1e-6)
+    sums_close(dpre_p.cpu(), m_dpre)
+    sums_close(dc_p.cpu(), m_dc)
+
+
+@pytest.mark.cuda
+def test_r1_bwd_runs_kernel_without_edges():
+    """A graph with no edges (and pad slots): dc, att and dpre all 0, for
+    every run length."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ptr = torch.zeros(7, dtype=torch.int32, device="cuda")
+    col = torch.zeros(50, dtype=torch.int32, device="cuda")
+    c, t = torch.randn(6, device="cuda"), torch.randn(4, device="cuda")
+    x, gout = torch.randn(4, 8, device="cuda"), torch.randn(6, 8,
+                                                             device="cuda")
+    out = torch.zeros(6, 8, device="cuda")
+    lse = torch.full((6,), r1.NEG, device="cuda")
+    for run in (None, 1, 32, 256):
+        prime_nan((2, 50), (6,), (150,))
+        att, dpre, dc = r1.r1_bwd(ptr, col, c, t, x, gout, out, lse, 0.2, 6,
+                                  run=run)
+        assert not att.any() and not dpre.any() and not dc.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", r1.GROUPS, ids=lambda g: f"group{g}")
+@pytest.mark.parametrize("run", EDGE_RUNS, ids=lambda r: f"run{r}")
+@pytest.mark.parametrize("d", [1, 2, 16, 64, 129])
+def test_sddmm_runs_kernel_matches_plain(d, run, group):
+    """csr_sddmm_f32 in both orientations (sddmm(g, x), sddmm(x, g)) on a
+    graph with rows longer than many runs and empty rows: against the plain
+    version over NaN-primed blocks, twice bit for bit, pads 0; operands
+    offset by one float (no float4 loads) give the same values; and
+    against the walk's mirror."""
+    g = long_row_graph(300, 300, long_rows=(1, 298), length=600, seed=d + 13)
+    op = cuda_spmm.SpmmOperator(g, device="cuda")
+    e, n_out = g.num_edges, g.num_padded_edges + 40
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    x = torch.rand(300, d, generator=gen, device="cuda") - 0.5
+    gout = torch.rand(300, d, generator=gen, device="cuda") - 0.5
+    for rows, cols in ((gout, x), (x, gout)):
+        prime_nan((n_out,))
+        before = cuda_sddmm.launches
+        got = twice_same(lambda: cuda_sddmm.csr_sddmm(
+            op.ptr, op.col, rows, cols, n_out, run=run, group=group))
+        assert cuda_sddmm.launches == before + 2
+        want = cuda_sddmm.csr_sddmm_plain(op.ptr, op.col, rows, cols, n_out)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        assert not got[e:].any()
+        # rows one float off their 16-byte alignment
+        shifted = [torch.empty(v.numel() + 1, device="cuda")[1:]
+                   .view_as(v).copy_(v) for v in (rows, cols)]
+        got_s = cuda_sddmm.csr_sddmm(op.ptr, op.col, *shifted, n_out,
+                                     run=run, group=group)
+        torch.testing.assert_close(got_s, want, rtol=1e-5, atol=1e-6)
+    cpu = [v.cpu() for v in (op.ptr, op.col, x, gout)]
+    mirror, writes = cuda_sddmm.csr_sddmm_runs_plain(
+        *cpu, n_out, run or cuda_sddmm.RUN, group)
+    assert bool((writes == 1).all())
+    torch.testing.assert_close(got.cpu(), mirror, rtol=1e-5, atol=1e-6)
