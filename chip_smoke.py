@@ -33,9 +33,12 @@ over the same 20 calls, as is their library yardstick.
 3c. the materialised attention pipeline's kernels (the dropout keep mask
    ``r1l_keep_scale_f32`` bit for bit, ``csr_sddmm_f32`` in both
    orientations, each also once through its C entry into a NaN-filled
-   output (every slot written, the pads 0), ``seg_softmax_fwd_f32`` unmasked as the path runs it and,
-   for correctness, with the build mask and with a mask that leaves one
-   row fully masked, ``seg_softmax_bwd_f32``, and ``csr_spmm_f32``
+   output (every slot written, the pads 0), ``seg_softmax_fwd_f32``
+   unmasked as the path runs it and, for correctness, with the build mask
+   and with a mask that leaves one row fully masked,
+   ``seg_softmax_bwd_f32``, both also twice bit for bit and once through
+   their C entries into NaN-filled outputs and workspace, and
+   ``csr_spmm_f32``
    weighted by attention, forward and transposed) against their plain
    versions on the same linkpred graph; times and bounds as in phase 3.
 3d. the flash-GAT kernels (``flash_fwd_f32`` at dropout rate 0 and 0.5,
@@ -63,7 +66,8 @@ over the same 20 calls, as is their library yardstick.
    dropout masks), one epoch whose loss must fall, the device's idle share
    over a few steps, and the evaluation (Hits@20, Hits@50, AUC).
 6. the same with ``impl="materialised"``: one step that must launch
-   exactly the materialised pipeline's kernels, held against the plain
+   exactly the materialised pipeline's kernels (and, in the profiled
+   steps, exactly two softmax grids a softmax call), held against the plain
    step and against the fused step from the same state, one epoch whose
    loss must fall and follow the fused epoch's step by step, the idle
    share, and the evaluation's launches.
@@ -615,7 +619,7 @@ def phase_materialised_kernels(split):
     logits = torch.randn(e_pad, generator=gen, device=DEVICE) * 2
     gatt = torch.randn(e_pad, generator=gen, device=DEVICE)
     log(f"  graph: {n} rows, {e} edges ({e_pad} padded), d {d}; softmax "
-        f"warps/block {sop.warps}, SpMM runs of "
+        f"runs of {sop.run} slots, a warp a run, SpMM runs of "
         f"{cuda_spmm.warp_run(e)} slots")
     longest = int(torch.cat([op.ptr.diff(), op.t_ptr.diff()]).max())
     log(f"  tolerances: SDDMM and softmax forward at rtol {KERNEL_RTOL}, "
@@ -725,7 +729,7 @@ def phase_materialised_kernels(split):
     errs = []
     for label, mask in (("path, no mask", None), ("build mask", g.edge_mask),
                         ("arbitrary mask", arbitrary)):
-        att, lse = sm.seg_softmax_fwd(op.ptr, logits, mask, e, sop.warps)
+        att, lse = sm.seg_softmax_fwd(op.ptr, logits, mask, e, sop.run)
         want_att, want_lse = sm.seg_softmax_fwd_plain(op.ptr, logits, mask, e)
         torch.cuda.synchronize()
         errs.append(max(
@@ -738,8 +742,20 @@ def phase_materialised_kernels(split):
     if att[p0:p1].any():
         raise AssertionError("the fully masked row got attention")
     fwd_args = (op.ptr, logits, None, e)
-    ms = time_ms(lambda: sm.seg_softmax_fwd(*fwd_args, sop.warps))
-    dev_ms = device_ms(lambda: sm.seg_softmax_fwd(*fwd_args, sop.warps))
+
+    def fwd_kernel():  # into the operator's workspace, as the path runs it
+        return sm.seg_softmax_fwd(*fwd_args, sop.run, sop.ws)
+
+    same_bits("seg_softmax_fwd_f32[path]", fwd_kernel)
+    n_ws = sm.ws_floats(e_pad, sop.run)
+    nan_filled(
+        "seg_softmax_fwd_f32[path]", ((e_pad,), (n,), (n_ws,)),
+        lambda att_, lse_, ws_: sm._kernel_lib().seg_softmax_fwd_f32(
+            op.ptr.data_ptr(), logits.data_ptr(), None, att_.data_ptr(),
+            lse_.data_ptr(), ws_.data_ptr(), n, e, e_pad, sop.run,
+            torch.cuda.current_stream().cuda_stream),
+        fwd_kernel(), what="att (pads included), lse")
+    ms, dev_ms = time_ms(fwd_kernel), device_ms(fwd_kernel)
     plain_ms = time_ms(lambda: sm.seg_softmax_fwd_plain(*fwd_args))
     rows = g.senders[:e].long()
     coo = torch.sparse_coo_tensor(torch.stack([rows, g.receivers[:e].long()]),
@@ -750,25 +766,39 @@ def phase_materialised_kernels(split):
         raise AssertionError("torch.sparse.softmax yardstick disagrees with "
                              "the plain version")
     library_ms = time_ms(lambda: torch.sparse.softmax(coo, 1))
+    lib_dev_ms = device_ms(lambda: torch.sparse.softmax(coo, 1), iters=5)
     (fwd_b, bwd_b) = softmax_bounds(n, e, e_pad, masked=False)
     log(f"  seg_softmax_fwd_f32: kernel {ms:.4f} ms (device {fmt(dev_ms)}), "
-        f"plain {plain_ms:.4f} ms, torch.sparse.softmax {library_ms:.4f} ms, "
-        f"bound {fwd_b[0]:.5f} ms ({fwd_b[1]})")
+        f"plain {plain_ms:.4f} ms, torch.sparse.softmax {library_ms:.4f} ms "
+        f"(device {fmt(lib_dev_ms)}), bound {fwd_b[0]:.5f} ms ({fwd_b[1]})")
     results.append({**entry(
         "seg_softmax_fwd_f32", "softmax.cu",
         "msha_gnn_tpu/ops/pallas/softmax.py:56 _stats_kernel and :86 "
         "_expand_kernel", max(errs), ms, plain_ms, fwd_b, library_ms),
-        "device_ms": dev_ms})
+        "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
 
     att = sm.seg_softmax_fwd_plain(*fwd_args)[0]
     bwd_args = (op.ptr, att, gatt, e)
-    dl = sm.seg_softmax_bwd(*bwd_args, sop.warps)
+    def bwd_kernel():
+        return sm.seg_softmax_bwd(*bwd_args, sop.run, sop.ws)
+
+    prime_nan((e_pad,), (n_ws,))
+    dl = bwd_kernel()
     want_dl = sm.seg_softmax_bwd_plain(*bwd_args)
     torch.cuda.synchronize()
     err = close("seg_softmax_bwd_f32 dl", dl, want_dl, SUM_RTOL,
                 SUM_ATOL_REL * float(want_dl.abs().max()))
-    ms = time_ms(lambda: sm.seg_softmax_bwd(*bwd_args, sop.warps))
-    dev_ms = device_ms(lambda: sm.seg_softmax_bwd(*bwd_args, sop.warps))
+    if dl[e:].any():
+        raise AssertionError("seg_softmax_bwd_f32 wrote a pad slot")
+    same_bits("seg_softmax_bwd_f32", bwd_kernel)
+    nan_filled(
+        "seg_softmax_bwd_f32", ((e_pad,), (n_ws,)),
+        lambda dl_, ws_: sm._kernel_lib().seg_softmax_bwd_f32(
+            op.ptr.data_ptr(), att.data_ptr(), gatt.data_ptr(),
+            dl_.data_ptr(), ws_.data_ptr(), n, e, e_pad, sop.run,
+            torch.cuda.current_stream().cuda_stream),
+        (bwd_kernel(),), what="dl (pads included)")
+    ms, dev_ms = time_ms(bwd_kernel), device_ms(bwd_kernel)
     plain_ms = time_ms(lambda: sm.seg_softmax_bwd_plain(*bwd_args))
     # the yardstick: torch.sparse.softmax's own backward on the forward's COO
     att_coo = torch.sparse.softmax(coo, 1)
@@ -779,16 +809,20 @@ def phase_materialised_kernels(split):
                           atol=1e-5 * float(want_dl.abs().max())):
         raise AssertionError("the torch.sparse.softmax backward yardstick "
                              "disagrees with the plain version")
-    library_ms = time_ms(lambda: torch._sparse_softmax_backward_data(
-        g_coo, att_coo, 1, coo))
+    def library():
+        return torch._sparse_softmax_backward_data(g_coo, att_coo, 1, coo)
+
+    library_ms = time_ms(library)
+    lib_dev_ms = device_ms(library, iters=5)
     log(f"  seg_softmax_bwd_f32: kernel {ms:.4f} ms (device {fmt(dev_ms)}), "
         f"plain {plain_ms:.4f} ms, torch.sparse.softmax backward "
-        f"{library_ms:.4f} ms, bound {bwd_b[0]:.5f} ms ({bwd_b[1]})")
+        f"{library_ms:.4f} ms (device {fmt(lib_dev_ms)}), bound "
+        f"{bwd_b[0]:.5f} ms ({bwd_b[1]})")
     results.append({**entry(
         "seg_softmax_bwd_f32", "softmax.cu",
         "msha_gnn_tpu/ops/pallas/softmax.py:102 _rowsum_kernel and :86 "
         "_expand_kernel", err, ms, plain_ms, bwd_b, library_ms),
-        "device_ms": dev_ms})
+        "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
 
     # the attention-weighted SpMM: A(att) @ h forward, A(att).T @ g for dx
     w, w_t = op.weights(att, False), op.weights(att, True)
@@ -1574,6 +1608,21 @@ def phase_linkpred(split, impl):
         if evt.device_type == torch.autograd.DeviceType.CUDA
         and not getattr(evt, "is_user_annotation", False))
     idle = max(0.0, 1 - busy_us / 1e3 / wall_ms) if busy_us else None
+    # the device's kernels a step, and the softmax kernels' grids among
+    # them (two a call: a step's want[...] calls)
+    on_card = [evt for evt in prof.key_averages()
+               if evt.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(evt, "is_user_annotation", False)]
+    kernels_per_step = sum(evt.count for evt in on_card) / len(more)
+    softmax_grids = sum(evt.count for evt in on_card
+                        if "seg_softmax::" in evt.key) / len(more)
+    want_grids = 2 * (want["seg_softmax_fwd_f32"]
+                      + want["seg_softmax_bwd_f32"])
+    log(f"  profiled steps: {kernels_per_step} device kernels a step, "
+        f"{softmax_grids} of them softmax grids (want {want_grids})")
+    if busy_us and softmax_grids != want_grids:
+        raise AssertionError(f"{softmax_grids} softmax grids a step, want "
+                             f"{want_grids}")
 
     zero_counts(op)
     t0 = time.perf_counter()
@@ -1591,6 +1640,7 @@ def phase_linkpred(split, impl):
         "first_step_ms": first_step_ms, "epoch_s": epoch_s,
         "device_idle_share": idle,
         "device_busy_ms_per_step": busy_us / 1e3 / len(more),
+        "device_kernels_per_step": kernels_per_step,
         "eval_s": eval_s, **metrics,
     }
     log(f"  linkpred ({impl}): {json.dumps(summary)}")

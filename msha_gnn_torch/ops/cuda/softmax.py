@@ -4,14 +4,18 @@ kernels ``seg_softmax_fwd_f32`` and ``seg_softmax_bwd_f32``
 
 The kernels replace ``_stats_kernel``, ``_expand_kernel`` and
 ``_rowsum_kernel`` of ``msha_gnn_tpu/ops/pallas/softmax.py``; the source
-says what they compute and what bounds them (bytes).
+says what they compute, what bounds them (bytes) and how they share one
+walk of edge runs (two grids a call).
 
 * :func:`seg_softmax_fwd` and :func:`seg_softmax_bwd` are the kernels'
   wrappers: they check their inputs, launch on the current stream and
-  count their launches in :data:`fwd_launches` and :data:`bwd_launches`.
-  For tensors on the CPU they run :func:`seg_softmax_fwd_plain` and
-  :func:`seg_softmax_bwd_plain`, the plain PyTorch versions of the same
-  functions and the kernels' oracles.
+  count their launches in :data:`fwd_launches` and :data:`bwd_launches`
+  (one a call).  For tensors on the CPU they run
+  :func:`seg_softmax_fwd_plain` and :func:`seg_softmax_bwd_plain`, the
+  plain PyTorch versions of the same functions and the kernels' oracles.
+* :func:`seg_softmax_fwd_runs_plain` and :func:`seg_softmax_bwd_runs_plain`
+  mirror the kernels' walk (runs, head and tail pieces, crossing rows
+  merged in run order) step by step, for tests.
 * :class:`SegmentSoftmaxOperator` (``softmax.py::SegmentSoftmaxOperator``)
   binds one edge sort and a static per-edge mask and is differentiable.
   ``broadcast_rows`` of the JAX operator serves only
@@ -20,13 +24,14 @@ says what they compute and what bounds them (bytes).
 
 from __future__ import annotations
 
+import bisect
 import ctypes
-from typing import TYPE_CHECKING, Optional
+from typing import TYPE_CHECKING, Callable, Optional
 
 import torch
 
 from ... import resolve_device
-from .spmm import cached_for, edge_rows, warps_for
+from .spmm import cached_for, edge_rows, n_runs
 
 if TYPE_CHECKING:
     from ...graph import BipartiteGraph
@@ -38,6 +43,13 @@ NEG = -1e30
 fwd_launches = 0
 bwd_launches = 0
 
+# Slots a run that a warp holds at most (16 a lane).
+MAX_WARP_RUN = 512
+# Slots a run by default (PERF.md, the sweep of RUN_SLOTS at the linkpred
+# shapes).
+RUN = 128
+RUN_SLOTS = (16, 32, 64, 128, 256, 512)
+
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -48,8 +60,8 @@ def _kernel_lib() -> ctypes.CDLL:
 
         lib = _build.load("softmax")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.seg_softmax_fwd_f32.argtypes = [p] * 5 + [i] * 4 + [p]
-        lib.seg_softmax_bwd_f32.argtypes = [p] * 4 + [i] * 4 + [p]
+        lib.seg_softmax_fwd_f32.argtypes = [p] * 6 + [i] * 4 + [p]
+        lib.seg_softmax_bwd_f32.argtypes = [p] * 5 + [i] * 4 + [p]
         for fn in (lib.seg_softmax_fwd_f32, lib.seg_softmax_bwd_f32):
             fn.restype = ctypes.c_int
         lib.seg_softmax_error_string.argtypes = [i]
@@ -92,6 +104,189 @@ def seg_softmax_bwd_plain(ptr: torch.Tensor, att: torch.Tensor,
     return dl
 
 
+def _tree_merge(pieces: list, merge: Callable):
+    """A crossing row's pieces in run order merged as the kernels merge
+    them: in batches of 32, each by a balanced tree over neighbours
+    (``((p0 + p1) + (p2 + p3)) + ...``; a piece without a neighbour goes up
+    as it is, as the kernels' identity pieces let it), the batches left to
+    right."""
+    st = None
+    for b in range(0, len(pieces), 32):
+        level = pieces[b:b + 32]
+        while len(level) > 1:
+            level = [merge(level[i], level[i + 1]) if i + 1 < len(level)
+                     else level[i] for i in range(0, len(level), 2)]
+        st = level[0] if st is None else merge(st, level[0])
+    return st
+
+
+def _runs_walk(ptr: torch.Tensor, n_edges: int, n_slots: int, run: int,
+               reduce: Callable, merge: Callable, value: Callable,
+               emit: Callable, put_row: Callable) -> None:
+    """The schedule of both kernels (``csrc/softmax.cu``), step by step:
+    grid 1 (each run zeroes its pads, reduces its row pieces, writes the
+    rows inside it and leaves the crossing rows' head and tail pieces, the
+    empty rows it owns written as ``value(None)``), then grid 2 (each run
+    merges the pieces of the crossing rows that touch it, the row its first
+    slot continues and the row that begins in it, as :func:`_tree_merge`
+    does, and writes their slots in the run; the run where such a row
+    begins writes its row value).
+
+    ``reduce(pb, pe)`` is a row piece's reduction, ``merge(a, b)`` the
+    pieces' merge, ``value(piece)`` the row's value (``piece`` None for an
+    empty row), ``emit(pb, pe, val)`` writes the slots ``[pb, pe)`` (``val``
+    None for pads) and ``put_row(r, val)`` the row's own output."""
+    pl = [int(v) for v in ptr.tolist()]
+    n_rows = len(pl) - 1
+    nr = n_runs(n_slots, run)
+    head, tail = [None] * nr, [None] * nr
+    cross, hrow = [-1] * nr, [-1] * nr
+    for k in range(nr):                                  # grid 1
+        first, last = k * run, min(k * run + run, n_slots)
+        ef = min(last, n_edges)
+        emit(max(first, n_edges), last, None)
+        if first >= n_edges:
+            if k == 0:
+                for r in range(n_rows):
+                    put_row(r, value(None))
+            continue
+        row = bisect.bisect_right(pl, first, 0, n_rows) - 1
+        r = row
+        while r > 0 and pl[r - 1] == first:
+            r -= 1
+        for empty in range(r, row):
+            put_row(empty, value(None))
+        hrow[k] = row if pl[row] < first else -1
+        while True:
+            rb, re = pl[row], pl[row + 1]
+            pb, pe = max(rb, first), min(re, ef)
+            piece = reduce(pb, pe)
+            if rb < first:
+                head[k] = piece
+            elif re > ef:
+                tail[k], cross[k] = piece, row
+            else:
+                val = value(piece)
+                put_row(row, val)
+                emit(pb, pe, val)
+            if re >= ef:
+                break
+            row += 1
+            while pl[row + 1] == pl[row]:
+                put_row(row, value(None))
+                row += 1
+        if ef == n_edges:
+            for empty in range(row + 1, n_rows):
+                put_row(empty, value(None))
+    for k in range(nr):                                  # grid 2
+        first = k * run
+        if first >= n_edges:
+            continue
+        ef = min(first + run, n_slots, n_edges)
+        for r, begins_here in ((hrow[k], False), (cross[k], True)):
+            if r < 0:
+                continue
+            rb, re = pl[r], pl[r + 1]
+            k0, k_end = rb // run, (re - 1) // run
+            val = value(_tree_merge([tail[k0]] + head[k0 + 1:k_end + 1],
+                                    merge))
+            if begins_here:
+                put_row(r, val)
+            emit(max(rb, first), min(re, ef), val)
+
+
+def seg_softmax_fwd_runs_plain(ptr: torch.Tensor, logits: torch.Tensor,
+                               mask: Optional[torch.Tensor], n_edges: int,
+                               run: int):
+    """The walk of ``seg_softmax_fwd_f32`` in plain PyTorch, step by step
+    (:func:`_runs_walk`): a piece is ``(m, s)`` over its unmasked edges,
+    merged by the online-softmax merge, in float32.
+
+    Returns ``(att [n_out], lse [n_rows], att_writes, lse_writes)``, the
+    writes counting how often each slot and row was written (the kernel
+    writes each once).  Slow: Python loops over runs, for tests."""
+    n_rows, n_out = ptr.numel() - 1, logits.numel()
+    att = logits.new_full((n_out,), float("nan"))
+    lse = logits.new_full((n_rows,), float("nan"))
+    att_writes = torch.zeros(n_out, dtype=torch.int64)
+    lse_writes = torch.zeros(n_rows, dtype=torch.int64)
+    keep = (torch.ones(n_out, dtype=torch.bool) if mask is None
+            else mask.bool())
+    neg = logits.new_tensor(NEG)
+
+    def reduce(pb, pe):
+        kept = logits[pb:pe][keep[pb:pe]]
+        if kept.numel() == 0:
+            return neg, logits.new_tensor(0.0)
+        m = kept.max()
+        return m, torch.exp(kept - m).sum()
+
+    def merge(a, b):
+        m = torch.maximum(a[0], b[0])
+        return m, a[1] * torch.exp(a[0] - m) + b[1] * torch.exp(b[0] - m)
+
+    def value(piece):
+        m, s = (neg, logits.new_tensor(0.0)) if piece is None else piece
+        return m + torch.log(torch.clamp(s, min=1e-30))
+
+    def emit(pb, pe, val):
+        if val is None:
+            att[pb:pe] = 0.0
+        else:
+            att[pb:pe] = torch.where(keep[pb:pe],
+                                     torch.exp(logits[pb:pe] - val), 0.0)
+        att_writes[pb:pe] += 1
+
+    def put_row(r, val):
+        lse[r] = val
+        lse_writes[r] += 1
+
+    _runs_walk(ptr, n_edges, n_out, run, reduce, merge, value, emit, put_row)
+    return att, lse, att_writes, lse_writes
+
+
+def seg_softmax_bwd_runs_plain(ptr: torch.Tensor, att: torch.Tensor,
+                               g: torch.Tensor, n_edges: int, run: int):
+    """The walk of ``seg_softmax_bwd_f32`` in plain PyTorch, step by step
+    (:func:`_runs_walk`): a piece is the sum of ``att g`` over its edges,
+    pieces added in run order.
+
+    Returns ``(dl [n_out], writes [n_out])``.  Slow: for tests."""
+    n_out = att.numel()
+    dl = att.new_full((n_out,), float("nan"))
+    writes = torch.zeros(n_out, dtype=torch.int64)
+
+    def emit(pb, pe, val):
+        if val is None:
+            dl[pb:pe] = 0.0
+        else:
+            a = att[pb:pe]
+            dl[pb:pe] = a * g[pb:pe] - a * val
+        writes[pb:pe] += 1
+
+    _runs_walk(ptr, n_edges, n_out, run,
+               lambda pb, pe: (att[pb:pe] * g[pb:pe]).sum(),
+               lambda a, b: a + b,
+               lambda piece: att.new_tensor(0.0) if piece is None else piece,
+               emit, lambda r, val: None)
+    return dl, writes
+
+
+def _run_length(run: Optional[int]) -> int:
+    """``run`` or the module's default, checked."""
+    run = RUN if run is None else int(run)
+    if not 1 <= run <= MAX_WARP_RUN:
+        raise ValueError(f"run must be in [1, {MAX_WARP_RUN}], got {run}")
+    return run
+
+
+def ws_floats(n_slots: int, run: int) -> int:
+    """Floats of the kernels' workspace, a run's: its head and tail pieces
+    (two floats each), the bounds of its head and tail rows (two int32
+    each) and ``cross`` (one int32)."""
+    return 9 * n_runs(n_slots, run)
+
+
 def _check(name: str, dev: torch.device, **tensors) -> None:
     for key, t in tensors.items():
         if t.device != dev:
@@ -109,6 +304,20 @@ def _check(name: str, dev: torch.device, **tensors) -> None:
             raise ValueError(f"{key} must be 1-D, got {tuple(t.shape)}")
 
 
+def _workspace(ws: Optional[torch.Tensor], n_slots: int, run: int,
+               dev: torch.device) -> torch.Tensor:
+    """``ws`` checked (float32, contiguous, on ``dev``, at least
+    :func:`ws_floats` long), or a new one."""
+    need = ws_floats(n_slots, run)
+    if ws is None:
+        return torch.empty(need, dtype=torch.float32, device=dev)
+    if (ws.device != dev or ws.dtype != torch.float32
+            or not ws.is_contiguous() or ws.numel() < need):
+        raise ValueError(f"ws must be {need} contiguous float32 on {dev}, "
+                         f"got {ws.numel()} {ws.dtype} on {ws.device}")
+    return ws
+
+
 def _raise_on(lib, rc: int, name: str) -> None:
     if rc != 0:
         msg = lib.seg_softmax_error_string(rc).decode()
@@ -117,13 +326,16 @@ def _raise_on(lib, rc: int, name: str) -> None:
 
 def seg_softmax_fwd(ptr: torch.Tensor, logits: torch.Tensor,
                     mask: Optional[torch.Tensor], n_edges: int,
-                    n_warps: int):
+                    run: Optional[int] = None,
+                    ws: Optional[torch.Tensor] = None):
     """Row softmax of ``logits`` [n_out] (CSR order; ``n_edges = ptr[-1]
     <= n_out``) -> ``(att [n_out], lse [n_rows])`` float32; ``mask`` bool
-    [n_out] or None.  Masked edges and pad slots get 0.  ``n_warps`` per
-    block (1..8, see :func:`~msha_gnn_torch.ops.cuda.spmm.warps_for`).
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    [n_out] or None.  Masked edges and pad slots get 0.  ``run`` slots a
+    run (1 to :data:`MAX_WARP_RUN`, default :data:`RUN`); ``ws`` the
+    kernels' workspace (:func:`ws_floats` float32), allocated when None:
+    every call rewrites it before reading it, so calls ordered on one
+    stream may share one.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
     global fwd_launches
     if logits.device.type == "cpu":
         return seg_softmax_fwd_plain(ptr, logits, mask, n_edges)
@@ -134,29 +346,34 @@ def seg_softmax_fwd(ptr: torch.Tensor, logits: torch.Tensor,
             raise ValueError(f"mask {tuple(mask.shape)} and logits "
                              f"{tuple(logits.shape)} differ")
     _check("seg_softmax_fwd_f32", logits.device, **given)
+    run = _run_length(run)
     n_rows, n_out = ptr.numel() - 1, logits.numel()
-    att = torch.empty(n_out, dtype=torch.float32, device=logits.device)
-    lse = torch.empty(n_rows, dtype=torch.float32, device=logits.device)
+    dev = logits.device
+    att = torch.empty(n_out, dtype=torch.float32, device=dev)
+    lse = torch.empty(n_rows, dtype=torch.float32, device=dev)
     if n_rows == 0:
         return att.zero_(), lse
+    ws = _workspace(ws, n_out, run, dev)
     lib = _kernel_lib()
-    dev = logits.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.seg_softmax_fwd_f32(
             ptr.data_ptr(), logits.data_ptr(),
             None if mask is None else mask.data_ptr(), att.data_ptr(),
-            lse.data_ptr(), n_rows, n_edges, n_out, n_warps, stream)
+            lse.data_ptr(), ws.data_ptr(), n_rows, n_edges, n_out, run,
+            stream)
     _raise_on(lib, rc, "seg_softmax_fwd_f32")
     fwd_launches += 1
     return att, lse
 
 
 def seg_softmax_bwd(ptr: torch.Tensor, att: torch.Tensor, g: torch.Tensor,
-                    n_edges: int, n_warps: int) -> torch.Tensor:
+                    n_edges: int, run: Optional[int] = None,
+                    ws: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The softmax's vector-Jacobian product ``dl [n_out]`` for ``att`` as
     the forward gave it and the cotangent ``g`` [n_out]; pad slots get 0.
-    CPU tensors take the plain version."""
+    ``run`` and ``ws`` as for :func:`seg_softmax_fwd`.  CPU tensors take
+    the plain version."""
     global bwd_launches
     if att.device.type == "cpu":
         return seg_softmax_bwd_plain(ptr, att, g, n_edges)
@@ -164,17 +381,20 @@ def seg_softmax_bwd(ptr: torch.Tensor, att: torch.Tensor, g: torch.Tensor,
     if g.shape != att.shape:
         raise ValueError(f"g {tuple(g.shape)} and att {tuple(att.shape)} "
                          "differ")
+    run = _run_length(run)
     n_rows, n_out = ptr.numel() - 1, att.numel()
-    dl = torch.empty(n_out, dtype=torch.float32, device=att.device)
+    dev = att.device
+    dl = torch.empty(n_out, dtype=torch.float32, device=dev)
     if n_rows == 0:
         return dl.zero_()
+    ws = _workspace(ws, n_out, run, dev)
     lib = _kernel_lib()
-    dev = att.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.seg_softmax_bwd_f32(ptr.data_ptr(), att.data_ptr(),
-                                     g.data_ptr(), dl.data_ptr(), n_rows,
-                                     n_edges, n_out, n_warps, stream)
+                                     g.data_ptr(), dl.data_ptr(),
+                                     ws.data_ptr(), n_rows, n_edges, n_out,
+                                     run, stream)
     _raise_on(lib, rc, "seg_softmax_bwd_f32")
     bwd_launches += 1
     return dl
@@ -191,7 +411,7 @@ class _SoftmaxFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, op):
         att, _ = seg_softmax_fwd(op.ptr, logits, op.mask, op.num_edges,
-                                 op.warps)
+                                 op.run, op.ws)
         ctx.op = op
         ctx.save_for_backward(att)
         return att
@@ -201,7 +421,7 @@ class _SoftmaxFn(torch.autograd.Function):
         (att,) = ctx.saved_tensors
         op = ctx.op
         return seg_softmax_bwd(op.ptr, att, g.contiguous(), op.num_edges,
-                               op.warps), None
+                               op.run, op.ws), None
 
 
 class SegmentSoftmaxOperator:
@@ -212,7 +432,9 @@ class SegmentSoftmaxOperator:
     ``row_ptr`` [n_rows + 1], ``mask``: a static per-edge validity [E_pad]
     or None.  Masked edges get attention 0 and take no part in their row's
     denominator, so a fully masked row gives zeros; pad slots always get 0.
-    ``op(logits [E_pad])`` -> ``att [E_pad]``.
+    ``op(logits [E_pad])`` -> ``att [E_pad]``.  On the card the operator
+    holds one kernel workspace (``ws``) for all its calls, which run in
+    order on the current stream.
     """
 
     def __init__(self, senders, row_ptr, n_rows: int, mask=None,
@@ -234,9 +456,10 @@ class SegmentSoftmaxOperator:
             if self.mask.shape != (self.num_padded_edges,):
                 raise ValueError(f"mask {tuple(self.mask.shape)} for "
                                  f"{self.num_padded_edges} edge slots")
-        row_len = (self.ptr[1:] - self.ptr[:-1]).cpu()
-        self.warps = warps_for(self.num_edges, n_rows,
-                               int(row_len.max()) if n_rows else 0)
+        self.run = RUN
+        self.ws = (torch.empty(ws_floats(self.num_padded_edges, RUN),
+                               dtype=torch.float32, device=dev)
+                   if dev.type == "cuda" else None)
 
     @staticmethod
     def build(graph: "BipartiteGraph") -> "SegmentSoftmaxOperator":

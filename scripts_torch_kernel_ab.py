@@ -1,42 +1,55 @@
-"""The CSR-sum and GAT kernels and the SDDMM of two ``csrc`` trees side by
-side on one CUDA card: each tree's build, called through its own C
+"""The CSR-sum, GAT, SDDMM and row-softmax kernels of two ``csrc`` trees
+side by side on one CUDA card: each tree's build, called through its own C
 signatures, on the same inputs.
 
     python3 scripts_torch_kernel_ab.py BASE_CSRC
 
 ``BASE_CSRC`` is another tree's ``msha_gnn_torch/csrc`` (for example the
 parent commit's, unpacked with ``git archive`` into a directory that
-``.gitignore`` lists), whose ``r1_bwd_f32`` (in its ``flash_gat.cu``) and
-``csr_sddmm_f32`` (``sddmm.cu``) have the one-block-per-row and
-chunk-per-warp signatures: ``r1_bwd_f32(ptr, col, c, t, x, gout, out, lse,
-slope, att, dpre, dc, n_rows, n_out, d, n_warps, stream)`` with
-``n_warps`` from its ``flash_max_warps(d)``, and ``csr_sddmm_f32(ptr, col,
-a, b, out, n_rows, n_edges, n_out, d, stream)``.  This tree's are the
-per-edge walks of ``csrc/gat_bwd.cuh``, which take a workspace (``dc``
-pieces), the run length and the lanes an edge.  The other entry points
-(``csr_spmm_f32``, ``seg_reduce_f32``, ``r1l_fwd_f32``, ``r1l_bwd_f32``,
-``flash_fwd_f32``, ``flash_bwd_f32``, ``r1_fwd_f32``) have the same
+``.gitignore`` lists), whose ``seg_softmax_fwd_f32`` and
+``seg_softmax_bwd_f32`` (``softmax.cu``) have the one-block-per-row
+signatures: ``seg_softmax_fwd_f32(ptr, logits, mask, att, lse, n_rows,
+n_edges, n_out, n_warps, stream)`` and ``seg_softmax_bwd_f32(ptr, att, g,
+dl, n_rows, n_edges, n_out, n_warps, stream)``, with ``n_warps`` from
+``warps_for`` of the row lengths as its operator chose them.  This tree's
+are the edge-run walk of ``csrc/softmax.cu``, which takes a workspace
+and the run length; both builds' softmax entries are called through their
+C entries (this one into its operator's workspace, as the path calls
+it), so that the event times carry the same host work.  The other entry points (``csr_spmm_f32``, ``seg_reduce_f32``,
+``r1l_fwd_f32``, ``r1l_bwd_f32``, ``flash_fwd_f32``, ``flash_bwd_f32``,
+``r1_fwd_f32``, ``r1_bwd_f32``, ``csr_sddmm_f32``) have the same
 signatures in both trees and run through this tree's wrappers with each
 build's library in turn.  On the path's shapes (the GCN graph of the 2015
 flow data's shape, d 32; the linkpred graph, synthetic ogbl-ddi seed 42,
-d 64) the script runs ``r1_bwd_f32``, ``csr_sddmm_f32`` in both
-orientations (``sddmm(g, x)``, ``sddmm(x, g)``) and, as controls,
-``flash_bwd_f32`` at 0.5 (the walk it now shares), every ``csr_spmm_f32``
-use (gc1 ``A^T x``, gc2 ``A x``, the att-weighted ``A h`` and ``A^T g``,
-the ``q``-weighted dx, the d = 1 column sum), ``seg_reduce_f32`` on
-``[E_pad, 64]`` values, ``r1l_fwd_f32`` at 0 and 0.5, ``r1l_bwd_f32`` at
+d 64) the script runs ``seg_softmax_fwd_f32`` (unmasked, as the path
+runs it) and ``seg_softmax_bwd_f32`` and, as controls, ``r1_bwd_f32``,
+``csr_sddmm_f32`` in both orientations (``sddmm(g, x)``, ``sddmm(x, g)``),
+``flash_bwd_f32`` at 0.5, every ``csr_spmm_f32`` use (gc1 ``A^T x``, gc2
+``A x``, the att-weighted ``A h`` and ``A^T g``, the ``q``-weighted dx,
+the d = 1 column sum), ``seg_reduce_f32`` on ``[E_pad, 64]`` values,
+``r1l_fwd_f32`` at 0 and 0.5, ``r1l_bwd_f32`` at
 0.5, ``flash_fwd_f32`` at 0 and 0.5 and ``r1_fwd_f32``.  It prints:
 
 * whether each build's outputs equal the plain versions' (``out``,
-  ``lse``, ``q``, ``att`` and the SDDMM at rtol 1e-5, atol 1e-6; sums,
-  ``dl`` and ``dpre`` at rtol 1e-4, atol 1e-5 of the largest value:
-  float32 sums of up to 3,842 terms);
+  ``lse``, ``q``, ``att``, the softmax and the SDDMM at rtol 1e-5, atol
+  1e-6; sums, ``dl`` and ``dpre`` at rtol 1e-4, atol 1e-5 of the largest
+  value: float32 sums of up to 3,842 terms);
 * each kernel's time in four rounds in the order base, this, this, base:
   the median of 15 means of 20 launches by CUDA events, and the device
   time over 20 launches by ``torch.profiler``, with the medians of each;
-* this build's ``r1_bwd_f32``, ``csr_sddmm_f32`` (``sddmm(g, x)``) and
+* this build's ``seg_softmax_fwd_f32`` and ``seg_softmax_bwd_f32`` at each
+  run length of ``softmax.RUN_SLOTS``, and its ``r1_bwd_f32``, ``csr_sddmm_f32`` (``sddmm(g, x)``) and
   ``flash_bwd_f32`` at each run length of ``RUN_SLOTS`` and each group of
   ``GROUPS`` lanes (device time);
+* the materialised linkpred step (``train_step`` at ``LinkPredConfig()``,
+  synthetic ogbl-ddi seed 42) with each tree's row softmax: the base
+  tree's ``SegmentSoftmaxOperator`` (its ``ops/cuda/softmax.py`` beside
+  ``BASE_CSRC``, on the base build) or this one's, all other kernels this
+  build's; ``STEP_ROUNDS`` rounds of ``STEP_STEPS`` synchronised,
+  unprofiled steps of each, the two in an order that alternates from
+  round to round (base, this; this, base; ...), each round on the same
+  batches; the median step of each round, the medians of those, and the
+  rounds in which this tree's step was the faster;
 * ptxas's register, spill and stack counts of both builds.
 
 The card's name and power limit come first, one JSON summary last.  Needs
@@ -50,11 +63,15 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
 
-SOURCES = ("spmm", "rank1_gat", "flash_gat", "sddmm")
+SOURCES = ("spmm", "rank1_gat", "flash_gat", "sddmm", "softmax")
+# the materialised step's rounds, and synchronised steps a round
+STEP_ROUNDS = 20
+STEP_STEPS = 10
 
 
 def build_base(csrc: Path) -> dict:
@@ -81,27 +98,102 @@ def build_base(csrc: Path) -> dict:
 def bind_base(base: dict, this: dict) -> None:
     """The base build's entry points: those whose signature this tree kept
     typed as this tree's wrappers type them, and the one-block-per-row
-    ``r1_bwd_f32`` (with ``flash_max_warps``) and chunk-per-warp
-    ``csr_sddmm_f32``."""
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ``seg_softmax_fwd_f32`` and ``seg_softmax_bwd_f32``."""
+    p, i = ctypes.c_void_p, ctypes.c_int
     for name, lib in base.items():
         for fn in ("csr_spmm_f32", "seg_reduce_f32", "csr_spmm_dw_f32",
                    "csr_spmm_dw_max_warps", "r1l_fwd_f32", "r1l_bwd_f32",
-                   "r1_fwd_f32", "r1l_keep_scale_f32", "r1l_max_warps",
-                   "r1l_error_string", "flash_fwd_f32", "flash_bwd_f32",
-                   "flash_error_string", "csr_spmm_error_string",
+                   "r1_fwd_f32", "r1_bwd_f32", "r1l_keep_scale_f32",
+                   "r1l_max_warps", "r1l_error_string", "flash_fwd_f32",
+                   "flash_bwd_f32", "flash_error_string",
+                   "csr_spmm_error_string", "csr_sddmm_f32",
                    "csr_sddmm_error_string"):
             if hasattr(this[name], fn):
                 ours = getattr(this[name], fn)
                 getattr(lib, fn).argtypes = ours.argtypes
                 getattr(lib, fn).restype = ours.restype
-    flash = base["flash_gat"]
-    flash.r1_bwd_f32.argtypes = [p] * 8 + [f] + [p] * 3 + [i] * 4 + [p]
-    flash.flash_max_warps.argtypes = [i]
-    base["sddmm"].csr_sddmm_f32.argtypes = [p] * 5 + [i] * 4 + [p]
-    for fn in (flash.r1_bwd_f32, flash.flash_max_warps,
-               base["sddmm"].csr_sddmm_f32):
+    softmax = base["softmax"]
+    softmax.seg_softmax_fwd_f32.argtypes = [p] * 5 + [i] * 4 + [p]
+    softmax.seg_softmax_bwd_f32.argtypes = [p] * 4 + [i] * 4 + [p]
+    for fn in (softmax.seg_softmax_fwd_f32, softmax.seg_softmax_bwd_f32):
         fn.restype = ctypes.c_int
+    softmax.seg_softmax_error_string.argtypes = [i]
+    softmax.seg_softmax_error_string.restype = ctypes.c_char_p
+
+
+def base_softmax_module(csrc: Path, lib):
+    """The base tree's ``ops/cuda/softmax.py`` (beside ``csrc``), imported
+    inside this package (its relative imports reach this tree's modules)
+    and bound to the base build's library."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "msha_gnn_torch.ops.cuda._base_softmax",
+        csrc.parent / "ops" / "cuda" / "softmax.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    module._lib = lib
+    return module
+
+
+def compare_steps(base_sm) -> dict:
+    """The materialised linkpred step's unprofiled wall with the base
+    tree's row softmax and with this tree's, in one process: the step
+    reaches the operator through ``softmax.softmax_operator_for``, which
+    each round points at one tree's operator."""
+    from msha_gnn_torch.data import load_ddi, split_edges
+    from msha_gnn_torch.ops.cuda import softmax as sm
+    from msha_gnn_torch.training import (LinkPredConfig,
+                                         build_link_prediction, train_step)
+    from msha_gnn_torch.training.link_prediction import epoch_batches
+
+    split = split_edges(load_ddi(seed=42), seed=42)
+    run = build_link_prediction(split, LinkPredConfig(impl="materialised"),
+                                device="cuda")
+    ops = {"base": base_sm.SegmentSoftmaxOperator.build(run.graph),
+           "this": sm.SegmentSoftmaxOperator.build(run.graph)}
+    batches = epoch_batches(run)
+    own = sm.softmax_operator_for
+    medians = {"base": [], "this": []}
+    launches = {}
+    try:
+        for label in ("base", "this"):  # warm-up
+            sm.softmax_operator_for = lambda graph, op=ops[label]: op
+            for batch in batches[:3]:
+                train_step(run, batch)
+        torch.cuda.synchronize()
+        for r in range(STEP_ROUNDS):
+            for label in ("base", "this")[::1 if r % 2 == 0 else -1]:
+                sm.softmax_operator_for = lambda graph, op=ops[label]: op
+                before = {m: (m.fwd_launches, m.bwd_launches)
+                          for m in (base_sm, sm)}
+                wall = []
+                for i in range(STEP_STEPS):
+                    batch = batches[(3 + r * STEP_STEPS + i) % len(batches)]
+                    t0 = time.perf_counter()
+                    train_step(run, batch)
+                    torch.cuda.synchronize()
+                    wall.append((time.perf_counter() - t0) * 1e3)
+                medians[label].append(statistics.median(wall))
+                launches[label] = {
+                    m.__name__.rsplit(".", 1)[-1]: (
+                        m.fwd_launches - before[m][0],
+                        m.bwd_launches - before[m][1])
+                    for m in (base_sm, sm)}
+    finally:
+        sm.softmax_operator_for = own
+    summary = {"rounds": STEP_ROUNDS, "steps_per_round": STEP_STEPS,
+               "round_medians_ms": medians,
+               "this_faster_rounds": sum(
+                   t < b for t, b in zip(medians["this"], medians["base"])),
+               "softmax_launches_last_round": launches}
+    for label, meds in medians.items():
+        q = statistics.quantiles(meds, n=4)
+        summary[f"{label}_ms_p50"] = statistics.median(meds)
+        summary[f"{label}_ms_quartiles"] = [q[0], q[2]]
+    print(f"  materialised step wall, unprofiled, {STEP_ROUNDS} rounds of "
+          f"{STEP_STEPS} steps: {json.dumps(summary)}", flush=True)
+    return summary
 
 
 def ptxas(log: str) -> list:
@@ -160,6 +252,7 @@ def main() -> int:
     from msha_gnn_torch.ops.cuda import flash_gat as flash
     from msha_gnn_torch.ops.cuda import rank1_gat as r1
     from msha_gnn_torch.ops.cuda import sddmm as sd
+    from msha_gnn_torch.ops.cuda import softmax as sm
     from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
     from msha_gnn_torch.ops.cuda.softmax import seg_softmax_fwd_plain
 
@@ -170,7 +263,8 @@ def main() -> int:
     base = build_base(Path(sys.argv[1]))
     _build.build(SOURCES)
     this = {"spmm": cuda_spmm._kernel_lib(), "rank1_gat": r1._kernel_lib(),
-            "flash_gat": flash._kernel_lib(), "sddmm": sd._kernel_lib()}
+            "flash_gat": flash._kernel_lib(), "sddmm": sd._kernel_lib(),
+            "softmax": sm._kernel_lib()}
     base_libs = {n: lib for n, (lib, _) in base.items()}
     bind_base(base_libs, this)
     for label, logs in (("base", {n: log for n, (_, log) in base.items()}),
@@ -262,46 +356,74 @@ def main() -> int:
         flash, libs["flash_gat"], lambda: flash.flash_bwd(*fb_args))
     want["flash_bwd_f32[rate 0.5]"] = flash.flash_gat_bwd_plain(*fb_args)
 
-    # the parent's r1_bwd_f32 and csr_sddmm_f32, through their own C entries
     out_g, lse_g = want["r1_fwd_f32"]
     gb_args = (op.ptr, op.col, c, t, x, gout, out_g, lse_g, op.slope, n)
-    base_warps = base_libs["flash_gat"].flash_max_warps(d)
-
-    def base_r1_bwd():
-        att_, dpre_, dc_ = (torch.empty(e, device=dev),
-                            torch.empty(e, device=dev),
-                            torch.empty(n, device=dev))
-        checked(base_libs["flash_gat"].r1_bwd_f32(
-            op.ptr.data_ptr(), op.col.data_ptr(), c.data_ptr(), t.data_ptr(),
-            x.data_ptr(), gout.data_ptr(), out_g.data_ptr(),
-            lse_g.data_ptr(), op.slope, att_.data_ptr(), dpre_.data_ptr(),
-            dc_.data_ptr(), n, e, d, base_warps, stream()))
-        return att_, dpre_, dc_
-
     # r1_bwd (rank1_gat.py) launches from flash_gat's library
-    cases["r1_bwd_f32"] = {"base": base_r1_bwd, "this": lib_case(
-        flash, libs["flash_gat"], lambda: r1.r1_bwd(*gb_args))["this"]}
+    cases["r1_bwd_f32"] = lib_case(flash, libs["flash_gat"],
+                                   lambda: r1.r1_bwd(*gb_args))
     want["r1_bwd_f32"] = r1.rank1_gat_generic_bwd_plain(*gb_args)
-
-    def base_sddmm(rows, cols):
-        def fn():
-            out_ = torch.empty(e_pad, device=dev)
-            checked(base_libs["sddmm"].csr_sddmm_f32(
-                spmm.ptr.data_ptr(), spmm.col.data_ptr(), rows.data_ptr(),
-                cols.data_ptr(), out_.data_ptr(), n, e, e_pad, d, stream()))
-            return out_
-        return fn
-
     for label, (rows, cols) in (("g, x", (gout, x)), ("x, g", (x, gout))):
         k = f"csr_sddmm_f32[sddmm({label})]"
-        cases[k] = {"base": base_sddmm(rows, cols), "this": lib_case(
-            sd, libs["sddmm"], lambda rows=rows, cols=cols: sd.csr_sddmm(
-                spmm.ptr, spmm.col, rows, cols, e_pad))["this"]}
+        cases[k] = lib_case(sd, libs["sddmm"],
+                            lambda rows=rows, cols=cols: sd.csr_sddmm(
+                                spmm.ptr, spmm.col, rows, cols, e_pad))
         want[k] = (sd.csr_sddmm_plain(spmm.ptr, spmm.col, rows, cols, e_pad),)
+
+    # the parent's row softmax through its own C entries, n_warps as its
+    # operator chose them from the row lengths
+    sop = sm.softmax_operator_for(g)
+    row_len = spmm.ptr.diff()
+    base_warps = cuda_spmm.warps_for(e, n, int(row_len.max()))
+    gsm = torch.randn(e_pad, generator=gen, device=dev)
+    att_full = seg_softmax_fwd_plain(spmm.ptr, logits, None, e)[0]
+
+    def base_softmax_fwd():
+        att_, lse_ = torch.empty(e_pad, device=dev), torch.empty(n,
+                                                                 device=dev)
+        checked(base_libs["softmax"].seg_softmax_fwd_f32(
+            spmm.ptr.data_ptr(), logits.data_ptr(), None, att_.data_ptr(),
+            lse_.data_ptr(), n, e, e_pad, base_warps, stream()))
+        return att_, lse_
+
+    def base_softmax_bwd():
+        dl_ = torch.empty(e_pad, device=dev)
+        checked(base_libs["softmax"].seg_softmax_bwd_f32(
+            spmm.ptr.data_ptr(), att_full.data_ptr(), gsm.data_ptr(),
+            dl_.data_ptr(), n, e, e_pad, base_warps, stream()))
+        return dl_
+
+    # this tree's through its C entries too, so both sides' host work (the
+    # outputs' allocation, one ctypes call) is alike; the workspace is the
+    # operator's, as on the path
+    def this_softmax_fwd():
+        att_, lse_ = torch.empty(e_pad, device=dev), torch.empty(n,
+                                                                 device=dev)
+        checked(this["softmax"].seg_softmax_fwd_f32(
+            spmm.ptr.data_ptr(), logits.data_ptr(), None, att_.data_ptr(),
+            lse_.data_ptr(), sop.ws.data_ptr(), n, e, e_pad, sop.run,
+            stream()))
+        return att_, lse_
+
+    def this_softmax_bwd():
+        dl_ = torch.empty(e_pad, device=dev)
+        checked(this["softmax"].seg_softmax_bwd_f32(
+            spmm.ptr.data_ptr(), att_full.data_ptr(), gsm.data_ptr(),
+            dl_.data_ptr(), sop.ws.data_ptr(), n, e, e_pad, sop.run,
+            stream()))
+        return dl_
+
+    cases["seg_softmax_fwd_f32"] = {"base": base_softmax_fwd,
+                                    "this": this_softmax_fwd}
+    want["seg_softmax_fwd_f32"] = seg_softmax_fwd_plain(spmm.ptr, logits,
+                                                        None, e)
+    cases["seg_softmax_bwd_f32"] = {"base": base_softmax_bwd,
+                                    "this": this_softmax_bwd}
+    want["seg_softmax_bwd_f32"] = (sm.seg_softmax_bwd_plain(
+        spmm.ptr, att_full, gsm, e),)
     # outputs held at the kernel tolerance (the rest as sums)
     exact = {"r1l_fwd": (0, 1), "flash_fwd": (0, 1), "r1_fwd": (0, 1),
              "flash_bwd": (1,), "r1l_bwd": (0,), "r1_bwd": (0,),
-             "csr_sddmm": (0,)}
+             "csr_sddmm": (0,), "seg_softmax_fwd": (0, 1)}
 
     def equal(k, got):
         tight = exact.get(k.split("_f32")[0], ())
@@ -342,9 +464,24 @@ def main() -> int:
                       "base_device_ms": dmed["base"],
                       "this_device_ms": dmed["this"]}
 
-    # this build at each run length and group of lanes
-    cuda_spmm._lib, r1._lib, flash._lib, sd._lib = (
-        this["spmm"], this["rank1_gat"], this["flash_gat"], this["sddmm"])
+    # this build at each run length (the softmax) and group of lanes (the
+    # per-edge walks)
+    cuda_spmm._lib, r1._lib, flash._lib, sd._lib, sm._lib = (
+        this["spmm"], this["rank1_gat"], this["flash_gat"], this["sddmm"],
+        this["softmax"])
+    softmax_walks = {
+        "seg_softmax_fwd_f32": lambda run: sm.seg_softmax_fwd(
+            spmm.ptr, logits, None, e, run),
+        "seg_softmax_bwd_f32": lambda run: sm.seg_softmax_bwd(
+            spmm.ptr, att_full, gsm, e, run)}
+    softmax_sweep = {k: {f"run {run}": cs.device_ms(
+        lambda fn=fn, run=run: fn(run)) for run in sm.RUN_SLOTS}
+        for k, fn in softmax_walks.items()}
+    for k, v in softmax_sweep.items():
+        print(f"  run lengths, device ms, {k}: "
+              + ", ".join(f"{key} {ms:.4f}" if ms is not None
+                          else f"{key} not measured"
+                          for key, ms in v.items()), flush=True)
     walks = {
         "r1_bwd_f32": lambda run, grp: r1.r1_bwd(*gb_args, run=run,
                                                  group=grp),
@@ -362,8 +499,11 @@ def main() -> int:
               + ", ".join(f"{key} {ms:.4f}" if ms is not None
                           else f"{key} not measured"
                           for key, ms in v.items()), flush=True)
-    print(json.dumps({"ab": summary, "run_group_sweep_device_ms": sweep}),
-          flush=True)
+    steps = compare_steps(base_softmax_module(Path(sys.argv[1]),
+                                              base_libs["softmax"]))
+    print(json.dumps({"ab": summary, "run_group_sweep_device_ms": sweep,
+                      "softmax_run_sweep_device_ms": softmax_sweep,
+                      "materialised_step_wall": steps}), flush=True)
     return 0
 
 

@@ -179,11 +179,12 @@ def test_softmax_kernels_match_plain(masked):
     gen = torch.Generator(device="cuda").manual_seed(4)
     logits = torch.randn(e_pad, generator=gen, device="cuda") * 3
     gout = torch.randn(e_pad, generator=gen, device="cuda")
-    # one warp, and the most: every row shorter than a block, and not
-    for warps in (1, 8):
+    # runs of one slot, of about a row, of many rows, and the most a warp
+    # holds (the default mapping)
+    for run in (1, 32, 256, 512):
         before = (sm.fwd_launches, sm.bwd_launches)
-        att, lse = sm.seg_softmax_fwd(ptr, logits, mask, e, warps)
-        dl = sm.seg_softmax_bwd(ptr, att, gout, e, warps)
+        att, lse = sm.seg_softmax_fwd(ptr, logits, mask, e, run)
+        dl = sm.seg_softmax_bwd(ptr, att, gout, e, run)
         assert (sm.fwd_launches, sm.bwd_launches) == (before[0] + 1,
                                                       before[1] + 1)
         want_att, want_lse = sm.seg_softmax_fwd_plain(ptr, logits, mask, e)
@@ -1055,3 +1056,115 @@ def test_sddmm_runs_kernel_matches_plain(d, run, group):
         *cpu, n_out, run or cuda_sddmm.RUN, group)
     assert bool((writes == 1).all())
     torch.testing.assert_close(got.cpu(), mirror, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", [None, 1, *sm.RUN_SLOTS],
+                         ids=lambda r: f"run{r}")
+@pytest.mark.parametrize("masked", [False, True])
+def test_softmax_runs_kernels_match_plain_and_mirrors(masked, run):
+    """seg_softmax_fwd_f32 and seg_softmax_bwd_f32 at each run length, on
+    a graph with rows longer than many runs, runs that hold more than 31
+    rows, empty rows and pad slots (NaN in the inputs): against the plain
+    versions and the walk's mirrors (at 16 slots a run and more) over
+    NaN-primed blocks, twice bit for bit, pads 0; with a mask, a long row
+    fully masked gives zeros; one workspace for all calls."""
+    g = long_row_graph(300, 300, long_rows=(1, 298), length=600, seed=21)
+    ptr, e = g.row_ptr, g.num_edges
+    n_out = g.num_padded_edges + 40
+    gen = torch.Generator(device="cuda").manual_seed(run or 0)
+    logits = torch.randn(n_out, generator=gen, device="cuda") * 3
+    gout = torch.randn(n_out, generator=gen, device="cuda")
+    logits[e:] = float("nan")
+    gout[e:] = float("nan")
+    mask = None
+    if masked:
+        mask = torch.rand(n_out, generator=gen, device="cuda") > 0.3
+        mask[int(ptr[298]):int(ptr[299])] = False
+    ws = torch.full((sm.ws_floats(n_out, run or sm.RUN),), float("nan"),
+                    device="cuda")
+    prime_nan((n_out,), (300,), (sm.ws_floats(n_out, 1),))
+    before = (sm.fwd_launches, sm.bwd_launches)
+    att, lse = twice_same(lambda: sm.seg_softmax_fwd(ptr, logits, mask, e,
+                                                     run, ws))
+    want_att, want_lse = sm.seg_softmax_fwd_plain(ptr, logits, mask, e)
+    torch.testing.assert_close(att, want_att, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-6)
+    prime_nan((n_out,), (sm.ws_floats(n_out, 1),))
+    dl = twice_same(lambda: sm.seg_softmax_bwd(ptr, want_att, gout, e, run,
+                                               ws))
+    assert (sm.fwd_launches, sm.bwd_launches) == (before[0] + 2,
+                                                  before[1] + 2)
+    want_dl = sm.seg_softmax_bwd_plain(ptr, want_att, gout, e)
+    sums_close(dl, want_dl)
+    assert not att[e:].any() and not dl[e:].any()
+    if masked:
+        assert not att[~mask].any()
+        assert not att[int(ptr[298]):int(ptr[299])].any()
+    if run == 1:
+        return      # the mirrors merge a 600-edge row's 600 pieces 600 times
+    cpu = [v.cpu() for v in (ptr, logits, gout, want_att)]
+    m_cpu = None if mask is None else mask.cpu()
+    m_att, m_lse, att_w, lse_w = sm.seg_softmax_fwd_runs_plain(
+        cpu[0], cpu[1], m_cpu, e, run or sm.RUN)
+    m_dl, dl_w = sm.seg_softmax_bwd_runs_plain(cpu[0], cpu[3], cpu[2], e,
+                                               run or sm.RUN)
+    assert bool((att_w == 1).all()) and bool((lse_w == 1).all())
+    assert bool((dl_w == 1).all())
+    torch.testing.assert_close(att.cpu(), m_att, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(lse.cpu(), m_lse, rtol=1e-5, atol=1e-6)
+    sums_close(dl.cpu(), m_dl)
+
+
+@pytest.mark.cuda
+def test_softmax_runs_kernels_through_the_c_entries():
+    """Each C entry launched into NaN-filled outputs and workspace writes
+    every element of its outputs (pads 0, every lse row) with the
+    wrapper's bits; a graph with no edges gives zeros and lse = NEG +
+    log(1e-30) on every row; a bad run length or workspace is refused."""
+    g = long_row_graph(300, 300, long_rows=(5,), length=900, seed=3)
+    ptr, e, n_out = g.row_ptr, g.num_edges, g.num_padded_edges + 7
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    logits = torch.randn(n_out, generator=gen, device="cuda")
+    gout = torch.randn(n_out, generator=gen, device="cuda")
+    lib = sm._kernel_lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    run = 64
+    for mask in (None, torch.rand(n_out, generator=gen, device="cuda") > 0.5):
+        want = sm.seg_softmax_fwd(ptr, logits, mask, e, run)
+        att, lse, ws = (torch.full((k,), float("nan"), device="cuda")
+                        for k in (n_out, 300, sm.ws_floats(n_out, run)))
+        rc = lib.seg_softmax_fwd_f32(
+            ptr.data_ptr(), logits.data_ptr(),
+            None if mask is None else mask.data_ptr(), att.data_ptr(),
+            lse.data_ptr(), ws.data_ptr(), 300, e, n_out, run, stream)
+        torch.cuda.synchronize()
+        assert rc == 0
+        assert torch.equal(att, want[0]) and torch.equal(lse, want[1])
+    want_dl = sm.seg_softmax_bwd(ptr, want[0], gout, e, run)
+    dl, ws = (torch.full((k,), float("nan"), device="cuda")
+              for k in (n_out, sm.ws_floats(n_out, run)))
+    rc = lib.seg_softmax_bwd_f32(ptr.data_ptr(), want[0].data_ptr(),
+                                 gout.data_ptr(), dl.data_ptr(),
+                                 ws.data_ptr(), 300, e, n_out, run, stream)
+    torch.cuda.synchronize()
+    assert rc == 0 and torch.equal(dl, want_dl)
+    # no edges at all, with and without pads
+    floor = torch.tensor(sm.NEG) + torch.log(torch.tensor(1e-30))
+    for pads in (0, 50):
+        zero_ptr = torch.zeros(7, dtype=torch.int32, device="cuda")
+        lg = torch.randn(pads, device="cuda")
+        prime_nan((pads,), (6,), (sm.ws_floats(pads, 1),))
+        att0, lse0 = sm.seg_softmax_fwd(zero_ptr, lg, None, 0, run)
+        dl0 = sm.seg_softmax_bwd(zero_ptr, att0, lg, 0, run)
+        torch.cuda.synchronize()
+        assert not att0.any() and not dl0.any()
+        assert bool((lse0.cpu() == floor).all())
+    for bad_run in (0, 513):
+        rc = lib.seg_softmax_bwd_f32(ptr.data_ptr(), want[0].data_ptr(),
+                                     gout.data_ptr(), dl.data_ptr(),
+                                     ws.data_ptr(), 300, e, n_out, bad_run,
+                                     stream)
+        assert rc != 0
+    with pytest.raises(ValueError):
+        sm.seg_softmax_bwd(ptr, want[0], gout, e, run, ws[:-1])
