@@ -30,17 +30,19 @@ over the same 20 calls, as is their library yardstick.
    one full-score fill that must launch exactly the path's kernels, the
    fill against the plain path on the card and against a float64 dense
    reference on a small graph, then HTTP requests through ``make_server``.
-3c. the materialised attention pipeline's kernels (the dropout keep mask
-   ``r1l_keep_scale_f32`` bit for bit, ``csr_sddmm_f32`` in both
-   orientations, each also once through its C entry into a NaN-filled
-   output (every slot written, the pads 0), ``seg_softmax_fwd_f32``
-   unmasked as the path runs it and, for correctness, with the build mask
-   and with a mask that leaves one row fully masked,
-   ``seg_softmax_bwd_f32``, both also twice bit for bit and once through
-   their C entries into NaN-filled outputs and workspace, and
-   ``csr_spmm_f32``
-   weighted by attention, forward and transposed) against their plain
-   versions on the same linkpred graph; times and bounds as in phase 3.
+3c. the materialised attention pipeline's kernels (``csr_sddmm_f32`` in
+   both orientations, each also once through its C entry into a
+   NaN-filled output (every slot written, the pads 0),
+   ``seg_softmax_fwd_f32`` unmasked as the path runs it and, for
+   correctness, with the build mask and with a mask that leaves one row
+   fully masked, ``seg_softmax_bwd_f32``, both also twice bit for bit and
+   once through their C entries into NaN-filled outputs and workspace;
+   both again at dropout rate 0.5, the attention's keep mask folded into
+   the walk, held bit for bit against the composition they replace
+   (``att_k = att * keep_scale_plain``, ``dl`` of ``g * keep_scale_plain``),
+   with device times at rate 0 and 0.5; and ``csr_spmm_f32`` weighted by
+   attention, forward and transposed) against their plain versions on the
+   same linkpred graph; times and bounds as in phase 3.
 3d. the flash-GAT kernels (``flash_fwd_f32`` at dropout rate 0 and 0.5,
    ``flash_bwd_f32`` at 0 and 0.5 with its keep mask, and ``csr_spmm_f32``
    weighted by the backward's ``q`` as its dx) against their plain
@@ -56,9 +58,12 @@ over the same 20 calls, as is their library yardstick.
    C entry into NaN-filled outputs and workspace), ``seg_reduce_f32`` on
    ``[E, 64]`` edge values over the linkpred row pointer (pads NaN), and
    ``csr_spmm_dw_f32`` in both directions with attention weights (its
-   ``dw`` element by element against the unfused ``csr_sddmm_f32``)
-   against their plain versions on the same linkpred graph; times and
-   bounds as in phase 3.
+   ``dw`` element by element against the unfused ``csr_sddmm_f32``, twice
+   bit for bit, once through its C entry into NaN-filled outputs and
+   workspace, its device time beside the unfused backward's: the
+   weights' permute, ``csr_spmm_f32`` and ``csr_sddmm_f32``) against their
+   plain versions on the same linkpred graph; times and bounds as in
+   phase 3.
 5. the link-prediction training path at full width
    (``LinkPredConfig()``: hidden 64, 2 heads, dropout 0.5, batch 4096):
    one training step that must launch exactly its kernels, the same step
@@ -66,10 +71,13 @@ over the same 20 calls, as is their library yardstick.
    dropout masks), one epoch whose loss must fall, the device's idle share
    over a few steps, and the evaluation (Hits@20, Hits@50, AUC).
 6. the same with ``impl="materialised"``: one step that must launch
-   exactly the materialised pipeline's kernels (and, in the profiled
-   steps, exactly two softmax grids a softmax call), held against the plain
-   step and against the fused step from the same state, one epoch whose
-   loss must fall and follow the fused epoch's step by step, the idle
+   exactly the materialised pipeline's kernels (the keep mask inside the
+   three softmax launches each way, no kernel of its own; and, in the
+   profiled steps, exactly two softmax grids a softmax call), held against
+   the plain step and against the fused step from the same state, one
+   epoch whose loss must fall and follow the fused epoch's step by step,
+   each step's loss bit-equal to the unfolded composition's (the softmax
+   kernel, then ``* keep_scale_plain``) from the same state, the idle
    share, and the evaluation's launches.
 7. the same with ``impl="flash"``: one step that must launch exactly the
    flash path's kernels, held against the plain step and against the fused
@@ -577,17 +585,21 @@ def sddmm_bound(ptr, col, a, b, n_out):
     return bound(nbytes, 2 * e * d)
 
 
-def softmax_bounds(n, e, n_out, masked):
+def softmax_bounds(n, e, n_out, masked, drop=False):
     """Least times of the row softmax and its VJP on this data.  Forward:
     the pointer, the E logits and (if given) the E mask bytes read once,
     ``att`` [n_out] and ``lse`` [n] written once; per edge a max, the exp
     and add of the row sum, and the subtract and exp of ``att`` (5 E).
     Backward: the pointer, ``att`` and ``g`` read once, ``dl`` [n_out]
     written once; per edge the multiply-add of the row sum and
-    ``att g - att rs`` (5 E)."""
+    ``att g - att rs`` (5 E).  With dropout (``drop``) the forward also
+    writes ``att_k`` [n_out], and each slot takes the keep mask's hash (14
+    integer operations, counted at the float32 rate: the table has no
+    int32 peak) and one multiply, both ways."""
+    per_slot = 15 * n_out if drop else 0
     fwd = bound(4 * (n + 1) + 4 * e + (e if masked else 0) + 4 * n_out
-                + 4 * n, 5 * e)
-    bwd = bound(4 * (n + 1) + 8 * e + 4 * n_out, 5 * e)
+                + 4 * n + (4 * n_out if drop else 0), 5 * e + per_slot)
+    bwd = bound(4 * (n + 1) + 8 * e + 4 * n_out, 5 * e + per_slot)
     return fwd, bwd
 
 
@@ -600,9 +612,10 @@ def entry(name, source, replaces, err, ms, plain_ms, bnd, library_ms):
 
 
 def phase_materialised_kernels(split):
-    """Phase 3c: r1l_keep_scale_f32, csr_sddmm_f32, seg_softmax_fwd_f32,
-    seg_softmax_bwd_f32 and the attention-weighted csr_spmm_f32 vs their
-    plain versions at the linkpred shapes."""
+    """Phase 3c: csr_sddmm_f32, seg_softmax_fwd_f32 and
+    seg_softmax_bwd_f32 (without and with the keep mask folded in) and the
+    attention-weighted csr_spmm_f32 vs their plain versions at the
+    linkpred shapes."""
     from msha_gnn_torch.ops.cuda import rank1_gat as r1
     from msha_gnn_torch.ops.cuda import sddmm as cuda_sddmm
     from msha_gnn_torch.ops.cuda import softmax as sm
@@ -627,29 +640,7 @@ def phase_materialised_kernels(split):
         f"order); the softmax VJP and the SpMMs at rtol {SUM_RTOL}, atol "
         f"{SUM_ATOL_REL} x max|value| (sums of up to {longest} terms)")
 
-    # the attention's dropout factors, bit for bit
-    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=DEVICE)
-    slots = torch.arange(e_pad, device=DEVICE)
-    keep = r1.keep_scale(e_pad, seed, 0.5)
-    if not torch.equal(keep, r1.keep_scale_plain(slots, seed, 0.5)):
-        raise AssertionError("the kernels' keep mask differs from "
-                             "keep_scale_plain")
-    ms = time_ms(lambda: r1.keep_scale(e_pad, seed, 0.5))
-    keep_dev_ms = device_ms(lambda: r1.keep_scale(e_pad, seed, 0.5))
-    plain_ms = time_ms(lambda: r1.keep_scale_plain(slots, seed, 0.5))
-    # the seed read, the factors written; the hash's 14 integer operations
-    # a slot (the table has no int32 peak: counted at the float32 rate)
-    bnd = bound(4 + 4 * e_pad, 14 * e_pad)
-    log(f"  r1l_keep_scale_f32[rate 0.5], seed {DROP_SEED}: bit-exact over "
-        f"{e_pad} slots, kept share {float((keep > 0).float().mean()):.4f}; "
-        f"kernel {ms:.4f} ms (device {fmt(keep_dev_ms)}), plain "
-        f"{plain_ms:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}); library none: "
-        "no PyTorch call computes this hash")
-    results = [{**entry(
-        "r1l_keep_scale_f32[rate 0.5]", "rank1_gat.cu",
-        "msha_gnn_tpu/ops/pallas/rank1_gat.py:85 _keep_scale (the keep mask "
-        "that :234 _r1l_fwd_kernel hashes)", 0.0, ms, plain_ms, bnd, None),
-        "device_ms": keep_dev_ms, "library_device_ms": None}]
+    results = []
 
     # SDDMM, both orientations: dw of A @ h is sddmm(g, x), of A.T @ h
     # sddmm(x, g); the training path runs the first, which alone has an
@@ -752,8 +743,8 @@ def phase_materialised_kernels(split):
         "seg_softmax_fwd_f32[path]", ((e_pad,), (n,), (n_ws,)),
         lambda att_, lse_, ws_: sm._kernel_lib().seg_softmax_fwd_f32(
             op.ptr.data_ptr(), logits.data_ptr(), None, att_.data_ptr(),
-            lse_.data_ptr(), ws_.data_ptr(), n, e, e_pad, sop.run,
-            torch.cuda.current_stream().cuda_stream),
+            None, lse_.data_ptr(), ws_.data_ptr(), None, 0.0, 1.0, n, e,
+            e_pad, sop.run, torch.cuda.current_stream().cuda_stream),
         fwd_kernel(), what="att (pads included), lse")
     ms, dev_ms = time_ms(fwd_kernel), device_ms(fwd_kernel)
     plain_ms = time_ms(lambda: sm.seg_softmax_fwd_plain(*fwd_args))
@@ -768,14 +759,58 @@ def phase_materialised_kernels(split):
     library_ms = time_ms(lambda: torch.sparse.softmax(coo, 1))
     lib_dev_ms = device_ms(lambda: torch.sparse.softmax(coo, 1), iters=5)
     (fwd_b, bwd_b) = softmax_bounds(n, e, e_pad, masked=False)
-    log(f"  seg_softmax_fwd_f32: kernel {ms:.4f} ms (device {fmt(dev_ms)}), "
-        f"plain {plain_ms:.4f} ms, torch.sparse.softmax {library_ms:.4f} ms "
-        f"(device {fmt(lib_dev_ms)}), bound {fwd_b[0]:.5f} ms ({fwd_b[1]})")
+    log(f"  seg_softmax_fwd_f32[rate 0.0]: kernel {ms:.4f} ms (device "
+        f"{fmt(dev_ms)}), plain {plain_ms:.4f} ms, torch.sparse.softmax "
+        f"{library_ms:.4f} ms (device {fmt(lib_dev_ms)}), bound "
+        f"{fwd_b[0]:.5f} ms ({fwd_b[1]})")
     results.append({**entry(
-        "seg_softmax_fwd_f32", "softmax.cu",
+        "seg_softmax_fwd_f32[rate 0.0]", "softmax.cu",
         "msha_gnn_tpu/ops/pallas/softmax.py:56 _stats_kernel and :86 "
         "_expand_kernel", max(errs), ms, plain_ms, fwd_b, library_ms),
         "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
+    fwd_dev_ms0 = dev_ms
+
+    # the attention's dropout folded into the walk, as the training path
+    # runs it: att_k = att * keep_scale_plain bit for bit (the keep mask of
+    # rank1_gat.py:85 _keep_scale, which had a kernel of its own before)
+    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=DEVICE)
+    keep = r1.keep_scale_plain(torch.arange(e_pad, device=DEVICE), seed, 0.5)
+
+    def fwd_drop():
+        return sm.seg_softmax_fwd_drop(*fwd_args, seed, 0.5, sop.run, sop.ws)
+
+    att0, lse0 = fwd_kernel()
+    att, att_k, lse = fwd_drop()
+    torch.cuda.synchronize()
+    if not (torch.equal(att, att0) and torch.equal(lse, lse0)
+            and torch.equal(att_k, att0 * keep)):
+        raise AssertionError("seg_softmax_fwd_f32[rate 0.5]: att_k is not "
+                             "att * keep_scale_plain bit for bit")
+    same_bits("seg_softmax_fwd_f32[rate 0.5]", fwd_drop)
+    nan_filled(
+        "seg_softmax_fwd_f32[rate 0.5]", ((e_pad,), (e_pad,), (n,), (n_ws,)),
+        lambda att_, attk_, lse_, ws_: sm._kernel_lib().seg_softmax_fwd_f32(
+            op.ptr.data_ptr(), logits.data_ptr(), None, att_.data_ptr(),
+            attk_.data_ptr(), lse_.data_ptr(), ws_.data_ptr(),
+            seed.data_ptr(), 0.5, 2.0, n, e, e_pad, sop.run,
+            torch.cuda.current_stream().cuda_stream),
+        fwd_drop(), what="att, att_k (pads included), lse")
+    ms, dev_ms = time_ms(fwd_drop), device_ms(fwd_drop)
+    plain_ms = time_ms(lambda: sm.seg_softmax_fwd_drop_plain(
+        *fwd_args, seed, 0.5))
+    fwd_db, bwd_db = softmax_bounds(n, e, e_pad, masked=False, drop=True)
+    log(f"  seg_softmax_fwd_f32[rate 0.5], seed {DROP_SEED}: att_k = att * "
+        f"keep_scale_plain bit for bit over {e_pad} slots (kept share "
+        f"{float((keep > 0).float().mean()):.4f}); kernel {ms:.4f} ms "
+        f"(device {fmt(dev_ms)}; rate 0 {fmt(fwd_dev_ms0)}), plain "
+        f"{plain_ms:.4f} ms, bound {fwd_db[0]:.5f} ms ({fwd_db[1]}); library "
+        "none: no PyTorch call computes the hash")
+    results.append({**entry(
+        "seg_softmax_fwd_f32[rate 0.5]", "softmax.cu",
+        "msha_gnn_tpu/ops/pallas/softmax.py:56 _stats_kernel and :86 "
+        "_expand_kernel, with rank1_gat.py:85 _keep_scale (the attention's "
+        "keep mask) folded in", max(errs), ms, plain_ms, fwd_db, None),
+        "device_ms": dev_ms, "library_device_ms": None})
 
     att = sm.seg_softmax_fwd_plain(*fwd_args)[0]
     bwd_args = (op.ptr, att, gatt, e)
@@ -795,8 +830,8 @@ def phase_materialised_kernels(split):
         "seg_softmax_bwd_f32", ((e_pad,), (n_ws,)),
         lambda dl_, ws_: sm._kernel_lib().seg_softmax_bwd_f32(
             op.ptr.data_ptr(), att.data_ptr(), gatt.data_ptr(),
-            dl_.data_ptr(), ws_.data_ptr(), n, e, e_pad, sop.run,
-            torch.cuda.current_stream().cuda_stream),
+            dl_.data_ptr(), ws_.data_ptr(), None, 0.0, 1.0, n, e, e_pad,
+            sop.run, torch.cuda.current_stream().cuda_stream),
         (bwd_kernel(),), what="dl (pads included)")
     ms, dev_ms = time_ms(bwd_kernel), device_ms(bwd_kernel)
     plain_ms = time_ms(lambda: sm.seg_softmax_bwd_plain(*bwd_args))
@@ -814,15 +849,47 @@ def phase_materialised_kernels(split):
 
     library_ms = time_ms(library)
     lib_dev_ms = device_ms(library, iters=5)
-    log(f"  seg_softmax_bwd_f32: kernel {ms:.4f} ms (device {fmt(dev_ms)}), "
-        f"plain {plain_ms:.4f} ms, torch.sparse.softmax backward "
+    log(f"  seg_softmax_bwd_f32[rate 0.0]: kernel {ms:.4f} ms (device "
+        f"{fmt(dev_ms)}), plain {plain_ms:.4f} ms, torch.sparse.softmax backward "
         f"{library_ms:.4f} ms (device {fmt(lib_dev_ms)}), bound "
         f"{bwd_b[0]:.5f} ms ({bwd_b[1]})")
+    bwd_dev_ms0 = dev_ms
+
+    # with the keep mask: dl of att_k's cotangent is dl of gatt * keep
+    def bwd_drop():
+        return sm.seg_softmax_bwd_drop(*bwd_args, seed, 0.5, sop.run, sop.ws)
+
+    dl_k = bwd_drop()
+    dl_0 = sm.seg_softmax_bwd(op.ptr, att, gatt * keep, e, sop.run, sop.ws)
+    torch.cuda.synchronize()
+    if not torch.equal(dl_k, dl_0):
+        raise AssertionError("seg_softmax_bwd_f32[rate 0.5]: dl is not the "
+                             "VJP of g * keep_scale_plain bit for bit")
+    err_k = close("seg_softmax_bwd_f32[rate 0.5] dl", dl_k,
+                  sm.seg_softmax_bwd_drop_plain(*bwd_args, seed, 0.5),
+                  SUM_RTOL, SUM_ATOL_REL * float(want_dl.abs().max()))
+    same_bits("seg_softmax_bwd_f32[rate 0.5]", bwd_drop)
+    nan_filled(
+        "seg_softmax_bwd_f32[rate 0.5]", ((e_pad,), (n_ws,)),
+        lambda dl_, ws_: sm._kernel_lib().seg_softmax_bwd_f32(
+            op.ptr.data_ptr(), att.data_ptr(), gatt.data_ptr(),
+            dl_.data_ptr(), ws_.data_ptr(), seed.data_ptr(), 0.5, 2.0, n, e,
+            e_pad, sop.run, torch.cuda.current_stream().cuda_stream),
+        (bwd_drop(),), what="dl (pads included)")
+    ms, dev_ms = time_ms(bwd_drop), device_ms(bwd_drop)
+    plain_ms = time_ms(lambda: sm.seg_softmax_bwd_drop_plain(
+        *bwd_args, seed, 0.5))
+    log(f"  seg_softmax_bwd_f32[rate 0.5]: dl of g * keep_scale_plain bit "
+        f"for bit; kernel {ms:.4f} ms (device {fmt(dev_ms)}; rate 0 "
+        f"{fmt(bwd_dev_ms0)}), plain {plain_ms:.4f} ms, bound "
+        f"{bwd_db[0]:.5f} ms ({bwd_db[1]}); library none: no PyTorch call "
+        "computes the hash")
     results.append({**entry(
-        "seg_softmax_bwd_f32", "softmax.cu",
+        "seg_softmax_bwd_f32[rate 0.5]", "softmax.cu",
         "msha_gnn_tpu/ops/pallas/softmax.py:102 _rowsum_kernel and :86 "
-        "_expand_kernel", err, ms, plain_ms, bwd_b, library_ms),
-        "device_ms": dev_ms, "library_device_ms": lib_dev_ms})
+        "_expand_kernel, with rank1_gat.py:85 _keep_scale folded in",
+        max(err, err_k), ms, plain_ms, bwd_db, None),
+        "device_ms": dev_ms, "library_device_ms": None})
 
     # the attention-weighted SpMM: A(att) @ h forward, A(att).T @ g for dx
     w, w_t = op.weights(att, False), op.weights(att, True)
@@ -1216,22 +1283,37 @@ def phase_generic_kernels(split):
         "library_device_ms": lib_dev_ms})
 
     # the fused dx + dw of the att-weighted SpMM, both directions: dx of
-    # A @ x walks the CSC and writes dw through t_edge, of A.T @ x the CSR
+    # A @ x walks the CSC and writes dw through t_edge, of A.T @ x the CSR;
+    # against its plain version and the unfused backward it replaces (the
+    # weights' permute for A @ x, csr_spmm_f32 for dx, csr_sddmm_f32 for
+    # dw), whose device time stands where a library call would: no
+    # PyTorch call computes dx and dw together
     logits = torch.randn(e_pad, generator=gen, device=DEVICE) * 2
     att = sm.seg_softmax_fwd_plain(spmm.ptr, logits, None, e)[0]
+    dw_run, dw_group = cuda_spmm.DW_RUN, r1.group_for(d)
     for label, transpose in (("dw of A x", False), ("dw of A^T x", True)):
         if transpose:
             args = (spmm.ptr, spmm.col, None, att, gout, h, n, e_pad)
-            warps, rows, cols = spmm.warps, h, gout
+            rows, cols = h, gout
         else:
             args = (spmm.t_ptr, spmm.t_col, spmm.t_edge, att, gout, h, n,
                     e_pad)
-            warps, rows, cols = spmm.warps_t, gout, h
-        prime_nan((e_pad,), (n, d))
-        dx, dw = cuda_spmm.csr_spmm_dw(*args, warps)
+            rows, cols = gout, h
+        ws = torch.empty(cuda_spmm.sums_ws_floats(e_pad, dw_run, d),
+                         device=DEVICE)
+
+        def kernel(args=args, ws=ws):
+            return cuda_spmm.csr_spmm_dw(*args, ws)
+
+        def unfused(transpose=transpose, rows=rows, cols=cols):
+            return (spmm.apply(gout, att, not transpose),
+                    cuda_sddmm.csr_sddmm(spmm.ptr, spmm.col, rows, cols,
+                                         e_pad))
+
+        prime_nan((e_pad,), (n, d), (ws.numel(),))
+        dx, dw = kernel()
         want_dx, want_dw = cuda_spmm.csr_spmm_dw_plain(*args)
-        sd = cuda_sddmm.csr_sddmm(spmm.ptr, spmm.col, rows, cols, e_pad)
-        unfused_dx = spmm.apply(gout, att, not transpose)
+        unfused_dx, sd = unfused()
         torch.cuda.synchronize()
         err = max(
             close(f"csr_spmm_dw_f32[{label}] dx", dx, want_dx, SUM_RTOL,
@@ -1244,24 +1326,38 @@ def phase_generic_kernels(split):
               SUM_RTOL, SUM_ATOL_REL * float(unfused_dx.abs().max()))
         if dw[e:].any():
             raise AssertionError("csr_spmm_dw_f32 left a pad slot nonzero")
-        ms = time_ms(lambda: cuda_spmm.csr_spmm_dw(*args, warps))
-        dev_ms = device_ms(lambda: cuda_spmm.csr_spmm_dw(*args, warps))
-        plain_ms = time_ms(lambda: cuda_spmm.csr_spmm_dw_plain(*args))
-        unfused_ms = time_ms(lambda: (
-            spmm.apply(gout, att, not transpose),
-            cuda_sddmm.csr_sddmm(spmm.ptr, spmm.col, rows, cols, e_pad)))
+        same_bits(f"csr_spmm_dw_f32[{label}]", kernel)
+        nan_filled(
+            f"csr_spmm_dw_f32[{label}]", ((n, d), (e_pad,), (ws.numel(),)),
+            lambda dx_, dw_, ws_, args=args:
+            cuda_spmm._kernel_lib().csr_spmm_dw_f32(
+                args[0].data_ptr(), args[1].data_ptr(),
+                None if args[2] is None else args[2].data_ptr(),
+                att.data_ptr(), gout.data_ptr(), h.data_ptr(),
+                dx_.data_ptr(), dw_.data_ptr(), ws_.data_ptr(), n, e_pad,
+                dw_run, dw_group, d, torch.cuda.current_stream().cuda_stream),
+            kernel(), what="dx, dw (pads included)")
+        ms, dev_ms = time_ms(kernel), device_ms(kernel)
+        plain_ms = time_ms(lambda args=args:
+                           cuda_spmm.csr_spmm_dw_plain(*args))
+        unfused_ms, unfused_dev_ms = time_ms(unfused), device_ms(unfused)
         bnd = dw_bound(args[0], args[1], args[2], gout, e_pad)
-        log(f"  csr_spmm_dw_f32[{label}]: kernel {ms:.4f} ms (device "
-            f"{fmt(dev_ms)}), plain {plain_ms:.4f} ms, the unfused pair "
-            f"(csr_spmm_f32 + csr_sddmm_f32, with the weights' permute) "
-            f"{unfused_ms:.4f} ms, "
-            f"bound {bnd[0]:.5f} ms ({bnd[1]}); library none: no PyTorch "
-            "call computes dx and dw together")
+        verdict = ("below" if dev_ms is not None and unfused_dev_ms is not None
+                   and dev_ms < unfused_dev_ms else "NOT below")
+        log(f"  csr_spmm_dw_f32[{label}] ({dw_run} slots a run, {dw_group} "
+            f"lanes an edge, the runs grid and the fix-up grid): kernel "
+            f"{ms:.4f} ms (device {fmt(dev_ms)}), plain {plain_ms:.4f} ms, "
+            f"the unfused backward (the weights' permute, csr_spmm_f32, "
+            f"csr_sddmm_f32) {unfused_ms:.4f} ms (device "
+            f"{fmt(unfused_dev_ms)}): the kernel's device time {verdict} "
+            f"it; bound {bnd[0]:.5f} ms ({bnd[1]}); library none: no "
+            "PyTorch call computes dx and dw together")
         results.append({**entry(
             f"csr_spmm_dw_f32[{label}]", "spmm.cu",
             "msha_gnn_tpu/ops/pallas/spmm.py:282 _visit_dw_kernel and :340 "
             "_hub_dw_kernel", err, ms, plain_ms, bnd, None),
-            "device_ms": dev_ms, "library_device_ms": None})
+            "device_ms": dev_ms, "library_device_ms": None,
+            "unfused_ms": unfused_ms, "unfused_device_ms": unfused_dev_ms})
     return results
 
 
@@ -1432,11 +1528,12 @@ def read_counts(op=None):
 
     counts = {"r1l_fwd_f32": r1.fwd_launches,
               "r1l_bwd_f32": r1.bwd_launches,
-              "r1l_keep_scale_f32": r1.keep_launches,
               "csr_spmm_f32": cuda_spmm.launches,
               "csr_sddmm_f32": cuda_sddmm.launches,
               "seg_softmax_fwd_f32": sm.fwd_launches,
+              "seg_softmax_fwd_f32 dropout": sm.fwd_drop_launches,
               "seg_softmax_bwd_f32": sm.bwd_launches,
+              "seg_softmax_bwd_f32 dropout": sm.bwd_drop_launches,
               "flash_fwd_f32": fg.fwd_launches,
               "flash_bwd_f32": fg.bwd_launches,
               "r1_fwd_f32": r1.r1_fwd_launches,
@@ -1456,10 +1553,11 @@ def zero_counts(op=None):
     from msha_gnn_torch.ops.cuda import softmax as sm
     from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
 
-    r1.fwd_launches = r1.bwd_launches = r1.keep_launches = 0
+    r1.fwd_launches = r1.bwd_launches = 0
     r1.r1_fwd_launches = r1.r1_bwd_launches = 0
     cuda_spmm.launches = cuda_spmm.seg_launches = cuda_spmm.dw_launches = 0
     cuda_sddmm.launches = sm.fwd_launches = sm.bwd_launches = 0
+    sm.fwd_drop_launches = sm.bwd_drop_launches = 0
     fg.fwd_launches = fg.bwd_launches = 0
     if op is not None:
         op.launches = op.launches_transposed = op.launches_reduce = 0
@@ -1467,9 +1565,9 @@ def zero_counts(op=None):
 
 def expected(**nonzero):
     """Launch counts with every kernel at 0 but those given."""
-    names = ("r1l_fwd_f32", "r1l_bwd_f32", "r1l_keep_scale_f32",
-             "csr_spmm_f32", "csr_sddmm_f32",
-             "seg_softmax_fwd_f32", "seg_softmax_bwd_f32",
+    names = ("r1l_fwd_f32", "r1l_bwd_f32", "csr_spmm_f32", "csr_sddmm_f32",
+             "seg_softmax_fwd_f32", "seg_softmax_fwd_f32 dropout",
+             "seg_softmax_bwd_f32", "seg_softmax_bwd_f32 dropout",
              "flash_fwd_f32", "flash_bwd_f32", "r1_fwd_f32", "r1_bwd_f32",
              "seg_reduce_f32", "csr_spmm_dw_f32", "csr_spmm_f32 transposed",
              "csr_spmm_f32 reduce_edges")
@@ -1484,9 +1582,13 @@ STEP_WANT = {
     "fused": expected(r1l_fwd_f32=3, r1l_bwd_f32=3, csr_spmm_f32=6,
                       csr_spmm_f32_transposed=6,
                       csr_spmm_f32_reduce_edges=3),
+    # the attention's keep mask rides each softmax launch (no kernel or
+    # torch multiply of its own)
     "materialised": expected(csr_spmm_f32=6, csr_spmm_f32_transposed=3,
                              csr_sddmm_f32=3, seg_softmax_fwd_f32=3,
-                             seg_softmax_bwd_f32=3, r1l_keep_scale_f32=3),
+                             seg_softmax_fwd_f32_dropout=3,
+                             seg_softmax_bwd_f32=3,
+                             seg_softmax_bwd_f32_dropout=3),
     "flash": expected(flash_fwd_f32=3, flash_bwd_f32=3, csr_spmm_f32=3,
                       csr_spmm_f32_transposed=3),
 }
@@ -1525,6 +1627,10 @@ def phase_linkpred(split, impl):
     plain_model = copy.deepcopy(run.model)
     fused_model = copy.deepcopy(run.model) if impl != "fused" else None
     gen_state = run.generator.get_state()
+    # materialised: each step's loss against the composition its softmax
+    # walk folds, from the same parameters and generator state
+    unfolded = [unfolded_loss(run, batches[0])] if impl == "materialised" \
+        else None
     # the main path: counts set to 0 just before one step, read just after
     zero_counts(op)
     t0 = time.perf_counter()
@@ -1578,13 +1684,27 @@ def phase_linkpred(split, impl):
         if paths_err > PATHS_LOSS_RTOL:
             raise AssertionError(f"step loss: {impl} vs fused")
 
-    losses, step_ms = [float(loss_k)], []
+    losses, step_ms, aside_s = [float(loss_k)], [], 0.0
     t_epoch = time.perf_counter()
     for batch in batches[1:]:
+        if unfolded is not None:
+            t0 = time.perf_counter()
+            unfolded.append(unfolded_loss(run, batch))
+            aside_s += time.perf_counter() - t0
         t0 = time.perf_counter()
         losses.append(float(train_step(run, batch)))
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    epoch_s = time.perf_counter() - t_epoch + first_step_ms / 1e3
+    epoch_s = (time.perf_counter() - t_epoch - aside_s
+               + first_step_ms / 1e3)
+    if unfolded is not None:
+        differ = [i for i, (u, v) in enumerate(zip(losses, unfolded))
+                  if u != v]
+        log(f"  each of the {len(losses)} step losses against the unfolded "
+            f"composition (softmax kernel, then * keep_scale_plain) from the "
+            f"same state: {len(losses) - len(differ)} bit-equal"
+            + (f", steps {differ} differ" if differ else ""))
+        if differ:
+            raise AssertionError("the folded keep mask changed a step loss")
     first5, last5 = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
     log(f"  epoch of {len(losses)} steps: loss first-5 mean {first5:.5f}, "
         f"last-5 mean {last5:.5f}")
@@ -1649,6 +1769,35 @@ def phase_linkpred(split, impl):
             f"{metrics.get('hits@50')}, AUC {metrics.get('auc')}; the same "
             f"epoch {BEFORE_METRICS}")
     return step_counts, eval_counts, losses
+
+
+def unfolded_loss(run, batch):
+    """The training loss of ``batch`` from the run's parameters and
+    generator state, with the materialised layer's attention dropout as
+    the composition its softmax walk folds (the softmax kernel without
+    dropout, then ``* keep_scale_plain`` in torch); forward only, the
+    generator left as it was."""
+    from msha_gnn_torch.ops import edge_softmax
+    from msha_gnn_torch.ops.cuda import rank1_gat as r1
+    from msha_gnn_torch.ops.cuda import softmax as sm
+    from msha_gnn_torch.training import linkpred_loss
+
+    def composed(graph, logits, seed, rate):
+        return edge_softmax(graph, logits, impl="cuda") * r1.keep_scale_plain(
+            torch.arange(graph.num_padded_edges, device=logits.device), seed,
+            rate)
+
+    state = run.generator.get_state()
+    folded = sm.edge_softmax_drop
+    sm.edge_softmax_drop = composed
+    try:
+        with torch.no_grad():
+            loss = linkpred_loss(run.model, run.graph, batch, impl=run.impl,
+                                 generator=run.generator)
+        return float(loss)
+    finally:
+        sm.edge_softmax_drop = folded
+        run.generator.set_state(state)
 
 
 def follow_fused_epoch(impl, losses, fused_losses):
@@ -1896,13 +2045,17 @@ def main() -> int:
     kernels += r1_kernels
 
     log("phase 6: linkpred training path, impl materialised")
-    step, _, losses = phase_linkpred(split, "materialised")
+    step, evaluation, losses = phase_linkpred(split, "materialised")
     follow_fused_epoch("materialised", losses, fused_losses)
+    # rate 0.5 (the keep mask folded in) runs in training steps, rate 0 in
+    # the evaluation's encoding
     per_name = {
-        "r1l_keep_scale_f32[rate 0.5]": step["r1l_keep_scale_f32"],
         "csr_sddmm_f32[dw]": step["csr_sddmm_f32"],
-        "seg_softmax_fwd_f32": step["seg_softmax_fwd_f32"],
-        "seg_softmax_bwd_f32": step["seg_softmax_bwd_f32"],
+        "seg_softmax_fwd_f32[rate 0.0]": evaluation["seg_softmax_fwd_f32"],
+        "seg_softmax_fwd_f32[rate 0.5]":
+            step["seg_softmax_fwd_f32 dropout"],
+        "seg_softmax_bwd_f32[rate 0.5]":
+            step["seg_softmax_bwd_f32 dropout"],
         "csr_spmm_f32[att A h]": (step["csr_spmm_f32"]
                                   - step["csr_spmm_f32 transposed"]),
         "csr_spmm_f32[att dx A^T g]": step["csr_spmm_f32 transposed"]}

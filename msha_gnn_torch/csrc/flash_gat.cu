@@ -151,7 +151,7 @@ extern "C" int r1_bwd_f32(const int* ptr, const int* col, const float* c,
   args.slope = slope;
   args.o1 = dpre;
   args.o2 = att;
-  args.dc = dc;
+  args.sums = dc;
   args.ws = ws;
   return gat_bwd::launch<gat_bwd::Src::kRank1>(ptr, col, gout, x, args,
                                                n_rows, n_out, run, group, d,

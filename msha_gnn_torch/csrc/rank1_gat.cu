@@ -347,16 +347,6 @@ r1l_bwd_fixup_kernel(const int* __restrict__ ptr,
   }
 }
 
-__global__ void r1l_keep_scale_kernel(const int* __restrict__ seed_ptr,
-                                      float rate, float scale, int n,
-                                      float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    out[i] = keep_scale(static_cast<uint32_t>(i),
-                        static_cast<uint32_t>(seed_ptr[0]), rate, scale);
-  }
-}
-
 size_t bwd_smem(int d, int n_warps) {
   return sizeof(float) * static_cast<size_t>(d) * (1 + n_warps);
 }
@@ -455,16 +445,6 @@ extern "C" int r1l_bwd_f32(const int* ptr, const int* col, const float* c,
                          kWarp * kWarp, 0, stream>>>(
       ptr, dc_head, dc_tail, cross, da_part, dc, da, n_rows, n_runs, run, d,
       da_blocks);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The keep scale of slots 0..n-1, by the kernels' own device function: the
-// materialised GAT path's attention dropout.
-extern "C" int r1l_keep_scale_f32(const int* seed, float rate, float scale,
-                                  int n, float* out, cudaStream_t stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  r1l_keep_scale_kernel<<<(n + 255) / 256, 256, 0, stream>>>(seed, rate, scale,
-                                                             n, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,8 @@
 // The edge-run schedule of the CSR walks that sum edges into their rows:
 // csr_spmm_f32 and seg_reduce_f32 (spmm.cu), r1l_bwd_f32's and
-// r1_bwd_f32's dc (rank1_gat.cu, gat_bwd.cuh) and the GAT forwards' online
-// softmaxes (gat_fwd.cuh); the per-edge walks of gat_bwd.cuh use its runs
-// too.
+// r1_bwd_f32's dc and csr_spmm_dw_f32's dx (rank1_gat.cu, gat_bwd.cuh) and
+// the GAT forwards' online softmaxes (gat_fwd.cuh); the per-edge walks of
+// gat_bwd.cuh use its runs too.
 //
 // The CSR slots [0, n_edges) are cut into runs of `run` consecutive slots,
 // whatever the row lengths, and each run goes to one worker (a warp, or one
@@ -136,6 +136,34 @@ __device__ __forceinline__ void add_crossing(const int* __restrict__ ptr,
 #pragma unroll 8
   for (int64_t j = k + 1; j <= k_end; ++j) v += head[j];
   out[r] = v;
+}
+
+// The grid that adds up the rows crossing runs at width d: for each run k,
+// out[r] = tail[k] + head[k + 1] + ... + head[k_end] for the row r that
+// begins in it (head and tail [n_runs, d]), kLanes workers a run (a warp,
+// lanes over features, or one thread at d = 1).  The sums of csr_spmm_f32
+// and seg_reduce_f32 (spmm.cu), r1_bwd_f32's dc and csr_spmm_dw_f32's dx
+// (gat_bwd.cuh) take it as their second grid.
+template <int kLanes>
+__global__ void fixup_kernel(const int* __restrict__ ptr,
+                             const float* __restrict__ head,
+                             const float* __restrict__ tail,
+                             const int* __restrict__ cross,
+                             float* __restrict__ out, int n_rows, int run,
+                             int d) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  const int64_t k = t / kLanes;
+  const int lane = static_cast<int>(t % kLanes);
+  int64_t k_end = 0;
+  const int r = crossing_row(ptr, cross, __ldg(ptr + n_rows), run, k, k_end);
+  if (r < 0) return;
+  for (int f = lane; f < d; f += kLanes) {
+    float v = tail[k * d + f];
+#pragma unroll 8
+    for (int64_t j = k + 1; j <= k_end; ++j) v += head[j * d + f];
+    out[static_cast<int64_t>(r) * d + f] = v;
+  }
 }
 
 // kVec consecutive floats of a read-only global row, through the

@@ -13,6 +13,16 @@
 // s = 0, so lse = NEG + log(1e-30).  Slots from n_edges = ptr[n_rows] up
 // to n_slots (the graph's pads) are written as 0.
 //
+// With dropout (kDrop: a seed on the card and a rate) the attention's keep
+// mask rides the same walk: k_e = gat::keep_scale(e, seed, rate) of
+// gat_common.cuh, 1/(1-rate) where slot e is kept and 0 where dropped (the
+// hash of rank1_gat.py:85 _keep_scale, which the TPU package applies to
+// the attention after the softmax).  The forward also writes
+// att_k[e] = att[e] k_e, one float multiply a slot, so its bits are those
+// of att * k; the backward takes g_k, the cotangent of att_k, and sums
+// g_e = g_k[e] k_e, the bits of the cotangent that att * k passes back.  No
+// mask is stored: both directions hash the slot.
+//
 // Replaces three TPU kernels of msha_gnn_tpu/ops/pallas/softmax.py:
 //   * _stats_kernel (:56): the online (m, s) per row over chunk visits;
 //   * _expand_kernel (:86): a per-row value (lse forward, rs backward) to
@@ -31,8 +41,14 @@
 // Bound: bytes.  The forward reads the pointer, the logits and the mask
 // once and writes att [n_slots] and lse once: 2.66 MB on the linkpred
 // graph (4,267 rows, 328,012 edges padded to 328,064, no mask), 0.79 us
-// at 3.35 TB/s.  The backward reads att and g and writes dl: 3.95 MB,
-// 1.18 us.  Two exps an edge are far below the card's rate.
+// at 3.35 TB/s; with dropout att_k too, 3.97 MB, 1.18 us.  The backward
+// reads att and g and writes dl: 3.95 MB, 1.18 us.  Two exps an edge (and
+// the hash's 14 integer operations) are far below the card's rate.
+//
+// Why the keep mask is here: as a kernel of its own it wrote 1.3 MB (0.39
+// us of HBM time) in a launch that cost several times that, and the
+// attention's multiply by it took one more kernel each way; in the walk it
+// costs the att_k write and a hash a slot.
 //
 // Why not one block a row (the first port): the linkpred graph's rows are
 // 77 edges on average and 3,842 at most, and a block had to fit the
@@ -84,6 +100,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "gat_common.cuh"
 #include "runs.cuh"
 
 namespace seg_softmax {
@@ -99,11 +116,21 @@ enum class Kind { kFwd, kBwd };
 // What the kernels read and write; an entry reads only its own.
 struct Args {
   const float* in;       // kFwd: logits; kBwd: att   [n_slots]
-  const float* g;        // kBwd: the cotangent       [n_slots]
-  const uint8_t* mask;   // kFwd: the keep mask, or null
+  const float* g;        // kBwd: the cotangent (of att_k with kDrop)
+  const uint8_t* mask;   // kFwd: the softmax's mask, or null
   float* out;            // kFwd: att; kBwd: dl       [n_slots]
+  float* out_k;          // kFwd with kDrop: att_k    [n_slots]
   float* lse;            // kFwd: [n_rows]
+  const int* seed;       // kDrop: one int32 on the card
+  float rate;            // kDrop
+  float scale;           // kDrop: 1/(1-rate)
+  uint32_t key;          // kDrop: *seed, read by each kernel at its start
 };
+
+// The keep scale of slot e (kDrop).
+__device__ __forceinline__ float keep(const Args& p, int e) {
+  return gat::keep_scale(static_cast<uint32_t>(e), p.key, p.rate, p.scale);
+}
 
 // A row piece's reduction: kFwd (m, s), kBwd (sum of att g, unused).
 using Piece = float2;
@@ -141,14 +168,31 @@ __device__ __forceinline__ float exp_(float x) {
   return exp2f(x * 1.4426950408889634f);
 }
 
-template <Kind kK, bool kMasked>
+template <Kind kK, bool kMasked, bool kDrop = false>
 struct Op {
   __device__ static __forceinline__ Slot load(const Args& p, int e) {
     if constexpr (kK == Kind::kFwd) {
       return {__ldg(p.in + e), (!kMasked || __ldg(p.mask + e)) ? 1.0f : 0.0f};
+    } else if constexpr (kDrop) {
+      return {__ldg(p.in + e), __ldg(p.g + e) * keep(p, e)};
     } else {
       return {__ldg(p.in + e), __ldg(p.g + e)};
     }
+  }
+
+  // A slot loaded by the plain Op: its g scaled by the keep mask as load()
+  // scales it (grid 2 loads every slot of its run but writes, and so
+  // hashes, only the crossing rows').
+  __device__ static __forceinline__ Slot scaled(const Args& p, Slot s,
+                                                int e) {
+    if constexpr (kK == Kind::kBwd && kDrop) s.v *= keep(p, e);
+    return s;
+  }
+
+  // Slot e's output: att (and att_k with kDrop), or dl.
+  __device__ static __forceinline__ void put(const Args& p, int e, float v) {
+    p.out[e] = v;
+    if constexpr (kK == Kind::kFwd && kDrop) p.out_k[e] = v * keep(p, e);
   }
 
   __device__ static __forceinline__ Piece identity() {
@@ -204,10 +248,10 @@ __device__ __forceinline__ bool vector_ok(const Args& p, int first) {
 
 // A lane's kC consecutive slots [e0, e0 + kC), those before ef: 4 at a
 // time when `vec` and the lane's slots all lie before ef.
-template <Kind kK, bool kMasked, int kC>
+template <Kind kK, bool kMasked, bool kDrop, int kC>
 __device__ __forceinline__ void load_lane(const Args& p, int e0, int ef,
                                           bool vec, Slot (&v)[kC]) {
-  using O = Op<kK, kMasked>;
+  using O = Op<kK, kMasked, kDrop>;
   if (vec && e0 + kC <= ef) {
 #pragma unroll
     for (int q = 0; q < kC; q += 4) {
@@ -219,6 +263,10 @@ __device__ __forceinline__ void load_lane(const Args& p, int e0, int ef,
         w[1] = g.y;
         w[2] = g.z;
         w[3] = g.w;
+        if constexpr (kDrop) {
+#pragma unroll
+          for (int b = 0; b < 4; ++b) w[b] *= keep(p, e0 + q + b);
+        }
       } else if constexpr (kMasked) {
         const unsigned m =
             __ldg(reinterpret_cast<const unsigned*>(p.mask + e0 + q));
@@ -378,13 +426,13 @@ __device__ __forceinline__ Rows mark_rows(const int* __restrict__ ptr,
 // gives each lane the piece of the row open at its end, and the lane where
 // a row ends closes it.  Its cost does not grow with the run's rows.  The
 // rows' values go to `val`, then every lane writes its slots.
-template <Kind kK, bool kMasked, int kC>
+template <Kind kK, bool kMasked, bool kDrop, int kC>
 __device__ __forceinline__ void lanes_walk(const Args& p, const Ws& ws,
                                            Staged<kC>& sm,
                                            const Slot (&v)[kC], const Run& rk,
                                            int64_t k, const Rows& rows,
                                            int r0, int lane) {
-  using O = Op<kK, kMasked>;
+  using O = Op<kK, kMasked, kDrop>;
   const int n = rk.ef - rk.first;
   // my slots: the rows that begin and end in them are closed here; hp is
   // the piece of the row open at my first slot, up to my first row start
@@ -484,7 +532,7 @@ __device__ __forceinline__ void lanes_walk(const Args& p, const Ws& ws,
     if (i < n) {
       if (sm.start[i] >= 0) cs = i;
       const int e = rk.first + i;
-      if (e >= lo && e < hi) p.out[e] = O::emit(v[u], sm.val[cs]);
+      if (e >= lo && e < hi) O::put(p, e, O::emit(v[u], sm.val[cs]));
     }
   }
 }
@@ -493,11 +541,11 @@ __device__ __forceinline__ void lanes_walk(const Args& p, const Ws& ws,
 // lane i holding the kC consecutive slots from kC i (4-float loads where
 // aligned), in flight beside the search of ptr; mark_rows finds the rows'
 // starts and lanes_walk reduces the rows from the registers.
-template <Kind kK, bool kMasked, int kC>
+template <Kind kK, bool kMasked, bool kDrop, int kC>
 __global__ void __launch_bounds__(kWarpBlock)
 runs_warp_kernel(const int* __restrict__ ptr, Args p, Ws ws, int n_rows,
                  int n_edges, int n_slots, int64_t n_runs, int run) {
-  using O = Op<kK, kMasked>;
+  using O = Op<kK, kMasked, kDrop>;
   __shared__ Staged<kC> staged[kWarpBlock / kWarp];
   const int lane = threadIdx.x % kWarp;
   Staged<kC>& sm = staged[threadIdx.x / kWarp];
@@ -505,12 +553,14 @@ runs_warp_kernel(const int* __restrict__ ptr, Args p, Ws ws, int n_rows,
                     threadIdx.x / kWarp;
   if (k >= n_runs) return;
   const Run rk = run_of(k, run, n_edges, n_slots);
+  if constexpr (kDrop) p.key = static_cast<uint32_t>(__ldg(p.seed));
   // lane i holds the run's slots [kC i, kC i + kC)
   Slot v[kC];
-  load_lane<kK, kMasked, kC>(p, rk.first + lane * kC, rk.ef,
-                             vector_ok<kK, kMasked, kC>(p, rk.first), v);
+  load_lane<kK, kMasked, kDrop, kC>(p, rk.first + lane * kC, rk.ef,
+                                    vector_ok<kK, kMasked, kC>(p, rk.first),
+                                    v);
   for (int e = max(rk.first, n_edges) + lane; e < rk.last; e += kWarp) {
-    p.out[e] = 0.0f;
+    O::put(p, e, 0.0f);
   }
   const float empty = O::value(O::identity());
   if (lane == 0) {
@@ -543,7 +593,7 @@ runs_warp_kernel(const int* __restrict__ ptr, Args p, Ws ws, int n_rows,
   __syncwarp();
   const Rows rows =
       mark_rows<kK, kMasked, kC>(ptr, p, sm, rk, n_rows, wb, win, r0, lane);
-  lanes_walk<kK, kMasked, kC>(p, ws, sm, v, rk, k, rows, r0, lane);
+  lanes_walk<kK, kMasked, kDrop, kC>(p, ws, sm, v, rk, k, rows, r0, lane);
   if (rk.ef == n_edges) {  // the empty rows after the last edge
     for (int r = rows.last + 1 + lane; r < n_rows; r += kWarp) {
       O::row(p, r, empty);
@@ -628,11 +678,11 @@ struct WarpChain {
 // row its first slot continues, and trows[k], the row that begins in it),
 // each merged as WarpChain says and written on the run's own slots, which
 // the warp loads beside the pieces (lane i the slots first + 32 c + i).
-template <Kind kK, bool kMasked, int kC>
+template <Kind kK, bool kMasked, bool kDrop, int kC>
 __global__ void __launch_bounds__(kWarpBlock)
 cross_warp_kernel(Args p, Ws ws, int n_edges, int n_slots, int64_t n_runs,
                   int run) {
-  using O = Op<kK, kMasked>;
+  using O = Op<kK, kMasked, kDrop>;
   const int lane = threadIdx.x % kWarp;
   const int64_t k = static_cast<int64_t>(blockIdx.x) * (blockDim.x / kWarp) +
                     threadIdx.x / kWarp;
@@ -646,9 +696,10 @@ cross_warp_kernel(Args p, Ws ws, int n_edges, int n_slots, int64_t n_runs,
 #pragma unroll
   for (int c = 0; c < kC; ++c) {
     const int e = rk.first + c * kWarp + lane;
-    v[c] = e < rk.ef ? O::load(p, e) : Slot{0.0f, 0.0f};
+    v[c] = e < rk.ef ? Op<kK, kMasked>::load(p, e) : Slot{0.0f, 0.0f};
   }
   if (hr.x < 0 && tr.x < 0) return;
+  if constexpr (kDrop) p.key = static_cast<uint32_t>(__ldg(p.seed));
   // the head row's slots [first, h_end) and the tail row's [t_begin, ef)
   const int h_end = hr.x >= 0 ? min(hr.y, rk.ef) : rk.first;
   const int t_begin = tr.x >= 0 ? tr.x : rk.ef;
@@ -669,34 +720,34 @@ cross_warp_kernel(Args p, Ws ws, int n_edges, int n_slots, int64_t n_runs,
   for (int c = 0; c < kC; ++c) {
     const int e = rk.first + c * kWarp + lane;
     if (e < h_end) {
-      p.out[e] = O::emit(v[c], h_val);
+      O::put(p, e, O::emit(O::scaled(p, v[c], e), h_val));
     } else if (e >= t_begin && e < rk.ef) {
-      p.out[e] = O::emit(v[c], t_val);
+      O::put(p, e, O::emit(O::scaled(p, v[c], e), t_val));
     }
   }
 }
 
 // The two grids (kC slots a lane: run <= 32 kC).
-template <Kind kK, bool kMasked, int kC>
+template <Kind kK, bool kMasked, bool kDrop, int kC>
 void launch_grids(const int* ptr, const Args& p, const Ws& w, int n_rows,
                   int n_edges, int n_slots, int64_t n_runs, int run,
                   unsigned grid, cudaStream_t stream, cudaError_t& err) {
-  runs_warp_kernel<kK, kMasked, kC><<<grid, kWarpBlock, 0, stream>>>(
+  runs_warp_kernel<kK, kMasked, kDrop, kC><<<grid, kWarpBlock, 0, stream>>>(
       ptr, p, w, n_rows, n_edges, n_slots, n_runs, run);
   err = cudaGetLastError();
   if (err != cudaSuccess) return;
-  cross_warp_kernel<kK, kMasked, kC><<<grid, kWarpBlock, 0, stream>>>(
+  cross_warp_kernel<kK, kMasked, kDrop, kC><<<grid, kWarpBlock, 0, stream>>>(
       p, w, n_edges, n_slots, n_runs, run);
   err = cudaGetLastError();
 }
 
 // Both grids on `stream`, no synchronisation; cudaGetLastError() after
 // each (0 = launched).
-template <Kind kK, bool kMasked>
+template <Kind kK, bool kMasked, bool kDrop>
 int launch(const int* ptr, const Args& p, float* ws, int n_rows, int n_edges,
            int n_slots, int run, cudaStream_t stream) {
   if (n_rows <= 0 || n_edges < 0 || n_slots < n_edges || run < 1 ||
-      run > kMaxChunks * kWarp) {
+      run > kMaxChunks * kWarp || (kDrop && p.seed == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t n_runs = runs::count(n_slots, run);
@@ -706,7 +757,7 @@ int launch(const int* ptr, const Args& p, float* ws, int n_rows, int n_edges,
   cudaError_t err = cudaSuccess;
   const int chunks = (run + kWarp - 1) / kWarp;
   const auto go = [&](auto kc) {
-    launch_grids<kK, kMasked, decltype(kc)::value>(
+    launch_grids<kK, kMasked, kDrop, decltype(kc)::value>(
         ptr, p, w, n_rows, n_edges, n_slots, n_runs, run, grid, stream, err);
   };
   if (chunks <= 1) {
@@ -731,30 +782,53 @@ int launch(const int* ptr, const Args& p, float* ws, int n_rows, int n_edges,
 // [9 n_runs] float32 (softmax.py's ws_floats) with n_runs = max(1,
 // ceil(n_slots / run)), run in [1, 512].  Grid 1 writes every field of ws
 // that grid 2 reads, so a workspace may serve any number of calls ordered
-// on one stream.  Each returns cudaGetLastError() after its two grids (0 =
-// launched).
+// on one stream.  Dropout: `seed` a device pointer to one int32, `scale`
+// the kept slots' factor 1/(1-rate) in float32; a null seed means none.
+// Each returns cudaGetLastError() after its two grids (0 = launched).
+
+// att and lse, and with a seed att_k = att k (att_k [n_slots]).
 extern "C" int seg_softmax_fwd_f32(const int* ptr, const float* logits,
                                    const uint8_t* mask, float* att,
-                                   float* lse, float* ws, int n_rows,
-                                   int n_edges, int n_slots, int run,
-                                   cudaStream_t stream) {
-  using seg_softmax::Kind;
-  const seg_softmax::Args p{logits, nullptr, mask, att, lse};
-  if (mask != nullptr) {
-    return seg_softmax::launch<Kind::kFwd, true>(ptr, p, ws, n_rows, n_edges,
-                                                 n_slots, run, stream);
-  }
-  return seg_softmax::launch<Kind::kFwd, false>(ptr, p, ws, n_rows, n_edges,
-                                                n_slots, run, stream);
-}
-
-extern "C" int seg_softmax_bwd_f32(const int* ptr, const float* att,
-                                   const float* g, float* dl, float* ws,
+                                   float* att_k, float* lse, float* ws,
+                                   const int* seed, float rate, float scale,
                                    int n_rows, int n_edges, int n_slots,
                                    int run, cudaStream_t stream) {
   using seg_softmax::Kind;
-  const seg_softmax::Args p{att, g, nullptr, dl, nullptr};
-  return seg_softmax::launch<Kind::kBwd, false>(ptr, p, ws, n_rows, n_edges,
+  using seg_softmax::launch;
+  const seg_softmax::Args p{logits, nullptr, mask, att, att_k, lse,
+                            seed, rate, scale, 0u};
+  if (seed != nullptr && att_k == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (mask != nullptr) {
+    return seed != nullptr
+               ? launch<Kind::kFwd, true, true>(ptr, p, ws, n_rows, n_edges,
+                                                n_slots, run, stream)
+               : launch<Kind::kFwd, true, false>(ptr, p, ws, n_rows, n_edges,
+                                                 n_slots, run, stream);
+  }
+  return seed != nullptr
+             ? launch<Kind::kFwd, false, true>(ptr, p, ws, n_rows, n_edges,
+                                               n_slots, run, stream)
+             : launch<Kind::kFwd, false, false>(ptr, p, ws, n_rows, n_edges,
+                                                n_slots, run, stream);
+}
+
+// dl from att and g; with a seed g is the cotangent of att_k, scaled by k
+// a slot before the row sums.
+extern "C" int seg_softmax_bwd_f32(const int* ptr, const float* att,
+                                   const float* g, float* dl, float* ws,
+                                   const int* seed, float rate, float scale,
+                                   int n_rows, int n_edges, int n_slots,
+                                   int run, cudaStream_t stream) {
+  using seg_softmax::Kind;
+  using seg_softmax::launch;
+  const seg_softmax::Args p{att, g, nullptr, dl, nullptr, nullptr,
+                            seed, rate, scale, 0u};
+  return seed != nullptr
+             ? launch<Kind::kBwd, false, true>(ptr, p, ws, n_rows, n_edges,
+                                               n_slots, run, stream)
+             : launch<Kind::kBwd, false, false>(ptr, p, ws, n_rows, n_edges,
                                                 n_slots, run, stream);
 }
 

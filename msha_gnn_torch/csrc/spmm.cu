@@ -17,9 +17,10 @@
 //   dx[r, :]   = sum_{e in row r} w[id_e] * g[col[e], :]
 //   dw[id_e]   = <g[col[e], :], x[r, :]>,   id_e = eid[e] (e when null)
 //
-// with the slots [ptr[n_rows], n_dw) of dw zeroed.  For A @ x the caller
-// walks the CSC (eid = the CSC -> CSR edge map, so dw lands in CSR order
-// and each slot is written once); for A.T @ x it walks the CSR (eid null).
+// with the slots [ptr[n_rows], n_slots) of dw zeroed.  For A @ x the
+// caller walks the CSC (eid = the CSC -> CSR edge map, so dw lands in CSR
+// order and each slot is written once); for A.T @ x it walks the CSR (eid
+// null).
 //
 // Replaces these TPU kernels of msha_gnn_tpu/ops/pallas/spmm.py:
 //   * _visit_kernel (:244), csr_spmm_f32: a one-hot MXU reduce of CSR edge
@@ -41,10 +42,12 @@
 //
 // Bound: bytes.  Each edge needs its column index and weight (8 B, or 4 B
 // unweighted) and one row of x (seg_reduce_f32: its own row of values;
-// csr_spmm_dw_f32 adds eid and the dw write, 8 B); the operations (2 E d
-// flops, 4 E d with dw) are far below the card's rate.  At the GCN's
-// shapes each call moves about 6 MB at minimum, about 2 us at HBM rate;
-// seg_reduce_f32 on [E, 64] values reads 84 MB, about 25 us.
+// csr_spmm_dw_f32 adds eid and the dw write, 8 B, and reads each row of x
+// once); the operations (2 E d flops, 4 E d with dw) are far below the
+// card's rate.  At the GCN's shapes each call moves about 6 MB at minimum,
+// about 2 us at HBM rate; seg_reduce_f32 on [E, 64] values reads 84 MB,
+// about 25 us; csr_spmm_dw_f32 on the linkpred graph at d 64 moves about
+// 8.5 MB, about 2.5 us.
 //
 // Design of csr_spmm_f32 and seg_reduce_f32: the edge-run schedule of
 // runs.cuh.  The first design, one block per output row, walked the longest
@@ -63,28 +66,49 @@
 // idle, so there a thread takes a run of its own.  No atomics: two
 // launches on the same inputs give the same bits.
 //
-// csr_spmm_dw_f32 (one block per row) holds x[r] in shared memory for the
-// whole row; each warp takes groups of kUnroll edges, forms the group's
-// dots with x[r] (one warp sum each) while it accumulates w g into its own
-// row of shared memory.
+// Design of csr_spmm_dw_f32: the per-edge walk of gat_bwd.cuh (the source
+// kDw), on the same edge runs.  Its first design ran one block per row: the
+// longest row (3,842 edges on the linkpred graph) set its time, the GCN's
+// 32 CSC rows kept 32 of the 132 SMs busy, and every edge ran a 32-lane
+// warp sum for its dot while each lane held 2 of the 64 floats; it ran at
+// 40-48x its bound, twice the time of the unfused backward it was meant to
+// save.  Now a warp takes a run of `run` slots and is split into groups of
+// G lanes, one edge a group.  For each row piece the lanes hold x[r] in
+// registers; each gathered row g[col[e]] is loaded once and used twice: a
+// group dot (a log2(G)-round shuffle sum, one lane storing dw[id_e]) and
+// the group's own sum acc += w[id_e] g[col[e]].  At the end of a row piece
+// the groups' sums are added in a fixed order and the row is written, or
+// left as the run's head or tail partial; the fix-up grid of the sums
+// (runs::fixup_kernel) adds the rows that cross runs in run order.  Widths
+// above one group's tile (G x 8 floats, 64 at G 8 and 256 at G 32; fewer
+// where the rows are not 16-byte aligned) take dx in tiles on blockIdx.y:
+// each tile's blocks sum their features and form the full dot again
+// (gat_runs::lane_dot streams the other tiles), and only tile 0 stores dw.
+// That keeps registers at a tile's worth whatever d is, and costs one more
+// read of the dot's rows a tile, off the paths that run d 64.  The walk is
+// capped at 80 registers in blocks of 4 warps (kDwWarps), so 24 warps share
+// an SM; runs of 128 slots and 8 lanes an edge at d 64 are the defaults
+// (spmm.DW_RUN, rank1_gat.group_for), from the sweep in PERF.md.  No
+// atomics: two launches give the same bits.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "gat_bwd.cuh"
 #include "runs.cuh"
 
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kMaxWarps = 8;
-constexpr int kUnroll = 4;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr size_t kMaxSmem = 48 * 1024;
 
 constexpr int kWarpsPerBlock = 4;  // measured: 4 beat 8 on the att SpMM and segment sum
 constexpr int kGroup = 8;     // edges whose rows of x are in flight together
 constexpr int kD1Threads = 256;
+// warps a block of csr_spmm_dw_f32: at its 80 registers 6 such blocks
+// share an SM, a finer grain than 3 blocks of 8 warps
+constexpr int kDwWarps = 4;
 
 // The row the piece [begin, end) of run k goes to: out's row, or the run's
 // head or tail partial (each [n_runs, d]).
@@ -276,32 +300,6 @@ csr_spmm_runs_d1_kernel(const int* __restrict__ ptr,
   }
 }
 
-// The rows that cross runs: out[r] = tail[k] + head[k + 1] + ... +
-// head[k_end], by the run k where r begins; kLanes workers per run (a warp,
-// lanes over features, or one thread at d = 1).
-template <int kLanes>
-__global__ void csr_spmm_fixup_kernel(const int* __restrict__ ptr,
-                                      const float* __restrict__ head,
-                                      const float* __restrict__ tail,
-                                      const int* __restrict__ cross,
-                                      float* __restrict__ out, int n_rows,
-                                      int run, int d) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  const int64_t k = t / kLanes;
-  const int lane = static_cast<int>(t % kLanes);
-  int64_t k_end = 0;
-  const int r = runs::crossing_row(ptr, cross, __ldg(ptr + n_rows), run, k,
-                                   k_end);
-  if (r < 0) return;
-  for (int f = lane; f < d; f += kLanes) {
-    float v = tail[k * d + f];
-#pragma unroll 8
-    for (int64_t j = k + 1; j <= k_end; ++j) v += head[j * d + f];
-    out[static_cast<int64_t>(r) * d + f] = v;
-  }
-}
-
 // Both grids of one CSR sum; ws holds head [n_runs, d] | tail [n_runs, d] |
 // cross [n_runs] (int32).
 template <bool kWeighted, bool kIdentity>
@@ -319,7 +317,7 @@ int launch_runs(const int* ptr, const int* col, const float* w,
             ptr, col, w, x, out, head, tail, cross, n_rows, run);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    csr_spmm_fixup_kernel<1>
+    runs::fixup_kernel<1>
         <<<static_cast<unsigned>(blocks), kD1Threads, 0, stream>>>(
             ptr, head, tail, cross, out, n_rows, run, d);
     return static_cast<int>(cudaGetLastError());
@@ -340,93 +338,9 @@ int launch_runs(const int* ptr, const int* col, const float* w,
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  csr_spmm_fixup_kernel<kWarp><<<grid, threads, 0, stream>>>(
+  runs::fixup_kernel<kWarp><<<grid, threads, 0, stream>>>(
       ptr, head, tail, cross, out, n_rows, run, d);
   return static_cast<int>(cudaGetLastError());
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = kWarp / 2; o > 0; o /= 2) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// Dynamic shared memory: x[r] (d) | acc[n_warps][d].  One block per row
-// (gridDim.x = n_rows); the same grid zeroes dw's slots [ptr[n_rows], n_dw).
-template <bool kEid>
-__global__ void __launch_bounds__(kMaxWarps * kWarp)
-csr_spmm_dw_f32_kernel(const int* __restrict__ ptr,
-                       const int* __restrict__ col,
-                       const int* __restrict__ eid,
-                       const float* __restrict__ w,
-                       const float* __restrict__ g,
-                       const float* __restrict__ x, float* __restrict__ dx,
-                       float* __restrict__ dw, int n_dw, int d) {
-  extern __shared__ float smem[];
-  const int n_warps = blockDim.x / kWarp;
-  float* x_s = smem;
-  float* acc_all = x_s + d;
-  const int row = blockIdx.x;
-  const int lane = threadIdx.x % kWarp;
-  const int warp = threadIdx.x / kWarp;
-  const int64_t row_off = static_cast<int64_t>(row) * d;
-  float* acc = acc_all + warp * d;
-  for (int f = threadIdx.x; f < d; f += blockDim.x) x_s[f] = x[row_off + f];
-  for (int f = lane; f < d; f += kWarp) acc[f] = 0.0f;
-  const int n_edges = ptr[gridDim.x];
-  for (int64_t i = n_edges + static_cast<int64_t>(row) * blockDim.x +
-                   threadIdx.x;
-       i < n_dw; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    dw[i] = 0.0f;
-  }
-  __syncthreads();
-
-  const int begin = ptr[row];
-  const int end = ptr[row + 1];
-  for (int e0 = begin + warp * kUnroll; e0 < end;
-       e0 += n_warps * kUnroll) {
-    int64_t grow[kUnroll];
-    int id[kUnroll];
-    float we[kUnroll];
-    float dot[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int e = e0 + u;
-      const bool ok = e < end;
-      grow[u] = ok ? static_cast<int64_t>(__ldg(col + e)) * d : -1;
-      id[u] = ok ? (kEid ? __ldg(eid + e) : e) : 0;
-      we[u] = ok ? __ldg(w + id[u]) : 0.0f;
-      dot[u] = 0.0f;
-    }
-    for (int f = lane; f < d; f += kWarp) {
-      const float xf = x_s[f];
-      float v = acc[f];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        if (grow[u] >= 0) {
-          const float gv = __ldg(g + grow[u] + f);
-          dot[u] = fmaf(gv, xf, dot[u]);
-          v = fmaf(we[u], gv, v);
-        }
-      }
-      acc[f] = v;
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      dot[u] = warp_sum(dot[u]);
-      if (lane == u && grow[u] >= 0) dw[id[u]] = dot[u];
-    }
-  }
-  __syncthreads();
-  for (int f = threadIdx.x; f < d; f += blockDim.x) {
-    float v = 0.0f;
-    for (int k = 0; k < n_warps; ++k) v += acc_all[k * d + f];
-    dx[row_off + f] = v;
-  }
-}
-
-size_t dw_smem(int d, int n_warps) {
-  return sizeof(float) * static_cast<size_t>(d) * (1 + n_warps);
 }
 
 }  // namespace
@@ -468,36 +382,27 @@ extern "C" int seg_reduce_f32(const int* ptr, const float* values,
                                   n_rows, n_slots, run, d, stream);
 }
 
-// dx [n_rows, d] and dw [n_dw] (n_dw >= ptr[n_rows], the slots past it 0)
-// of a weighted SpMM's backward: g [n_cols, d] gathered by col, x [n_rows,
-// d] the rows' own, w [> max id] read at id_e = eid[e] (e when eid is
-// null).  d = 0 is a shape (dw = 0).
+// dx [n_rows, d] and dw [n_slots] (n_slots >= ptr[n_rows], the slots past
+// it 0) of a weighted SpMM's backward: g [n_cols, d] gathered by col, x
+// [n_rows, d] the rows' own, w [> max id] read at id_e = eid[e] (e when eid
+// is null); ws [n_runs (2 d + 1)] float32 with n_runs = max(1, ceil(n_slots
+// / run)); `group` the lanes an edge, 8, 16 or 32.  Two grids: the runs,
+// then the fix-up of the rows of dx that cross runs.  d = 0 is a shape (dw
+// = 0).
 extern "C" int csr_spmm_dw_f32(const int* ptr, const int* col, const int* eid,
                                const float* w, const float* g, const float* x,
-                               float* dx, float* dw, int n_rows, int n_dw,
-                               int d, int n_warps, cudaStream_t stream) {
-  if (n_rows <= 0 || d < 0 || n_dw < 0 || n_warps < 1 ||
-      n_warps > kMaxWarps || dw_smem(d, n_warps) > kMaxSmem) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = dw_smem(d, n_warps);
-  if (eid != nullptr) {
-    csr_spmm_dw_f32_kernel<true><<<n_rows, n_warps * kWarp, smem, stream>>>(
-        ptr, col, eid, w, g, x, dx, dw, n_dw, d);
-  } else {
-    csr_spmm_dw_f32_kernel<false><<<n_rows, n_warps * kWarp, smem, stream>>>(
-        ptr, col, eid, w, g, x, dx, dw, n_dw, d);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The most warps per block (1..8) whose shared memory fits
-// csr_spmm_dw_f32 at feature width d; 0 when even one warp does not fit.
-extern "C" int csr_spmm_dw_max_warps(int d) {
-  for (int w = kMaxWarps; w >= 1; --w) {
-    if (dw_smem(d, w) <= kMaxSmem) return w;
-  }
-  return 0;
+                               float* dx, float* dw, float* ws, int n_rows,
+                               int n_slots, int run, int group, int d,
+                               cudaStream_t stream) {
+  gat_bwd::Args args{};
+  args.eid = eid;
+  args.w = w;
+  args.o1 = dw;
+  args.sums = dx;
+  args.ws = ws;
+  return gat_bwd::launch<gat_bwd::Src::kDw>(ptr, col, x, g, args, n_rows,
+                                            n_slots, run, group, d,
+                                            kDwWarps, stream);
 }
 
 extern "C" const char* csr_spmm_error_string(int code) {

@@ -13,10 +13,11 @@ destination features, elu.  The parameters keep the JAX layout, ``W``
   the kernel from ``(seed, edge slot)``;
 * ``"materialised"``: the JAX package's ``impl="pallas"`` pipeline, the
   attention weights materialised per edge: the plain ``sddmm`` logits,
-  ``edge_softmax(impl="cuda")`` (the row-softmax kernels), the hashed keep
-  mask on ``att`` (``r1l_keep_scale_f32``, one launch),
-  ``spmm(edge_weight=att, impl="cuda")`` (``csr_spmm_f32``
-  forward and ``dx``, ``csr_sddmm_f32`` for the weights' gradient), elu;
+  ``edge_softmax(impl="cuda")`` (the row-softmax kernels; in training
+  ``softmax.edge_softmax_drop``, the same kernels with the hashed keep
+  mask on ``att`` folded in), ``spmm(edge_weight=att, impl="cuda")``
+  (``csr_spmm_f32`` forward and ``dx``, ``csr_sddmm_f32`` for the weights'
+  gradient), elu;
 * ``"flash"``: the plain ``sddmm`` logits, then
   :class:`~msha_gnn_torch.ops.cuda.flash_gat.FlashGatOperator`
   (``flash_fwd_f32``: the row softmax, the hashed attention dropout and
@@ -125,15 +126,18 @@ class SparseGATLayer(nn.Module):
                 return elu(op.drop(logits, h_dst, seed))
             return elu(op(logits, h_dst))
         ops_impl = "cuda" if impl == "materialised" else "torch"
-        att = edge_softmax(graph, logits, impl=ops_impl)
-        if seed is not None:
-            from ..ops.cuda.rank1_gat import keep_scale, keep_scale_plain
+        if seed is None:
+            att = edge_softmax(graph, logits, impl=ops_impl)
+        elif impl == "materialised":
+            from ..ops.cuda import softmax as cuda_softmax
 
-            n = graph.num_padded_edges
-            att = att * (keep_scale(n, seed, rate) if impl == "materialised"
-                         else keep_scale_plain(
-                             torch.arange(n, device=x_src.device), seed,
-                             rate))
+            att = cuda_softmax.edge_softmax_drop(graph, logits, seed, rate)
+        else:
+            from ..ops.cuda.rank1_gat import keep_scale_plain
+
+            att = edge_softmax(graph, logits) * keep_scale_plain(
+                torch.arange(graph.num_padded_edges, device=x_src.device),
+                seed, rate)
         return elu(spmm(graph, h_dst, edge_weight=att, impl=ops_impl))
 
 

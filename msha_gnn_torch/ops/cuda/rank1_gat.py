@@ -20,10 +20,10 @@ compute and what bounds them.
   mirror the forwards' edge-run walk step by step, for tests
   (``flash_gat.rank1_gat_generic_bwd_runs_plain`` the backward's).
 * :func:`keep_scale_plain` is the dropout keep mask, bit for bit the JAX
-  package's ``_hash01``/``_keep_scale``; :func:`keep_scale` computes it on
-  the card in one launch of the kernels' own device function
-  (``r1l_keep_scale_f32``, counted in :data:`keep_launches`), which the
-  materialised GAT path applies to its attention.
+  package's ``_hash01``/``_keep_scale`` and the kernels' device function
+  ``gat::keep_scale`` (``csrc/gat_common.cuh``); on the card the kernels
+  hash it per slot (the materialised GAT path's in the row softmax,
+  ``softmax.seg_softmax_fwd_drop``).
 * :func:`r1_fwd` and :func:`r1_bwd` wrap the generic kernels (counted in
   :data:`r1_fwd_launches`, :data:`r1_bwd_launches`); their plain versions
   are :func:`rank1_gat_generic_plain` and
@@ -71,7 +71,6 @@ R1_BWD_RUN = 64
 # merged in run order; the backward's dc pieces and the da reduce).
 fwd_launches = 0
 bwd_launches = 0
-keep_launches = 0
 # Launches of the generic form's r1_fwd_f32 / r1_bwd_f32.  Each launch runs
 # two grids, as r1l_fwd_f32's and r1l_bwd_f32's do: the edge runs, then the
 # fix-up of the rows that cross runs (the forward's pieces merged, the
@@ -93,10 +92,9 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.r1l_bwd_f32.argtypes = ([p] * 9 + [f] * 3 + [p] * 5 + [i] * 5
                                     + [p])
         lib.r1_fwd_f32.argtypes = [p] * 5 + [f] + [p] * 3 + [i] * 6 + [p]
-        lib.r1l_keep_scale_f32.argtypes = [p, f, f, i, p, p]
         lib.r1l_max_warps.argtypes = [i]
         for fn in (lib.r1l_fwd_f32, lib.r1l_bwd_f32, lib.r1_fwd_f32,
-                   lib.r1l_keep_scale_f32, lib.r1l_max_warps):
+                   lib.r1l_max_warps):
             fn.restype = ctypes.c_int
         lib.r1l_error_string.argtypes = [i]
         lib.r1l_error_string.restype = ctypes.c_char_p
@@ -152,26 +150,6 @@ def keep_scale_plain(slots: torch.Tensor, seed, rate: float) -> torch.Tensor:
     keep = u >= torch.tensor(rate, **f32)
     return torch.where(keep, torch.tensor(_scale(rate), **f32),
                        torch.tensor(0.0, **f32))
-
-
-def keep_scale(n: int, seed: torch.Tensor, rate: float) -> torch.Tensor:
-    """The keep scale of slots ``0..n-1``: on a CUDA ``seed`` by one launch
-    of ``r1l_keep_scale_f32`` (the kernels' device function), else
-    :func:`keep_scale_plain`."""
-    global keep_launches
-    if seed.device.type == "cpu":
-        return keep_scale_plain(torch.arange(n), seed, rate)
-    if seed.dtype != torch.int32 or seed.numel() != 1:
-        raise TypeError("seed must be one int32")
-    out = torch.empty(n, dtype=torch.float32, device=seed.device)
-    lib = _kernel_lib()
-    with torch.cuda.device(seed.device):
-        stream = torch.cuda.current_stream(seed.device).cuda_stream
-        rc = lib.r1l_keep_scale_f32(seed.data_ptr(), rate, _scale(rate), n,
-                                    out.data_ptr(), stream)
-    _raise_on(lib, rc, "r1l_keep_scale_f32")
-    keep_launches += 1
-    return out
 
 
 # ---------------------------------------------------------------------------

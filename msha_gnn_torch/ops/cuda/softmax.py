@@ -13,13 +13,24 @@ walk of edge runs (two grids a call).
   (one a call).  For tensors on the CPU they run
   :func:`seg_softmax_fwd_plain` and :func:`seg_softmax_bwd_plain`, the
   plain PyTorch versions of the same functions and the kernels' oracles.
-* :func:`seg_softmax_fwd_runs_plain` and :func:`seg_softmax_bwd_runs_plain`
-  mirror the kernels' walk (runs, head and tail pieces, crossing rows
-  merged in run order) step by step, for tests.
+* :func:`seg_softmax_fwd_drop` and :func:`seg_softmax_bwd_drop` launch the
+  same kernels with the attention's dropout folded in (the keep mask of
+  ``rank1_gat.py::_keep_scale``, hashed per slot in the walk): the forward
+  also gives ``att_k = att * k``, the backward takes the cotangent of
+  ``att_k``.  Their launches count in :data:`fwd_launches` and
+  :data:`bwd_launches` too, and in :data:`fwd_drop_launches` and
+  :data:`bwd_drop_launches`; their plain versions compose the plain
+  softmax with ``rank1_gat.keep_scale_plain``.
+* :func:`seg_softmax_fwd_runs_plain`, :func:`seg_softmax_bwd_runs_plain`
+  and their dropout forms mirror the kernels' walk (runs, head and tail
+  pieces, crossing rows merged in run order) step by step, for tests.
 * :class:`SegmentSoftmaxOperator` (``softmax.py::SegmentSoftmaxOperator``)
   binds one edge sort and a static per-edge mask and is differentiable.
   ``broadcast_rows`` of the JAX operator serves only
-  ``training/scale.py`` and is not ported yet.
+  ``training/scale.py`` and is not ported yet.  :func:`edge_softmax_drop`
+  is the materialised GAT layer's attention with its dropout: the row
+  softmax of the graph's operator times the keep mask, in one launch each
+  way.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from typing import TYPE_CHECKING, Callable, Optional
 import torch
 
 from ... import resolve_device
+from .rank1_gat import _scale, keep_scale_plain
 from .spmm import cached_for, edge_rows, n_runs
 
 if TYPE_CHECKING:
@@ -42,6 +54,9 @@ NEG = -1e30
 # (plain counts, reset by callers that measure a run).
 fwd_launches = 0
 bwd_launches = 0
+# Those of them with the dropout folded in.
+fwd_drop_launches = 0
+bwd_drop_launches = 0
 
 # Slots a run that a warp holds at most (16 a lane).
 MAX_WARP_RUN = 512
@@ -59,9 +74,9 @@ def _kernel_lib() -> ctypes.CDLL:
         from . import _build
 
         lib = _build.load("softmax")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.seg_softmax_fwd_f32.argtypes = [p] * 6 + [i] * 4 + [p]
-        lib.seg_softmax_bwd_f32.argtypes = [p] * 5 + [i] * 4 + [p]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.seg_softmax_fwd_f32.argtypes = [p] * 8 + [f] * 2 + [i] * 4 + [p]
+        lib.seg_softmax_bwd_f32.argtypes = [p] * 6 + [f] * 2 + [i] * 4 + [p]
         for fn in (lib.seg_softmax_fwd_f32, lib.seg_softmax_bwd_f32):
             fn.restype = ctypes.c_int
         lib.seg_softmax_error_string.argtypes = [i]
@@ -102,6 +117,31 @@ def seg_softmax_bwd_plain(ptr: torch.Tensor, att: torch.Tensor,
     dl = att.new_zeros(att.shape[0])
     dl[:e] = t - att[:e] * rs[rows]
     return dl
+
+
+def _keep(n_out: int, seed, rate: float, device) -> torch.Tensor:
+    """The keep scales of slots ``0..n_out-1``."""
+    return keep_scale_plain(torch.arange(n_out, device=device), seed, rate)
+
+
+def seg_softmax_fwd_drop_plain(ptr: torch.Tensor, logits: torch.Tensor,
+                               mask: Optional[torch.Tensor], n_edges: int,
+                               seed, rate: float):
+    """Plain version of ``seg_softmax_fwd_f32`` with dropout -> ``(att,
+    att_k, lse)``: :func:`seg_softmax_fwd_plain`, then ``att_k = att *
+    keep_scale_plain``."""
+    att, lse = seg_softmax_fwd_plain(ptr, logits, mask, n_edges)
+    return att, att * _keep(att.numel(), seed, rate, att.device), lse
+
+
+def seg_softmax_bwd_drop_plain(ptr: torch.Tensor, att: torch.Tensor,
+                               g_k: torch.Tensor, n_edges: int, seed,
+                               rate: float) -> torch.Tensor:
+    """Plain version of ``seg_softmax_bwd_f32`` with dropout: the VJP of
+    ``att_k = att * k`` for its cotangent ``g_k``,
+    :func:`seg_softmax_bwd_plain` of ``g_k * k``."""
+    return seg_softmax_bwd_plain(
+        ptr, att, g_k * _keep(att.numel(), seed, rate, att.device), n_edges)
 
 
 def _tree_merge(pieces: list, merge: Callable):
@@ -205,21 +245,41 @@ def seg_softmax_fwd_runs_plain(ptr: torch.Tensor, logits: torch.Tensor,
     Returns ``(att [n_out], lse [n_rows], att_writes, lse_writes)``, the
     writes counting how often each slot and row was written (the kernel
     writes each once).  Slow: Python loops over runs, for tests."""
+    att, _, lse, att_writes, lse_writes = _fwd_runs(ptr, logits, mask,
+                                                    n_edges, run, None)
+    return att, lse, att_writes, lse_writes
+
+
+def seg_softmax_fwd_drop_runs_plain(ptr: torch.Tensor, logits: torch.Tensor,
+                                    mask: Optional[torch.Tensor],
+                                    n_edges: int, seed, rate: float,
+                                    run: int):
+    """The walk of ``seg_softmax_fwd_f32`` with dropout: that of
+    :func:`seg_softmax_fwd_runs_plain`, each slot's ``att_k = att * k``
+    written where its ``att`` is.  Returns ``(att, att_k, lse, att_writes,
+    lse_writes)``."""
+    return _fwd_runs(ptr, logits, mask, n_edges, run,
+                     _keep(logits.numel(), seed, rate, logits.device))
+
+
+def _fwd_runs(ptr, logits, mask, n_edges: int, run: int, keep):
+    """Both forward mirrors: ``keep`` the slots' keep scales, or None."""
     n_rows, n_out = ptr.numel() - 1, logits.numel()
     att = logits.new_full((n_out,), float("nan"))
+    att_k = None if keep is None else att.clone()
     lse = logits.new_full((n_rows,), float("nan"))
     att_writes = torch.zeros(n_out, dtype=torch.int64)
     lse_writes = torch.zeros(n_rows, dtype=torch.int64)
-    keep = (torch.ones(n_out, dtype=torch.bool) if mask is None
+    kept = (torch.ones(n_out, dtype=torch.bool) if mask is None
             else mask.bool())
     neg = logits.new_tensor(NEG)
 
     def reduce(pb, pe):
-        kept = logits[pb:pe][keep[pb:pe]]
-        if kept.numel() == 0:
+        live = logits[pb:pe][kept[pb:pe]]
+        if live.numel() == 0:
             return neg, logits.new_tensor(0.0)
-        m = kept.max()
-        return m, torch.exp(kept - m).sum()
+        m = live.max()
+        return m, torch.exp(live - m).sum()
 
     def merge(a, b):
         m = torch.maximum(a[0], b[0])
@@ -233,8 +293,10 @@ def seg_softmax_fwd_runs_plain(ptr: torch.Tensor, logits: torch.Tensor,
         if val is None:
             att[pb:pe] = 0.0
         else:
-            att[pb:pe] = torch.where(keep[pb:pe],
+            att[pb:pe] = torch.where(kept[pb:pe],
                                      torch.exp(logits[pb:pe] - val), 0.0)
+        if att_k is not None:
+            att_k[pb:pe] = att[pb:pe] * keep[pb:pe]
         att_writes[pb:pe] += 1
 
     def put_row(r, val):
@@ -242,7 +304,7 @@ def seg_softmax_fwd_runs_plain(ptr: torch.Tensor, logits: torch.Tensor,
         lse_writes[r] += 1
 
     _runs_walk(ptr, n_edges, n_out, run, reduce, merge, value, emit, put_row)
-    return att, lse, att_writes, lse_writes
+    return att, att_k, lse, att_writes, lse_writes
 
 
 def seg_softmax_bwd_runs_plain(ptr: torch.Tensor, att: torch.Tensor,
@@ -270,6 +332,17 @@ def seg_softmax_bwd_runs_plain(ptr: torch.Tensor, att: torch.Tensor,
                lambda piece: att.new_tensor(0.0) if piece is None else piece,
                emit, lambda r, val: None)
     return dl, writes
+
+
+def seg_softmax_bwd_drop_runs_plain(ptr: torch.Tensor, att: torch.Tensor,
+                                    g_k: torch.Tensor, n_edges: int, seed,
+                                    rate: float, run: int):
+    """The walk of ``seg_softmax_bwd_f32`` with dropout: the cotangent of
+    ``att_k`` scaled by each slot's keep scale as the kernel loads it, then
+    :func:`seg_softmax_bwd_runs_plain`.  Returns ``(dl, writes)``."""
+    return seg_softmax_bwd_runs_plain(
+        ptr, att, g_k * _keep(att.numel(), seed, rate, att.device), n_edges,
+        run)
 
 
 def _run_length(run: Optional[int]) -> int:
@@ -324,6 +397,47 @@ def _raise_on(lib, rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: {msg} (error {rc})")
 
 
+def _seed_of(seed, dev: torch.device) -> torch.Tensor:
+    if (not isinstance(seed, torch.Tensor) or seed.dtype != torch.int32
+            or seed.numel() != 1 or seed.device != dev):
+        raise TypeError(f"seed must be one int32 on {dev}")
+    return seed
+
+
+def _fwd(ptr, logits, mask, n_edges: int, run, ws, seed, rate: float):
+    """Both forward wrappers: ``(att, att_k or None, lse)``."""
+    global fwd_launches, fwd_drop_launches
+    given = dict(ptr=ptr, logits=logits)
+    if mask is not None:
+        given["mask"] = mask
+        if mask.shape != logits.shape:
+            raise ValueError(f"mask {tuple(mask.shape)} and logits "
+                             f"{tuple(logits.shape)} differ")
+    _check("seg_softmax_fwd_f32", logits.device, **given)
+    run = _run_length(run)
+    n_rows, n_out = ptr.numel() - 1, logits.numel()
+    dev = logits.device
+    att = torch.empty(n_out, dtype=torch.float32, device=dev)
+    att_k = None if seed is None else torch.empty_like(att)
+    lse = torch.empty(n_rows, dtype=torch.float32, device=dev)
+    if n_rows == 0:
+        return att.zero_(), None if att_k is None else att_k.zero_(), lse
+    ws = _workspace(ws, n_out, run, dev)
+    lib = _kernel_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.seg_softmax_fwd_f32(
+            ptr.data_ptr(), logits.data_ptr(),
+            None if mask is None else mask.data_ptr(), att.data_ptr(),
+            None if att_k is None else att_k.data_ptr(), lse.data_ptr(),
+            ws.data_ptr(), None if seed is None else seed.data_ptr(), rate,
+            _scale(rate), n_rows, n_edges, n_out, run, stream)
+    _raise_on(lib, rc, "seg_softmax_fwd_f32")
+    fwd_launches += 1
+    fwd_drop_launches += seed is not None
+    return att, att_k, lse
+
+
 def seg_softmax_fwd(ptr: torch.Tensor, logits: torch.Tensor,
                     mask: Optional[torch.Tensor], n_edges: int,
                     run: Optional[int] = None,
@@ -336,47 +450,32 @@ def seg_softmax_fwd(ptr: torch.Tensor, logits: torch.Tensor,
     every call rewrites it before reading it, so calls ordered on one
     stream may share one.  CPU tensors take the plain version; CUDA
     tensors launch the kernel or raise."""
-    global fwd_launches
     if logits.device.type == "cpu":
         return seg_softmax_fwd_plain(ptr, logits, mask, n_edges)
-    given = dict(ptr=ptr, logits=logits)
-    if mask is not None:
-        given["mask"] = mask
-        if mask.shape != logits.shape:
-            raise ValueError(f"mask {tuple(mask.shape)} and logits "
-                             f"{tuple(logits.shape)} differ")
-    _check("seg_softmax_fwd_f32", logits.device, **given)
-    run = _run_length(run)
-    n_rows, n_out = ptr.numel() - 1, logits.numel()
-    dev = logits.device
-    att = torch.empty(n_out, dtype=torch.float32, device=dev)
-    lse = torch.empty(n_rows, dtype=torch.float32, device=dev)
-    if n_rows == 0:
-        return att.zero_(), lse
-    ws = _workspace(ws, n_out, run, dev)
-    lib = _kernel_lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.seg_softmax_fwd_f32(
-            ptr.data_ptr(), logits.data_ptr(),
-            None if mask is None else mask.data_ptr(), att.data_ptr(),
-            lse.data_ptr(), ws.data_ptr(), n_rows, n_edges, n_out, run,
-            stream)
-    _raise_on(lib, rc, "seg_softmax_fwd_f32")
-    fwd_launches += 1
+    att, _, lse = _fwd(ptr, logits, mask, n_edges, run, ws, None, 0.0)
     return att, lse
 
 
-def seg_softmax_bwd(ptr: torch.Tensor, att: torch.Tensor, g: torch.Tensor,
-                    n_edges: int, run: Optional[int] = None,
-                    ws: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The softmax's vector-Jacobian product ``dl [n_out]`` for ``att`` as
-    the forward gave it and the cotangent ``g`` [n_out]; pad slots get 0.
-    ``run`` and ``ws`` as for :func:`seg_softmax_fwd`.  CPU tensors take
-    the plain version."""
-    global bwd_launches
-    if att.device.type == "cpu":
-        return seg_softmax_bwd_plain(ptr, att, g, n_edges)
+def seg_softmax_fwd_drop(ptr: torch.Tensor, logits: torch.Tensor,
+                         mask: Optional[torch.Tensor], n_edges: int,
+                         seed: torch.Tensor, rate: float,
+                         run: Optional[int] = None,
+                         ws: Optional[torch.Tensor] = None):
+    """:func:`seg_softmax_fwd` with the attention's dropout -> ``(att,
+    att_k, lse)``: ``att_k = att * k``, ``k`` the keep scale of each slot
+    (``rank1_gat.keep_scale_plain`` of ``seed``, one int32 on the logits'
+    device, at ``rate``), formed in the same launch, bit for bit that
+    product.  CPU tensors take :func:`seg_softmax_fwd_drop_plain`."""
+    if logits.device.type == "cpu":
+        return seg_softmax_fwd_drop_plain(ptr, logits, mask, n_edges, seed,
+                                          rate)
+    return _fwd(ptr, logits, mask, n_edges, run, ws,
+                _seed_of(seed, logits.device), rate)
+
+
+def _bwd(ptr, att, g, n_edges: int, run, ws, seed, rate: float):
+    """Both backward wrappers."""
+    global bwd_launches, bwd_drop_launches
     _check("seg_softmax_bwd_f32", att.device, ptr=ptr, att=att, g=g)
     if g.shape != att.shape:
         raise ValueError(f"g {tuple(g.shape)} and att {tuple(att.shape)} "
@@ -391,13 +490,41 @@ def seg_softmax_bwd(ptr: torch.Tensor, att: torch.Tensor, g: torch.Tensor,
     lib = _kernel_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.seg_softmax_bwd_f32(ptr.data_ptr(), att.data_ptr(),
-                                     g.data_ptr(), dl.data_ptr(),
-                                     ws.data_ptr(), n_rows, n_edges, n_out,
-                                     run, stream)
+        rc = lib.seg_softmax_bwd_f32(
+            ptr.data_ptr(), att.data_ptr(), g.data_ptr(), dl.data_ptr(),
+            ws.data_ptr(), None if seed is None else seed.data_ptr(), rate,
+            _scale(rate), n_rows, n_edges, n_out, run, stream)
     _raise_on(lib, rc, "seg_softmax_bwd_f32")
     bwd_launches += 1
+    bwd_drop_launches += seed is not None
     return dl
+
+
+def seg_softmax_bwd(ptr: torch.Tensor, att: torch.Tensor, g: torch.Tensor,
+                    n_edges: int, run: Optional[int] = None,
+                    ws: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The softmax's vector-Jacobian product ``dl [n_out]`` for ``att`` as
+    the forward gave it and the cotangent ``g`` [n_out]; pad slots get 0.
+    ``run`` and ``ws`` as for :func:`seg_softmax_fwd`.  CPU tensors take
+    the plain version."""
+    if att.device.type == "cpu":
+        return seg_softmax_bwd_plain(ptr, att, g, n_edges)
+    return _bwd(ptr, att, g, n_edges, run, ws, None, 0.0)
+
+
+def seg_softmax_bwd_drop(ptr: torch.Tensor, att: torch.Tensor,
+                         g_k: torch.Tensor, n_edges: int,
+                         seed: torch.Tensor, rate: float,
+                         run: Optional[int] = None,
+                         ws: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The VJP of :func:`seg_softmax_fwd_drop`'s ``att_k`` for its
+    cotangent ``g_k``: :func:`seg_softmax_bwd` of ``g_k * k``, the product
+    formed per slot in the same launch.  CPU tensors take
+    :func:`seg_softmax_bwd_drop_plain`."""
+    if att.device.type == "cpu":
+        return seg_softmax_bwd_drop_plain(ptr, att, g_k, n_edges, seed, rate)
+    return _bwd(ptr, att, g_k, n_edges, run, ws, _seed_of(seed, att.device),
+                rate)
 
 
 # ---------------------------------------------------------------------------
@@ -422,6 +549,30 @@ class _SoftmaxFn(torch.autograd.Function):
         op = ctx.op
         return seg_softmax_bwd(op.ptr, att, g.contiguous(), op.num_edges,
                                op.run, op.ws), None
+
+
+class _SoftmaxDropFn(torch.autograd.Function):
+    """``att_k = softmax_per_row(l) * k`` (``k`` the keep scale of each
+    slot) with ``dl = att*g - att*rowsum(att*g)`` for ``g = g_k * k``: the
+    VJP of the softmax followed by the dropout multiply, in one launch each
+    way."""
+
+    @staticmethod
+    def forward(ctx, logits, op, seed, rate):
+        att, att_k, _ = seg_softmax_fwd_drop(op.ptr, logits, op.mask,
+                                             op.num_edges, seed, rate,
+                                             op.run, op.ws)
+        ctx.op, ctx.rate = op, rate
+        ctx.save_for_backward(att, seed)
+        return att_k
+
+    @staticmethod
+    def backward(ctx, g_k):
+        att, seed = ctx.saved_tensors
+        op = ctx.op
+        return seg_softmax_bwd_drop(op.ptr, att, g_k.contiguous(),
+                                    op.num_edges, seed, ctx.rate, op.run,
+                                    op.ws), None, None, None
 
 
 class SegmentSoftmaxOperator:
@@ -470,16 +621,31 @@ class SegmentSoftmaxOperator:
         return SegmentSoftmaxOperator(graph.senders, graph.row_ptr,
                                       graph.n_src, device=graph.device)
 
-    def __call__(self, logits: torch.Tensor) -> torch.Tensor:
+    def _checked(self, logits: torch.Tensor) -> torch.Tensor:
         if logits.device != self.device:
             raise ValueError(f"logits are on {logits.device}, the operator "
                              f"on {self.device}")
         if logits.shape != (self.num_padded_edges,):
             raise ValueError(f"logits must be [{self.num_padded_edges}], got "
                              f"{tuple(logits.shape)}")
-        return _SoftmaxFn.apply(logits.contiguous(), self)
+        return logits.contiguous()
+
+    def __call__(self, logits: torch.Tensor) -> torch.Tensor:
+        return _SoftmaxFn.apply(self._checked(logits), self)
 
 
 def softmax_operator_for(graph: "BipartiteGraph") -> SegmentSoftmaxOperator:
     """The cached :class:`SegmentSoftmaxOperator` of ``graph``."""
     return cached_for(graph, SegmentSoftmaxOperator.build)
+
+
+def edge_softmax_drop(graph: "BipartiteGraph", logits: torch.Tensor,
+                      seed: torch.Tensor, rate: float) -> torch.Tensor:
+    """``edge_softmax(graph, logits, impl="cuda")`` times the dropout keep
+    mask of each edge slot (``rank1_gat.keep_scale_plain(slots, seed,
+    rate)``), differentiable: the attention of the materialised GAT layer
+    in training, one ``seg_softmax_fwd_f32`` launch forward and one
+    ``seg_softmax_bwd_f32`` backward on the graph's cached operator.
+    ``seed`` one int32 on the logits' device, ``0 < rate < 1``."""
+    op = softmax_operator_for(graph)
+    return _SoftmaxDropFn.apply(op._checked(logits), op, seed, float(rate))

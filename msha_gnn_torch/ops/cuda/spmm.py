@@ -25,7 +25,9 @@ and what bounds it (bytes).
   ``A.T @ x``.
   With ``fused_bwd=True`` (the JAX operator's flag, off by default there
   too) that backward is one launch of ``csr_spmm_dw_f32`` instead, which
-  gives ``dx`` and ``dw`` together.
+  gives ``dx`` and ``dw`` together: the per-edge walk of
+  ``csrc/gat_bwd.cuh`` on the edge runs, each gathered row used for the
+  dot and the row sum, into a workspace the operator holds.
 * :meth:`SpmmOperator.reduce_edges` sums per-edge rows into their
   receivers, ``out[j] = sum_{e: rcv_e = j} z[e]``: the kernel over the CSC
   pointer with the CSC->CSR edge ids as columns and no weights, which the
@@ -37,13 +39,14 @@ and what bounds it (bytes).
 
 Each wrapper counts its launches (:data:`launches`, :data:`seg_launches`,
 :data:`dw_launches`) and runs its plain PyTorch version, the kernel's
-oracle, for tensors on the CPU.
+oracle, for tensors on the CPU.  :func:`csr_spmm_runs_plain` and
+:func:`csr_spmm_dw_runs_plain` mirror the kernels' edge-run walks step by
+step, for tests.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import TYPE_CHECKING, Optional
 
 import numpy as np
@@ -54,12 +57,14 @@ from ... import resolve_device
 if TYPE_CHECKING:
     from ...graph import BipartiteGraph
 
-MAX_WARPS = 8
 # Run lengths (CSR slots a warp sums) of csr_spmm_f32 and seg_reduce_f32,
 # and the runs that fill the card: 132 SMs x 32 warps.
 RUN_SLOTS = (32, 64, 128, 256)
 RUNS_TARGET = 132 * 32
 RUN_D1 = 32     # at d = 1 a thread takes a run
+# Slots a warp of csr_spmm_dw_f32 by default (PERF.md, the sweep of run
+# lengths and groups of lanes at the linkpred shapes).
+DW_RUN = 128
 
 # Launches of csr_spmm_f32, seg_reduce_f32 and csr_spmm_dw_f32 in this
 # process (plain counts, reset by callers that measure a run).
@@ -79,23 +84,13 @@ def _kernel_lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.csr_spmm_f32.argtypes = [p] * 6 + [i] * 4 + [p]
         lib.seg_reduce_f32.argtypes = [p] * 4 + [i] * 4 + [p]
-        lib.csr_spmm_dw_f32.argtypes = [p] * 8 + [i] * 4 + [p]
-        lib.csr_spmm_dw_max_warps.argtypes = [i]
-        for fn in (lib.csr_spmm_f32, lib.seg_reduce_f32, lib.csr_spmm_dw_f32,
-                   lib.csr_spmm_dw_max_warps):
+        lib.csr_spmm_dw_f32.argtypes = [p] * 9 + [i] * 5 + [p]
+        for fn in (lib.csr_spmm_f32, lib.seg_reduce_f32, lib.csr_spmm_dw_f32):
             fn.restype = ctypes.c_int
         lib.csr_spmm_error_string.argtypes = [ctypes.c_int]
         lib.csr_spmm_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
-
-
-def warps_for(num_edges: int, n_rows: int, max_row: int = 0) -> int:
-    """Warps per block, 1..8: about one warp per 32 edges of a mean row,
-    and at least one per 512 edges of the longest row, whose block
-    otherwise sets the time of a skewed graph alone."""
-    mean = num_edges / max(n_rows, 1)
-    return int(min(MAX_WARPS, max(1, round(mean / 32), -(-max_row // 512))))
 
 
 def edge_rows(ptr: torch.Tensor, n_edges: int) -> torch.Tensor:
@@ -136,6 +131,14 @@ def run_for(n_slots: int, d: int) -> int:
 def n_runs(n_slots: int, run: int) -> int:
     """Runs of ``run`` slots over ``n_slots`` (at least one)."""
     return max(1, -(-n_slots // run))
+
+
+def sums_ws_floats(n_slots: int, run: int, d: int) -> int:
+    """Floats of the workspace of a walk that sums rows of width ``d`` over
+    runs of ``run`` of ``n_slots`` slots (``csr_spmm_f32``,
+    ``seg_reduce_f32``, ``csr_spmm_dw_f32``'s dx): the head and tail
+    partials ``[n_runs, d]`` each and ``cross`` (int32)."""
+    return n_runs(n_slots, run) * (2 * d + 1)
 
 
 def csr_spmm_runs_plain(ptr: torch.Tensor, col: Optional[torch.Tensor],
@@ -258,7 +261,7 @@ def csr_spmm(ptr: torch.Tensor, col: torch.Tensor, w: Optional[torch.Tensor],
     if n_rows == 0 or d == 0:
         return out
     run = run_for(n_slots, d) if run is None else int(run)
-    ws = torch.empty(n_runs(n_slots, run) * (2 * d + 1), dtype=torch.float32,
+    ws = torch.empty(sums_ws_floats(n_slots, run, d), dtype=torch.float32,
                      device=dev)
     lib = _kernel_lib()
     with torch.cuda.device(dev):
@@ -342,7 +345,7 @@ def segment_reduce_sorted(values: torch.Tensor, senders: torch.Tensor,
     if n_src == 0 or d == 0:
         return out
     run = run_for(n_slots, d) if run is None else int(run)
-    ws = torch.empty(n_runs(n_slots, run) * (2 * d + 1), dtype=torch.float32,
+    ws = torch.empty(sums_ws_floats(n_slots, run, d), dtype=torch.float32,
                      device=dev)
     lib = _kernel_lib()
     with torch.cuda.device(dev):
@@ -373,19 +376,73 @@ def csr_spmm_dw_plain(ptr, col, eid, w, g, x, n_rows: int, n_dw: int):
     return dx, dw
 
 
-@functools.lru_cache(maxsize=None)
-def _dw_warps(d: int) -> int:
-    """The most warps per block whose shared memory fits ``csr_spmm_dw_f32``
-    at width ``d`` (asked of the library once per ``d``)."""
-    w = _kernel_lib().csr_spmm_dw_max_warps(d)
-    if w < 1:
-        raise ValueError(f"feature width {d} does not fit csr_spmm_dw_f32's "
-                         "shared memory")
-    return w
+def csr_spmm_dw_runs_plain(ptr, col, eid, w, g, x, n_rows: int, n_dw: int,
+                           run: int, group: int):
+    """The walk of ``csr_spmm_dw_f32`` (``csrc/gat_bwd.cuh``, the source
+    ``kDw``) in plain PyTorch, step by step as the kernel takes it
+    (``rank1_gat._edge_walk``): runs of ``run`` slots of ``[0, n_dw)``, each
+    zeroing its pads past ``ptr[n_rows]`` (dw's slots, by slot), handing
+    the edges of each row piece to ``32 / group`` groups (each edge's dot
+    stored at its id, its ``w g`` row added to the piece), writing a row
+    that lies inside the run and leaving the head and tail partials of
+    rows that cross its ends, empty rows zeroed by the run that owns them;
+    then the crossing rows are added up in run order.
+
+    Returns ``(dx [n_rows, d], dw [n_dw], dx_writes, dw_writes)``, the
+    writes counting how often each row of dx and slot of dw was written
+    (the kernel writes each once).  Slow: Python loops over runs and
+    steps, for tests."""
+    from .rank1_gat import _edge_walk
+
+    pl = [int(v) for v in ptr.tolist()]
+    n_edges, d = pl[n_rows], g.shape[1]
+    ids = (torch.arange(n_edges) if eid is None
+           else eid[:n_edges].long())
+    dx = g.new_full((n_rows, d), float("nan"))
+    dw = g.new_full((n_dw,), float("nan"))
+    dx_writes = torch.zeros(n_rows, dtype=torch.int64)
+    dw_writes = torch.zeros(n_dw, dtype=torch.int64)
+    n = n_runs(n_dw, run)
+    head, tail, cross = g.new_zeros((n, d)), g.new_zeros((n, d)), [-1] * n
+    piece = g.new_zeros(d)
+
+    def put(r, v):
+        dx[r] = v
+        dx_writes[r] += 1
+
+    for event, *at in _edge_walk(ptr, n_dw, run, group, d):
+        if event == "pads":
+            dw[at[0]] = 0.0
+            dw_writes[at[0]] += 1
+        elif event == "empty":
+            put(at[0], 0.0)
+        elif event == "step":
+            row, idx = at
+            gg, slot = g[col[idx].long()], ids[idx]
+            dw[slot] = (gg * x[row]).sum(1)
+            dw_writes.index_add_(0, slot, torch.ones_like(slot))
+            piece = piece + (w[slot][:, None] * gg).sum(0)
+        else:
+            k, row, target = at
+            if target == "head":
+                head[k] = piece
+            elif target == "tail":
+                tail[k], cross[k] = piece, row
+            else:
+                put(row, piece)
+            piece = g.new_zeros(d)
+    for k, r in enumerate(cross):
+        if r >= 0:
+            v = tail[k].clone()
+            for j in range(k + 1, (pl[r + 1] - 1) // run + 1):
+                v = v + head[j]
+            put(r, v)
+    return dx, dw, dx_writes, dw_writes
 
 
 def csr_spmm_dw(ptr, col, eid, w, g, x, n_rows: int, n_dw: int,
-                n_warps: int):
+                ws: Optional[torch.Tensor] = None, run: Optional[int] = None,
+                group: Optional[int] = None):
     """A weighted SpMM's backward in one pass -> ``(dx [n_rows, d], dw
     [n_dw])`` f32::
 
@@ -394,14 +451,18 @@ def csr_spmm_dw(ptr, col, eid, w, g, x, n_rows: int, n_dw: int,
 
     with ``dw``'s other slots 0.  ``ptr`` int32 [n_rows + 1], ``col`` and
     ``eid`` int32 [E], ``w`` f32 indexed by ``id_e``, ``g`` f32 [n_cols, d],
-    ``x`` f32 [n_rows, d].  ``n_warps`` per block, at most what fits the
-    shared memory at ``d``.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise.
+    ``x`` f32 [n_rows, d].  ``ws`` the kernel's workspace (at least
+    :func:`sums_ws_floats` float32; allocated when None), ``run`` slots a
+    warp (default :data:`DW_RUN`), ``group`` lanes an edge (one of
+    ``rank1_gat.GROUPS``, default ``rank1_gat.group_for``).  CPU tensors
+    take the plain version; CUDA tensors launch the kernel or raise.
     """
     global dw_launches
     dev = g.device
     if dev.type == "cpu":
         return csr_spmm_dw_plain(ptr, col, eid, w, g, x, n_rows, n_dw)
+    from .rank1_gat import _group
+
     given = [("ptr", ptr), ("col", col), ("w", w), ("g", g), ("x", x)]
     if eid is not None:
         given.append(("eid", eid))
@@ -414,6 +475,14 @@ def csr_spmm_dw(ptr, col, eid, w, g, x, n_rows: int, n_dw: int,
             f"shapes: ptr {tuple(ptr.shape)} for {n_rows} rows, col "
             f"{tuple(col.shape)}, g {tuple(g.shape)}, x {tuple(x.shape)}, "
             f"n_dw {n_dw}")
+    run = DW_RUN if run is None else int(run)
+    group = _group(group, d)
+    need = sums_ws_floats(n_dw, run, d)
+    if ws is None:
+        ws = torch.empty(need, dtype=torch.float32, device=dev)
+    elif (ws.device != dev or ws.dtype != torch.float32
+          or not ws.is_contiguous() or ws.numel() < need):
+        raise ValueError(f"ws must be {need} contiguous float32 on {dev}")
     dx = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
     dw = torch.empty(n_dw, dtype=torch.float32, device=dev)
     if n_rows == 0:
@@ -424,8 +493,8 @@ def csr_spmm_dw(ptr, col, eid, w, g, x, n_rows: int, n_dw: int,
         rc = lib.csr_spmm_dw_f32(
             ptr.data_ptr(), col.data_ptr(),
             None if eid is None else eid.data_ptr(), w.data_ptr(),
-            g.data_ptr(), x.data_ptr(), dx.data_ptr(), dw.data_ptr(), n_rows,
-            n_dw, d, min(n_warps, _dw_warps(d)), stream)
+            g.data_ptr(), x.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+            ws.data_ptr(), n_rows, n_dw, run, group, d, stream)
     _raise_on(lib, rc, "csr_spmm_dw_f32")
     dw_launches += 1
     return dx, dw
@@ -439,7 +508,9 @@ class SpmmOperator:
     ``launches_reduce`` those of :meth:`reduce_edges` (transposed too).
     ``fused_bwd``: a runtime edge weight's gradient and ``dx`` come from
     one ``csr_spmm_dw_f32`` launch (``spmm.py::SpmmOperator``'s flag of
-    the same name), not from ``csr_spmm_f32`` and ``csr_sddmm_f32``.
+    the same name), not from ``csr_spmm_f32`` and ``csr_sddmm_f32``; on the
+    card the operator holds its workspace for all its calls, which run in
+    order on the current stream.
     """
 
     def __init__(self, graph: "BipartiteGraph", device="cuda",
@@ -470,9 +541,7 @@ class SpmmOperator:
         self.t_w = put(w[order], np.float32)
         self.t_edge = put(order, np.int32)  # CSC position -> CSR edge id
         self.num_edges = e
-        row_len = np.diff(graph.row_ptr.cpu().numpy())
-        self.warps = warps_for(e, graph.n_src, int(row_len.max(initial=0)))
-        self.warps_t = warps_for(e, graph.n_dst, int(csc_ptr.max(initial=0)))
+        self._dw_ws: Optional[torch.Tensor] = None
         self.launches = 0
         self.launches_transposed = 0
         self.launches_reduce = 0
@@ -519,11 +588,18 @@ class SpmmOperator:
         are ``x``'s own.  For ``A @ x`` that is the CSC, and ``dw`` lands in
         CSR order through ``t_edge``; for ``A.T @ x`` the CSR itself."""
         gr, n_dw = self.graph, edge_weight.shape[0]
+        ws = None
+        if self.device.type == "cuda":
+            need = sums_ws_floats(n_dw, DW_RUN, g.shape[1])
+            if self._dw_ws is None or self._dw_ws.numel() < need:
+                self._dw_ws = torch.empty(need, dtype=torch.float32,
+                                          device=self.device)
+            ws = self._dw_ws
         if transpose:
             return csr_spmm_dw(self.ptr, self.col, None, edge_weight, g, x,
-                               gr.n_src, n_dw, self.warps)
+                               gr.n_src, n_dw, ws)
         return csr_spmm_dw(self.t_ptr, self.t_col, self.t_edge, edge_weight,
-                           g, x, gr.n_dst, n_dw, self.warps_t)
+                           g, x, gr.n_dst, n_dw, ws)
 
     def __call__(self, x: torch.Tensor, *,
                  edge_weight: Optional[torch.Tensor] = None,

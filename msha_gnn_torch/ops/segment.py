@@ -42,8 +42,11 @@ def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
                     ) -> torch.Tensor:
     """Numerically stable softmax within segments of a 1-D logit vector.
 
-    Entries outside ``mask`` (and padding ids) get 0; an empty segment gives
-    no entries.
+    Entries outside ``mask`` get 0; an empty segment gives no entries.  An
+    out-of-range id takes no part in any segment's max or sum, but its
+    entry is normalised by the segment its id clips to (a padding id
+    ``num_segments`` by the last), as in the JAX function, so a padding
+    entry gets 0 only through ``mask``.
     """
     if mask is not None:
         logits = torch.where(mask, logits, float("-inf"))

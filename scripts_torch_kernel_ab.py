@@ -6,50 +6,58 @@ signatures, on the same inputs.
 
 ``BASE_CSRC`` is another tree's ``msha_gnn_torch/csrc`` (for example the
 parent commit's, unpacked with ``git archive`` into a directory that
-``.gitignore`` lists), whose ``seg_softmax_fwd_f32`` and
-``seg_softmax_bwd_f32`` (``softmax.cu``) have the one-block-per-row
-signatures: ``seg_softmax_fwd_f32(ptr, logits, mask, att, lse, n_rows,
-n_edges, n_out, n_warps, stream)`` and ``seg_softmax_bwd_f32(ptr, att, g,
-dl, n_rows, n_edges, n_out, n_warps, stream)``, with ``n_warps`` from
-``warps_for`` of the row lengths as its operator chose them.  This tree's
-are the edge-run walk of ``csrc/softmax.cu``, which takes a workspace
-and the run length; both builds' softmax entries are called through their
-C entries (this one into its operator's workspace, as the path calls
-it), so that the event times carry the same host work.  The other entry points (``csr_spmm_f32``, ``seg_reduce_f32``,
+``.gitignore`` lists), whose ``csr_spmm_dw_f32`` (``spmm.cu``) runs one
+block per row, ``csr_spmm_dw_f32(ptr, col, eid, w, g, x, dx, dw, n_rows,
+n_dw, d, n_warps, stream)`` with ``n_warps`` as its operator chose them
+from the row lengths (``base_dw_warps``), whose row softmax entries
+(``softmax.cu``) take no dropout, ``seg_softmax_fwd_f32(ptr, logits, mask,
+att, lse, ws, n_rows, n_edges, n_slots, run, stream)`` and
+``seg_softmax_bwd_f32(ptr, att, g, dl, ws, n_rows, n_edges, n_slots, run,
+stream)``, and whose ``rank1_gat.cu`` has the keep-mask kernel
+``r1l_keep_scale_f32(seed, rate, scale, n, out, stream)``.  This tree's
+``csr_spmm_dw_f32`` is the edge-run walk of ``csrc/gat_bwd.cuh`` (a
+workspace, the run length and the lanes an edge), and its softmax entries
+take a seed, folding the keep mask into the walk.  Those entries are
+called through each build's C entries (into preallocated workspaces, as
+the operators hold them), so that the event times carry the same host
+work.  The other entry points (``csr_spmm_f32``, ``seg_reduce_f32``,
 ``r1l_fwd_f32``, ``r1l_bwd_f32``, ``flash_fwd_f32``, ``flash_bwd_f32``,
 ``r1_fwd_f32``, ``r1_bwd_f32``, ``csr_sddmm_f32``) have the same
 signatures in both trees and run through this tree's wrappers with each
 build's library in turn.  On the path's shapes (the GCN graph of the 2015
 flow data's shape, d 32; the linkpred graph, synthetic ogbl-ddi seed 42,
-d 64) the script runs ``seg_softmax_fwd_f32`` (unmasked, as the path
-runs it) and ``seg_softmax_bwd_f32`` and, as controls, ``r1_bwd_f32``,
-``csr_sddmm_f32`` in both orientations (``sddmm(g, x)``, ``sddmm(x, g)``),
-``flash_bwd_f32`` at 0.5, every ``csr_spmm_f32`` use (gc1 ``A^T x``, gc2
-``A x``, the att-weighted ``A h`` and ``A^T g``, the ``q``-weighted dx,
-the d = 1 column sum), ``seg_reduce_f32`` on ``[E_pad, 64]`` values,
-``r1l_fwd_f32`` at 0 and 0.5, ``r1l_bwd_f32`` at
-0.5, ``flash_fwd_f32`` at 0 and 0.5 and ``r1_fwd_f32``.  It prints:
+d 64) the script runs ``csr_spmm_dw_f32`` in both directions (``A x``:
+the CSC with the edge map; ``A^T x``: the CSR), the row softmax at rate 0
+(both entries), the attention's dropout at rate 0.5 (base: the softmax,
+``r1l_keep_scale_f32`` and torch's multiply forward, torch's multiply and
+the softmax VJP backward; this: one softmax launch each way) and, as
+controls, every ``csr_spmm_f32`` use (gc1 ``A^T x``, gc2 ``A x``, the
+att-weighted ``A h`` and ``A^T g``, the ``q``-weighted dx, the d = 1
+column sum), ``seg_reduce_f32`` on ``[E_pad, 64]`` values, ``r1l_fwd_f32``
+at 0 and 0.5, ``r1l_bwd_f32`` at 0.5, ``flash_fwd_f32`` at 0 and 0.5,
+``flash_bwd_f32`` at 0.5, ``r1_fwd_f32``, ``r1_bwd_f32`` and
+``csr_sddmm_f32`` in both orientations.  It prints:
 
 * whether each build's outputs equal the plain versions' (``out``,
-  ``lse``, ``q``, ``att``, the softmax and the SDDMM at rtol 1e-5, atol
-  1e-6; sums, ``dl`` and ``dpre`` at rtol 1e-4, atol 1e-5 of the largest
-  value: float32 sums of up to 3,842 terms);
+  ``lse``, ``q``, ``att``, ``dw``, the softmax and the SDDMM at rtol 1e-5,
+  atol 1e-6; sums, ``dx``, ``dl`` and ``dpre`` at rtol 1e-4, atol 1e-5 of
+  the largest value: float32 sums of up to 3,842 terms);
 * each kernel's time in four rounds in the order base, this, this, base:
   the median of 15 means of 20 launches by CUDA events, and the device
   time over 20 launches by ``torch.profiler``, with the medians of each;
-* this build's ``seg_softmax_fwd_f32`` and ``seg_softmax_bwd_f32`` at each
-  run length of ``softmax.RUN_SLOTS``, and its ``r1_bwd_f32``, ``csr_sddmm_f32`` (``sddmm(g, x)``) and
-  ``flash_bwd_f32`` at each run length of ``RUN_SLOTS`` and each group of
-  ``GROUPS`` lanes (device time);
+* this build's ``csr_spmm_dw_f32`` in both directions at each run length
+  of ``DW_RUNS`` and each group of ``DW_GROUPS`` lanes, and its
+  ``seg_softmax_fwd_f32`` and ``seg_softmax_bwd_f32`` at rate 0.5 at each
+  run length of ``softmax.RUN_SLOTS`` (device time);
 * the materialised linkpred step (``train_step`` at ``LinkPredConfig()``,
-  synthetic ogbl-ddi seed 42) with each tree's row softmax: the base
-  tree's ``SegmentSoftmaxOperator`` (its ``ops/cuda/softmax.py`` beside
-  ``BASE_CSRC``, on the base build) or this one's, all other kernels this
-  build's; ``STEP_ROUNDS`` rounds of ``STEP_STEPS`` synchronised,
-  unprofiled steps of each, the two in an order that alternates from
-  round to round (base, this; this, base; ...), each round on the same
-  batches; the median step of each round, the medians of those, and the
-  rounds in which this tree's step was the faster;
+  synthetic ogbl-ddi seed 42) with the keep mask folded (this tree's
+  path) and unfolded (the base's composition: this tree's softmax at rate
+  0, the base build's ``r1l_keep_scale_f32`` and torch's multiply),
+  ``STEP_ROUNDS`` rounds of ``STEP_STEPS`` synchronised, unprofiled steps
+  of each, the two in an order that alternates from round to round
+  (base, this; this, base; ...), each round on the same batches; the
+  median step of each round, the medians of those, and the rounds in
+  which the folded step was the faster;
 * ptxas's register, spill and stack counts of both builds.
 
 The card's name and power limit come first, one JSON summary last.  Needs
@@ -72,6 +80,20 @@ SOURCES = ("spmm", "rank1_gat", "flash_gat", "sddmm", "softmax")
 # the materialised step's rounds, and synchronised steps a round
 STEP_ROUNDS = 20
 STEP_STEPS = 10
+# the sweep of csr_spmm_dw_f32's run length and lanes an edge
+DW_RUNS = (32, 64, 128)
+DW_GROUPS = (8, 16)
+
+
+def base_dw_warps(num_edges: int, n_rows: int, max_row: int, d: int,
+                  lib) -> int:
+    """Warps a block of the base build's one-block-per-row
+    ``csr_spmm_dw_f32``, as its operator chose them: about one per 32
+    edges of a mean row and one per 512 of the longest, 1 to 8, at most
+    what its shared memory fits at width ``d``."""
+    mean = num_edges / max(n_rows, 1)
+    warps = int(min(8, max(1, round(mean / 32), -(-max_row // 512))))
+    return min(warps, lib.csr_spmm_dw_max_warps(d))
 
 
 def build_base(csrc: Path) -> dict:
@@ -98,12 +120,12 @@ def build_base(csrc: Path) -> dict:
 def bind_base(base: dict, this: dict) -> None:
     """The base build's entry points: those whose signature this tree kept
     typed as this tree's wrappers type them, and the one-block-per-row
-    ``seg_softmax_fwd_f32`` and ``seg_softmax_bwd_f32``."""
-    p, i = ctypes.c_void_p, ctypes.c_int
+    ``csr_spmm_dw_f32``, the softmax entries without dropout and
+    ``r1l_keep_scale_f32``."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, lib in base.items():
-        for fn in ("csr_spmm_f32", "seg_reduce_f32", "csr_spmm_dw_f32",
-                   "csr_spmm_dw_max_warps", "r1l_fwd_f32", "r1l_bwd_f32",
-                   "r1_fwd_f32", "r1_bwd_f32", "r1l_keep_scale_f32",
+        for fn in ("csr_spmm_f32", "seg_reduce_f32", "r1l_fwd_f32",
+                   "r1l_bwd_f32", "r1_fwd_f32", "r1_bwd_f32",
                    "r1l_max_warps", "r1l_error_string", "flash_fwd_f32",
                    "flash_bwd_f32", "flash_error_string",
                    "csr_spmm_error_string", "csr_sddmm_f32",
@@ -112,61 +134,55 @@ def bind_base(base: dict, this: dict) -> None:
                 ours = getattr(this[name], fn)
                 getattr(lib, fn).argtypes = ours.argtypes
                 getattr(lib, fn).restype = ours.restype
+    spmm = base["spmm"]
+    spmm.csr_spmm_dw_f32.argtypes = [p] * 8 + [i] * 4 + [p]
+    spmm.csr_spmm_dw_max_warps.argtypes = [i]
+    r1 = base["rank1_gat"]
+    r1.r1l_keep_scale_f32.argtypes = [p, f, f, i, p, p]
     softmax = base["softmax"]
-    softmax.seg_softmax_fwd_f32.argtypes = [p] * 5 + [i] * 4 + [p]
-    softmax.seg_softmax_bwd_f32.argtypes = [p] * 4 + [i] * 4 + [p]
-    for fn in (softmax.seg_softmax_fwd_f32, softmax.seg_softmax_bwd_f32):
+    softmax.seg_softmax_fwd_f32.argtypes = [p] * 6 + [i] * 4 + [p]
+    softmax.seg_softmax_bwd_f32.argtypes = [p] * 5 + [i] * 4 + [p]
+    for fn in (spmm.csr_spmm_dw_f32, spmm.csr_spmm_dw_max_warps,
+               r1.r1l_keep_scale_f32, softmax.seg_softmax_fwd_f32,
+               softmax.seg_softmax_bwd_f32):
         fn.restype = ctypes.c_int
-    softmax.seg_softmax_error_string.argtypes = [i]
-    softmax.seg_softmax_error_string.restype = ctypes.c_char_p
 
 
-def base_softmax_module(csrc: Path, lib):
-    """The base tree's ``ops/cuda/softmax.py`` (beside ``csrc``), imported
-    inside this package (its relative imports reach this tree's modules)
-    and bound to the base build's library."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        "msha_gnn_torch.ops.cuda._base_softmax",
-        csrc.parent / "ops" / "cuda" / "softmax.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    module._lib = lib
-    return module
-
-
-def compare_steps(base_sm) -> dict:
-    """The materialised linkpred step's unprofiled wall with the base
-    tree's row softmax and with this tree's, in one process: the step
-    reaches the operator through ``softmax.softmax_operator_for``, which
-    each round points at one tree's operator."""
+def compare_steps(base_keep) -> dict:
+    """The materialised linkpred step's unprofiled wall with the keep mask
+    folded into the softmax walk (this tree's path) and unfolded (the
+    base's composition: the softmax at rate 0, ``base_keep(n, seed,
+    rate)`` the base build's keep-mask kernel, torch's multiply), in one
+    process: the layer reaches its attention dropout through
+    ``softmax.edge_softmax_drop``, which the unfolded rounds replace."""
     from msha_gnn_torch.data import load_ddi, split_edges
+    from msha_gnn_torch.ops import edge_softmax
     from msha_gnn_torch.ops.cuda import softmax as sm
     from msha_gnn_torch.training import (LinkPredConfig,
                                          build_link_prediction, train_step)
     from msha_gnn_torch.training.link_prediction import epoch_batches
 
+    def unfolded(graph, logits, seed, rate):
+        return edge_softmax(graph, logits, impl="cuda") * base_keep(
+            graph.num_padded_edges, seed, rate)
+
     split = split_edges(load_ddi(seed=42), seed=42)
     run = build_link_prediction(split, LinkPredConfig(impl="materialised"),
                                 device="cuda")
-    ops = {"base": base_sm.SegmentSoftmaxOperator.build(run.graph),
-           "this": sm.SegmentSoftmaxOperator.build(run.graph)}
+    ways = {"base": unfolded, "this": sm.edge_softmax_drop}
     batches = epoch_batches(run)
-    own = sm.softmax_operator_for
     medians = {"base": [], "this": []}
     launches = {}
     try:
         for label in ("base", "this"):  # warm-up
-            sm.softmax_operator_for = lambda graph, op=ops[label]: op
+            sm.edge_softmax_drop = ways[label]
             for batch in batches[:3]:
                 train_step(run, batch)
         torch.cuda.synchronize()
         for r in range(STEP_ROUNDS):
             for label in ("base", "this")[::1 if r % 2 == 0 else -1]:
-                sm.softmax_operator_for = lambda graph, op=ops[label]: op
-                before = {m: (m.fwd_launches, m.bwd_launches)
-                          for m in (base_sm, sm)}
+                sm.edge_softmax_drop = ways[label]
+                before = (sm.fwd_launches, sm.fwd_drop_launches)
                 wall = []
                 for i in range(STEP_STEPS):
                     batch = batches[(3 + r * STEP_STEPS + i) % len(batches)]
@@ -176,12 +192,10 @@ def compare_steps(base_sm) -> dict:
                     wall.append((time.perf_counter() - t0) * 1e3)
                 medians[label].append(statistics.median(wall))
                 launches[label] = {
-                    m.__name__.rsplit(".", 1)[-1]: (
-                        m.fwd_launches - before[m][0],
-                        m.bwd_launches - before[m][1])
-                    for m in (base_sm, sm)}
+                    "softmax_fwd": sm.fwd_launches - before[0],
+                    "softmax_fwd_dropout": sm.fwd_drop_launches - before[1]}
     finally:
-        sm.softmax_operator_for = own
+        sm.edge_softmax_drop = ways["this"]
     summary = {"rounds": STEP_ROUNDS, "steps_per_round": STEP_STEPS,
                "round_medians_ms": medians,
                "this_faster_rounds": sum(
@@ -369,61 +383,121 @@ def main() -> int:
                                 spmm.ptr, spmm.col, rows, cols, e_pad))
         want[k] = (sd.csr_sddmm_plain(spmm.ptr, spmm.col, rows, cols, e_pad),)
 
-    # the parent's row softmax through its own C entries, n_warps as its
-    # operator chose them from the row lengths
+    # the base's keep mask: its own kernel
+    def base_keep(n_slots, seed_, rate):
+        out = torch.empty(n_slots, device=dev)
+        checked(base_libs["rank1_gat"].r1l_keep_scale_f32(
+            seed_.data_ptr(), rate, r1._scale(rate), n_slots, out.data_ptr(),
+            stream()))
+        return out
+
+    # the row softmax at rate 0 through each build's own C entries (this
+    # one's with no seed), into the operator's workspace, as the path
+    # calls it
     sop = sm.softmax_operator_for(g)
-    row_len = spmm.ptr.diff()
-    base_warps = cuda_spmm.warps_for(e, n, int(row_len.max()))
     gsm = torch.randn(e_pad, generator=gen, device=dev)
     att_full = seg_softmax_fwd_plain(spmm.ptr, logits, None, e)[0]
+    keep = r1.keep_scale_plain(torch.arange(e_pad, device=dev), seed, 0.5)
 
-    def base_softmax_fwd():
-        att_, lse_ = torch.empty(e_pad, device=dev), torch.empty(n,
-                                                                 device=dev)
-        checked(base_libs["softmax"].seg_softmax_fwd_f32(
-            spmm.ptr.data_ptr(), logits.data_ptr(), None, att_.data_ptr(),
-            lse_.data_ptr(), n, e, e_pad, base_warps, stream()))
-        return att_, lse_
+    def softmax_fwd(label, drop=False):
+        def call():
+            att_, lse_ = (torch.empty(k, device=dev) for k in (e_pad, n))
+            if label == "base":
+                checked(base_libs["softmax"].seg_softmax_fwd_f32(
+                    spmm.ptr.data_ptr(), logits.data_ptr(), None,
+                    att_.data_ptr(), lse_.data_ptr(), sop.ws.data_ptr(), n,
+                    e, e_pad, sop.run, stream()))
+                if not drop:
+                    return att_, lse_
+                # the base's dropout: its keep kernel, torch's multiply
+                return (att_ * base_keep(e_pad, seed, 0.5),)
+            att_k = torch.empty(e_pad, device=dev) if drop else None
+            checked(this["softmax"].seg_softmax_fwd_f32(
+                spmm.ptr.data_ptr(), logits.data_ptr(), None,
+                att_.data_ptr(), None if att_k is None else att_k.data_ptr(),
+                lse_.data_ptr(), sop.ws.data_ptr(),
+                seed.data_ptr() if drop else None, 0.5 if drop else 0.0,
+                2.0 if drop else 1.0, n, e, e_pad, sop.run, stream()))
+            return (att_k,) if drop else (att_, lse_)
+        return call
 
-    def base_softmax_bwd():
-        dl_ = torch.empty(e_pad, device=dev)
-        checked(base_libs["softmax"].seg_softmax_bwd_f32(
-            spmm.ptr.data_ptr(), att_full.data_ptr(), gsm.data_ptr(),
-            dl_.data_ptr(), n, e, e_pad, base_warps, stream()))
-        return dl_
+    def softmax_bwd(label, drop=False):
+        def call():
+            dl_ = torch.empty(e_pad, device=dev)
+            if label == "base":
+                # the base's dropout backward: torch's multiply first
+                g_ = gsm * keep if drop else gsm
+                checked(base_libs["softmax"].seg_softmax_bwd_f32(
+                    spmm.ptr.data_ptr(), att_full.data_ptr(), g_.data_ptr(),
+                    dl_.data_ptr(), sop.ws.data_ptr(), n, e, e_pad, sop.run,
+                    stream()))
+                return dl_
+            checked(this["softmax"].seg_softmax_bwd_f32(
+                spmm.ptr.data_ptr(), att_full.data_ptr(), gsm.data_ptr(),
+                dl_.data_ptr(), sop.ws.data_ptr(),
+                seed.data_ptr() if drop else None, 0.5 if drop else 0.0,
+                2.0 if drop else 1.0, n, e, e_pad, sop.run, stream()))
+            return dl_
+        return call
 
-    # this tree's through its C entries too, so both sides' host work (the
-    # outputs' allocation, one ctypes call) is alike; the workspace is the
-    # operator's, as on the path
-    def this_softmax_fwd():
-        att_, lse_ = torch.empty(e_pad, device=dev), torch.empty(n,
-                                                                 device=dev)
-        checked(this["softmax"].seg_softmax_fwd_f32(
-            spmm.ptr.data_ptr(), logits.data_ptr(), None, att_.data_ptr(),
-            lse_.data_ptr(), sop.ws.data_ptr(), n, e, e_pad, sop.run,
-            stream()))
-        return att_, lse_
-
-    def this_softmax_bwd():
-        dl_ = torch.empty(e_pad, device=dev)
-        checked(this["softmax"].seg_softmax_bwd_f32(
-            spmm.ptr.data_ptr(), att_full.data_ptr(), gsm.data_ptr(),
-            dl_.data_ptr(), sop.ws.data_ptr(), n, e, e_pad, sop.run,
-            stream()))
-        return dl_
-
-    cases["seg_softmax_fwd_f32"] = {"base": base_softmax_fwd,
-                                    "this": this_softmax_fwd}
-    want["seg_softmax_fwd_f32"] = seg_softmax_fwd_plain(spmm.ptr, logits,
-                                                        None, e)
-    cases["seg_softmax_bwd_f32"] = {"base": base_softmax_bwd,
-                                    "this": this_softmax_bwd}
-    want["seg_softmax_bwd_f32"] = (sm.seg_softmax_bwd_plain(
+    for drop in (False, True):
+        tag = "rate 0.5" if drop else "rate 0.0"
+        cases[f"seg_softmax_fwd_f32[{tag}]"] = {
+            lb: softmax_fwd(lb, drop) for lb in ("base", "this")}
+        cases[f"seg_softmax_bwd_f32[{tag}]"] = {
+            lb: softmax_bwd(lb, drop) for lb in ("base", "this")}
+    want["seg_softmax_fwd_f32[rate 0.0]"] = seg_softmax_fwd_plain(
+        spmm.ptr, logits, None, e)
+    want["seg_softmax_fwd_f32[rate 0.5]"] = (
+        want["seg_softmax_fwd_f32[rate 0.0]"][0] * keep,)
+    want["seg_softmax_bwd_f32[rate 0.0]"] = (sm.seg_softmax_bwd_plain(
         spmm.ptr, att_full, gsm, e),)
+    want["seg_softmax_bwd_f32[rate 0.5]"] = (sm.seg_softmax_bwd_plain(
+        spmm.ptr, att_full, gsm * keep, e),)
+
+    # the fused SpMM backward, both directions, through each build's C
+    # entry: the base's one block a row (n_warps as its operator chose
+    # them), this one's edge runs into a preallocated workspace
+    row_lens = {"csr": spmm.ptr.diff(), "csc": spmm.t_ptr.diff()}
+    dw_ws = torch.empty(cuda_spmm.sums_ws_floats(e_pad, cuda_spmm.DW_RUN, d),
+                        device=dev)
+    dw_walks = {"dw of A x": (spmm.t_ptr, spmm.t_col, spmm.t_edge, "csc"),
+                "dw of A^T x": (spmm.ptr, spmm.col, None, "csr")}
+
+    def dw_case(walk, label):
+        ptr, col, eid, lens = walk
+        warps = base_dw_warps(e, n, int(row_lens[lens].max()), d,
+                              base_libs["spmm"])
+
+        def call():
+            dx_ = torch.empty((n, d), device=dev)
+            dw_ = torch.empty(e_pad, device=dev)
+            eid_p = None if eid is None else eid.data_ptr()
+            if label == "base":
+                checked(base_libs["spmm"].csr_spmm_dw_f32(
+                    ptr.data_ptr(), col.data_ptr(), eid_p, att.data_ptr(),
+                    gout.data_ptr(), x.data_ptr(), dx_.data_ptr(),
+                    dw_.data_ptr(), n, e_pad, d, warps, stream()))
+            else:
+                checked(this["spmm"].csr_spmm_dw_f32(
+                    ptr.data_ptr(), col.data_ptr(), eid_p, att.data_ptr(),
+                    gout.data_ptr(), x.data_ptr(), dx_.data_ptr(),
+                    dw_.data_ptr(), dw_ws.data_ptr(), n, e_pad,
+                    cuda_spmm.DW_RUN, r1.group_for(d), d, stream()))
+            return dx_, dw_
+        return call
+
+    for k_label, walk in dw_walks.items():
+        k = f"csr_spmm_dw_f32[{k_label}]"
+        cases[k] = {lb: dw_case(walk, lb) for lb in ("base", "this")}
+        ptr, col, eid, _ = walk
+        want[k] = cuda_spmm.csr_spmm_dw_plain(ptr, col, eid, att, gout, x, n,
+                                              e_pad)
     # outputs held at the kernel tolerance (the rest as sums)
     exact = {"r1l_fwd": (0, 1), "flash_fwd": (0, 1), "r1_fwd": (0, 1),
              "flash_bwd": (1,), "r1l_bwd": (0,), "r1_bwd": (0,),
-             "csr_sddmm": (0,), "seg_softmax_fwd": (0, 1)}
+             "csr_sddmm": (0,), "seg_softmax_fwd": (0, 1),
+             "csr_spmm_dw": (1,)}
 
     def equal(k, got):
         tight = exact.get(k.split("_f32")[0], ())
@@ -464,45 +538,39 @@ def main() -> int:
                       "base_device_ms": dmed["base"],
                       "this_device_ms": dmed["this"]}
 
-    # this build at each run length (the softmax) and group of lanes (the
-    # per-edge walks)
+    # this build's fused SpMM backward at each run length and group of
+    # lanes, both directions, and its row softmax with dropout at each run
+    # length (device time)
     cuda_spmm._lib, r1._lib, flash._lib, sd._lib, sm._lib = (
         this["spmm"], this["rank1_gat"], this["flash_gat"], this["sddmm"],
         this["softmax"])
+    dw_sweep = {
+        f"csr_spmm_dw_f32[{k_label}]": {
+            f"run {run}, group {grp}": cs.device_ms(
+                lambda ptr=ptr, col=col, eid=eid, run=run, grp=grp:
+                cuda_spmm.csr_spmm_dw(ptr, col, eid, att, gout, x, n, e_pad,
+                                      run=run, group=grp))
+            for run in DW_RUNS for grp in DW_GROUPS}
+        for k_label, (ptr, col, eid, _) in dw_walks.items()}
     softmax_walks = {
-        "seg_softmax_fwd_f32": lambda run: sm.seg_softmax_fwd(
-            spmm.ptr, logits, None, e, run),
-        "seg_softmax_bwd_f32": lambda run: sm.seg_softmax_bwd(
-            spmm.ptr, att_full, gsm, e, run)}
+        "seg_softmax_fwd_f32[rate 0.5]": lambda run: sm.seg_softmax_fwd_drop(
+            spmm.ptr, logits, None, e, seed, 0.5, run),
+        "seg_softmax_bwd_f32[rate 0.5]": lambda run: sm.seg_softmax_bwd_drop(
+            spmm.ptr, att_full, gsm, e, seed, 0.5, run)}
     softmax_sweep = {k: {f"run {run}": cs.device_ms(
         lambda fn=fn, run=run: fn(run)) for run in sm.RUN_SLOTS}
         for k, fn in softmax_walks.items()}
-    for k, v in softmax_sweep.items():
-        print(f"  run lengths, device ms, {k}: "
-              + ", ".join(f"{key} {ms:.4f}" if ms is not None
-                          else f"{key} not measured"
-                          for key, ms in v.items()), flush=True)
-    walks = {
-        "r1_bwd_f32": lambda run, grp: r1.r1_bwd(*gb_args, run=run,
-                                                 group=grp),
-        "csr_sddmm_f32[sddmm(g, x)]": lambda run, grp: sd.csr_sddmm(
-            spmm.ptr, spmm.col, gout, x, e_pad, run=run, group=grp),
-        "flash_bwd_f32[rate 0.5]": lambda run, grp: flash.flash_bwd(
-            *fb_args, run=run, group=grp),
-    }
-    sweep = {k: {f"run {run}, group {grp}": cs.device_ms(
-        lambda fn=fn, run=run, grp=grp: fn(run, grp))
-        for run in cuda_spmm.RUN_SLOTS for grp in r1.GROUPS}
-        for k, fn in walks.items()}
-    for k, v in sweep.items():
-        print(f"  run lengths and groups, device ms, {k}: "
-              + ", ".join(f"{key} {ms:.4f}" if ms is not None
-                          else f"{key} not measured"
-                          for key, ms in v.items()), flush=True)
-    steps = compare_steps(base_softmax_module(Path(sys.argv[1]),
-                                              base_libs["softmax"]))
-    print(json.dumps({"ab": summary, "run_group_sweep_device_ms": sweep,
-                      "softmax_run_sweep_device_ms": softmax_sweep,
+    for title, sweep in (("run lengths and groups", dw_sweep),
+                         ("run lengths", softmax_sweep)):
+        for k, v in sweep.items():
+            print(f"  {title}, device ms, {k}: "
+                  + ", ".join(f"{key} {ms:.4f}" if ms is not None
+                              else f"{key} not measured"
+                              for key, ms in v.items()), flush=True)
+
+    steps = compare_steps(base_keep)
+    print(json.dumps({"ab": summary, "dw_run_group_sweep_device_ms": dw_sweep,
+                      "softmax_drop_run_sweep_device_ms": softmax_sweep,
                       "materialised_step_wall": steps}), flush=True)
     return 0
 

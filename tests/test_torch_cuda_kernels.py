@@ -78,11 +78,6 @@ def test_rank1_kernels_match_plain(d, rate):
     sums_close(dpre, wdpre)
     sums_close(dc, wdc)
     sums_close(da, wda)
-    n = g.num_padded_edges
-    before = r1.keep_launches
-    assert torch.equal(r1.keep_scale(n, seed, 0.5).cpu(),
-                       r1.keep_scale_plain(torch.arange(n), -5, 0.5))
-    assert r1.keep_launches == before + 1
 
 
 @pytest.mark.cuda
@@ -318,11 +313,12 @@ def test_seg_reduce_kernel_matches_plain(d, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", sorted(SHAPES))
-@pytest.mark.parametrize("d", [0, 8, 64, 129])
+@pytest.mark.parametrize("d", [0, 8, 64, 129, 300])
 def test_spmm_dw_kernel_matches_plain_and_sddmm(d, shape):
     """csr_spmm_dw_f32 in both directions against its plain version, and
     its dw element by element against the unfused csr_sddmm_f32 (a wrong
-    edge map still gives a plausible dw); pads 0 over NaN-primed blocks."""
+    edge map still gives a plausible dw); pads 0 over NaN-primed blocks
+    and a NaN-filled workspace; two launches bit for bit."""
     n_src, n_dst = SHAPES[shape]
     g = card_graph(d + 5, n_src, n_dst, 0.05, empty_rows=(0, 150, n_src - 1))
     op = cuda_spmm.SpmmOperator(g, device="cuda")
@@ -335,16 +331,16 @@ def test_spmm_dw_kernel_matches_plain_and_sddmm(d, shape):
         gg = torch.rand(n_out, d, generator=gen, device="cuda") - 0.5
         if transpose:   # dx of A.T @ x walks the CSR
             args = (op.ptr, op.col, None, w, gg, x, n_src, e_pad)
-            warps = op.warps
         else:           # dx of A @ x walks the CSC, dw through t_edge
             args = (op.t_ptr, op.t_col, op.t_edge, w, gg, x, n_dst, e_pad)
-            warps = op.warps_t
+        ws = torch.full((cuda_spmm.sums_ws_floats(e_pad, cuda_spmm.DW_RUN,
+                                                d),), float("nan"),
+                        device="cuda")
         prime_nan((e_pad,), (n_in, max(d, 1)))
         before = cuda_spmm.dw_launches
-        dx, dw = cuda_spmm.csr_spmm_dw(*args, warps)
-        assert cuda_spmm.dw_launches == before + 1
+        dx, dw = twice_same(lambda: cuda_spmm.csr_spmm_dw(*args, ws))
+        assert cuda_spmm.dw_launches == before + 2
         want_dx, want_dw = cuda_spmm.csr_spmm_dw_plain(*args)
-        torch.cuda.synchronize()
         sums_close(dx, want_dx)
         torch.testing.assert_close(dw, want_dw, rtol=1e-5,
                                    atol=1e-6 * max(1, d / 64))
@@ -357,6 +353,48 @@ def test_spmm_dw_kernel_matches_plain_and_sddmm(d, shape):
 
 
 @pytest.mark.cuda
+def test_spmm_dw_kernel_through_the_c_entry():
+    """The C entry into NaN-filled dx, dw and workspace writes every
+    element (dx rows, dw slots, the pads as 0) with the wrapper's bits; a
+    graph with no edges gives dx 0 and dw 0; a bad group or run length is
+    refused."""
+    g = long_row_graph(300, 200, long_rows=(5,), length=900, seed=4)
+    op = cuda_spmm.SpmmOperator(g, device="cuda")
+    n_dw, d, run, group = g.num_padded_edges + 7, 64, 32, 8
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    w = torch.rand(n_dw, generator=gen, device="cuda")
+    gg = torch.rand(300, d, generator=gen, device="cuda") - 0.5
+    x = torch.rand(200, d, generator=gen, device="cuda") - 0.5
+    lib = cuda_spmm._kernel_lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    want = cuda_spmm.csr_spmm_dw(op.t_ptr, op.t_col, op.t_edge, w, gg, x,
+                                 200, n_dw, run=run, group=group)
+    dx, dw, ws = (torch.full(k, float("nan"), device="cuda") for k in (
+        (200, d), (n_dw,), (cuda_spmm.sums_ws_floats(n_dw, run, d),)))
+
+    def launch(grp, rn):
+        return lib.csr_spmm_dw_f32(
+            op.t_ptr.data_ptr(), op.t_col.data_ptr(), op.t_edge.data_ptr(),
+            w.data_ptr(), gg.data_ptr(), x.data_ptr(), dx.data_ptr(),
+            dw.data_ptr(), ws.data_ptr(), 200, n_dw, rn, grp, d, stream)
+
+    rc = launch(group, run)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert torch.equal(dx, want[0]) and torch.equal(dw, want[1])
+    for bad_group, bad_run in ((4, run), (group, 0)):
+        assert launch(bad_group, bad_run) != 0
+    zero_ptr = torch.zeros(7, dtype=torch.int32, device="cuda")
+    none = torch.zeros(0, dtype=torch.int32, device="cuda")
+    for pads in (0, 50):
+        prime_nan((6, d), (pads,))
+        dx0, dw0 = cuda_spmm.csr_spmm_dw(
+            zero_ptr, none, None, w, gg, x[:6], 6, pads)
+        torch.cuda.synchronize()
+        assert not dx0.any() and not dw0.any() and dw0.numel() == pads
+
+
+@pytest.mark.cuda
 def test_spmm_fused_bwd_is_one_dw_launch():
     """SpmmOperator(fused_bwd=True): one csr_spmm_dw_f32 launch per
     backward and no csr_sddmm_f32, with the unfused operator's dx and dw."""
@@ -364,7 +402,12 @@ def test_spmm_fused_bwd_is_one_dw_launch():
     ops = {f: cuda_spmm.SpmmOperator(g, device="cuda", fused_bwd=f)
            for f in (False, True)}
     gen = torch.Generator(device="cuda").manual_seed(11)
+    # the operator's workspace, NaN before each backward
+    ops[True]._dw_ws = torch.full(
+        (cuda_spmm.sums_ws_floats(g.num_padded_edges, cuda_spmm.DW_RUN, 16),),
+        float("nan"), device="cuda")
     for transpose in (False, True):
+        ops[True]._dw_ws.fill_(float("nan"))
         n_in, n_out = (g.n_src, g.n_dst) if transpose else (g.n_dst, g.n_src)
         x0 = torch.rand(n_in, 16, generator=gen, device="cuda") - 0.5
         w0 = g.weight * torch.rand(g.num_padded_edges, generator=gen,
@@ -1136,8 +1179,9 @@ def test_softmax_runs_kernels_through_the_c_entries():
                         for k in (n_out, 300, sm.ws_floats(n_out, run)))
         rc = lib.seg_softmax_fwd_f32(
             ptr.data_ptr(), logits.data_ptr(),
-            None if mask is None else mask.data_ptr(), att.data_ptr(),
-            lse.data_ptr(), ws.data_ptr(), 300, e, n_out, run, stream)
+            None if mask is None else mask.data_ptr(), att.data_ptr(), None,
+            lse.data_ptr(), ws.data_ptr(), None, 0.0, 1.0, 300, e, n_out,
+            run, stream)
         torch.cuda.synchronize()
         assert rc == 0
         assert torch.equal(att, want[0]) and torch.equal(lse, want[1])
@@ -1146,7 +1190,8 @@ def test_softmax_runs_kernels_through_the_c_entries():
               for k in (n_out, sm.ws_floats(n_out, run)))
     rc = lib.seg_softmax_bwd_f32(ptr.data_ptr(), want[0].data_ptr(),
                                  gout.data_ptr(), dl.data_ptr(),
-                                 ws.data_ptr(), 300, e, n_out, run, stream)
+                                 ws.data_ptr(), None, 0.0, 1.0, 300, e,
+                                 n_out, run, stream)
     torch.cuda.synchronize()
     assert rc == 0 and torch.equal(dl, want_dl)
     # no edges at all, with and without pads
@@ -1163,8 +1208,181 @@ def test_softmax_runs_kernels_through_the_c_entries():
     for bad_run in (0, 513):
         rc = lib.seg_softmax_bwd_f32(ptr.data_ptr(), want[0].data_ptr(),
                                      gout.data_ptr(), dl.data_ptr(),
-                                     ws.data_ptr(), 300, e, n_out, bad_run,
-                                     stream)
+                                     ws.data_ptr(), None, 0.0, 1.0, 300, e,
+                                     n_out, bad_run, stream)
         assert rc != 0
     with pytest.raises(ValueError):
         sm.seg_softmax_bwd(ptr, want[0], gout, e, run, ws[:-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", [None, 1, *sm.RUN_SLOTS],
+                         ids=lambda r: f"run{r}")
+@pytest.mark.parametrize("masked", [False, True])
+def test_softmax_drop_kernels_fold_the_keep_mask_bit_for_bit(masked, run):
+    """seg_softmax_fwd_f32 and seg_softmax_bwd_f32 with a seed against the
+    composition they fold, bit for bit: att as without dropout, att_k =
+    att * keep_scale_plain, dl the VJP of g_k * keep_scale_plain; twice bit
+    for bit; through the C entries into NaN-filled outputs and workspace
+    (every slot written, the pads 0); a seed without att_k is refused."""
+    g = long_row_graph(300, 300, long_rows=(1, 298), length=600, seed=23)
+    ptr, e = g.row_ptr, g.num_edges
+    n_out = g.num_padded_edges + 40
+    gen = torch.Generator(device="cuda").manual_seed(run or 0)
+    logits = torch.randn(n_out, generator=gen, device="cuda") * 3
+    g_k = torch.randn(n_out, generator=gen, device="cuda")
+    mask = (torch.rand(n_out, generator=gen, device="cuda") > 0.3
+            if masked else None)
+    seed = torch.tensor([-98765], dtype=torch.int32, device="cuda")
+    keep = r1.keep_scale_plain(torch.arange(n_out, device="cuda"), seed, 0.5)
+    ws = torch.full((sm.ws_floats(n_out, run or sm.RUN),), float("nan"),
+                    device="cuda")
+    before = (sm.fwd_drop_launches, sm.bwd_drop_launches)
+    prime_nan((n_out,), (n_out,), (300,))
+    att, att_k, lse = twice_same(lambda: sm.seg_softmax_fwd_drop(
+        ptr, logits, mask, e, seed, 0.5, run, ws))
+    att0, lse0 = sm.seg_softmax_fwd(ptr, logits, mask, e, run, ws)
+    dl = twice_same(lambda: sm.seg_softmax_bwd_drop(ptr, att, g_k, e, seed,
+                                                    0.5, run, ws))
+    dl0 = sm.seg_softmax_bwd(ptr, att, g_k * keep, e, run, ws)
+    torch.cuda.synchronize()
+    assert (sm.fwd_drop_launches, sm.bwd_drop_launches) == (before[0] + 2,
+                                                            before[1] + 2)
+    assert torch.equal(att, att0) and torch.equal(lse, lse0)
+    assert torch.equal(att_k, att * keep) and torch.equal(dl, dl0)
+    assert not att_k[e:].any() and not dl[e:].any()
+    lib = sm._kernel_lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    rn = run or sm.RUN
+    outs = [torch.full((k,), float("nan"), device="cuda")
+            for k in (n_out, n_out, 300, n_out)]
+    ws.fill_(float("nan"))
+    rc = lib.seg_softmax_fwd_f32(
+        ptr.data_ptr(), logits.data_ptr(),
+        None if mask is None else mask.data_ptr(), outs[0].data_ptr(),
+        outs[1].data_ptr(), outs[2].data_ptr(), ws.data_ptr(),
+        seed.data_ptr(), 0.5, 2.0, 300, e, n_out, rn, stream)
+    rc_b = lib.seg_softmax_bwd_f32(
+        ptr.data_ptr(), att.data_ptr(), g_k.data_ptr(), outs[3].data_ptr(),
+        ws.data_ptr(), seed.data_ptr(), 0.5, 2.0, 300, e, n_out, rn, stream)
+    torch.cuda.synchronize()
+    assert rc == 0 and rc_b == 0
+    for got, want in zip(outs, (att, att_k, lse, dl)):
+        assert torch.equal(got, want)
+    assert lib.seg_softmax_fwd_f32(
+        ptr.data_ptr(), logits.data_ptr(), None, outs[0].data_ptr(), None,
+        outs[2].data_ptr(), ws.data_ptr(), seed.data_ptr(), 0.5, 2.0, 300,
+        e, n_out, rn, stream) != 0
+
+
+@pytest.mark.cuda
+def test_materialised_layer_dropout_launches_no_keep_kernel():
+    """The materialised layer in training: its attention dropout rides the
+    softmax launches (one seg_softmax_fwd_f32 and one seg_softmax_bwd_f32
+    with the seed, nothing else for the mask: the keep kernel and its entry
+    are gone), its att_k is 0 on a real edge exactly where
+    keep_scale_plain is 0, and its output and gradients equal the torch
+    path's from the same generator state."""
+    from msha_gnn_torch.models import SparseGATLayer
+
+    g = card_graph(12, 200, 200, 0.05, empty_rows=(3,))
+    assert not hasattr(r1, "keep_scale")
+    assert not hasattr(r1._kernel_lib(), "r1l_keep_scale_f32")
+    layer = SparseGATLayer(8, 16, dropout=0.5,
+                           generator=torch.Generator().manual_seed(3))
+    layer = layer.to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn(200, 8, generator=gen, device="cuda")
+    gout = torch.randn(200, 16, generator=gen, device="cuda")
+    seen = []
+    real = sm.edge_softmax_drop
+
+    def recording(graph, logits, seed, rate):
+        att_k = real(graph, logits, seed, rate)
+        seen.append((att_k.detach().clone(), seed.clone(), rate))
+        return att_k
+
+    got = {}
+    for impl in ("materialised", "torch"):
+        layer.zero_grad()
+        xx = x.clone().requires_grad_()
+        before = (sm.fwd_launches, sm.bwd_launches, sm.fwd_drop_launches,
+                  sm.bwd_drop_launches)
+        sm.edge_softmax_drop = recording
+        try:
+            out = layer(g, xx, train=True, impl=impl,
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(5))
+            out.backward(gout)
+        finally:
+            sm.edge_softmax_drop = real
+        torch.cuda.synchronize()
+        after = (sm.fwd_launches, sm.bwd_launches, sm.fwd_drop_launches,
+                 sm.bwd_drop_launches)
+        want = [1, 1, 1, 1] if impl == "materialised" else [0, 0, 0, 0]
+        assert [b - a for a, b in zip(before, after)] == want
+        got[impl] = (out.detach(), xx.grad, layer.W.grad.clone(),
+                     layer.a.grad.clone())
+    att_k, seed, rate = seen[0]
+    e = g.num_edges
+    keep = r1.keep_scale_plain(torch.arange(e, device="cuda"), seed, rate)
+    assert torch.equal(att_k[:e] == 0, keep == 0)
+    assert not att_k[e:].any()
+    torch.testing.assert_close(got["materialised"][0], got["torch"][0],
+                               rtol=1e-5, atol=1e-6)
+    for u, v in zip(got["materialised"][1:], got["torch"][1:]):
+        sums_close(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", r1.GROUPS, ids=lambda g: f"group{g}")
+@pytest.mark.parametrize("run", EDGE_RUNS, ids=lambda r: f"run{r}")
+@pytest.mark.parametrize("d", [0, 1, 64, 129, 300])
+def test_spmm_dw_runs_kernel_matches_plain(d, run, group):
+    """csr_spmm_dw_f32 at each run length and group of lanes, in both
+    directions, on a graph with rows longer than many runs and empty rows:
+    against the plain version over NaN-primed blocks, twice bit for bit,
+    pads 0 (n_dw past the graph's own pads); operands offset by one float
+    (no float4 loads) give the same values; and against the walk's
+    mirror."""
+    g = long_row_graph(300, 200, long_rows=(1, 298), length=600, seed=d + 7)
+    op = cuda_spmm.SpmmOperator(g, device="cuda")
+    e, n_dw = g.num_edges, g.num_padded_edges + 40
+    gen = torch.Generator(device="cuda").manual_seed(d + 1)
+    w = torch.rand(n_dw, generator=gen, device="cuda") + 0.5
+    for transpose in (False, True):
+        n_in, n_out = (300, 200) if transpose else (200, 300)
+        x = torch.rand(n_in, d, generator=gen, device="cuda") - 0.5
+        gg = torch.rand(n_out, d, generator=gen, device="cuda") - 0.5
+        walk = ((op.ptr, op.col, None, n_in) if transpose
+                else (op.t_ptr, op.t_col, op.t_edge, n_in))
+        ptr, col, eid, n_rows = walk
+        prime_nan((n_dw,), (n_rows, max(d, 1)),
+                  (cuda_spmm.sums_ws_floats(n_dw, 1, d),))
+        dx, dw = twice_same(lambda: cuda_spmm.csr_spmm_dw(
+            ptr, col, eid, w, gg, x, n_rows, n_dw, run=run, group=group))
+        want_dx, want_dw = cuda_spmm.csr_spmm_dw_plain(
+            ptr, col, eid, w, gg, x, n_rows, n_dw)
+        sums_close(dx, want_dx)
+        torch.testing.assert_close(dw, want_dw, rtol=1e-5,
+                                   atol=1e-6 * max(1, d / 64))
+        assert not dw[e:].any()
+        shifted = [torch.empty(v.numel() + 1, device="cuda")[1:]
+                   .view_as(v).copy_(v) for v in (gg, x)]
+        dx_s, dw_s = cuda_spmm.csr_spmm_dw(ptr, col, eid, w, *shifted,
+                                           n_rows, n_dw, run=run,
+                                           group=group)
+        sums_close(dx_s, want_dx)
+        torch.testing.assert_close(dw_s, want_dw, rtol=1e-5,
+                                   atol=1e-6 * max(1, d / 64))
+        if run == 1 or d > 64:
+            continue    # the mirror's Python loop over 1-slot runs is slow
+        cpu = [None if v is None else v.cpu()
+               for v in (ptr, col, eid, w, gg, x)]
+        m_dx, m_dw, dx_w, dw_w = cuda_spmm.csr_spmm_dw_runs_plain(
+            *cpu, n_rows, n_dw, run or cuda_spmm.DW_RUN,
+            group or r1.group_for(d))
+        assert bool((dx_w == 1).all()) and bool((dw_w == 1).all())
+        sums_close(dx.cpu(), m_dx)
+        torch.testing.assert_close(dw.cpu(), m_dw, rtol=1e-5,
+                                   atol=1e-6 * max(1, d / 64))

@@ -17,6 +17,15 @@ for this operator (``tests/test_pallas_softmax.py``): ``att`` and ``lse``
 at rtol 1e-5, atol 1e-6; ``dl`` at rtol 1e-4, atol 1e-5.  The kernels
 themselves are held against the mirrors and the plain versions on the
 card (``tests/test_torch_cuda_kernels.py``).
+
+With the attention's dropout folded in (``seg_softmax_fwd_drop`` and
+``seg_softmax_bwd_drop``: the keep mask hashed in the walk), the forward's
+``att_k`` and the backward's ``dl`` are held bit for bit against the
+composition they replace, ``keep_scale_plain`` times the softmax and the
+softmax's VJP of the cotangent times ``keep_scale_plain``, in the mirrors,
+the plain versions and the operator's autograd; against the JAX operator
+times the JAX package's keep mask (``tests/test_rank1_dropout.py``'s host
+copy of ``rank1_gat.py::_keep_scale``) at the tolerances above.
 """
 
 import jax
@@ -29,6 +38,8 @@ from hypothesis import strategies as st
 
 from msha_gnn_tpu.ops.pallas import SegmentSoftmaxOperator as JaxSoftmax
 from msha_gnn_torch.ops.cuda import softmax as sm
+from msha_gnn_torch.ops.cuda.rank1_gat import keep_scale_plain
+from tests.test_rank1_dropout import host_keep_scale
 from tests.test_torch_fwd_runs import csr, pointers
 from tests.test_torch_softmax import CASES, case_graph, masks
 
@@ -215,3 +226,115 @@ def test_mapping_defaults_and_limits():
                 torch.empty(54)[::2]):
         with pytest.raises(ValueError):
             sm._workspace(bad, 17, 8, cpu)
+
+
+def check_drop_walks(ptr, logits, g, mask, e, run, seed, rate):
+    """The dropout mirrors at ``run`` against the composition they fold,
+    bit for bit: ``att`` as without dropout, ``att_k = att * k``, ``dl``
+    the VJP of ``g * k``; every slot written once, the pads 0."""
+    n_out = logits.numel()
+    keep = keep_scale_plain(torch.arange(n_out), seed, rate)
+    att, att_k, lse, att_w, lse_w = sm.seg_softmax_fwd_drop_runs_plain(
+        ptr, logits, mask, e, seed, rate, run)
+    att0, lse0, _, _ = sm.seg_softmax_fwd_runs_plain(ptr, logits, mask, e,
+                                                     run)
+    assert bool((att_w == 1).all()) and bool((lse_w == 1).all())
+    assert torch.equal(att, att0) and torch.equal(lse, lse0)
+    assert torch.equal(att_k, att * keep)
+    assert not att_k[e:].any() and not att_k[keep == 0].any()
+    dl, writes = sm.seg_softmax_bwd_drop_runs_plain(ptr, att, g, e, seed,
+                                                    rate, run)
+    dl0, _ = sm.seg_softmax_bwd_runs_plain(ptr, att, g * keep, e, run)
+    assert bool((writes == 1).all())
+    assert torch.equal(dl, dl0) and not dl[e:].any()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("run", [1, 16, 32])
+def test_drop_walks_are_the_composition_bit_for_bit(run, masked):
+    @settings(max_examples=4, deadline=None, database=None,
+              derandomize=True)
+    @given(case=pointers(run), seed=st.integers(-2**31, 2**31 - 1),
+           rate=st.sampled_from([0.25, 0.5]))
+    def check(case, seed, rate):
+        ptr, logits, g, mask, e = inputs(*case, seed & 0xFFFF, masked)
+        dseed = torch.tensor([seed], dtype=torch.int32)
+        check_drop_walks(ptr, logits, g, mask, e, run, dseed, rate)
+
+    check()
+
+
+def test_drop_plain_versions_are_the_composition_bit_for_bit():
+    """The wrappers' plain versions (the CPU path): ``att_k`` is the plain
+    softmax times the keep mask, ``dl`` the plain VJP of the cotangent
+    times it, bit for bit; the wrappers on CPU tensors take them and count
+    no launch."""
+    ptr, logits, g, _, e = inputs([5, 0, 70, 3, 0, 9], 20, 3, False)
+    logits[e:], g[e:] = 0.0, 0.0
+    seed = torch.tensor([-123457], dtype=torch.int32)
+    keep = keep_scale_plain(torch.arange(logits.numel()), seed, 0.5)
+    before = (sm.fwd_launches, sm.bwd_launches, sm.fwd_drop_launches,
+              sm.bwd_drop_launches)
+    att, att_k, lse = sm.seg_softmax_fwd_drop(ptr, logits, None, e, seed,
+                                              0.5)
+    want_att, want_lse = sm.seg_softmax_fwd_plain(ptr, logits, None, e)
+    assert torch.equal(att, want_att) and torch.equal(lse, want_lse)
+    assert torch.equal(att_k, want_att * keep)
+    dl = sm.seg_softmax_bwd_drop(ptr, att, g, e, seed, 0.5)
+    assert torch.equal(dl, sm.seg_softmax_bwd_plain(ptr, att, g * keep, e))
+    assert (sm.fwd_launches, sm.bwd_launches, sm.fwd_drop_launches,
+            sm.bwd_drop_launches) == before
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_edge_softmax_drop_is_the_composition_under_autograd(case):
+    """``edge_softmax_drop`` (the materialised layer's attention in
+    training) against ``edge_softmax(impl="cuda") * keep_scale_plain``
+    through autograd on the CPU: values and the logits' gradient bit for
+    bit."""
+    from msha_gnn_torch.ops import edge_softmax
+
+    gt, _ = case_graph(case)
+    rng = np.random.default_rng(len(case))
+    logits = torch.from_numpy((rng.standard_normal(gt.num_padded_edges)
+                               * 3).astype(np.float32))
+    ct = torch.from_numpy(rng.standard_normal(gt.num_padded_edges)
+                          .astype(np.float32))
+    seed = torch.tensor([77], dtype=torch.int32)
+    keep = keep_scale_plain(torch.arange(gt.num_padded_edges), seed, 0.5)
+    got, want = (logits.clone().requires_grad_() for _ in range(2))
+    out = sm.edge_softmax_drop(gt, got, seed, 0.5)
+    out.backward(ct)
+    ref = edge_softmax(gt, want, impl="cuda") * keep
+    ref.backward(ct)
+    assert torch.equal(out, ref) and torch.equal(got.grad, want.grad)
+    assert not out[gt.num_edges:].any()
+
+
+@pytest.mark.parametrize("run", [1, 32])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_drop_walks_match_jax_operator_times_its_keep_mask(case, run):
+    """The dropout mirrors against the JAX ``SegmentSoftmaxOperator`` in
+    interpret mode (with its build's mask, ``senders < n_src``, which the
+    port's operator needs no bytes for) times the JAX package's keep mask
+    (the host copy of ``_keep_scale``), forward and VJP."""
+    gt, gj = case_graph(case)
+    rng = np.random.default_rng(len(case) + run)
+    e_pad, e = gt.num_padded_edges, gt.num_edges
+    logits = (rng.standard_normal(e_pad) * 3).astype(np.float32)
+    ct = rng.standard_normal(e_pad).astype(np.float32)
+    keep = host_keep_scale(np.arange(e_pad), 4242, 0.5)
+    jop = JaxSoftmax(np.asarray(gj.senders), np.asarray(gj.row_ptr), gj.n_src,
+                     mask=masks(gt, "build"), interpret=True)
+    want, vjp = jax.vjp(lambda l: jop(l) * jnp.asarray(keep),
+                        jnp.asarray(logits))
+    (want_dl,) = vjp(jnp.asarray(ct))
+    seed = torch.tensor([4242], dtype=torch.int32)
+    att, att_k, _, _, _ = sm.seg_softmax_fwd_drop_runs_plain(
+        gt.row_ptr, torch.from_numpy(logits), None, e, seed, 0.5, run)
+    np.testing.assert_allclose(att_k.numpy(), np.asarray(want),
+                               rtol=ATT_RTOL, atol=ATT_ATOL)
+    dl, _ = sm.seg_softmax_bwd_drop_runs_plain(
+        gt.row_ptr, att, torch.from_numpy(ct), e, seed, 0.5, run)
+    np.testing.assert_allclose(dl.numpy(), np.asarray(want_dl),
+                               rtol=GRAD_RTOL, atol=GRAD_ATOL)

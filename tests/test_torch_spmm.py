@@ -261,16 +261,6 @@ def test_null_weights_are_unit_weights(graphs):
     assert torch.equal(got, want)
 
 
-def test_warps_for():
-    assert cuda_spmm.warps_for(101374, 32) == 8      # GCN gc1 rows
-    assert cuda_spmm.warps_for(101374, 39179) == 1   # GCN gc2 rows
-    assert cuda_spmm.warps_for(0, 0) == 1
-    # the linkpred graph's columns: mean 77 edges, the longest 3,842
-    assert cuda_spmm.warps_for(328012, 4267) == 2
-    assert cuda_spmm.warps_for(328012, 4267, 3842) == 8
-    assert cuda_spmm.warps_for(101374, 39179, 3) == 1
-
-
 def test_build_layout_and_failure(tmp_path, monkeypatch):
     assert _build.sources() == ["flash_gat", "rank1_gat", "sddmm", "softmax",
                                 "spmm"]
