@@ -83,6 +83,14 @@ over the same 20 calls, as is their library yardstick.
    flash path's kernels, held against the plain step and against the fused
    step from the same state, one epoch that must follow the fused epoch's
    step by step, the idle share, and the evaluation's launches.
+3f. the rank-1 GAT logits ``sddmm(impl="cuda")`` on the linkpred graph:
+   one ``csr_sddmm_f32`` launch on the width-2 columns ``[s_src, 1]``,
+   ``[1, s_dst]`` forward and two d = 2 weighted ``csr_spmm_f32`` launches
+   backward (exact counts), values and both gradients against the plain
+   ``sddmm``; the kernel at d = 2 against its plain version; and the
+   device time of the logits' forward plus backward three ways: the plain
+   gather (``_gather_rows``, backward an indexed accumulate), the kernel
+   path and an ``index_select`` gather (backward ``index_add_``).
 8. the operator paths of phase 3e's kernels under autograd at full width,
    each with exact launch counts: the generic ``Rank1GatOperator`` against
    the dst_linear one at ``t = x a`` (output, ``dc``, ``da = x^T dt``,
@@ -90,6 +98,17 @@ over the same 20 calls, as is their library yardstick.
    link loss through each, whose losses must agree; ``SpmmOperator(
    fused_bwd=True)`` against ``fused_bwd=False`` in both directions; and
    ``segment_reduce_sorted``.
+
+9. the MSHA serving path at full width (``TrainConfig()``: in 128, 64 a
+   head, 2 heads, ``--predict_batch`` 1024) on the flow graph of phase 3,
+   plain PyTorch (it launches none of the port's kernels, which is
+   checked), each model's running statistics set from one train-mode
+   forward, as training leaves them: checkpoint round trip, ``msha`` through the per-batch path
+   against the same weights on the CPU, a 64-node request against one
+   padded forward's first rows, ``ablation3`` through the cache fill
+   against the CPU, one ``/v1/predict`` over HTTP for each, and the other
+   three presets served once against the CPU.  Float32 matmuls stay at
+   full precision (TF32 off, the default; asserted).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -121,6 +140,11 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6  # f32, another summation order
 SLICE_TOL = 1e-5                       # log-probs, kernel vs plain path
 REF_TOL = 1e-5                         # log-probs vs float64 reference
 DEVICE = "cuda"
+MSHA_RTOL, MSHA_ATOL = 1e-4, 1e-5      # MSHA log-scores, card vs CPU
+# one request vs the same padded batch's forward: the intra channels' sums
+# by index_add_, whose float atomics add in another order each launch
+MSHA_REPEAT_RTOL, MSHA_REPEAT_ATOL = 1e-5, 1e-6
+PREDICT_BATCH = 1024                   # the CLI's --predict_batch
 
 LP_SEED = 42                           # the linkpred CLI's default seed
 LP_D = 64                              # LinkPredConfig().hidden
@@ -1814,6 +1838,354 @@ def follow_fused_epoch(impl, losses, fused_losses):
                              "fused epoch's")
 
 
+def rank1_logits_bound(op, n_src, n_dst, e_pad):
+    """Least time of the rank-1 logits' forward and backward on this data,
+    as the kernel path runs them: the SDDMM on the width-2 columns and the
+    two d = 2 weighted SpMMs, each bound by :func:`sddmm_bound` /
+    :func:`spmm_bound`, summed."""
+    a = torch.empty((n_src, 2), device=DEVICE)
+    b = torch.empty((n_dst, 2), device=DEVICE)
+    parts = [sddmm_bound(op.ptr, op.col, a, b, e_pad),
+             spmm_bound(op.ptr, op.col, b, n_src),
+             spmm_bound(op.t_ptr, op.t_col, a, n_dst)]
+    total = sum(p[0] for p in parts)
+    return total, "bytes" if all(p[1] == "bytes" for p in parts) \
+        else "operations"
+
+
+def phase_rank1_logits(split):
+    """Phase 3f: ``sddmm(impl="cuda")`` against the plain ``sddmm`` on the
+    linkpred graph, its exact launches, the kernel at d = 2, and the three
+    logit forms' device time; returns the kernels line's entry."""
+    from msha_gnn_torch.ops import sddmm
+    from msha_gnn_torch.ops.cuda import sddmm as cuda_sddmm
+    from msha_gnn_torch.ops.cuda.spmm import operator_for
+
+    g = split["graph"].to(DEVICE)
+    op = operator_for(g)
+    n, e, e_pad = g.n_src, g.num_edges, g.num_padded_edges
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    s_src = torch.randn(n, generator=gen, device=DEVICE)
+    s_dst = torch.randn(g.n_dst, generator=gen, device=DEVICE)
+    ct = torch.randn(e_pad, generator=gen, device=DEVICE)
+    log(f"  graph: {n} rows, {e} edges ({e_pad} padded); logits "
+        "leaky_relu(s_src[snd] + s_dst[rcv]), slope 0.2")
+
+    # the counted run: one forward and backward through the kernel path
+    ins = [v.clone().requires_grad_() for v in (s_src, s_dst)]
+    zero_counts(op)
+    got = sddmm(g, *ins, impl="cuda")
+    got_grads = torch.autograd.grad(got, ins, ct)
+    torch.cuda.synchronize()
+    counts = read_counts(op)
+    log(f"  sddmm(impl='cuda'), one forward and backward: {counts}")
+    want_counts = expected(csr_sddmm_f32=1, csr_spmm_f32=2,
+                           csr_spmm_f32_transposed=1)
+    if counts != want_counts:
+        raise AssertionError(f"expected {want_counts} launches, got "
+                             f"{counts}")
+    ref = [v.clone().requires_grad_() for v in (s_src, s_dst)]
+    want = sddmm(g, *ref)
+    want_grads = torch.autograd.grad(want, ref, ct)
+    torch.cuda.synchronize()
+    err = close("rank-1 logits, kernel path vs plain", got.detach()[:e],
+                want.detach()[:e], KERNEL_RTOL, KERNEL_ATOL)
+    if got.detach()[e:].any():
+        raise AssertionError("the kernel path's logits are not 0 on the "
+                             "pad slots")
+    for name, gk, gp in zip(("ds_src", "ds_dst"), got_grads, want_grads):
+        close(f"rank-1 logits, kernel path vs plain: {name}", gk, gp,
+              SUM_RTOL, SUM_ATOL_REL * float(gp.abs().max()))
+
+    # the kernel alone at d = 2, as the path launches it
+    a2 = torch.stack([s_src, torch.ones_like(s_src)], dim=1)
+    b2 = torch.stack([torch.ones_like(s_dst), s_dst], dim=1)
+    sd_args = (op.ptr, op.col, a2, b2, e_pad)
+    kernel = (lambda: cuda_sddmm.csr_sddmm(*sd_args))
+    close("csr_sddmm_f32[rank1 logits] vs plain", kernel(),
+          cuda_sddmm.csr_sddmm_plain(*sd_args), KERNEL_RTOL, KERNEL_ATOL)
+    same_bits("csr_sddmm_f32[rank1 logits]", kernel)
+    ms, dev_ms = time_ms(kernel), device_ms(kernel)
+    plain_ms = time_ms(lambda: cuda_sddmm.csr_sddmm_plain(*sd_args))
+    library_ms = None
+    try:
+        pattern = torch.sparse_csr_tensor(
+            op.ptr, op.col, torch.zeros(e, device=DEVICE),
+            size=(n, g.n_dst))
+        b2t = b2.t()
+        lib_out = torch.sparse.sampled_addmm(pattern, a2, b2t, beta=0.0)
+        if not torch.allclose(lib_out.values(), kernel()[:e], rtol=1e-5,
+                              atol=1e-5):
+            raise AssertionError("sampled_addmm disagrees with the kernel")
+        library_ms = time_ms(
+            lambda: torch.sparse.sampled_addmm(pattern, a2, b2t, beta=0.0))
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"  torch.sparse.sampled_addmm does not run: {exc}")
+    bnd = sddmm_bound(op.ptr, op.col, a2, b2, e_pad)
+    log(f"  csr_sddmm_f32[rank1 logits] (d 2): kernel {ms:.4f} ms (device "
+        f"{fmt(dev_ms)}), plain {plain_ms:.4f} ms, "
+        f"torch.sparse.sampled_addmm {library_ms} ms, bound {bnd[0]:.5f} "
+        f"ms ({bnd[1]})")
+
+    # the backward's two d = 2 SpMMs, weighted by the edge gradient, as the
+    # operator launches them (their numbers logged, not in the kernels line)
+    for label, (ptr, col, w, x, rows) in (
+            ("rank1 logits ds_src A(g) [s_dst 1]",
+             (op.ptr, op.col, op.weights(ct, False), b2, n)),
+            ("rank1 logits ds_dst A(g)^T [s_src 1]",
+             (op.t_ptr, op.t_col, op.weights(ct, True), a2, g.n_dst))):
+        a_csr = torch.sparse_csr_tensor(ptr, col, w, size=(rows, x.shape[0]))
+        spmm_use(label, (ptr, col, w, x, rows),
+                 lambda a_csr=a_csr, x=x: torch.sparse.mm(a_csr, x),
+                 "torch.sparse.mm")
+
+    # the three logit forms, forward and backward, by device time
+    snd = g.senders[:e].long()
+    rcv = g.receivers[:e].long()
+
+    def index_select_form(u, v):
+        out = u.index_select(0, snd) + v.index_select(0, rcv)
+        return torch.nn.functional.leaky_relu(
+            torch.cat([out, out.new_zeros(e_pad - e)]), 0.2)
+
+    forms = {"plain _gather_rows": lambda u, v: sddmm(g, u, v),
+             "sddmm(impl='cuda')": lambda u, v: sddmm(g, u, v, impl="cuda"),
+             "index_select": index_select_form}
+    close("index_select form vs plain", index_select_form(s_src, s_dst)[:e],
+          want.detach()[:e], KERNEL_RTOL, KERNEL_ATOL)
+    fb_bound = rank1_logits_bound(op, n, g.n_dst, e_pad)
+    form_ms = {}
+    for label, form in forms.items():
+        leaves = [v.clone().requires_grad_() for v in (s_src, s_dst)]
+
+        def fwd_bwd(form=form, leaves=leaves):
+            return torch.autograd.grad(form(*leaves), leaves, ct)
+
+        form_ms[label] = {"ms": time_ms(fwd_bwd, reps=7),
+                          "device_ms": device_ms(fwd_bwd)}
+        log(f"  rank-1 logits forward + backward, {label}: "
+            f"{form_ms[label]['ms']:.4f} ms (device "
+            f"{fmt(form_ms[label]['device_ms'])}), bound {fb_bound[0]:.5f} "
+            f"ms ({fb_bound[1]})")
+    log(f"  rank-1 logit forms: {json.dumps(form_ms)}")
+    out = entry("csr_sddmm_f32[rank1 logits]", "sddmm.cu",
+                "msha_gnn_tpu/ops/pallas/spmm.py:1428 _sddmm_kernel "
+                "(through sddmm.py:88 sddmm_pallas)", err, ms, plain_ms, bnd,
+                library_ms)
+    out["launches"] = counts["csr_sddmm_f32"]
+    return out
+
+
+def phase_msha(fg):
+    """Phase 9: the MSHA serving path at full width on the card."""
+    import dataclasses
+
+    from msha_gnn_torch.cli import _build_task
+    from msha_gnn_torch.models.common import BatchNorm
+    from msha_gnn_torch.server import ModelService, make_server
+    from msha_gnn_torch.serving import Predictor
+    from msha_gnn_torch.training import restore_checkpoint, save_checkpoint
+    from msha_gnn_torch.utils import TrainConfig
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("float32 matmuls are not at full precision")
+    log("  float32 matmuls at full precision: allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}, precision "
+        f"{torch.get_float32_matmul_precision()}")
+    cfg = TrainConfig()  # model "msha", the CLI's defaults
+    rng = np.random.default_rng(3)
+
+    def build(model, device=DEVICE):
+        c = dataclasses.replace(cfg, model=model)
+        t0 = time.perf_counter()
+        task, net = _build_task(c, fg, device)
+        return task, net, (time.perf_counter() - t0) * 1e3
+
+    def calibrate(task, net):
+        """Running statistics as a trained checkpoint carries them: each
+        norm's batch mean and variance of one train-mode forward (dropout
+        on), in place of the initial 0 and 1, under which the random
+        model's unnormalised sums over N rows put its logits in the
+        thousands and its log-scores off any float32 tolerance."""
+        norms = [m for m in net.modules() if isinstance(m, BatchNorm)]
+        for bn in norms:
+            bn.momentum = 0.0
+        with torch.no_grad():
+            task.forward(net, torch.arange(PREDICT_BATCH), train=True,
+                         generator=torch.Generator(DEVICE).manual_seed(4))
+        for bn in norms:
+            bn.momentum = 0.9
+
+    def on_cpu(model, net):
+        task_c, net_c, _ = build(model, "cpu")
+        net_c.load_state_dict({k: v.cpu() for k, v in
+                               net.state_dict().items()})
+        return Predictor.from_state(task_c, net_c, PREDICT_BATCH)
+
+    def check_rows(name, scores, rows):
+        if scores.shape != (rows, fg.n_dst) or not np.isfinite(scores).all():
+            raise AssertionError(f"{name}: shape {scores.shape} or "
+                                 "non-finite values")
+        err = float(np.abs(np.exp(scores).sum(axis=1) - 1).max())
+        if err > 1e-4:
+            raise AssertionError(f"{name}: rows are not distributions "
+                                 f"({err:.2e})")
+
+    def against_cpu(name, got, want):
+        err = float(np.abs(got - want).max())
+        log(f"  {name}: card vs CPU, same weights: max abs err {err:.3e} "
+            f"(rtol {MSHA_RTOL}, atol {MSHA_ATOL})")
+        np.testing.assert_allclose(got, want, rtol=MSHA_RTOL, atol=MSHA_ATOL,
+                                   err_msg=name)
+
+    def one_http(service, nodes, k=5):
+        httpd = make_server(service, port=0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}/v1/predict"
+        ms = []
+        try:
+            for chunk in nodes:
+                t0 = time.perf_counter()
+                body = post(url, {"nodes": chunk, "k": k})
+                ms.append((time.perf_counter() - t0) * 1e3)
+                for res, node in zip(body["results"], chunk):
+                    ps = [e["p"] for e in res["top"]]
+                    if res["node"] != node or len(ps) != k or \
+                            ps != sorted(ps, reverse=True):
+                        raise AssertionError(f"bad top-k {res}")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+        if thread.is_alive():
+            raise AssertionError("the server thread did not stop")
+        return ms
+
+    def requests(count):
+        return [rng.integers(0, fg.n_src, 64).tolist() for _ in range(count)]
+
+    summary = {}
+    task, model, build_ms = build("msha")
+    calibrate(task, model)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  msha_task ({cfg.in_features} in, {cfg.out_features} a head, "
+        f"{cfg.n_heads} heads, {n_params} parameters): {build_ms:.1f} ms")
+    saved = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    with tempfile.TemporaryDirectory() as td:
+        save_checkpoint(td, model, step=1)
+        with torch.no_grad():
+            for v in model.state_dict().values():
+                v.zero_()
+        model, _, step = restore_checkpoint(td, model)
+    for k, v in model.state_dict().items():
+        if not torch.equal(v, saved[k]):
+            raise AssertionError(f"checkpoint round trip changed {k}")
+    log(f"  checkpoint round trip (step {step}, {len(saved)} tensors, "
+        "running statistics included): bit-exact")
+
+    predictor = Predictor.from_state(task, model, PREDICT_BATCH)
+    nodes = rng.integers(0, fg.n_src, 2 * PREDICT_BATCH + 300)
+    # the main path: counts set to 0 just before, read just after
+    zero_counts()
+    t0 = time.perf_counter()
+    got = predictor.log_scores(nodes)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the MSHA path launched a kernel: {counts}")
+    log(f"  msha, {len(nodes)} nodes in 3 padded batches of "
+        f"{PREDICT_BATCH}: {first_ms:.1f} ms (first call); none of the "
+        "port's kernels launched")
+    check_rows("msha per-batch scores", got, len(nodes))
+    against_cpu("msha per-batch scores", got,
+                on_cpu("msha", model).log_scores(nodes))
+
+    few = rng.integers(0, fg.n_src, 64)
+    one = predictor.log_scores(few)
+    padded = np.concatenate([few, np.zeros(PREDICT_BATCH - 64, np.int64)])
+    with torch.inference_mode():
+        full_batch, _ = task.forward(model, torch.from_numpy(padded),
+                                     train=False)
+    rows = full_batch[:64].cpu().numpy()
+    err = float(np.abs(one - rows).max())
+    log(f"  a 64-node request vs the first 64 rows of one padded forward: "
+        f"max abs err {err:.3e} (rtol {MSHA_REPEAT_RTOL}, atol "
+        f"{MSHA_REPEAT_ATOL}; bit-equal: {np.array_equal(one, rows)})")
+    np.testing.assert_allclose(one, rows, rtol=MSHA_REPEAT_RTOL,
+                               atol=MSHA_REPEAT_ATOL)
+
+    fwd_ms = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            task.forward(model, torch.from_numpy(padded), train=False)
+        torch.cuda.synchronize()
+        fwd_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    predictor.log_scores(np.arange(fg.n_src))
+    all_ms = (time.perf_counter() - t0) * 1e3
+    service = ModelService(predictor, n_src=fg.n_src,
+                           metadata={"model": "msha", "n_dst": fg.n_dst})
+    req_ms = one_http(service, requests(21))
+    summary["msha"] = {
+        "batch_forward_ms_p50": statistics.median(fwd_ms),
+        "predict_all_ms": all_ms,
+        "request_64_http_ms_p50": statistics.median(req_ms[1:]),
+        "requests": len(req_ms) - 1}
+    log(f"  msha: one /v1/predict per request over HTTP, {summary['msha']}")
+
+    task3, model3, _ = build("ablation3")
+    calibrate(task3, model3)
+    predictor3 = Predictor.from_state(task3, model3, PREDICT_BATCH)
+    zero_counts()
+    t0 = time.perf_counter()
+    full = predictor3._full_scores()
+    torch.cuda.synchronize()
+    fill_ms = (time.perf_counter() - t0) * 1e3
+    if any(read_counts().values()):
+        raise AssertionError("the ablation3 fill launched a kernel")
+    full_np = full.cpu().numpy()
+    check_rows("ablation3 fill", full_np, fg.n_src)
+    cpu3 = on_cpu("ablation3", model3)
+    against_cpu("ablation3 fill", full_np, cpu3._full_scores().numpy())
+    with torch.inference_mode():
+        batch_rows, _ = task3.forward(model3, torch.from_numpy(padded),
+                                      train=False)
+    close("ablation3 per-batch rows vs its fill",
+          batch_rows[:64], full[torch.from_numpy(few).to(DEVICE)],
+          MSHA_REPEAT_RTOL, MSHA_REPEAT_ATOL)
+    refill = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        task3.full_scores(model3)
+        torch.cuda.synchronize()
+        refill.append((time.perf_counter() - t0) * 1e3)
+    service3 = ModelService(predictor3, n_src=fg.n_src,
+                            metadata={"model": "ablation3",
+                                      "n_dst": fg.n_dst})
+    req3 = one_http(service3, requests(21))
+    summary["ablation3"] = {
+        "first_fill_ms": fill_ms, "fill_ms_p50": statistics.median(refill),
+        "request_64_http_ms_p50": statistics.median(req3[1:])}
+    log(f"  ablation3: {summary['ablation3']}")
+
+    for preset in ("ours", "ablation1", "ablation2"):
+        task_p, model_p, _ = build(preset)
+        calibrate(task_p, model_p)
+        pred = Predictor.from_state(task_p, model_p, PREDICT_BATCH)
+        zero_counts()
+        got_p = pred.log_scores(few)
+        if any(read_counts().values()):
+            raise AssertionError(f"the {preset} path launched a kernel")
+        check_rows(f"{preset} scores", got_p, 64)
+        against_cpu(f"{preset}, a 64-node request", got_p,
+                    on_cpu(preset, model_p).log_scores(few))
+    log(f"  msha serving: {json.dumps(summary)}")
+    return summary
+
+
 def dense_reference(fg, model):
     """Float64 dense GCN forward from the model's weights (numpy)."""
     from msha_gnn_torch import normalize_by_dst_degree
@@ -2021,6 +2393,10 @@ def main() -> int:
         "backward kernels vs plain, linkpred graph")
     generic_kernels = phase_generic_kernels(split)
 
+    log("phase 3f: rank-1 GAT logits through csr_sddmm_f32, linkpred "
+        "graph")
+    logits_kernel = phase_rank1_logits(split)
+
     log("phase 4: GCN serving path")
     launches = phase_slice(fg)
     for k in kernels:
@@ -2081,6 +2457,10 @@ def main() -> int:
     for k in generic_kernels:
         k["launches"] = per_name[k["name"]]
     kernels += generic_kernels
+    kernels.append(logits_kernel)
+
+    log("phase 9: MSHA serving path (TrainConfig defaults)")
+    phase_msha(fg)
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{kernels}")

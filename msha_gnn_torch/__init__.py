@@ -38,6 +38,7 @@ from .graph import (  # noqa: E402
     BipartiteGraph,
     FlowGraph,
     Grouping,
+    PairGrouping,
     dst_degrees,
     normalize_by_dst_degree,
     normalize_rows,
@@ -49,6 +50,7 @@ __all__ = [
     "BipartiteGraph",
     "FlowGraph",
     "Grouping",
+    "PairGrouping",
     "dst_degrees",
     "src_degrees",
     "normalize_by_dst_degree",

@@ -15,7 +15,8 @@ import dataclasses
 import json
 import sys
 
-PORTED_MODELS = ("gcn",)
+MSHA_PRESETS = ("msha", "ours", "ablation1", "ablation2", "ablation3")
+PORTED_MODELS = (*MSHA_PRESETS, "gcn")
 
 
 def _add_dataclass_args(parser, cls):
@@ -40,8 +41,15 @@ def _config_from_args(cls, args):
 def _build_task(cfg, fg, device="cuda"):
     """Model-preset dispatch: ``(task, model)``, or None for a model the
     port does not have."""
-    from .training import gcn_task
+    from .training import gcn_task, msha_task
 
+    if cfg.model in MSHA_PRESETS:
+        flags = cfg.model_flags()
+        n_heads = flags.pop("n_heads", cfg.n_heads)
+        return msha_task(fg, in_features=cfg.in_features,
+                         out_features=cfg.out_features, n_heads=n_heads,
+                         dropout=cfg.dropout, seed=cfg.seed, device=device,
+                         **flags)
     if cfg.model == "gcn":
         return gcn_task(fg, nfeat=cfg.in_features, dropout=cfg.dropout,
                         seed=cfg.seed, device=device)

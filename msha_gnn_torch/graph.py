@@ -9,10 +9,12 @@ tensors.
   training path's dropout hash keys on the edge slot.
 * :class:`Grouping` — a union-of-cliques adjacency kept as per-node group
   ids (same-city / same-province).
+* :class:`PairGrouping` — the joint index over the unique pairs of two
+  groupings, which fuses MSHA's city and province broadcasts into one.
 * :class:`FlowGraph` — the dataset bundle.
 
-Graphs are built on the host and live on the CPU until
-:meth:`BipartiteGraph.to` moves them.
+Graphs are built on the host and live on the CPU until their ``to``
+moves them.
 """
 
 from __future__ import annotations
@@ -177,6 +179,10 @@ class Grouping:
         return Grouping(torch.from_numpy(gid), torch.from_numpy(counts),
                         num_groups)
 
+    def to(self, device) -> "Grouping":
+        return dataclasses.replace(self, group_id=self.group_id.to(device),
+                                   counts=self.counts.to(device))
+
     def to_dense(self) -> torch.Tensor:
         """Dense 0/1 clique adjacency (tests only — O(N^2))."""
         gid = self.group_id
@@ -185,6 +191,44 @@ class Grouping:
     def member_sizes(self) -> torch.Tensor:
         """[N] clique size of each node's group."""
         return self.counts[self.group_id.long()]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PairGrouping:
+    """Joint index over the unique ``(group_a, group_b)`` pairs of two
+    groupings over the same nodes.
+
+    MSHA's intra aggregation broadcasts a per-city table and a
+    per-province table back to all N nodes (``C[city_id] + P[prov_id]``);
+    summed in pair space first (K unique pairs), the two become one N-row
+    gather.  Exact for any two groupings: K is the number of combinations
+    that occur.
+    """
+
+    pair_id: torch.Tensor    # [N] int32 in [0, num_pairs)
+    a_of_pair: torch.Tensor  # [K] int32: first grouping's id of each pair
+    b_of_pair: torch.Tensor  # [K] int32: second grouping's id of each pair
+    num_pairs: int
+
+    @staticmethod
+    def build(a: Grouping, b: Grouping) -> "PairGrouping":
+        """The pairs of ``a`` and ``b`` in ascending ``(a, b)`` order, on
+        the CPU."""
+        nb = max(int(b.num_groups), 1)
+        key = (a.group_id.cpu().numpy().astype(np.int64) * nb
+               + b.group_id.cpu().numpy().astype(np.int64))
+        uniq, pair_id = np.unique(key, return_inverse=True)
+        return PairGrouping(
+            pair_id=torch.from_numpy(pair_id.reshape(-1).astype(np.int32)),
+            a_of_pair=torch.from_numpy((uniq // nb).astype(np.int32)),
+            b_of_pair=torch.from_numpy((uniq % nb).astype(np.int32)),
+            num_pairs=int(uniq.shape[0]),
+        )
+
+    def to(self, device) -> "PairGrouping":
+        return dataclasses.replace(self, pair_id=self.pair_id.to(device),
+                                   a_of_pair=self.a_of_pair.to(device),
+                                   b_of_pair=self.b_of_pair.to(device))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

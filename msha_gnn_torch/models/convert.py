@@ -1,9 +1,9 @@
 """Weights from the JAX package into the port's modules.
 
-The flax parameter trees hold numpy-convertible arrays.  The GCN and GAT
-weights keep the JAX ``[in, out]`` layout in the port, so for them
-conversion is a renaming; a flax ``Dense`` kernel ``[in, out]`` becomes an
-``nn.Linear`` weight ``[out, in]`` by a transpose.
+The flax parameter trees hold numpy-convertible arrays.  The GCN, GAT and
+MSHA weights keep the JAX layout in the port, so for them conversion is a
+renaming; a flax ``Dense`` kernel ``[in, out]`` becomes an ``nn.Linear``
+weight ``[out, in]`` by a transpose.
 """
 
 from __future__ import annotations
@@ -54,4 +54,37 @@ def linkpred_params_from_jax(params: Mapping) -> dict:
         i = int(name.rsplit("_", 1)[1])
         sd[f"predictor.lins.{i}.weight"] = _tensor(dense["kernel"]).T.contiguous()
         sd[f"predictor.lins.{i}.bias"] = _tensor(dense["bias"])
+    return sd
+
+
+
+def msha_layer_params_from_jax(params: Mapping,
+                               batch_stats: Mapping) -> dict:
+    """A flax ``MSHALayer``'s ``params`` (``W1``, ``W2``, ``a``, and
+    ``a3``, ``a4`` with the intra channels; ``bn1``, ``bn2`` with ``scale``
+    and ``bias``) and ``batch_stats`` (``bn1``, ``bn2`` with ``mean`` and
+    ``var``) -> the port's ``MSHALayer`` ``state_dict``."""
+    sd = {k: _tensor(params[k]) for k in ("W1", "W2", "a", "a3", "a4")
+          if k in params}
+    for bn in ("bn1", "bn2"):
+        for k in ("scale", "bias"):
+            sd[f"{bn}.{k}"] = _tensor(params[bn][k])
+        for k in ("mean", "var"):
+            sd[f"{bn}.{k}"] = _tensor(batch_stats[bn][k])
+    return sd
+
+
+def msha_params_from_jax(variables: Mapping) -> dict:
+    """A flax ``MSHA``'s variables ``{"params", "batch_stats"}`` -> the
+    port's ``MSHA`` ``state_dict``: ``Sfeatures``, ``Rfeatures``, the
+    layer ``attention`` (:func:`msha_layer_params_from_jax`) and, with the
+    output layer, ``out_att`` (``W``, ``a``)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = {k: _tensor(params[k]) for k in ("Sfeatures", "Rfeatures")}
+    for k, v in msha_layer_params_from_jax(params["attention"],
+                                           stats["attention"]).items():
+        sd[f"attention.{k}"] = v
+    if "out_att" in params:
+        sd["out_att.W"] = _tensor(params["out_att"]["W"])
+        sd["out_att.a"] = _tensor(params["out_att"]["a"])
     return sd

@@ -1,5 +1,6 @@
-"""The sparse GAT encoder (``msha_gnn_tpu/models/gat.py``:
-``SparseGATLayer``, ``SparseGAT``).
+"""GAT layers (``msha_gnn_tpu/models/gat.py``): the sparse encoder
+``SparseGATLayer`` / ``SparseGAT``, and the reference's dense
+``MaskedGATLayer``, MSHA's output layer.
 
 Pairwise logits ``leaky_relu(a_src . h_i + a_dst . h_j)`` over a CSR edge
 list, softmax over each source row, attention-weighted aggregation of the
@@ -43,7 +44,8 @@ import torch
 from torch import nn
 
 from ..graph import BipartiteGraph
-from ..ops import edge_softmax, sddmm, spmm
+from ..ops import (edge_softmax, masked_row_softmax, sddmm,
+                   self_concat_logits, spmm)
 from .common import dropout, elu, xavier_uniform
 
 IMPLS = ("torch", "fused", "materialised", "flash")
@@ -72,6 +74,37 @@ def draw_seed(generator: Optional[torch.Generator],
     """One int32 dropout seed, drawn on ``device`` (no host sync)."""
     return torch.randint(-2**31, 2**31, (1,), generator=generator,
                          device=device, dtype=torch.int64).to(torch.int32)
+
+
+class MaskedGATLayer(nn.Module):
+    """The reference's ``GraphAttentionLayer`` (``MaskedGATLayer``).
+
+    ``h = x @ W``; the per-row logit ``leaky_relu([h_i || h_i] . a)``;
+    masked with -9e15 where ``adj_mask`` is False; row softmax; dropout;
+    ``elu(att * h)``.  The self-concat makes the attention uniform over
+    each row's unmasked entries, and the elementwise "aggregation" needs
+    ``out_features`` equal to the mask's columns: the reference's
+    behaviour, kept.
+    """
+
+    def __init__(self, in_features: int, out_features: int,
+                 dropout: float = 0.5, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dropout = dropout
+        self.W = nn.Parameter(xavier_uniform((in_features, out_features),
+                                             generator))
+        self.a = nn.Parameter(xavier_uniform((2 * out_features, 1),
+                                             generator))
+
+    def forward(self, x: torch.Tensor, adj_mask: torch.Tensor, *,
+                train: bool,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = x @ self.W
+        row_logit = self_concat_logits(h, self.a)
+        att = masked_row_softmax(row_logit[:, None].expand_as(h), adj_mask)
+        att = dropout(att, self.dropout, train, generator)
+        return elu(att * h)
 
 
 class SparseGATLayer(nn.Module):

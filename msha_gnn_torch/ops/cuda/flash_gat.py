@@ -390,15 +390,24 @@ class FlashGatOperator:
     ``(seed, edge slot)``.  Rows with no edges give zeros.
     """
 
-    def __init__(self, graph: "BipartiteGraph", dropout_rate: float = 0.0):
+    def __init__(self, graph: "BipartiteGraph", dropout_rate: float = 0.0,
+                 spmm: Optional[SpmmOperator] = None):
         r = float(dropout_rate)
         if not 0.0 <= r < 1.0:
             raise ValueError(f"dropout_rate must be in [0, 1), got {r}")
         self.graph = graph
-        self.spmm: SpmmOperator = operator_for(graph)
+        self.spmm: SpmmOperator = spmm if spmm is not None \
+            else operator_for(graph)
         self.device = self.spmm.device
         self.ptr, self.col = self.spmm.ptr, self.spmm.col
         self.dropout_rate = r
+
+    @staticmethod
+    def build(graph: "BipartiteGraph", spmm: Optional[SpmmOperator] = None,
+              dropout_rate: float = 0.0) -> "FlashGatOperator":
+        """The operator of ``graph``, over ``spmm``'s arrays (default: the
+        graph's cached operator)."""
+        return FlashGatOperator(graph, dropout_rate, spmm)
 
     def _apply(self, logits, x, seed, rate):
         g = self.graph
@@ -425,8 +434,12 @@ class FlashGatOperator:
         return self._apply(logits, x, seed, self.dropout_rate)
 
 
+# the JAX package's spelling
+FlashGATOperator = FlashGatOperator
+
+
 def flash_gat_aggregate(graph: "BipartiteGraph", logits: torch.Tensor,
                         x: torch.Tensor) -> torch.Tensor:
     """One-shot wrapper (the graph's arrays are cached by
     :func:`~msha_gnn_torch.ops.cuda.spmm.operator_for`)."""
-    return FlashGatOperator(graph)(logits, x)
+    return FlashGatOperator.build(graph)(logits, x)

@@ -783,7 +783,8 @@ class Rank1GatOperator:
     streamed in bfloat16) is not ported, as ``SparseGATLayer``'s is not.
     """
 
-    def __init__(self, graph: "BipartiteGraph", *,
+    def __init__(self, graph: "BipartiteGraph",
+                 spmm: Optional[SpmmOperator] = None, *,
                  negative_slope: float = 0.2, precision: str = "f32",
                  dst_linear: bool = False, dropout_rate: float = 0.0):
         if precision != "f32":
@@ -796,12 +797,24 @@ class Rank1GatOperator:
         if not 0.0 <= r < 1.0:
             raise ValueError(f"dropout_rate must be in [0, 1), got {r}")
         self.graph = graph
-        self.spmm: SpmmOperator = operator_for(graph)
+        self.spmm: SpmmOperator = spmm if spmm is not None \
+            else operator_for(graph)
         self.device = self.spmm.device
         self.ptr, self.col = self.spmm.ptr, self.spmm.col
         self.slope = float(negative_slope)
         self.dst_linear = dst_linear
         self.dropout_rate = r
+
+    @staticmethod
+    def build(graph: "BipartiteGraph", spmm: Optional[SpmmOperator] = None,
+              negative_slope: float = 0.2, precision: str = "f32",
+              dst_linear: bool = False,
+              dropout_rate: float = 0.0) -> "Rank1GatOperator":
+        """The operator of ``graph``, over ``spmm``'s arrays (default: the
+        graph's cached operator); the JAX signature less ``interpret``."""
+        return Rank1GatOperator(graph, spmm, negative_slope=negative_slope,
+                                precision=precision, dst_linear=dst_linear,
+                                dropout_rate=dropout_rate)
 
     def _check(self, c, t_or_a, x):
         g = self.graph

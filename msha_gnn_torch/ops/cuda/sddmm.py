@@ -16,6 +16,11 @@ both and what bounds it (bytes).
   graph and is differentiable: ``op(h_src, h_dst)[e] = <h_src[snd_e],
   h_dst[rcv_e]>`` in CSR edge order, pads 0; its backward is the two
   SpMMs weighted by the edge gradient, as the JAX operator's is.
+* :func:`rank1_logits_fn` and :func:`sddmm_cuda` give the rank-1 GAT
+  logits ``leaky_relu(s_src[snd] + s_dst[rcv])`` through the operator on
+  the width-2 columns ``[s_src, 1]``, ``[1, s_dst]``: one launch forward,
+  two d = 2 weighted SpMMs backward.  :func:`sddmm_dot_cuda` is the
+  one-shot dot product.
 
 The weighted SpMM's gradient with respect to its edge weights is this
 kernel too (:class:`msha_gnn_torch.ops.cuda.spmm.SpmmOperator`).
@@ -29,7 +34,7 @@ from typing import TYPE_CHECKING, Optional
 import torch
 
 from .rank1_gat import _edge_walk, _group
-from .spmm import edge_rows, operator_for
+from .spmm import SpmmOperator, edge_rows, operator_for
 
 if TYPE_CHECKING:
     from ...graph import BipartiteGraph
@@ -183,10 +188,18 @@ class SddmmOperator:
     The CSR/CSC arrays are those of the graph's cached
     :class:`~msha_gnn_torch.ops.cuda.spmm.SpmmOperator`."""
 
-    def __init__(self, graph: "BipartiteGraph"):
+    def __init__(self, graph: "BipartiteGraph",
+                 spmm: Optional[SpmmOperator] = None):
         self.graph = graph
-        self.spmm = operator_for(graph)
+        self.spmm = spmm if spmm is not None else operator_for(graph)
         self.device = self.spmm.device
+
+    @staticmethod
+    def build(graph: "BipartiteGraph",
+              spmm: Optional[SpmmOperator] = None) -> "SddmmOperator":
+        """The operator of ``graph``, over ``spmm``'s arrays (default: the
+        graph's cached operator)."""
+        return SddmmOperator(graph, spmm)
 
     def __call__(self, h_src: torch.Tensor, h_dst: torch.Tensor
                  ) -> torch.Tensor:
@@ -203,3 +216,34 @@ class SddmmOperator:
             raise ValueError(f"widths differ: h_src {tuple(h_src.shape)}, "
                              f"h_dst {tuple(h_dst.shape)}")
         return _SddmmFn.apply(h_src.contiguous(), h_dst.contiguous(), self)
+
+
+def sddmm_dot_cuda(graph: "BipartiteGraph", h_src: torch.Tensor,
+                   h_dst: torch.Tensor) -> torch.Tensor:
+    """One-shot per-edge dot products (``sddmm_dot_pallas``; the graph's
+    arrays are cached by :func:`~.spmm.operator_for`)."""
+    return SddmmOperator.build(graph)(h_src, h_dst)
+
+
+def rank1_logits_fn(op: SddmmOperator, num_edges: Optional[int] = None,
+                    negative_slope: float = 0.2):
+    """``logits_fn(s_src [n_src], s_dst [n_dst]) -> [E]`` over a prebuilt
+    operator: ``leaky_relu(s_src[snd] + s_dst[rcv])`` in CSR edge order,
+    the first ``num_edges`` slots (all ``E_pad``, pads 0, when None)."""
+    def logits_fn(s_src: torch.Tensor, s_dst: torch.Tensor) -> torch.Tensor:
+        out = op(torch.stack([s_src, torch.ones_like(s_src)], dim=1),
+                 torch.stack([torch.ones_like(s_dst), s_dst], dim=1))
+        if num_edges is not None:
+            out = out[:num_edges]
+        return torch.nn.functional.leaky_relu(out, negative_slope)
+
+    return logits_fn
+
+
+def sddmm_cuda(graph: "BipartiteGraph", src_vec: torch.Tensor,
+               dst_vec: torch.Tensor,
+               negative_slope: float = 0.2) -> torch.Tensor:
+    """``sddmm(..., impl="cuda")`` (``sddmm_pallas``): the rank-1 logits
+    ``leaky_relu(src_vec[s] + dst_vec[r])`` -> [E_pad], pads 0."""
+    return rank1_logits_fn(SddmmOperator.build(graph),
+                           negative_slope=negative_slope)(src_vec, dst_vec)

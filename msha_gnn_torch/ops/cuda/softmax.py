@@ -639,6 +639,14 @@ def softmax_operator_for(graph: "BipartiteGraph") -> SegmentSoftmaxOperator:
     return cached_for(graph, SegmentSoftmaxOperator.build)
 
 
+def edge_softmax_cuda(graph: "BipartiteGraph",
+                      logits: torch.Tensor) -> torch.Tensor:
+    """One-shot row softmax of per-edge logits (``edge_softmax_pallas``,
+    ``edge_softmax(per="src", impl="cuda")``) on the graph's cached
+    operator."""
+    return softmax_operator_for(graph)(logits)
+
+
 def edge_softmax_drop(graph: "BipartiteGraph", logits: torch.Tensor,
                       seed: torch.Tensor, rate: float) -> torch.Tensor:
     """``edge_softmax(graph, logits, impl="cuda")`` times the dropout keep

@@ -3,11 +3,9 @@
 
 ``impl="torch"`` is the plain version, gather + ``index_add_``: the CPU
 path and the oracle of the CUDA kernels.  ``impl="cuda"`` goes to the
-hand-written kernels: :func:`spmm` through :mod:`.cuda.spmm`,
-:func:`sddmm_dot` through :mod:`.cuda.sddmm` and :func:`edge_softmax`
-through :mod:`.cuda.softmax` (the JAX package's ``impl="pallas"``).
-:func:`sddmm`, the rank-1 GAT logits, is plain only, as in the JAX
-package, where it is always XLA.
+hand-written kernels (the JAX package's ``impl="pallas"``): :func:`spmm`
+through :mod:`.cuda.spmm`, :func:`sddmm` and :func:`sddmm_dot` through
+:mod:`.cuda.sddmm` and :func:`edge_softmax` through :mod:`.cuda.softmax`.
 """
 
 from __future__ import annotations
@@ -58,10 +56,20 @@ def spmm(
 
 
 def sddmm(graph: "BipartiteGraph", src_vec: torch.Tensor,
-          dst_vec: torch.Tensor, *, negative_slope: float = 0.2
-          ) -> torch.Tensor:
+          dst_vec: torch.Tensor, *, negative_slope: float = 0.2,
+          impl: str = "torch") -> torch.Tensor:
     """Per-edge GAT logits ``leaky_relu(src_vec[s] + dst_vec[r])`` -> [E_pad]
-    (padding entries are garbage; mask downstream)."""
+    (padding entries are garbage; mask downstream).  ``impl="cuda"``: one
+    ``csr_sddmm_f32`` launch on the width-2 columns ``[src_vec, 1]``,
+    ``[1, dst_vec]`` (pads 0), its adjoints two weighted SpMMs
+    (:func:`~.cuda.sddmm.sddmm_cuda`)."""
+    if impl == "cuda":
+        from .cuda.sddmm import sddmm_cuda
+
+        return sddmm_cuda(graph, src_vec, dst_vec,
+                          negative_slope=negative_slope)
+    if impl != "torch":
+        raise ValueError(f"unknown sddmm impl {impl!r} (torch | cuda)")
     e = (_gather_rows(src_vec[:, None], graph.senders, graph.n_src)[:, 0]
          + _gather_rows(dst_vec[:, None], graph.receivers, graph.n_dst)[:, 0])
     return torch.nn.functional.leaky_relu(e, negative_slope)
@@ -72,9 +80,9 @@ def sddmm_dot(graph: "BipartiteGraph", src_feat: torch.Tensor,
     """Per-edge inner products ``<src_feat[s], dst_feat[r]>`` -> [E_pad]
     (padding entries 0)."""
     if impl == "cuda":
-        from .cuda.sddmm import SddmmOperator
+        from .cuda.sddmm import sddmm_dot_cuda
 
-        return SddmmOperator(graph)(src_feat, dst_feat)
+        return sddmm_dot_cuda(graph, src_feat, dst_feat)
     if impl != "torch":
         raise ValueError(f"unknown sddmm_dot impl {impl!r} (torch | cuda)")
     s = _gather_rows(src_feat, graph.senders, graph.n_src)
@@ -92,9 +100,9 @@ def edge_softmax(graph: "BipartiteGraph", logits: torch.Tensor, *,
     if impl not in ("torch", "cuda"):
         raise ValueError(f"unknown edge_softmax impl {impl!r} (torch | cuda)")
     if impl == "cuda" and per == "src":
-        from .cuda.softmax import softmax_operator_for
+        from .cuda.softmax import edge_softmax_cuda
 
-        return softmax_operator_for(graph)(logits)
+        return edge_softmax_cuda(graph, logits)
     if per == "src":
         return segment_softmax(logits, graph.senders, graph.n_src,
                                mask=graph.edge_mask)

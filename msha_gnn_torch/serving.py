@@ -1,10 +1,16 @@
 """Batch inference on a flow-classification model (``msha_gnn_tpu/serving.py``).
 
-A model whose eval scores do not depend on the batch exposes
-``Task.full_scores``: ONE full-graph forward gives the [N, M]
-log-probability matrix, which stays cached on the device, and every query
-is a gather from it.  The per-batch path of batch-dependent models (full
-MSHA, HGANE) is not ported yet and raises.
+Two paths, as in the JAX package:
+
+* a model whose eval scores do not depend on the batch (GCN, MSHA's
+  ablation3) exposes ``Task.full_scores``: ONE full-graph forward gives
+  the [N, M] log-probability matrix, which stays cached on the device,
+  and every query is a gather from it;
+* a batch-dependent model (full MSHA: its intra channels attend within
+  the batch) runs the per-batch forward on chunks padded with node 0 to
+  exactly ``batch_size`` rows.  Its scores depend on the batch's
+  composition, padding included, by construction; the same padding as
+  the JAX package's gives the same scores.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ class Predictor:
 
     task: "object"            # training.trainer.Task
     model: nn.Module
-    batch_size: int = 1024    # kept for the JAX signature and metadata
+    batch_size: int = 1024    # the per-batch path's padded batch
     _full: Optional[torch.Tensor] = dataclasses.field(default=None,
                                                       repr=False)
 
@@ -42,13 +48,22 @@ class Predictor:
 
     def log_scores(self, nodes: Sequence[int]) -> np.ndarray:
         """[len(nodes), M] log-probabilities over recipient classes."""
-        if self.task.full_scores is None:
-            raise NotImplementedError(
-                "batch-dependent models are not ported yet: only models "
-                "with full_scores can be served")
-        full = self._full_scores()
-        idx = torch.as_tensor(np.asarray(nodes, np.int64), device=full.device)
-        return full.index_select(0, idx).cpu().numpy()
+        nodes = np.asarray(nodes, np.int64)
+        if self.task.full_scores is not None:
+            full = self._full_scores()
+            idx = torch.as_tensor(nodes, device=full.device)
+            return full.index_select(0, idx).cpu().numpy()
+        self.model.eval()
+        bs, out = self.batch_size, []
+        with torch.inference_mode():
+            for lo in range(0, len(nodes), bs):
+                chunk = nodes[lo:lo + bs]
+                padded = np.concatenate(
+                    [chunk, np.zeros(bs - len(chunk), np.int64)])
+                scores, _ = self.task.forward(
+                    self.model, torch.from_numpy(padded), train=False)
+                out.append(scores[: len(chunk)].cpu().numpy())
+        return np.concatenate(out) if out else np.zeros((0, 0), np.float32)
 
     def top_k(self, nodes: Sequence[int], k: int = 5,
               class_names: Optional[Dict[int, str]] = None) -> List[dict]:

@@ -11,7 +11,7 @@ from .link_prediction import (
 from .losses import bce_loss
 from .metrics import binary_auc, hits_at_k
 from .optim import adam_l2
-from .tasks import flow_inputs, gcn_task
+from .tasks import flow_inputs, gcn_task, msha_task
 from .trainer import Task
 
 __all__ = [
@@ -27,6 +27,7 @@ __all__ = [
     "gcn_task",
     "hits_at_k",
     "linkpred_loss",
+    "msha_task",
     "run_link_prediction",
     "save_checkpoint",
     "restore_checkpoint",

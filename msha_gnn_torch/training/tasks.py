@@ -8,11 +8,13 @@ Each builder returns ``(task, model)``: the port's model is an
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .. import resolve_device
-from ..graph import FlowGraph, normalize_by_dst_degree
-from ..models import GCN
+from ..graph import FlowGraph, PairGrouping, normalize_by_dst_degree
+from ..models import GCN, MSHA
 from .trainer import Task
 
 
@@ -21,6 +23,55 @@ def flow_inputs(fg: FlowGraph, device="cuda"):
     column-normalised graph and the dense [N, M] edge mask."""
     inter = fg.inter.to(resolve_device(device))
     return normalize_by_dst_degree(inter), inter.to_dense() > 0
+
+
+def msha_task(
+    fg: FlowGraph,
+    *,
+    in_features: int = 128,
+    out_features: int = 64,
+    n_heads: int = 2,
+    dropout: float = 0.5,
+    use_intra: bool = True,
+    joint_softmax: bool = True,
+    use_out_att: bool = True,
+    seed: int = 42,
+    device="cuda",
+):
+    """MSHA and its ablations on the flow graph.
+
+    ``forward(model, batch_idx, *, train, generator=None)`` scores the
+    rows ``batch_idx`` (its intra channels attend within that batch; both
+    norms take their statistics over all N rows).  ``full_scores`` is set
+    only without the intra channels (ablation3): with them the eval
+    scores depend on the batch.  In training the norms update their
+    running statistics in place, so ``mutated`` is {}.
+    """
+    dev = resolve_device(device)
+    _, inter_mask = flow_inputs(fg, dev)
+    city, prov = fg.city.to(dev), fg.province.to(dev)
+    pair = PairGrouping.build(fg.city, fg.province).to(dev) \
+        if use_intra else None
+    gen = torch.Generator().manual_seed(seed)
+    model = MSHA(in_features, out_features, fg.n_dst, n_heads, dropout,
+                 use_intra=use_intra, joint_softmax=joint_softmax,
+                 use_out_att=use_out_att, gdp=fg.gdp, generator=gen).to(dev)
+
+    def forward(model, batch_idx, *, train,
+                generator: Optional[torch.Generator] = None):
+        batch = torch.as_tensor(batch_idx, device=dev).long()
+        return model(inter_mask, city, prov, batch, train=train, rows=batch,
+                     pair=pair, generator=generator), {}
+
+    full_scores = None
+    if not use_intra:
+        def full_scores(model):
+            with torch.inference_mode():
+                return model(inter_mask, city, prov,
+                             torch.zeros(1, dtype=torch.long, device=dev),
+                             train=False)
+
+    return Task(forward=forward, full_scores=full_scores), model
 
 
 def gcn_task(

@@ -15,8 +15,9 @@ from typing import Any, Callable, Optional
 class Task:
     """``forward(model, batch_idx, *, train) -> (log_scores, mutated)``.
 
-    ``log_scores``: [B, M] per-batch log-probabilities; ``mutated`` is {}
-    for the stateless models ported so far.  ``full_scores(model)`` gives
+    ``log_scores``: [B, M] per-batch log-probabilities; ``mutated`` is {}:
+    a model with batch statistics (MSHA) updates its running statistics in
+    place, where the JAX task returns them.  ``full_scores(model)`` gives
     the [N, M] matrix in one full-graph forward, for models whose eval
     scores do not depend on the batch.  ``graph`` is the graph the forward
     propagates over.

@@ -4,7 +4,9 @@
         [--steps 10] [--trace build/profile/fill_trace.json] \
         [--step-trace build/profile/step_trace.json] \
         [--materialised-step-trace build/profile/step_trace_mat.json] \
-        [--flash-step-trace build/profile/step_trace_flash.json]
+        [--flash-step-trace build/profile/step_trace_flash.json] \
+        [--msha-trace build/profile/msha_forward_trace.json] \
+        [--ablation3-trace build/profile/ablation3_fill_trace.json]
 
 GCN serving, on a synthetic flow graph of the 2015 data's shape (39,179
 sources, 32 recipients, 233,887 records) with the GCN at full width
@@ -15,6 +17,16 @@ sources, 32 recipients, 233,887 records) with the GCN at full width
   the device's idle share of that wall time;
 * a request of 64 nodes (``/v1/predict``, k = 5): p50 of the in-process
   ``ModelService.predict`` and of the same request over HTTP on loopback.
+
+MSHA serving on the same graph at ``TrainConfig()`` (in 128, 64 a head,
+2 heads) and ``--predict_batch`` 1024:
+
+* ``--fills`` per-batch forwards of full MSHA (one padded batch of 1024)
+  under ``torch.profiler``: device time and kernels per forward, host
+  wall, idle share; the p50 of a 64-node ``/v1/predict`` (in process and
+  over HTTP), each request one padded forward;
+* ``--fills`` cache fills of ablation3 (``Task.full_scores``), the same
+  readings.
 
 Link-prediction training at ``LinkPredConfig()`` (hidden 64, 2 heads,
 dropout 0.5, batch 4096) on synthetic ogbl-ddi (seed 42):
@@ -31,7 +43,8 @@ dropout 0.5, batch 4096) on synthetic ogbl-ddi (seed 42):
 
 Prints the card's name and power limit first and one JSON summary last;
 the Chrome traces go to ``--trace``, ``--step-trace``,
-``--materialised-step-trace`` and ``--flash-step-trace``.
+``--materialised-step-trace``, ``--flash-step-trace``, ``--msha-trace``
+and ``--ablation3-trace``.
 Needs CUDA; exits 1 without it.
 """
 
@@ -49,6 +62,8 @@ import urllib.request
 
 import numpy as np
 import torch
+
+from msha_gnn_torch.server import make_server
 
 # rounds of the side-by-side step timing: the pair count at which flash is
 # read against materialised (PERF.md counts it faster if it wins 9 of 10)
@@ -81,11 +96,107 @@ def device_kernels(prof, per: int):
     return kernels
 
 
-def profile_linkpred(steps: int, trace: str, impl: str = "auto") -> dict:
-    """Device time by kernel and the idle share of ``steps`` full-width
-    linkpred training steps of ``impl``."""
+def profile_calls(fn, calls: int, trace: str, title: str) -> dict:
+    """Device time by kernel, kernels, host wall p50 and the device's idle
+    share of ``calls`` synchronised calls of ``fn`` (after 3 of warm-up)."""
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    wall = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+    os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
+    prof.export_chrome_trace(trace)
+    kernels = device_kernels(prof, calls)
+    device_ms = sum(k[1] for k in kernels) / 1e3
+    wall_ms = statistics.median(wall)
+    print(f"{title}, device time per call, by kernel:")
+    for name, us, n in kernels:
+        print(f"  {us:9.2f} us  x{n:g}  {name[:110]}")
+    return {"wall_ms_p50": wall_ms, "device_ms": device_ms,
+            "device_idle_share": max(0.0, 1 - device_ms / wall_ms),
+            "kernels_per_call": sum(k[2] for k in kernels),
+            "top_kernels_us": {k[0][:80]: k[1] for k in kernels[:10]}}
+
+
+def request_p50(service, batches) -> dict:
+    """p50 of a ``/v1/predict`` (k = 5) of each of ``batches``, in process
+    and over HTTP on loopback (after one warm-up request)."""
+    service.predict(batches[0], k=5)
+    local = []
+    for nodes in batches:
+        t0 = time.perf_counter()
+        service.predict(nodes, k=5)
+        local.append((time.perf_counter() - t0) * 1e3)
+    httpd = make_server(service, port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/v1/predict"
+    http = []
+    try:
+        for nodes in batches:
+            body = json.dumps({"nodes": nodes, "k": 5}).encode()
+            req = urllib.request.Request(
+                url, data=body, method="POST",
+                headers={"Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=60) as r:
+                r.read()
+            http.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    return {"predict_64_in_process_ms_p50": statistics.median(local),
+            "predict_64_http_ms_p50": statistics.median(http)}
+
+
+def profile_msha(fg, calls: int, requests: int, trace: str,
+                 fill_trace: str) -> dict:
+    """The MSHA per-batch forward and ablation3's fill at full width."""
+    import dataclasses
+
+    from msha_gnn_torch.cli import _build_task
+    from msha_gnn_torch.server import ModelService
+    from msha_gnn_torch.serving import Predictor
+    from msha_gnn_torch.utils import TrainConfig
+
+    rng = np.random.default_rng(1)
+    batches = [rng.integers(0, fg.n_src, 64).tolist()
+               for _ in range(requests)]
+    task, model = _build_task(TrainConfig(), fg, "cuda")
+    padded = torch.from_numpy(np.concatenate(
+        [np.asarray(batches[0]), np.zeros(1024 - 64, np.int64)]))
+
+    def forward():
+        with torch.inference_mode():
+            task.forward(model, padded, train=False)
+
+    out = {"msha_batch_forward": profile_calls(
+        forward, calls, trace, "msha per-batch forward (1024 rows)")}
+    out["msha_batch_forward"].update(request_p50(ModelService(
+        Predictor.from_state(task, model), n_src=fg.n_src), batches))
+    task3, model3 = _build_task(
+        dataclasses.replace(TrainConfig(), model="ablation3"), fg, "cuda")
+    out["ablation3_fill"] = profile_calls(
+        lambda: task3.full_scores(model3), calls, fill_trace,
+        "ablation3 cache fill")
+    out["ablation3_fill"].update(request_p50(ModelService(
+        Predictor.from_state(task3, model3), n_src=fg.n_src), batches))
+    print(f"msha serving: {json.dumps(out)}", flush=True)
+    return out
+
+
+def profile_linkpred(steps: int, trace: str, impl: str = "auto") -> dict:
+    """Device time by kernel and the idle share of ``steps`` full-width
+    linkpred training steps of ``impl`` (after 3 of warm-up)."""
     from msha_gnn_torch.data import load_ddi, split_edges
     from msha_gnn_torch.training import (LinkPredConfig,
                                          build_link_prediction, train_step)
@@ -94,34 +205,9 @@ def profile_linkpred(steps: int, trace: str, impl: str = "auto") -> dict:
     split = split_edges(load_ddi(seed=42), seed=42)
     run = build_link_prediction(split, LinkPredConfig(impl=impl),
                                 device="cuda")
-    batches = epoch_batches(run)
-    for batch in batches[:3]:
-        train_step(run, batch)
-    torch.cuda.synchronize()
-    wall = []
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for batch in batches[3: 3 + steps]:
-            t0 = time.perf_counter()
-            train_step(run, batch)
-            torch.cuda.synchronize()
-            wall.append((time.perf_counter() - t0) * 1e3)
-    os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
-    prof.export_chrome_trace(trace)
-    kernels = device_kernels(prof, len(wall))
-    device_ms = sum(k[1] for k in kernels) / 1e3
-    wall_ms = statistics.median(wall)
-    print(f"linkpred training step ({run.impl}), device time per step, "
-          "by kernel:")
-    for name, us, calls in kernels:
-        print(f"  {us:9.2f} us  x{calls:g}  {name[:110]}")
-    return {
-        "step_wall_ms_p50": wall_ms,
-        "step_device_ms": device_ms,
-        "step_device_idle_share": max(0.0, 1 - device_ms / wall_ms),
-        "step_kernels_per_step": sum(k[2] for k in kernels),
-        "step_top_kernels_us": {k[0][:80]: k[1] for k in kernels[:12]},
-    }
+    batches = iter(epoch_batches(run))
+    return profile_calls(lambda: train_step(run, next(batches)), steps,
+                         trace, f"linkpred training step ({run.impl})")
 
 
 def compare_steps(steps: int) -> dict:
@@ -182,14 +268,16 @@ def main(argv=None) -> int:
                     default="build/profile/step_trace_mat.json")
     ap.add_argument("--flash-step-trace",
                     default="build/profile/step_trace_flash.json")
+    ap.add_argument("--msha-trace",
+                    default="build/profile/msha_forward_trace.json")
+    ap.add_argument("--ablation3-trace",
+                    default="build/profile/ablation3_fill_trace.json")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("scripts_torch_profile: CUDA is not available", file=sys.stderr)
         return 1
-    from torch.profiler import ProfilerActivity, profile
-
     from msha_gnn_torch.data import synthetic_flow
-    from msha_gnn_torch.server import ModelService, make_server
+    from msha_gnn_torch.server import ModelService
     from msha_gnn_torch.serving import Predictor
     from msha_gnn_torch.training import gcn_task
 
@@ -202,59 +290,17 @@ def main(argv=None) -> int:
 
     fg = synthetic_flow(39179, 32, 291, 32, 233887, seed=0)
     task, model = gcn_task(fg, nfeat=128, seed=0, device="cuda")
-    for _ in range(3):
-        task.full_scores(model)
-    torch.cuda.synchronize()
-
-    wall = []
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(args.fills):
-            t0 = time.perf_counter()
-            task.full_scores(model)
-            torch.cuda.synchronize()
-            wall.append((time.perf_counter() - t0) * 1e3)
-    os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
-    prof.export_chrome_trace(args.trace)
-    kernels = device_kernels(prof, args.fills)
-    device_ms = sum(k[1] for k in kernels) / 1e3
-    wall_ms = statistics.median(wall)
-    print("device time per fill, by kernel:")
-    for name, us, calls in kernels:
-        print(f"  {us:9.2f} us  x{calls:g}  {name[:110]}")
-
+    gcn = profile_calls(lambda: task.full_scores(model), args.fills,
+                        args.trace, "GCN cache fill")
     service = ModelService(Predictor.from_state(task, model),
                            n_src=fg.n_src,
                            class_names={i: f"P{i}" for i in range(fg.n_dst)})
     rng = np.random.default_rng(0)
-    batches = [rng.integers(0, fg.n_src, 64).tolist()
-               for _ in range(args.requests)]
-    service.predict(batches[0], k=5)  # fills the cache
-    local = []
-    for nodes in batches:
-        t0 = time.perf_counter()
-        service.predict(nodes, k=5)
-        local.append((time.perf_counter() - t0) * 1e3)
-    httpd = make_server(service, port=0)
-    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
-    thread.start()
-    url = f"http://127.0.0.1:{httpd.server_address[1]}/v1/predict"
-    http = []
-    try:
-        for nodes in batches:
-            body = json.dumps({"nodes": nodes, "k": 5}).encode()
-            req = urllib.request.Request(
-                url, data=body, method="POST",
-                headers={"Content-Type": "application/json"})
-            t0 = time.perf_counter()
-            with urllib.request.urlopen(req, timeout=60) as r:
-                r.read()
-            http.append((time.perf_counter() - t0) * 1e3)
-    finally:
-        httpd.shutdown()
-        httpd.server_close()
-        thread.join(timeout=30)
+    gcn.update(request_p50(service, [rng.integers(0, fg.n_src, 64).tolist()
+                                     for _ in range(args.requests)]))
 
+    msha = profile_msha(fg, args.fills, args.requests, args.msha_trace,
+                        args.ablation3_trace)
     linkpred = profile_linkpred(args.steps, args.step_trace)
     materialised = profile_linkpred(args.steps, args.materialised_step_trace,
                                     impl="materialised")
@@ -262,13 +308,8 @@ def main(argv=None) -> int:
     steps_side_by_side = compare_steps(args.steps)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "fill_wall_ms_p50": wall_ms,
-        "fill_device_ms": device_ms,
-        "fill_device_idle_share": max(0.0, 1 - device_ms / wall_ms),
-        "fill_kernels_per_fill": sum(k[2] for k in kernels),
-        "predict_64_in_process_ms_p50": statistics.median(local),
-        "predict_64_http_ms_p50": statistics.median(http),
-        "top_kernels_us": {k[0][:80]: k[1] for k in kernels[:8]},
+        "gcn_fill": gcn,
+        "msha": msha,
         "linkpred": linkpred,
         "linkpred_materialised": materialised,
         "linkpred_flash": flash,

@@ -3,6 +3,7 @@ HTTP server and the CLI, on the CPU at a tiny size (as
 ``tests/test_serving.py`` and ``tests/test_server.py`` cover the JAX
 package's)."""
 
+import dataclasses
 import json
 import threading
 import urllib.error
@@ -18,7 +19,8 @@ from msha_gnn_torch.data import load_flow_graph
 from msha_gnn_torch.server import MAX_NODES, ModelService, make_server
 from msha_gnn_torch.serving import Predictor, recipient_names, run_predict
 from msha_gnn_torch.training import (Task, gcn_task, latest_step,
-                                     restore_checkpoint, save_checkpoint)
+                                     msha_task, restore_checkpoint,
+                                     save_checkpoint)
 from msha_gnn_torch.utils import TrainConfig
 from tests.test_torch_gcn import flow_arrays, make_flow
 
@@ -88,10 +90,27 @@ def test_predictor_gathers_the_full_matrix(tiny):
 
 
 def test_predictor_without_full_scores_raises(tiny):
+    """A task without ``full_scores`` takes the per-batch path: chunks of
+    ``batch_size`` padded with node 0, only the real rows returned.  (The
+    GCN is row-local, so its rows equal the full matrix's.)"""
     _, task, model = tiny
-    pred = Predictor(Task(forward=task.forward), model)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pred.log_scores([0])
+    calls = []
+
+    def forward(model, batch_idx, *, train):
+        calls.append((batch_idx.clone(), train))
+        return task.forward(model, batch_idx, train=train)
+
+    pred = Predictor(Task(forward=forward), model, batch_size=16)
+    nodes = np.asarray([5, 0, 59, 17] * 9 + [3], np.int32)  # 37 nodes
+    log_p = pred.log_scores(nodes)
+    assert log_p.shape == (37, 5) and pred._full is None
+    full = task.full_scores(model).numpy()
+    np.testing.assert_allclose(log_p, full[nodes], rtol=1e-6, atol=1e-6)
+    assert [len(b) for b, _ in calls] == [16, 16, 16]
+    assert not any(train for _, train in calls)
+    assert calls[2][0][:5].tolist() == nodes[32:].tolist()
+    assert not calls[2][0][5:].any()  # padded with node 0
+    assert pred.log_scores([]).shape == (0, 0)
 
 
 def test_checkpoint_round_trip_is_bit_exact(tiny, tmp_path):
@@ -258,11 +277,99 @@ def test_cli_predict(tmp_path, capsys):
 
 @pytest.mark.parametrize("cmd", ["predict", "serve"])
 def test_cli_refuses_unported_models_and_missing_checkpoint(cmd, capsys):
-    assert cli.main([cmd, "--model", "msha", "--checkpoint_dir", "x",
+    assert cli.main([cmd, "--model", "gat", "--checkpoint_dir", "x",
                      "--device", "cpu"]) == 2
-    assert "msha_gnn_torch serves: gcn" in capsys.readouterr().err
+    assert ("msha_gnn_torch serves: msha, ours, ablation1, ablation2, "
+            "ablation3, gcn") in capsys.readouterr().err
     assert cli.main([cmd, "--model", "gcn", "--device", "cpu"]) == 2
     assert "requires --checkpoint_dir" in capsys.readouterr().err
+
+
+def _msha_setup(tmp_path, model):
+    """A dataset, a checkpoint of ``model`` (an MSHA preset) at the CLI's
+    widths below, and the Predictor of the saved model."""
+    a = flow_arrays(7)
+    data_dir = write_data_dir(tmp_path / "data", a)
+    cfg = TrainConfig(model=model, data_dir=data_dir, in_features=8,
+                      out_features=4, checkpoint_dir=str(tmp_path / "ckpt"))
+    task, saved = cli._build_task(cfg, load_flow_graph("2015", data_dir),
+                                  "cpu")
+    save_checkpoint(cfg.checkpoint_dir, saved, step=3)
+    return a, cfg, Predictor(task, saved, batch_size=32)
+
+
+MSHA_ARGS = ["--in_features", "8", "--out_features", "4", "--predict_batch",
+             "32", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("model", ["msha", "ablation3"])
+def test_cli_predict_msha(tmp_path, capsys, model):
+    """``cli predict --model msha`` takes the per-batch path (chunks of
+    ``--predict_batch``), ``--model ablation3`` the cached full matrix."""
+    _, cfg, pred = _msha_setup(tmp_path, model)
+    assert (pred.task.full_scores is None) == (model == "msha")
+    out = str(tmp_path / "cli.jsonl")
+    nodes = [0, 7, 33, 59, 2]
+    args = ["predict", "--model", model, "--data_dir", cfg.data_dir,
+            "--checkpoint_dir", cfg.checkpoint_dir, "--nodes",
+            ",".join(map(str, nodes)), "--top_k", "3", "--output", out,
+            *MSHA_ARGS]
+    assert cli.main(args) == 0
+    assert json.loads(capsys.readouterr().out) == {
+        "nodes": 5, "checkpoint_step": 3, "output": out}
+    lines = [json.loads(l) for l in open(out, encoding="utf-8")]
+    want = pred.top_k(nodes, k=3, class_names=dict(enumerate(PROVINCES)))
+    assert [l["node"] for l in lines] == nodes
+    for line, w in zip(lines, want):
+        assert [e["class"] for e in line["top"]] == \
+            [e["class"] for e in w["top"]]
+        assert line["top"][0]["name"] == w["top"][0]["name"]
+        np.testing.assert_allclose([e["p"] for e in line["top"]],
+                                   [e["p"] for e in w["top"]], rtol=1e-6)
+
+
+@pytest.mark.parametrize("model", ["msha", "ablation3"])
+def test_cli_serve_msha(tmp_path, monkeypatch, model):
+    """``cli serve --model msha`` builds the service from the checkpoint;
+    one ``/v1/predict`` and one ``/v1/scores`` over HTTP, then the server
+    stops."""
+    import msha_gnn_torch.server as server
+
+    a, cfg, pred = _msha_setup(tmp_path, model)
+    answers = {}
+
+    def serve_once(service, host, port):
+        httpd = make_server(service, host, 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://{host}:{httpd.server_address[1]}"
+        try:
+            answers["predict"] = _post(url + "/v1/predict",
+                                       {"nodes": [1, 4], "k": 2})
+            answers["scores"] = _post(url + "/v1/scores", {"nodes": [1, 4]})
+            answers["meta"] = _get(url + "/v1/metadata")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+        assert not thread.is_alive()
+
+    monkeypatch.setattr(server, "serve", serve_once)
+    args = ["serve", "--model", model, "--data_dir", cfg.data_dir,
+            "--checkpoint_dir", cfg.checkpoint_dir, *MSHA_ARGS]
+    assert cli.main(args) == 0
+    code, body = answers["predict"]
+    assert code == 200 and [r["node"] for r in body["results"]] == [1, 4]
+    assert body["results"][0]["top"][0]["name"] in PROVINCES
+    code, body = answers["scores"]
+    assert code == 200
+    np.testing.assert_allclose(np.asarray(body["log_scores"], np.float32),
+                               pred.log_scores([1, 4]), rtol=1e-6,
+                               atol=1e-6)
+    code, body = answers["meta"]
+    assert code == 200 and body["model"] == model
+    assert body["batch_size"] == 32 and body["checkpoint_step"] == 3
+    assert body["cached_full_scores"] is (model == "ablation3")
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(tiny, tmp_path):
@@ -276,8 +383,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tiny, tmp_path):
     fg = make_flow(tg, a)
     cfg = TrainConfig(model="gcn", checkpoint_dir=str(tmp_path),
                       data_dir=write_data_dir(tmp_path / "data", a))
+    msha_cfg = dataclasses.replace(cfg, model="msha")
     for call in (lambda: resolve_device(),
                  lambda: gcn_task(fg),
+                 lambda: msha_task(fg),
+                 lambda: run_predict(msha_cfg, "0", 1, None),
                  lambda: flow_inputs(fg),
                  lambda: SpmmOperator(fg.inter),
                  lambda: run_predict(cfg, "0", 1, None)):
