@@ -7,7 +7,8 @@ Phases, each reported on its own lines; any failure exits non-zero:
 1. the card's name and power limit (``nvidia-smi``); TF32 off, stated.
 2. build every CUDA kernel of the port from ``msha_gnn_torch/csrc``.
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes the GCN serving path gives it, on a synthetic flow graph of the
+   shapes the GCN serving path and a GCN training step (the forwards and
+   their x gradients) give it, on a synthetic flow graph of the
    2015 data's shape (39,179 sources, 32 recipients, 233,887 records):
    error, median time of kernel / plain version / one PyTorch library call
    (a yardstick the port never calls), and the bytes-or-operations bound.
@@ -109,6 +110,22 @@ over the same 20 calls, as is their library yardstick.
    against the CPU, one ``/v1/predict`` over HTTP for each, and the other
    three presets served once against the CPU.  Float32 matmuls stay at
    full precision (TF32 off, the default; asserted).
+10. flow-model training on the same graph, written to a temporary data
+   directory in the loader's format.  10a: ``cli train --model gcn
+   --epochs 1 --in_features 128`` (3,290 steps of 64), then ``cli eval``
+   and ``cli predict`` on its checkpoint, each with exact ``csr_spmm_f32``
+   launches (a step 2 plain + 2 transposed, the forwards' and the x
+   gradients', an evaluation or a fill 1 + 1); one step's launches split
+   into forward and backward; the step's wall p50, device kernels, device
+   time and idle share (20 timed steps, then ``torch.profiler`` over 20,
+   after 5 of warm-up). 10b: MSHA at ``TrainConfig()`` through the same
+   task, state and trainer, capped at 64 steps (one dispatch chunk; a
+   full epoch is 3,290) and an evaluation of 1,024 test records (16
+   padded batches), launching none of the port's kernels; its step as in
+   10a. 10c: 8 steps of GCN and of ablation3 at dropout 0 on the card and
+   on the CPU from the same weights and batches (losses, parameters), and
+   two runs at dropout 0.5 from one seed (GCN bit for bit; MSHA's
+   ``index_add_`` atomics bound stated).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -119,6 +136,7 @@ from __future__ import annotations
 
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -145,6 +163,30 @@ MSHA_RTOL, MSHA_ATOL = 1e-4, 1e-5      # MSHA log-scores, card vs CPU
 # by index_add_, whose float atomics add in another order each launch
 MSHA_REPEAT_RTOL, MSHA_REPEAT_ATOL = 1e-5, 1e-6
 PREDICT_BATCH = 1024                   # the CLI's --predict_batch
+# flow training: card vs CPU from one state, at dropout 0, per-step losses
+# (float32 sums in another order, through Adam steps) and parameters (Adam
+# divides by the root of the second moment, so last-bit differences of
+# small gradients move an update by a fraction of lr = 1e-3)
+TRAIN_LOSS_RTOL, TRAIN_LOSS_ATOL = 1e-4, 1e-5
+TRAIN_PARAM_ATOL = 1e-4                # plus Adam's share, card_against_cpu
+# each step's gradients, card vs CPU, as a share of the model's largest:
+# ablation3's norms take sums over 39,179 rows whose inputs reach the
+# hundreds, and two summation orders on the CPU alone (one thread against
+# eight) put its gradients 3.1e-4 of the largest apart
+TRAIN_GRAD_REL = 1e-3
+# the norms' running statistics: means and variances of sums over N rows
+# (variances in the hundreds), float32 in another order, so relative
+TRAIN_STATS_RTOL = 1e-4
+CARD_CPU_STEPS = 8
+# a training step's device kernels by kind, the first match in order
+STEP_GROUPS = (("port kernels", ("csr_spmm", "fixup")),
+               ("adam (foreach)", ("multi_tensor_apply",)),
+               ("gemm", ("gemm",)),
+               ("indexing", ("index", "gather", "scatter")),
+               ("reductions", ("reduce_kernel",)),
+               ("elementwise", ("elementwise",)))
+# MSHA's training at defaults, capped (a full epoch is 3,290 steps)
+MSHA_STEPS, MSHA_TRAIN_IDS, MSHA_TEST_IDS = 64, 4096, 1024
 
 LP_SEED = 42                           # the linkpred CLI's default seed
 LP_D = 64                              # LinkPredConfig().hidden
@@ -257,16 +299,22 @@ def spmm_bound(ptr, col, x, n_rows, weighted=True):
 
 
 def phase_kernels(op, fg):
-    """Phase 3: csr_spmm_f32 vs its plain version at the two GCN shapes."""
+    """Phase 3: csr_spmm_f32 vs its plain version at the two GCN shapes,
+    for the forwards and for a training step's x gradients."""
     from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     cases = [
-        # (entry, TPU kernel replaced, transpose, x rows)
+        # (entry, TPU kernel replaced, transpose, x rows): the two forwards
+        # and, in a training step, their x gradients (the other direction)
         ("csr_spmm_f32[gc1 A^T x]",
          "msha_gnn_tpu/ops/pallas/spmm.py:244 _visit_kernel", True, fg.n_src),
         ("csr_spmm_f32[gc2 A x]",
          "msha_gnn_tpu/ops/pallas/spmm.py:747 _hub_kernel", False, fg.n_dst),
+        ("csr_spmm_f32[gc2 dx A^T g]",
+         "msha_gnn_tpu/ops/pallas/spmm.py:244 _visit_kernel", True, fg.n_src),
+        ("csr_spmm_f32[gc1 dx A g]",
+         "msha_gnn_tpu/ops/pallas/spmm.py:244 _visit_kernel", False, fg.n_dst),
     ]
     results = []
     for name, replaces, transpose, n_in in cases:
@@ -2186,6 +2234,375 @@ def phase_msha(fg):
     return summary
 
 
+def write_flow_dir(fg, path, year="2015"):
+    """The loader's three files (``Adjacent``, ``GDP``, ``Flow``) for the
+    flow graph ``fg``; recipients are named ``P<j>``."""
+    os.makedirs(path, exist_ok=True)
+    city = fg.city.group_id.numpy()
+    prov = fg.province.group_id.numpy()
+    adj = {"source_index": {str(i): [int(c), int(p)]
+                            for i, (c, p) in enumerate(zip(city, prov))},
+           "recipient_index": {f"P{j}": j for j in range(fg.n_dst)}}
+    with open(os.path.join(path, f"Adjacent{year}.json"), "wb") as f:
+        f.write(json.dumps(adj).encode("gbk"))
+    gdp = {"GDP_embedding": {str(i): float(v)
+                             for i, v in enumerate(fg.gdp.numpy())}}
+    with open(os.path.join(path, f"GDP{year}.json"), "wb") as f:
+        f.write(json.dumps(gdp).encode("gbk"))
+    src, dst = fg.edge_src.numpy(), fg.edge_dst.numpy()
+    np.savetxt(os.path.join(path, f"Flow{year}.csv"),
+               np.stack([src, dst, city[src], prov[src]], axis=1),
+               fmt="%d", delimiter=",",
+               header="source,recipient,city,province", comments="")
+    return path
+
+
+def all_spmm_ops():
+    """Every cached SpmmOperator (the CLI builds its graph's own)."""
+    from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
+
+    return [op for _, op in cuda_spmm._OPS.values()
+            if isinstance(op, cuda_spmm.SpmmOperator)]
+
+
+def stacked_batches(trainer, ids, seed):
+    """An epoch's batches of ``ids`` as the trainer makes them, on the
+    card: ``[(src [B], labels [B], weights [B]), ...]``."""
+    from msha_gnn_torch.training.trainer import _stacked_batches
+
+    idx, w = _stacked_batches(len(ids), trainer.batch_size, shuffle=True,
+                              rng=np.random.default_rng(seed))
+    rec = ids[idx]
+    src = torch.from_numpy(trainer.src[rec].astype(np.int64)).to(DEVICE)
+    lab = torch.from_numpy(trainer.labels[rec].astype(np.int64)).to(DEVICE)
+    return list(zip(src, lab, torch.from_numpy(w).to(DEVICE)))
+
+
+def profile_steps(name, step, state, batches, generator):
+    """Step wall p50 (20 timed steps, each ended by a synchronise, after 5
+    of warm-up), then ``torch.profiler`` over 20 steps: device kernels a
+    step, device ms a step and the idle share of their wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from msha_gnn_torch.utils import StepTimer
+
+    if len(batches) < 46:
+        raise AssertionError(f"{name}: {len(batches)} batches, want 46")
+    for b in batches[:5]:
+        step(state, *b, generator)
+    timer = StepTimer()
+    for b in batches[5:26]:
+        with timer.step():
+            step(state, *b, generator)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[26:46]:
+            step(state, *b, generator)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_card = [evt for evt in prof.key_averages()
+               if evt.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(evt, "is_user_annotation", False)]
+    busy_us = sum(getattr(evt, "self_device_time_total", 0.0)
+                  or getattr(evt, "self_cuda_time_total", 0.0)
+                  for evt in on_card)
+    out = {"step_wall_ms_p50": statistics.median(timer.times) * 1e3,
+           "device_kernels_per_step": sum(e.count for e in on_card) / 20,
+           "device_ms_per_step": busy_us / 1e3 / 20 if busy_us else None,
+           "device_idle_share": (max(0.0, 1 - busy_us / 1e3 / wall_ms)
+                                 if busy_us else None),
+           "profiled_wall_ms_per_step": wall_ms / 20}
+    def us(evt):
+        return (getattr(evt, "self_device_time_total", 0.0)
+                or getattr(evt, "self_cuda_time_total", 0.0))
+
+    groups = {}
+    for evt in on_card:
+        key = evt.key.lower()
+        kind = next((k for k, words in STEP_GROUPS if any(
+            w in key for w in words)), "other")
+        n, t = groups.get(kind, (0, 0.0))
+        groups[kind] = (n + evt.count / 20, t + us(evt) / 20)
+    for kind, (n, t) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
+        log(f"    {name} device: {kind}: {t:.2f} us, {n} kernels a step")
+    for evt in sorted(on_card, key=lambda e: -us(e))[:6]:
+        short = evt.key.replace("void ", "").replace(
+            "at::native::", "").replace("(anonymous namespace)::", "")
+        log(f"    {name} device: {us(evt) / 20:.2f} us, {evt.count / 20} a "
+            f"step: {short[:150]}")
+    out["device_us_by_kind"] = {k: t for k, (_, t) in groups.items()}
+    log(f"  {name} step: {json.dumps(out)}")
+    return out
+
+
+def card_against_cpu(name, fg, batches):
+    """Phase 10c: ``name`` at dropout 0 on the card and on the CPU from the
+    same weights, the same batches in lockstep.  Each step's loss at
+    ``TRAIN_LOSS_*``; each step's gradients within ``TRAIN_GRAD_REL`` of
+    the model's largest gradient; the running statistics at
+    ``TRAIN_STATS_RTOL``; each parameter at ``TRAIN_PARAM_ATOL`` plus what
+    Adam makes of the gradients' measured difference.  Adam steps by
+    ``lr m / sqrt(v)``: a gradient difference ``delta`` moves a step by at
+    most about ``2 lr delta / sqrt(v)``, never more than ``2 lr``, so a
+    coordinate whose gradient is near float32 noise (MSHA's output
+    attention ``a``, whose row-constant part the row softmax cancels)
+    moves apart by up to ``lr`` a step while a well-conditioned one stays
+    within ``TRAIN_PARAM_ATOL``."""
+    import dataclasses
+
+    from msha_gnn_torch.cli import _build_task
+    from msha_gnn_torch.training import TrainState, make_train_step
+    from msha_gnn_torch.utils import TrainConfig
+
+    cfg = dataclasses.replace(TrainConfig(), model=name, in_features=NFEAT,
+                              dropout=0.0)
+    (task_k, model_k), (task_c, model_c) = (_build_task(cfg, fg, DEVICE),
+                                            _build_task(cfg, fg, "cpu"))
+    model_c.load_state_dict({k: v.cpu() for k, v in
+                             model_k.state_dict().items()})
+    state_k = TrainState.create(model_k, task_k.optimizer)
+    state_c = TrainState.create(model_c, task_c.optimizer)
+    step_k, step_c = make_train_step(task_k), make_train_step(task_c)
+    beta2 = state_c.optimizer.defaults["betas"][1]
+    eps = state_c.optimizer.defaults["eps"]
+    allow = {n: torch.full_like(p, TRAIN_PARAM_ATOL)
+             for n, p in model_c.named_parameters()}
+    card, cpu, grad_err = [], [], 0.0
+    for t, b in enumerate(batches, 1):
+        card.append(float(step_k(state_k, *b)))
+        cpu.append(float(step_c(state_c, *(x.cpu() for x in b))))
+        pairs = [(n, pk.grad.cpu(), pc) for (n, pk), pc in
+                 zip(model_k.named_parameters(), model_c.parameters())]
+        scale = max(float(pc.grad.abs().max()) for _, _, pc in pairs)
+        for n, gk, pc in pairs:
+            delta = float((gk - pc.grad).abs().max())
+            grad_err = max(grad_err, delta / scale)
+            v_hat = state_c.optimizer.state[pc]["exp_avg_sq"] / (1 - beta2 ** t)
+            allow[n] += cfg.lr * torch.clamp(
+                2 * delta / (v_hat.sqrt() + eps), max=2.0)
+    sd_k = {k: v.cpu() for k, v in model_k.state_dict().items()}
+    sd_c = model_c.state_dict()
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    worst, widened = {}, 0
+    for n, p in model_c.named_parameters():
+        err = (sd_k[n] - p.detach()).abs()
+        worst[n] = (float(err.max()), float((err / allow[n]).max()))
+        widened += int((allow[n] > 2 * TRAIN_PARAM_ATOL).sum())
+    stats = [k for k in sd_c if k not in allow]
+    stats_err = max((float(((sd_k[k] - sd_c[k]).abs()
+                            / sd_c[k].abs().clamp_min(1e-6)).max())
+                     for k in stats), default=0.0)
+    log(f"  {name}, {len(batches)} steps: losses card {card[0]:.7f} .. "
+        f"{card[-1]:.7f}, max rel err vs CPU {loss_err:.3e} (rtol "
+        f"{TRAIN_LOSS_RTOL}, atol {TRAIN_LOSS_ATOL}); gradients max abs err "
+        f"{grad_err:.3e} of the largest (bound {TRAIN_GRAD_REL}); "
+        f"{len(stats)} running statistics max rel err {stats_err:.3e} (rtol "
+        f"{TRAIN_STATS_RTOL})")
+    for n, (err, used) in worst.items():
+        log(f"    {name} {n}: max abs err {err:.3e}, {used:.3f} of its bound")
+    log(f"    {name}: {widened} coordinates with a bound above "
+        f"{2 * TRAIN_PARAM_ATOL} (near-noise gradients)")
+    np.testing.assert_allclose(card, cpu, rtol=TRAIN_LOSS_RTOL,
+                               atol=TRAIN_LOSS_ATOL, err_msg=name)
+    if grad_err > TRAIN_GRAD_REL:
+        raise AssertionError(f"{name}: gradients card vs CPU")
+    bad = [n for n, (_, used) in worst.items() if used > 1.0]
+    if bad:
+        raise AssertionError(f"{name}: parameters card vs CPU: {bad}")
+    for k in stats:
+        torch.testing.assert_close(sd_k[k], sd_c[k], rtol=TRAIN_STATS_RTOL,
+                                   atol=1e-6,
+                                   msg=lambda m, k=k: f"{name} {k}: {m}")
+
+
+def phase_train(fg):
+    """Phase 10: flow-model training at full width on the card.  Returns
+    the csr_spmm_f32 launches of its GCN runs: ``{"fwd_plain",
+    "fwd_transposed", "bwd_plain", "bwd_transposed"}``."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from msha_gnn_torch import cli
+    from msha_gnn_torch.cli import _build_task
+    from msha_gnn_torch.data import train_test_split_records
+    from msha_gnn_torch.ops.cuda.spmm import operator_for
+    from msha_gnn_torch.training import (Trainer, TrainState,
+                                         make_train_step)
+    from msha_gnn_torch.utils import TrainConfig
+
+    n_train = int(TrainConfig().train_fraction * fg.num_records)
+    steps = -(-n_train // TrainConfig().batch_size)
+    src, labels = fg.edge_src.numpy(), fg.edge_dst.numpy()
+    train_ids, test_ids = train_test_split_records(
+        fg.num_records, TrainConfig().train_fraction, TrainConfig().seed)
+
+    log(f"phase 10a: cli train / eval / predict --model gcn, in_features "
+        f"{NFEAT}, 1 epoch of {steps} steps of {TrainConfig().batch_size}")
+    gcn = {}
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        data = write_flow_dir(fg, os.path.join(td, "data"))
+        log(f"  wrote the graph in the loader's format: "
+            f"{time.perf_counter() - t0:.2f} s")
+        ckpt, train_log = os.path.join(td, "ckpt"), os.path.join(td, "log")
+        common = ["--model", "gcn", "--in_features", str(NFEAT),
+                  "--data_dir", data, "--checkpoint_dir", ckpt]
+        runs = (("train", ["--epochs", "1", "--log_path", train_log]),
+                ("eval", []), ("predict", ["--nodes", "0,1,2"]))
+        for cmd, extra in runs:
+            ops = all_spmm_ops()
+            for op in ops:
+                zero_counts(op)
+            zero_counts()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main([cmd, *common, *extra])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = read_counts()
+            transposed = sum(op.launches_transposed for op in
+                             {id(o): o for o in ops + all_spmm_ops()}
+                             .values())
+            lines = out.getvalue().strip().splitlines()
+            log(f"  cli {cmd}: exit {rc}, {secs:.2f} s, csr_spmm_f32 "
+                f"{counts['csr_spmm_f32']} ({transposed} transposed); "
+                f"last line {lines[-1] if lines else None}")
+            if rc != 0:
+                raise AssertionError(f"cli {cmd} exited {rc}")
+            # a step: 2 plain + 2 transposed; each command evaluates or
+            # fills once: 1 + 1
+            want_total = (4 * steps if cmd == "train" else 0) + 2
+            want_t = (2 * steps if cmd == "train" else 0) + 1
+            want = {k: v for k, v in
+                    expected(csr_spmm_f32=want_total).items() if k in counts}
+            if counts != want or transposed != want_t:
+                raise AssertionError(
+                    f"cli {cmd}: {counts}, {transposed} transposed; want "
+                    f"csr_spmm_f32 {want_total}, {want_t} transposed")
+            gcn[cmd] = {"seconds": secs, "launches": want_total,
+                        "transposed": transposed, "last": lines[-1]}
+        with open(train_log) as f:
+            events = [json.loads(line) for line in f]
+        epoch = next(e for e in events if e["event"] == "train_epoch")
+        report = json.loads(gcn["train"]["last"])
+        evaluated = json.loads(gcn["eval"]["last"])
+        if evaluated["checkpoint_step"] != steps or not all(
+                np.isfinite(v) for v in report.values()):
+            raise AssertionError(f"train {report}, eval {evaluated}")
+        for k in ("auc", "accuracy", "loss"):
+            if not np.isclose(evaluated[k], report[k], rtol=1e-5):
+                raise AssertionError(f"eval of the checkpoint: {k} "
+                                     f"{evaluated[k]} vs {report[k]}")
+        if json.loads(gcn["predict"]["last"])["nodes"] != 3:
+            raise AssertionError(f"predict: {gcn['predict']['last']}")
+        log(f"  gcn epoch: {epoch['seconds']:.2f} s for {steps} steps "
+            f"(train_epoch event); report {json.dumps(report)}")
+
+    # one step's launches split into forward and backward, then the step's
+    # wall, kernels and device time, through the trainer cmd_train builds
+    cfg = dataclasses.replace(TrainConfig(), model="gcn", in_features=NFEAT)
+    task, model = _build_task(cfg, fg, DEVICE)
+    op = operator_for(task.graph)
+    state = TrainState.create(model, task.optimizer)
+    trainer = Trainer(task=task, src=src, labels=labels, seed=cfg.seed)
+    batches = stacked_batches(trainer, train_ids, cfg.seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(cfg.seed)
+    zero_counts(op)
+    scores, _ = task.forward(model, batches[0][0], train=True, generator=gen)
+    fwd = read_counts(op)
+    task.loss_fn(scores, batches[0][1], batches[0][2]).backward()
+    torch.cuda.synchronize()
+    both = read_counts(op)
+    model.zero_grad(set_to_none=True)
+    split = {"fwd_plain": fwd["csr_spmm_f32"] - fwd["csr_spmm_f32 transposed"],
+             "fwd_transposed": fwd["csr_spmm_f32 transposed"],
+             "bwd_plain": (both["csr_spmm_f32"] - fwd["csr_spmm_f32"]
+                           - both["csr_spmm_f32 transposed"]
+                           + fwd["csr_spmm_f32 transposed"]),
+             "bwd_transposed": (both["csr_spmm_f32 transposed"]
+                                - fwd["csr_spmm_f32 transposed"])}
+    log(f"  one gcn step's csr_spmm_f32 launches: {split}")
+    if split != dict.fromkeys(split, 1) or \
+            both != expected(csr_spmm_f32=4, csr_spmm_f32_transposed=2):
+        raise AssertionError(f"a gcn step launched {both}, split {split}")
+    step = make_train_step(task)
+    zero_counts(op)
+    step(state, *batches[0], gen)
+    torch.cuda.synchronize()
+    if read_counts(op) != both:
+        raise AssertionError(f"the trainer's step launched {read_counts(op)}")
+    summary = {"gcn": profile_steps("gcn", step, state, batches[1:], gen)}
+    summary["gcn"]["epoch_s"] = epoch["seconds"]
+    launches = {k: v * steps for k, v in split.items()}
+    for k in ("fwd_plain", "fwd_transposed"):  # the evaluations and fill
+        launches[k] += 3
+
+    log(f"phase 10b: msha at TrainConfig() defaults, {MSHA_STEPS} steps "
+        f"(one dispatch chunk) on the first {MSHA_TRAIN_IDS} train ids, "
+        f"evaluation on the first {MSHA_TEST_IDS} test ids; capped: a full "
+        f"epoch is {steps} steps")
+    cfg = TrainConfig()
+    task, model = _build_task(cfg, fg, DEVICE)
+    state = TrainState.create(model, task.optimizer)
+    trainer = Trainer(task=task, src=src, labels=labels, seed=cfg.seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(cfg.seed)
+    zero_counts()
+    t0 = time.perf_counter()
+    state, loss = trainer.train_epoch(state, train_ids[:MSHA_TRAIN_IDS], gen,
+                                      0)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report = trainer.evaluate(state, test_ids[:MSHA_TEST_IDS])
+    eval_s = time.perf_counter() - t0
+    if any(read_counts().values()):
+        raise AssertionError(f"the msha path launched a kernel: "
+                             f"{read_counts()}")
+    if state.step != MSHA_STEPS or not np.isfinite(loss) or not all(
+            np.isfinite(report[k]) for k in ("auc", "accuracy", "loss")):
+        raise AssertionError(f"msha: {state.step} steps, loss {loss}, "
+                             f"report {report}")
+    log(f"  msha: {MSHA_STEPS} steps {train_s:.2f} s, loss {loss:.5f}; "
+        f"evaluation ({MSHA_TEST_IDS // cfg.batch_size} padded batches) "
+        f"{eval_s:.2f} s: {json.dumps(report)}; none of the port's kernels "
+        "launched")
+    summary["msha"] = profile_steps(
+        "msha", make_train_step(task), state,
+        stacked_batches(trainer, train_ids[:64 * 47], cfg.seed), gen)
+
+    log("phase 10c: card against CPU, the same initial weights and batches "
+        "at dropout 0; then two runs at dropout 0.5 from one seed")
+    for name in ("gcn", "ablation3"):
+        card_against_cpu(name, fg, batches[:CARD_CPU_STEPS])
+    for name in ("gcn", "msha"):
+        cfg = dataclasses.replace(TrainConfig(), model=name,
+                                  in_features=NFEAT)
+        runs = []
+        for _ in range(2):
+            task, model = _build_task(cfg, fg, DEVICE)
+            state = TrainState.create(model, task.optimizer)
+            step = make_train_step(task)
+            gen = torch.Generator(device=DEVICE).manual_seed(cfg.seed)
+            runs.append([float(step(state, *b, gen))
+                         for b in batches[:CARD_CPU_STEPS]])
+        err = max(abs(a - b) / abs(b) for a, b in zip(*runs))
+        log(f"  {name} at dropout {cfg.dropout}, two runs from seed "
+            f"{cfg.seed}: {CARD_CPU_STEPS} step losses "
+            f"{'bit-equal' if runs[0] == runs[1] else 'differ'}, max rel "
+            f"diff {err:.3e}")
+        if name == "gcn" and runs[0] != runs[1]:
+            raise AssertionError("gcn: two runs from one seed differ")
+        if err > TRAIN_LOSS_RTOL:
+            raise AssertionError(f"{name}: two runs from one seed differ by "
+                                 f"{err:.3e}")
+    log(f"  flow training: {json.dumps(summary)}")
+    return launches
+
+
 def dense_reference(fg, model):
     """Float64 dense GCN forward from the model's weights (numpy)."""
     from msha_gnn_torch import normalize_by_dst_degree
@@ -2398,10 +2815,7 @@ def main() -> int:
     logits_kernel = phase_rank1_logits(split)
 
     log("phase 4: GCN serving path")
-    launches = phase_slice(fg)
-    for k in kernels:
-        k["launches"] = launches["transposed" if k.pop("transpose")
-                                 else "plain"]
+    fill = phase_slice(fg)
 
     log("phase 5: linkpred training path (LinkPredConfig defaults)")
     step, evaluation, fused_losses = phase_linkpred(split, "fused")
@@ -2461,6 +2875,21 @@ def main() -> int:
 
     log("phase 9: MSHA serving path (TrainConfig defaults)")
     phase_msha(fg)
+
+    log("phase 10: flow-model training (cli train / eval, TrainConfig "
+        "defaults)")
+    trained = phase_train(fg)
+    # the GCN forwards: a serving fill and the training runs' forwards; the
+    # x gradients: the training steps
+    per_name = {
+        "csr_spmm_f32[gc1 A^T x]": fill["transposed"]
+        + trained["fwd_transposed"],
+        "csr_spmm_f32[gc2 A x]": fill["plain"] + trained["fwd_plain"],
+        "csr_spmm_f32[gc2 dx A^T g]": trained["bwd_transposed"],
+        "csr_spmm_f32[gc1 dx A g]": trained["bwd_plain"]}
+    for k in kernels[:4]:
+        del k["transpose"]
+        k["launches"] = per_name[k["name"]]
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{kernels}")

@@ -1,11 +1,13 @@
 """Command-line entry points: ``python -m msha_gnn_torch.cli <cmd>``.
 
 Commands of ``msha_gnn_tpu/cli.py`` with the same flags, plus
-``--device``: ``predict`` (batch inference from a checkpoint), ``serve``
-(HTTP server from a checkpoint) and ``linkpred`` (ogbl-ddi-style link
-prediction, trained and evaluated).  The port serves the models in
-:data:`PORTED_MODELS`; any other model, and any ``linkpred`` option that is
-not ported, exits with code 2.
+``--device``: ``train`` (flow classification: train, evaluate every epoch,
+optionally checkpoint), ``eval`` (evaluate a checkpoint), ``predict``
+(batch inference from a checkpoint), ``serve`` (HTTP server from a
+checkpoint) and ``linkpred`` (ogbl-ddi-style link prediction, trained and
+evaluated).  The port has the models in :data:`PORTED_MODELS`; any other
+model, ``train --years`` and any ``linkpred`` option that is not ported
+exit with code 2.
 """
 
 from __future__ import annotations
@@ -48,34 +50,106 @@ def _build_task(cfg, fg, device="cuda"):
         n_heads = flags.pop("n_heads", cfg.n_heads)
         return msha_task(fg, in_features=cfg.in_features,
                          out_features=cfg.out_features, n_heads=n_heads,
-                         dropout=cfg.dropout, seed=cfg.seed, device=device,
-                         **flags)
+                         dropout=cfg.dropout, lr=cfg.lr,
+                         weight_decay=cfg.weight_decay, seed=cfg.seed,
+                         device=device, **flags)
     if cfg.model == "gcn":
         return gcn_task(fg, nfeat=cfg.in_features, dropout=cfg.dropout,
+                        lr=cfg.lr, weight_decay=cfg.weight_decay,
                         seed=cfg.seed, device=device)
     return None
 
 
-def _serving_config(args, cmd: str):
+def _ported_config(args, cmd: str, needs_checkpoint: bool = True):
     """The config of ``args``, or None after a message on stderr."""
     from .utils import TrainConfig
 
     cfg = _config_from_args(TrainConfig, args)
     if cfg.model not in PORTED_MODELS:
-        print(f"model {cfg.model!r} is not ported; msha_gnn_torch serves: "
+        verb = "trains" if cmd in ("train", "eval") else "serves"
+        print(f"model {cfg.model!r} is not ported; msha_gnn_torch {verb}: "
               f"{', '.join(PORTED_MODELS)}", file=sys.stderr)
         return None
-    if not cfg.checkpoint_dir:
+    if needs_checkpoint and not cfg.checkpoint_dir:
         print(f"{cmd} requires --checkpoint_dir", file=sys.stderr)
         return None
     return cfg
+
+
+def cmd_train(args) -> int:
+    """Train a flow model, evaluating after every epoch; prints the last
+    epoch's record as JSON and, with ``--checkpoint_dir``, saves the
+    model, its optimiser and the step."""
+    from .data import load_flow_graph, train_test_split_records
+    from .training import Trainer, TrainState, save_checkpoint
+    from .utils import JsonlLogger
+
+    cfg = _ported_config(args, "train", needs_checkpoint=False)
+    if cfg is None:
+        return 2
+    if [y for y in (cfg.years or "").split(",") if y]:
+        print("not ported: --years (joint multi-year training, "
+              "training/temporal.py)", file=sys.stderr)
+        return 2
+    log = JsonlLogger(cfg.log_path)
+    fg = load_flow_graph(cfg.year, cfg.data_dir)
+    log({"event": "data", "n": fg.n_src, "m": fg.n_dst,
+         "records": fg.num_records, "edges": fg.inter.num_edges})
+    if fg.num_records == 0:
+        print(
+            f"year {cfg.year} has no Flow records in {cfg.data_dir} "
+            "(Flow2016-2018.csv are absent upstream — see "
+            ".MISSING_LARGE_BLOBS); only 2015 is trainable as shipped",
+            file=sys.stderr,
+        )
+        return 2
+    task, model = _build_task(cfg, fg, args.device)
+    train_ids, test_ids = train_test_split_records(
+        fg.num_records, cfg.train_fraction, cfg.seed)
+    state = TrainState.create(model, task.optimizer)
+    trainer = Trainer(task=task, src=fg.edge_src.numpy(),
+                      labels=fg.edge_dst.numpy(), batch_size=cfg.batch_size,
+                      seed=cfg.seed, log=log)
+    state, history = trainer.fit(state, train_ids, test_ids, cfg.epochs,
+                                 profile_dir=cfg.profile_dir)
+    if cfg.checkpoint_dir:
+        save_checkpoint(cfg.checkpoint_dir, state, step=state.step)
+    print(json.dumps(history[-1]))
+    return 0
+
+
+def cmd_eval(args) -> int:
+    """Evaluate a checkpoint on the held-out records (no training); prints
+    the metric block and ``checkpoint_step`` as JSON."""
+    from .data import load_flow_graph, train_test_split_records
+    from .training import Trainer, TrainState, latest_step, restore_checkpoint
+
+    cfg = _ported_config(args, "eval")
+    if cfg is None:
+        return 2
+    if latest_step(cfg.checkpoint_dir) is None:
+        print(f"no checkpoint under {cfg.checkpoint_dir}", file=sys.stderr)
+        return 2
+    fg = load_flow_graph(cfg.year, cfg.data_dir)
+    task, model = _build_task(cfg, fg, args.device)
+    state, _, step = restore_checkpoint(
+        cfg.checkpoint_dir, TrainState.create(model, task.optimizer))
+    _, test_ids = train_test_split_records(
+        fg.num_records, cfg.train_fraction, cfg.seed)
+    trainer = Trainer(task=task, src=fg.edge_src.numpy(),
+                      labels=fg.edge_dst.numpy(), batch_size=cfg.batch_size,
+                      seed=cfg.seed)
+    metrics = trainer.evaluate(state, test_ids)
+    metrics["checkpoint_step"] = int(step)
+    print(json.dumps(metrics))
+    return 0
 
 
 def cmd_predict(args) -> int:
     """Batch inference from a checkpoint."""
     from .serving import run_predict
 
-    cfg = _serving_config(args, "predict")
+    cfg = _ported_config(args, "predict")
     if cfg is None:
         return 2
     summary = run_predict(cfg, nodes=args.nodes, top_k=args.top_k,
@@ -89,7 +163,7 @@ def cmd_serve(args) -> int:
     """HTTP model server from a checkpoint (see ``server.py``)."""
     from .server import run_serve
 
-    cfg = _serving_config(args, "serve")
+    cfg = _ported_config(args, "serve")
     if cfg is None:
         return 2
     run_serve(cfg, host=args.host, port=args.port,
@@ -135,6 +209,14 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="msha_gnn_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
+    p_train = sub.add_parser("train", help="train a flow model")
+    _add_dataclass_args(p_train, TrainConfig)
+    p_train.set_defaults(fn=cmd_train)
+
+    p_eval = sub.add_parser("eval", help="evaluate a checkpoint")
+    _add_dataclass_args(p_eval, TrainConfig)
+    p_eval.set_defaults(fn=cmd_eval)
+
     p_pred = sub.add_parser(
         "predict", help="batch inference from a checkpoint"
     )
@@ -173,7 +255,7 @@ def main(argv=None) -> int:
     p_lp.add_argument("--log_path", default=None)
     p_lp.set_defaults(fn=cmd_linkpred)
 
-    for p in (p_pred, p_srv, p_lp):
+    for p in (p_train, p_eval, p_pred, p_srv, p_lp):
         p.add_argument("--device", default="cuda",
                        help="torch device: cuda (default) or cpu")
 

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..graph import BipartiteGraph
-from ..ops import spmm
+from ..ops import dense, spmm
 
 
 def _uniform(shape, stdv: float, generator: Optional[torch.Generator]):
@@ -68,9 +68,13 @@ class GCN(nn.Module):
 
     def forward(self, graph: BipartiteGraph, *, train: bool = False,
                 impl: str = "torch",
-                rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                rows: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Log-probabilities ``[R, nhid]`` of ``rows`` (all N when None);
+        in training the dropout mask is drawn from ``generator``."""
         x = F.relu(self.gc1(self.features, graph, impl=impl))  # [M, nhid]
-        x = F.dropout(x, self.dropout, training=train)
+        x = dense.dropout(x, self.dropout, generator=generator,
+                          deterministic=not train)
         x = F.relu(self.gc2(x, graph, to_src=True, impl=impl))  # [N, nhid]
         if rows is not None:
             x = x[rows.long()]

@@ -1,10 +1,14 @@
-"""Checkpoints of a model's ``state_dict`` (``msha_gnn_tpu/training/
+"""Checkpoints of a model or a train state (``msha_gnn_tpu/training/
 checkpoint.py``, with ``torch.save`` in place of orbax).
 
 Layout: ``<directory>/step_<n>/state.pt`` holds ``{"step", "state_dict"}``
-with every tensor on the CPU, and ``<directory>/extra_<n>.json`` the
-optional extra dict.  The newest ``max_to_keep`` steps are kept.  Reading
-the JAX package's orbax checkpoints is not supported yet.
+and, for a :class:`~.trainer.TrainState`, ``"optimizer"`` (the
+optimiser's ``state_dict``), with every tensor on the CPU, and
+``<directory>/extra_<n>.json`` the optional extra dict.  The model's
+``state_dict`` sits under the same key either way, so a checkpoint that
+training writes restores into a bare model for serving.  The newest
+``max_to_keep`` steps are kept.  Reading the JAX package's orbax
+checkpoints is not supported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from typing import Mapping, Optional, Union
 import torch
 from torch import nn
 
+from .trainer import TrainState
+
 _STEP_DIR = re.compile(r"^step_(\d+)$")
 
 
@@ -28,16 +34,32 @@ def _steps(directory: str) -> list:
                                                 os.listdir(directory)) if m)
 
 
-def save_checkpoint(directory: str, state: Union[nn.Module, Mapping],
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def save_checkpoint(directory: str,
+                    state: Union[TrainState, nn.Module, Mapping],
                     step: int, extra: Optional[dict] = None,
                     max_to_keep: int = 3) -> None:
-    """Write ``state`` (a module or a state dict) as step ``step``."""
+    """Write ``state`` (a train state, a module or a state dict) as step
+    ``step``."""
+    payload = {"step": int(step)}
+    if isinstance(state, TrainState):
+        payload["optimizer"] = _to_cpu(state.optimizer.state_dict())
+        state = state.model
     sd = state.state_dict() if isinstance(state, nn.Module) else state
-    sd = {k: v.detach().cpu() for k, v in sd.items()}
+    payload["state_dict"] = _to_cpu(dict(sd))
     step_dir = os.path.join(os.path.abspath(directory), f"step_{int(step)}")
     os.makedirs(step_dir, exist_ok=True)
     path = os.path.join(step_dir, "state.pt")
-    torch.save({"step": int(step), "state_dict": sd}, path + ".tmp")
+    torch.save(payload, path + ".tmp")
     os.replace(path + ".tmp", path)
     if extra is not None:
         with open(os.path.join(os.path.abspath(directory),
@@ -47,17 +69,26 @@ def save_checkpoint(directory: str, state: Union[nn.Module, Mapping],
         shutil.rmtree(os.path.join(directory, f"step_{old}"))
 
 
-def restore_checkpoint(directory: str, template: nn.Module,
+def restore_checkpoint(directory: str,
+                       template: Union[TrainState, nn.Module],
                        step: Optional[int] = None):
     """Load step ``step`` (default: the latest) into ``template``, on the
-    template's device.  Returns ``(template, extra, step)``."""
+    template's device: a module's ``state_dict``, or a train state's model,
+    optimiser (when the checkpoint holds one) and step.  Returns
+    ``(template, extra, step)``."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {directory}")
     path = os.path.join(os.path.abspath(directory), f"step_{int(step)}",
                         "state.pt")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    template.load_state_dict(ckpt["state_dict"])
+    if isinstance(template, TrainState):
+        template.model.load_state_dict(ckpt["state_dict"])
+        if "optimizer" in ckpt:
+            template.optimizer.load_state_dict(ckpt["optimizer"])
+        template.step = int(ckpt["step"])
+    else:
+        template.load_state_dict(ckpt["state_dict"])
     extra = None
     extra_path = os.path.join(os.path.abspath(directory),
                               f"extra_{int(step)}.json")

@@ -2,7 +2,22 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+
+def nll_loss(log_probs: torch.Tensor, labels: torch.Tensor,
+             weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean negative log-likelihood of the integer ``labels`` [B] under
+    ``log_probs`` [B, M].  With ``weights`` [B] it is the training step's
+    weighted form ``sum(per * w) / max(sum(w), 1)``
+    (``msha_gnn_tpu/training/trainer.py:75-99``), so the rows a padded
+    batch carries with weight 0 add nothing."""
+    per = -log_probs.gather(1, labels.long()[:, None])[:, 0]
+    if weights is None:
+        return per.mean()
+    return (per * weights).sum() / weights.sum().clamp_min(1.0)
 
 
 def bce_loss(scores: torch.Tensor, targets: torch.Tensor,

@@ -3,11 +3,14 @@
 
 Each builder returns ``(task, model)``: the port's model is an
 ``nn.Module`` that holds its own parameters, where the JAX builders return
-``(task, variables, model)``.
+``(task, variables, model)``.  The task's optimiser is Adam with coupled
+L2 at ``lr`` and ``weight_decay`` (the reference's ``train.py:207``: 1e-3,
+5e-4), as a factory of the model's parameters.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -15,7 +18,12 @@ import torch
 from .. import resolve_device
 from ..graph import FlowGraph, PairGrouping, normalize_by_dst_degree
 from ..models import GCN, MSHA
+from .optim import adam_l2
 from .trainer import Task
+
+
+def _adam(lr: float, weight_decay: float):
+    return functools.partial(adam_l2, lr=lr, weight_decay=weight_decay)
 
 
 def flow_inputs(fg: FlowGraph, device="cuda"):
@@ -35,6 +43,8 @@ def msha_task(
     use_intra: bool = True,
     joint_softmax: bool = True,
     use_out_att: bool = True,
+    lr: float = 1e-3,
+    weight_decay: float = 5e-4,
     seed: int = 42,
     device="cuda",
 ):
@@ -71,7 +81,8 @@ def msha_task(
                              torch.zeros(1, dtype=torch.long, device=dev),
                              train=False)
 
-    return Task(forward=forward, full_scores=full_scores), model
+    return Task(forward=forward, optimizer=_adam(lr, weight_decay),
+                full_scores=full_scores), model
 
 
 def gcn_task(
@@ -79,6 +90,8 @@ def gcn_task(
     *,
     nfeat: int = 64,
     dropout: float = 0.5,
+    lr: float = 1e-3,
+    weight_decay: float = 5e-4,
     seed: int = 42,
     impl: str = "auto",
     device="cuda",
@@ -98,11 +111,14 @@ def gcn_task(
     model = GCN(nfeat, fg.n_dst, fg.n_dst, dropout, gdp=fg.gdp,
                 generator=gen).to(dev)
 
-    def forward(model, batch_idx, *, train):
-        return model(g_norm, train=train, impl=impl, rows=batch_idx), {}
+    def forward(model, batch_idx, *, train,
+                generator: Optional[torch.Generator] = None):
+        return model(g_norm, train=train, impl=impl, rows=batch_idx,
+                     generator=generator), {}
 
     def full_scores(model):
         with torch.inference_mode():
             return model(g_norm, train=False, impl=impl)
 
-    return Task(forward=forward, full_scores=full_scores, graph=g_norm), model
+    return Task(forward=forward, optimizer=_adam(lr, weight_decay),
+                full_scores=full_scores, graph=g_norm), model

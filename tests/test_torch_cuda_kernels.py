@@ -1386,3 +1386,82 @@ def test_spmm_dw_runs_kernel_matches_plain(d, run, group):
         sums_close(dx.cpu(), m_dx)
         torch.testing.assert_close(dw.cpu(), m_dw, rtol=1e-5,
                                    atol=1e-6 * max(1, d / 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["gcn", "msha", "ablation3"])
+def test_trainer_epoch_on_the_card_matches_the_cpu(model):
+    """One epoch of the flow trainer at dropout 0 on the card and on the
+    CPU from the same initial weights and batches: the epoch's training
+    and eval losses at rtol 1e-4, atol 1e-5, the parameters at atol 1e-4
+    (Adam turns last-bit differences of small gradients into update
+    differences), the norms' running statistics (means and variances of
+    sums over all rows, up to the hundreds) at rtol 1e-4.  The rank metrics are not compared here: scores a few
+    ulps apart may swap near-tied ranks (the metrics on the card are held
+    to the CPU's on the same scores below).  A GCN step launches
+    csr_spmm_f32 2 + 2 times, an evaluation 1 + 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from msha_gnn_torch.cli import _build_task
+    from msha_gnn_torch.data import synthetic_flow, train_test_split_records
+    from msha_gnn_torch.ops.cuda.spmm import operator_for
+    from msha_gnn_torch.training import Trainer, TrainState
+    from msha_gnn_torch.utils import TrainConfig
+
+    fg = synthetic_flow(300, 8, 20, 6, 2000, seed=2)
+    cfg = TrainConfig(model=model, in_features=16, out_features=8,
+                      dropout=0.0, batch_size=64, seed=1)
+    train_ids, test_ids = train_test_split_records(fg.num_records, 0.9, 1)
+    steps = -(-len(train_ids) // cfg.batch_size)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        task, net = _build_task(cfg, fg, dev)
+        trainer = Trainer(task=task, src=fg.edge_src.numpy(),
+                          labels=fg.edge_dst.numpy(),
+                          batch_size=cfg.batch_size, seed=cfg.seed)
+        before = cuda_spmm.launches
+        if dev == "cuda" and model == "gcn":
+            op = operator_for(task.graph)
+            t_before = op.launches_transposed
+        state, (record,) = trainer.fit(TrainState.create(net, task.optimizer),
+                                       train_ids, test_ids, 1)
+        if dev == "cuda" and model == "gcn":
+            assert cuda_spmm.launches - before == 4 * steps + 2
+            assert op.launches_transposed - t_before == 2 * steps + 1
+        elif dev == "cuda":
+            assert cuda_spmm.launches == before
+        runs.append((record, {k: v.cpu() for k, v in
+                              net.state_dict().items()}))
+    (card, card_sd), (cpu, cpu_sd) = runs
+    assert list(card) == list(cpu)
+    for k in ("train_loss", "loss"):
+        np.testing.assert_allclose(card[k], cpu[k], rtol=1e-4, atol=1e-5,
+                                   err_msg=k)
+    params = {k for k, _ in net.named_parameters()}
+    for k, v in cpu_sd.items():
+        if k in params:
+            torch.testing.assert_close(card_sd[k], v, rtol=0, atol=1e-4)
+        else:
+            torch.testing.assert_close(card_sd[k], v, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_classification_report_on_the_card_matches_the_cpu():
+    """The metric block on the card and on the CPU from the same scores,
+    many of them tied, with one class absent: the rank sums in float64 and
+    the count ratios agree within 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from msha_gnn_torch.training import classification_report
+
+    rng = np.random.default_rng(0)
+    scores = torch.from_numpy(
+        np.round(rng.normal(size=(5000, 32)), 1).astype(np.float32))
+    labels = torch.from_numpy(rng.choice(31, 5000))  # class 31 absent
+    cpu = classification_report(scores, labels)
+    card = classification_report(scores.cuda(), labels.cuda())
+    assert list(card) == list(cpu)
+    for k, v in cpu.items():
+        assert card[k].is_cuda
+        np.testing.assert_allclose(float(card[k]), float(v), rtol=1e-6,
+                                   atol=1e-6, err_msg=k)

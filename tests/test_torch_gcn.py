@@ -114,3 +114,24 @@ def test_full_scores_run_without_grad():
                            device="cpu")
     out = task.full_scores(model)
     assert not out.requires_grad and torch.is_inference(out)
+
+
+def test_train_dropout_draws_from_the_generator():
+    """GCN's dropout mask comes from the generator it is given: equal seeds
+    give equal train-mode outputs, other seeds others, and torch's global
+    seed plays no part."""
+    task, model = gcn_task(make_flow(tg, flow_arrays(3)), nfeat=8,
+                           device="cpu")
+    rows = torch.arange(30)
+
+    def train_forward(seed, global_seed):
+        torch.manual_seed(global_seed)
+        gen = torch.Generator().manual_seed(seed)
+        out, _ = task.forward(model, rows, train=True, generator=gen)
+        return out.detach()
+
+    first = train_forward(1, 0)
+    assert torch.equal(first, train_forward(1, 12345))
+    assert not torch.equal(first, train_forward(2, 0))
+    evaluated, _ = task.forward(model, rows, train=False)
+    assert not torch.equal(first, evaluated.detach())  # the mask acted
