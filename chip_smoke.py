@@ -126,6 +126,31 @@ over the same 20 calls, as is their library yardstick.
    on the CPU from the same weights and batches (losses, parameters), and
    two runs at dropout 0.5 from one seed (GCN bit for bit; MSHA's
    ``index_add_`` atomics bound stated).
+11. the other flow presets, ``gat``, ``sage`` and ``hgane``, at
+   ``TrainConfig()``'s widths on the same data directory, each capped as
+   10b caps MSHA (64 steps, an evaluation of 1,024 test records), launching
+   none of the port's kernels: a checkpoint read back by ``cli eval`` and
+   ``cli predict``, the step's wall, kernels, device time and idle share,
+   and the same 64 steps at dropout 0 on the card and on the CPU from one
+   state (as 10c), then both evaluations of the 1,024 records.
+12. the bfloat16 payload's kernels (``csr_spmm_bf16`` weighted by
+   attention, forward and transposed; ``csr_spmm_dw_bf16`` in both
+   directions; ``r1l_fwd_bf16`` and ``r1l_bwd_bf16`` at dropout rate 0 and
+   0.5) against their plain versions on the same bfloat16 rows at the
+   linkpred shapes, at the float32 kernels' tolerances, each twice bit for
+   bit; event and device times beside the float32 kernel's on the same
+   values, the bound at bfloat16 row bytes, ``torch.sparse.mm`` on
+   bfloat16 values where this PyTorch takes it; then
+   ``SpmmOperator(precision="bf16", fused_bwd=True)`` under autograd with
+   exact launch counts against ``fused_bwd=False``.
+13. one ``SparseGAT(precision="bf16")`` linkpred training step at
+   ``LinkPredConfig()`` widths per impl, from the float32 run's state:
+   exact launch counts; ``fused`` and ``materialised`` against the same
+   step on the CPU at dropout 0 (the kernels' plain versions),
+   ``materialised`` also against ``impl="torch"`` on the card, and both
+   against the float32 step at 3e-2 of each value's largest; ``flash``
+   bit-equal to its float32 step; the step's wall, kernels, device time
+   and idle share beside the float32 step's.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -185,8 +210,21 @@ STEP_GROUPS = (("port kernels", ("csr_spmm", "fixup")),
                ("indexing", ("index", "gather", "scatter")),
                ("reductions", ("reduce_kernel",)),
                ("elementwise", ("elementwise",)))
-# MSHA's training at defaults, capped (a full epoch is 3,290 steps)
+# MSHA's training at defaults, capped (a full epoch is 3,290 steps); the
+# other flow presets (phase 11) are capped the same way
 MSHA_STEPS, MSHA_TRAIN_IDS, MSHA_TEST_IDS = 64, 4096, 1024
+FLOW_PRESETS = ("gat", "sage", "hgane")
+# phase 11's evaluation of 1,024 records after the same 64 steps, card vs
+# CPU: the loss at TRAIN_LOSS_*; the rank and count metrics move by whole
+# records where near-tied scores swap (one record of 1,024 is 9.8e-4 of
+# accuracy), so an absolute 5e-3
+REPORT_ATOL = 5e-3
+# and its running statistics: HGANE's norms take the means of 64 batch
+# rows (bn1) and 32 recipients (bn2), inputs of order 1, so an element near
+# 0 carries the absolute error of its larger siblings; after 64 Adam steps
+# whose parameters are held at TRAIN_PARAM_ATOL, each statistic is also
+# held absolutely at this share of its largest value
+FLOW_STATS_ATOL_REL = 1e-4
 
 LP_SEED = 42                           # the linkpred CLI's default seed
 LP_D = 64                              # LinkPredConfig().hidden
@@ -209,6 +247,18 @@ PATHS_LOSS_RTOL = 2 * STEP_LOSS_RTOL
 # shows on the first step, held to the plain step at STEP_LOSS_RTOL and
 # STEP_GRAD_*; this check catches what grows over the steps
 EPOCH_LOSS_RTOL = 3e-4
+# a bfloat16 linkpred step against the f32 step from one state: the JAX
+# package's own bound for SparseGAT(precision="bf16") against float32
+# (tests/test_pallas_spmm.py:485-505), as a share of each value's largest
+BF16_STEP_TOL = 3e-2
+# a bf16 step against its plain counterpart from one state: both round the
+# same float32 values to bfloat16 (the rows, the cotangents), but values
+# formed in another summation order differ in their last bits, and where
+# one sits at a rounding boundary its bfloat16 copy moves by one bfloat16
+# unit, at most 2^-7 of it; each gradient leaf is held at that share of
+# its largest value, the loss at STEP_LOSS_RTOL (each kernel alone is held
+# at the float32 tolerances on the same bfloat16 inputs, phase 12)
+BF16_FLIP_TOL = 2 ** -7
 # generic vs dst_linear rank-1 GAT, five Adam steps from one state: the same
 # function, t = h a by a GEMM against a dot in the kernel (float32 rounding)
 GENERIC_LOSS_RTOL = 1e-5
@@ -288,13 +338,14 @@ def bound(nbytes, flops):
 
 def spmm_bound(ptr, col, x, n_rows, weighted=True):
     """Least time of one CSR SpMM on this data: each input read once (only
-    the rows of x that the edges reference; no weights when unweighted),
-    the output written once, and 2 flops per edge and feature (1, an add,
-    when unweighted)."""
+    the rows of x that the edges reference, at x's bytes a value; no
+    weights when unweighted), the float32 output written once, and 2 flops
+    per edge and feature (1, an add, when unweighted)."""
     e, d = col.numel(), x.shape[1]
     x_rows = int(torch.unique(col).numel())
     per_edge = 8 if weighted else 4
-    nbytes = 4 * ptr.numel() + per_edge * e + 4 * x_rows * d + 4 * n_rows * d
+    nbytes = (4 * ptr.numel() + per_edge * e + x.element_size() * x_rows * d
+              + 4 * n_rows * d)
     return bound(nbytes, (2 if weighted else 1) * e * d)
 
 
@@ -425,7 +476,7 @@ def linkpred_split():
     return split_edges(load_ddi(seed=LP_SEED), seed=LP_SEED)
 
 
-def r1l_bounds(n, e, d):
+def r1l_bounds(n, e, d, row_bytes=4):
     """Least times (ms, bound) of the two rank-1 GAT kernels on this data:
     every input read once (x once: it fits in L2), every output written
     once, and the flops the function needs at the float32 rate.  ``t =
@@ -434,13 +485,15 @@ def r1l_bounds(n, e, d):
     forward needs the aggregation's multiply-add (2 E d), the backward
     ``<gout[r], x[j]>`` (2) and ``da``'s multiply-add (2).  The backward
     writes ``q`` and ``dpre`` (8 B an edge), not the ``[E, d]`` rows of
-    ``z = q gout + dpre a`` that its dx sums."""
+    ``z = q gout + dpre a`` that its dx sums.  ``row_bytes``: x's bytes a
+    value (2 for the bfloat16 payload; the rest is float32)."""
     # ptr, col, c, a, x in; out, lse out
-    fwd = bound(4 * (n + 1) + 4 * e + 4 * n + 4 * d + 4 * n * d
+    fwd = bound(4 * (n + 1) + 4 * e + 4 * n + 4 * d + row_bytes * n * d
                 + 4 * n * d + 4 * n, 2 * n * d + 2 * e * d)
     # ptr, col, c, a, x, gout, out, lse in; q, dpre, dc, da out
-    bwd = bound(4 * (n + 1) + 4 * e + 4 * n + 4 * d + 3 * 4 * n * d
-                + 4 * n + 8 * e + 4 * n + 4 * d, 4 * n * d + 4 * e * d)
+    bwd = bound(4 * (n + 1) + 4 * e + 4 * n + 4 * d + row_bytes * n * d
+                + 2 * 4 * n * d + 4 * n + 8 * e + 4 * n + 4 * d,
+                4 * n * d + 4 * e * d)
     return fwd, bwd
 
 
@@ -1156,13 +1209,15 @@ def dw_bound(ptr, col, eid, g, n_dw):
     """Least time of one fused SpMM backward on this data: the pointer, the
     column indices, the edge ids (when given) and the weights read once
     per edge, the rows of ``g`` that the edges reference and of ``x`` that
-    own edges read once, ``dx`` and ``dw`` [n_dw] written once; 4 flops per
-    edge and feature (the dx multiply-add and the dw dot)."""
+    own edges read once (at g's bytes a value: x is of g's type), ``dx``
+    and ``dw`` [n_dw] written once in float32; 4 flops per edge and feature
+    (the dx multiply-add and the dw dot)."""
     e, d = col.numel(), g.shape[1]
     g_rows = int(torch.unique(col).numel())
     x_rows = int(((ptr[1:] - ptr[:-1]) > 0).sum())
     per_edge = 12 if eid is not None else 8
-    nbytes = (4 * ptr.numel() + per_edge * e + 4 * (g_rows + x_rows) * d
+    nbytes = (4 * ptr.numel() + per_edge * e
+              + g.element_size() * (g_rows + x_rows) * d
               + 4 * (ptr.numel() - 1) * d + 4 * n_dw)
     return bound(nbytes, 4 * e * d)
 
@@ -1611,7 +1666,12 @@ def read_counts(op=None):
               "r1_fwd_f32": r1.r1_fwd_launches,
               "r1_bwd_f32": r1.r1_bwd_launches,
               "seg_reduce_f32": cuda_spmm.seg_launches,
-              "csr_spmm_dw_f32": cuda_spmm.dw_launches}
+              "csr_spmm_dw_f32": cuda_spmm.dw_launches,
+              "csr_spmm_bf16": cuda_spmm.bf16_launches,
+              "csr_spmm_dw_bf16": cuda_spmm.dw_bf16_launches,
+              "r1l_fwd_bf16": r1.fwd_bf16_launches,
+              "r1l_bwd_bf16": r1.bwd_bf16_launches}
+    # the operator's own counts take its launches of either row type
     if op is not None:
         counts["csr_spmm_f32 transposed"] = op.launches_transposed
         counts["csr_spmm_f32 reduce_edges"] = op.launches_reduce
@@ -1627,7 +1687,9 @@ def zero_counts(op=None):
 
     r1.fwd_launches = r1.bwd_launches = 0
     r1.r1_fwd_launches = r1.r1_bwd_launches = 0
+    r1.fwd_bf16_launches = r1.bwd_bf16_launches = 0
     cuda_spmm.launches = cuda_spmm.seg_launches = cuda_spmm.dw_launches = 0
+    cuda_spmm.bf16_launches = cuda_spmm.dw_bf16_launches = 0
     cuda_sddmm.launches = sm.fwd_launches = sm.bwd_launches = 0
     sm.fwd_drop_launches = sm.bwd_drop_launches = 0
     fg.fwd_launches = fg.bwd_launches = 0
@@ -1641,8 +1703,9 @@ def expected(**nonzero):
              "seg_softmax_fwd_f32", "seg_softmax_fwd_f32 dropout",
              "seg_softmax_bwd_f32", "seg_softmax_bwd_f32 dropout",
              "flash_fwd_f32", "flash_bwd_f32", "r1_fwd_f32", "r1_bwd_f32",
-             "seg_reduce_f32", "csr_spmm_dw_f32", "csr_spmm_f32 transposed",
-             "csr_spmm_f32 reduce_edges")
+             "seg_reduce_f32", "csr_spmm_dw_f32", "csr_spmm_bf16",
+             "csr_spmm_dw_bf16", "r1l_fwd_bf16", "r1l_bwd_bf16",
+             "csr_spmm_f32 transposed", "csr_spmm_f32 reduce_edges")
     return {k: nonzero.get(k.replace(" ", "_"), 0) for k in names}
 
 
@@ -2337,7 +2400,7 @@ def profile_steps(name, step, state, batches, generator):
     return out
 
 
-def card_against_cpu(name, fg, batches):
+def card_against_cpu(name, fg, batches, stats_atol_rel=0.0):
     """Phase 10c: ``name`` at dropout 0 on the card and on the CPU from the
     same weights, the same batches in lockstep.  Each step's loss at
     ``TRAIN_LOSS_*``; each step's gradients within ``TRAIN_GRAD_REL`` of
@@ -2349,7 +2412,10 @@ def card_against_cpu(name, fg, batches):
     coordinate whose gradient is near float32 noise (MSHA's output
     attention ``a``, whose row-constant part the row softmax cancels)
     moves apart by up to ``lr`` a step while a well-conditioned one stays
-    within ``TRAIN_PARAM_ATOL``."""
+    within ``TRAIN_PARAM_ATOL``.  ``stats_atol_rel``: an absolute bound on
+    each running statistic of that share of its largest value, beside
+    the relative one.  Returns the two train states and tasks,
+    ``(state_k, task_k, state_c, task_c)``."""
     import dataclasses
 
     from msha_gnn_torch.cli import _build_task
@@ -2412,9 +2478,11 @@ def card_against_cpu(name, fg, batches):
     if bad:
         raise AssertionError(f"{name}: parameters card vs CPU: {bad}")
     for k in stats:
+        atol = max(1e-6, stats_atol_rel * float(sd_c[k].abs().max()))
         torch.testing.assert_close(sd_k[k], sd_c[k], rtol=TRAIN_STATS_RTOL,
-                                   atol=1e-6,
+                                   atol=atol,
                                    msg=lambda m, k=k: f"{name} {k}: {m}")
+    return state_k, task_k, state_c, task_c
 
 
 def phase_train(fg):
@@ -2601,6 +2669,514 @@ def phase_train(fg):
                                  f"{err:.3e}")
     log(f"  flow training: {json.dumps(summary)}")
     return launches
+
+def phase_flow_presets(fg):
+    """Phase 11: the other flow presets (``gat``, ``sage``, ``hgane``) at
+    ``TrainConfig()``'s widths on the card, each capped as phase 10b caps
+    MSHA: 64 steps and an evaluation of 1,024 test records through the
+    trainer ``cli train`` builds, a checkpoint of them read back by ``cli
+    eval`` and ``cli predict``, its step's kernels, device time and idle
+    share, and the same 64 steps at dropout 0 against the CPU from one
+    state (``card_against_cpu``), then both evaluations of the 1,024
+    records.  None of the three reaches a kernel of the port (checked)."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from msha_gnn_torch import cli
+    from msha_gnn_torch.cli import _build_task
+    from msha_gnn_torch.data import train_test_split_records
+    from msha_gnn_torch.training import (Trainer, TrainState,
+                                         make_train_step, save_checkpoint)
+    from msha_gnn_torch.utils import TrainConfig
+
+    base = TrainConfig()
+    src, labels = fg.edge_src.numpy(), fg.edge_dst.numpy()
+    train_ids, test_ids = train_test_split_records(
+        fg.num_records, base.train_fraction, base.seed)
+    summary = {}
+    with tempfile.TemporaryDirectory() as td:
+        data = write_flow_dir(fg, os.path.join(td, "data"))
+        for name in FLOW_PRESETS:
+            cfg = dataclasses.replace(base, model=name)
+            ckpt = os.path.join(td, f"ckpt_{name}")
+            task, model = _build_task(cfg, fg, DEVICE)
+            state = TrainState.create(model, task.optimizer)
+            trainer = Trainer(task=task, src=src, labels=labels,
+                              seed=cfg.seed)
+            gen = torch.Generator(device=DEVICE).manual_seed(cfg.seed)
+            zero_counts()
+            t0 = time.perf_counter()
+            state, loss = trainer.train_epoch(
+                state, train_ids[:MSHA_TRAIN_IDS], gen, 0)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            report = trainer.evaluate(state, test_ids[:MSHA_TEST_IDS])
+            if any(read_counts().values()):
+                raise AssertionError(f"{name} launched a kernel: "
+                                     f"{read_counts()}")
+            if state.step != MSHA_STEPS or not np.isfinite(loss) or not all(
+                    np.isfinite(report[k]) for k in ("auc", "accuracy",
+                                                     "loss")):
+                raise AssertionError(f"{name}: {state.step} steps, loss "
+                                     f"{loss}, report {report}")
+            save_checkpoint(ckpt, state, step=state.step)
+            params = sum(p.numel() for p in model.parameters())
+            log(f"  {name} ({params} parameters, dropout {cfg.dropout}): "
+                f"{MSHA_STEPS} steps {train_s:.2f} s, loss {loss:.5f}; "
+                f"evaluation of {MSHA_TEST_IDS} records: "
+                f"{json.dumps(report)}; none of the port's kernels launched")
+            common = ["--model", name, "--data_dir", data,
+                      "--checkpoint_dir", ckpt]
+            for cmd, extra in (("eval", []),
+                               ("predict", ["--nodes", "0,1,2"])):
+                out = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    rc = cli.main([cmd, *common, *extra])
+                secs = time.perf_counter() - t0
+                last = out.getvalue().strip().splitlines()[-1]
+                log(f"  cli {cmd} --model {name}: exit {rc}, {secs:.2f} s; "
+                    f"last line {last}")
+                result = json.loads(last)
+                if rc != 0 or result["checkpoint_step"] != MSHA_STEPS:
+                    raise AssertionError(f"cli {cmd} --model {name}: exit "
+                                         f"{rc}, {last}")
+                if cmd == "eval" and not all(np.isfinite(
+                        result[k]) for k in ("auc", "accuracy", "loss")):
+                    raise AssertionError(f"cli eval --model {name}: {last}")
+                if cmd == "predict" and result["nodes"] != 3:
+                    raise AssertionError(f"cli predict --model {name}: "
+                                         f"{last}")
+            summary[name] = profile_steps(
+                name, make_train_step(task), state,
+                stacked_batches(trainer, train_ids[:64 * 47], cfg.seed), gen)
+            summary[name]["train_64_steps_s"] = train_s
+
+            batches = stacked_batches(trainer, train_ids[:MSHA_TRAIN_IDS],
+                                      cfg.seed)
+            state_k, task_k, state_c, task_c = card_against_cpu(
+                name, fg, batches, stats_atol_rel=FLOW_STATS_ATOL_REL)
+            reports = [Trainer(task=t_, src=src, labels=labels,
+                               seed=cfg.seed).evaluate(
+                s_, test_ids[:MSHA_TEST_IDS])
+                for t_, s_ in ((task_k, state_k), (task_c, state_c))]
+            errs = {k: abs(reports[0][k] - reports[1][k])
+                    for k in reports[1]}
+            log(f"  {name}: the evaluation of {MSHA_TEST_IDS} records after "
+                f"the {len(batches)} steps at dropout 0, card vs CPU: loss "
+                f"{reports[0]['loss']:.7f} / {reports[1]['loss']:.7f}; max "
+                f"abs difference of the other metrics "
+                f"{max(v for k, v in errs.items() if k != 'loss'):.3e} "
+                f"(bound {REPORT_ATOL})")
+            np.testing.assert_allclose(reports[0]["loss"], reports[1]["loss"],
+                                       rtol=TRAIN_LOSS_RTOL,
+                                       atol=TRAIN_LOSS_ATOL, err_msg=name)
+            bad = [k for k, v in errs.items()
+                   if k != "loss" and not v <= REPORT_ATOL]
+            if bad:
+                raise AssertionError(f"{name}: report card vs CPU: {bad}")
+    log(f"  flow presets: {json.dumps(summary)}")
+
+
+def bf16_library(ptr, col, w, xb, n_rows, n_cols):
+    """``torch.sparse.mm`` of the CSR matrix with bfloat16 values and the
+    bfloat16 rows, where this PyTorch takes it (it rounds the weights and
+    the output to bfloat16 too); None where it raises."""
+    try:
+        a = torch.sparse_csr_tensor(ptr, col, w.to(torch.bfloat16),
+                                    size=(n_rows, n_cols))
+        torch.sparse.mm(a, xb)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as err:
+        reason = str(err).splitlines()[0][:120]
+        log(f"    torch.sparse.mm on bfloat16 values: none "
+            f"({type(err).__name__}: {reason})")
+        return None
+    return lambda: torch.sparse.mm(a, xb)
+
+
+def phase_bf16_kernels(split):
+    """Phase 12: the bfloat16 payload's kernels (``csr_spmm_bf16``,
+    ``csr_spmm_dw_bf16``, ``r1l_fwd_bf16``, ``r1l_bwd_bf16``) against their
+    plain versions on the same bfloat16 rows at the linkpred shapes, at
+    the float32 kernels' tolerances (the plain versions compute in float32
+    over the widened rows, as the kernels do); event and device times, the
+    bound (bfloat16 row bytes), the float32 kernel's times on the same
+    values beside them; then ``SpmmOperator(precision="bf16",
+    fused_bwd=True)`` under autograd, both directions, with exact launch
+    counts (``csr_spmm_dw_bf16``'s main path), against the unfused
+    backward.  Returns ``(entries, dw_launches)``."""
+    from msha_gnn_torch.ops.cuda import rank1_gat as r1
+    from msha_gnn_torch.ops.cuda import softmax as sm
+    from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
+    from msha_gnn_torch.ops.cuda.spmm import SpmmOperator, operator_for
+
+    bf16 = torch.bfloat16
+    g = split["graph"].to(DEVICE)
+    spmm = operator_for(g)
+    n, e, e_pad, d = g.n_src, g.num_edges, g.num_padded_edges, LP_D
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    h = torch.rand((n, d), generator=gen, device=DEVICE) - 0.5
+    gout = torch.rand((n, d), generator=gen, device=DEVICE) - 0.5
+    hb, gb = h.to(bf16), gout.to(bf16)
+    logits = torch.randn(e_pad, generator=gen, device=DEVICE) * 2
+    att = sm.seg_softmax_fwd_plain(spmm.ptr, logits, None, e)[0]
+    log(f"  linkpred graph: {n} rows, {e} edges, d {d}; rows in bfloat16, "
+        f"every sum float32; tolerances as the float32 kernels'")
+    results = []
+
+    def timed(name, kernel, plain, f32_kernel, bnd, library=None):
+        ms, dev_ms = time_ms(kernel), device_ms(kernel)
+        plain_ms = time_ms(plain, reps=5, iters=5)
+        f32_ms, f32_dev = time_ms(f32_kernel), device_ms(f32_kernel)
+        lib_ms = lib_dev = None
+        if library is not None:
+            lib_ms, lib_dev = time_ms(library), device_ms(library)
+        log(f"  {name}: kernel {ms:.4f} ms (device {fmt(dev_ms)}), plain "
+            f"{plain_ms:.4f} ms, the float32 kernel {f32_ms:.4f} ms (device "
+            f"{fmt(f32_dev)}), bound {bnd[0]:.5f} ms ({bnd[1]}, bfloat16 "
+            f"rows); library "
+            + ("none" if library is None else
+               f"torch.sparse.mm on bfloat16 values {lib_ms:.4f} ms (device "
+               f"{fmt(lib_dev)})"))
+        return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": lib_ms, "device_ms": dev_ms,
+                "library_device_ms": lib_dev, "f32_ms": f32_ms,
+                "f32_device_ms": f32_dev}
+
+    # csr_spmm_bf16: the materialised layer's A(att) h and its dx A(att)^T g
+    # (the fused layer's q-weighted dx is the second form)
+    w_t = spmm.weights(att, True)
+    uses = (("att A h", (spmm.ptr, spmm.col, att[:e].contiguous(), hb, n),
+             h, n),
+            ("att dx A^T g", (spmm.t_ptr, spmm.t_col, w_t, gb, n), gout, n))
+    errs, first = [], None
+    for label, args, x32, n_cols in uses:
+        got = cuda_spmm.csr_spmm(*args)
+        want = cuda_spmm.csr_spmm_plain(*args)
+        torch.cuda.synchronize()
+        errs.append(close(f"csr_spmm_bf16[{label}]", got, want, SUM_RTOL,
+                          SUM_ATOL_REL * float(want.abs().max())))
+        same_bits(f"csr_spmm_bf16[{label}]",
+                  lambda args=args: cuda_spmm.csr_spmm(*args))
+        args32 = (*args[:3], x32, args[4])
+        t = timed(f"csr_spmm_bf16[{label}]",
+                  lambda args=args: cuda_spmm.csr_spmm(*args),
+                  lambda args=args: cuda_spmm.csr_spmm_plain(*args),
+                  lambda args32=args32: cuda_spmm.csr_spmm(*args32),
+                  spmm_bound(args[0], args[1], args[3], n),
+                  bf16_library(args[0], args[1], args[2], args[3], n,
+                               n_cols))
+        first = first or t
+    results.append({**entry("csr_spmm_bf16", "spmm.cu",
+                            "msha_gnn_tpu/ops/pallas/spmm.py:244 "
+                            "_visit_kernel (bf16 :269) and :747 _hub_kernel "
+                            "(bf16 :774)", max(errs), first["ms"],
+                            first["plain_ms"],
+                            (first["bound_ms"], first["bound_by"]),
+                            first["library_ms"]), **first})
+
+    # csr_spmm_dw_bf16: both directions, g and x in bfloat16
+    dw_run, dw_group = cuda_spmm.DW_RUN, r1.group_for(d)
+    errs, first = [], None
+    for label, transpose in (("dw of A x", False), ("dw of A^T x", True)):
+        if transpose:
+            head = (spmm.ptr, spmm.col, None, att)
+        else:
+            head = (spmm.t_ptr, spmm.t_col, spmm.t_edge, att)
+        args, args32 = (*head, gb, hb, n, e_pad), (*head, gout, h, n, e_pad)
+        ws = torch.empty(cuda_spmm.sums_ws_floats(e_pad, dw_run, d),
+                         device=DEVICE)
+        prime_nan((e_pad,), (n, d), (ws.numel(),))
+        dx, dw = cuda_spmm.csr_spmm_dw(*args, ws)
+        want_dx, want_dw = cuda_spmm.csr_spmm_dw_plain(*args)
+        torch.cuda.synchronize()
+        errs += [close(f"csr_spmm_dw_bf16[{label}] dx", dx, want_dx,
+                       SUM_RTOL, SUM_ATOL_REL * float(want_dx.abs().max())),
+                 close(f"csr_spmm_dw_bf16[{label}] dw", dw, want_dw,
+                       KERNEL_RTOL, KERNEL_ATOL)]
+        if dw[e:].any():
+            raise AssertionError("csr_spmm_dw_bf16 left a pad slot nonzero")
+        same_bits(f"csr_spmm_dw_bf16[{label}]",
+                  lambda args=args, ws=ws: cuda_spmm.csr_spmm_dw(*args, ws))
+        t = timed(f"csr_spmm_dw_bf16[{label}] ({dw_run} slots a run, "
+                  f"{dw_group} lanes an edge)",
+                  lambda args=args, ws=ws: cuda_spmm.csr_spmm_dw(*args, ws),
+                  lambda args=args: cuda_spmm.csr_spmm_dw_plain(*args),
+                  lambda args32=args32, ws=ws:
+                  cuda_spmm.csr_spmm_dw(*args32, ws),
+                  dw_bound(args[0], args[1], args[2], gb, e_pad))
+        first = first or t
+    results.append({**entry("csr_spmm_dw_bf16", "spmm.cu",
+                            "msha_gnn_tpu/ops/pallas/spmm.py:282 "
+                            "_visit_dw_kernel (bf16 :315) and :340 "
+                            "_hub_dw_kernel (bf16 :370)", max(errs),
+                            first["ms"], first["plain_ms"],
+                            (first["bound_ms"], first["bound_by"]), None),
+                    **first})
+
+    # r1l_fwd_bf16 / r1l_bwd_bf16 on the path's kind of inputs
+    op = r1.Rank1GatOperator(g, dst_linear=True)
+    c = torch.randn(n, generator=gen, device=DEVICE)
+    a = torch.randn(d, generator=gen, device=DEVICE) * 0.3
+    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=DEVICE)
+    (fwd_b, fwd_by), (bwd_b, bwd_by) = r1l_bounds(n, e, d, row_bytes=2)
+    fwd_errs, bwd_errs = [], []
+    for rate in (0.0, 0.5):
+        args = (op.ptr, op.col, c, a, hb, seed, rate, op.slope, n)
+        args32 = (op.ptr, op.col, c, a, h, seed, rate, op.slope, n)
+        prime_nan((n, d), (n,))
+        out, lse = r1.r1l_fwd(*args)
+        want_out, want_lse = r1.rank1_gat_plain(*args)
+        torch.cuda.synchronize()
+        fwd_errs += [close(f"r1l_fwd_bf16[rate {rate}] out", out, want_out,
+                           KERNEL_RTOL, KERNEL_ATOL),
+                     close(f"r1l_fwd_bf16[rate {rate}] lse", lse, want_lse,
+                           KERNEL_RTOL, KERNEL_ATOL)]
+        same_bits(f"r1l_fwd_bf16[rate {rate}]",
+                  lambda args=args: r1.r1l_fwd(*args))
+        fwd_t = timed(f"r1l_fwd_bf16[rate {rate}]",
+                      lambda args=args: r1.r1l_fwd(*args),
+                      lambda args=args: r1.rank1_gat_plain(*args),
+                      lambda args32=args32: r1.r1l_fwd(*args32),
+                      (fwd_b, fwd_by))
+        bargs = (op.ptr, op.col, c, a, hb, gout, want_out, want_lse, seed,
+                 rate, op.slope, n)
+        bargs32 = (op.ptr, op.col, c, a, h, gout, want_out, want_lse, seed,
+                   rate, op.slope, n)
+        prime_nan((e,), (e,), (n,), (e * (2 + d),))
+        q, dpre, dc, da = r1.r1l_bwd(*bargs)
+        wq, wdpre, wdc, wda = r1.rank1_gat_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        bwd_errs += [
+            close(f"r1l_bwd_bf16[rate {rate}] q", q, wq, KERNEL_RTOL,
+                  KERNEL_ATOL),
+            close(f"r1l_bwd_bf16[rate {rate}] dpre", dpre, wdpre, SUM_RTOL,
+                  SUM_ATOL_REL * float(wdpre.abs().max())),
+            close(f"r1l_bwd_bf16[rate {rate}] dc", dc, wdc, SUM_RTOL,
+                  SUM_ATOL_REL * float(wdc.abs().max())),
+            close(f"r1l_bwd_bf16[rate {rate}] da", da, wda, SUM_RTOL,
+                  SUM_ATOL_REL * float(wda.abs().max()))]
+        same_bits(f"r1l_bwd_bf16[rate {rate}]",
+                  lambda bargs=bargs: r1.r1l_bwd(*bargs))
+        bwd_t = timed(f"r1l_bwd_bf16[rate {rate}]",
+                      lambda bargs=bargs: r1.r1l_bwd(*bargs),
+                      lambda bargs=bargs: r1.rank1_gat_bwd_plain(*bargs),
+                      lambda bargs32=bargs32: r1.r1l_bwd(*bargs32),
+                      (bwd_b, bwd_by))
+    # the training step's form (rate 0.5) in the kernels line
+    results.append({**entry("r1l_fwd_bf16", "rank1_gat.cu",
+                            "msha_gnn_tpu/ops/pallas/rank1_gat.py:234 "
+                            "_r1l_fwd_kernel (bf16 :295)", max(fwd_errs),
+                            fwd_t["ms"], fwd_t["plain_ms"], (fwd_b, fwd_by),
+                            None), **fwd_t})
+    results.append({**entry("r1l_bwd_bf16", "rank1_gat.cu",
+                            "msha_gnn_tpu/ops/pallas/rank1_gat.py:305 "
+                            "_r1l_bwd_kernel (bf16 :768)", max(bwd_errs),
+                            bwd_t["ms"], bwd_t["plain_ms"], (bwd_b, bwd_by),
+                            None), **bwd_t})
+
+    # the main path of csr_spmm_dw_bf16: the bf16 operator with fused_bwd
+    # under autograd, against the same operator without it
+    launches = 0
+    ops = {fused: SpmmOperator(g, DEVICE, fused_bwd=fused, precision="bf16")
+           for fused in (False, True)}
+    for label, transpose in (("A x", False), ("A^T x", True)):
+        grads = {}
+        for fused, bop in ops.items():
+            xx, ww = h.clone().requires_grad_(), att.clone().requires_grad_()
+            zero_counts(bop)
+            out = bop(xx, transpose=transpose, edge_weight=ww)
+            out.backward(gout)
+            torch.cuda.synchronize()
+            counts = read_counts(bop)
+            want = (expected(csr_spmm_bf16=1, csr_spmm_dw_bf16=1,
+                             csr_spmm_f32_transposed=int(transpose))
+                    if fused else
+                    expected(csr_spmm_bf16=2, csr_sddmm_f32=1,
+                             csr_spmm_f32_transposed=1))
+            log(f"  SpmmOperator(precision='bf16', fused_bwd={fused}) "
+                f"forward and backward of {label}: {counts}")
+            if counts != want:
+                raise AssertionError(f"expected {want} launches, got "
+                                     f"{counts}")
+            grads[fused] = (out.detach(), xx.grad, ww.grad)
+        launches += 1
+        for name, got, want_g in zip(("out", "dx", "dw"), grads[True],
+                                     grads[False]):
+            close(f"bf16 fused_bwd vs unfused {label}: {name}", got, want_g,
+                  KERNEL_RTOL if name == "dw" else SUM_RTOL,
+                  KERNEL_ATOL if name == "dw"
+                  else SUM_ATOL_REL * float(want_g.abs().max()))
+    return results, launches
+
+
+def with_precision(model, precision):
+    """A copy of the linkpred model whose encoder streams its rows at
+    ``precision`` (the same weights)."""
+    from msha_gnn_torch.models import SparseGAT
+
+    enc = model.encoder
+    out = copy.deepcopy(model)
+    out.encoder = SparseGAT(LP_D, LP_D, LP_D, n_heads=enc.n_heads,
+                            dropout=enc.dropout, precision=precision)
+    out.encoder.load_state_dict(enc.state_dict())
+    return out.to(next(model.parameters()).device)
+
+
+def loss_and_grads(model, graph, batch, impl, generator=None, state=None):
+    """One step's loss and gradients (no optimiser step), the generator
+    set to ``state`` first."""
+    from msha_gnn_torch.training import linkpred_loss
+
+    if state is not None:
+        generator.set_state(state)
+    model.zero_grad(set_to_none=True)
+    loss = linkpred_loss(model, graph, batch, impl=impl, generator=generator)
+    loss.backward()
+    return float(loss.detach()), {k: p.grad.detach().clone()
+                         for k, p in model.named_parameters()}
+
+
+def compare_steps(name, got, want, loss_rtol, grad_rtol, grad_atol_rel):
+    """Loss at ``loss_rtol`` and every gradient leaf at ``grad_rtol`` and
+    ``grad_atol_rel`` of the leaf's largest value."""
+    (loss_g, grads_g), (loss_w, grads_w) = got, want
+    loss_err = abs(loss_g - loss_w) / abs(loss_w)
+    worst, bad = 0.0, []
+    for k, w in grads_w.items():
+        gk = grads_g[k].to(w.device)
+        scale = float(w.abs().max())
+        worst = max(worst, float((gk - w).abs().max()) / max(scale, 1e-30))
+        if not torch.allclose(gk, w, rtol=grad_rtol,
+                              atol=grad_atol_rel * scale):
+            bad.append(k)
+    log(f"  {name}: loss {loss_g:.7f} vs {loss_w:.7f}, rel err "
+        f"{loss_err:.2e} (rtol {loss_rtol}); gradients max abs err "
+        f"{worst:.2e} of each leaf's largest (rtol {grad_rtol}, atol "
+        f"{grad_atol_rel} of the largest)")
+    if bad or loss_err > loss_rtol:
+        raise AssertionError(f"{name}: loss or the gradients of {bad}")
+
+
+BF16_STEP_WANT = {
+    "fused": expected(r1l_fwd_bf16=3, r1l_bwd_bf16=3, csr_spmm_bf16=3,
+                      csr_spmm_f32=3, csr_spmm_f32_transposed=6,
+                      csr_spmm_f32_reduce_edges=3),
+    "materialised": expected(csr_spmm_bf16=6, csr_spmm_f32_transposed=3,
+                             csr_sddmm_f32=3, seg_softmax_fwd_f32=3,
+                             seg_softmax_fwd_f32_dropout=3,
+                             seg_softmax_bwd_f32=3,
+                             seg_softmax_bwd_f32_dropout=3),
+    "flash": STEP_WANT["flash"],
+}
+
+
+def phase_bf16_step(split):
+    """Phase 13: a ``SparseGAT(precision="bf16")`` linkpred training step at
+    ``LinkPredConfig()`` widths, per impl, from the f32 run's state and
+    generator state: exact launch counts (the main path of the bfloat16
+    kernels); ``fused`` and ``materialised`` held against their plain
+    bfloat16 step (the same step on the CPU, at dropout 0, where both
+    devices draw nothing: the plain versions of the same kernels;
+    ``materialised`` also against ``impl="torch"`` on the card at dropout
+    0.5) at ``BF16_FLIP_TOL``, and against the f32 step at
+    ``BF16_STEP_TOL`` of each value's largest; ``flash`` equal to its f32
+    step bit for bit (its kernels have no bfloat16 mode); the step's wall,
+    kernels, device time and idle share.  Returns the launches of one
+    fused and one materialised step."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from msha_gnn_torch.ops.cuda.spmm import operator_for
+    from msha_gnn_torch.training import (LinkPredConfig, adam_l2,
+                                         build_link_prediction, train_step)
+    from msha_gnn_torch.training.link_prediction import epoch_batches
+
+    counts_by_impl = {}
+    graph_cpu = split["graph"]
+    for impl in ("fused", "materialised", "flash"):
+        run = build_link_prediction(split, LinkPredConfig(impl=impl),
+                                    device=DEVICE)
+        batches = epoch_batches(run)
+        batch = batches[0]
+        m16 = with_precision(run.model, "bf16")
+        gen, state = run.generator, run.generator.get_state()
+        f32 = loss_and_grads(run.model, run.graph, batch, impl, gen, state)
+        op = operator_for(run.graph, "bf16" if impl == "materialised"
+                          else "f32")
+        zero_counts(op)
+        b16 = loss_and_grads(m16, run.graph, batch, impl, gen, state)
+        torch.cuda.synchronize()
+        counts = read_counts(op)
+        log(f"  {impl}, precision bf16: one step's launches {counts}")
+        if counts != BF16_STEP_WANT[impl]:
+            raise AssertionError(f"expected {BF16_STEP_WANT[impl]}, got "
+                                 f"{counts}")
+        counts_by_impl[impl] = counts
+        if impl == "flash":
+            if b16[0] != f32[0] or not all(torch.equal(b16[1][k], v)
+                                           for k, v in f32[1].items()):
+                raise AssertionError("flash: the bf16 step differs from the "
+                                     "f32 step")
+            log("  flash, precision bf16: loss and every gradient bit-equal "
+                "to the f32 step (flash has no bfloat16 mode)")
+            continue
+        compare_steps(f"{impl} bf16 vs f32 step", b16, f32, BF16_STEP_TOL,
+                      0.0, BF16_STEP_TOL)
+        if impl == "materialised":
+            plain = loss_and_grads(m16, run.graph, batch, "torch", gen, state)
+            compare_steps("materialised bf16 vs the plain bf16 step "
+                          "(impl torch, on the card, dropout 0.5)", b16,
+                          plain, STEP_LOSS_RTOL, 0.0, BF16_FLIP_TOL)
+        run0 = build_link_prediction(split, LinkPredConfig(
+            impl=impl, dropout=0.0), device=DEVICE)
+        m0 = with_precision(run0.model, "bf16")
+        m0_cpu = copy.deepcopy(m0).cpu()
+        card = loss_and_grads(m0, run0.graph, batch, impl)
+        t0 = time.perf_counter()
+        cpu = loss_and_grads(m0_cpu, graph_cpu, batch.cpu(), impl)
+        compare_steps(f"{impl} bf16 at dropout 0, card vs the plain bf16 "
+                      f"step on the CPU ({time.perf_counter() - t0:.1f} s)",
+                      card, cpu, STEP_LOSS_RTOL, 0.0, BF16_FLIP_TOL)
+
+        # the step's wall, kernels, device time and idle share, bf16 and
+        # f32 from the same state in turns
+        runs = {"f32": run, "bf16": dataclasses.replace(
+            run, model=m16, optimizer=adam_l2(m16.parameters(),
+                                              run.cfg.lr))}
+        walls = {k: [] for k in runs}
+        for i in range(2, 12):
+            for k in (("f32", "bf16") if i % 2 else ("bf16", "f32")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                train_step(runs[k], batches[i])
+                torch.cuda.synchronize()
+                walls[k].append((time.perf_counter() - t0) * 1e3)
+        for k, r in runs.items():
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for b in batches[12:17]:
+                    train_step(r, b)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            on_card = [evt for evt in prof.key_averages()
+                       if evt.device_type == torch.autograd.DeviceType.CUDA
+                       and not getattr(evt, "is_user_annotation", False)]
+            busy = sum(getattr(evt, "self_device_time_total", 0.0)
+                       or getattr(evt, "self_cuda_time_total", 0.0)
+                       for evt in on_card) / 1e3
+            log(f"  {impl} {k} step: wall p50 "
+                f"{statistics.median(walls[k]):.3f} ms (10 steps, in turns "
+                f"with the other precision), "
+                f"{sum(evt.count for evt in on_card) / 5} device kernels and "
+                f"{busy / 5:.4f} ms of device a step, idle "
+                f"{max(0.0, 1 - busy / wall_ms) if busy else None}")
+    return counts_by_impl
 
 
 def dense_reference(fg, model):
@@ -2890,6 +3466,25 @@ def main() -> int:
     for k in kernels[:4]:
         del k["transpose"]
         k["launches"] = per_name[k["name"]]
+
+    log("phase 11: the other flow presets (gat, sage, hgane; TrainConfig "
+        "defaults)")
+    phase_flow_presets(fg)
+
+    log("phase 12: the bfloat16 payload's kernels vs plain, linkpred graph")
+    bf16_kernels, dw_bf16 = phase_bf16_kernels(split)
+
+    log("phase 13: a SparseGAT(precision='bf16') linkpred training step "
+        "(LinkPredConfig defaults)")
+    steps16 = phase_bf16_step(split)
+    per_name = {"csr_spmm_bf16": (steps16["fused"]["csr_spmm_bf16"]
+                                  + steps16["materialised"]["csr_spmm_bf16"]),
+                "csr_spmm_dw_bf16": dw_bf16,
+                "r1l_fwd_bf16": steps16["fused"]["r1l_fwd_bf16"],
+                "r1l_bwd_bf16": steps16["fused"]["r1l_bwd_bf16"]}
+    for k in bf16_kernels:
+        k["launches"] = per_name[k["name"]]
+    kernels += bf16_kernels
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{kernels}")

@@ -40,6 +40,7 @@ from .graph import (  # noqa: E402
     Grouping,
     PairGrouping,
     dst_degrees,
+    from_scipy,
     normalize_by_dst_degree,
     normalize_rows,
     src_degrees,
@@ -52,6 +53,7 @@ __all__ = [
     "Grouping",
     "PairGrouping",
     "dst_degrees",
+    "from_scipy",
     "src_degrees",
     "normalize_by_dst_degree",
     "normalize_rows",

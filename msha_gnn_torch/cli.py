@@ -5,9 +5,9 @@ Commands of ``msha_gnn_tpu/cli.py`` with the same flags, plus
 optionally checkpoint), ``eval`` (evaluate a checkpoint), ``predict``
 (batch inference from a checkpoint), ``serve`` (HTTP server from a
 checkpoint) and ``linkpred`` (ogbl-ddi-style link prediction, trained and
-evaluated).  The port has the models in :data:`PORTED_MODELS`; any other
-model, ``train --years`` and any ``linkpred`` option that is not ported
-exit with code 2.
+evaluated).  The port has every model preset of the JAX package
+(:data:`PORTED_MODELS`); ``train --years`` and any ``linkpred`` option
+that is not ported exit with code 2.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import json
 import sys
 
 MSHA_PRESETS = ("msha", "ours", "ablation1", "ablation2", "ablation3")
-PORTED_MODELS = (*MSHA_PRESETS, "gcn")
+PORTED_MODELS = (*MSHA_PRESETS, "gat", "gcn", "hgane", "sage")
 
 
 def _add_dataclass_args(parser, cls):
@@ -43,7 +43,7 @@ def _config_from_args(cls, args):
 def _build_task(cfg, fg, device="cuda"):
     """Model-preset dispatch: ``(task, model)``, or None for a model the
     port does not have."""
-    from .training import gcn_task, msha_task
+    from .training import gat_task, gcn_task, hgane_task, msha_task, sage_task
 
     if cfg.model in MSHA_PRESETS:
         flags = cfg.model_flags()
@@ -53,10 +53,17 @@ def _build_task(cfg, fg, device="cuda"):
                          dropout=cfg.dropout, lr=cfg.lr,
                          weight_decay=cfg.weight_decay, seed=cfg.seed,
                          device=device, **flags)
+    common = dict(dropout=cfg.dropout, lr=cfg.lr,
+                  weight_decay=cfg.weight_decay, seed=cfg.seed, device=device)
+    if cfg.model == "gat":
+        return gat_task(fg, n_heads=cfg.n_heads, **common)
     if cfg.model == "gcn":
-        return gcn_task(fg, nfeat=cfg.in_features, dropout=cfg.dropout,
-                        lr=cfg.lr, weight_decay=cfg.weight_decay,
-                        seed=cfg.seed, device=device)
+        return gcn_task(fg, nfeat=cfg.in_features, **common)
+    if cfg.model == "hgane":
+        return hgane_task(fg, in_features=cfg.in_features,
+                          out_features=cfg.out_features, **common)
+    if cfg.model == "sage":
+        return sage_task(fg, in_features=cfg.in_features, **common)
     return None
 
 

@@ -26,7 +26,10 @@
 // slope), and dc[r] = sum_{e in r} dpre_e.  kDw (a = x, the rows' own; b =
 // g, the cotangent gathered; id_e = eid[e], or e without an edge map) is a
 // weighted SpMM's backward: each gathered row b[j] serves both the dot and
-// the row sum.  dc and dx are the outputs that sum over a row.
+// the row sum.  dc and dx are the outputs that sum over a row.  kDw's
+// rows a and b may be stored in bfloat16 (csr_spmm_dw_bf16, the row type a
+// template parameter): they are widened to float as they are loaded, and
+// every dot and sum is float32.
 //
 // Grid 1: a warp per run of `run` consecutive slots of [0, n_slots)
 // (runs.cuh), so a long row is spread over as many warps as it has runs;
@@ -102,10 +105,11 @@ struct Args {
 
 // Grid 1's walk: one warp per run of `run` slots, groups of kG lanes one
 // edge each; kDw: blockIdx.y the tile of kG kPer features this block sums.
-template <Src kSrc, int kG, int kPer, bool kDrop>
+// T: the type of a's and b's rows.
+template <Src kSrc, int kG, int kPer, bool kDrop, typename T>
 __device__ __forceinline__ void walk(
     const int* __restrict__ ptr, const int* __restrict__ col,
-    const float* __restrict__ a, const float* __restrict__ b,
+    const T* __restrict__ a, const T* __restrict__ b,
     const float* __restrict__ logits, const float* __restrict__ c,
     const float* __restrict__ t, const float* __restrict__ out,
     const float* __restrict__ lse, const int* __restrict__ seed_ptr,
@@ -330,7 +334,7 @@ runs_kernel(
     float scale, float slope, float* __restrict__ o1, float* __restrict__ o2,
     float* __restrict__ sums, float* __restrict__ ws, int n_rows, int n_slots,
     int64_t n_runs, int run, int d) {
-  walk<kSrc, kG, kPer, kDrop>(
+  walk<kSrc, kG, kPer, kDrop, float>(
       ptr, col, a, b, logits, c, t, out, lse, seed_ptr, eid, w, rate, scale,
       slope, o1, o2, sums, ws, n_rows, n_slots, n_runs, run, d);
 }
@@ -339,11 +343,11 @@ runs_kernel(
 // capped at 80 registers, so that 3 blocks of 8 warps share an SM
 // (uncapped it held 97, and 2 fit).  The other sources keep the
 // compiler's own register choice.
-template <int kG, int kPer>
+template <int kG, int kPer, typename T>
 __global__ void __launch_bounds__(kMaxWarps * kWarp, 3)
 dw_runs_kernel(
     const int* __restrict__ ptr, const int* __restrict__ col,
-    const float* __restrict__ a, const float* __restrict__ b,
+    const T* __restrict__ a, const T* __restrict__ b,
     const float* __restrict__ logits, const float* __restrict__ c,
     const float* __restrict__ t, const float* __restrict__ out,
     const float* __restrict__ lse, const int* __restrict__ seed_ptr,
@@ -351,49 +355,52 @@ dw_runs_kernel(
     float scale, float slope, float* __restrict__ o1, float* __restrict__ o2,
     float* __restrict__ sums, float* __restrict__ ws, int n_rows, int n_slots,
     int64_t n_runs, int run, int d) {
-  walk<Src::kDw, kG, kPer, false>(
+  walk<Src::kDw, kG, kPer, false, T>(
       ptr, col, a, b, logits, c, t, out, lse, seed_ptr, eid, w, rate, scale,
       slope, o1, o2, sums, ws, n_rows, n_slots, n_runs, run, d);
 }
 
-using Kernel = void (*)(const int*, const int*, const float*, const float*,
+template <typename T>
+using Kernel = void (*)(const int*, const int*, const T*, const T*,
                         const float*, const float*, const float*,
                         const float*, const float*, const int*, const int*,
                         const float*, float, float, float, float*, float*,
                         float*, float*, int, int, int64_t, int, int);
 
-template <Src kSrc, int kG, int kPer, bool kDrop>
-Kernel kernel_of() {
+template <Src kSrc, int kG, int kPer, bool kDrop, typename T>
+Kernel<T> kernel_of() {
   if constexpr (kSrc == Src::kDw) {
-    return dw_runs_kernel<kG, kPer>;
+    return dw_runs_kernel<kG, kPer, T>;
   } else {
+    static_assert(sizeof(T) == sizeof(float),
+                  "only kDw takes bfloat16 rows");
     return runs_kernel<kSrc, kG, kPer, kDrop>;
   }
 }
 
-template <Src kSrc, int kG, bool kDrop>
-Kernel kernel_per(int per) {
+template <Src kSrc, int kG, bool kDrop, typename T>
+Kernel<T> kernel_per(int per) {
   switch (per) {
     case 1:
-      return kernel_of<kSrc, kG, 1, kDrop>();
+      return kernel_of<kSrc, kG, 1, kDrop, T>();
     case 2:
-      return kernel_of<kSrc, kG, 2, kDrop>();
+      return kernel_of<kSrc, kG, 2, kDrop, T>();
     case 4:
-      return kernel_of<kSrc, kG, 4, kDrop>();
+      return kernel_of<kSrc, kG, 4, kDrop, T>();
     default:
-      return kernel_of<kSrc, kG, 8, kDrop>();
+      return kernel_of<kSrc, kG, 8, kDrop, T>();
   }
 }
 
-template <Src kSrc, bool kDrop>
-Kernel kernel_for(int group, int per) {
+template <Src kSrc, bool kDrop, typename T>
+Kernel<T> kernel_for(int group, int per) {
   switch (group) {
     case 8:
-      return kernel_per<kSrc, 8, kDrop>(per);
+      return kernel_per<kSrc, 8, kDrop, T>(per);
     case 16:
-      return kernel_per<kSrc, 16, kDrop>(per);
+      return kernel_per<kSrc, 16, kDrop, T>(per);
     default:
-      return kernel_per<kSrc, 32, kDrop>(per);
+      return kernel_per<kSrc, 32, kDrop, T>(per);
   }
 }
 
@@ -405,9 +412,10 @@ constexpr int kFixThreads = 256;
 // o1 (and o2) [n_slots] with n_slots >= ptr[n_rows]; group the lanes an
 // edge, 8, 16 or 32.  kRank1: sums = dc [n_rows] and ws [3 n_runs]; kDw:
 // sums = dx [n_rows, d] and ws [n_runs (2 d + 1)]; float32, n_runs = max(1,
-// ceil(n_slots / run)).  Dropout (rate > 0) is kRead's only.
-template <Src kSrc>
-int launch(const int* ptr, const int* col, const float* a, const float* b,
+// ceil(n_slots / run)).  Dropout (rate > 0) is kRead's only; rows of type
+// T other than float are kDw's only.
+template <Src kSrc, typename T = float>
+int launch(const int* ptr, const int* col, const T* a, const T* b,
            const Args& p, int n_rows, int n_slots, int run, int group, int d,
            int n_warps, cudaStream_t stream) {
   if (n_rows <= 0 || d < 0 || n_warps < 1 || n_warps > kMaxWarps ||
@@ -416,8 +424,7 @@ int launch(const int* ptr, const int* col, const float* a, const float* b,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t n_runs = runs::count(n_slots, run);
-  uintptr_t at = reinterpret_cast<uintptr_t>(a) |
-                 reinterpret_cast<uintptr_t>(b);
+  uintptr_t at = runs::float_at(a) | runs::float_at(b);
   if constexpr (kSrc == Src::kRead || kSrc == Src::kRank1) {
     at |= reinterpret_cast<uintptr_t>(p.out);
   }
@@ -431,9 +438,9 @@ int launch(const int* ptr, const int* col, const float* a, const float* b,
       static_cast<unsigned>((n_runs + n_warps - 1) / n_warps),
       static_cast<unsigned>(kSrc == Src::kDw && d > tile
                                 ? (d + tile - 1) / tile : 1));
-  Kernel kernel = kernel_for<kSrc, false>(group, per);
+  Kernel<T> kernel = kernel_for<kSrc, false, T>(group, per);
   if constexpr (kSrc == Src::kRead) {
-    if (p.rate > 0.0f) kernel = kernel_for<kSrc, true>(group, per);
+    if (p.rate > 0.0f) kernel = kernel_for<kSrc, true, T>(group, per);
   }
   kernel<<<grid, n_warps * kWarp, 0, stream>>>(
       ptr, col, a, b, p.logits, p.c, p.t, p.out, p.lse, p.seed, p.eid, p.w,

@@ -40,6 +40,11 @@
 // features (blockIdx.y); each tile forms the full logits in the same order
 // (kRead and kRank1 trivially: a load), so all tiles see one softmax.  No
 // float atomics: two launches give the same bits.
+//
+// x's rows may be stored in bfloat16 (r1l_fwd_bf16, the row type a
+// template parameter): a lane widens its features to float as it loads
+// them, so kDot's t_j, the logits, the softmax and the aggregation are
+// float32 over the bfloat16 rows.
 
 #pragma once
 
@@ -104,10 +109,11 @@ struct LogitSource {
   // The logit from `v` (what load gave) and, for kDot, the lane's features
   // xv of x[j] (xr: the row, for the tiles this lane does not hold).
   // Every lane of the warp calls it: kDot sums over the group by shuffles.
+  template <typename T>
   __device__ __forceinline__ float logit(float v, bool ok,
                                          const float (&xv)[kPer],
-                                         const float* __restrict__ xr,
-                                         int base, int d, int li) const {
+                                         const T* __restrict__ xr, int base,
+                                         int d, int li) const {
     if constexpr (kSrc == Logit::kRead) {
       return v;
     } else if constexpr (kSrc == Logit::kRank1) {
@@ -146,11 +152,12 @@ inline FwdWs fwd_ws(float* ws, int64_t n_runs, int d) {
 }
 
 // Grid 1: one warp per run of `run` CSR slots, groups of kG lanes one edge
-// each, blockIdx.y the tile of kG kPer features this block aggregates.
-template <Logit kSrc, int kG, int kPer, bool kDrop>
+// each, blockIdx.y the tile of kG kPer features this block aggregates; T
+// the type of x's rows.
+template <Logit kSrc, int kG, int kPer, bool kDrop, typename T>
 __global__ void __launch_bounds__(kMaxWarps * kWarp)
 fwd_runs_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
-                LogitArgs args, const float* __restrict__ x,
+                LogitArgs args, const T* __restrict__ x,
                 const int* __restrict__ seed_ptr, float rate, float scale,
                 float* __restrict__ out, float* __restrict__ lse, FwdWs ws,
                 int n_rows, int64_t n_runs, int run, int d) {
@@ -334,33 +341,34 @@ fwd_fixup_kernel(const int* __restrict__ ptr, FwdWs ws,
   }
 }
 
-using FwdKernel = void (*)(const int*, const int*, LogitArgs, const float*,
+template <typename T>
+using FwdKernel = void (*)(const int*, const int*, LogitArgs, const T*,
                            const int*, float, float, float*, float*, FwdWs,
                            int, int64_t, int, int);
 
-template <Logit kSrc, int kG, bool kDrop>
-FwdKernel kernel_per(int per) {
+template <Logit kSrc, int kG, bool kDrop, typename T>
+FwdKernel<T> kernel_per(int per) {
   switch (per) {
     case 1:
-      return fwd_runs_kernel<kSrc, kG, 1, kDrop>;
+      return fwd_runs_kernel<kSrc, kG, 1, kDrop, T>;
     case 2:
-      return fwd_runs_kernel<kSrc, kG, 2, kDrop>;
+      return fwd_runs_kernel<kSrc, kG, 2, kDrop, T>;
     case 4:
-      return fwd_runs_kernel<kSrc, kG, 4, kDrop>;
+      return fwd_runs_kernel<kSrc, kG, 4, kDrop, T>;
     default:
-      return fwd_runs_kernel<kSrc, kG, 8, kDrop>;
+      return fwd_runs_kernel<kSrc, kG, 8, kDrop, T>;
   }
 }
 
-template <Logit kSrc, bool kDrop>
-FwdKernel kernel_for(int group, int per) {
+template <Logit kSrc, bool kDrop, typename T>
+FwdKernel<T> kernel_for(int group, int per) {
   switch (group) {
     case 8:
-      return kernel_per<kSrc, 8, kDrop>(per);
+      return kernel_per<kSrc, 8, kDrop, T>(per);
     case 16:
-      return kernel_per<kSrc, 16, kDrop>(per);
+      return kernel_per<kSrc, 16, kDrop, T>(per);
     default:
-      return kernel_per<kSrc, 32, kDrop>(per);
+      return kernel_per<kSrc, 32, kDrop, T>(per);
   }
 }
 
@@ -370,10 +378,11 @@ FwdKernel kernel_for(int group, int per) {
 // [n_cols, d]; out [n_rows, d], lse [n_rows]; ws [n_runs (2 d + 5)] float32
 // with n_runs = max(1, ceil(n_slots / run)); group the lanes an edge, 8,
 // 16 or 32.  `seed` (a device pointer to one int32) is read when rate > 0;
-// kRank1 takes no dropout.
-template <Logit kSrc>
+// kRank1 takes no dropout.  x's rows are of type T: float, or
+// __nv_bfloat16 for the bfloat16 payload.
+template <Logit kSrc, typename T = float>
 int launch(const int* ptr, const int* col, const LogitArgs& args,
-           const float* x, const int* seed, float rate, float scale,
+           const T* x, const int* seed, float rate, float scale,
            float* out, float* lse, float* ws, int n_rows, int n_slots,
            int run, int group, int d, int n_warps, cudaStream_t stream) {
   if (n_rows <= 0 || d < 0 || n_warps < 1 || n_warps > kMaxWarps ||
@@ -383,7 +392,7 @@ int launch(const int* ptr, const int* col, const LogitArgs& args,
   }
   const int64_t n_runs = runs::count(n_slots, run);
   const FwdWs w = fwd_ws(ws, n_runs, d);
-  const uintptr_t at = reinterpret_cast<uintptr_t>(x) |
+  const uintptr_t at = runs::float_at(x) |
                        reinterpret_cast<uintptr_t>(args.a) |
                        reinterpret_cast<uintptr_t>(out) |
                        reinterpret_cast<uintptr_t>(w.head_acc) |
@@ -392,9 +401,9 @@ int launch(const int* ptr, const int* col, const LogitArgs& args,
   const int tile = group * per;
   const dim3 grid(static_cast<unsigned>((n_runs + n_warps - 1) / n_warps),
                   static_cast<unsigned>(d > tile ? (d + tile - 1) / tile : 1));
-  FwdKernel kernel = kernel_for<kSrc, false>(group, per);
+  FwdKernel<T> kernel = kernel_for<kSrc, false, T>(group, per);
   if constexpr (kSrc != Logit::kRank1) {
-    if (rate > 0.0f) kernel = kernel_for<kSrc, true>(group, per);
+    if (rate > 0.0f) kernel = kernel_for<kSrc, true, T>(group, per);
   }
   kernel<<<grid, n_warps * kWarp, 0, stream>>>(ptr, col, args, x, seed, rate,
                                                scale, out, lse, w, n_rows,

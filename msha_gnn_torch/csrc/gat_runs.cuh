@@ -3,8 +3,10 @@
 // gat_fwd.cuh (r1l_fwd_f32, r1_fwd_f32, flash_fwd_f32) and flash_bwd_f32
 // (flash_gat.cu).
 //
-// A group's lanes hold a row's features in registers: lane li of the group
-// holds kPer floats, in chunks of kVec consecutive features, chunk i at
+// A group's lanes hold a row's features in registers (as float, whether
+// the row is stored in float or, for the bfloat16 payload, in
+// __nv_bfloat16): lane li of the group holds kPer floats, in chunks of
+// kVec consecutive features, chunk i at
 // feature base + (i kG + li) kVec, so one load instruction of the group
 // reads kG kVec consecutive floats.  A tile is the kG kPer features one
 // group holds; a width d above it takes several tiles.
@@ -56,12 +58,12 @@ struct Layout {
   }
 };
 
-// The lane's features of the tile at `base` of the row at p (d floats,
-// d % kVec == 0, p aligned to kVec floats); 0 past d.
-template <int kG, int kPer>
-__device__ __forceinline__ void load_lane(const float* __restrict__ p,
-                                          int base, int d, int li,
-                                          float (&v)[kPer]) {
+// The lane's features of the tile at `base` of the row at p (d values of
+// type T, float or __nv_bfloat16; d % kVec == 0, p aligned to kVec values);
+// 0 past d.
+template <int kG, int kPer, typename T>
+__device__ __forceinline__ void load_lane(const T* __restrict__ p, int base,
+                                          int d, int li, float (&v)[kPer]) {
   using L = Layout<kG, kPer>;
 #pragma unroll
   for (int i = 0; i < L::kChunks; ++i) {
@@ -100,11 +102,11 @@ __device__ __forceinline__ void store_lane(float* __restrict__ p, int base,
 // holds its features of the tile at `base` in pv and qv: the tiles in
 // order, the others loaded, so every tile's block forms the same bits.
 // group_sum of it is the dot.
-template <int kG, int kPer>
+template <int kG, int kPer, typename TP, typename TQ>
 __device__ __forceinline__ float lane_dot(const float (&pv)[kPer],
                                           const float (&qv)[kPer],
-                                          const float* __restrict__ p,
-                                          const float* __restrict__ q,
+                                          const TP* __restrict__ p,
+                                          const TQ* __restrict__ q,
                                           int base, int d, int li) {
   using L = Layout<kG, kPer>;
   float v = 0.0f;
@@ -225,8 +227,8 @@ __device__ __forceinline__ void merge_groups(Piece<kPer>& st) {
 // The floats a lane holds (1, 2, 4 or 8) for a group of g lanes at width
 // d: the fewest whose tile covers d, in vectors that d and the alignment
 // `at` of the rows allow (4 floats need d % 4 == 0 and 16-byte rows, 2
-// need d % 2 == 0 and 8-byte rows); the most that are allowed when no tile
-// covers d.
+// need d % 2 == 0 and 8-byte rows; a bfloat16 row enters `at` through
+// runs::float_at); the most that are allowed when no tile covers d.
 inline int per_lane(int g, int d, uintptr_t at) {
   const int max_vec = (d % 4 == 0 && at % 16 == 0)  ? 4
                       : (d % 2 == 0 && at % 8 == 0) ? 2

@@ -1,7 +1,8 @@
-// The rank-1 GAT kernels in float32: the fused layer with a
-// destination-linear logit (the forward r1l_fwd_f32 and its recompute
-// backward r1l_bwd_f32) and the generic form's forward r1_fwd_f32 (its
-// backward, r1_bwd_f32, is in flash_gat.cu).
+// The rank-1 GAT kernels: the fused layer with a destination-linear logit
+// (the forward r1l_fwd_f32 and its recompute backward r1l_bwd_f32, and
+// their bfloat16 payloads r1l_fwd_bf16 and r1l_bwd_bf16) and the generic
+// form's forward r1_fwd_f32 (its backward, r1_bwd_f32, is in
+// flash_gat.cu).
 //
 // For a CSR graph (row r has edges e in [ptr[r], ptr[r+1]), j = col[e]):
 //
@@ -67,6 +68,16 @@
 // entry point adds the da partials in a fixed order (full f32, as the TPU
 // kernel keeps it on purpose, rank1_gat.py:384-388) and the crossing rows'
 // dc pieces.  No float atomics anywhere, so results are deterministic.
+//
+// The bfloat16 payload (r1l_fwd_bf16, r1l_bwd_bf16; the TPU kernels' mode
+// without the lo pass, rank1_gat.py:149-151, :294-296): x is stored and
+// streamed in bfloat16, at half its bytes, and every other input, output
+// and quantity is float32: t_e = <x[j], a>, the logits, the softmax, the
+// aggregation, q, dpre, dc and da come from the bfloat16 rows widened in
+// registers (the row type is a template parameter of both walks).  The
+// TPU kernels also round the unnormalised p to bfloat16 before the MXU
+// product; that is their schedule's, and here p stays float32.  The keep
+// mask's hash is the same.
 
 #include <cuda_runtime.h>
 
@@ -124,12 +135,13 @@ __device__ __forceinline__ void enter_row(RowState& st, int row,
 // CSR slots of [0, n_slots); the edges are the slots [0, ptr[n_rows]), read
 // on the card, and q and dpre are 0 on the slots past them.  ws: dc_head
 // [n_runs] | dc_tail [n_runs] | cross [n_runs] (int32) | da_part [n_runs, d].
-// Lanes hold kVec consecutive features of each 32 kVec-wide tile.
-template <int kVec, bool kDrop>
+// Lanes hold kVec consecutive features of each 32 kVec-wide tile.  T: the
+// type of x's rows (float or __nv_bfloat16).
+template <int kVec, bool kDrop, typename T>
 __global__ void __launch_bounds__(kMaxWarps * kWarp)
 r1l_bwd_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
                const float* __restrict__ c, const float* __restrict__ a,
-               const float* __restrict__ x, const float* __restrict__ gout,
+               const T* __restrict__ x, const float* __restrict__ gout,
                const float* __restrict__ out, const float* __restrict__ lse,
                const int* __restrict__ seed_ptr, float rate, float scale,
                float slope, float* __restrict__ q, float* __restrict__ dpre,
@@ -358,6 +370,51 @@ bool bad_shape(int n_rows, int d, int n_warps) {
   return n_rows <= 0 || d < 0 || n_warps < 1 || n_warps > kMaxWarps;
 }
 
+template <typename T>
+int r1l_bwd(const int* ptr, const int* col, const float* c, const float* a,
+            const T* x, const float* gout, const float* out,
+            const float* lse, const int* seed, float rate, float scale,
+            float slope, float* q, float* dpre, float* dc, float* ws,
+            float* da, int n_rows, int n_slots, int run, int d, int n_warps,
+            cudaStream_t stream) {
+  if (bad_shape(n_rows, d, n_warps) || n_slots < 0 || run < 1 ||
+      bwd_smem(d, n_warps) > kMaxSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t n_runs = runs::count(n_slots, run);
+  float* dc_head = ws;
+  float* dc_tail = ws + n_runs;
+  int* cross = reinterpret_cast<int*>(ws + 2 * n_runs);
+  float* da_part = ws + 3 * n_runs;
+  const size_t smem = bwd_smem(d, n_warps);
+  const unsigned blocks =
+      static_cast<unsigned>((n_runs + n_warps - 1) / n_warps);
+  const uintptr_t at = runs::float_at(x) |
+                       reinterpret_cast<uintptr_t>(gout);
+  const int vec = (d >= 128 && d % 4 == 0 && at % 16 == 0)  ? 4
+                  : (d >= 64 && d % 2 == 0 && at % 8 == 0) ? 2
+                                                            : 1;
+  const bool drop = rate > 0.0f;
+  auto kernel = drop ? (vec == 4   ? r1l_bwd_kernel<4, true, T>
+                        : vec == 2 ? r1l_bwd_kernel<2, true, T>
+                                   : r1l_bwd_kernel<1, true, T>)
+                     : (vec == 4   ? r1l_bwd_kernel<4, false, T>
+                        : vec == 2 ? r1l_bwd_kernel<2, false, T>
+                                   : r1l_bwd_kernel<1, false, T>);
+  kernel<<<blocks, n_warps * kWarp, smem, stream>>>(
+      ptr, col, c, a, x, gout, out, lse, seed, rate, scale, slope, q, dpre,
+      dc, dc_head, dc_tail, cross, da_part, n_rows, n_slots, n_runs, run, d);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int da_blocks = (d + kWarp - 1) / kWarp;
+  const int64_t dc_blocks = (n_runs + kWarp * kWarp - 1) / (kWarp * kWarp);
+  r1l_bwd_fixup_kernel<<<static_cast<unsigned>(da_blocks + dc_blocks),
+                         kWarp * kWarp, 0, stream>>>(
+      ptr, dc_head, dc_tail, cross, da_part, dc, da, n_rows, n_runs, run, d,
+      da_blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // All entry points launch on `stream`, do not synchronise, and return
@@ -377,6 +434,19 @@ extern "C" int r1l_fwd_f32(const int* ptr, const int* col, const float* c,
                            float* lse, float* ws, int n_rows, int n_slots,
                            int run, int group, int d, int n_warps,
                            cudaStream_t stream) {
+  const gat_fwd::LogitArgs args{nullptr, c, a, nullptr, slope};
+  return gat_fwd::launch<gat_fwd::Logit::kDot>(
+      ptr, col, args, x, seed, rate, scale, out, lse, ws, n_rows, n_slots,
+      run, group, d, n_warps, stream);
+}
+
+// The same over x [n_cols, d] stored in bfloat16.
+extern "C" int r1l_fwd_bf16(const int* ptr, const int* col, const float* c,
+                            const float* a, const __nv_bfloat16* x,
+                            const int* seed, float rate, float scale,
+                            float slope, float* out, float* lse, float* ws,
+                            int n_rows, int n_slots, int run, int group,
+                            int d, int n_warps, cudaStream_t stream) {
   const gat_fwd::LogitArgs args{nullptr, c, a, nullptr, slope};
   return gat_fwd::launch<gat_fwd::Logit::kDot>(
       ptr, col, args, x, seed, rate, scale, out, lse, ws, n_rows, n_slots,
@@ -410,42 +480,23 @@ extern "C" int r1l_bwd_f32(const int* ptr, const int* col, const float* c,
                            float* dpre, float* dc, float* ws, float* da,
                            int n_rows, int n_slots, int run, int d,
                            int n_warps, cudaStream_t stream) {
-  if (bad_shape(n_rows, d, n_warps) || n_slots < 0 || run < 1 ||
-      bwd_smem(d, n_warps) > kMaxSmem) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int64_t n_runs = runs::count(n_slots, run);
-  float* dc_head = ws;
-  float* dc_tail = ws + n_runs;
-  int* cross = reinterpret_cast<int*>(ws + 2 * n_runs);
-  float* da_part = ws + 3 * n_runs;
-  const size_t smem = bwd_smem(d, n_warps);
-  const unsigned blocks =
-      static_cast<unsigned>((n_runs + n_warps - 1) / n_warps);
-  const uintptr_t at = reinterpret_cast<uintptr_t>(x) |
-                       reinterpret_cast<uintptr_t>(gout);
-  const int vec = (d >= 128 && d % 4 == 0 && at % 16 == 0)  ? 4
-                  : (d >= 64 && d % 2 == 0 && at % 8 == 0) ? 2
-                                                            : 1;
-  const bool drop = rate > 0.0f;
-  auto kernel = drop ? (vec == 4   ? r1l_bwd_kernel<4, true>
-                        : vec == 2 ? r1l_bwd_kernel<2, true>
-                                   : r1l_bwd_kernel<1, true>)
-                     : (vec == 4   ? r1l_bwd_kernel<4, false>
-                        : vec == 2 ? r1l_bwd_kernel<2, false>
-                                   : r1l_bwd_kernel<1, false>);
-  kernel<<<blocks, n_warps * kWarp, smem, stream>>>(
-      ptr, col, c, a, x, gout, out, lse, seed, rate, scale, slope, q, dpre,
-      dc, dc_head, dc_tail, cross, da_part, n_rows, n_slots, n_runs, run, d);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int da_blocks = (d + kWarp - 1) / kWarp;
-  const int64_t dc_blocks = (n_runs + kWarp * kWarp - 1) / (kWarp * kWarp);
-  r1l_bwd_fixup_kernel<<<static_cast<unsigned>(da_blocks + dc_blocks),
-                         kWarp * kWarp, 0, stream>>>(
-      ptr, dc_head, dc_tail, cross, da_part, dc, da, n_rows, n_runs, run, d,
-      da_blocks);
-  return static_cast<int>(cudaGetLastError());
+  return r1l_bwd<float>(ptr, col, c, a, x, gout, out, lse, seed, rate, scale,
+                        slope, q, dpre, dc, ws, da, n_rows, n_slots, run, d,
+                        n_warps, stream);
+}
+
+// The same over x [n_cols, d] stored in bfloat16; everything else float32.
+extern "C" int r1l_bwd_bf16(const int* ptr, const int* col, const float* c,
+                            const float* a, const __nv_bfloat16* x,
+                            const float* gout, const float* out,
+                            const float* lse, const int* seed, float rate,
+                            float scale, float slope, float* q, float* dpre,
+                            float* dc, float* ws, float* da, int n_rows,
+                            int n_slots, int run, int d, int n_warps,
+                            cudaStream_t stream) {
+  return r1l_bwd<__nv_bfloat16>(ptr, col, c, a, x, gout, out, lse, seed,
+                                rate, scale, slope, q, dpre, dc, ws, da,
+                                n_rows, n_slots, run, d, n_warps, stream);
 }
 
 // The largest warps per block (1..8) for the kernels at feature width d:

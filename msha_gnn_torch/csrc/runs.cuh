@@ -26,9 +26,14 @@
 //     it), and the rows with ptr[r] == n_edges by the run that holds the
 //     last slot.  With no edges at all, run 0 zeroes every row.
 // Slots past ptr[n_rows] (pads) are never read.
+//
+// Rows of x (and the other gathered rows) come as float or, for the
+// bfloat16 payload, as __nv_bfloat16: ldg_vec loads either into float
+// registers, so every walk sums in float32 whatever the row type.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -185,6 +190,38 @@ __device__ __forceinline__ void ldg_vec(const float* __restrict__ p,
   } else {
     v[0] = __ldg(p);
   }
+}
+
+// kVec consecutive bfloat16 values of a read-only global row, widened to
+// float: 8, 4 or 2 bytes a load (p aligned to it).  A bfloat16 is the top
+// half of a float32, so widening is a shift; the value at the lower
+// address sits in the low half of the loaded word.
+template <int kVec>
+__device__ __forceinline__ void ldg_vec(const __nv_bfloat16* __restrict__ p,
+                                        float (&v)[kVec]) {
+  if constexpr (kVec == 4) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = __uint_as_float(t.x << 16);
+    v[1] = __uint_as_float(t.x & 0xffff0000u);
+    v[2] = __uint_as_float(t.y << 16);
+    v[3] = __uint_as_float(t.y & 0xffff0000u);
+  } else if constexpr (kVec == 2) {
+    const unsigned t = __ldg(reinterpret_cast<const unsigned*>(p));
+    v[0] = __uint_as_float(t << 16);
+    v[1] = __uint_as_float(t & 0xffff0000u);
+  } else {
+    const unsigned short t =
+        __ldg(reinterpret_cast<const unsigned short*>(p));
+    v[0] = __uint_as_float(static_cast<unsigned>(t) << 16);
+  }
+}
+
+// A row pointer's address as the alignment rules for float rows read it:
+// kVec bfloat16 values take the place of kVec floats at half the bytes, so
+// a bfloat16 address counts twice.
+template <typename T>
+inline uintptr_t float_at(const T* p) {
+  return reinterpret_cast<uintptr_t>(p) * (sizeof(float) / sizeof(T));
 }
 
 // The same from any memory (shared memory included).

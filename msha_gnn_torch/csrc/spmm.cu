@@ -1,4 +1,4 @@
-// CSR walks in float32:
+// CSR walks, summed in float32:
 //
 // csr_spmm_f32: sparse (CSR) times dense,
 //
@@ -22,6 +22,16 @@
 // order and each slot is written once); for A.T @ x it walks the CSR (eid
 // null).
 //
+// csr_spmm_bf16 and csr_spmm_dw_bf16: the same two walks over rows stored
+// in bfloat16 (x; g and x), the bfloat16 payload of the TPU kernels below
+// (spmm.py:269-271, :315, :370, :774).  A row is widened to float32 in
+// registers as it is loaded (runs::ldg_vec), and every product and sum is
+// float32; w, dw and the outputs stay float32.  The row type is a template
+// parameter of the one walk, so the two forms share every line but the
+// load.  The TPU kernels also round v * w (the visit SpMM) or the per-hub
+// sums (the hub SpMM) to bfloat16: those are their schedule's, not the
+// function's, and the port's bfloat16 kernels keep them in float32.
+//
 // Replaces these TPU kernels of msha_gnn_tpu/ops/pallas/spmm.py:
 //   * _visit_kernel (:244), csr_spmm_f32: a one-hot MXU reduce of CSR edge
 //     chunks into 128-row output blocks, walked by a host-built
@@ -43,7 +53,8 @@
 // Bound: bytes.  Each edge needs its column index and weight (8 B, or 4 B
 // unweighted) and one row of x (seg_reduce_f32: its own row of values;
 // csr_spmm_dw_f32 adds eid and the dw write, 8 B, and reads each row of x
-// once); the operations (2 E d flops, 4 E d with dw) are far below the
+// once; the bfloat16 forms read their rows at 2 B a value, half the row
+// bytes); the operations (2 E d flops, 4 E d with dw) are far below the
 // card's rate.  At the GCN's shapes each call moves about 6 MB at minimum,
 // about 2 us at HBM rate; seg_reduce_f32 on [E, 64] values reads 84 MB,
 // about 25 us; csr_spmm_dw_f32 on the linkpred graph at d 64 moves about
@@ -127,11 +138,12 @@ __device__ __forceinline__ float* piece_dst(float* out, float* head,
 }
 
 // One warp per run; lanes over kVec-wide slices of 32 kVec-feature tiles.
-// kIdentity: the edge's own index is its row of x (col is not read).
-template <int kVec, bool kWeighted, bool kIdentity>
+// kIdentity: the edge's own index is its row of x (col is not read).  T:
+// the type of x's rows (float or __nv_bfloat16).
+template <int kVec, bool kWeighted, bool kIdentity, typename T>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
 csr_spmm_runs_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
-                     const float* __restrict__ w, const float* __restrict__ x,
+                     const float* __restrict__ w, const T* __restrict__ x,
                      float* __restrict__ out, float* __restrict__ head,
                      float* __restrict__ tail, int* __restrict__ cross,
                      int n_rows, int run, int d) {
@@ -241,12 +253,12 @@ csr_spmm_runs_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
 }
 
 // d = 1: one thread per run, kGroup edges' loads in flight.
-template <bool kWeighted, bool kIdentity>
+template <bool kWeighted, bool kIdentity, typename T>
 __global__ void __launch_bounds__(kD1Threads)
 csr_spmm_runs_d1_kernel(const int* __restrict__ ptr,
                         const int* __restrict__ col,
                         const float* __restrict__ w,
-                        const float* __restrict__ x, float* __restrict__ out,
+                        const T* __restrict__ x, float* __restrict__ out,
                         float* __restrict__ head, float* __restrict__ tail,
                         int* __restrict__ cross, int n_rows, int run) {
   const int64_t k = static_cast<int64_t>(blockIdx.x) * blockDim.x +
@@ -273,8 +285,9 @@ csr_spmm_runs_d1_kernel(const int* __restrict__ ptr,
       const int e = e0 + u;
       v[u] = 0.0f;
       if (e < last) {
-        const float xv = __ldg(x + (kIdentity ? e : __ldg(col + e)));
-        v[u] = kWeighted ? __ldg(w + e) * xv : xv;
+        float xv[1];
+        runs::ldg_vec<1>(x + (kIdentity ? e : __ldg(col + e)), xv);
+        v[u] = kWeighted ? __ldg(w + e) * xv[0] : xv[0];
       }
     }
 #pragma unroll
@@ -302,17 +315,17 @@ csr_spmm_runs_d1_kernel(const int* __restrict__ ptr,
 
 // Both grids of one CSR sum; ws holds head [n_runs, d] | tail [n_runs, d] |
 // cross [n_runs] (int32).
-template <bool kWeighted, bool kIdentity>
-int launch_runs(const int* ptr, const int* col, const float* w,
-                const float* x, float* out, float* ws, int n_rows,
-                int n_slots, int run, int d, cudaStream_t stream) {
+template <bool kWeighted, bool kIdentity, typename T>
+int launch_runs(const int* ptr, const int* col, const float* w, const T* x,
+                float* out, float* ws, int n_rows, int n_slots, int run,
+                int d, cudaStream_t stream) {
   const int64_t n_runs = runs::count(n_slots, run);
   float* head = ws;
   float* tail = ws + n_runs * d;
   int* cross = reinterpret_cast<int*>(ws + 2 * n_runs * d);
   if (d == 1) {
     const int64_t blocks = (n_runs + kD1Threads - 1) / kD1Threads;
-    csr_spmm_runs_d1_kernel<kWeighted, kIdentity>
+    csr_spmm_runs_d1_kernel<kWeighted, kIdentity, T>
         <<<static_cast<unsigned>(blocks), kD1Threads, 0, stream>>>(
             ptr, col, w, x, out, head, tail, cross, n_rows, run);
     const cudaError_t err = cudaGetLastError();
@@ -322,19 +335,22 @@ int launch_runs(const int* ptr, const int* col, const float* w,
             ptr, head, tail, cross, out, n_rows, run, d);
     return static_cast<int>(cudaGetLastError());
   }
-  const uintptr_t at = reinterpret_cast<uintptr_t>(x);
+  const uintptr_t at = runs::float_at(x);
   const int64_t blocks = (n_runs + kWarpsPerBlock - 1) / kWarpsPerBlock;
   const unsigned grid = static_cast<unsigned>(blocks);
   const int threads = kWarpsPerBlock * kWarp;
   if (d >= 128 && d % 4 == 0 && at % 16 == 0) {
-    csr_spmm_runs_kernel<4, kWeighted, kIdentity><<<grid, threads, 0, stream>>>(
-        ptr, col, w, x, out, head, tail, cross, n_rows, run, d);
+    csr_spmm_runs_kernel<4, kWeighted, kIdentity, T>
+        <<<grid, threads, 0, stream>>>(ptr, col, w, x, out, head, tail,
+                                       cross, n_rows, run, d);
   } else if (d >= 64 && d % 2 == 0 && at % 8 == 0) {
-    csr_spmm_runs_kernel<2, kWeighted, kIdentity><<<grid, threads, 0, stream>>>(
-        ptr, col, w, x, out, head, tail, cross, n_rows, run, d);
+    csr_spmm_runs_kernel<2, kWeighted, kIdentity, T>
+        <<<grid, threads, 0, stream>>>(ptr, col, w, x, out, head, tail,
+                                       cross, n_rows, run, d);
   } else {
-    csr_spmm_runs_kernel<1, kWeighted, kIdentity><<<grid, threads, 0, stream>>>(
-        ptr, col, w, x, out, head, tail, cross, n_rows, run, d);
+    csr_spmm_runs_kernel<1, kWeighted, kIdentity, T>
+        <<<grid, threads, 0, stream>>>(ptr, col, w, x, out, head, tail,
+                                       cross, n_rows, run, d);
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -355,19 +371,40 @@ int launch_runs(const int* ptr, const int* col, const float* w,
 // run length in slots.  Two grids: the runs, then the fix-up of the rows
 // that cross runs.  Every row of out is written.
 
-// out[r] = sum_{e in row r} w[e] x[col[e]]; a null `w` means unit weights.
-extern "C" int csr_spmm_f32(const int* ptr, const int* col, const float* w,
-                            const float* x, float* out, float* ws, int n_rows,
-                            int n_slots, int run, int d, cudaStream_t stream) {
+namespace {
+
+template <typename T>
+int csr_spmm(const int* ptr, const int* col, const float* w, const T* x,
+             float* out, float* ws, int n_rows, int n_slots, int run, int d,
+             cudaStream_t stream) {
   if (n_rows <= 0 || d <= 0 || n_slots < 0 || run < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (w != nullptr) {
-    return launch_runs<true, false>(ptr, col, w, x, out, ws, n_rows, n_slots,
-                                    run, d, stream);
+    return launch_runs<true, false, T>(ptr, col, w, x, out, ws, n_rows,
+                                       n_slots, run, d, stream);
   }
-  return launch_runs<false, false>(ptr, col, w, x, out, ws, n_rows, n_slots,
-                                   run, d, stream);
+  return launch_runs<false, false, T>(ptr, col, w, x, out, ws, n_rows,
+                                      n_slots, run, d, stream);
+}
+
+}  // namespace
+
+// out[r] = sum_{e in row r} w[e] x[col[e]]; a null `w` means unit weights.
+extern "C" int csr_spmm_f32(const int* ptr, const int* col, const float* w,
+                            const float* x, float* out, float* ws, int n_rows,
+                            int n_slots, int run, int d, cudaStream_t stream) {
+  return csr_spmm<float>(ptr, col, w, x, out, ws, n_rows, n_slots, run, d,
+                         stream);
+}
+
+// The same over x [n_cols, d] stored in bfloat16; out float32.
+extern "C" int csr_spmm_bf16(const int* ptr, const int* col, const float* w,
+                             const __nv_bfloat16* x, float* out, float* ws,
+                             int n_rows, int n_slots, int run, int d,
+                             cudaStream_t stream) {
+  return csr_spmm<__nv_bfloat16>(ptr, col, w, x, out, ws, n_rows, n_slots,
+                                 run, d, stream);
 }
 
 // out[r] = sum of values' rows [ptr[r], ptr[r+1]); values [>= ptr[n_rows],
@@ -378,8 +415,8 @@ extern "C" int seg_reduce_f32(const int* ptr, const float* values,
   if (n_rows <= 0 || d <= 0 || n_slots < 0 || run < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_runs<false, true>(ptr, nullptr, nullptr, values, out, ws,
-                                  n_rows, n_slots, run, d, stream);
+  return launch_runs<false, true, float>(ptr, nullptr, nullptr, values, out,
+                                         ws, n_rows, n_slots, run, d, stream);
 }
 
 // dx [n_rows, d] and dw [n_slots] (n_slots >= ptr[n_rows], the slots past
@@ -394,6 +431,25 @@ extern "C" int csr_spmm_dw_f32(const int* ptr, const int* col, const int* eid,
                                float* dx, float* dw, float* ws, int n_rows,
                                int n_slots, int run, int group, int d,
                                cudaStream_t stream) {
+  gat_bwd::Args args{};
+  args.eid = eid;
+  args.w = w;
+  args.o1 = dw;
+  args.sums = dx;
+  args.ws = ws;
+  return gat_bwd::launch<gat_bwd::Src::kDw>(ptr, col, x, g, args, n_rows,
+                                            n_slots, run, group, d,
+                                            kDwWarps, stream);
+}
+
+// The same with g [n_cols, d] and x [n_rows, d] stored in bfloat16; w, dx,
+// dw and ws float32.
+extern "C" int csr_spmm_dw_bf16(const int* ptr, const int* col,
+                                const int* eid, const float* w,
+                                const __nv_bfloat16* g,
+                                const __nv_bfloat16* x, float* dx, float* dw,
+                                float* ws, int n_rows, int n_slots, int run,
+                                int group, int d, cudaStream_t stream) {
   gat_bwd::Args args{};
   args.eid = eid;
   args.w = w;

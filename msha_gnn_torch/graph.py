@@ -288,3 +288,13 @@ def normalize_rows(graph: BipartiteGraph) -> BipartiteGraph:
     """Row normalisation ``D^-1 @ A``."""
     inv = _inv_padded(src_degrees(graph))
     return graph.with_weight(graph.weight * inv[graph.senders.long()])
+
+
+def from_scipy(sparse_mx, *, pad_to_multiple: int = 128) -> BipartiteGraph:
+    """A scipy.sparse matrix -> :class:`BipartiteGraph` (duplicate entries
+    summed), as ``msha_gnn_tpu/graph.py::from_scipy`` builds it."""
+    coo = sparse_mx.tocoo()
+    return BipartiteGraph.from_coo(
+        coo.row, coo.col, coo.data.astype(np.float32),
+        n_src=coo.shape[0], n_dst=coo.shape[1],
+        pad_to_multiple=pad_to_multiple, combine_duplicates=True)

@@ -1,9 +1,9 @@
 """Weights from the JAX package into the port's modules.
 
-The flax parameter trees hold numpy-convertible arrays.  The GCN, GAT and
-MSHA weights keep the JAX layout in the port, so for them conversion is a
-renaming; a flax ``Dense`` kernel ``[in, out]`` becomes an ``nn.Linear``
-weight ``[out, in]`` by a transpose.
+The flax parameter trees hold numpy-convertible arrays.  The GCN, GAT,
+MSHA and HGANE weights keep the JAX layout in the port, so for them
+conversion is a renaming; a flax ``Dense`` kernel ``[in, out]`` becomes an
+``nn.Linear`` weight ``[out, in]`` by a transpose.
 """
 
 from __future__ import annotations
@@ -40,6 +40,53 @@ def sparse_gat_layer_params_from_jax(params: Mapping) -> dict:
     if "params" in params:
         params = params["params"]
     return {"W": _tensor(params["W"]), "a": _tensor(params["a"])}
+
+
+def _dense(params: Mapping, name: str) -> dict:
+    """A flax ``Dense`` ``{"kernel", "bias"}`` -> ``nn.Linear`` entries."""
+    return {f"{name}.weight": _tensor(params[name]["kernel"]).T.contiguous(),
+            f"{name}.bias": _tensor(params[name]["bias"])}
+
+
+def gat_params_from_jax(params: Mapping) -> dict:
+    """A flax ``GAT`` ``params`` tree (``features`` when learnable, the
+    heads ``attention_{i}`` and ``out_att`` with ``W`` and ``a``) -> the
+    port's ``GAT`` ``state_dict``."""
+    if "params" in params:
+        params = params["params"]
+    sd = {"features": _tensor(params["features"])} \
+        if "features" in params else {}
+    for name, layer in params.items():
+        if name != "features":
+            for k, v in sparse_gat_layer_params_from_jax(layer).items():
+                sd[f"{name}.{k}"] = v
+    return sd
+
+
+def sage_params_from_jax(params: Mapping) -> dict:
+    """A flax ``GraphSAGE`` ``params`` tree (``Sfeatures``, the ``Dense``
+    layers ``linear1`` and ``linear2``) -> the port's ``GraphSAGE``
+    ``state_dict``."""
+    if "params" in params:
+        params = params["params"]
+    return {"Sfeatures": _tensor(params["Sfeatures"]),
+            **_dense(params, "linear1"), **_dense(params, "linear2")}
+
+
+def hgane_params_from_jax(variables: Mapping) -> dict:
+    """A flax ``HGANELayer``'s variables ``{"params", "batch_stats"}`` ->
+    the port's ``HGANELayer`` ``state_dict``: the embeddings, ``W1``,
+    ``W2``, ``a12``, ``a3``, and ``bn1``, ``bn2`` with their ``scale``,
+    ``bias`` and running ``mean``, ``var``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = {k: _tensor(params[k]) for k in (
+        "source_embedding", "recipient_embedding", "W1", "W2", "a12", "a3")}
+    for bn in ("bn1", "bn2"):
+        for k in ("scale", "bias"):
+            sd[f"{bn}.{k}"] = _tensor(params[bn][k])
+        for k in ("mean", "var"):
+            sd[f"{bn}.{k}"] = _tensor(stats[bn][k])
+    return sd
 
 
 def linkpred_params_from_jax(params: Mapping) -> dict:

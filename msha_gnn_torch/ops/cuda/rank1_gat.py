@@ -1,6 +1,8 @@
 """Fused rank-1 GAT through hand-written kernels: ``r1l_fwd_f32`` and
 ``r1l_bwd_f32`` (``msha_gnn_torch/csrc/rank1_gat.cu``) for the dst_linear
-form, ``r1_fwd_f32`` (``rank1_gat.cu``, the same edge-run forward walk of
+form, with their bfloat16 payloads ``r1l_fwd_bf16`` and ``r1l_bwd_bf16``
+(``x`` stored and streamed in bfloat16, every other quantity float32),
+``r1_fwd_f32`` (``rank1_gat.cu``, the same edge-run forward walk of
 ``csrc/gat_fwd.cuh`` with the logits formed from ``c`` and ``t``) and
 ``r1_bwd_f32`` (``msha_gnn_torch/csrc/flash_gat.cu``, the per-edge walk
 of ``csrc/gat_bwd.cuh`` that ``flash_bwd_f32`` shares) for the generic
@@ -13,9 +15,11 @@ compute and what bounds them.
 
 * :func:`r1l_fwd` and :func:`r1l_bwd` are the kernels' wrappers: they check
   their inputs, launch on the current stream and count their launches in
-  :data:`fwd_launches` and :data:`bwd_launches`.  For tensors on the CPU
-  they run :func:`rank1_gat_plain` and :func:`rank1_gat_bwd_plain`, the
-  plain PyTorch versions of the same functions and the kernels' oracles.
+  :data:`fwd_launches` and :data:`bwd_launches` (bfloat16 ``x``:
+  :data:`fwd_bf16_launches`, :data:`bwd_bf16_launches`).  For tensors on
+  the CPU they run :func:`rank1_gat_plain` and
+  :func:`rank1_gat_bwd_plain`, the plain PyTorch versions of the same
+  functions and the kernels' oracles.
   :func:`rank1_gat_runs_plain` and :func:`rank1_gat_generic_runs_plain`
   mirror the forwards' edge-run walk step by step, for tests
   (``flash_gat.rank1_gat_generic_bwd_runs_plain`` the backward's).
@@ -35,7 +39,13 @@ compute and what bounds them.
   edge-row reduce of ``dpre``; the
   generic backward runs ``r1_bwd_f32`` (``att``, ``dpre``, ``dc``), then
   ``dx`` as the ``att``-weighted transposed ``csr_spmm_f32`` of ``gout``
-  and ``dt`` as the edge-row reduce of ``dpre``.
+  and ``dt`` as the edge-row reduce of ``dpre``.  With
+  ``precision="bf16"`` (dst_linear only) the operator casts ``x`` to
+  bfloat16 once a call and keeps that copy for the backward: ``t_j = x_j
+  . a``, the logits, the softmax, the aggregation and every backward
+  quantity come from the bfloat16 rows in float32 (``r1l_fwd_bf16``,
+  ``r1l_bwd_bf16``), and ``dx``'s ``q``-weighted SpMM streams the
+  cotangent in bfloat16 (``csr_spmm_bf16``).
 """
 
 from __future__ import annotations
@@ -48,7 +58,9 @@ from typing import TYPE_CHECKING, Optional
 import numpy as np
 import torch
 
-from .spmm import SpmmOperator, edge_rows, n_runs, operator_for, warp_run
+from ..sparse import PRECISIONS
+from .spmm import (ROW_TYPES, SpmmOperator, edge_rows, n_runs, operator_for,
+                   warp_run, widen)
 
 if TYPE_CHECKING:
     from ...graph import BipartiteGraph
@@ -77,6 +89,9 @@ bwd_launches = 0
 # backward's dc pieces added, in run order).
 r1_fwd_launches = 0
 r1_bwd_launches = 0
+# Launches of r1l_fwd_bf16 / r1l_bwd_bf16 (two grids each, as above).
+fwd_bf16_launches = 0
+bwd_bf16_launches = 0
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -92,9 +107,11 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.r1l_bwd_f32.argtypes = ([p] * 9 + [f] * 3 + [p] * 5 + [i] * 5
                                     + [p])
         lib.r1_fwd_f32.argtypes = [p] * 5 + [f] + [p] * 3 + [i] * 6 + [p]
+        lib.r1l_fwd_bf16.argtypes = lib.r1l_fwd_f32.argtypes
+        lib.r1l_bwd_bf16.argtypes = lib.r1l_bwd_f32.argtypes
         lib.r1l_max_warps.argtypes = [i]
         for fn in (lib.r1l_fwd_f32, lib.r1l_bwd_f32, lib.r1_fwd_f32,
-                   lib.r1l_max_warps):
+                   lib.r1l_fwd_bf16, lib.r1l_bwd_bf16, lib.r1l_max_warps):
             fn.restype = ctypes.c_int
         lib.r1l_error_string.argtypes = [i]
         lib.r1l_error_string.restype = ctypes.c_char_p
@@ -158,7 +175,7 @@ def keep_scale_plain(slots: torch.Tensor, seed, rate: float) -> torch.Tensor:
 
 def _logits(ptr, col, c, a, x, slope):
     rows = edge_rows(ptr, col.numel())
-    xg = x[col.long()]
+    xg = widen(x[col.long()])
     pre = c[rows] + xg @ a
     return rows, xg, pre, torch.where(pre >= 0, pre, slope * pre)
 
@@ -172,16 +189,18 @@ def _keep(n_edges: int, seed, rate: float, device) -> torch.Tensor:
 
 def rank1_gat_plain(ptr, col, c, a, x, seed, rate: float, slope: float,
                     n_rows: int):
-    """Plain version of ``r1l_fwd_f32`` -> ``(out [n_rows, d], lse
-    [n_rows])``: gather, ``scatter_reduce`` amax, ``index_add_``."""
+    """Plain version of ``r1l_fwd_f32`` (and, for bfloat16 ``x``, of
+    ``r1l_fwd_bf16``: the rows widened after the gather) -> ``(out
+    [n_rows, d], lse [n_rows])`` float32: gather, ``scatter_reduce`` amax,
+    ``index_add_``."""
     rows, xg, _, logit = _logits(ptr, col, c, a, x, slope)
-    m = torch.full((n_rows,), NEG, dtype=x.dtype, device=x.device)
+    m = torch.full((n_rows,), NEG, dtype=xg.dtype, device=x.device)
     m = m.scatter_reduce(0, rows, logit, "amax", include_self=True)
     p = torch.exp(logit - m[rows])
-    s = x.new_zeros(n_rows).index_add_(0, rows, p)
+    s = xg.new_zeros(n_rows).index_add_(0, rows, p)
     w = p * _keep(col.numel(), seed, rate, x.device)
-    agg = x.new_zeros((n_rows, x.shape[1])).index_add_(0, rows,
-                                                      w[:, None] * xg)
+    agg = xg.new_zeros((n_rows, x.shape[1])).index_add_(0, rows,
+                                                       w[:, None] * xg)
     live = s > 0
     out = torch.where(live[:, None], agg / torch.where(live, s, 1.0)[:, None],
                       0.0)
@@ -421,9 +440,10 @@ def rank1_gat_generic_runs_plain(ptr, col, c, t, x, slope: float,
 
 def rank1_gat_bwd_plain(ptr, col, c, a, x, gout, out, lse, seed, rate: float,
                         slope: float, n_rows: int):
-    """Plain version of ``r1l_bwd_f32`` -> ``(q [E], dpre [E]`` in CSR
-    order``, dc [n_rows], da [d])``; ``dx`` is :func:`assemble_dx` of
-    ``q`` and ``dpre``."""
+    """Plain version of ``r1l_bwd_f32`` (and of ``r1l_bwd_bf16`` for
+    bfloat16 ``x``) -> ``(q [E], dpre [E]`` in CSR order``, dc [n_rows],
+    da [d])`` float32; ``dx`` is :func:`assemble_dx` of ``q`` and
+    ``dpre``."""
     rows, xg, pre, logit = _logits(ptr, col, c, a, x, slope)
     lse_e = lse[rows]
     live = lse_e > NEG / 2
@@ -433,7 +453,7 @@ def rank1_gat_bwd_plain(ptr, col, c, a, x, gout, out, lse, seed, rate: float,
     g = gout[rows]
     dl = q * (g * xg).sum(1) - att * (gout * out).sum(1)[rows]
     dpre = torch.where(pre >= 0, dl, slope * dl)
-    dc = x.new_zeros(n_rows).index_add_(0, rows, dpre)
+    dc = xg.new_zeros(n_rows).index_add_(0, rows, dpre)
     return q, dpre, dc, (dpre[:, None] * xg).sum(0)
 
 
@@ -442,7 +462,8 @@ def assemble_dx(spmm: SpmmOperator, gout, a, q, dpre) -> torch.Tensor:
     dst_linear backward's ``dx`` from ``r1l_bwd_f32``'s per-edge ``q`` and
     ``dpre``: the ``q``-weighted transposed SpMM of ``gout`` plus ``a``
     times the column sums of ``dpre`` (two ``csr_spmm_f32`` launches, the
-    second at d = 1), without the ``[E, d]`` rows of the sum."""
+    second at d = 1), without the ``[E, d]`` rows of the sum.  A
+    bfloat16 ``gout`` goes to ``csr_spmm_bf16``."""
     dx = spmm.apply(gout, q, transpose=True)
     return dx.addcmul_(spmm.reduce_edges(dpre[:, None]), a[None, :])
 
@@ -482,14 +503,21 @@ def rank1_gat_generic_bwd_plain(ptr, col, c, t, x, gout, out, lse,
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check(dev, rate, **tensors):
+def _check(dev, rate, row_types=(torch.float32,), **tensors):
+    """Raises unless every tensor lies on the CUDA device ``dev``,
+    contiguous, int32 (``ptr``, ``col``, ``seed``), one of ``row_types``
+    (``x``) or float32 (the rest)."""
     for name, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, x on {dev}")
     if dev.type != "cuda":
         raise ValueError(f"the rank-1 GAT kernels run on cuda or cpu, not {dev}")
+    row_type = tensors["x"].dtype
+    if row_type not in row_types:
+        raise TypeError(f"x must be one of {row_types}, got {row_type}")
     for name, t in tensors.items():
-        want = torch.int32 if name in ("ptr", "col", "seed") else torch.float32
+        want = (torch.int32 if name in ("ptr", "col", "seed")
+                else row_type if name == "x" else torch.float32)
         if t.dtype != want:
             raise TypeError(f"{name} must be {want}, got {t.dtype}")
         if not t.is_contiguous():
@@ -533,16 +561,18 @@ def r1l_fwd(ptr, col, c, a, x, seed, rate: float, slope: float, n_rows: int,
 
     ``ptr`` int32 [n_rows + 1], ``col`` int32 [E] (CSR, slot = index; it
     may run past ``ptr[n_rows]``: the kernel reads the edge count from
-    ``ptr`` on the card), ``c`` f32 [n_rows], ``a`` f32 [d], ``x`` f32
-    [n_cols, d], ``seed`` int32 [1] (read when ``rate > 0``).  ``run``
+    ``ptr`` on the card), ``c`` f32 [n_rows], ``a`` f32 [d], ``x``
+    [n_cols, d] float32 (``r1l_fwd_f32``) or bfloat16 (``r1l_fwd_bf16``),
+    ``seed`` int32 [1] (read when ``rate > 0``).  ``run``
     slots a warp (default :func:`~.spmm.warp_run`), ``group`` lanes an edge
     (one of :data:`GROUPS`, default :func:`group_for`).  CPU tensors take
     the plain version; CUDA tensors launch the kernel or raise.
     """
-    global fwd_launches
+    global fwd_launches, fwd_bf16_launches
     if x.device.type == "cpu":
         return rank1_gat_plain(ptr, col, c, a, x, seed, rate, slope, n_rows)
-    _check(x.device, rate, ptr=ptr, col=col, c=c, a=a, x=x, seed=seed)
+    _check(x.device, rate, ROW_TYPES, ptr=ptr, col=col, c=c, a=a, x=x,
+           seed=seed)
     d = _shapes(ptr, col, c, a, x, n_rows)
     group = _group(group, d)
     out = torch.empty((n_rows, d), dtype=torch.float32, device=x.device)
@@ -554,15 +584,20 @@ def r1l_fwd(ptr, col, c, a, x, seed, rate: float, slope: float, n_rows: int,
     ws = torch.empty(n_runs(e, run) * (2 * d + 5), dtype=torch.float32,
                      device=x.device)
     lib = _kernel_lib()
+    bf16 = x.dtype == torch.bfloat16
+    name = "r1l_fwd_bf16" if bf16 else "r1l_fwd_f32"
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.r1l_fwd_f32(
+        rc = getattr(lib, name)(
             ptr.data_ptr(), col.data_ptr(), c.data_ptr(), a.data_ptr(),
             x.data_ptr(), seed.data_ptr(), rate, _scale(rate), slope,
             out.data_ptr(), lse.data_ptr(), ws.data_ptr(), n_rows, e, run,
             group, d, _warps(d), stream)
-    _raise_on(lib, rc, "r1l_fwd_f32")
-    fwd_launches += 1
+    _raise_on(lib, rc, name)
+    if bf16:
+        fwd_bf16_launches += 1
+    else:
+        fwd_launches += 1
     return out, lse
 
 
@@ -573,15 +608,16 @@ def r1l_bwd(ptr, col, c, a, x, gout, out, lse, seed, rate: float,
     d] and ``lse`` [n_rows] as the forward gave them.  ``col`` [E] may
     run past ``ptr[n_rows]`` (a padded edge array): the kernel reads the
     edge count from ``ptr`` on the card and gives ``q`` and ``dpre`` 0 on
-    the pads.  ``run`` slots a warp (default :func:`~.spmm.warp_run`).
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
-    global bwd_launches
+    the pads.  ``x`` float32 (``r1l_bwd_f32``) or bfloat16
+    (``r1l_bwd_bf16``), every other tensor float32.  ``run`` slots a warp
+    (default :func:`~.spmm.warp_run`).  CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
+    global bwd_launches, bwd_bf16_launches
     if x.device.type == "cpu":
         return rank1_gat_bwd_plain(ptr, col, c, a, x, gout, out, lse, seed,
                                    rate, slope, n_rows)
-    _check(x.device, rate, ptr=ptr, col=col, c=c, a=a, x=x, gout=gout,
-           out=out, lse=lse, seed=seed)
+    _check(x.device, rate, ROW_TYPES, ptr=ptr, col=col, c=c, a=a, x=x,
+           gout=gout, out=out, lse=lse, seed=seed)
     d = _shapes(ptr, col, c, a, x, n_rows)
     if gout.shape != (n_rows, d) or out.shape != (n_rows, d) or \
             lse.shape != (n_rows,):
@@ -599,16 +635,21 @@ def r1l_bwd(ptr, col, c, a, x, gout, out, lse, seed, rate: float,
     ws = torch.empty(n_runs(e, run) * (3 + d), dtype=torch.float32,
                      device=dev)
     lib = _kernel_lib()
+    bf16 = x.dtype == torch.bfloat16
+    name = "r1l_bwd_bf16" if bf16 else "r1l_bwd_f32"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.r1l_bwd_f32(
+        rc = getattr(lib, name)(
             ptr.data_ptr(), col.data_ptr(), c.data_ptr(), a.data_ptr(),
             x.data_ptr(), gout.data_ptr(), out.data_ptr(), lse.data_ptr(),
             seed.data_ptr(), rate, _scale(rate), slope, q.data_ptr(),
             dpre.data_ptr(), dc.data_ptr(), ws.data_ptr(), da.data_ptr(),
             n_rows, e, run, d, _warps(d), stream)
-    _raise_on(lib, rc, "r1l_bwd_f32")
-    bwd_launches += 1
+    _raise_on(lib, rc, name)
+    if bf16:
+        bwd_bf16_launches += 1
+    else:
+        bwd_launches += 1
     return q, dpre, dc, da
 
 
@@ -714,11 +755,16 @@ def r1_bwd(ptr, col, c, t, x, gout, out, lse, slope: float, n_rows: int,
 # ---------------------------------------------------------------------------
 
 class _Rank1Lin(torch.autograd.Function):
-    """``out = rank1_gat(c, a, x)`` with the recompute backward."""
+    """``out = rank1_gat(c, a, x)`` with the recompute backward; with the
+    operator's ``precision="bf16"`` the kernels get a bfloat16 copy of
+    ``x`` (made here, kept for the backward) and ``dx``'s SpMM a bfloat16
+    copy of the cotangent."""
 
     @staticmethod
     def forward(ctx, c, a, x, seed, op, rate):
         g = op.graph
+        if op.precision == "bf16":
+            x = x.to(torch.bfloat16)
         out, lse = r1l_fwd(op.ptr, op.col, c, a, x, seed, rate, op.slope,
                            g.n_src)
         ctx.save_for_backward(c, a, x, out, lse, seed)
@@ -731,7 +777,7 @@ class _Rank1Lin(torch.autograd.Function):
         op, gout = ctx.op, gout.contiguous()
         q, dpre, dc, da = r1l_bwd(op.ptr, op.col, c, a, x, gout, out, lse,
                                   seed, ctx.rate, op.slope, op.graph.n_src)
-        dx = assemble_dx(op.spmm, gout, a, q, dpre) \
+        dx = assemble_dx(op.spmm, gout.to(x.dtype), a, q, dpre) \
             if ctx.needs_input_grad[2] else None
         return dc, da, dx, None, None, None
 
@@ -779,20 +825,23 @@ class Rank1GatOperator:
     JAX operator's silently runs the dst_linear form,
     ``rank1_gat.py:861-891``).  Rows with no edges give zeros.
 
-    ``precision``: only ``"f32"``; the JAX operator's ``"bf16"`` (rows
-    streamed in bfloat16) is not ported, as ``SparseGATLayer``'s is not.
+    ``precision="bf16"`` (dst_linear only): ``x`` stored and streamed in
+    bfloat16 with float32 arithmetic, about 2^-8 relative error (the
+    module's docstring); the generic form's bfloat16 rows are not ported.
     """
 
     def __init__(self, graph: "BipartiteGraph",
                  spmm: Optional[SpmmOperator] = None, *,
                  negative_slope: float = 0.2, precision: str = "f32",
                  dst_linear: bool = False, dropout_rate: float = 0.0):
-        if precision != "f32":
+        if precision not in PRECISIONS:
+            raise ValueError(f"unknown precision {precision!r} (f32 | bf16)")
+        if precision == "bf16" and not dst_linear:
             raise NotImplementedError(
-                f"precision={precision!r}: the port's rank-1 GAT computes in "
-                "float32 only (precision='f32'); bfloat16 rows wait with "
-                "SparseGATLayer's precision option (ROADMAP.md, modules to "
-                "port, item 5)")
+                "precision='bf16' needs dst_linear=True: the port's generic "
+                "rank-1 GAT computes in float32 only; its bfloat16 rows wait "
+                "with ChunkedRank1Gat(precision=) (ROADMAP.md, modules to "
+                "port, item 8)")
         r = float(dropout_rate)
         if not 0.0 <= r < 1.0:
             raise ValueError(f"dropout_rate must be in [0, 1), got {r}")
@@ -804,6 +853,7 @@ class Rank1GatOperator:
         self.slope = float(negative_slope)
         self.dst_linear = dst_linear
         self.dropout_rate = r
+        self.precision = precision
 
     @staticmethod
     def build(graph: "BipartiteGraph", spmm: Optional[SpmmOperator] = None,

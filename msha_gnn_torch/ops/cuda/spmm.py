@@ -1,12 +1,15 @@
 """CSR SpMM through the hand-written kernels of
 ``msha_gnn_torch/csrc/spmm.cu``: ``csr_spmm_f32``, ``seg_reduce_f32`` and
-``csr_spmm_dw_f32``.
+``csr_spmm_dw_f32``, and the bfloat16-row forms ``csr_spmm_bf16`` and
+``csr_spmm_dw_bf16``.
 
 They replace five TPU kernels of ``msha_gnn_tpu/ops/pallas/spmm.py``:
 ``_visit_kernel`` and ``_hub_kernel`` (``csr_spmm_f32``), ``_reduce_kernel``
 (``seg_reduce_f32``), ``_visit_dw_kernel`` and ``_hub_dw_kernel``
-(``csr_spmm_dw_f32``); the source says why one CSR walk serves them all
-and what bounds it (bytes).
+(``csr_spmm_dw_f32``), and their bfloat16 payloads (``csr_spmm_bf16``,
+``csr_spmm_dw_bf16``: the same walks over rows stored in bfloat16, every
+product and sum in float32); the source says why one CSR walk serves them
+all and what bounds it (bytes).
 
 * :func:`csr_spmm` is the kernel's wrapper: it checks its inputs, launches
   on the current stream and counts the launch in :data:`launches`.  For
@@ -23,6 +26,13 @@ and what bounds it (bytes).
   VJP runs ``_sddmm_split`` over its forward direction in both cases:
   ``dw = sddmm(g, x)`` for ``A @ x`` and ``dw = sddmm(x, g)`` for
   ``A.T @ x``.
+  With ``precision="bf16"`` the operator casts ``x`` to bfloat16 once a
+  call (and keeps that copy for the backward), launches
+  ``csr_spmm_bf16``, and streams the cotangent in bfloat16 to the
+  transposed launch, as the JAX operator's VJP does
+  (``spmm.py:1240-1275``, ``_direction_apply`` at ``:636-655``); ``dw``
+  is formed from the two bfloat16 operands in float32.  That is
+  ``ops.sparse.spmm(precision="bf16")``'s function.
   With ``fused_bwd=True`` (the JAX operator's flag, off by default there
   too) that backward is one launch of ``csr_spmm_dw_f32`` instead, which
   gives ``dx`` and ``dw`` together: the per-edge walk of
@@ -53,6 +63,7 @@ import numpy as np
 import torch
 
 from ... import resolve_device
+from ..sparse import PRECISIONS
 
 if TYPE_CHECKING:
     from ...graph import BipartiteGraph
@@ -66,11 +77,17 @@ RUN_D1 = 32     # at d = 1 a thread takes a run
 # lengths and groups of lanes at the linkpred shapes).
 DW_RUN = 128
 
-# Launches of csr_spmm_f32, seg_reduce_f32 and csr_spmm_dw_f32 in this
-# process (plain counts, reset by callers that measure a run).
+# Launches of csr_spmm_f32, seg_reduce_f32, csr_spmm_dw_f32, csr_spmm_bf16
+# and csr_spmm_dw_bf16 in this process (plain counts, reset by callers that
+# measure a run).
 launches = 0
 seg_launches = 0
 dw_launches = 0
+bf16_launches = 0
+dw_bf16_launches = 0
+
+# The row types of the kernels: float32 and the bfloat16 payload.
+ROW_TYPES = (torch.float32, torch.bfloat16)
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -85,12 +102,21 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.csr_spmm_f32.argtypes = [p] * 6 + [i] * 4 + [p]
         lib.seg_reduce_f32.argtypes = [p] * 4 + [i] * 4 + [p]
         lib.csr_spmm_dw_f32.argtypes = [p] * 9 + [i] * 5 + [p]
-        for fn in (lib.csr_spmm_f32, lib.seg_reduce_f32, lib.csr_spmm_dw_f32):
+        lib.csr_spmm_bf16.argtypes = lib.csr_spmm_f32.argtypes
+        lib.csr_spmm_dw_bf16.argtypes = lib.csr_spmm_dw_f32.argtypes
+        for fn in (lib.csr_spmm_f32, lib.seg_reduce_f32, lib.csr_spmm_dw_f32,
+                   lib.csr_spmm_bf16, lib.csr_spmm_dw_bf16):
             fn.restype = ctypes.c_int
         lib.csr_spmm_error_string.argtypes = [ctypes.c_int]
         lib.csr_spmm_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def widen(rows: torch.Tensor) -> torch.Tensor:
+    """Rows as the kernels compute with them: bfloat16 widened to float32,
+    any other type as it is."""
+    return rows.float() if rows.dtype == torch.bfloat16 else rows
 
 
 def edge_rows(ptr: torch.Tensor, n_edges: int) -> torch.Tensor:
@@ -103,10 +129,11 @@ def edge_rows(ptr: torch.Tensor, n_edges: int) -> torch.Tensor:
 def csr_spmm_plain(ptr: torch.Tensor, col: torch.Tensor,
                    w: Optional[torch.Tensor], x: torch.Tensor,
                    n_rows: int) -> torch.Tensor:
-    """Plain version: gather the rows, scale, ``index_add_`` into rows."""
+    """Plain version: gather the rows (widened to float32), scale,
+    ``index_add_`` into rows."""
     rows = edge_rows(ptr, col.numel())
-    out = x.new_zeros((n_rows, x.shape[1]))
-    vals = x[col.long()]
+    vals = widen(x[col.long()])
+    out = vals.new_zeros((n_rows, x.shape[1]))
     return out.index_add_(0, rows, vals if w is None else w[:, None] * vals)
 
 
@@ -224,11 +251,13 @@ def csr_spmm(ptr: torch.Tensor, col: torch.Tensor, w: Optional[torch.Tensor],
     """``out[r] = sum_{e in row r} w[e] * x[col[e]]`` -> [n_rows, d] f32.
 
     ``ptr`` int32 [n_rows + 1], ``col`` int32 [E], ``w`` f32 [E] or None
-    for unit weights, ``x`` f32 [n_cols, d], all contiguous and on one
-    device; ``run`` slots a warp (default :func:`run_for`).  CPU tensors
-    take the plain version; CUDA tensors launch the kernel or raise.
+    for unit weights, ``x`` [n_cols, d] float32 (``csr_spmm_f32``) or
+    bfloat16 (``csr_spmm_bf16``: the rows widened in registers, the sums
+    in float32), all contiguous and on one device; ``run`` slots a warp
+    (default :func:`run_for`).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise.
     """
-    global launches
+    global launches, bf16_launches
     dev = x.device
     given = [("ptr", ptr), ("col", col), ("x", x)]
     if w is not None:
@@ -242,9 +271,10 @@ def csr_spmm(ptr: torch.Tensor, col: torch.Tensor, w: Optional[torch.Tensor],
         raise ValueError(f"csr_spmm runs on cuda or cpu, not {dev}")
     if ptr.dtype != torch.int32 or col.dtype != torch.int32:
         raise TypeError("ptr and col must be int32")
-    if x.dtype != torch.float32 or (w is not None
+    if x.dtype not in ROW_TYPES or (w is not None
                                     and w.dtype != torch.float32):
-        raise TypeError("w and x must be float32")
+        raise TypeError(f"x must be float32 or bfloat16 and w float32, got "
+                        f"{x.dtype}, {None if w is None else w.dtype}")
     if x.dim() != 2:
         raise ValueError(f"x must be 2-D, got {tuple(x.shape)}")
     if ptr.shape != (n_rows + 1,) or col.dim() != 1 or (
@@ -264,14 +294,19 @@ def csr_spmm(ptr: torch.Tensor, col: torch.Tensor, w: Optional[torch.Tensor],
     ws = torch.empty(sums_ws_floats(n_slots, run, d), dtype=torch.float32,
                      device=dev)
     lib = _kernel_lib()
+    bf16 = x.dtype == torch.bfloat16
+    name = "csr_spmm_bf16" if bf16 else "csr_spmm_f32"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.csr_spmm_f32(ptr.data_ptr(), col.data_ptr(),
-                              None if w is None else w.data_ptr(),
-                              x.data_ptr(), out.data_ptr(), ws.data_ptr(),
-                              n_rows, n_slots, run, d, stream)
-    _raise_on(lib, rc, "csr_spmm_f32")
-    launches += 1
+        rc = getattr(lib, name)(ptr.data_ptr(), col.data_ptr(),
+                                None if w is None else w.data_ptr(),
+                                x.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                                n_rows, n_slots, run, d, stream)
+    _raise_on(lib, rc, name)
+    if bf16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return out
 
 
@@ -281,13 +316,16 @@ def _raise_on(lib, rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: {msg} (error {rc})")
 
 
-def _on_card(dev, kernel: str, given, ints=("ptr", "col", "eid")) -> None:
+def _on_card(dev, kernel: str, given, ints=("ptr", "col", "eid"),
+             rows=(), row_type=torch.float32) -> None:
     """Raises unless every tensor of ``given`` lies on the CUDA device
-    ``dev``, contiguous, int32 (the names in ``ints``) or float32."""
+    ``dev``, contiguous, int32 (the names in ``ints``), ``row_type`` (the
+    names in ``rows``) or float32."""
     if dev.type != "cuda":
         raise ValueError(f"{kernel} runs on cuda or cpu, not {dev}")
     for name, t in given:
-        want = torch.int32 if name in ints else torch.float32
+        want = (torch.int32 if name in ints
+                else row_type if name in rows else torch.float32)
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, not {dev}")
         if t.dtype != want:
@@ -363,16 +401,17 @@ def segment_reduce_sorted(values: torch.Tensor, senders: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def csr_spmm_dw_plain(ptr, col, eid, w, g, x, n_rows: int, n_dw: int):
-    """Plain version of :func:`csr_spmm_dw`: gather, ``index_add_``, and the
-    per-edge dots scattered to their ids."""
+    """Plain version of :func:`csr_spmm_dw`: gather (the rows widened to
+    float32), ``index_add_``, and the per-edge dots scattered to their
+    ids."""
     e = col.numel()
     rows = edge_rows(ptr, e)
     ids = torch.arange(e, device=g.device) if eid is None else eid.long()
-    gg = g[col.long()]
-    dx = g.new_zeros((n_rows, g.shape[1])).index_add_(
+    gg = widen(g[col.long()])
+    dx = gg.new_zeros((n_rows, g.shape[1])).index_add_(
         0, rows, w[ids][:, None] * gg)
-    dw = g.new_zeros(n_dw)
-    dw[ids] = (gg * x[rows]).sum(1)
+    dw = gg.new_zeros(n_dw)
+    dw[ids] = (gg * widen(x[rows])).sum(1)
     return dx, dw
 
 
@@ -450,14 +489,17 @@ def csr_spmm_dw(ptr, col, eid, w, g, x, n_rows: int, n_dw: int,
         dw[id_e] = <g[col[e]], x[r]>,   id_e = eid[e] (e when eid is None)
 
     with ``dw``'s other slots 0.  ``ptr`` int32 [n_rows + 1], ``col`` and
-    ``eid`` int32 [E], ``w`` f32 indexed by ``id_e``, ``g`` f32 [n_cols, d],
-    ``x`` f32 [n_rows, d].  ``ws`` the kernel's workspace (at least
+    ``eid`` int32 [E], ``w`` f32 indexed by ``id_e``, ``g`` [n_cols, d] and
+    ``x`` [n_rows, d] both float32 (``csr_spmm_dw_f32``) or both bfloat16
+    (``csr_spmm_dw_bf16``: the rows widened in registers, the dots and
+    sums in float32; ``dx`` and ``dw`` float32).  ``ws`` the kernel's
+    workspace (at least
     :func:`sums_ws_floats` float32; allocated when None), ``run`` slots a
     warp (default :data:`DW_RUN`), ``group`` lanes an edge (one of
     ``rank1_gat.GROUPS``, default ``rank1_gat.group_for``).  CPU tensors
     take the plain version; CUDA tensors launch the kernel or raise.
     """
-    global dw_launches
+    global dw_launches, dw_bf16_launches
     dev = g.device
     if dev.type == "cpu":
         return csr_spmm_dw_plain(ptr, col, eid, w, g, x, n_rows, n_dw)
@@ -466,7 +508,8 @@ def csr_spmm_dw(ptr, col, eid, w, g, x, n_rows: int, n_dw: int,
     given = [("ptr", ptr), ("col", col), ("w", w), ("g", g), ("x", x)]
     if eid is not None:
         given.append(("eid", eid))
-    _on_card(dev, "csr_spmm_dw", given)
+    row_type = g.dtype if g.dtype in ROW_TYPES else torch.float32
+    _on_card(dev, "csr_spmm_dw", given, rows=("g", "x"), row_type=row_type)
     d = g.shape[1] if g.dim() == 2 else -1
     if (g.dim() != 2 or x.shape != (n_rows, d) or ptr.shape != (n_rows + 1,)
             or col.dim() != 1 or n_dw < col.numel()
@@ -488,15 +531,20 @@ def csr_spmm_dw(ptr, col, eid, w, g, x, n_rows: int, n_dw: int,
     if n_rows == 0:
         return dx, dw.zero_()
     lib = _kernel_lib()
+    bf16 = row_type == torch.bfloat16
+    name = "csr_spmm_dw_bf16" if bf16 else "csr_spmm_dw_f32"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.csr_spmm_dw_f32(
+        rc = getattr(lib, name)(
             ptr.data_ptr(), col.data_ptr(),
             None if eid is None else eid.data_ptr(), w.data_ptr(),
             g.data_ptr(), x.data_ptr(), dx.data_ptr(), dw.data_ptr(),
             ws.data_ptr(), n_rows, n_dw, run, group, d, stream)
-    _raise_on(lib, rc, "csr_spmm_dw_f32")
-    dw_launches += 1
+    _raise_on(lib, rc, name)
+    if bf16:
+        dw_bf16_launches += 1
+    else:
+        dw_launches += 1
     return dx, dw
 
 
@@ -510,14 +558,19 @@ class SpmmOperator:
     one ``csr_spmm_dw_f32`` launch (``spmm.py::SpmmOperator``'s flag of
     the same name), not from ``csr_spmm_f32`` and ``csr_sddmm_f32``; on the
     card the operator holds its workspace for all its calls, which run in
-    order on the current stream.
+    order on the current stream.  ``precision="bf16"``: the rows are
+    streamed in bfloat16 (``csr_spmm_bf16``, ``csr_spmm_dw_bf16``), the
+    arithmetic is float32 (the module's docstring).
     """
 
     def __init__(self, graph: "BipartiteGraph", device="cuda",
-                 fused_bwd: bool = False):
+                 fused_bwd: bool = False, precision: str = "f32"):
+        if precision not in PRECISIONS:
+            raise ValueError(f"unknown precision {precision!r} (f32 | bf16)")
         self.device = resolve_device(device)
         self.graph = graph
         self.fused_bwd = bool(fused_bwd)
+        self.precision = precision
         e = graph.num_edges
         if e >= 2**31:
             raise ValueError(f"{e} edges overflow the kernel's int32 offsets")
@@ -547,15 +600,15 @@ class SpmmOperator:
         self.launches_reduce = 0
 
     @staticmethod
-    def build(graph: "BipartiteGraph",
-              fused_bwd: bool = False) -> "SpmmOperator":
+    def build(graph: "BipartiteGraph", fused_bwd: bool = False,
+              precision: str = "f32") -> "SpmmOperator":
         """The operator of ``graph`` on the graph's device."""
-        return SpmmOperator(graph, graph.device, fused_bwd)
+        return SpmmOperator(graph, graph.device, fused_bwd, precision)
 
     def _launch(self, ptr, col, w, x, n_out, transpose):
-        before = launches
+        before = launches + bf16_launches
         out = csr_spmm(ptr, col, w, x, n_out)
-        if launches != before:
+        if launches + bf16_launches != before:
             self.launches += 1
             self.launches_transposed += int(transpose)
         return out
@@ -584,8 +637,9 @@ class SpmmOperator:
                     edge_weight: torch.Tensor, transpose: bool):
         """``(dx, dw)`` of ``A(w) @ x`` (``A(w).T @ x`` when ``transpose``)
         for the cotangent ``g`` and the CSR-order ``edge_weight`` [E_pad], by
-        one ``csr_spmm_dw_f32`` launch: the dx direction's walk, whose rows
-        are ``x``'s own.  For ``A @ x`` that is the CSC, and ``dw`` lands in
+        one ``csr_spmm_dw_f32`` launch (``csr_spmm_dw_bf16`` for bfloat16
+        ``g`` and ``x``): the dx direction's walk, whose rows are ``x``'s
+        own.  For ``A @ x`` that is the CSC, and ``dw`` lands in
         CSR order through ``t_edge``; for ``A.T @ x`` the CSR itself."""
         gr, n_dw = self.graph, edge_weight.shape[0]
         ws = None
@@ -641,18 +695,22 @@ class _SpmmFn(torch.autograd.Function):
     runtime edge weight (``edge_weight`` [E_pad], CSR order, or None for
     the graph's own) gets ``dw`` [E_pad] from one ``csr_sddmm_f32`` launch
     over the CSR direction, pads 0; with the operator's ``fused_bwd``, one
-    ``csr_spmm_dw_f32`` launch gives ``dx`` and ``dw`` together."""
+    ``csr_spmm_dw_f32`` launch gives ``dx`` and ``dw`` together.  With the
+    operator's ``precision="bf16"``, ``x`` and the cotangent go to the
+    kernels as bfloat16 copies (``dw``'s SDDMM takes them widened)."""
 
     @staticmethod
     def forward(ctx, x, edge_weight, op, transpose):
         ctx.op, ctx.transpose = op, transpose
+        if op.precision == "bf16":
+            x = x.to(torch.bfloat16)
         ctx.save_for_backward(x, edge_weight)
         return op.apply(x, edge_weight, transpose)
 
     @staticmethod
     def backward(ctx, g):
         x, edge_weight = ctx.saved_tensors
-        op, g = ctx.op, g.contiguous()
+        op, g = ctx.op, g.contiguous().to(x.dtype)
         dx = dw = None
         if op.fused_bwd and ctx.needs_input_grad[1]:
             dx, dw = op.backward_dw(g, x, edge_weight.contiguous(),
@@ -666,7 +724,8 @@ class _SpmmFn(torch.autograd.Function):
             # rows of the CSR direction are A's rows: g's for A @ x, x's
             # for A.T @ x
             rows, cols = (x, g) if ctx.transpose else (g, x)
-            dw = csr_sddmm(op.ptr, op.col, rows, cols, edge_weight.shape[0])
+            dw = csr_sddmm(op.ptr, op.col, widen(rows), widen(cols),
+                           edge_weight.shape[0])
         return dx, dw, None, None
 
 
@@ -687,14 +746,23 @@ def cached_for(graph: "BipartiteGraph", build):
     return entry[1]
 
 
-def operator_for(graph: "BipartiteGraph") -> SpmmOperator:
-    """The cached :class:`SpmmOperator` of ``graph``, on its device."""
-    return cached_for(graph, SpmmOperator.build)
+def _build_bf16(graph: "BipartiteGraph") -> SpmmOperator:
+    return SpmmOperator.build(graph, precision="bf16")
+
+
+def operator_for(graph: "BipartiteGraph",
+                 precision: str = "f32") -> SpmmOperator:
+    """The cached :class:`SpmmOperator` of ``graph`` at ``precision``, on
+    the graph's device."""
+    return cached_for(graph, _build_bf16 if precision == "bf16"
+                      else SpmmOperator.build)
 
 
 def spmm_cuda(graph: "BipartiteGraph", x: torch.Tensor, *,
               edge_weight: Optional[torch.Tensor] = None,
-              transpose: bool = False) -> torch.Tensor:
-    """``spmm(..., impl="cuda")``: the graph's operator applied to ``x``."""
-    return operator_for(graph)(x, edge_weight=edge_weight,
-                               transpose=transpose)
+              transpose: bool = False,
+              precision: str = "f32") -> torch.Tensor:
+    """``spmm(..., impl="cuda")``: the graph's operator at ``precision``
+    applied to ``x``."""
+    return operator_for(graph, precision)(x, edge_weight=edge_weight,
+                                          transpose=transpose)

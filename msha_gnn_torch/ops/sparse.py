@@ -26,6 +26,35 @@ def _gather_rows(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     return x_pad[idx.long().clamp(0, n)]
 
 
+class _Bf16Rows(torch.autograd.Function):
+    """``x`` rounded to bfloat16 and widened back; the cotangent passes
+    through as it is (float32)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.to(torch.bfloat16).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _Bf16Cotangent(torch.autograd.Function):
+    """The identity, whose cotangent is rounded to bfloat16 (and widened
+    back) on its way to the rows it is streamed to."""
+
+    @staticmethod
+    def forward(ctx, y):
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(g.dtype)
+
+
+PRECISIONS = ("f32", "bf16")
+
+
 def spmm(
     graph: "BipartiteGraph",
     x: torch.Tensor,
@@ -33,20 +62,36 @@ def spmm(
     edge_weight: Optional[torch.Tensor] = None,
     transpose: bool = False,
     impl: str = "torch",
+    precision: str = "f32",
 ) -> torch.Tensor:
     """``A @ x`` (or ``A.T @ x``) with A the [n_src, n_dst] weight matrix.
 
     x: [n_dst, d] (or [n_src, d] when transposed).  Returns [n_src, d]
     (or [n_dst, d]).  ``edge_weight`` ([E_pad], CSR edge order) overrides
     the stored weights.
+
+    ``precision="bf16"``: the rows are streamed in bfloat16 and every
+    product and sum is taken in float32, about 2^-8 relative error: ``x``
+    is rounded to bfloat16 before the gather, and in the backward the
+    cotangent is rounded before the transposed gather of ``dx``.  So
+    ``dx = A.T (w * bf16(g))`` and ``dw_e = <bf16(g)[row_e],
+    bf16(x)[col_e]>``, in float32; the cotangent reaching ``x`` through
+    the rounding is float32.  ``impl="cuda"`` computes the same function
+    with the bfloat16 kernels (:class:`~.cuda.spmm.SpmmOperator`).
     """
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r} (f32 | bf16)")
     if impl == "cuda":
         from .cuda.spmm import spmm_cuda
 
         return spmm_cuda(graph, x, edge_weight=edge_weight,
-                         transpose=transpose)
+                         transpose=transpose, precision=precision)
     if impl != "torch":
         raise ValueError(f"unknown spmm impl {impl!r} (torch | cuda)")
+    if precision == "bf16":
+        out = spmm(graph, _Bf16Rows.apply(x), edge_weight=edge_weight,
+                   transpose=transpose)
+        return _Bf16Cotangent.apply(out)
     w = graph.weight if edge_weight is None else edge_weight
     if transpose:
         gathered = _gather_rows(x, graph.senders, graph.n_src)

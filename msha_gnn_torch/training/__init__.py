@@ -19,7 +19,8 @@ from .metrics import (
     precision_recall,
 )
 from .optim import adam_l2, sgd_momentum
-from .tasks import flow_inputs, gcn_task, msha_task
+from .tasks import (flow_inputs, gat_task, gcn_task, hgane_task, msha_task,
+                    sage_task)
 from .trainer import (
     Task,
     Trainer,
@@ -45,7 +46,9 @@ __all__ = [
     "evaluate",
     "f1",
     "flow_inputs",
+    "gat_task",
     "gcn_task",
+    "hgane_task",
     "hits_at_k",
     "latest_step",
     "linkpred_loss",
@@ -59,6 +62,7 @@ __all__ = [
     "precision_recall",
     "restore_checkpoint",
     "run_link_prediction",
+    "sage_task",
     "save_checkpoint",
     "sgd_momentum",
     "train_step",

@@ -17,7 +17,7 @@ import torch
 
 from .. import resolve_device
 from ..graph import FlowGraph, PairGrouping, normalize_by_dst_degree
-from ..models import GCN, MSHA
+from ..models import GAT, GCN, MSHA, GraphSAGE, HGANELayer
 from .optim import adam_l2
 from .trainer import Task
 
@@ -31,6 +31,10 @@ def flow_inputs(fg: FlowGraph, device="cuda"):
     column-normalised graph and the dense [N, M] edge mask."""
     inter = fg.inter.to(resolve_device(device))
     return normalize_by_dst_degree(inter), inter.to_dense() > 0
+
+
+def _batch(batch_idx, dev) -> torch.Tensor:
+    return torch.as_tensor(batch_idx, device=dev).long()
 
 
 def msha_task(
@@ -69,7 +73,7 @@ def msha_task(
 
     def forward(model, batch_idx, *, train,
                 generator: Optional[torch.Generator] = None):
-        batch = torch.as_tensor(batch_idx, device=dev).long()
+        batch = _batch(batch_idx, dev)
         return model(inter_mask, city, prov, batch, train=train, rows=batch,
                      pair=pair, generator=generator), {}
 
@@ -122,3 +126,100 @@ def gcn_task(
 
     return Task(forward=forward, optimizer=_adam(lr, weight_decay),
                 full_scores=full_scores, graph=g_norm), model
+
+
+def gat_task(
+    fg: FlowGraph,
+    *,
+    n_features: Optional[int] = None,
+    n_heads: int = 2,
+    dropout: float = 0.5,
+    lr: float = 1e-3,
+    weight_decay: float = 5e-4,
+    seed: int = 42,
+    device="cuda",
+):
+    """The reference's GAT on the flow graph: ``n_features`` defaults to
+    the number of recipients M (the reference's output layer needs it).
+    The model is row-local, so ``full_scores`` gives the [N, M] matrix in
+    one forward."""
+    dev = resolve_device(device)
+    _, inter_mask = flow_inputs(fg, dev)
+    gen = torch.Generator().manual_seed(seed)
+    model = GAT(n_features or fg.n_dst, fg.n_dst, n_heads, dropout,
+                gdp=fg.gdp, generator=gen).to(dev)
+
+    def forward(model, batch_idx, *, train,
+                generator: Optional[torch.Generator] = None):
+        return model(inter_mask, train=train, rows=_batch(batch_idx, dev),
+                     generator=generator), {}
+
+    def full_scores(model):
+        with torch.inference_mode():
+            return model(inter_mask, train=False)
+
+    return Task(forward=forward, optimizer=_adam(lr, weight_decay),
+                full_scores=full_scores), model
+
+
+def hgane_task(
+    fg: FlowGraph,
+    *,
+    in_features: int = 128,
+    out_features: int = 64,
+    dropout: float = 0.5,
+    intra: str = "city",
+    lr: float = 1e-3,
+    weight_decay: float = 5e-4,
+    seed: int = 42,
+    device="cuda",
+):
+    """HGANE, batch-sliced, its intra channel over ``intra`` (``"city"``
+    or ``"province"``).  Its ELU scores get a log-softmax for the NLL
+    loss, as every trained flow model feeds it.  The intra block makes the
+    scores depend on the batch: no ``full_scores``.  In training the norms
+    update their running statistics in place."""
+    dev = resolve_device(device)
+    _, inter_mask = flow_inputs(fg, dev)
+    grouping = (fg.city if intra == "city" else fg.province).to(dev)
+    gen = torch.Generator().manual_seed(seed)
+    model = HGANELayer(in_features, out_features, fg.n_src, fg.n_dst,
+                       dropout, generator=gen).to(dev)
+
+    def forward(model, batch_idx, *, train,
+                generator: Optional[torch.Generator] = None):
+        batch = _batch(batch_idx, dev)
+        scores = model(inter_mask[batch], grouping, batch, train=train,
+                       generator=generator)
+        return torch.log_softmax(scores, dim=-1), {}
+
+    return Task(forward=forward, optimizer=_adam(lr, weight_decay)), model
+
+
+def sage_task(
+    fg: FlowGraph,
+    *,
+    in_features: int = 32,
+    dropout: float = 0.5,
+    lr: float = 1e-3,
+    weight_decay: float = 5e-4,
+    seed: int = 42,
+    device="cuda",
+):
+    """GraphSAGE with ``hidden == M`` (the gate is elementwise).  A batch's
+    gate rows are its rows of the dense column-normalised adjacency, kept
+    on the device ([N, M]).  The model has no dropout (``dropout`` is
+    taken for the JAX signature) and no ``full_scores``."""
+    dev = resolve_device(device)
+    g_norm, _ = flow_inputs(fg, dev)
+    dense_norm = g_norm.to_dense()
+    gen = torch.Generator().manual_seed(seed)
+    model = GraphSAGE(in_features, fg.n_dst, fg.n_dst, gdp=fg.gdp,
+                      generator=gen).to(dev)
+
+    def forward(model, batch_idx, *, train,
+                generator: Optional[torch.Generator] = None):
+        batch = _batch(batch_idx, dev)
+        return model(batch, dense_norm[batch], train=train), {}
+
+    return Task(forward=forward, optimizer=_adam(lr, weight_decay)), model

@@ -1465,3 +1465,135 @@ def test_classification_report_on_the_card_matches_the_cpu():
         assert card[k].is_cuda
         np.testing.assert_allclose(float(card[k]), float(v), rtol=1e-6,
                                    atol=1e-6, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 payload: csr_spmm_bf16, csr_spmm_dw_bf16, r1l_fwd_bf16,
+# r1l_bwd_bf16, against their plain versions on the same bfloat16 rows (the
+# plain versions widen the rows and compute in float32, as the kernels do),
+# so at the float32 kernels' tolerances; widths that are not multiples of 8
+# take the kernels' narrower loads
+# ---------------------------------------------------------------------------
+
+BF16_WIDTHS = [1, 3, 12, 64, 129]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("d", BF16_WIDTHS)
+def test_spmm_bf16_kernel_matches_plain(d, shape):
+    n_src, n_dst = SHAPES[shape]
+    g = card_graph(d + 40, n_src, n_dst, 0.05, empty_rows=(0, n_src - 1))
+    op = cuda_spmm.SpmmOperator(g, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    for transpose in (False, True):
+        ptr, col, w, n_rows, n_in = (
+            (op.t_ptr, op.t_col, op.t_w, n_dst, n_src) if transpose
+            else (op.ptr, op.col, op.w, n_src, n_dst))
+        x = (torch.rand(n_in, d, generator=gen, device="cuda")
+             - 0.5).to(torch.bfloat16)
+        for weights in (w, None):
+            before = (cuda_spmm.bf16_launches, cuda_spmm.launches)
+            got = twice_same(lambda: cuda_spmm.csr_spmm(ptr, col, weights,
+                                                        x, n_rows))
+            assert (cuda_spmm.bf16_launches, cuda_spmm.launches) == (
+                before[0] + 2, before[1])
+            assert got.dtype == torch.float32
+            sums_close(got, cuda_spmm.csr_spmm_plain(ptr, col, weights, x,
+                                                     n_rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("d", [3, 12, 64, 129, 300])
+def test_spmm_dw_bf16_kernel_matches_plain(d, shape):
+    n_src, n_dst = SHAPES[shape]
+    g = card_graph(d + 7, n_src, n_dst, 0.05, empty_rows=(0, 150, n_src - 1))
+    op = cuda_spmm.SpmmOperator(g, device="cuda")
+    e, e_pad = g.num_edges, g.num_padded_edges
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    w = g.weight * (0.5 + torch.rand(e_pad, generator=gen, device="cuda"))
+    bf16 = torch.bfloat16
+    for transpose in (False, True):
+        n_in, n_out = (n_src, n_dst) if transpose else (n_dst, n_src)
+        x = (torch.rand(n_in, d, generator=gen, device="cuda") - 0.5).to(bf16)
+        gg = (torch.rand(n_out, d, generator=gen, device="cuda")
+              - 0.5).to(bf16)
+        if transpose:
+            args = (op.ptr, op.col, None, w, gg, x, n_src, e_pad)
+        else:
+            args = (op.t_ptr, op.t_col, op.t_edge, w, gg, x, n_dst, e_pad)
+        prime_nan((e_pad,), (n_in, d))
+        before = (cuda_spmm.dw_bf16_launches, cuda_spmm.dw_launches)
+        dx, dw = twice_same(lambda: cuda_spmm.csr_spmm_dw(*args))
+        assert (cuda_spmm.dw_bf16_launches, cuda_spmm.dw_launches) == (
+            before[0] + 2, before[1])
+        want_dx, want_dw = cuda_spmm.csr_spmm_dw_plain(*args)
+        sums_close(dx, want_dx)
+        torch.testing.assert_close(dw, want_dw, rtol=1e-5,
+                                   atol=1e-6 * max(1, d / 64))
+        assert not dw[e:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("d", BF16_WIDTHS)
+def test_rank1_bf16_kernels_match_plain(d, rate):
+    g = card_graph(d + 3, 300, 120, 0.05, empty_rows=(0, 151, 299))
+    op = r1.Rank1GatOperator(g, dst_linear=True, dropout_rate=rate)
+    c, a, x = rank1_inputs(g, 300, 120, d, d + 11)
+    xb = x.to(torch.bfloat16)
+    gout = torch.rand(300, d, device="cuda") - 0.5
+    seed = torch.tensor([-77], dtype=torch.int32, device="cuda")
+    args = (op.ptr, op.col, c, a, xb, seed, rate, 0.2, 300)
+    before = (r1.fwd_bf16_launches, r1.bwd_bf16_launches, r1.fwd_launches)
+    out, lse = twice_same(lambda: r1.r1l_fwd(*args))
+    want_out, want_lse = r1.rank1_gat_plain(*args)
+    torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-6)
+    bwd = (op.ptr, op.col, c, a, xb, gout, want_out, want_lse, seed, rate,
+           0.2, 300)
+    q, dpre, dc, da = twice_same(lambda: r1.r1l_bwd(*bwd))
+    wq, wdpre, wdc, wda = r1.rank1_gat_bwd_plain(*bwd)
+    assert (r1.fwd_bf16_launches, r1.bwd_bf16_launches, r1.fwd_launches) \
+        == (before[0] + 2, before[1] + 2, before[2])
+    torch.testing.assert_close(q, wq, rtol=1e-5, atol=1e-6)
+    sums_close(dpre, wdpre)
+    sums_close(dc, wdc)
+    sums_close(da, wda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["fused", "materialised", "torch"])
+def test_bf16_layer_on_card_matches_the_cpu(impl):
+    """SparseGATLayer(precision="bf16") forward and gradients on the card
+    (the bfloat16 kernels) against the same layer on the CPU (their plain
+    versions) at dropout 0, and the operators' launches."""
+    from msha_gnn_torch.models import SparseGATLayer
+
+    g = card_graph(5, 200, 200, 0.05, empty_rows=(0, 199))
+    layer = SparseGATLayer(64, 32, dropout=0.0, precision="bf16",
+                           generator=torch.Generator().manual_seed(3))
+    x = torch.rand(200, 64, generator=torch.Generator().manual_seed(4)) - 0.5
+    runs = []
+    for dev in ("cuda", "cpu"):
+        lay = layer.to(dev)
+        xx = x.to(dev).requires_grad_()
+        before = (cuda_spmm.bf16_launches, r1.fwd_bf16_launches,
+                  r1.bwd_bf16_launches)
+        out = lay(g.to(dev), xx, train=True, impl=impl)
+        (out ** 2).sum().backward()
+        launched = (cuda_spmm.bf16_launches - before[0],
+                    r1.fwd_bf16_launches - before[1],
+                    r1.bwd_bf16_launches - before[2])
+        runs.append((out.detach().cpu(), xx.grad.cpu(),
+                     {k: p.grad.cpu() for k, p in lay.named_parameters()},
+                     launched))
+        lay.zero_grad(set_to_none=True)
+    (out_k, dx_k, grads_k, launched), (out_c, dx_c, grads_c, _) = runs
+    assert launched == {"fused": (1, 1, 1), "materialised": (2, 0, 0),
+                        "torch": (0, 0, 0)}[impl]
+    torch.testing.assert_close(out_k, out_c, rtol=1e-5, atol=1e-6)
+    sums_close(dx_k, dx_c)
+    for k, v in grads_c.items():
+        sums_close(grads_k[k], v)

@@ -277,10 +277,10 @@ def test_cli_predict(tmp_path, capsys):
 
 @pytest.mark.parametrize("cmd", ["predict", "serve"])
 def test_cli_refuses_unported_models_and_missing_checkpoint(cmd, capsys):
-    assert cli.main([cmd, "--model", "gat", "--checkpoint_dir", "x",
+    assert cli.main([cmd, "--model", "gin", "--checkpoint_dir", "x",
                      "--device", "cpu"]) == 2
     assert ("msha_gnn_torch serves: msha, ours, ablation1, ablation2, "
-            "ablation3, gcn") in capsys.readouterr().err
+            "ablation3, gat, gcn, hgane, sage") in capsys.readouterr().err
     assert cli.main([cmd, "--model", "gcn", "--device", "cpu"]) == 2
     assert "requires --checkpoint_dir" in capsys.readouterr().err
 
