@@ -63,8 +63,10 @@ over the same 20 calls, as is their library yardstick.
    bit for bit, once through its C entry into NaN-filled outputs and
    workspace, its device time beside the unfused backward's: the
    weights' permute, ``csr_spmm_f32`` and ``csr_sddmm_f32``) against their
-   plain versions on the same linkpred graph; times and bounds as in
-   phase 3.
+   plain versions on the same linkpred graph; then the generic pair's
+   bfloat16 payload (``r1_fwd_bf16``, ``r1_bwd_bf16`` on ``x`` and ``t``
+   rounded to bfloat16, twice bit for bit) beside the float32 kernels on
+   the same values; times and bounds as in phase 3.
 5. the link-prediction training path at full width
    (``LinkPredConfig()``: hidden 64, 2 heads, dropout 0.5, batch 4096):
    one training step that must launch exactly its kernels, the same step
@@ -95,7 +97,10 @@ over the same 20 calls, as is their library yardstick.
 8. the operator paths of phase 3e's kernels under autograd at full width,
    each with exact launch counts: the generic ``Rank1GatOperator`` against
    the dst_linear one at ``t = x a`` (output, ``dc``, ``da = x^T dt``,
-   ``dx_lin = dx + dt a^T``); five Adam steps of a one-layer rank-1 GAT
+   ``dx_lin = dx + dt a^T``); the generic operator at ``precision="bf16"``
+   (one ``r1_fwd_bf16``, one ``r1_bwd_bf16`` and the two float32 SpMMs of
+   ``dx`` and ``dt``) against the float32 one at 3e-2 and against the same
+   operator on the CPU; five Adam steps of a one-layer rank-1 GAT
    link loss through each, whose losses must agree; ``SpmmOperator(
    fused_bwd=True)`` against ``fused_bwd=False`` in both directions; and
    ``segment_reduce_sorted``.
@@ -142,7 +147,10 @@ over the same 20 calls, as is their library yardstick.
    values, the bound at bfloat16 row bytes, ``torch.sparse.mm`` on
    bfloat16 values where this PyTorch takes it; then
    ``SpmmOperator(precision="bf16", fused_bwd=True)`` under autograd with
-   exact launch counts against ``fused_bwd=False``.
+   exact launch counts against ``fused_bwd=False``; and the row broadcast
+   of phase 14 alone, ``seg_expand_f32`` (bit for bit, pads 0) and its
+   adjoint ``seg_reduce_f32`` at d = 1, against their plain versions,
+   beside an ``index_select`` and ``torch.segment_reduce``.
 13. one ``SparseGAT(precision="bf16")`` linkpred training step at
    ``LinkPredConfig()`` widths per impl, from the float32 run's state:
    exact launch counts; ``fused`` and ``materialised`` against the same
@@ -151,6 +159,25 @@ over the same 20 calls, as is their library yardstick.
    against the float32 step at 3e-2 of each value's largest; ``flash``
    bit-equal to its float32 step; the step's wall, kernels, device time
    and idle share beside the float32 step's.
+14. out-of-core training (``training/scale.py::train_chunked``) at the
+   repo's own size: ``scripts_scale_train.py``'s 50 M-edge power-law graph
+   (2 M nodes, seed 0, its ``build_edges`` copied here), ``ScaleConfig()``
+   (d 32, batch 8192), 12 slices from the formula, 5 steps each of
+   ``fused`` f32, ``fused`` bf16 and the materialised pipeline
+   (``ChunkedSpmm``, the row softmax, ``broadcast_rows``): layout seconds,
+   losses, the steady step wall p50 and edges/s, exact launches a step at
+   12 slices, peak memory, the run's own last step under the profiler
+   (kernels, device time, idle share, the largest kernels); the 12-slice
+   f32 step's loss and gradients against one slice; on the full graph, at
+   the seed's parameters and for two cotangents of the layer's output (the
+   first batch's loss's and a dense normal one), every slice's
+   ``r1l_fwd`` / ``r1l_bwd`` (f32 and bf16), its two ``dx`` SpMMs over the
+   hub receiver's 1.6 M slots, the materialised forward and ``dx`` SpMMs
+   and ``dw`` SDDMM, and the operators' merged outputs and gradients,
+   against float64 plain versions on the same inputs; fused against
+   materialised first loss, bf16 against f32 losses, and a cut graph
+   (20,000 nodes, 200,000 edges) on the card against the CPU: 3 steps'
+   losses, and the f32 first step's gradients.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -262,6 +289,28 @@ BF16_FLIP_TOL = 2 ** -7
 # generic vs dst_linear rank-1 GAT, five Adam steps from one state: the same
 # function, t = h a by a GEMM against a dot in the kernel (float32 rounding)
 GENERIC_LOSS_RTOL = 1e-5
+# out-of-core training (phase 14) at the repo's own size: the 50 M-edge
+# power-law graph of scripts_scale_train.py (BASELINE config #5),
+# ScaleConfig() (d 32, batch 8192, seed 0), 5 steps a mode
+SCALE_NODES, SCALE_EDGES, SCALE_STEPS = 2_000_000, 50_000_000, 5
+# (label, fused, precision) of the three runs
+SCALE_MODES = (("fused f32", True, "f32"), ("fused bf16", True, "bf16"),
+               ("materialised f32", False, "f32"))
+# 12 slices against 1 on the same parameters and batch: the loss and each
+# gradient at this share of its largest value (the merge of rows split
+# between slices and sums over up to 19 M edges in another order)
+SCALE_SLICE_REL = 1e-4
+# fused against materialised first loss: the JAX package's own bound
+# (tests/test_chunked_rank1.py:116-131)
+SCALE_PATHS_TOL = 1e-3
+# each bf16 step's loss against the f32 step's, relative (BF16_STEP_TOL)
+SCALE_BF16_REL = BF16_STEP_TOL
+# the cut graph, card against the CPU (the kernels' plain versions) from
+# the same parameters and batches: 3 steps' losses relative (sums in
+# another order through Adam steps; read at 8.8e-8 in both precisions),
+# and the f32 first step's gradients at SUM_RTOL / SUM_ATOL_REL
+SCALE_CUT_NODES, SCALE_CUT_EDGES, SCALE_CUT_STEPS = 20_000, 200_000, 3
+SCALE_CARD_CPU_RTOL = 1e-5
 # the fused epoch's metrics before the redesign of csr_spmm_f32 and
 # r1l_bwd_f32 (the same data, seed and state), for comparison by eye
 BEFORE_METRICS = ("before the edge-run kernels: Hits@20 0.0090, Hits@50 "
@@ -1190,16 +1239,17 @@ def phase_flash_kernels(split):
     return results
 
 
-def generic_bounds(n, e, d, x_rows, t_rows):
+def generic_bounds(n, e, d, x_rows, t_rows, row_bytes=4):
     """Least times (ms, bound) of the generic rank-1 GAT kernels on this
     data: every input read once (``col`` for the E edges, ``c`` per row,
     ``t`` and ``x`` for the ``t_rows``/``x_rows`` columns the edges
-    reference), every output written once.  Forward: ``out`` and ``lse``;
-    2 E d flops (the aggregation's multiply-add).  Backward: ``gout``,
-    ``out`` and ``lse`` read too, ``att`` and ``dpre`` [E] and ``dc`` [n]
-    written; 2 E d flops (``<gout[r], x[j]>``) and 2 n d (``<gout[r],
-    out[r]>``)."""
-    common = 4 * (n + 1) + 4 * e + 4 * n + 4 * t_rows + 4 * x_rows * d + 4 * n
+    reference, x at ``row_bytes`` a value: 2 for the bfloat16 payload),
+    every output written once.  Forward: ``out`` and ``lse``; 2 E d flops
+    (the aggregation's multiply-add).  Backward: ``gout``, ``out`` and
+    ``lse`` read too, ``att`` and ``dpre`` [E] and ``dc`` [n] written; 2 E
+    d flops (``<gout[r], x[j]>``) and 2 n d (``<gout[r], out[r]>``)."""
+    common = (4 * (n + 1) + 4 * e + 4 * n + 4 * t_rows
+              + row_bytes * x_rows * d + 4 * n)
     fwd = bound(common + 4 * n * d, 2 * e * d)
     bwd = bound(common + 2 * 4 * n * d + 8 * e + 4 * n, 2 * e * d + 2 * n * d)
     return fwd, bwd
@@ -1352,6 +1402,57 @@ def phase_generic_kernels(split):
         results.append({**entry(name, source, replaces, err, ms, plain_ms,
                                 bnd, None), "device_ms": dev_ms,
                         "library_device_ms": None})
+
+    # the generic pair's bfloat16 payload: x and t rounded to bfloat16, as
+    # the operator passes them, against the plain versions on the same rows
+    # at the float32 tolerances (both compute in float32 over the widened
+    # rows), twice bit for bit, beside the float32 kernels on the same
+    # values
+    hb, tb = h.to(torch.bfloat16), t.to(torch.bfloat16).float()
+    args16 = (op.ptr, op.col, c, tb, hb, op.slope, n)
+    prime_nan((n, d), (n,))
+    out16, lse16 = r1.r1_fwd(*args16)
+    w_out16, w_lse16 = r1.rank1_gat_generic_plain(*args16)
+    torch.cuda.synchronize()
+    fwd16_err = max(
+        close("r1_fwd_bf16 out", out16, w_out16, KERNEL_RTOL, KERNEL_ATOL),
+        close("r1_fwd_bf16 lse", lse16, w_lse16, KERNEL_RTOL, KERNEL_ATOL))
+    bwd16 = (op.ptr, op.col, c, tb, hb, gout, w_out16, w_lse16, op.slope, n)
+    prime_nan((n_slots,), (n_slots,), (n,))
+    att16, dpre16, dc16 = r1.r1_bwd(*bwd16)
+    w_att16, w_dpre16, w_dc16 = r1.rank1_gat_generic_bwd_plain(*bwd16)
+    torch.cuda.synchronize()
+    bwd16_err = max(
+        close("r1_bwd_bf16 att", att16, w_att16, KERNEL_RTOL, KERNEL_ATOL),
+        close("r1_bwd_bf16 dpre", dpre16, w_dpre16, SUM_RTOL,
+              SUM_ATOL_REL * float(w_dpre16.abs().max())),
+        close("r1_bwd_bf16 dc", dc16, w_dc16, SUM_RTOL,
+              SUM_ATOL_REL * float(w_dc16.abs().max())))
+    same_bits("r1_fwd_bf16", lambda: r1.r1_fwd(*args16))
+    same_bits("r1_bwd_bf16", lambda: r1.r1_bwd(*bwd16))
+    b16 = generic_bounds(n, e, d, x_rows, x_rows, row_bytes=2)
+    for name, fn, plain, a16, bnd, err, replaces, source in (
+            ("r1_fwd_bf16", r1.r1_fwd, r1.rank1_gat_generic_plain, args16,
+             b16[0], fwd16_err,
+             "msha_gnn_tpu/ops/pallas/rank1_gat.py:94 _r1_fwd_kernel (bf16, "
+             "lo_pass=False :149-151)", "rank1_gat.cu"),
+            ("r1_bwd_bf16", r1.r1_bwd, r1.rank1_gat_generic_bwd_plain, bwd16,
+             b16[1], bwd16_err,
+             "msha_gnn_tpu/ops/pallas/rank1_gat.py:160 _r1_bwd_kernel (bf16 "
+             "xt, :586-592)", "flash_gat.cu")):
+        a32 = tuple(v.float() if v is hb else v for v in a16)
+        ms, dev_ms = time_ms(lambda: fn(*a16)), device_ms(lambda: fn(*a16))
+        plain_ms = time_ms(lambda: plain(*a16), reps=5, iters=5)
+        f32_ms, f32_dev = (time_ms(lambda: fn(*a32)),
+                           device_ms(lambda: fn(*a32)))
+        log(f"  {name}: kernel {ms:.4f} ms (device {fmt(dev_ms)}), plain "
+            f"{plain_ms:.4f} ms, the float32 kernel on the same values "
+            f"{f32_ms:.4f} ms (device {fmt(f32_dev)}), bound {bnd[0]:.5f} ms "
+            f"({bnd[1]}, bfloat16 rows); library {no_lib}")
+        results.append({**entry(name, source, replaces, err, ms, plain_ms,
+                                bnd, None), "device_ms": dev_ms,
+                        "library_device_ms": None, "f32_ms": f32_ms,
+                        "f32_device_ms": f32_dev})
 
     # the sorted segment sum: [E_pad, d] edge values over the row pointer,
     # the pads past ptr[n] NaN (never read)
@@ -1541,6 +1642,49 @@ def phase_operators(split):
         close(f"generic vs dst_linear {label}", got, want_g, SUM_RTOL,
               SUM_ATOL_REL * float(want_g.abs().max()))
 
+    # the generic operator at precision="bf16": r1_fwd_bf16, r1_bwd_bf16,
+    # and dx, dt by the float32 SpMMs of the float32 cotangent; against the
+    # same operator on the CPU (the kernels' plain versions on the same
+    # bfloat16 rows) at the float32 kernels' tolerances, and its output
+    # against the float32 operator's at BF16_STEP_TOL of the largest value
+    # (the JAX test holds the forward so, tests/test_rank1_gat.py:85-93).
+    # Not the gradients: a logit near 0 whose bfloat16 t flips its leaky
+    # slope moves dc by a whole 0.8 dl_e (6.2e-2 of a largest 0.33 at these
+    # shapes on the card)
+    gen16 = r1.Rank1GatOperator(g, precision="bf16")
+    runs16 = {}
+    for dev, graph16 in ((DEVICE, g), ("cpu", split["graph"])):
+        op16 = gen16 if dev == DEVICE else r1.Rank1GatOperator(
+            graph16, precision="bf16")
+        ins16 = [v.detach().to(dev).requires_grad_() for v in gen_in]
+        zero_counts(spmm)
+        out16 = op16(*ins16)
+        out16.backward(gout.to(dev))
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+            counts = read_counts(spmm)
+            log(f"  generic operator at precision='bf16', one forward and "
+                f"backward: {counts}")
+            want = expected(r1_fwd_bf16=1, r1_bwd_bf16=1, csr_spmm_f32=2,
+                            csr_spmm_f32_transposed=2,
+                            csr_spmm_f32_reduce_edges=1)
+            if counts != want:
+                raise AssertionError(f"expected {want} launches, got "
+                                     f"{counts}")
+        runs16[dev] = [out16.detach().cpu()] + [v.grad.cpu() for v in ins16]
+    launches["r1_fwd_bf16"] = launches["r1_bwd_bf16"] = 1
+    ref = out_gen.detach().cpu()
+    close("generic bf16 vs f32 out", runs16[DEVICE][0], ref, 0.0,
+          BF16_STEP_TOL * float(ref.abs().max()))
+    for i, label in enumerate(("out", "dc", "dt", "dx")):
+        card, cpu = runs16[DEVICE][i], runs16["cpu"][i]
+        if i == 0:
+            close(f"generic bf16 card vs cpu {label}", card, cpu,
+                  KERNEL_RTOL, KERNEL_ATOL)
+        else:
+            close(f"generic bf16 card vs cpu {label}", card, cpu, SUM_RTOL,
+                  SUM_ATOL_REL * float(cpu.abs().max()))
+
     # five Adam steps of a one-layer rank-1 GAT link loss, each way
     pos = torch.as_tensor(np.stack(split["train_pos"]), device=DEVICE)
     k = min(4096, pos.shape[1])  # LinkPredConfig().batch_size positives
@@ -1670,7 +1814,10 @@ def read_counts(op=None):
               "csr_spmm_bf16": cuda_spmm.bf16_launches,
               "csr_spmm_dw_bf16": cuda_spmm.dw_bf16_launches,
               "r1l_fwd_bf16": r1.fwd_bf16_launches,
-              "r1l_bwd_bf16": r1.bwd_bf16_launches}
+              "r1l_bwd_bf16": r1.bwd_bf16_launches,
+              "r1_fwd_bf16": r1.r1_fwd_bf16_launches,
+              "r1_bwd_bf16": r1.r1_bwd_bf16_launches,
+              "seg_expand_f32": sm.expand_launches}
     # the operator's own counts take its launches of either row type
     if op is not None:
         counts["csr_spmm_f32 transposed"] = op.launches_transposed
@@ -1688,6 +1835,8 @@ def zero_counts(op=None):
     r1.fwd_launches = r1.bwd_launches = 0
     r1.r1_fwd_launches = r1.r1_bwd_launches = 0
     r1.fwd_bf16_launches = r1.bwd_bf16_launches = 0
+    r1.r1_fwd_bf16_launches = r1.r1_bwd_bf16_launches = 0
+    sm.expand_launches = 0
     cuda_spmm.launches = cuda_spmm.seg_launches = cuda_spmm.dw_launches = 0
     cuda_spmm.bf16_launches = cuda_spmm.dw_bf16_launches = 0
     cuda_sddmm.launches = sm.fwd_launches = sm.bwd_launches = 0
@@ -1705,6 +1854,7 @@ def expected(**nonzero):
              "flash_fwd_f32", "flash_bwd_f32", "r1_fwd_f32", "r1_bwd_f32",
              "seg_reduce_f32", "csr_spmm_dw_f32", "csr_spmm_bf16",
              "csr_spmm_dw_bf16", "r1l_fwd_bf16", "r1l_bwd_bf16",
+             "r1_fwd_bf16", "r1_bwd_bf16", "seg_expand_f32",
              "csr_spmm_f32 transposed", "csr_spmm_f32 reduce_edges")
     return {k: nonzero.get(k.replace(" ", "_"), 0) for k in names}
 
@@ -2977,6 +3127,8 @@ def phase_bf16_kernels(split):
                             bwd_t["ms"], bwd_t["plain_ms"], (bwd_b, bwd_by),
                             None), **bwd_t})
 
+    results += broadcast_kernels(g, spmm, gen)
+
     # the main path of csr_spmm_dw_bf16: the bf16 operator with fused_bwd
     # under autograd, against the same operator without it
     launches = 0
@@ -3010,6 +3162,94 @@ def phase_bf16_kernels(split):
                   KERNEL_ATOL if name == "dw"
                   else SUM_ATOL_REL * float(want_g.abs().max()))
     return results, launches
+
+
+def broadcast_kernels(g, spmm, gen):
+    """Phase 12, the row broadcast and its adjoint alone (the out-of-core
+    step's ``broadcast_rows``): ``seg_expand_f32`` over the linkpred rows
+    into NaN-primed slots (the edges' row values bit for bit, the pads 0)
+    and ``seg_reduce_f32`` at d = 1 (the sorted row sums) against their
+    plain versions, each twice bit for bit; event, device, plain and
+    library times (an ``index_select`` of the senders; ``torch.
+    segment_reduce``, or ``index_add_`` where it does not run) and the byte
+    bounds."""
+    from msha_gnn_torch.ops.cuda import softmax as sm
+    from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
+
+    n, e, e_pad = g.n_src, g.num_edges, g.num_padded_edges
+    v = torch.randn(n, generator=gen, device=DEVICE)
+    gs = torch.randn(e_pad, generator=gen, device=DEVICE)
+    senders = g.senders[:e].contiguous()
+    results = []
+
+    def expand():
+        return sm.seg_expand(spmm.ptr, v, e_pad, e)
+
+    prime_nan((e_pad,))
+    got = expand()
+    want = sm.seg_expand_plain(spmm.ptr, v, e_pad)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want) or not torch.equal(
+            got[:e], v.index_select(0, senders)):
+        raise AssertionError("seg_expand_f32 differs from its plain version")
+    log(f"  seg_expand_f32: {e} edges ({e_pad} slots) bit for bit equal to "
+        f"its plain version, the pads 0")
+    same_bits("seg_expand_f32", expand)
+    ptr = spmm.ptr.long()
+
+    def gather():
+        return v.index_select(0, senders)
+
+    def rowsum():
+        return cuda_spmm.row_sums(gs[:, None], spmm.ptr, n_rows=n)
+
+    prime_nan((n, 1))
+    got = rowsum()
+    want = cuda_spmm.segment_reduce_sorted_plain(gs[:, None], None, spmm.ptr,
+                                                 n_src=n)
+    torch.cuda.synchronize()
+    sum_err = close("seg_reduce_f32[rowsum d=1]", got, want, SUM_RTOL,
+                    SUM_ATOL_REL * float(want.abs().max()))
+    same_bits("seg_reduce_f32[rowsum d=1]", rowsum)
+
+    def segsum():
+        return torch.segment_reduce(gs[:e], "sum", offsets=ptr)
+
+    lib_name = "torch.segment_reduce"
+    try:
+        segsum()
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"  torch.segment_reduce does not run here ({exc}): index_add_")
+        lib_name = "index_add_"
+        rows = g.senders[:e].long()
+
+        def segsum():
+            return gs.new_zeros(n).index_add_(0, rows, gs[:e])
+
+    for name, kernel, plain, library, lib, bnd, err, source, replaces in (
+            ("seg_expand_f32", expand,
+             lambda: sm.seg_expand_plain(spmm.ptr, v, e_pad), gather,
+             "index_select of the senders",
+             # the pointer and v read once, out [e_pad] written once
+             bound(4 * (n + 1) + 4 * n + 4 * e_pad, 0), 0.0, "softmax.cu",
+             "msha_gnn_tpu/ops/pallas/softmax.py:86 _expand_kernel"),
+            ("seg_reduce_f32[rowsum d=1]", rowsum,
+             lambda: cuda_spmm.segment_reduce_sorted_plain(
+                 gs[:, None], None, spmm.ptr, n_src=n), segsum, lib_name,
+             # the pointer and the E values read once, [n] written; an add
+             # an edge
+             bound(4 * (n + 1) + 4 * e + 4 * n, e), sum_err, "spmm.cu",
+             "msha_gnn_tpu/ops/pallas/softmax.py:102 _rowsum_kernel")):
+        ms, dev_ms = time_ms(kernel), device_ms(kernel)
+        plain_ms = time_ms(plain, reps=5, iters=5)
+        lib_ms, lib_dev = time_ms(library), device_ms(library)
+        log(f"  {name}: kernel {ms:.4f} ms (device {fmt(dev_ms)}), plain "
+            f"{plain_ms:.4f} ms, {lib} {lib_ms:.4f} ms (device "
+            f"{fmt(lib_dev)}), bound {bnd[0]:.5f} ms ({bnd[1]})")
+        results.append({**entry(name, source, replaces, err, ms, plain_ms,
+                                bnd, lib_ms), "device_ms": dev_ms,
+                        "library_device_ms": lib_dev})
+    return results
 
 
 def with_precision(model, precision):
@@ -3177,6 +3417,541 @@ def phase_bf16_step(split):
                 f"{busy / 5:.4f} ms of device a step, idle "
                 f"{max(0.0, 1 - busy / wall_ms) if busy else None}")
     return counts_by_impl
+
+
+def build_edges(n_nodes: int, n_edges: int, seed: int = 0):
+    """``scripts_scale_train.py::build_edges`` (:29-39), copied (that script
+    imports JAX): sorted uniform senders, receivers drawn with p ~ k^-1.5
+    (node 0 takes about 38% of the edges)."""
+    rng = np.random.default_rng(seed)
+    src = np.sort(rng.integers(0, n_nodes, n_edges).astype(np.int32))
+    p = 1.0 / np.arange(1, n_nodes + 1) ** 1.5
+    cdf = np.cumsum(p / p.sum())
+    dst = np.minimum(
+        np.searchsorted(cdf, rng.random(n_edges)), n_nodes - 1
+    ).astype(np.int32)
+    return src, dst
+
+
+def scale_want(k, fused, precision, steps):
+    """Launches of ``steps`` out-of-core steps at ``k`` slices.  Fused: a
+    slice's r1l_fwd, r1l_bwd and its two dx SpMMs (the q-weighted
+    transposed gather and the d = 1 column sum of dpre).  Materialised:
+    the sender term's broadcast and its adjoint, the softmax both ways, a
+    slice's forward SpMM, its dx SpMM (the transposed operator's slice) and
+    its dw SDDMM."""
+    if fused:
+        fwd, bwd = (("r1l_fwd_bf16", "r1l_bwd_bf16") if precision == "bf16"
+                    else ("r1l_fwd_f32", "r1l_bwd_f32"))
+        return expected(**{fwd: k * steps, bwd: k * steps,
+                           "csr_spmm_f32": 2 * k * steps})
+    return expected(seg_expand_f32=steps, seg_reduce_f32=steps,
+                    seg_softmax_fwd_f32=steps, seg_softmax_bwd_f32=steps,
+                    csr_spmm_f32=2 * k * steps, csr_sddmm_f32=k * steps)
+
+
+def slice_bounds_ms(s, r, k, d):
+    """The mean over the ``k`` slices of CSR-ordered edges ``(s, r)`` of
+    each per-slice launch's least time (ms, what bounds it), every input
+    read once and every output written once over the slice's distinct
+    senders (``n_s``) and receivers (``n_r``): ``r1l_fwd`` (ptr, col, c, a,
+    the n_r rows of x in, out and lse out; the aggregation's 2 E d and
+    ``t``'s 2 n_r d flops), ``r1l_bwd`` (gout, out and lse in too; q, dpre,
+    dc, da out; 4 E d + 4 n_r d), the q-weighted dx SpMM (its pointer over
+    n_r rows, col and weight, the n_s rows of gout, [n_r, d] out; 2 E d),
+    the d = 1 column sum of dpre (pointer, edge ids, dpre, [n_r] out; E)
+    and the materialised dw SDDMM (pointer, col, the n_s and n_r rows, the
+    E dots out; 2 E d)."""
+    from msha_gnn_torch.ops.chunked import slice_bounds
+
+    sums = {}
+    for lo, hi in slice_bounds(len(s), k):
+        e = hi - lo
+        n_s = int(np.count_nonzero(np.diff(s[lo:hi]))) + 1
+        n_r = int(np.unique(r[lo:hi]).size)
+        for name, nbytes, flops in (
+                ("r1l_fwd", 4 * (n_s + 1) + 4 * e + 4 * n_s + 4 * d
+                 + 4 * n_r * d + 4 * n_s * d + 4 * n_s,
+                 2 * e * d + 2 * n_r * d),
+                ("r1l_bwd", 4 * (n_s + 1) + 4 * e + 4 * n_s + 4 * d
+                 + 4 * n_r * d + 3 * 4 * n_s * d + 8 * e + 4 * n_s + 4 * d,
+                 4 * e * d + 4 * n_r * d),
+                ("dx q A^T g", 4 * (n_r + 1) + 8 * e + 4 * n_s * d
+                 + 4 * n_r * d, 2 * e * d),
+                ("dpre column sum", 4 * (n_r + 1) + 8 * e + 4 * n_r, e),
+                ("dw sddmm", 4 * (n_s + 1) + 4 * e + 4 * (n_s + n_r) * d
+                 + 4 * e, 2 * e * d)):
+            t, by = bound(nbytes, flops)
+            sums[name] = (sums.get(name, (0.0, by))[0] + t / k, by)
+    return sums
+
+
+class ProfiledStep:
+    """A ``log`` hook of ``scale._train`` that hands every event on to
+    ``sink`` and runs step ``at`` (>= 1) of the training loop itself under
+    ``torch.profiler``: its wall (draw, forward, backward, Adam), device
+    kernels, device ms and idle share, the largest kernels by name, in
+    ``self.out`` once that step has ended."""
+
+    def __init__(self, label, at, sink):
+        self.label, self.at, self.sink = label, at, sink
+        self.prof = self.out = None
+        self.t0 = 0.0
+
+    def __call__(self, ev):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.sink(ev)
+        if ev.get("step") == self.at - 1:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.start()
+            self.t0 = time.perf_counter()
+        elif ev.get("step") == self.at:
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - self.t0) * 1e3
+            self.prof.stop()
+            self.out = self.summary(wall_ms)
+
+    def summary(self, wall_ms):
+        def us(evt):
+            return (getattr(evt, "self_device_time_total", 0.0)
+                    or getattr(evt, "self_cuda_time_total", 0.0))
+
+        on_card = [evt for evt in self.prof.key_averages()
+                   if evt.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(evt, "is_user_annotation", False)]
+        busy_ms = sum(us(evt) for evt in on_card) / 1e3
+        out = {"profiled_wall_ms": wall_ms,
+               "device_kernels": sum(evt.count for evt in on_card),
+               "device_ms": busy_ms or None,
+               "device_idle_share": (max(0.0, 1 - busy_ms / wall_ms)
+                                     if busy_ms else None)}
+        log(f"  {self.label}, step {self.at} profiled: {json.dumps(out)}")
+        for evt in sorted(on_card, key=lambda e: -us(e))[:10]:
+            short = evt.key.replace("void ", "").replace(
+                "at::native::", "").replace("(anonymous namespace)::", "")
+            log(f"    {self.label} device: {us(evt) / 1e3:.3f} ms, "
+                f"{evt.count} launches: {short[:140]}")
+        return out
+
+
+def loss_and_grad(loss_fn, params0, batch):
+    params = {k: v.detach().clone().requires_grad_() for k, v in
+              params0.items()}
+    loss = loss_fn(params, *batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.detach(), {k: v.grad for k, v in params.items()}
+
+
+def scale_params(cfg, n_nodes=None, device=None):
+    """``train_chunked``'s initial parameters (a CPU generator seeded
+    ``cfg.seed``) on ``device`` (the card's by default)."""
+    from msha_gnn_torch.training import scale
+
+    return {key: v.to(device or DEVICE) for key, v in scale._init_params(
+        torch.Generator().manual_seed(cfg.seed), n_nodes or SCALE_NODES,
+        cfg.d).items()}
+
+
+class SliceChecks:
+    """Each quantity of a run of per-slice checks against float64 plain
+    versions: raises at the first slice past its tolerance, and logs the
+    worst slice of every quantity once the run is over."""
+
+    def __init__(self, label):
+        self.label, self.worst = label, {}
+
+    def __call__(self, name, i, got, want, rtol, atol_rel=None):
+        """``got`` (the card's) against the float64 ``want``, at ``rtol``
+        and ``atol_rel`` x max|want| (``KERNEL_ATOL`` when None)."""
+        want_max = float(want.abs().max()) if want.numel() else 0.0
+        atol = KERNEL_ATOL if atol_rel is None else atol_rel * want_max
+        got = got.double()
+        err = float((got - want).abs().max()) if want.numel() else 0.0
+        if not bool(torch.isfinite(got).all()) or not torch.allclose(
+                got, want, rtol=rtol, atol=atol):
+            raise AssertionError(
+                f"{self.label} {name}, slice {i}: max abs err {err:.3e} "
+                f"(max |value| {want_max:.3e}; rtol {rtol}, atol "
+                f"{atol:.1e}) against its plain version")
+        if err >= self.worst.get(name, (-1.0,))[0]:
+            self.worst[name] = (err, i, want_max, rtol, atol)
+
+    def report(self):
+        for name, (err, i, vmax, rtol, atol) in self.worst.items():
+            log(f"  {self.label} {name}: worst max abs err {err:.3e} "
+                f"(slice {i}, max |value| {vmax:.3e}; rtol {rtol}, atol "
+                f"{atol:.1e})")
+
+
+def hold_rank1_slices(op, c, a, x16, gouts, seed):
+    """``ChunkedRank1Gat`` ``op`` on the card against its kernels' float64
+    plain versions on the same inputs (``x16`` the rows as the kernels read
+    them): each slice's ``r1l_fwd`` (out, lse), then for each cotangent
+    of ``gouts`` (name -> [n_src, d]) each slice's ``r1l_bwd`` (q, dpre,
+    dc, da) and its two ``dx`` SpMMs (over the hub receiver's 1.6 M slots a
+    slice); the operator's merged ``(out, lse)`` and ``(dc, da, dx)``
+    against a plain assembly of their own: the pieces merged by a scatter
+    log-sum-exp, ``dx`` by ``index_add_`` of ``q g + dpre a`` at the
+    receivers."""
+    from msha_gnn_torch.ops.cuda import rank1_gat as r1
+    from msha_gnn_torch.ops.cuda.spmm import csr_spmm, csr_spmm_plain, \
+        edge_rows
+
+    check = SliceChecks(f"{op.precision} ChunkedRank1Gat")
+    slope, n = op.slope, op.n_src
+    c64, a64, x64 = (v.double() for v in (c, a, x16))
+    got_out, got_lse = op.forward_state(c, a, x16)
+    pieces = []
+    for i, rs in enumerate(op.slices):
+        sl = rs.sl
+        o, l = r1.r1l_fwd(sl.ptr, sl.col, c.index_select(0, sl.rows), a, x16,
+                          seed, 0.0, slope, sl.n_rows)
+        wo, wl = r1.rank1_gat_plain(sl.ptr, sl.col, c64[sl.rows], a64, x64,
+                                    seed, 0.0, slope, sl.n_rows)
+        check("r1l_fwd out", i, o, wo, SUM_RTOL, SUM_ATOL_REL)
+        check("r1l_fwd lse", i, l, wl, KERNEL_RTOL)
+        pieces.append((sl.rows, wo, wl))
+    rows = torch.cat([p[0] for p in pieces])
+    lse_i = torch.cat([p[2] for p in pieces])
+    m = torch.full((n,), float(r1.NEG), dtype=torch.float64, device=DEVICE)
+    m = m.scatter_reduce(0, rows, lse_i, "amax", include_self=True)
+    w = torch.where(lse_i > r1.NEG / 2, torch.exp(lse_i - m[rows]), 0.0)
+    total = torch.zeros(n, dtype=torch.float64, device=DEVICE).index_add_(
+        0, rows, w)
+    live = total > 0
+    want_lse = torch.where(live, m + torch.log(torch.where(live, total, 1.0)),
+                           float(r1.NEG))
+    want_out = torch.zeros((n, x16.shape[1]), dtype=torch.float64,
+                           device=DEVICE)
+    for (rows_i, wo, wl), w_i in zip(pieces, torch.split(
+            w, [p[0].numel() for p in pieces])):
+        want_out.index_add_(0, rows_i, w_i[:, None] * wo)
+    want_out /= torch.where(live, total, 1.0)[:, None]
+    del pieces, rows, lse_i, m, w, total
+    check("merged out", "all", got_out, want_out, SUM_RTOL, SUM_ATOL_REL)
+    check("merged lse", "all", got_lse, want_lse, KERNEL_RTOL)
+    # the backward a slice against the plain merged state, as f32 rounds it
+    out32, lse32 = want_out.float(), want_lse.float()
+    out64, lse64 = out32.double(), lse32.double()
+    del want_out, want_lse
+    for what, gout in gouts.items():
+        g64 = gout.double()
+        got_dc, got_da, got_dx = op.backward_state(c, a, x16, got_out,
+                                                    got_lse, gout)
+        want_dc = torch.zeros(n, dtype=torch.float64, device=DEVICE)
+        want_da = torch.zeros_like(a64)
+        want_dx = torch.zeros_like(x64)
+        for i, rs in enumerate(op.slices):
+            sl = rs.sl
+            q, dpre, dc_i, da_i = r1.r1l_bwd(
+                sl.ptr, sl.col, c.index_select(0, sl.rows), a, x16,
+                gout.index_select(0, sl.rows), out32.index_select(0, sl.rows),
+                lse32.index_select(0, sl.rows), seed, 0.0, slope, sl.n_rows)
+            wq, wdpre, wdc, wda = r1.rank1_gat_bwd_plain(
+                sl.ptr, sl.col, c64[sl.rows], a64, x64, g64[sl.rows],
+                out64[sl.rows], lse64[sl.rows], seed, 0.0, slope, sl.n_rows)
+            check(f"{what}: r1l_bwd q", i, q, wq, KERNEL_RTOL, SUM_ATOL_REL)
+            for name, got, want in (("dpre", dpre, wdpre), ("dc", dc_i, wdc),
+                                    ("da", da_i, wda)):
+                check(f"{what}: r1l_bwd {name}", i, got, want, SUM_RTOL,
+                      SUM_ATOL_REL)
+            n_t = rs.t_rows.numel()
+            qt = q.index_select(0, rs.t_edge)
+            check(f"{what}: dx q-weighted A^T g (csr_spmm_f32)", i,
+                  csr_spmm(rs.t_ptr, rs.t_col, qt, gout, n_t),
+                  csr_spmm_plain(rs.t_ptr, rs.t_col, qt.double(), g64, n_t),
+                  SUM_RTOL, SUM_ATOL_REL)
+            check(f"{what}: dx column sums of dpre (d = 1)", i,
+                  csr_spmm(rs.t_ptr, rs.t_edge, None, dpre[:, None], n_t),
+                  csr_spmm_plain(rs.t_ptr, rs.t_edge, None,
+                                 dpre.double()[:, None], n_t),
+                  SUM_RTOL, SUM_ATOL_REL)
+            del q, dpre, qt
+            want_dc.index_add_(0, sl.rows, wdc)
+            want_da += wda
+            senders = sl.rows[edge_rows(sl.ptr, sl.col.numel())]
+            want_dx.index_add_(0, sl.col.long(), wq[:, None] * g64[senders]
+                               + wdpre[:, None] * a64)
+            del wq, wdpre, senders
+        for name, got, want in (("dc", got_dc, want_dc),
+                                ("da", got_da, want_da),
+                                ("dx", got_dx, want_dx)):
+            check(f"{what}: merged {name}", "all", got, want, SUM_RTOL,
+                  SUM_ATOL_REL)
+    check.report()
+
+
+def hold_spmm_slices(s, r, k, cfg, h, c, a_dst, gouts):
+    """The materialised aggregation ``ChunkedSpmm.apply(h, att)`` on the
+    card, with the attention of the seed's parameters, against float64
+    plain versions on the same inputs: each slice's forward SpMM, then for
+    each cotangent of ``gouts`` each slice's ``dw`` SDDMM and each
+    transposed slice's ``dx`` SpMM (the hub receiver's 1.6 M slots); the
+    operator's ``out`` and, under autograd, ``(dx, dw)`` against a plain
+    assembly by ``index_add_``."""
+    from msha_gnn_torch.ops.chunked import ChunkedSpmm
+    from msha_gnn_torch.ops.cuda.sddmm import csr_sddmm, csr_sddmm_plain
+    from msha_gnn_torch.ops.cuda.spmm import csr_spmm, csr_spmm_plain, \
+        edge_rows
+    from msha_gnn_torch.ops.segment import segment_softmax
+
+    check = SliceChecks("f32 ChunkedSpmm.apply")
+    op = ChunkedSpmm.from_host_coo(s, r, None, n_src=SCALE_NODES,
+                                   n_dst=SCALE_NODES, num_slices=k,
+                                   assume_sorted=True, device=DEVICE)
+    s_dev = torch.from_numpy(s).to(DEVICE).long()
+    r_dev = torch.from_numpy(r).to(DEVICE).long()
+    att = segment_softmax(torch.nn.functional.leaky_relu(
+        c[s_dev] + (h @ a_dst)[r_dev], cfg.negative_slope), s_dev,
+        SCALE_NODES)
+    del s_dev, r_dev
+    hh, ww = h.detach().requires_grad_(), att.detach().requires_grad_()
+    got_out = op.apply(hh, ww)
+    h64, att64 = h.double(), att.double()
+    want_out = torch.zeros_like(h64)
+    for i, sl in enumerate(op.slices):
+        check("csr_spmm_f32 forward", i,
+              csr_spmm(sl.ptr, sl.col, att[sl.lo:sl.hi], h, sl.n_rows),
+              csr_spmm_plain(sl.ptr, sl.col, att64[sl.lo:sl.hi], h64,
+                             sl.n_rows), SUM_RTOL, SUM_ATOL_REL)
+        want_out.index_add_(0, sl.rows, csr_spmm_plain(
+            sl.ptr, sl.col, att64[sl.lo:sl.hi], h64, sl.n_rows))
+    check("out", "all", got_out.detach(), want_out, SUM_RTOL, SUM_ATOL_REL)
+    del want_out
+    t = op._transpose_op()
+    wt = att[t.input_perm]
+    for what, gout in gouts.items():
+        got_dx, got_dw = torch.autograd.grad(got_out, (hh, ww), gout,
+                                             retain_graph=True)
+        g64 = gout.double()
+        want_dx = torch.zeros_like(h64)
+        want_dw = torch.zeros_like(att64)
+        for i, sl in enumerate(op.slices):
+            e = sl.hi - sl.lo
+            check(f"{what}: csr_sddmm_f32 dw", i,
+                  csr_sddmm(sl.ptr, sl.col, gout.index_select(0, sl.rows), h,
+                            e),
+                  csr_sddmm_plain(sl.ptr, sl.col, g64[sl.rows], h64, e),
+                  KERNEL_RTOL, SUM_ATOL_REL)
+            senders = sl.rows[edge_rows(sl.ptr, e)]
+            cols = sl.col.long()
+            want_dx.index_add_(0, cols,
+                               att64[sl.lo:sl.hi, None] * g64[senders])
+            want_dw[sl.lo:sl.hi] = (g64[senders] * h64[cols]).sum(1)
+            del senders, cols
+        for i, sl in enumerate(t.slices):
+            check(f"{what}: csr_spmm_f32 dx (transposed)", i,
+                  csr_spmm(sl.ptr, sl.col, wt[sl.lo:sl.hi], gout, sl.n_rows),
+                  csr_spmm_plain(sl.ptr, sl.col, wt[sl.lo:sl.hi].double(),
+                                 g64, sl.n_rows), SUM_RTOL, SUM_ATOL_REL)
+        check(f"{what}: dx", "all", got_dx, want_dx, SUM_RTOL, SUM_ATOL_REL)
+        check(f"{what}: dw", "all", got_dw, want_dw, KERNEL_RTOL,
+              SUM_ATOL_REL)
+        del got_dx, got_dw, want_dx, want_dw
+    check.report()
+
+
+def hold_to_plain(src, dst, k, cfg):
+    """The out-of-core layer at the full graph on the card against float64
+    plain versions on the same inputs, slice by slice: the layer's inputs
+    at the seed's parameters (``c``, ``a_dst``, ``h``), and two
+    cotangents of its output, the first batch's loss's (nonzero at the
+    batch's 16 K nodes only) and a dense normal one (every slot of every
+    sum)."""
+    from msha_gnn_torch.ops.chunked_rank1 import ChunkedRank1Gat
+    from msha_gnn_torch.training import scale
+
+    t0 = time.perf_counter()
+    params = scale_params(cfg)
+    d = cfg.d
+    with torch.no_grad():
+        h = params["feat"] @ params["W"]
+        c, a_dst = h @ params["a"][:d], params["a"][d:].contiguous()
+    batch = scale.draw_batch(np.random.default_rng(cfg.seed), src, dst,
+                             SCALE_NODES, cfg.batch_edges, DEVICE)
+    gouts = None
+    for precision in ("f32", "bf16"):
+        op = ChunkedRank1Gat(src, dst, n_src=SCALE_NODES, n_dst=SCALE_NODES,
+                             num_slices=k, negative_slope=cfg.negative_slope,
+                             assume_sorted=True, precision=precision,
+                             device=DEVICE)
+        if gouts is None:
+            # the port's loss's cotangent of the layer's output
+            leaf = op(c, a_dst, h).detach().requires_grad_()
+            loss = scale._make_loss(None, None, SCALE_NODES, None, cfg,
+                                    attention_fn=lambda *_: leaf)(
+                params, *batch)
+            (g_loss,) = torch.autograd.grad(loss, leaf)
+            gouts = {"loss cotangent": g_loss.contiguous(),
+                     "dense cotangent": torch.randn(
+                         h.shape, device=DEVICE, generator=torch.Generator(
+                             device=DEVICE).manual_seed(cfg.seed + 1))}
+            del leaf, loss, g_loss
+        x16 = h.to(torch.bfloat16) if precision == "bf16" else h
+        hold_rank1_slices(op, c, a_dst, x16, gouts, op._seed)
+        op = x16 = None
+        gc_cuda()
+    hold_spmm_slices(src, dst, k, cfg, h, c, a_dst, gouts)
+    gc_cuda()
+    log(f"  {k} slices against float64 plain versions: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def gc_cuda():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_out_of_core():
+    """Phase 14: single-card out-of-core training (``train_chunked``) at
+    the repo's own size, fused f32 and bf16 and materialised; the 12-slice
+    step against a 1-slice one, every slice's kernels and the layers'
+    gradients against float64 plain versions, the modes against each
+    other, and a cut graph against the CPU.  Returns the launches of the
+    materialised run's broadcast kernels (its main path)."""
+    import dataclasses
+
+    from msha_gnn_torch.training import scale
+
+    t0 = time.perf_counter()
+    src, dst = build_edges(SCALE_NODES, SCALE_EDGES, seed=0)
+    hub = float((dst == 0).mean())
+    log(f"  graph: {SCALE_NODES} nodes, {SCALE_EDGES} edges (build_edges of "
+        f"scripts_scale_train.py, seed 0) in {time.perf_counter() - t0:.1f} "
+        f"s; receiver 0 takes {hub:.3f} of the edges")
+    base = scale.ScaleConfig(steps=SCALE_STEPS)
+    k = scale.num_slices_for(SCALE_EDGES, base.d)
+    log(f"  ScaleConfig(): d {base.d}, batch {base.batch_edges}, lr "
+        f"{base.lr}, seed {base.seed}; {k} slices from the formula")
+    runs, launches = {}, {}
+    for label, fused, precision in SCALE_MODES:
+        cfg = dataclasses.replace(base, precision=precision)
+        events, steps = [], []
+        # the last step runs under the profiler, the ones before it are
+        # timed bare
+        hook = ProfiledStep(label, cfg.steps - 1, lambda ev: (
+            events if "event" in ev else steps).append(ev))
+        gc_cuda()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = scale.train_chunked(src, dst, SCALE_NODES, cfg, fused=fused,
+                                  device=DEVICE, log=hook)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = {key: v for key, v in scale_want(
+            res["num_slices"], fused, precision, cfg.steps).items()
+            if key in counts}
+        per_step = {key: v / cfg.steps for key, v in counts.items() if v}
+        log(f"  {label}: layout {events[0]['seconds']} s ({k} slices); "
+            f"train_chunked {wall:.1f} s (the last step profiled); losses "
+            f"{[round(x, 6) for x in res['loss_history']]}; steps "
+            f"{[round(x['seconds'], 4) for x in steps]} s")
+        p50 = statistics.median(x["seconds"] for x in steps[2:-1])
+        log(f"  {label}: steady step wall p50 {p50 * 1e3:.1f} ms (steps "
+            f"2-{cfg.steps - 2}), {SCALE_EDGES / p50:.4g} edges/s; peak "
+            f"torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB; "
+            f"launches a step {per_step}")
+        if res["num_slices"] != k or counts != want:
+            raise AssertionError(f"{label}: expected {want} launches at {k} "
+                                 f"slices, got {counts}")
+        if not all(np.isfinite(res["loss_history"])):
+            raise AssertionError(f"{label}: a loss is not finite")
+        runs[label] = dict(res=res, p50=p50, peak=peak, prof=hook.out,
+                           layout=events[0]["seconds"], per_step=per_step)
+        if not fused:
+            launches = {"seg_expand_f32": counts["seg_expand_f32"],
+                        "seg_reduce_f32[rowsum d=1]":
+                            counts["seg_reduce_f32"]}
+        if label == "fused f32":
+            bnds = slice_bounds_ms(src, dst, k, cfg.d)
+            log("  a slice's launch, least time (mean over the slices): "
+                + ", ".join(f"{name} {t:.5f} ms ({by})"
+                            for name, (t, by) in bnds.items()))
+            # the 12-slice step against one slice, same parameters and batch
+            loss_fn, s, r, _ = scale.build_chunked(
+                src, dst, SCALE_NODES, cfg, device=DEVICE)
+            params0 = scale_params(cfg)
+            batch = scale.draw_batch(np.random.default_rng(cfg.seed), s, r,
+                                     SCALE_NODES, cfg.batch_edges, DEVICE)
+            loss12, g12 = loss_and_grad(loss_fn, params0, batch)
+            loss_fn = None
+            one_fn, *_ = scale.build_chunked(src, dst, SCALE_NODES, cfg,
+                                             num_slices=1, device=DEVICE)
+            loss1, g1 = loss_and_grad(one_fn, params0, batch)
+            one_fn = None
+            for name, got, want_v in [("loss", loss12, loss1)] + [
+                    (f"d{key}", g12[key], g1[key]) for key in g1]:
+                close(f"{k} slices vs 1 slice {name}", got, want_v, 0.0,
+                      SCALE_SLICE_REL * float(want_v.abs().max()))
+    gc_cuda()
+    hold_to_plain(src, dst, k, base)
+    first = {label: v["res"]["first_loss"] for label, v in runs.items()}
+    gap = abs(first["fused f32"] - first["materialised f32"])
+    log(f"  fused vs materialised first loss: {first['fused f32']:.7f} / "
+        f"{first['materialised f32']:.7f}, |diff| {gap:.2e} (bound "
+        f"{SCALE_PATHS_TOL})")
+    if gap > SCALE_PATHS_TOL:
+        raise AssertionError("fused and materialised first losses differ")
+    f32 = np.array(runs["fused f32"]["res"]["loss_history"])
+    b16 = np.array(runs["fused bf16"]["res"]["loss_history"])
+    rel = float(np.max(np.abs(b16 - f32) / np.abs(f32)))
+    log(f"  bf16 vs f32 losses: max rel diff {rel:.2e} (bound "
+        f"{SCALE_BF16_REL})")
+    if rel > SCALE_BF16_REL:
+        raise AssertionError("the bf16 losses leave the f32 ones")
+
+    # the cut graph, card against the CPU from the same parameters and
+    # batches (train_chunked draws both from its seed)
+    src_c, dst_c = build_edges(SCALE_CUT_NODES, SCALE_CUT_EDGES, seed=0)
+    for label, fused, precision in SCALE_MODES:
+        cfg = dataclasses.replace(base, precision=precision,
+                                  steps=SCALE_CUT_STEPS)
+        got, want_c = (scale.train_chunked(
+            src_c, dst_c, SCALE_CUT_NODES, cfg, num_slices=k, fused=fused,
+            device=dev)["loss_history"] for dev in (DEVICE, "cpu"))
+        rel = float(np.max(np.abs(np.array(got) - want_c)
+                           / np.abs(want_c)))
+        log(f"  cut graph ({SCALE_CUT_NODES} nodes, {SCALE_CUT_EDGES} edges, "
+            f"{k} slices) {label}, card vs CPU losses: {got} / {want_c}; "
+            f"max rel diff {rel:.2e} (bound {SCALE_CARD_CPU_RTOL})")
+        if rel > SCALE_CARD_CPU_RTOL:
+            raise AssertionError(f"cut graph {label}: card and CPU differ")
+        if precision != "f32":
+            continue
+        # the first step's gradients (bf16 rows of an h whose last bits
+        # differ between the devices could round apart: the bf16 kernels
+        # are held above on the same rows)
+        grads = {}
+        for dev in (DEVICE, "cpu"):
+            loss_fn, s_c, r_c, _ = scale.build_chunked(
+                src_c, dst_c, SCALE_CUT_NODES, cfg, num_slices=k,
+                fused=fused, device=dev)
+            batch = scale.draw_batch(np.random.default_rng(cfg.seed), s_c,
+                                     r_c, SCALE_CUT_NODES, cfg.batch_edges,
+                                     dev)
+            grads[dev] = loss_and_grad(
+                loss_fn, scale_params(cfg, SCALE_CUT_NODES, dev), batch)
+        (loss_g, g_g), (loss_c, g_c) = grads[DEVICE], grads["cpu"]
+        for name, got_v, want_v in [("loss", loss_g, loss_c)] + [
+                (f"d{key}", g_g[key], g_c[key]) for key in g_c]:
+            close(f"cut graph {label}, card vs CPU first step {name}",
+                  got_v.cpu(), want_v, SUM_RTOL,
+                  SUM_ATOL_REL * float(want_v.abs().max()))
+    summary = {label: {key: v[key] for key in ("p50", "peak", "layout",
+                                                "per_step", "prof")}
+               for label, v in runs.items()}
+    log(f"  out-of-core summary: {json.dumps(summary)}")
+    return launches
 
 
 def dense_reference(fg, model):
@@ -3482,6 +4257,10 @@ def main() -> int:
                 "csr_spmm_dw_bf16": dw_bf16,
                 "r1l_fwd_bf16": steps16["fused"]["r1l_fwd_bf16"],
                 "r1l_bwd_bf16": steps16["fused"]["r1l_bwd_bf16"]}
+
+    log("phase 14: out-of-core training (train_chunked, ScaleConfig "
+        "defaults, 50 M edges)")
+    per_name.update(phase_out_of_core())
     for k in bf16_kernels:
         k["launches"] = per_name[k["name"]]
     kernels += bf16_kernels

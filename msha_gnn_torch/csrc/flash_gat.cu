@@ -1,8 +1,9 @@
 // Flash-GAT in float32: the softmax of given per-edge logits over each CSR
 // row, the hashed attention dropout and the aggregation in one pass
 // (flash_fwd_f32), and its recompute backward (flash_bwd_f32); and the
-// generic rank-1 GAT's backward (r1_bwd_f32; its forward, r1_fwd_f32, is
-// in rank1_gat.cu).
+// generic rank-1 GAT's backward (r1_bwd_f32, and r1_bwd_bf16 over
+// bfloat16 rows; its forward, r1_fwd_f32 / r1_fwd_bf16, is in
+// rank1_gat.cu).
 //
 // For a CSR graph (row r has edges e in [ptr[r], ptr[r+1]), j = col[e]) and
 // logits l [>= E] in CSR order:
@@ -43,7 +44,11 @@
 //   * msha_gnn_tpu/ops/pallas/rank1_gat.py:160 _r1_bwd_kernel, which writes
 //     [z || dpre] ([E, d+1]) for one transpose reduce of dx and dt, and dc.
 //     Here 2 floats an edge (att, dpre), not d + 1: dx and dt are two
-//     reduces that read them.
+//     reduces that read them.  Its bfloat16 mode (the TPU kernel's xt in
+//     bfloat16, rank1_gat.py:586-592) is r1_bwd_bf16: x stored in
+//     bfloat16 and widened in registers, t rounded to bfloat16 by the
+//     caller, gout, out, lse and every sum float32, as the TPU kernel keeps
+//     gout (hi/lo) and z.
 // The TPU kernels walk 128-row visit blocks with one-hot MXU scatters and
 // a bf16 hi/lo split; none of that carries over.  Here the work is plain
 // f32.
@@ -143,6 +148,31 @@ extern "C" int r1_bwd_f32(const int* ptr, const int* col, const float* c,
                           float* att, float* dpre, float* dc, float* ws,
                           int n_rows, int n_out, int run, int group, int d,
                           int n_warps, cudaStream_t stream) {
+  gat_bwd::Args args{};
+  args.c = c;
+  args.t = t;
+  args.out = out;
+  args.lse = lse;
+  args.slope = slope;
+  args.o1 = dpre;
+  args.o2 = att;
+  args.sums = dc;
+  args.ws = ws;
+  return gat_bwd::launch<gat_bwd::Src::kRank1>(ptr, col, gout, x, args,
+                                               n_rows, n_out, run, group, d,
+                                               n_warps, stream);
+}
+
+// The same over x [n_cols, d] stored in bfloat16 (the generic form's
+// bfloat16 payload, rank1_gat.py:540-760): x widened in registers, t as
+// the caller rounded it, every other input, output and sum float32.
+extern "C" int r1_bwd_bf16(const int* ptr, const int* col, const float* c,
+                           const float* t, const __nv_bfloat16* x,
+                           const float* gout, const float* out,
+                           const float* lse, float slope, float* att,
+                           float* dpre, float* dc, float* ws, int n_rows,
+                           int n_out, int run, int group, int d, int n_warps,
+                           cudaStream_t stream) {
   gat_bwd::Args args{};
   args.c = c;
   args.t = t;

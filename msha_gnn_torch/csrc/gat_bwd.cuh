@@ -27,9 +27,10 @@
 // g, the cotangent gathered; id_e = eid[e], or e without an edge map) is a
 // weighted SpMM's backward: each gathered row b[j] serves both the dot and
 // the row sum.  dc and dx are the outputs that sum over a row.  kDw's
-// rows a and b may be stored in bfloat16 (csr_spmm_dw_bf16, the row type a
-// template parameter): they are widened to float as they are loaded, and
-// every dot and sum is float32.
+// rows a and b may be stored in bfloat16 (csr_spmm_dw_bf16), and so may
+// kRank1's x (r1_bwd_bf16; gout stays float32): the row types are template
+// parameters, the rows are widened to float as they are loaded, and every
+// dot and sum is float32.
 //
 // Grid 1: a warp per run of `run` consecutive slots of [0, n_slots)
 // (runs.cuh), so a long row is spread over as many warps as it has runs;
@@ -66,6 +67,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "gat_common.cuh"
 #include "gat_runs.cuh"
@@ -105,11 +107,11 @@ struct Args {
 
 // Grid 1's walk: one warp per run of `run` slots, groups of kG lanes one
 // edge each; kDw: blockIdx.y the tile of kG kPer features this block sums.
-// T: the type of a's and b's rows.
-template <Src kSrc, int kG, int kPer, bool kDrop, typename T>
+// TA, TB: the types of a's and b's rows.
+template <Src kSrc, int kG, int kPer, bool kDrop, typename TA, typename TB>
 __device__ __forceinline__ void walk(
     const int* __restrict__ ptr, const int* __restrict__ col,
-    const T* __restrict__ a, const T* __restrict__ b,
+    const TA* __restrict__ a, const TB* __restrict__ b,
     const float* __restrict__ logits, const float* __restrict__ c,
     const float* __restrict__ t, const float* __restrict__ out,
     const float* __restrict__ lse, const int* __restrict__ seed_ptr,
@@ -321,12 +323,12 @@ __device__ __forceinline__ void walk(
   }
 }
 
-// Grid 1 of every source but kDw.
-template <Src kSrc, int kG, int kPer, bool kDrop>
+// Grid 1 of every source but kDw; a's rows float, b's of type TB.
+template <Src kSrc, int kG, int kPer, bool kDrop, typename TB>
 __global__ void __launch_bounds__(kMaxWarps * kWarp)
 runs_kernel(
     const int* __restrict__ ptr, const int* __restrict__ col,
-    const float* __restrict__ a, const float* __restrict__ b,
+    const float* __restrict__ a, const TB* __restrict__ b,
     const float* __restrict__ logits, const float* __restrict__ c,
     const float* __restrict__ t, const float* __restrict__ out,
     const float* __restrict__ lse, const int* __restrict__ seed_ptr,
@@ -334,7 +336,7 @@ runs_kernel(
     float scale, float slope, float* __restrict__ o1, float* __restrict__ o2,
     float* __restrict__ sums, float* __restrict__ ws, int n_rows, int n_slots,
     int64_t n_runs, int run, int d) {
-  walk<kSrc, kG, kPer, kDrop, float>(
+  walk<kSrc, kG, kPer, kDrop, float, TB>(
       ptr, col, a, b, logits, c, t, out, lse, seed_ptr, eid, w, rate, scale,
       slope, o1, o2, sums, ws, n_rows, n_slots, n_runs, run, d);
 }
@@ -355,52 +357,54 @@ dw_runs_kernel(
     float scale, float slope, float* __restrict__ o1, float* __restrict__ o2,
     float* __restrict__ sums, float* __restrict__ ws, int n_rows, int n_slots,
     int64_t n_runs, int run, int d) {
-  walk<Src::kDw, kG, kPer, false, T>(
+  walk<Src::kDw, kG, kPer, false, T, T>(
       ptr, col, a, b, logits, c, t, out, lse, seed_ptr, eid, w, rate, scale,
       slope, o1, o2, sums, ws, n_rows, n_slots, n_runs, run, d);
 }
 
-template <typename T>
-using Kernel = void (*)(const int*, const int*, const T*, const T*,
+template <typename TA, typename TB>
+using Kernel = void (*)(const int*, const int*, const TA*, const TB*,
                         const float*, const float*, const float*,
                         const float*, const float*, const int*, const int*,
                         const float*, float, float, float, float*, float*,
                         float*, float*, int, int, int64_t, int, int);
 
-template <Src kSrc, int kG, int kPer, bool kDrop, typename T>
-Kernel<T> kernel_of() {
+template <Src kSrc, int kG, int kPer, bool kDrop, typename TA, typename TB>
+Kernel<TA, TB> kernel_of() {
   if constexpr (kSrc == Src::kDw) {
-    return dw_runs_kernel<kG, kPer, T>;
+    static_assert(std::is_same_v<TA, TB>, "kDw's a and b share a row type");
+    return dw_runs_kernel<kG, kPer, TA>;
   } else {
-    static_assert(sizeof(T) == sizeof(float),
-                  "only kDw takes bfloat16 rows");
-    return runs_kernel<kSrc, kG, kPer, kDrop>;
+    static_assert(std::is_same_v<TA, float> &&
+                      (kSrc == Src::kRank1 || std::is_same_v<TB, float>),
+                  "bfloat16 rows: kDw's a and b, kRank1's b");
+    return runs_kernel<kSrc, kG, kPer, kDrop, TB>;
   }
 }
 
-template <Src kSrc, int kG, bool kDrop, typename T>
-Kernel<T> kernel_per(int per) {
+template <Src kSrc, int kG, bool kDrop, typename TA, typename TB>
+Kernel<TA, TB> kernel_per(int per) {
   switch (per) {
     case 1:
-      return kernel_of<kSrc, kG, 1, kDrop, T>();
+      return kernel_of<kSrc, kG, 1, kDrop, TA, TB>();
     case 2:
-      return kernel_of<kSrc, kG, 2, kDrop, T>();
+      return kernel_of<kSrc, kG, 2, kDrop, TA, TB>();
     case 4:
-      return kernel_of<kSrc, kG, 4, kDrop, T>();
+      return kernel_of<kSrc, kG, 4, kDrop, TA, TB>();
     default:
-      return kernel_of<kSrc, kG, 8, kDrop, T>();
+      return kernel_of<kSrc, kG, 8, kDrop, TA, TB>();
   }
 }
 
-template <Src kSrc, bool kDrop, typename T>
-Kernel<T> kernel_for(int group, int per) {
+template <Src kSrc, bool kDrop, typename TA, typename TB>
+Kernel<TA, TB> kernel_for(int group, int per) {
   switch (group) {
     case 8:
-      return kernel_per<kSrc, 8, kDrop, T>(per);
+      return kernel_per<kSrc, 8, kDrop, TA, TB>(per);
     case 16:
-      return kernel_per<kSrc, 16, kDrop, T>(per);
+      return kernel_per<kSrc, 16, kDrop, TA, TB>(per);
     default:
-      return kernel_per<kSrc, 32, kDrop, T>(per);
+      return kernel_per<kSrc, 32, kDrop, TA, TB>(per);
   }
 }
 
@@ -412,10 +416,10 @@ constexpr int kFixThreads = 256;
 // o1 (and o2) [n_slots] with n_slots >= ptr[n_rows]; group the lanes an
 // edge, 8, 16 or 32.  kRank1: sums = dc [n_rows] and ws [3 n_runs]; kDw:
 // sums = dx [n_rows, d] and ws [n_runs (2 d + 1)]; float32, n_runs = max(1,
-// ceil(n_slots / run)).  Dropout (rate > 0) is kRead's only; rows of type
-// T other than float are kDw's only.
-template <Src kSrc, typename T = float>
-int launch(const int* ptr, const int* col, const T* a, const T* b,
+// ceil(n_slots / run)).  Dropout (rate > 0) is kRead's only; rows of a
+// type other than float are kDw's (a and b, TA = TB) and kRank1's b.
+template <Src kSrc, typename TA = float, typename TB = TA>
+int launch(const int* ptr, const int* col, const TA* a, const TB* b,
            const Args& p, int n_rows, int n_slots, int run, int group, int d,
            int n_warps, cudaStream_t stream) {
   if (n_rows <= 0 || d < 0 || n_warps < 1 || n_warps > kMaxWarps ||
@@ -438,9 +442,9 @@ int launch(const int* ptr, const int* col, const T* a, const T* b,
       static_cast<unsigned>((n_runs + n_warps - 1) / n_warps),
       static_cast<unsigned>(kSrc == Src::kDw && d > tile
                                 ? (d + tile - 1) / tile : 1));
-  Kernel<T> kernel = kernel_for<kSrc, false, T>(group, per);
+  Kernel<TA, TB> kernel = kernel_for<kSrc, false, TA, TB>(group, per);
   if constexpr (kSrc == Src::kRead) {
-    if (p.rate > 0.0f) kernel = kernel_for<kSrc, true, T>(group, per);
+    if (p.rate > 0.0f) kernel = kernel_for<kSrc, true, TA, TB>(group, per);
   }
   kernel<<<grid, n_warps * kWarp, 0, stream>>>(
       ptr, col, a, b, p.logits, p.c, p.t, p.out, p.lse, p.seed, p.eid, p.w,

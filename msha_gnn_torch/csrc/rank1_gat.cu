@@ -1,8 +1,8 @@
 // The rank-1 GAT kernels: the fused layer with a destination-linear logit
 // (the forward r1l_fwd_f32 and its recompute backward r1l_bwd_f32, and
 // their bfloat16 payloads r1l_fwd_bf16 and r1l_bwd_bf16) and the generic
-// form's forward r1_fwd_f32 (its backward, r1_bwd_f32, is in
-// flash_gat.cu).
+// form's forward r1_fwd_f32 and its bfloat16 payload r1_fwd_bf16 (its
+// backward, r1_bwd_f32 / r1_bwd_bf16, is in flash_gat.cu).
 //
 // For a CSR graph (row r has edges e in [ptr[r], ptr[r+1]), j = col[e]):
 //
@@ -69,8 +69,9 @@
 // kernel keeps it on purpose, rank1_gat.py:384-388) and the crossing rows'
 // dc pieces.  No float atomics anywhere, so results are deterministic.
 //
-// The bfloat16 payload (r1l_fwd_bf16, r1l_bwd_bf16; the TPU kernels' mode
-// without the lo pass, rank1_gat.py:149-151, :294-296): x is stored and
+// The bfloat16 payload (r1l_fwd_bf16, r1l_bwd_bf16, r1_fwd_bf16; the TPU
+// kernels' mode without the lo pass, rank1_gat.py:149-151, :294-296; the
+// generic form's t is rounded to bfloat16 by the caller): x is stored and
 // streamed in bfloat16, at half its bytes, and every other input, output
 // and quantity is float32: t_e = <x[j], a>, the logits, the softmax, the
 // aggregation, q, dpre, dc and da come from the bfloat16 rows widened in
@@ -461,6 +462,22 @@ extern "C" int r1_fwd_f32(const int* ptr, const int* col, const float* c,
                           float* out, float* lse, float* ws, int n_rows,
                           int n_slots, int run, int group, int d, int n_warps,
                           cudaStream_t stream) {
+  const gat_fwd::LogitArgs args{nullptr, c, nullptr, t, slope};
+  return gat_fwd::launch<gat_fwd::Logit::kRank1>(
+      ptr, col, args, x, nullptr, 0.0f, 1.0f, out, lse, ws, n_rows, n_slots,
+      run, group, d, n_warps, stream);
+}
+
+// The generic forward over x [n_cols, d] stored in bfloat16 (the TPU
+// kernel's bf16 mode, lo_pass=False, rank1_gat.py:149-151): the rows
+// widened in registers; t [n_cols] float32 as the caller gives it (the
+// operator rounds it to bfloat16 first, as the TPU operator casts its
+// [x || t] rows, :586-592); every other quantity float32.
+extern "C" int r1_fwd_bf16(const int* ptr, const int* col, const float* c,
+                           const float* t, const __nv_bfloat16* x,
+                           float slope, float* out, float* lse, float* ws,
+                           int n_rows, int n_slots, int run, int group, int d,
+                           int n_warps, cudaStream_t stream) {
   const gat_fwd::LogitArgs args{nullptr, c, nullptr, t, slope};
   return gat_fwd::launch<gat_fwd::Logit::kRank1>(
       ptr, col, args, x, nullptr, 0.0f, 1.0f, out, lse, ws, n_rows, n_slots,

@@ -34,6 +34,15 @@
 // told apart by a template tag (Kind): a per-row reduction of per-edge
 // scalars, then a per-edge write that needs the row's result.
 //
+// The TPU operator also runs _expand_kernel and _rowsum_kernel alone, as
+// the differentiable row broadcast v[row] -> v[senders[e]] of
+// SegmentSoftmaxOperator.broadcast_rows (softmax.py:338-364) and its
+// adjoint.  The broadcast is seg_expand_f32 below: no reduction, so one
+// grid of warps over runs of slots, each lane finding its slot's row by
+// stepping the pointer from its round's first row; bound by bytes (the
+// pointer and v read once, out [n_slots] written once).  The adjoint, a
+// sorted row sum, is seg_reduce_f32 (spmm.cu) at d = 1.
+//
 // The re-mask hazard of softmax.py:73-78: masked edges take no part in the
 // statistics at all (they are not merely set to NEG), so a fully masked row
 // keeps s = 0 rather than summing exp(NEG - NEG) = 1 per edge.
@@ -774,6 +783,37 @@ int launch(const int* ptr, const Args& p, float* ws, int n_rows, int n_edges,
   return static_cast<int>(err);
 }
 
+// The row broadcast of seg_expand_f32: out[e] = v[row of e] for the edges,
+// 0 for the pads.  A warp a run of `run` slots: the run's first row by the
+// warp-wide search, then 32 consecutive slots a round, each lane stepping
+// its row from the round's first past the rows that end at or before its
+// slot (empty rows included), and the last lane's row handed on.
+__global__ void __launch_bounds__(kWarpBlock)
+expand_kernel(const int* __restrict__ ptr, const float* __restrict__ v,
+              float* __restrict__ out, int n_rows, int n_edges, int n_slots,
+              int64_t n_runs, int run) {
+  const int lane = threadIdx.x % kWarp;
+  const int64_t k = static_cast<int64_t>(blockIdx.x) * (blockDim.x / kWarp) +
+                    threadIdx.x / kWarp;
+  if (k >= n_runs) return;
+  const int64_t lo = k * run;
+  const int64_t hi = min(lo + run, static_cast<int64_t>(n_slots));
+  int row = lo < n_edges
+                ? runs::warp_row_of(ptr, n_rows, static_cast<int>(lo), lane)
+                : 0;
+  for (int64_t b = lo; b < hi; b += kWarp) {
+    const int64_t e = b + lane;
+    int r = row;
+    if (e < n_edges) {
+      while (__ldg(ptr + r + 1) <= e) ++r;
+      out[e] = __ldg(v + r);
+    } else if (e < hi) {
+      out[e] = 0.0f;
+    }
+    row = __shfl_sync(kFull, r, kWarp - 1);
+  }
+}
+
 }  // namespace seg_softmax
 
 // Launch on `stream`; neither synchronises.  ptr [n_rows + 1] int32 with
@@ -830,6 +870,26 @@ extern "C" int seg_softmax_bwd_f32(const int* ptr, const float* att,
                                                n_slots, run, stream)
              : launch<Kind::kBwd, false, false>(ptr, p, ws, n_rows, n_edges,
                                                 n_slots, run, stream);
+}
+
+// The row broadcast out[e] = v[r] for each edge e of row r, 0 on the pads
+// [n_edges, n_slots): v [n_rows], out [n_slots], one grid of warps over
+// runs of `run` slots (run >= 1); no workspace.  Returns
+// cudaGetLastError() after its grid (0 = launched).
+extern "C" int seg_expand_f32(const int* ptr, const float* v, float* out,
+                              int n_rows, int n_edges, int n_slots, int run,
+                              cudaStream_t stream) {
+  using seg_softmax::kWarp;
+  using seg_softmax::kWarpBlock;
+  if (n_rows <= 0 || n_edges < 0 || n_slots < n_edges || run < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t n_runs = runs::count(n_slots, run);
+  constexpr int kWarps = kWarpBlock / kWarp;
+  seg_softmax::expand_kernel<<<
+      static_cast<unsigned>((n_runs + kWarps - 1) / kWarps), kWarpBlock, 0,
+      stream>>>(ptr, v, out, n_rows, n_edges, n_slots, n_runs, run);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* seg_softmax_error_string(int code) {

@@ -1,7 +1,8 @@
 from .convert import (gat_params_from_jax, gcn_params_from_jax,
                       hgane_params_from_jax, linkpred_params_from_jax,
                       msha_layer_params_from_jax, msha_params_from_jax,
-                      sage_params_from_jax, sparse_gat_layer_params_from_jax)
+                      sage_params_from_jax, scale_params_from_jax,
+                      sparse_gat_layer_params_from_jax)
 from .gat import GAT, MaskedGATLayer, SparseGAT, SparseGATLayer
 from .gcn import GCN, GraphConvolution
 from .hgane import HGANELayer
@@ -15,4 +16,5 @@ __all__ = ["GAT", "GCN", "GraphConvolution", "GraphSAGE", "HGANELayer",
            "gather_dense_rows", "gcn_params_from_jax",
            "hgane_params_from_jax", "linkpred_params_from_jax",
            "msha_layer_params_from_jax", "msha_params_from_jax",
-           "sage_params_from_jax", "sparse_gat_layer_params_from_jax"]
+           "sage_params_from_jax", "scale_params_from_jax",
+           "sparse_gat_layer_params_from_jax"]

@@ -135,3 +135,10 @@ def msha_params_from_jax(variables: Mapping) -> dict:
         sd["out_att.W"] = _tensor(params["out_att"]["W"])
         sd["out_att.a"] = _tensor(params["out_att"]["a"])
     return sd
+
+
+def scale_params_from_jax(params: Mapping) -> dict:
+    """The JAX out-of-core model's parameters (``training/scale.py``'s
+    ``feat``, ``W``, ``a``) -> the port's: the same names, float32
+    tensors."""
+    return {k: _tensor(params[k]) for k in ("feat", "W", "a")}

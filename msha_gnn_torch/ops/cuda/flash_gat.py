@@ -34,7 +34,8 @@ import torch
 
 from .rank1_gat import (NEG, _edge_walk, _fwd_runs_plain, _group, _keep,
                         _scale)
-from .spmm import SpmmOperator, edge_rows, n_runs, operator_for, warp_run
+from .spmm import (SpmmOperator, edge_rows, n_runs, operator_for, warp_run,
+                   widen)
 
 if TYPE_CHECKING:
     from ...graph import BipartiteGraph
@@ -69,7 +70,9 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.flash_bwd_f32.argtypes = [p] * 8 + [f] * 2 + [p] * 2 + [i] * 6 + [p]
         # the generic rank-1 GAT's backward (wrapped in rank1_gat.py)
         lib.r1_bwd_f32.argtypes = [p] * 8 + [f] + [p] * 4 + [i] * 6 + [p]
-        for fn in (lib.flash_fwd_f32, lib.flash_bwd_f32, lib.r1_bwd_f32):
+        lib.r1_bwd_bf16.argtypes = lib.r1_bwd_f32.argtypes
+        for fn in (lib.flash_fwd_f32, lib.flash_bwd_f32, lib.r1_bwd_f32,
+                   lib.r1_bwd_bf16):
             fn.restype = ctypes.c_int
         lib.flash_error_string.argtypes = [i]
         lib.flash_error_string.restype = ctypes.c_char_p
@@ -190,9 +193,11 @@ def rank1_gat_generic_bwd_runs_plain(ptr, col, c, t, x, gout, out, lse,
 
     Returns ``(att [n_out], dpre [n_out], dc [n_rows], writes [n_out],
     dc_writes [n_rows])``, the ``writes`` counting how often each slot and
-    each row of ``dc`` was written (the kernel writes each once).  Slow:
-    Python loops over runs and steps, for tests.
+    each row of ``dc`` was written (the kernel writes each once).  A
+    bfloat16 ``x`` is widened first, as ``r1_bwd_bf16`` widens its rows.
+    Slow: Python loops over runs and steps, for tests.
     """
+    x = widen(x)
     n_edges, n_out = int(ptr[n_rows]), col.numel()
     pre = x.new_zeros(n_out)
     pre[:n_edges] = (c[edge_rows(ptr, n_edges)]

@@ -6,7 +6,7 @@ form, with their bfloat16 payloads ``r1l_fwd_bf16`` and ``r1l_bwd_bf16``
 ``csrc/gat_fwd.cuh`` with the logits formed from ``c`` and ``t``) and
 ``r1_bwd_f32`` (``msha_gnn_torch/csrc/flash_gat.cu``, the per-edge walk
 of ``csrc/gat_bwd.cuh`` that ``flash_bwd_f32`` shares) for the generic
-form.
+form, with their bfloat16 payloads ``r1_fwd_bf16`` and ``r1_bwd_bf16``.
 
 The kernels replace ``_r1l_fwd_kernel``, ``_r1l_bwd_kernel``,
 ``_r1_fwd_kernel`` and ``_r1_bwd_kernel`` of
@@ -29,8 +29,9 @@ compute and what bounds them.
   hash it per slot (the materialised GAT path's in the row softmax,
   ``softmax.seg_softmax_fwd_drop``).
 * :func:`r1_fwd` and :func:`r1_bwd` wrap the generic kernels (counted in
-  :data:`r1_fwd_launches`, :data:`r1_bwd_launches`); their plain versions
-  are :func:`rank1_gat_generic_plain` and
+  :data:`r1_fwd_launches`, :data:`r1_bwd_launches`; bfloat16 ``x``:
+  :data:`r1_fwd_bf16_launches`, :data:`r1_bwd_bf16_launches`); their
+  plain versions are :func:`rank1_gat_generic_plain` and
   :func:`rank1_gat_generic_bwd_plain`.
 * :class:`Rank1GatOperator` binds one graph and is differentiable.  The
   dst_linear backward runs ``r1l_bwd_f32`` (``q``, ``dpre``, ``dc``,
@@ -40,12 +41,17 @@ compute and what bounds them.
   generic backward runs ``r1_bwd_f32`` (``att``, ``dpre``, ``dc``), then
   ``dx`` as the ``att``-weighted transposed ``csr_spmm_f32`` of ``gout``
   and ``dt`` as the edge-row reduce of ``dpre``.  With
-  ``precision="bf16"`` (dst_linear only) the operator casts ``x`` to
-  bfloat16 once a call and keeps that copy for the backward: ``t_j = x_j
-  . a``, the logits, the softmax, the aggregation and every backward
-  quantity come from the bfloat16 rows in float32 (``r1l_fwd_bf16``,
+  ``precision="bf16"`` the operator casts ``x`` to bfloat16 once a call
+  and keeps that copy for the backward.  dst_linear: ``t_j = x_j . a``,
+  the logits, the softmax, the aggregation and every backward quantity
+  come from the bfloat16 rows in float32 (``r1l_fwd_bf16``,
   ``r1l_bwd_bf16``), and ``dx``'s ``q``-weighted SpMM streams the
-  cotangent in bfloat16 (``csr_spmm_bf16``).
+  cotangent in bfloat16 (``csr_spmm_bf16``).  Generic: ``t`` is rounded
+  to bfloat16 too, as the JAX operator casts its ``[x || t]`` rows
+  (``rank1_gat.py:586-592``), and both kernels read the bfloat16 rows
+  (``r1_fwd_bf16``, ``r1_bwd_bf16``); ``dx`` and ``dt`` stay the float32
+  SpMMs of the float32 cotangent, as the JAX backward's ``z`` and ``dc``
+  are float32 (``:744-754``).
 """
 
 from __future__ import annotations
@@ -89,9 +95,12 @@ bwd_launches = 0
 # backward's dc pieces added, in run order).
 r1_fwd_launches = 0
 r1_bwd_launches = 0
-# Launches of r1l_fwd_bf16 / r1l_bwd_bf16 (two grids each, as above).
+# Launches of r1l_fwd_bf16 / r1l_bwd_bf16 and of the generic r1_fwd_bf16 /
+# r1_bwd_bf16 (two grids each, as above).
 fwd_bf16_launches = 0
 bwd_bf16_launches = 0
+r1_fwd_bf16_launches = 0
+r1_bwd_bf16_launches = 0
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -109,9 +118,11 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.r1_fwd_f32.argtypes = [p] * 5 + [f] + [p] * 3 + [i] * 6 + [p]
         lib.r1l_fwd_bf16.argtypes = lib.r1l_fwd_f32.argtypes
         lib.r1l_bwd_bf16.argtypes = lib.r1l_bwd_f32.argtypes
+        lib.r1_fwd_bf16.argtypes = lib.r1_fwd_f32.argtypes
         lib.r1l_max_warps.argtypes = [i]
         for fn in (lib.r1l_fwd_f32, lib.r1l_bwd_f32, lib.r1_fwd_f32,
-                   lib.r1l_fwd_bf16, lib.r1l_bwd_bf16, lib.r1l_max_warps):
+                   lib.r1l_fwd_bf16, lib.r1l_bwd_bf16, lib.r1_fwd_bf16,
+                   lib.r1l_max_warps):
             fn.restype = ctypes.c_int
         lib.r1l_error_string.argtypes = [i]
         lib.r1l_error_string.restype = ctypes.c_char_p
@@ -428,14 +439,16 @@ def rank1_gat_runs_plain(ptr, col, c, a, x, seed, rate: float, slope: float,
 def rank1_gat_generic_runs_plain(ptr, col, c, t, x, slope: float,
                                  n_rows: int, run: int, group: int):
     """The walk of ``r1_fwd_f32`` (the logit source ``kRank1``:
-    ``leaky(c[r] + t[j])``, no dropout) in plain PyTorch, step by step as
-    the kernel takes it (:func:`_fwd_runs_plain`).  ``col`` may run past
+    ``leaky(c[r] + t[j])``, no dropout; and of ``r1_fwd_bf16`` for
+    bfloat16 ``x``, the rows widened) in plain PyTorch, step by step as the
+    kernel takes it (:func:`_fwd_runs_plain`).  ``col`` may run past
     ``ptr[n_rows]``.  Returns ``(out, lse, writes)``."""
     n_edges = int(ptr[n_rows])
     _, pre = _generic_pre(ptr, col[:n_edges], c, t)
     logit = torch.where(pre >= 0, pre, slope * pre)
     return _fwd_runs_plain(ptr, logit, _keep(n_edges, None, 0.0, x.device),
-                           x[col[:n_edges].long()], n_rows, run, group)
+                           widen(x[col[:n_edges].long()]), n_rows, run,
+                           group)
 
 
 def rank1_gat_bwd_plain(ptr, col, c, a, x, gout, out, lse, seed, rate: float,
@@ -474,29 +487,31 @@ def _generic_pre(ptr, col, c, t):
 
 
 def rank1_gat_generic_plain(ptr, col, c, t, x, slope: float, n_rows: int):
-    """Plain version of ``r1_fwd_f32`` -> ``(out [n_rows, d], lse
+    """Plain version of ``r1_fwd_f32`` (and, for bfloat16 ``x``, of
+    ``r1_fwd_bf16``: the rows widened) -> ``(out [n_rows, d], lse
     [n_rows])``: the logits ``leaky(c[r] + t[col_e])``, then flash-GAT's
     plain forward on them (no dropout)."""
     from .flash_gat import flash_gat_plain
 
     _, pre = _generic_pre(ptr, col, c, t)
     logit = torch.where(pre >= 0, pre, slope * pre)
-    return flash_gat_plain(ptr, col, logit, x, None, 0.0, n_rows)
+    return flash_gat_plain(ptr, col, logit, widen(x), None, 0.0, n_rows)
 
 
 def rank1_gat_generic_bwd_plain(ptr, col, c, t, x, gout, out, lse,
                                 slope: float, n_rows: int):
-    """Plain version of ``r1_bwd_f32`` -> ``(att [E], dpre [E], dc
+    """Plain version of ``r1_bwd_f32`` (and, for bfloat16 ``x``, of
+    ``r1_bwd_bf16``: the rows widened) -> ``(att [E], dpre [E], dc
     [n_rows])``: flash-GAT's plain backward on the logits, ``dl`` times
     the leaky slope, and its row sums."""
     from .flash_gat import flash_gat_bwd_plain
 
     rows, pre = _generic_pre(ptr, col, c, t)
     logit = torch.where(pre >= 0, pre, slope * pre)
-    dl, att = flash_gat_bwd_plain(ptr, col, logit, x, gout, out, lse, None,
-                                  0.0, n_rows)
+    dl, att = flash_gat_bwd_plain(ptr, col, logit, widen(x), gout, out, lse,
+                                  None, 0.0, n_rows)
     dpre = torch.where(pre >= 0, dl, slope * dl)
-    return att, dpre, x.new_zeros(n_rows).index_add_(0, rows, dpre)
+    return att, dpre, gout.new_zeros(n_rows).index_add_(0, rows, dpre)
 
 
 # ---------------------------------------------------------------------------
@@ -670,16 +685,17 @@ def r1_fwd(ptr, col, c, t, x, slope: float, n_rows: int,
 
     ``ptr`` int32 [n_rows + 1], ``col`` int32 [E] (CSR; it may run past
     ``ptr[n_rows]``: the kernel reads the edge count from ``ptr`` on the
-    card), ``c`` f32 [n_rows], ``t`` f32 [n_cols], ``x`` f32 [n_cols, d].
-    ``run`` slots a warp (default :func:`~.spmm.warp_run`), ``group`` lanes
-    an edge (one of :data:`GROUPS`, default :func:`group_for`).  CPU
-    tensors take the plain version; CUDA tensors launch ``r1_fwd_f32`` or
-    raise.
+    card), ``c`` f32 [n_rows], ``t`` f32 [n_cols], ``x`` [n_cols, d]
+    float32 (``r1_fwd_f32``) or bfloat16 (``r1_fwd_bf16``; ``t`` is read as
+    given).  ``run`` slots a warp (default :func:`~.spmm.warp_run`),
+    ``group`` lanes an edge (one of :data:`GROUPS`, default
+    :func:`group_for`).  CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise.
     """
-    global r1_fwd_launches
+    global r1_fwd_launches, r1_fwd_bf16_launches
     if x.device.type == "cpu":
         return rank1_gat_generic_plain(ptr, col, c, t, x, slope, n_rows)
-    _check(x.device, 0.0, ptr=ptr, col=col, c=c, t=t, x=x)
+    _check(x.device, 0.0, ROW_TYPES, ptr=ptr, col=col, c=c, t=t, x=x)
     d = _generic_shapes(ptr, col, c, t, x, n_rows)
     group = _group(group, d)
     out = torch.empty((n_rows, d), dtype=torch.float32, device=x.device)
@@ -691,14 +707,19 @@ def r1_fwd(ptr, col, c, t, x, slope: float, n_rows: int,
     ws = torch.empty(n_runs(e, run) * (2 * d + 5), dtype=torch.float32,
                      device=x.device)
     lib = _kernel_lib()
+    bf16 = x.dtype == torch.bfloat16
+    name = "r1_fwd_bf16" if bf16 else "r1_fwd_f32"
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.r1_fwd_f32(
+        rc = getattr(lib, name)(
             ptr.data_ptr(), col.data_ptr(), c.data_ptr(), t.data_ptr(),
             x.data_ptr(), slope, out.data_ptr(), lse.data_ptr(),
             ws.data_ptr(), n_rows, e, run, group, d, _warps(d), stream)
-    _raise_on(lib, rc, "r1_fwd_f32")
-    r1_fwd_launches += 1
+    _raise_on(lib, rc, name)
+    if bf16:
+        r1_fwd_bf16_launches += 1
+    else:
+        r1_fwd_launches += 1
     return out, lse
 
 
@@ -708,19 +729,20 @@ def r1_bwd(ptr, col, c, t, x, gout, out, lse, slope: float, n_rows: int,
     float32; ``gout``, ``out`` [n_rows, d] and ``lse`` [n_rows] as the
     forward gave them.  ``col`` [E] may run past ``ptr[n_rows]``: the
     kernel reads the edge count from ``ptr`` on the card and gives ``att``
-    and ``dpre`` 0 on the pads.  ``run`` slots a warp (default
-    :data:`R1_BWD_RUN`), ``group`` lanes an edge (one of :data:`GROUPS`,
-    default :func:`group_for`).  CPU tensors take the plain version; CUDA
-    tensors launch ``r1_bwd_f32`` (two grids: the edge runs, then the dc of
-    the rows that cross runs) or raise."""
-    global r1_bwd_launches
+    and ``dpre`` 0 on the pads.  ``x`` float32 (``r1_bwd_f32``) or
+    bfloat16 (``r1_bwd_bf16``), every other tensor float32.  ``run`` slots
+    a warp (default :data:`R1_BWD_RUN`), ``group`` lanes an edge (one of
+    :data:`GROUPS`, default :func:`group_for`).  CPU tensors take the
+    plain version; CUDA tensors launch the kernel (two grids: the edge
+    runs, then the dc of the rows that cross runs) or raise."""
+    global r1_bwd_launches, r1_bwd_bf16_launches
     if x.device.type == "cpu":
         return rank1_gat_generic_bwd_plain(ptr, col, c, t, x, gout, out, lse,
                                            slope, n_rows)
     from . import flash_gat
 
-    _check(x.device, 0.0, ptr=ptr, col=col, c=c, t=t, x=x, gout=gout,
-           out=out, lse=lse)
+    _check(x.device, 0.0, ROW_TYPES, ptr=ptr, col=col, c=c, t=t, x=x,
+           gout=gout, out=out, lse=lse)
     d = _generic_shapes(ptr, col, c, t, x, n_rows)
     if gout.shape != (n_rows, d) or out.shape != (n_rows, d) or \
             lse.shape != (n_rows,):
@@ -737,16 +759,21 @@ def r1_bwd(ptr, col, c, t, x, gout, out, lse, slope: float, n_rows: int,
     run = R1_BWD_RUN if run is None else int(run)
     ws = torch.empty(3 * n_runs(e, run), dtype=torch.float32, device=dev)
     lib = flash_gat._kernel_lib()
+    bf16 = x.dtype == torch.bfloat16
+    name = "r1_bwd_bf16" if bf16 else "r1_bwd_f32"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.r1_bwd_f32(
+        rc = getattr(lib, name)(
             ptr.data_ptr(), col.data_ptr(), c.data_ptr(), t.data_ptr(),
             x.data_ptr(), gout.data_ptr(), out.data_ptr(), lse.data_ptr(),
             slope, att.data_ptr(), dpre.data_ptr(), dc.data_ptr(),
             ws.data_ptr(), n_rows, e, run, group, d, flash_gat.WARPS,
             stream)
-    flash_gat._raise_on(lib, rc, "r1_bwd_f32")
-    r1_bwd_launches += 1
+    flash_gat._raise_on(lib, rc, name)
+    if bf16:
+        r1_bwd_bf16_launches += 1
+    else:
+        r1_bwd_launches += 1
     return att, dpre, dc
 
 
@@ -785,10 +812,16 @@ class _Rank1Lin(torch.autograd.Function):
 class _Rank1Generic(torch.autograd.Function):
     """``out = rank1_gat(c, t, x)`` with the recompute backward: ``dc`` from
     ``r1_bwd_f32``, ``dx`` the att-weighted transposed SpMM of ``gout``,
-    ``dt`` the edge-row reduce of ``dpre``."""
+    ``dt`` the edge-row reduce of ``dpre``.  With the operator's
+    ``precision="bf16"`` the kernels get a bfloat16 copy of ``x`` and ``t``
+    rounded to bfloat16 (made here, kept for the backward); ``gout``,
+    ``dx`` and ``dt`` stay float32."""
 
     @staticmethod
     def forward(ctx, c, t, x, op):
+        if op.precision == "bf16":
+            x = x.to(torch.bfloat16)
+            t = t.to(torch.bfloat16).float()
         out, lse = r1_fwd(op.ptr, op.col, c, t, x, op.slope, op.graph.n_src)
         ctx.save_for_backward(c, t, x, out, lse)
         ctx.op = op
@@ -825,9 +858,9 @@ class Rank1GatOperator:
     JAX operator's silently runs the dst_linear form,
     ``rank1_gat.py:861-891``).  Rows with no edges give zeros.
 
-    ``precision="bf16"`` (dst_linear only): ``x`` stored and streamed in
-    bfloat16 with float32 arithmetic, about 2^-8 relative error (the
-    module's docstring); the generic form's bfloat16 rows are not ported.
+    ``precision="bf16"``: ``x`` (and, in the generic form, ``t``) rounded
+    to bfloat16, stored and streamed so, with float32 arithmetic, about
+    2^-8 relative error (the module's docstring).
     """
 
     def __init__(self, graph: "BipartiteGraph",
@@ -836,12 +869,6 @@ class Rank1GatOperator:
                  dst_linear: bool = False, dropout_rate: float = 0.0):
         if precision not in PRECISIONS:
             raise ValueError(f"unknown precision {precision!r} (f32 | bf16)")
-        if precision == "bf16" and not dst_linear:
-            raise NotImplementedError(
-                "precision='bf16' needs dst_linear=True: the port's generic "
-                "rank-1 GAT computes in float32 only; its bfloat16 rows wait "
-                "with ChunkedRank1Gat(precision=) (ROADMAP.md, modules to "
-                "port, item 8)")
         r = float(dropout_rate)
         if not 0.0 <= r < 1.0:
             raise ValueError(f"dropout_rate must be in [0, 1), got {r}")

@@ -24,10 +24,16 @@ walk of edge runs (two grids a call).
 * :func:`seg_softmax_fwd_runs_plain`, :func:`seg_softmax_bwd_runs_plain`
   and their dropout forms mirror the kernels' walk (runs, head and tail
   pieces, crossing rows merged in run order) step by step, for tests.
+* :func:`seg_expand` wraps ``seg_expand_f32`` (the same source), the
+  row broadcast ``out[e] = v[row of e]`` that ``_expand_kernel`` computes
+  alone in the TPU operator, counted in :data:`expand_launches`; its plain
+  version is :func:`seg_expand_plain`.
 * :class:`SegmentSoftmaxOperator` (``softmax.py::SegmentSoftmaxOperator``)
   binds one edge sort and a static per-edge mask and is differentiable.
-  ``broadcast_rows`` of the JAX operator serves only
-  ``training/scale.py`` and is not ported yet.  :func:`edge_softmax_drop`
+  Its ``broadcast_rows(v)`` is the differentiable ``v[row] ->
+  v[senders[e]]`` of ``training/scale.py``'s logits: one ``seg_expand_f32``
+  forward, and the adjoint's row sums (``_rowsum_kernel`` alone) one
+  ``seg_reduce_f32`` at d = 1 (``spmm.row_sums``).  :func:`edge_softmax_drop`
   is the materialised GAT layer's attention with its dropout: the row
   softmax of the graph's operator times the keep mask, in one launch each
   way.
@@ -43,17 +49,19 @@ import torch
 
 from ... import resolve_device
 from .rank1_gat import _scale, keep_scale_plain
-from .spmm import cached_for, edge_rows, n_runs
+from .spmm import cached_for, edge_rows, n_runs, row_sums
 
 if TYPE_CHECKING:
     from ...graph import BipartiteGraph
 
 NEG = -1e30
 
-# Launches of seg_softmax_fwd_f32 / seg_softmax_bwd_f32 in this process
-# (plain counts, reset by callers that measure a run).
+# Launches of seg_softmax_fwd_f32 / seg_softmax_bwd_f32 and of the row
+# broadcast seg_expand_f32 in this process (plain counts, reset by callers
+# that measure a run).
 fwd_launches = 0
 bwd_launches = 0
+expand_launches = 0
 # Those of them with the dropout folded in.
 fwd_drop_launches = 0
 bwd_drop_launches = 0
@@ -64,6 +72,8 @@ MAX_WARP_RUN = 512
 # shapes).
 RUN = 128
 RUN_SLOTS = (16, 32, 64, 128, 256, 512)
+# Slots a warp of seg_expand_f32 (8 a lane).
+EXPAND_RUN = 256
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -77,7 +87,9 @@ def _kernel_lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.seg_softmax_fwd_f32.argtypes = [p] * 8 + [f] * 2 + [i] * 4 + [p]
         lib.seg_softmax_bwd_f32.argtypes = [p] * 6 + [f] * 2 + [i] * 4 + [p]
-        for fn in (lib.seg_softmax_fwd_f32, lib.seg_softmax_bwd_f32):
+        lib.seg_expand_f32.argtypes = [p] * 3 + [i] * 4 + [p]
+        for fn in (lib.seg_softmax_fwd_f32, lib.seg_softmax_bwd_f32,
+                   lib.seg_expand_f32):
             fn.restype = ctypes.c_int
         lib.seg_softmax_error_string.argtypes = [i]
         lib.seg_softmax_error_string.restype = ctypes.c_char_p
@@ -117,6 +129,46 @@ def seg_softmax_bwd_plain(ptr: torch.Tensor, att: torch.Tensor,
     dl = att.new_zeros(att.shape[0])
     dl[:e] = t - att[:e] * rs[rows]
     return dl
+
+
+def seg_expand_plain(ptr: torch.Tensor, v: torch.Tensor,
+                     n_out: int) -> torch.Tensor:
+    """Plain version of ``seg_expand_f32`` -> ``out [n_out]``: ``v`` gathered
+    at each edge's row, 0 on the pads past ``ptr[-1]``."""
+    e = int(ptr[-1])
+    out = v.new_zeros(n_out)
+    out[:e] = v[edge_rows(ptr, e)]
+    return out
+
+
+def seg_expand(ptr: torch.Tensor, v: torch.Tensor, n_out: int,
+               n_edges: int, run: Optional[int] = None) -> torch.Tensor:
+    """The row broadcast ``out[e] = v[r]`` for each edge ``e`` of row ``r``
+    -> [n_out] float32, 0 on the pads ``[n_edges, n_out)``; ``ptr`` int32
+    [n_rows + 1] with ``ptr[-1] = n_edges``, ``v`` f32 [n_rows].  ``run``
+    slots a warp (default :data:`EXPAND_RUN`).  CPU tensors take
+    :func:`seg_expand_plain`; CUDA tensors launch ``seg_expand_f32`` or
+    raise."""
+    global expand_launches
+    if v.device.type == "cpu":
+        return seg_expand_plain(ptr, v, n_out)
+    _check("seg_expand_f32", v.device, ptr=ptr, v=v)
+    n_rows = ptr.numel() - 1
+    if v.shape != (n_rows,) or not 0 <= n_edges <= n_out:
+        raise ValueError(f"v {tuple(v.shape)} for {n_rows} rows, {n_edges} "
+                         f"edges in {n_out} slots")
+    out = torch.empty(n_out, dtype=torch.float32, device=v.device)
+    if n_rows == 0:
+        return out.zero_()
+    run = EXPAND_RUN if run is None else int(run)
+    lib = _kernel_lib()
+    with torch.cuda.device(v.device):
+        stream = torch.cuda.current_stream(v.device).cuda_stream
+        rc = lib.seg_expand_f32(ptr.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                n_rows, n_edges, n_out, run, stream)
+    _raise_on(lib, rc, "seg_expand_f32")
+    expand_launches += 1
+    return out
 
 
 def _keep(n_out: int, seed, rate: float, device) -> torch.Tensor:
@@ -575,6 +627,24 @@ class _SoftmaxDropFn(torch.autograd.Function):
                                     op.ws), None, None, None
 
 
+class _BroadcastFn(torch.autograd.Function):
+    """``out[e] = v[row of e]`` (pads 0) with the adjoint ``dv[r] = sum_{e
+    in r} g[e]``, as ``SegmentSoftmaxOperator.broadcast_rows``'s VJP
+    (``_expand`` forward, ``_rowsum`` backward)."""
+
+    @staticmethod
+    def forward(ctx, v, op):
+        ctx.op = op
+        return seg_expand(op.ptr, v, op.num_padded_edges, op.num_edges)
+
+    @staticmethod
+    def backward(ctx, g):
+        op = ctx.op
+        n_rows = op.ptr.numel() - 1
+        return row_sums(g.contiguous()[:, None], op.ptr,
+                        n_rows=n_rows)[:, 0], None
+
+
 class SegmentSoftmaxOperator:
     """Differentiable softmax of per-edge logits over each CSR row, bound
     to one edge sort (``softmax.py::SegmentSoftmaxOperator``).
@@ -583,9 +653,10 @@ class SegmentSoftmaxOperator:
     ``row_ptr`` [n_rows + 1], ``mask``: a static per-edge validity [E_pad]
     or None.  Masked edges get attention 0 and take no part in their row's
     denominator, so a fully masked row gives zeros; pad slots always get 0.
-    ``op(logits [E_pad])`` -> ``att [E_pad]``.  On the card the operator
-    holds one kernel workspace (``ws``) for all its calls, which run in
-    order on the current stream.
+    ``op(logits [E_pad])`` -> ``att [E_pad]``; ``op.broadcast_rows(v
+    [n_rows])`` -> ``v[senders] [E_pad]``, differentiable, the pads 0.  On
+    the card the operator holds one kernel workspace (``ws``) for all its
+    softmax calls, which run in order on the current stream.
     """
 
     def __init__(self, senders, row_ptr, n_rows: int, mask=None,
@@ -632,6 +703,17 @@ class SegmentSoftmaxOperator:
 
     def __call__(self, logits: torch.Tensor) -> torch.Tensor:
         return _SoftmaxFn.apply(self._checked(logits), self)
+
+    def broadcast_rows(self, v: torch.Tensor) -> torch.Tensor:
+        """``v[row] -> v[senders[e]]`` for the edge slots [E_pad] (the pads
+        0), differentiable: one ``seg_expand_f32`` launch forward, one
+        ``seg_reduce_f32`` at d = 1 backward (the row sums of the
+        cotangent; the pads add nothing)."""
+        n_rows = self.ptr.numel() - 1
+        if v.device != self.device or v.shape != (n_rows,):
+            raise ValueError(f"v must be [{n_rows}] on {self.device}, got "
+                             f"{tuple(v.shape)} on {v.device}")
+        return _BroadcastFn.apply(v.float().contiguous(), self)
 
 
 def softmax_operator_for(graph: "BipartiteGraph") -> SegmentSoftmaxOperator:

@@ -45,7 +45,8 @@ all and what bounds it (bytes).
   ``dpre``, at d = 1).
 * :func:`segment_reduce_sorted` (``spmm.py::segment_reduce_sorted``) sums
   rows of values sorted by segment over their CSR pointer, one launch of
-  ``seg_reduce_f32``.
+  ``seg_reduce_f32``; :func:`row_sums` is the same without the senders
+  (the row broadcast's adjoint, ``softmax.py``).
 
 Each wrapper counts its launches (:data:`launches`, :data:`seg_launches`,
 :data:`dw_launches`) and runs its plain PyTorch version, the kernel's
@@ -364,23 +365,34 @@ def segment_reduce_sorted(values: torch.Tensor, senders: torch.Tensor,
     number of edges is read from ``row_ptr`` on the card, so a long row
     needs no host-side look at the pointer.
     """
+    if senders.shape != values.shape[:1]:
+        raise ValueError(f"shapes: senders {tuple(senders.shape)} for "
+                         f"values {tuple(values.shape)}")
+    return row_sums(values, row_ptr, n_rows=n_src, run=run)
+
+
+def row_sums(values: torch.Tensor, row_ptr: torch.Tensor, *, n_rows: int,
+             run: Optional[int] = None) -> torch.Tensor:
+    """``out[r] = sum_{e in [row_ptr[r], row_ptr[r + 1])} values[e]`` ->
+    [n_rows, d] f32 for ``values`` [E_pad, d] f32 in CSR order (rows past
+    ``row_ptr[n_rows]`` are never read): :func:`segment_reduce_sorted`
+    without the senders.  One ``seg_reduce_f32`` launch on CUDA tensors
+    (counted in :data:`seg_launches`), the plain version on the CPU."""
     global seg_launches
-    if values.dim() != 2 or row_ptr.shape != (n_src + 1,) or \
-            senders.shape != values.shape[:1]:
-        raise ValueError(f"shapes: values {tuple(values.shape)}, senders "
-                         f"{tuple(senders.shape)}, row_ptr "
-                         f"{tuple(row_ptr.shape)} for {n_src} segments")
+    if values.dim() != 2 or row_ptr.shape != (n_rows + 1,):
+        raise ValueError(f"shapes: values {tuple(values.shape)}, row_ptr "
+                         f"{tuple(row_ptr.shape)} for {n_rows} segments")
     dev = values.device
     if dev.type == "cpu":
-        return segment_reduce_sorted_plain(values, senders, row_ptr,
-                                           n_src=n_src)
+        return segment_reduce_sorted_plain(values, None, row_ptr,
+                                           n_src=n_rows)
     ptr = row_ptr.to(torch.int32).contiguous()
     _on_card(dev, "segment_reduce_sorted", (("row_ptr", ptr),
                                              ("values", values)),
              ints=("row_ptr",))
     n_slots, d = values.shape
-    out = torch.empty((n_src, d), dtype=torch.float32, device=dev)
-    if n_src == 0 or d == 0:
+    out = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
+    if n_rows == 0 or d == 0:
         return out
     run = run_for(n_slots, d) if run is None else int(run)
     ws = torch.empty(sums_ws_floats(n_slots, run, d), dtype=torch.float32,
@@ -389,7 +401,7 @@ def segment_reduce_sorted(values: torch.Tensor, senders: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.seg_reduce_f32(ptr.data_ptr(), values.data_ptr(),
-                                out.data_ptr(), ws.data_ptr(), n_src,
+                                out.data_ptr(), ws.data_ptr(), n_rows,
                                 n_slots, run, d, stream)
     _raise_on(lib, rc, "seg_reduce_f32")
     seg_launches += 1

@@ -255,9 +255,14 @@ def spmm_q(gt, c, a, x, cot, rate):
 
 
 def test_generic_bf16_raises(skewed):
+    """The generic form takes ``precision="bf16"`` now
+    (``tests/test_torch_generic_bf16.py``); an unknown precision raises
+    everywhere."""
     gt = skewed[0]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Rank1GatOperator(gt, precision="bf16")
+    op = Rank1GatOperator(gt, precision="bf16")
+    assert op.precision == "bf16" and not op.dst_linear
+    with pytest.raises(ValueError, match="precision"):
+        Rank1GatOperator(gt, precision="f16")
     with pytest.raises(ValueError, match="precision"):
         Rank1GatOperator(gt, precision="f16", dst_linear=True)
     with pytest.raises(ValueError, match="precision"):

@@ -1597,3 +1597,165 @@ def test_bf16_layer_on_card_matches_the_cpu(impl):
     sums_close(dx_k, dx_c)
     for k, v in grads_c.items():
         sums_close(grads_k[k], v)
+
+
+# ---------------------------------------------------------------------------
+# the generic rank-1 GAT's bfloat16 payload (r1_fwd_bf16, r1_bwd_bf16), the
+# row broadcast (seg_expand_f32) and the out-of-core operators
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", BF16_WIDTHS)
+def test_generic_bf16_kernels_match_plain(d):
+    g = card_graph(d + 9, 300, 120, 0.05, empty_rows=(0, 151, 299))
+    op = r1.Rank1GatOperator(g)
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    c = torch.rand(300, generator=gen, device="cuda") * 4 - 2
+    t = (torch.rand(120, generator=gen, device="cuda") * 4 - 2).to(
+        torch.bfloat16).float()
+    xb = (torch.rand(120, d, generator=gen, device="cuda") - 0.5).to(
+        torch.bfloat16)
+    gout = torch.rand(300, d, generator=gen, device="cuda") - 0.5
+    args = (op.ptr, op.col, c, t, xb, 0.2, 300)
+    before = (r1.r1_fwd_bf16_launches, r1.r1_bwd_bf16_launches,
+              r1.r1_fwd_launches, r1.r1_bwd_launches)
+    prime_nan((300, max(d, 1)), (300,))
+    out, lse = twice_same(lambda: r1.r1_fwd(*args))
+    want_out, want_lse = r1.rank1_gat_generic_plain(*args)
+    torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-6)
+    bwd = (op.ptr, op.col, c, t, xb, gout, want_out, want_lse, 0.2, 300)
+    att, dpre, dc = twice_same(lambda: r1.r1_bwd(*bwd))
+    w_att, w_dpre, w_dc = r1.rank1_gat_generic_bwd_plain(*bwd)
+    assert (r1.r1_fwd_bf16_launches, r1.r1_bwd_bf16_launches,
+            r1.r1_fwd_launches, r1.r1_bwd_launches) == (
+        before[0] + 2, before[1] + 2, before[2], before[3])
+    torch.testing.assert_close(att, w_att, rtol=1e-5, atol=1e-6)
+    sums_close(dpre, w_dpre)
+    sums_close(dc, w_dc)
+
+
+@pytest.mark.cuda
+def test_generic_bf16_operator_on_card_matches_the_cpu():
+    """``Rank1GatOperator(precision="bf16")`` under autograd: one
+    ``r1_fwd_bf16``, one ``r1_bwd_bf16`` and the two float32 SpMMs of dx
+    and dt, against the same operator on the CPU."""
+    g = card_graph(4, 200, 90, 0.06, empty_rows=(0, 199))
+    gen = torch.Generator().manual_seed(2)
+    ins = [torch.randn(200, generator=gen), torch.randn(90, generator=gen),
+           torch.randn(90, 16, generator=gen)]
+    cot = torch.randn(200, 16, generator=gen)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        op = r1.Rank1GatOperator(g.to(dev), precision="bf16")
+        xs = [v.to(dev).clone().requires_grad_() for v in ins]
+        before = (r1.r1_fwd_bf16_launches, r1.r1_bwd_bf16_launches,
+                  cuda_spmm.launches)
+        out = op(*xs)
+        out.backward(cot.to(dev))
+        runs.append([out.detach().cpu()] + [v.grad.cpu() for v in xs]
+                    + [(r1.r1_fwd_bf16_launches - before[0],
+                        r1.r1_bwd_bf16_launches - before[1],
+                        cuda_spmm.launches - before[2])])
+    assert runs[0][-1] == (1, 1, 2) and runs[1][-1] == (0, 0, 0)
+    torch.testing.assert_close(runs[0][0], runs[1][0], rtol=1e-5, atol=1e-6)
+    for got, want in zip(runs[0][1:4], runs[1][1:4]):
+        sums_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", [None, 1, 32, 100, 256, 1024])
+def test_seg_expand_kernel_matches_plain(run):
+    """seg_expand_f32 into NaN-primed memory: every slot written, the edges'
+    rows' values bit for bit, the pads 0; rows that are empty at the start,
+    in the middle and at the end, and one row across many runs."""
+    g = card_graph(7, 300, 500, 0.03, empty_rows=(0, 1, 150, 298, 299))
+    dense = g.to_dense()
+    dense[40] = 1.0        # a row of 500 edges
+    g = tg.BipartiteGraph.from_dense(dense.cpu().numpy(),
+                                     pad_to_multiple=16).to("cuda")
+    v = torch.randn(300, device="cuda")
+    e, e_pad = g.num_edges, g.num_padded_edges
+    before = sm.expand_launches
+    prime_nan((e_pad,))
+    got = twice_same(lambda: sm.seg_expand(g.row_ptr, v, e_pad, e, run))
+    assert sm.expand_launches == before + 2
+    assert torch.equal(got, sm.seg_expand_plain(g.row_ptr, v, e_pad))
+    assert torch.equal(got[:e], v[g.senders[:e].long()])
+    assert not got[e:].any()
+
+
+@pytest.mark.cuda
+def test_broadcast_rows_on_card_matches_the_cpu():
+    g = card_graph(8, 300, 120, 0.05, empty_rows=(0, 151, 299))
+    v = torch.randn(300)
+    cot = torch.randint(-8, 9, (g.num_padded_edges,)).float()
+    runs = []
+    for dev in ("cuda", "cpu"):
+        op = sm.SegmentSoftmaxOperator(g.senders, g.row_ptr, 300, device=dev)
+        vv = v.to(dev).clone().requires_grad_()
+        before = (sm.expand_launches, cuda_spmm.seg_launches)
+        out = op.broadcast_rows(vv)
+        out.backward(cot.to(dev))
+        runs.append((out.detach().cpu(), vv.grad.cpu(),
+                     (sm.expand_launches - before[0],
+                      cuda_spmm.seg_launches - before[1])))
+    assert runs[0][2] == (1, 1) and runs[1][2] == (0, 0)
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])   # integer sums: exact
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_chunked_operators_on_card_match_the_cpu(precision):
+    """``ChunkedRank1Gat`` (a hub receiver, a row split across slices) and
+    ``ChunkedSpmm.apply`` under autograd on the card, with exact launches a
+    slice, against the same operators on the CPU."""
+    from msha_gnn_torch.ops.chunked import ChunkedSpmm
+    from msha_gnn_torch.ops.chunked_rank1 import ChunkedRank1Gat
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(5)
+    n, e, k = 400, 6000, 5
+    s = np.concatenate([rng.integers(0, n, e - 2000), np.full(2000, 77)])
+    r = np.where(rng.random(e) < 0.4, 3, rng.integers(0, n, e))
+    gen = torch.Generator().manual_seed(1)
+    c, a = torch.randn(n, generator=gen), torch.randn(16, generator=gen) * .3
+    x, cot = torch.randn(n, 16, generator=gen), torch.randn(n, 16,
+                                                             generator=gen)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        op = ChunkedRank1Gat(s, r, n_src=n, n_dst=n, num_slices=k,
+                             precision=precision, device=dev)
+        ins = [v.to(dev).clone().requires_grad_() for v in (c, a, x)]
+        before = (r1.fwd_launches + r1.fwd_bf16_launches,
+                  r1.bwd_launches + r1.bwd_bf16_launches, cuda_spmm.launches)
+        out = op(*ins)
+        out.backward(cot.to(dev))
+        runs.append([out.detach().cpu()] + [v.grad.cpu() for v in ins]
+                    + [(r1.fwd_launches + r1.fwd_bf16_launches - before[0],
+                        r1.bwd_launches + r1.bwd_bf16_launches - before[1],
+                        cuda_spmm.launches - before[2])])
+    assert runs[0][-1] == (k, k, 2 * k) and runs[1][-1] == (0, 0, 0)
+    torch.testing.assert_close(runs[0][0], runs[1][0], rtol=1e-5, atol=1e-6)
+    for got, want in zip(runs[0][1:4], runs[1][1:4]):
+        sums_close(got, want)
+    if precision == "bf16":
+        return
+    w = torch.rand(e, generator=gen)
+    runs = []
+    for dev in ("cuda", "cpu"):
+        op = ChunkedSpmm.from_host_coo(s, r, None, n_src=n, n_dst=n,
+                                       num_slices=k, device=dev)
+        xx = x.to(dev).clone().requires_grad_()
+        ww = w.to(dev).clone().requires_grad_()
+        before = (cuda_spmm.launches, cuda_sddmm.launches)
+        out = op(xx, edge_weight=ww)
+        out.backward(cot.to(dev))
+        runs.append((out.detach().cpu(), xx.grad.cpu(), ww.grad.cpu(),
+                     (cuda_spmm.launches - before[0],
+                      cuda_sddmm.launches - before[1])))
+    assert runs[0][3] == (2 * k, k) and runs[1][3] == (0, 0)
+    for got, want in zip(runs[0][:3], runs[1][:3]):
+        sums_close(got, want)

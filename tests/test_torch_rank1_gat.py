@@ -170,8 +170,11 @@ def test_drop_needs_dst_linear():
                     seed).shape == (40, 4)
     with pytest.raises(ValueError, match="dropout_rate"):
         r1.Rank1GatOperator(gt, dropout_rate=1.0)
-    with pytest.raises(NotImplementedError, match="float32"):
-        r1.Rank1GatOperator(gt, precision="bf16")
+    # the generic form takes bf16 rows (tests/test_torch_generic_bf16.py),
+    # and has no attention dropout at any precision
+    gen16 = r1.Rank1GatOperator(gt, precision="bf16", dropout_rate=0.5)
+    with pytest.raises(ValueError, match="dst_linear"):
+        gen16.drop(torch.zeros(40), torch.zeros(4), torch.zeros(20, 4), seed)
     with pytest.raises(ValueError, match="t"):
         op(torch.zeros(40), torch.zeros(4), torch.zeros(20, 4))
 

@@ -193,8 +193,8 @@ def test_build_methods_wrappers_and_alias(graphs):
                                       dst_linear=True, dropout_rate=0.5)
     assert (lin.spmm, lin.slope, lin.dst_linear, lin.dropout_rate) == (
         own, 0.1, True, 0.5)
-    with pytest.raises(NotImplementedError, match="precision"):
-        cuda.Rank1GatOperator.build(gt, precision="bf16")
+    gen16 = cuda.Rank1GatOperator.build(gt, precision="bf16")
+    assert (gen16.precision, gen16.dst_linear) == ("bf16", False)
     flash = cuda.FlashGATOperator.build(gt, own, dropout_rate=0.25)
     assert cuda.FlashGATOperator is fgat.FlashGatOperator is \
         cuda.FlashGatOperator
