@@ -177,7 +177,35 @@ over the same 20 calls, as is their library yardstick.
    against float64 plain versions on the same inputs; fused against
    materialised first loss, bf16 against f32 losses, and a cut graph
    (20,000 nodes, 200,000 edges) on the card against the CPU: 3 steps'
-   losses, and the f32 first step's gradients.
+   losses, and the f32 first step's gradients.  On the heaviest slice (the
+   longest row), the library yardsticks: ``torch.sparse.mm`` beside the
+   ``q``-weighted dx SpMM, ``torch.segment_reduce`` beside the d = 1
+   column sums of ``dpre``, ``torch.sparse.sampled_addmm`` beside the
+   materialised ``dw`` SDDMM (each held to the kernel's values).
+15. the link-prediction options and the LLP / SGAE drivers.  15a:
+   ``LinkPredConfig(neighbor_fanout=16)`` (2 epochs, cut from 10; the
+   fanout is this script's choice) through ``impl="auto"`` -> ``"fused"``
+   on a subgraph drawn on the host each epoch: the draw's pieces timed
+   (the sampler, ``from_coo``, the operators' build from the host arrays,
+   the copy), the subgraphs and batches bit-equal to a CPU run's draws,
+   the first subgraph's ``r1l_fwd_f32``, ``r1l_bwd_f32`` and dx SpMMs
+   against their plain versions (times, bounds, library), one step's
+   exact launches (3 + 3 + 6, as phase 5's step), its loss and gradients
+   against the plain step from the same state, epoch 0's step losses and
+   both epochs' mean losses against a plain (``impl="torch"``) run on the
+   card at ``EPOCH_LOSS_RTOL``, the step wall p50, one profiled step an
+   epoch, memory after each epoch (it must not grow: each epoch's
+   operators are dropped), the evaluation on the full graph.  15b: one
+   ``use_kd=True`` fused step on a subgraph: exact launches, the loss
+   parts and gradients against the plain step.  15c: ``run_llp`` at
+   ``LLPConfig()`` on the phase-3 graph (2 epochs, cut from 10) with 4,096
+   'nb' sampled anchors and with ``kd_rank=0.1``; the step wall, kernels
+   and idle share; at dropout 0 the teacher's embedding and the first
+   ``CARD_CPU_STEPS`` losses against the CPU.  15d: ``run_sgae`` at
+   ``SGAEConfig(pretrain_epochs=1, epochs=1)``, the pretrain and the
+   temporal pretrain (with a second synthetic year) against the CPU, the
+   fine-tune's first ``CARD_CPU_STEPS`` losses against the CPU; the
+   walls.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -311,6 +339,11 @@ SCALE_BF16_REL = BF16_STEP_TOL
 # and the f32 first step's gradients at SUM_RTOL / SUM_ATOL_REL
 SCALE_CUT_NODES, SCALE_CUT_EDGES, SCALE_CUT_STEPS = 20_000, 200_000, 3
 SCALE_CARD_CPU_RTOL = 1e-5
+# phase 15: sampled linkpred at LinkPredConfig() widths.  The fanout is
+# this script's choice (the reference names none); 2 epochs (cut from 10);
+# one step an epoch runs under the profiler (left out of the wall p50)
+SAMPLED_FANOUT, SAMPLED_EPOCHS, SAMPLED_PROFILED_STEP = 16, 2, 10
+LLP_EPOCHS = 2                         # run_llp at LLPConfig(), cut from 10
 # the fused epoch's metrics before the redesign of csr_spmm_f32 and
 # r1l_bwd_f32 (the same data, seed and state), for comparison by eye
 BEFORE_METRICS = ("before the edge-run kernels: Hits@20 0.0090, Hits@50 "
@@ -3587,6 +3620,36 @@ class SliceChecks:
                 f"{atol:.1e})")
 
 
+def slice_yardstick(name, kernel, library, lib_name):
+    """One out-of-core slice's kernel launch beside one PyTorch call that
+    computes the same values on the same inputs (held to the kernel's at
+    the sums' tolerance): event and device times of both (5 x 5 calls; a
+    launch here takes about a millisecond)."""
+    got = kernel().reshape(-1)
+    try:
+        ref = library()
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"  {name}: {lib_name} does not run here ({exc})")
+        return
+    if ref.layout == torch.sparse_csr:
+        ref = ref.values()
+    torch.cuda.synchronize()
+    close(f"{name}: {lib_name} vs the kernel", ref.reshape(-1), got,
+          SUM_RTOL, SUM_ATOL_REL * float(got.abs().max()))
+    ms, dev = time_ms(kernel, reps=5, iters=5), device_ms(kernel, iters=5)
+    lib_ms = time_ms(library, reps=5, iters=5)
+    lib_dev = device_ms(library, iters=5)
+    log(f"  {name}: kernel {ms:.4f} ms (device {fmt(dev)}), {lib_name} "
+        f"{lib_ms:.4f} ms (device {fmt(lib_dev)})")
+
+
+def heaviest(slices, ptr_of):
+    """The index of the slice whose CSR ``ptr_of(slice)`` has the longest
+    row (the hub receiver's share)."""
+    return max(range(len(slices)), key=lambda i: int(
+        (ptr_of(slices[i])[1:] - ptr_of(slices[i])[:-1]).max()))
+
+
 def hold_rank1_slices(op, c, a, x16, gouts, seed):
     """``ChunkedRank1Gat`` ``op`` on the card against its kernels' float64
     plain versions on the same inputs (``x16`` the rows as the kernels read
@@ -3670,6 +3733,26 @@ def hold_rank1_slices(op, c, a, x16, gouts, seed):
                   csr_spmm_plain(rs.t_ptr, rs.t_edge, None,
                                  dpre.double()[:, None], n_t),
                   SUM_RTOL, SUM_ATOL_REL)
+            if op.precision == "f32" and what == "dense cotangent" \
+                    and i == heaviest(op.slices, lambda r: r.t_ptr):
+                # the library yardsticks of the slice's two dx launches
+                a_t = torch.sparse_csr_tensor(rs.t_ptr, rs.t_col, qt,
+                                              size=(n_t, gout.shape[0]))
+                dcol = dpre[:, None].contiguous()
+                dsorted = dpre.index_select(0, rs.t_edge)
+                t_off = rs.t_ptr.long()
+                slice_yardstick(
+                    f"slice {i} dx q-weighted A^T g (d {gout.shape[1]}, "
+                    f"{qt.numel()} edges, {n_t} rows)",
+                    lambda: csr_spmm(rs.t_ptr, rs.t_col, qt, gout, n_t),
+                    lambda: torch.sparse.mm(a_t, gout), "torch.sparse.mm")
+                slice_yardstick(
+                    f"slice {i} dx column sums of dpre (d = 1)",
+                    lambda: csr_spmm(rs.t_ptr, rs.t_edge, None, dcol, n_t),
+                    lambda: torch.segment_reduce(dsorted, "sum",
+                                                 offsets=t_off),
+                    "torch.segment_reduce (on dpre gathered to CSC order)")
+                del a_t, dcol, dsorted, t_off
             del q, dpre, qt
             want_dc.index_add_(0, sl.rows, wdc)
             want_da += wda
@@ -3737,6 +3820,20 @@ def hold_spmm_slices(s, r, k, cfg, h, c, a_dst, gouts):
                             e),
                   csr_sddmm_plain(sl.ptr, sl.col, g64[sl.rows], h64, e),
                   KERNEL_RTOL, SUM_ATOL_REL)
+            if what == "dense cotangent" and i == heaviest(
+                    op.slices, lambda v: v.ptr):
+                g_rows = gout.index_select(0, sl.rows)
+                pattern = torch.sparse_csr_tensor(
+                    sl.ptr, sl.col, torch.zeros(e, device=DEVICE),
+                    size=(sl.n_rows, h.shape[0]))
+                h_t = h.t()
+                slice_yardstick(
+                    f"slice {i} dw SDDMM (d {h.shape[1]}, {e} edges)",
+                    lambda: csr_sddmm(sl.ptr, sl.col, g_rows, h, e),
+                    lambda: torch.sparse.sampled_addmm(pattern, g_rows, h_t,
+                                                       beta=0.0),
+                    "torch.sparse.sampled_addmm")
+                del g_rows, pattern, h_t
             senders = sl.rows[edge_rows(sl.ptr, e)]
             cols = sl.col.long()
             want_dx.index_add_(0, cols,
@@ -3952,6 +4049,511 @@ def phase_out_of_core():
                for label, v in runs.items()}
     log(f"  out-of-core summary: {json.dumps(summary)}")
     return launches
+
+
+def profile_calls(name, fn, calls):
+    """``torch.profiler`` over ``calls`` calls of ``fn`` (each a training
+    step), each ended by a synchronise: device kernels and device ms a
+    call, the idle share of their wall, the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def us(evt):
+        return (getattr(evt, "self_device_time_total", 0.0)
+                or getattr(evt, "self_cuda_time_total", 0.0))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_card = [evt for evt in prof.key_averages()
+               if evt.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(evt, "is_user_annotation", False)]
+    busy_ms = sum(us(evt) for evt in on_card) / 1e3
+    out = {"device_kernels_per_step": sum(e.count for e in on_card) / calls,
+           "device_ms_per_step": busy_ms / calls if busy_ms else None,
+           "device_idle_share": (max(0.0, 1 - busy_ms / wall_ms)
+                                 if busy_ms else None),
+           "profiled_wall_ms_per_step": wall_ms / calls}
+    log(f"  {name}, {calls} profiled steps: {json.dumps(out)}")
+    for evt in sorted(on_card, key=lambda e: -us(e))[:5]:
+        short = evt.key.replace("void ", "").replace(
+            "at::native::", "").replace("(anonymous namespace)::", "")
+        log(f"    {name} device: {us(evt) / 1e3 / calls:.4f} ms, "
+            f"{evt.count / calls} a step: {short[:140]}")
+    return out
+
+
+def timed_epoch_data(run):
+    """``link_prediction.epoch_data(run)`` with its pieces timed where the
+    run calls them (ms): the sampler (``from_coo`` included), ``from_coo``
+    alone, the operators' build from the host arrays, the batches' draw
+    and copy; the rest is the subgraph's copy to the card."""
+    from msha_gnn_torch import graph as tgraph
+    from msha_gnn_torch.training import link_prediction as lp
+
+    times = {}
+
+    def timed(key, fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            times[key] = times.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapper
+
+    saved = (lp.neighbor_sample_subgraph, lp.prepare_operators,
+             lp.epoch_batches, tgraph.BipartiteGraph.from_coo)
+    lp.neighbor_sample_subgraph = timed("sample", saved[0])
+    lp.prepare_operators = timed("operator build", saved[1])
+    lp.epoch_batches = timed("batches", saved[2])
+    tgraph.BipartiteGraph.from_coo = staticmethod(timed("from_coo", saved[3]))
+    try:
+        t0 = time.perf_counter()
+        graph, batches = lp.epoch_data(run)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    finally:
+        (lp.neighbor_sample_subgraph, lp.prepare_operators,
+         lp.epoch_batches) = saved[:3]
+        tgraph.BipartiteGraph.from_coo = staticmethod(saved[3])
+    times["copy to the card"] = (total - times["sample"]
+                                 - times["operator build"] - times["batches"])
+    times["total"] = total
+    return graph, batches, times
+
+
+def sampled_kernels(graph):
+    """Phase 15a: the three kernels of the sampled fused step on the
+    epoch's subgraph, at the path's shapes (d 64, rate 0.5), against their
+    plain versions: ``r1l_fwd_f32``, ``r1l_bwd_f32`` and the dx reduce
+    (``csr_spmm_f32``, ``q``-weighted and the d = 1 column sum of
+    ``dpre``); times, bounds, library; their kernels-line entries."""
+    from msha_gnn_torch.ops.cuda import rank1_gat as r1
+    from msha_gnn_torch.ops.cuda.spmm import operator_for
+
+    spmm = operator_for(graph)
+    n, e, d = graph.n_src, graph.num_edges, LP_D
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    c = torch.randn(n, generator=gen, device=DEVICE)
+    a = torch.randn(d, generator=gen, device=DEVICE) * 0.3
+    x = torch.rand((n, d), generator=gen, device=DEVICE) - 0.5
+    gout = torch.rand((n, d), generator=gen, device=DEVICE) - 0.5
+    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=DEVICE)
+    slope, rate = 0.2, 0.5
+    (fwd_b, fwd_by), (bwd_b, bwd_by) = r1l_bounds(n, e, d)
+    fwd_args = (spmm.ptr, spmm.col, c, a, x, seed, rate, slope, n)
+    prime_nan((n, d), (n,))
+    out, lse = r1.r1l_fwd(*fwd_args)
+    w_out, w_lse = r1.rank1_gat_plain(*fwd_args)
+    torch.cuda.synchronize()
+    fwd_err = max(close("r1l_fwd_f32[sampled] out", out, w_out, KERNEL_RTOL,
+                        KERNEL_ATOL),
+                  close("r1l_fwd_f32[sampled] lse", lse, w_lse, KERNEL_RTOL,
+                        KERNEL_ATOL))
+    bwd_args = (spmm.ptr, spmm.col, c, a, x, gout, w_out, w_lse, seed, rate,
+                slope, n)
+    q, dpre, dc, da = r1.r1l_bwd(*bwd_args)
+    wq, wdpre, wdc, wda = r1.rank1_gat_bwd_plain(*bwd_args)
+    torch.cuda.synchronize()
+    bwd_err = max(
+        close("r1l_bwd_f32[sampled] q", q, wq, KERNEL_RTOL, KERNEL_ATOL),
+        *(close(f"r1l_bwd_f32[sampled] {name}", got, want, SUM_RTOL,
+                SUM_ATOL_REL * float(want.abs().max()))
+          for name, got, want in (("dpre", dpre, wdpre), ("dc", dc, wdc),
+                                  ("da", da, wda))))
+    results = []
+    for name, kernel, plain, err, (bnd, by), src_line in (
+            ("r1l_fwd_f32[sampled, rate 0.5]",
+             lambda: r1.r1l_fwd(*fwd_args),
+             lambda: r1.rank1_gat_plain(*fwd_args), fwd_err, (fwd_b, fwd_by),
+             "msha_gnn_tpu/ops/pallas/rank1_gat.py:234 _r1l_fwd_kernel"),
+            ("r1l_bwd_f32[sampled, rate 0.5]",
+             lambda: r1.r1l_bwd(*bwd_args),
+             lambda: r1.rank1_gat_bwd_plain(*bwd_args), bwd_err,
+             (bwd_b, bwd_by),
+             "msha_gnn_tpu/ops/pallas/rank1_gat.py:305 _r1l_bwd_kernel")):
+        same_bits(name, kernel)
+        ms, dev_ms = time_ms(kernel), device_ms(kernel)
+        plain_ms = time_ms(plain, reps=5, iters=5)
+        log(f"  {name}: {e} edges: kernel {ms:.4f} ms (device "
+            f"{fmt(dev_ms)}), plain {plain_ms:.4f} ms, bound {bnd:.5f} ms "
+            f"({by}); library none: no PyTorch call computes the row "
+            "softmax, the hashed dropout and the aggregation together")
+        results.append({**entry(name, "rank1_gat.cu", src_line, err, ms,
+                                plain_ms, (bnd, by), None),
+                        "device_ms": dev_ms, "library_device_ms": None})
+    w_t = spmm.weights(q, True)
+    dcol = dpre[:, None].contiguous()
+    rcv = graph.receivers[:e].long()
+    a_csr = torch.sparse_csr_tensor(spmm.t_ptr, spmm.t_col, w_t, size=(n, n))
+    results.append(spmm_use(
+        "sampled r1l dx q A^T g", (spmm.t_ptr, spmm.t_col, w_t, gout, n),
+        lambda: torch.sparse.mm(a_csr, gout), "torch.sparse.mm"))
+    results.append(spmm_use(
+        "sampled r1l dpre column sum",
+        (spmm.t_ptr, spmm.t_edge, None, dcol, n),
+        lambda: dcol.new_zeros((n, 1)).index_add_(0, rcv, dcol),
+        "index_add_"))
+    return results
+
+
+def phase_sampled_linkpred(split):
+    """Phase 15a: ``LinkPredConfig(neighbor_fanout=16)`` on the linkpred
+    data, 2 epochs (cut from 10), ``impl="auto"`` -> ``"fused"``, each
+    epoch on a subgraph drawn on the host.  Per epoch: the draw's pieces
+    (ms), the subgraph's edges, the step wall p50 and one profiled step,
+    peak memory; the subgraph and the batches bit-equal to a CPU run's
+    draws and to a plain (``impl="torch"``) run's on the card; the first
+    subgraph's kernels against their plain versions (``sampled_kernels``,
+    before the counts go to 0); the first step's launches exactly the
+    fused step's, its loss and gradients against the plain step from the
+    same state; every step's loss against the plain run's at
+    ``EPOCH_LOSS_RTOL``.  Returns the kernel entries with their launches
+    on this main path."""
+    import dataclasses
+
+    from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
+    from msha_gnn_torch.training import (LinkPredConfig,
+                                         build_link_prediction, evaluate)
+    from msha_gnn_torch.training import link_prediction as lp
+
+    cfg = LinkPredConfig(neighbor_fanout=SAMPLED_FANOUT,
+                         epochs=SAMPLED_EPOCHS)
+    run = build_link_prediction(split, cfg, device=DEVICE)
+    if run.impl != "fused":
+        raise AssertionError(f"impl auto resolved to {run.impl} on CUDA")
+    plain = build_link_prediction(split, dataclasses.replace(
+        cfg, impl="torch"), device=DEVICE)
+    on_cpu = build_link_prediction(split, dataclasses.replace(
+        cfg, impl="torch"), device="cpu")
+    log(f"  LinkPredConfig(neighbor_fanout={SAMPLED_FANOUT}): hidden "
+        f"{cfg.hidden}, {cfg.n_heads} heads, batch {cfg.batch_size}, "
+        f"{cfg.epochs} epochs; full graph {run.graph.num_edges} edges")
+    entries = None
+    fused_losses, plain_losses, alloc = [], [], []
+    op_counts = {"csr_spmm_f32 transposed": 0,
+                 "csr_spmm_f32 reduce_edges": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for epoch in range(cfg.epochs):
+        t_ep = time.perf_counter()
+        graph, batches, times = timed_epoch_data(run)
+        g_plain, b_plain = lp.epoch_data(plain)
+        g_cpu, b_cpu = lp.epoch_data(on_cpu)
+        for name in ("senders", "receivers", "weight", "row_ptr"):
+            ref = getattr(g_cpu, name)
+            if not (torch.equal(getattr(graph, name).cpu(), ref)
+                    and torch.equal(getattr(g_plain, name).cpu(), ref)):
+                raise AssertionError(f"epoch {epoch}: the subgraph's {name} "
+                                     "differs from the CPU draw")
+        if not (torch.equal(batches.cpu(), b_cpu)
+                and torch.equal(b_plain, batches)):
+            raise AssertionError(f"epoch {epoch}: the batches differ from "
+                                 "the CPU draw")
+        e = graph.num_edges
+        log(f"  epoch {epoch}: subgraph {e} edges ({e / run.graph.num_edges:.3f}"
+            f" of the graph, {graph.num_padded_edges} slots), bit-equal to "
+            f"the CPU draw and the plain run's, batches too; the draw: "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in times.items()))
+        op = cuda_spmm.operator_for(graph)
+        if epoch == 0:
+            entries = sampled_kernels(graph)
+            # the main path: counts to 0 just before its first step
+            zero_counts()
+        step_ms = []
+        for i, batch in enumerate(batches):
+            if epoch == 0 and i == 0:
+                before = read_counts(op)
+                state = run.generator.get_state()
+                model0 = copy.deepcopy(run.model)
+                loss = float(lp.train_step(run, batch, graph))
+                torch.cuda.synchronize()
+                after = read_counts(op)
+                delta = {k: after[k] - before[k] for k in after}
+                log(f"  one sampled fused step's launches: {delta}")
+                if delta != STEP_WANT["fused"]:
+                    raise AssertionError(f"expected {STEP_WANT['fused']}, "
+                                         f"got {delta}")
+                got = (loss, {k: p.grad.detach().clone()
+                              for k, p in run.model.named_parameters()})
+                gen = torch.Generator(device=DEVICE)
+                want = loss_and_grads(model0, graph, batch, "torch", gen,
+                                      state)
+                if read_counts(op) != after:
+                    raise AssertionError("the plain step launched a kernel")
+                compare_steps("sampled fused step vs the plain step (impl "
+                              "torch, the same subgraph and state)", got,
+                              want, STEP_LOSS_RTOL, STEP_GRAD_RTOL,
+                              STEP_GRAD_ATOL_REL)
+            elif i == SAMPLED_PROFILED_STEP:
+                holder = []
+                profile_calls(f"epoch {epoch} sampled fused step",
+                              lambda b=batch: holder.append(float(
+                                  lp.train_step(run, b, graph))), 1)
+                loss = holder[0]
+            else:
+                t0 = time.perf_counter()
+                loss = float(lp.train_step(run, batch, graph))
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            fused_losses.append(loss)
+        for batch in b_plain:
+            plain_losses.append(float(lp.train_step(plain, batch, g_plain)))
+        counts = read_counts(op)
+        for k in op_counts:
+            op_counts[k] += counts[k]
+        lp.end_epoch(run, graph)
+        lp.end_epoch(plain, g_plain)
+        graph = g_plain = op = None
+        torch.cuda.synchronize()
+        alloc.append(torch.cuda.memory_allocated())
+        log(f"  epoch {epoch}: {len(batches)} steps, step wall p50 "
+            f"{statistics.median(step_ms):.3f} ms (steps but the first and "
+            f"the profiled one), epoch wall {time.perf_counter() - t_ep:.2f} "
+            f"s (the plain run's epoch and the checks included); memory "
+            f"allocated {alloc[-1] / 2**20:.1f} MiB, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; cached "
+            f"operators {len(cuda_spmm._OPS)}")
+    totals = read_counts()
+    if alloc[-1] > alloc[0] + 16 * 2**20:
+        raise AssertionError(f"memory grew across epochs: {alloc}")
+    # each step of the first epoch, as phases 6 and 7 hold theirs, and
+    # each epoch's mean loss (the run's logged loss); the same function
+    # from the same state, float32 sums in another order through Adam
+    # steps, so the drift grows with the steps
+    first = len(fused_losses) // cfg.epochs
+    errs = [abs(a - b) / abs(b) for a, b in zip(fused_losses[:first],
+                                                plain_losses[:first])]
+    means = [(statistics.mean(fused_losses[i * first:(i + 1) * first]),
+              statistics.mean(plain_losses[i * first:(i + 1) * first]))
+             for i in range(cfg.epochs)]
+    mean_err = max(abs(a - b) / abs(b) for a, b in means)
+    last = max(abs(a - b) / abs(b) for a, b in zip(fused_losses[first:],
+                                                   plain_losses[first:]))
+    log(f"  fused vs the plain run: epoch 0's {first} step losses max rel "
+        f"err {max(errs):.2e}; the epochs' mean losses "
+        + ", ".join(f"{a:.6f} / {b:.6f}" for a, b in means)
+        + f", max rel err {mean_err:.2e} (both rtol {EPOCH_LOSS_RTOL}); "
+        f"epoch 1's steps, for the record, max rel err {last:.2e}; "
+        f"first-5 mean {statistics.mean(fused_losses[:5]):.5f}, last-5 mean "
+        f"{statistics.mean(fused_losses[-5:]):.5f}")
+    if len(plain_losses) != len(fused_losses) or max(errs) > EPOCH_LOSS_RTOL \
+            or mean_err > EPOCH_LOSS_RTOL:
+        raise AssertionError("the sampled fused epochs leave the plain run")
+    if not all(np.isfinite(fused_losses)):
+        raise AssertionError("a sampled step's loss is not finite")
+    t0 = time.perf_counter()
+    metrics = evaluate(run)
+    log(f"  evaluation on the full graph ({time.perf_counter() - t0:.2f} s): "
+        f"{json.dumps(metrics)}")
+    launches = {
+        "r1l_fwd_f32[sampled, rate 0.5]": totals["r1l_fwd_f32"],
+        "r1l_bwd_f32[sampled, rate 0.5]": totals["r1l_bwd_f32"],
+        "csr_spmm_f32[sampled r1l dx q A^T g]":
+            (op_counts["csr_spmm_f32 transposed"]
+             - op_counts["csr_spmm_f32 reduce_edges"]),
+        "csr_spmm_f32[sampled r1l dpre column sum]":
+            op_counts["csr_spmm_f32 reduce_edges"]}
+    log(f"  main path launches over {len(fused_losses)} steps: {launches}")
+    for k in entries:
+        k["launches"] = launches[k["name"]]
+    return entries
+
+
+def phase_sampled_kd(split):
+    """Phase 15b: ``use_kd=True`` on a sampled subgraph at full width: one
+    fused step's exact launches (the student adds none), its loss parts
+    and gradients (the student's too) against the plain step from the same
+    state."""
+    from msha_gnn_torch.ops.cuda.spmm import operator_for
+    from msha_gnn_torch.training import (LinkPredConfig,
+                                         build_link_prediction,
+                                         linkpred_loss_parts)
+    from msha_gnn_torch.training import link_prediction as lp
+
+    run = build_link_prediction(split, LinkPredConfig(
+        neighbor_fanout=SAMPLED_FANOUT, use_kd=True), device=DEVICE)
+    graph, batches = lp.epoch_data(run)
+    op = operator_for(graph)
+    model0 = copy.deepcopy(run.model)
+    state = run.generator.get_state()
+    before = read_counts(op)
+    parts = lp.step_parts(run, batches[0], graph)
+    torch.cuda.synchronize()
+    after = read_counts(op)
+    delta = {k: after[k] - before[k] for k in after}
+    if delta != STEP_WANT["fused"]:
+        raise AssertionError(f"KD step: expected {STEP_WANT['fused']}, got "
+                             f"{delta}")
+    got_parts = {k: float(v) for k, v in parts.items()}
+    got = (got_parts["loss"], {k: p.grad.detach().clone()
+                               for k, p in run.model.named_parameters()})
+    gen = torch.Generator(device=DEVICE)
+    gen.set_state(state)
+    total, want_parts = linkpred_loss_parts(model0, graph, batches[0],
+                                            impl="torch", generator=gen)
+    total.backward()
+    want = (total.item(), {k: p.grad.detach().clone()
+                           for k, p in model0.named_parameters()})
+    want_parts = {k: v.item() for k, v in want_parts.items()}
+    log(f"  KD step ({graph.num_edges} edges): launches as the fused step; "
+        "parts " + ", ".join(f"{k} {got_parts[k]:.7f} (plain {v:.7f})"
+                             for k, v in want_parts.items()))
+    for k, v in want_parts.items():
+        if abs(got_parts[k] - v) > STEP_LOSS_RTOL * abs(v):
+            raise AssertionError(f"KD step: {k} vs the plain step")
+    if not any(k.startswith("student.") for k in got[1]):
+        raise AssertionError("the KD model has no student")
+    compare_steps("KD sampled fused step vs the plain step", got, want,
+                  STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_GRAD_ATOL_REL)
+    lp.end_epoch(run, graph)
+
+
+def phase_llp(fg):
+    """Phase 15c: ``run_llp`` at ``LLPConfig()`` (hidden 32 = M, 2 teacher
+    heads, batch 4096) on the phase-3 graph, 2 epochs (cut from 10),
+    with 4,096 'nb' sampled anchors an epoch and with the margin-rank
+    term; the step's wall, kernels and idle share; at dropout 0, the
+    teacher's embedding and the first ``CARD_CPU_STEPS`` losses on the
+    card against the CPU."""
+    from msha_gnn_torch.training import kd
+    from msha_gnn_torch.utils import LLPConfig
+
+    for label, cfg in (("ps nb", LLPConfig(epochs=LLP_EPOCHS,
+                                           ps_samples=4096, ps_method="nb")),
+                       ("kd_rank", LLPConfig(epochs=LLP_EPOCHS,
+                                             kd_rank=0.1))):
+        logs = []
+        t0 = time.perf_counter()
+        result = kd.run_llp(cfg, log=logs.append, fg=fg, device=DEVICE)
+        wall = time.perf_counter() - t0
+        epochs = [r for r in logs if r["event"] == "llp_train_epoch"]
+        log(f"  run_llp ({label}): {wall:.2f} s; epochs "
+            + "; ".join(f"{r['seconds']:.3f} s, loss {r['loss']:.5f}"
+                        for r in epochs) + f"; {json.dumps(result)}")
+        if len(epochs) != LLP_EPOCHS or not all(
+                np.isfinite(v) for v in result.values()):
+            raise AssertionError(f"run_llp ({label}): {result}")
+        if label == "kd_rank" and not all("kd_rank" in r for r in epochs):
+            raise AssertionError("run_llp: no kd_rank part")
+
+    run = kd.build_llp(LLPConfig(ps_samples=4096), fg, DEVICE)
+    idx, wl = kd.epoch_tensors(run)
+    log(f"  an LLP epoch: {idx.shape[0]} steps of {idx.shape[2]} pairs")
+    for i in range(3):
+        kd.llp_step(run, idx[i], wl[i])
+    walls = []
+    for i in range(3, 23):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kd.llp_step(run, idx[i], wl[i])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    log(f"  LLP step wall p50 {statistics.median(walls):.3f} ms (20 steps)")
+    later = iter(range(23, 33))
+
+    def one_step():
+        i = next(later)
+        kd.llp_step(run, idx[i], wl[i])
+
+    profile_calls("LLP step", one_step, 10)
+
+    cfg0 = LLPConfig(ps_samples=4096, dropout=0.0)
+    card, cpu = kd.build_llp(cfg0, fg, DEVICE), kd.build_llp(cfg0, fg, "cpu")
+    close("LLP teacher embedding [N, M] (log-softmax), card vs CPU",
+          card.t_h.cpu(), cpu.t_h, MSHA_RTOL, MSHA_ATOL)
+    (idx_c, wl_c), (idx_p, wl_p) = kd.epoch_tensors(card), \
+        kd.epoch_tensors(cpu)
+    if not (torch.equal(idx_c.cpu(), idx_p) and torch.equal(wl_c.cpu(), wl_p)):
+        raise AssertionError("LLP: the epoch's arrays differ card vs CPU")
+    losses_c, losses_p = [], []
+    for i in range(CARD_CPU_STEPS):
+        losses_c.append(float(kd.llp_step(card, idx_c[i], wl_c[i])[0]))
+        losses_p.append(float(kd.llp_step(cpu, idx_p[i], wl_p[i])[0]))
+    log(f"  LLP at dropout 0, {CARD_CPU_STEPS} steps: card {losses_c[0]:.7f} "
+        f".. {losses_c[-1]:.7f}, max rel err vs CPU "
+        f"{max(abs(a - b) / abs(b) for a, b in zip(losses_c, losses_p)):.2e} "
+        f"(rtol {TRAIN_LOSS_RTOL}, atol {TRAIN_LOSS_ATOL})")
+    np.testing.assert_allclose(losses_c, losses_p, rtol=TRAIN_LOSS_RTOL,
+                               atol=TRAIN_LOSS_ATOL, err_msg="LLP steps")
+
+
+def phase_sgae(fg):
+    """Phase 15d: ``run_sgae`` at ``SGAEConfig(pretrain_epochs=1,
+    epochs=1)`` on the phase-3 graph and the temporal pretrain over it and
+    a second synthetic year; the pretrain losses (no dropout) and the
+    fine-tune's first ``CARD_CPU_STEPS`` losses on the card against the
+    CPU; the walls."""
+    from msha_gnn_torch.data import synthetic_flow, train_test_split_records
+    from msha_gnn_torch.training import (Trainer, TrainState,
+                                         make_train_step, sage_task, sgae)
+    from msha_gnn_torch.utils import SGAEConfig
+
+    cfg = SGAEConfig(pretrain_epochs=1, epochs=1)
+    logs = []
+    t0 = time.perf_counter()
+    result = sgae.run_sgae(cfg, log=logs.append, fg=fg, device=DEVICE)
+    wall = time.perf_counter() - t0
+    pre = [r for r in logs if r["event"] == "sgae_pretrain"]
+    fit = [r for r in logs if r["event"] == "train_epoch"]
+    log(f"  run_sgae: {wall:.2f} s (pretrain {pre[0]['seconds']:.3f} s, "
+        f"fine-tune epoch {fit[0]['seconds']:.3f} s); {json.dumps(result)}")
+    if not np.isfinite(result["finetune"]["train_loss"]):
+        raise AssertionError(f"run_sgae: {result}")
+
+    fg2 = synthetic_flow(20000, M, 150, N_PROV, 100000, seed=1)
+    walls, hist = {}, {}
+    for dev in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        z_src, _, h1 = sgae.pretrain_autoencoder(
+            fg, dim=cfg.in_features, epochs=2, lr=cfg.lr, seed=cfg.seed,
+            device=dev)
+        t1 = time.perf_counter()
+        _, _, h2 = sgae.pretrain_autoencoder_temporal(
+            {"2015": fg, "2016": fg2}, dim=cfg.in_features, epochs=1,
+            lr=cfg.lr, seed=cfg.seed, device=dev)
+        walls[dev] = (t1 - t0, time.perf_counter() - t1)
+        hist[dev] = (h1, h2, z_src)
+    log(f"  pretrain (2 epochs) {walls[DEVICE][0]:.2f} s, temporal pretrain "
+        f"(2015 and a 100,000-record year, 1 epoch) {walls[DEVICE][1]:.2f} "
+        f"s on the card ({walls['cpu'][0]:.2f} / {walls['cpu'][1]:.2f} s on "
+        f"the CPU); losses card {hist[DEVICE][0]} / {hist[DEVICE][1]}, CPU "
+        f"{hist['cpu'][0]} / {hist['cpu'][1]}")
+    np.testing.assert_allclose(hist[DEVICE][0], hist["cpu"][0],
+                               rtol=TRAIN_LOSS_RTOL, atol=TRAIN_LOSS_ATOL)
+    for y, h in hist["cpu"][1].items():
+        np.testing.assert_allclose(hist[DEVICE][1][y], h,
+                                   rtol=TRAIN_LOSS_RTOL, atol=TRAIN_LOSS_ATOL)
+
+    # the fine-tune from the card's embeddings, card vs CPU in lockstep
+    z = hist[DEVICE][2]
+    states, steps = {}, {}
+    for dev in (DEVICE, "cpu"):
+        task, model = sage_task(fg, in_features=cfg.in_features,
+                                dropout=cfg.dropout, lr=cfg.lr,
+                                weight_decay=cfg.weight_decay, seed=cfg.seed,
+                                device=dev)
+        with torch.no_grad():
+            model.Sfeatures.copy_(z.to(dev))
+        states[dev] = TrainState.create(model, task.optimizer)
+        steps[dev] = make_train_step(task)
+        trainer = Trainer(task=task, src=fg.edge_src.numpy(),
+                          labels=fg.edge_dst.numpy(),
+                          batch_size=cfg.batch_size, seed=cfg.seed)
+    train_ids, _ = train_test_split_records(fg.num_records, 0.9, cfg.seed)
+    batches = stacked_batches(trainer, train_ids, cfg.seed)[:CARD_CPU_STEPS]
+    card = [float(steps[DEVICE](states[DEVICE], *b)) for b in batches]
+    cpu = [float(steps["cpu"](states["cpu"], *(x.cpu() for x in b)))
+           for b in batches]
+    log(f"  SGAE fine-tune, {len(card)} steps: card {card[0]:.7f} .. "
+        f"{card[-1]:.7f}, max rel err vs CPU "
+        f"{max(abs(a - b) / abs(b) for a, b in zip(card, cpu)):.2e}")
+    np.testing.assert_allclose(card, cpu, rtol=TRAIN_LOSS_RTOL,
+                               atol=TRAIN_LOSS_ATOL, err_msg="SGAE fine-tune")
 
 
 def dense_reference(fg, model):
@@ -4264,6 +4866,18 @@ def main() -> int:
     for k in bf16_kernels:
         k["launches"] = per_name[k["name"]]
     kernels += bf16_kernels
+
+    t15 = time.perf_counter()
+    log(f"phase 15a: sampled linkpred (neighbor_fanout {SAMPLED_FANOUT}, "
+        "LinkPredConfig defaults, fused on per-epoch subgraphs)")
+    kernels += phase_sampled_linkpred(split)
+    log("phase 15b: a KD linkpred step (use_kd, sampled subgraph)")
+    phase_sampled_kd(split)
+    log("phase 15c: LLP (run_llp, LLPConfig defaults) on the phase-3 graph")
+    phase_llp(fg)
+    log("phase 15d: SGAE (run_sgae, temporal pretrain) on the phase-3 graph")
+    phase_sgae(fg)
+    log(f"  phase 15: {time.perf_counter() - t15:.1f} s")
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{kernels}")

@@ -4,10 +4,11 @@ Commands of ``msha_gnn_tpu/cli.py`` with the same flags, plus
 ``--device``: ``train`` (flow classification: train, evaluate every epoch,
 optionally checkpoint), ``eval`` (evaluate a checkpoint), ``predict``
 (batch inference from a checkpoint), ``serve`` (HTTP server from a
-checkpoint) and ``linkpred`` (ogbl-ddi-style link prediction, trained and
-evaluated).  The port has every model preset of the JAX package
-(:data:`PORTED_MODELS`); ``train --years`` and any ``linkpred`` option
-that is not ported exit with code 2.
+checkpoint), ``linkpred`` (ogbl-ddi-style link prediction, trained and
+evaluated), ``llp`` (KD link prediction on the flow graph) and ``sgae``
+(autoencoder pretrain and GraphSAGE fine-tune).  The port has every model
+preset of the JAX package (:data:`PORTED_MODELS`); ``train --years`` and
+a ``linkpred --impl`` the port lacks exit with code 2.
 """
 
 from __future__ import annotations
@@ -185,16 +186,9 @@ def cmd_linkpred(args) -> int:
     from .training.link_prediction import LinkPredConfig, run_link_prediction
     from .utils import JsonlLogger
 
-    unported = []
-    if args.neighbor_fanout > 0:
-        unported.append("--neighbor_fanout > 0 (data/sampler.py)")
-    if args.use_kd:
-        unported.append("--use_kd (training/kd.py)")
     if args.impl not in ("auto", *IMPLS):
-        unported.append(f"--impl {args.impl} (the port has auto, "
-                        f"{', '.join(IMPLS)})")
-    if unported:
-        print(f"not ported: {'; '.join(unported)}", file=sys.stderr)
+        print(f"not ported: --impl {args.impl} (the port has auto, "
+              f"{', '.join(IMPLS)})", file=sys.stderr)
         return 2
     data = load_ddi(root=args.ogb_root, seed=args.seed)
     split = split_edges(data, seed=args.seed)
@@ -210,8 +204,31 @@ def cmd_linkpred(args) -> int:
     return 0
 
 
+def cmd_llp(args) -> int:
+    """Train and evaluate KD link prediction; prints the result as JSON."""
+    from .training.kd import run_llp
+    from .utils import JsonlLogger, LLPConfig
+
+    cfg = _config_from_args(LLPConfig, args)
+    result = run_llp(cfg, log=JsonlLogger(cfg.log_path), device=args.device)
+    print(json.dumps(result))
+    return 0
+
+
+def cmd_sgae(args) -> int:
+    """Autoencoder pretrain, then the GraphSAGE fine-tune; prints the
+    pretrain losses and the last epoch's record as JSON."""
+    from .training.sgae import run_sgae
+    from .utils import JsonlLogger, SGAEConfig
+
+    cfg = _config_from_args(SGAEConfig, args)
+    result = run_sgae(cfg, log=JsonlLogger(cfg.log_path), device=args.device)
+    print(json.dumps(result))
+    return 0
+
+
 def main(argv=None) -> int:
-    from .utils import TrainConfig
+    from .utils import LLPConfig, SGAEConfig, TrainConfig
 
     parser = argparse.ArgumentParser(prog="msha_gnn_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -244,6 +261,14 @@ def main(argv=None) -> int:
     p_srv.add_argument("--predict_batch", type=int, default=1024)
     p_srv.set_defaults(fn=cmd_serve)
 
+    p_llp = sub.add_parser("llp", help="KD link prediction")
+    _add_dataclass_args(p_llp, LLPConfig)
+    p_llp.set_defaults(fn=cmd_llp)
+
+    p_sgae = sub.add_parser("sgae", help="autoencoder pretrain + fine-tune")
+    _add_dataclass_args(p_sgae, SGAEConfig)
+    p_sgae.set_defaults(fn=cmd_sgae)
+
     p_lp = sub.add_parser("linkpred",
                           help="OGBL-DDI-style link prediction at scale")
     p_lp.add_argument("--ogb_root", default=None)
@@ -262,7 +287,7 @@ def main(argv=None) -> int:
     p_lp.add_argument("--log_path", default=None)
     p_lp.set_defaults(fn=cmd_linkpred)
 
-    for p in (p_train, p_eval, p_pred, p_srv, p_lp):
+    for p in (p_train, p_eval, p_pred, p_srv, p_llp, p_sgae, p_lp):
         p.add_argument("--device", default="cuda",
                        help="torch device: cuda (default) or cpu")
 

@@ -7,6 +7,12 @@ from .flow import (
     train_test_split_records,
 )
 from .ogb import load_ddi, load_ogbl_ddi, split_edges, synthetic_ddi
+from .sampler import (
+    neighbor_sample_subgraph,
+    sample_negatives,
+    sample_positives_nearby,
+    sample_positives_rw,
+)
 
 __all__ = [
     "load_ddi",
@@ -17,6 +23,10 @@ __all__ = [
     "load_flow_records",
     "load_gdp",
     "load_index_match",
+    "neighbor_sample_subgraph",
+    "sample_negatives",
+    "sample_positives_nearby",
+    "sample_positives_rw",
     "synthetic_flow",
     "train_test_split_records",
 ]

@@ -1,5 +1,6 @@
 from .convert import (gat_params_from_jax, gcn_params_from_jax,
                       hgane_params_from_jax, linkpred_params_from_jax,
+                      llp_params_from_jax,
                       msha_layer_params_from_jax, msha_params_from_jax,
                       sage_params_from_jax, scale_params_from_jax,
                       sparse_gat_layer_params_from_jax)
@@ -15,6 +16,7 @@ __all__ = ["GAT", "GCN", "GraphConvolution", "GraphSAGE", "HGANELayer",
            "SparseGAT", "SparseGATLayer", "gat_params_from_jax",
            "gather_dense_rows", "gcn_params_from_jax",
            "hgane_params_from_jax", "linkpred_params_from_jax",
+           "llp_params_from_jax",
            "msha_layer_params_from_jax", "msha_params_from_jax",
            "sage_params_from_jax", "scale_params_from_jax",
            "sparse_gat_layer_params_from_jax"]

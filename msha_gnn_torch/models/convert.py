@@ -89,18 +89,52 @@ def hgane_params_from_jax(variables: Mapping) -> dict:
     return sd
 
 
+def dense_stack_params_from_jax(params: Mapping, prefix: str) -> dict:
+    """A flax tree of ``Dense`` layers ``{"<name>_<i>": {"kernel",
+    "bias"}}`` (``MLP``'s ``layers_i``, ``LinkPredictor``'s ``lins_i``) ->
+    the entries of the port's ``nn.ModuleList`` ``prefix``."""
+    sd = {}
+    for name, dense in params.items():
+        i = int(name.rsplit("_", 1)[1])
+        sd[f"{prefix}.{i}.weight"] = _tensor(dense["kernel"]).T.contiguous()
+        sd[f"{prefix}.{i}.bias"] = _tensor(dense["bias"])
+    return sd
+
+
 def linkpred_params_from_jax(params: Mapping) -> dict:
-    """The ``{"encoder", "predictor", "features"}`` tree of
-    ``msha_gnn_tpu.training.link_prediction.run_link_prediction`` -> the
-    ``state_dict`` of the port's ``LinkPredModel``."""
+    """The ``{"encoder", "predictor", "features"}`` tree (and ``student``
+    with KD) of ``msha_gnn_tpu.training.link_prediction.
+    run_link_prediction`` -> the ``state_dict`` of the port's
+    ``LinkPredModel``."""
     sd = {"features": _tensor(params["features"])}
     for name, layer in params["encoder"].items():
         for k, v in sparse_gat_layer_params_from_jax(layer).items():
             sd[f"encoder.{name}.{k}"] = v
-    for name, dense in params["predictor"].items():
-        i = int(name.rsplit("_", 1)[1])
-        sd[f"predictor.lins.{i}.weight"] = _tensor(dense["kernel"]).T.contiguous()
-        sd[f"predictor.lins.{i}.bias"] = _tensor(dense["bias"])
+    sd.update(dense_stack_params_from_jax(params["predictor"],
+                                          "predictor.lins"))
+    if "student" in params:
+        sd.update(dense_stack_params_from_jax(params["student"],
+                                              "student.layers"))
+    return sd
+
+
+def llp_params_from_jax(trees: Mapping) -> dict:
+    """The LLP run's flax trees ``{"student", "predictor", "teacher",
+    "teacher_predictor"}`` (each a ``params`` tree or a ``{"params":
+    ...}`` variables dict; ``msha_gnn_tpu/training/kd.py`` keeps the first
+    two in its optimised tree and the teacher's apart) -> the entries of
+    the port's ``LLPModel`` ``state_dict`` (without ``features``, a
+    constant of the run)."""
+    def params_of(tree):
+        return tree["params"] if "params" in tree else tree
+
+    sd = {}
+    for name, prefix in (("student", "student.layers"),
+                         ("predictor", "predictor.lins"),
+                         ("teacher_predictor", "teacher_predictor.lins")):
+        sd.update(dense_stack_params_from_jax(params_of(trees[name]), prefix))
+    for k, v in gat_params_from_jax(params_of(trees["teacher"])).items():
+        sd[f"teacher.{k}"] = v
     return sd
 
 

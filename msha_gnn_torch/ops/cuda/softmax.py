@@ -684,13 +684,17 @@ class SegmentSoftmaxOperator:
                    if dev.type == "cuda" else None)
 
     @staticmethod
-    def build(graph: "BipartiteGraph") -> "SegmentSoftmaxOperator":
-        """The operator of ``graph``'s rows (``per="src"``).  The JAX build
-        masks ``senders < n_src``; here that mask needs no bytes: it is
-        False only on the pad slots past ``row_ptr[-1]``, which the kernels
-        never visit and write as 0."""
-        return SegmentSoftmaxOperator(graph.senders, graph.row_ptr,
-                                      graph.n_src, device=graph.device)
+    def build(graph: "BipartiteGraph",
+              host: Optional["BipartiteGraph"] = None
+              ) -> "SegmentSoftmaxOperator":
+        """The operator of ``graph``'s rows (``per="src"``), on the graph's
+        device, its row pointer read from ``host`` (the same graph on the
+        CPU) when given.  The JAX build masks ``senders < n_src``; here
+        that mask needs no bytes: it is False only on the pad slots past
+        ``row_ptr[-1]``, which the kernels never visit and write as 0."""
+        src = graph if host is None else host
+        return SegmentSoftmaxOperator(src.senders, src.row_ptr, src.n_src,
+                                      device=graph.device)
 
     def _checked(self, logits: torch.Tensor) -> torch.Tensor:
         if logits.device != self.device:
@@ -716,9 +720,12 @@ class SegmentSoftmaxOperator:
         return _BroadcastFn.apply(v.float().contiguous(), self)
 
 
-def softmax_operator_for(graph: "BipartiteGraph") -> SegmentSoftmaxOperator:
-    """The cached :class:`SegmentSoftmaxOperator` of ``graph``."""
-    return cached_for(graph, SegmentSoftmaxOperator.build)
+def softmax_operator_for(graph: "BipartiteGraph",
+                         host: Optional["BipartiteGraph"] = None
+                         ) -> SegmentSoftmaxOperator:
+    """The cached :class:`SegmentSoftmaxOperator` of ``graph`` (a first
+    build reads ``host``, the same graph on the CPU, when given)."""
+    return cached_for(graph, SegmentSoftmaxOperator.build, host)
 
 
 def edge_softmax_cuda(graph: "BipartiteGraph",

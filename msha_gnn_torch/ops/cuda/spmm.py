@@ -576,19 +576,26 @@ class SpmmOperator:
     """
 
     def __init__(self, graph: "BipartiteGraph", device="cuda",
-                 fused_bwd: bool = False, precision: str = "f32"):
+                 fused_bwd: bool = False, precision: str = "f32",
+                 host: Optional["BipartiteGraph"] = None):
         if precision not in PRECISIONS:
             raise ValueError(f"unknown precision {precision!r} (f32 | bf16)")
         self.device = resolve_device(device)
         self.graph = graph
         self.fused_bwd = bool(fused_bwd)
         self.precision = precision
-        e = graph.num_edges
+        # the arrays are sorted on the host: read them from ``host``, the
+        # same graph on the CPU, when the caller has it
+        src = graph if host is None else host
+        e = src.num_edges
+        if e != graph.num_edges or src.n_src != graph.n_src \
+                or src.n_dst != graph.n_dst:
+            raise ValueError("host is not the same graph")
         if e >= 2**31:
             raise ValueError(f"{e} edges overflow the kernel's int32 offsets")
-        s = graph.senders[:e].cpu().numpy()
-        r = graph.receivers[:e].cpu().numpy()
-        w = graph.weight[:e].cpu().numpy().astype(np.float32)
+        s = src.senders[:e].cpu().numpy()
+        r = src.receivers[:e].cpu().numpy()
+        w = src.weight[:e].cpu().numpy().astype(np.float32)
         # CSC: the same edges sorted by (receiver, sender)
         order = np.lexsort((s, r))
         csc_ptr = np.zeros(graph.n_dst + 1, np.int64)
@@ -598,7 +605,7 @@ class SpmmOperator:
         def put(a, dtype):
             return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
 
-        self.ptr = put(graph.row_ptr.cpu().numpy(), np.int32)
+        self.ptr = put(src.row_ptr.cpu().numpy(), np.int32)
         self.col = put(r, np.int32)
         self.w = put(w, np.float32)
         self.t_ptr = put(np.cumsum(csc_ptr), np.int32)
@@ -613,9 +620,11 @@ class SpmmOperator:
 
     @staticmethod
     def build(graph: "BipartiteGraph", fused_bwd: bool = False,
-              precision: str = "f32") -> "SpmmOperator":
-        """The operator of ``graph`` on the graph's device."""
-        return SpmmOperator(graph, graph.device, fused_bwd, precision)
+              precision: str = "f32",
+              host: Optional["BipartiteGraph"] = None) -> "SpmmOperator":
+        """The operator of ``graph`` on the graph's device (its arrays read
+        from ``host`` when given)."""
+        return SpmmOperator(graph, graph.device, fused_bwd, precision, host)
 
     def _launch(self, ptr, col, w, x, n_out, transpose):
         before = launches + bf16_launches
@@ -746,28 +755,38 @@ class _SpmmFn(torch.autograd.Function):
 _OPS: dict = {}
 
 
-def cached_for(graph: "BipartiteGraph", build):
-    """``build(graph)``, made once per graph and builder (the last 16)."""
+def cached_for(graph: "BipartiteGraph", build, host=None):
+    """``build(graph)`` (``build(graph, host=host)`` with ``host``, the same
+    graph on the CPU), made once per graph and builder (the last 16)."""
     key = (id(graph), build)
     entry = _OPS.get(key)
     if entry is None or entry[0] is not graph:
-        entry = (graph, build(graph))
+        entry = (graph, build(graph) if host is None
+                 else build(graph, host=host))
         _OPS[key] = entry
         if len(_OPS) > 16:
             _OPS.pop(next(iter(_OPS)))
     return entry[1]
 
 
-def _build_bf16(graph: "BipartiteGraph") -> SpmmOperator:
-    return SpmmOperator.build(graph, precision="bf16")
+def release(graph: "BipartiteGraph") -> None:
+    """Drop every cached operator of ``graph`` (a per-epoch subgraph, at
+    its epoch's end), so its device arrays go with the graph."""
+    for key in [k for k, entry in _OPS.items() if entry[0] is graph]:
+        del _OPS[key]
 
 
-def operator_for(graph: "BipartiteGraph",
-                 precision: str = "f32") -> SpmmOperator:
+def _build_bf16(graph: "BipartiteGraph", host=None) -> SpmmOperator:
+    return SpmmOperator.build(graph, precision="bf16", host=host)
+
+
+def operator_for(graph: "BipartiteGraph", precision: str = "f32",
+                 host: Optional["BipartiteGraph"] = None) -> SpmmOperator:
     """The cached :class:`SpmmOperator` of ``graph`` at ``precision``, on
-    the graph's device."""
+    the graph's device; a first build reads the arrays from ``host`` when
+    given (the same graph on the CPU: no copy back from the card)."""
     return cached_for(graph, _build_bf16 if precision == "bf16"
-                      else SpmmOperator.build)
+                      else SpmmOperator.build, host)
 
 
 def spmm_cuda(graph: "BipartiteGraph", x: torch.Tensor, *,

@@ -1,5 +1,6 @@
-from .config import TrainConfig
+from .config import LLPConfig, SGAEConfig, TrainConfig
 from .logging import JsonlLogger
 from .prof import StepTimer, annotate, trace
 
-__all__ = ["JsonlLogger", "StepTimer", "TrainConfig", "annotate", "trace"]
+__all__ = ["JsonlLogger", "LLPConfig", "SGAEConfig", "StepTimer",
+           "TrainConfig", "annotate", "trace"]

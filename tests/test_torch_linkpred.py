@@ -15,6 +15,10 @@
   gradients rtol 2e-3, atol 1e-3, the JAX package's tolerances for the
   fused operator's gradients (its f32 paths sum through a bf16 hi/lo
   split);
+* a step on a per-epoch sampled subgraph (``neighbor_fanout``), with and
+  without the KD student (``use_kd``), against the JAX run's loss on the
+  subgraph its sampler draws, which it sends to its XLA path; the epoch's
+  draws (subgraph, permutation, negatives) against the JAX run's order;
 * Adam, Hits@K, AUC, BCE, the training loop and the CLI on the CPU.
 """
 
@@ -29,19 +33,24 @@ import pytest
 import torch
 
 from msha_gnn_tpu.data import ogb as jax_ogb
+from msha_gnn_tpu.data import sampler as jax_sampler
 from msha_gnn_tpu.models import MLP as JaxMLP
 from msha_gnn_tpu.models import LinkPredictor as JaxLinkPredictor
 from msha_gnn_tpu.models import SparseGAT as JaxSparseGAT
 from msha_gnn_tpu.training.kd import _binary_auc_np
 from msha_gnn_tpu.training.losses import bce_loss as jax_bce_loss
+from msha_gnn_tpu.training.losses import kd_cosine as jax_kd_cosine
+from msha_gnn_tpu.training.losses import mse_loss as jax_mse_loss
 from msha_gnn_tpu.training.metrics import hits_at_k as jax_hits_at_k
 from msha_gnn_tpu.training.optim import adam_l2 as jax_adam_l2
 from msha_gnn_torch import cli
-from msha_gnn_torch.data import ogb
+from msha_gnn_torch.data import ogb, sampler
 from msha_gnn_torch.models import MLP, LinkPredictor, linkpred_params_from_jax
 from msha_gnn_torch.training import (LinkPredConfig, LinkPredModel, adam_l2,
-                                     bce_loss, binary_auc, hits_at_k,
-                                     linkpred_loss, run_link_prediction)
+                                     bce_loss, binary_auc,
+                                     build_link_prediction, epoch_data,
+                                     hits_at_k, linkpred_loss,
+                                     linkpred_loss_parts, run_link_prediction)
 from msha_gnn_torch.utils import JsonlLogger
 
 LOSS_RTOL = 1e-4
@@ -163,6 +172,166 @@ def test_loss_and_gradients_match_jax(jax_linkpred, impl):
         np.testing.assert_allclose(got[name].grad.numpy(), g.numpy(),
                                    rtol=GRAD_RTOL, atol=GRAD_ATOL,
                                    err_msg=name)
+
+
+FANOUT = 4
+
+
+@pytest.fixture(scope="module")
+def jax_sampled():
+    """The JAX run's step on a sampled subgraph at hidden 8, dropout 0,
+    without and with the KD student: the subgraph its sampler draws from
+    ``default_rng(2)`` (padded to the full graph's slots, as the run pads
+    it), the XLA path its sampled epochs run, the loss and its parts as
+    ``link_prediction.py`` forms them, and the gradients."""
+    split = tiny_split(jax_ogb, seed=3)
+    n, hidden = split["n"], 8
+    graph = split["graph"]
+    sub = jax_sampler.neighbor_sample_subgraph(
+        np.random.default_rng(2), graph, np.arange(n), FANOUT,
+        pad_to_multiple=graph.num_padded_edges)
+    encoder = JaxSparseGAT(in_features=hidden, hidden=hidden,
+                           out_features=hidden, n_heads=2, dropout=0.0)
+    predictor = JaxLinkPredictor(predictor="mlp", hidden_channels=hidden,
+                                 num_layers=2, dropout=0.0)
+    student = JaxMLP(num_layers=2, hidden_dim=hidden, output_dim=hidden,
+                     dropout_ratio=0.0)
+    k_feat, k_e, k_p, k_s = jax.random.split(jax.random.key(5), 4)
+    features = jax.random.normal(k_feat, (n, hidden)) * 0.1
+    params = {
+        "encoder": encoder.init(k_e, graph, features, train=False,
+                                impl="xla")["params"],
+        "predictor": predictor.init(k_p, jnp.zeros((1, hidden)),
+                                    jnp.zeros((1, hidden)),
+                                    train=False)["params"],
+        "features": features,
+        "student": student.init(k_s, features, train=False)["params"],
+    }
+    rng = np.random.default_rng(6)
+    ps, pr = (a[:256] for a in split["train_pos"])
+    ns, nr = rng.integers(0, n, (2, 256))
+    batch = [np.asarray(v, np.int64) for v in (ps, pr, ns, nr)]
+
+    def loss_fn(params, kd):
+        h = encoder.apply({"params": params["encoder"]}, sub,
+                          params["features"], train=True, impl="xla")
+        pos = predictor.apply({"params": params["predictor"]},
+                              h[batch[0]], h[batch[1]], train=True)
+        neg = predictor.apply({"params": params["predictor"]},
+                              h[batch[2]], h[batch[3]], train=True)
+        label = 0.5 * (jax_bce_loss(pos, jnp.ones_like(pos))
+                       + jax_bce_loss(neg, jnp.zeros_like(neg)))
+        if not kd:
+            return label, {"label": label}
+        h_s = student.apply({"params": params["student"]},
+                            params["features"], train=True)
+        pos_s_score = predictor.apply({"params": params["predictor"]},
+                                      h_s[batch[0]], h_s[batch[1]],
+                                      train=False)
+        cos = jax_kd_cosine(h_s[batch[0]], h[batch[0]])
+        mse = jax_mse_loss(pos_s_score, jax.lax.stop_gradient(pos))
+        total = 10.0 * label + 0.1 * cos + 100.0 * mse
+        return total, {"label": label, "kd_cosine": cos, "kd_mse": mse}
+
+    results = {}
+    for kd in (False, True):
+        (loss, parts), grads = jax.value_and_grad(
+            loss_fn, has_aux=True)(params, kd)
+        if not kd:
+            grads = {k: v for k, v in grads.items() if k != "student"}
+        results[kd] = (float(loss), {k: float(v) for k, v in parts.items()},
+                       grads)
+    return params, batch, results
+
+
+@pytest.mark.parametrize("kd", [False, True])
+@pytest.mark.parametrize("impl", ["torch", "fused", "materialised", "flash"])
+def test_sampled_step_matches_jax(jax_sampled, impl, kd):
+    """One step on the subgraph the port's sampler draws from the same
+    generator state (padded to its own 128 slots), every ``impl``: the
+    loss, its parts and the gradients, at the tolerances above."""
+    params, batch, results = jax_sampled
+    want_loss, want_parts, want_grads = results[kd]
+    split = tiny_split(ogb, seed=3)
+    sub = sampler.neighbor_sample_subgraph(
+        np.random.default_rng(2), split["graph"], np.arange(split["n"]),
+        FANOUT, pad_to_multiple=128)
+    assert 0 < sub.num_edges < split["graph"].num_edges
+    cfg = LinkPredConfig(hidden=8, dropout=0.0, seed=0, use_kd=kd)
+    model = LinkPredModel(split["n"], cfg)
+    tree = params if kd else {k: v for k, v in params.items()
+                              if k != "student"}
+    model.load_state_dict(linkpred_params_from_jax(tree))
+    loss, parts = linkpred_loss_parts(
+        model, sub, [torch.from_numpy(b) for b in batch], impl=impl)
+    np.testing.assert_allclose(loss.item(), want_loss, rtol=LOSS_RTOL)
+    assert set(parts) == set(want_parts)
+    for k, v in parts.items():
+        np.testing.assert_allclose(v.item(), want_parts[k], rtol=LOSS_RTOL,
+                                   err_msg=k)
+    loss.backward()
+    want = linkpred_params_from_jax(want_grads)
+    got = dict(model.named_parameters())
+    assert set(got) == set(want)
+    for name, g in want.items():
+        np.testing.assert_allclose(got[name].grad.numpy(), g.numpy(),
+                                   rtol=GRAD_RTOL, atol=GRAD_ATOL,
+                                   err_msg=name)
+
+
+def test_sampled_epoch_draws_follow_jax():
+    """``epoch_data`` draws the subgraph, then the permutation and the
+    negatives, from the run's generator, in the order of
+    ``msha_gnn_tpu/training/link_prediction.py``'s epoch loop; two epochs."""
+    split_t, split_j = tiny_split(ogb, seed=4), tiny_split(jax_ogb, seed=4)
+    cfg = LinkPredConfig(hidden=8, batch_size=256, seed=9,
+                         neighbor_fanout=FANOUT)
+    run = build_link_prediction(split_t, cfg, device="cpu")
+    rng = np.random.default_rng(cfg.seed)
+    train_s, train_r = split_j["train_pos"]
+    n, b = split_j["n"], cfg.batch_size
+    for _ in range(2):
+        g, batches = epoch_data(run)
+        g_j = jax_sampler.neighbor_sample_subgraph(
+            rng, split_j["graph"], np.arange(n), FANOUT,
+            pad_to_multiple=split_j["graph"].num_padded_edges)
+        e = g_j.num_edges
+        assert g.num_edges == e and g.num_padded_edges % 128 == 0
+        for name in ("senders", "receivers", "weight"):
+            np.testing.assert_array_equal(getattr(g, name)[:e].numpy(),
+                                          np.asarray(getattr(g_j, name))[:e])
+        np.testing.assert_array_equal(g.row_ptr.numpy(),
+                                      np.asarray(g_j.row_ptr))
+        perm = rng.permutation(len(train_s))
+        steps = len(perm) // b
+        ids = perm[: steps * b].reshape(steps, b)
+        neg_s = rng.integers(0, n, (steps, b))
+        neg_r = rng.integers(0, n, (steps, b))
+        want = np.stack([train_s[ids], train_r[ids], neg_s, neg_r], axis=1)
+        np.testing.assert_array_equal(batches.numpy(), want)
+
+
+def test_run_link_prediction_sampled_with_kd(tmp_path):
+    """End to end on the CPU with ``neighbor_fanout`` and ``use_kd``: each
+    epoch's event carries the loss parts; the evaluation is on the full
+    graph, its metrics finite."""
+    path = tmp_path / "log.jsonl"
+    log = JsonlLogger(str(path), echo=False)
+    cfg = LinkPredConfig(hidden=8, epochs=2, batch_size=256, seed=0,
+                         neighbor_fanout=FANOUT, use_kd=True)
+    result = run_link_prediction(tiny_split(ogb), cfg, log=log, device="cpu")
+    log.close()
+    events = [json.loads(line) for line in path.read_text().splitlines()
+              if line]
+    assert [e["event"] for e in events] == ["linkpred_epoch"] * 2 + [
+        "linkpred_eval"]
+    for e in events[:2]:
+        assert {"loss", "label", "kd_cosine", "kd_mse"} <= set(e)
+        total = 10.0 * e["label"] + 0.1 * e["kd_cosine"] + 100.0 * e["kd_mse"]
+        assert np.isfinite(total) and e["kd_cosine"] >= 0.0
+    for key in ("hits@20", "hits@50", "auc", "final_train_loss"):
+        assert np.isfinite(result[key]), key
+    assert result["final_train_loss"] == events[1]["loss"]
 
 
 def test_impls_draw_the_same_dropout_masks():
@@ -319,9 +488,10 @@ def test_run_link_prediction_on_cpu(tmp_path):
     events = [json.loads(line)["event"] for line in path.read_text().split(
         "\n") if line]
     assert events == ["linkpred_epoch", "linkpred_epoch", "linkpred_eval"]
-    with pytest.raises(NotImplementedError, match="sampler"):
-        run_link_prediction(tiny_split(ogb), LinkPredConfig(
-            neighbor_fanout=4), device="cpu")
+    sampled = run_link_prediction(tiny_split(ogb), LinkPredConfig(
+        hidden=8, epochs=1, batch_size=256, seed=0, neighbor_fanout=4),
+        device="cpu")
+    assert np.isfinite(sampled["auc"]) and sampled["impl"] == "torch"
     with pytest.raises(NotImplementedError, match="xla"):
         run_link_prediction(tiny_split(ogb), LinkPredConfig(impl="xla"),
                             device="cpu")
@@ -340,10 +510,14 @@ def test_cli_linkpred(tmp_path, capsys):
     result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert result["impl"] == "torch" and result["dataset"] == "ogbl-ddi"
     assert np.isfinite(result["auc"])
-    for flags in (["--use_kd", "1"], ["--neighbor_fanout", "4"],
-                  ["--impl", "xla"]):
-        assert cli.main(["linkpred", "--device", "cpu", *flags]) == 2
-        assert "not ported" in capsys.readouterr().err
+    for flags in (["--use_kd", "1"], ["--neighbor_fanout", "4"]):
+        assert cli.main(["linkpred", "--ogb_root", str(tmp_path), "--hidden",
+                         "8", "--epochs", "1", "--batch_size", "128",
+                         "--device", "cpu", *flags]) == 0
+        out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert np.isfinite(out["auc"]), flags
+    assert cli.main(["linkpred", "--device", "cpu", "--impl", "xla"]) == 2
+    assert "not ported" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("impl", ["materialised", "flash"])
