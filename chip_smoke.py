@@ -207,6 +207,31 @@ over the same 20 calls, as is their library yardstick.
    fine-tune's first ``CARD_CPU_STEPS`` losses against the CPU; the
    walls.
 
+16. the raw-data pipeline, joint multi-year training, attention
+   explanation, scorer export and the NaN guard.  16a: 2015 and
+   2016 as 233,887 synthetic raw records each (about 39 K node identities,
+   32 school provinces, majors from the shipped table, every 50th county
+   without GDP) and a 2017 without a flow file, through ``anonymize`` and
+   ``write_anonymous_dataset`` (2015 and 2016 name their recipients in
+   different orders), loaded with ``load_flow_graph``.  16b: ``cli train
+   --years 2015,2016,2017`` at ``TrainConfig()``, 1 epoch on the first
+   40,000 records a year (cut from 233,887): 2017 skipped, every step's
+   loss finite, each year's last 50 below its first 50, the other years'
+   tables bit-equal across each step, no kernel of the port; one step at
+   dropout 0 against the CPU (loss, gradients); the step's wall, kernels,
+   device time and idle share.  16c: ``cli explain --npz_path``: the
+   recorded attention and intra weights against a CPU record forward of
+   the same model, every top-K list of the JSON against the CPU's values
+   rank by rank, clique rows rebuilt from the npz.  16d: ``cli export`` of
+   a ``cli train --model gcn`` checkpoint as a portable table and of a
+   64-step MSHA checkpoint as batches of 1,024, each loaded from its file
+   and held to the live ``Predictor`` on 4,096 ids; one exported GCN call
+   launches exactly 1 + 1 ``csr_spmm_f32`` (gc1 transposed, gc2 plain),
+   counted in the kernels line, its device time beside the eager fill's;
+   the table loaded on the CPU launches none.  16e: ``nan_guard()`` raises
+   at an operator of an MSHA forward with a NaN feature and at
+   ``csr_spmm_f32``'s own check; without it both run.
+
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
 result.
@@ -227,6 +252,7 @@ import urllib.request
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 # H100 SXM published peaks (NVIDIA data sheet) at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -344,6 +370,22 @@ SCALE_CARD_CPU_RTOL = 1e-5
 # one step an epoch runs under the profiler (left out of the wall p50)
 SAMPLED_FANOUT, SAMPLED_EPOCHS, SAMPLED_PROFILED_STEP = 16, 2, 10
 LLP_EPOCHS = 2                         # run_llp at LLPConfig(), cut from 10
+# phase 16: two years of raw records at the 2015 data's shape (233,887
+# records over about 39 K of RAW_POOL node identities, 32 recipients) and a
+# year without records; the joint training's records cut to the first
+# TEMPORAL_RECORDS a year (a full epoch of both years is 6,578 steps), every
+# node's table kept
+RAW_POOL, RAW_RECORDS = N, RECORDS
+TEMPORAL_RECORDS = 40_000
+TEMPORAL_YEARS = ("2015", "2016", "2017")
+EXPLAIN_TOP_K = 100                    # cli explain's --top_k default
+# the recorded attention and intra weights, card vs CPU (float32 GEMMs in
+# another order; the values are probabilities and their weights)
+EXPLAIN_RTOL, EXPLAIN_ATOL = 1e-5, 1e-6
+# an exported scorer against the live Predictor: the JAX package's bounds
+# (tests/test_export.py)
+EXPORT_IDS = 4096
+EXPORT_RTOL, EXPORT_ATOL = 1e-5, 1e-6
 # the fused epoch's metrics before the redesign of csr_spmm_f32 and
 # r1l_bwd_f32 (the same data, seed and state), for comparison by eye
 BEFORE_METRICS = ("before the edge-run kernels: Hits@20 0.0090, Hits@50 "
@@ -4556,6 +4598,542 @@ def phase_sgae(fg):
                                atol=TRAIN_LOSS_ATOL, err_msg="SGAE fine-tune")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the raw-data pipeline, joint multi-year training, attention
+# explanation, scorer export and the NaN guard
+# ---------------------------------------------------------------------------
+
+def raw_records(seed, n_records, provinces):
+    """``n_records`` synthetic raw records drawn from ``RAW_POOL`` node
+    identities (a county each, with a home province, a city, a gender, a
+    major from the shipped override table and a family status); the
+    school province follows the home province, as ``synthetic_flow``'s
+    recipient does.  Returns the records and a county -> GDP table in
+    which every 50th county is missing (the pipeline's fallback)."""
+    from msha_gnn_torch.data.raw import RawRecord, load_major_table
+
+    rng = np.random.default_rng(seed)
+    majors = sorted(load_major_table())
+    home = rng.integers(0, N_PROV, RAW_POOL)
+    city = home * 10 + rng.integers(0, 10, RAW_POOL)
+    major = rng.integers(0, len(majors), RAW_POOL)
+    gender = rng.integers(0, 2, RAW_POOL)
+    family = rng.integers(0, 3, RAW_POOL)
+    node = rng.integers(0, RAW_POOL, n_records)
+    school = (home[node] + rng.integers(0, 3, n_records)) % len(provinces)
+    records = [RawRecord(f"H{home[i]}", f"C{city[i]}", f"K{i}",
+                         "FM"[gender[i]], majors[major[i]],
+                         "abc"[family[i]], provinces[s])
+               for i, s in zip(node.tolist(), school.tolist())]
+    gdp = {f"K{i}": float(v) for i, v in
+           enumerate(rng.lognormal(10.0, 1.0, RAW_POOL)) if i % 50}
+    return records, gdp
+
+
+def phase_raw_dataset(td):
+    """Phase 16a: 2015 and 2016 at the 2015 data's shape and a 2017
+    without flow records, through ``anonymize`` and
+    ``write_anonymous_dataset`` into ``td/data``, loaded back with
+    ``load_flow_graph``; then ``td/train``, the same files with each
+    year's flows cut to the first ``TEMPORAL_RECORDS``.  Returns the two
+    directories."""
+    import shutil
+
+    from msha_gnn_torch.data import load_flow_graph, load_index_match
+    from msha_gnn_torch.data.raw import (anonymize, derive_prefix_table,
+                                         load_major_table,
+                                         write_anonymous_dataset)
+
+    data_dir, train_dir = os.path.join(td, "data"), os.path.join(td, "train")
+    overrides = load_major_table()
+    table = derive_prefix_table(overrides)
+    provinces = [f"P{j:02d}" for j in range(M)]
+    maps = {}
+    for year, seed, n_records in (("2015", 0, RAW_RECORDS),
+                                  ("2016", 1, RAW_RECORDS),
+                                  ("2017", 2, RAW_RECORDS // 4)):
+        t0 = time.perf_counter()
+        records, gdp = raw_records(seed, n_records, provinces)
+        t1 = time.perf_counter()
+        out = anonymize(records, gdp, table, overrides)
+        t2 = time.perf_counter()
+        write_anonymous_dataset(data_dir, year, out)
+        t3 = time.perf_counter()
+        if year == "2017":
+            os.remove(os.path.join(data_dir, "Flow2017.csv"))
+        fg = load_flow_graph(year, data_dir)
+        t4 = time.perf_counter()
+        _, _, maps[year] = load_index_match(
+            os.path.join(data_dir, f"Adjacent{year}.json"))
+        log(f"  {year}: {n_records} raw records ({t1 - t0:.2f} s to draw) "
+            f"-> anonymize {t2 - t1:.2f} s ({out['flows'].shape[0]} kept, "
+            f"{len(out['source_index'])} sources, "
+            f"{len(out['recipient_index'])} recipients), write "
+            f"{t3 - t2:.2f} s, load_flow_graph {t4 - t3:.2f} s: "
+            f"{fg.n_src} x {fg.n_dst}, {fg.num_records} records, "
+            f"{fg.inter.num_edges} edges")
+        want_records = 0 if year == "2017" else out["flows"].shape[0]
+        if fg.n_dst != M or fg.num_records != want_records or \
+                not 0.95 * RAW_POOL * (1 if year != "2017" else 0.2) \
+                <= fg.n_src <= RAW_POOL or \
+                not bool(((fg.gdp >= 0) & (fg.gdp <= 1)).all()):
+            raise AssertionError(f"{year}: the loaded graph's shape")
+    if maps["2015"] == maps["2016"] or set(maps["2015"]) != set(provinces):
+        raise AssertionError("2015 and 2016 should name the same recipients "
+                             "in different orders")
+    log(f"  recipient order 2015 {list(maps['2015'])[:4]}..., 2016 "
+        f"{list(maps['2016'])[:4]}...")
+    os.makedirs(train_dir)
+    for name in os.listdir(data_dir):
+        src = os.path.join(data_dir, name)
+        if name.startswith("Flow"):
+            with open(src) as f:
+                lines = f.readlines()[: TEMPORAL_RECORDS + 1]
+            with open(os.path.join(train_dir, name), "w") as f:
+                f.writelines(lines)
+        else:
+            shutil.copy(src, train_dir)
+    return data_dir, train_dir
+
+
+def phase_temporal(train_dir):
+    """Phase 16b: ``cli train --years 2015,2016,2017 --epochs 1`` at
+    ``TrainConfig()``'s widths on the cut data: the 2017 skip logged, each
+    step's loss finite, each year's last 50 below its first 50, every
+    other year's table bit-equal before and after each step; no kernel of
+    the port (plain PyTorch); then one step's loss and gradients at
+    dropout 0 against the CPU (phase 10's bounds) and the step's wall,
+    kernels, device time and idle share."""
+    import contextlib
+    import io
+
+    from msha_gnn_torch import cli
+    from msha_gnn_torch.data import load_flow_graph, load_index_match
+    from msha_gnn_torch.training import temporal
+    from msha_gnn_torch.utils import TrainConfig
+
+    cfg = TrainConfig()
+    real = temporal.temporal_step
+    losses = {y: [] for y in TEMPORAL_YEARS}
+    checked = [0]
+
+    def step_checked(run, year, batch, labels, generator=None):
+        others = {y: run.state.model.table(y).detach().clone()
+                  for y in run.years if y != year}
+        loss = real(run, year, batch, labels, generator)
+        for y, before in others.items():
+            if not torch.equal(run.state.model.table(y), before):
+                raise AssertionError(f"a {year} step moved Sfeatures_{y}")
+        checked[0] += len(others)
+        losses[year].append(float(loss))
+        return loss
+
+    log_path = os.path.join(train_dir, "log.jsonl")
+    out = io.StringIO()
+    temporal.temporal_step = step_checked
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["train", "--years", ",".join(TEMPORAL_YEARS),
+                           "--data_dir", train_dir, "--epochs", "1",
+                           "--log_path", log_path])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        temporal.temporal_step = real
+    if rc != 0:
+        raise AssertionError(f"cli train --years exited {rc}")
+    if any(read_counts().values()):
+        raise AssertionError(f"the joint run launched a kernel: "
+                             f"{read_counts()}")
+    with open(log_path) as f:
+        events = [json.loads(line) for line in f]
+    skipped = [e["year"] for e in events
+               if e["event"] == "temporal_skip_year"]
+    epoch = [e for e in events if e["event"] == "temporal_epoch"]
+    report = json.loads(out.getvalue().strip().splitlines()[-1])
+    steps = int(cfg.train_fraction * TEMPORAL_RECORDS) // cfg.batch_size
+    log(f"  cli train --years {','.join(TEMPORAL_YEARS)}: exit {rc}, "
+        f"{secs:.2f} s (epoch {epoch[0]['seconds']:.2f} s), skipped "
+        f"{skipped}, steps {{'2015': {len(losses['2015'])}, '2016': "
+        f"{len(losses['2016'])}}}; {checked[0]} frozen tables bit-equal "
+        f"across the steps; none of the port's kernels launched; "
+        f"{json.dumps(report)}")
+    if skipped != ["2017"] or len(epoch) != 1 or set(report) != {"2015",
+                                                                 "2016"}:
+        raise AssertionError(f"skipped {skipped}, report {report}")
+    for y in ("2015", "2016"):
+        ls = losses[y]
+        first, last = np.mean(ls[:50]), np.mean(ls[-50:])
+        log(f"  {y}: {len(ls)} step losses, first 50 mean {first:.5f}, "
+            f"last 50 mean {last:.5f}; report train_loss "
+            f"{report[y]['train_loss']:.5f}, accuracy "
+            f"{report[y]['accuracy']:.4f}, auc {report[y]['auc']:.4f}")
+        if len(ls) != steps or not np.isfinite(ls).all() or not last < first:
+            raise AssertionError(f"{y}: {len(ls)} steps (want {steps}), "
+                                 f"losses {first} -> {last}")
+        if not np.isclose(report[y]["train_loss"], np.mean(ls), rtol=1e-5):
+            raise AssertionError(f"{y}: train_loss {report[y]['train_loss']}"
+                                 f" is not the mean step loss")
+
+    fgs = {y: load_flow_graph(y, train_dir) for y in TEMPORAL_YEARS}
+    maps = {y: load_index_match(os.path.join(
+        train_dir, f"Adjacent{y}.json"))[2] for y in TEMPORAL_YEARS}
+    runs = {dev: temporal.build_temporal(fgs, maps, dropout=0.0, device=dev)
+            for dev in (DEVICE, "cpu")}
+    runs["cpu"].state.model.load_state_dict(
+        {k: v.cpu() for k, v in runs[DEVICE].state.model.state_dict()
+         .items()})
+    ids = runs["cpu"].splits["2015"][0][:cfg.batch_size]
+    got = {}
+    for dev, run in runs.items():
+        b = torch.from_numpy(run.src["2015"][ids]).to(run.device)
+        lab = torch.from_numpy(run.dst["2015"][ids]).to(run.device)
+        loss = temporal.temporal_loss(run, "2015", b, lab)
+        loss.backward()
+        got[dev] = (float(loss.detach()), {n: None if p.grad is None else
+                                  p.grad.cpu()
+                                  for n, p in run.state.model
+                                  .named_parameters()})
+    (loss_k, grads_k), (loss_c, grads_c) = got[DEVICE], got["cpu"]
+    scale = max(float(g.abs().max()) for g in grads_c.values()
+                if g is not None)
+    grad_err = max(float((grads_k[n] - g).abs().max()) / scale
+                   for n, g in grads_c.items() if g is not None)
+    none = sorted(n for n, g in grads_c.items() if g is None)
+    log(f"  one 2015 step at dropout 0, card vs CPU: loss {loss_k:.7f} / "
+        f"{loss_c:.7f}; gradients max abs err {grad_err:.3e} of the "
+        f"largest (bound {TRAIN_GRAD_REL}); no gradient: {none}")
+    np.testing.assert_allclose(loss_k, loss_c, rtol=TRAIN_LOSS_RTOL,
+                               atol=TRAIN_LOSS_ATOL)
+    if grad_err > TRAIN_GRAD_REL or none != [
+            "Sfeatures_2016", "Sfeatures_2017"] or any(
+            grads_k[n] is not None for n in none):
+        raise AssertionError("the temporal step's gradients, card vs CPU")
+    del runs
+
+    run = temporal.build_temporal(fgs, maps, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(cfg.seed)
+    perm = np.random.default_rng(0).permutation(run.splits["2015"][0])
+    batches = [(torch.from_numpy(run.src["2015"][c]).to(DEVICE),
+                torch.from_numpy(run.dst["2015"][c]).to(DEVICE), None)
+               for c in perm[: 47 * cfg.batch_size].reshape(47, -1)]
+
+    def step(state, batch, labels, _w, generator):
+        return temporal.temporal_step(run, "2015", batch, labels, generator)
+
+    return profile_steps("temporal msha", step, run.state, batches, gen)
+
+
+def phase_explain(data_dir, td):
+    """Phase 16c: ``cli explain --npz_path`` on 2015 (one epoch of MSHA at
+    32 / 16 wide, batch 1024, then the record forward over all N rows):
+    the card's recorded attention and intra weights against a CPU record
+    forward of the same model; every top-K list of the JSON against the
+    CPU's attention (each listed index's CPU value equals the CPU's top-K
+    value at that rank: ties make the indices themselves unstable across
+    two summation orders); dense clique rows rebuilt from the npz."""
+    import contextlib
+    import io
+
+    from msha_gnn_torch import cli, explain
+    from msha_gnn_torch.data import load_index_match
+
+    captured = {}
+    real = explain.record_attention
+
+    def capture(model, fg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(model, fg)
+        captured.update(model=model, fg=fg,
+                        record_s=time.perf_counter() - t0)
+        return out
+
+    npz_path = os.path.join(td, "att.npz")
+    json_path = os.path.join(td, "explain.json")
+    explain.record_attention = capture
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["explain", "--data_dir", data_dir, "--npz_path",
+                           npz_path, "--output", json_path])
+        secs = time.perf_counter() - t0
+    finally:
+        explain.record_attention = real
+    if rc != 0 or any(read_counts().values()):
+        raise AssertionError(f"cli explain: exit {rc}, {read_counts()}")
+    model, fg = captured["model"], captured["fg"]
+    record_dev = device_ms(lambda: real(model, fg), iters=5)
+    log(f"  cli explain: exit {rc}, {secs:.2f} s; the record forward over "
+        f"{fg.n_src} rows {captured['record_s'] * 1e3:.1f} ms (wall, with "
+        f"the copies to the host; device {fmt(record_dev)}); none of the "
+        f"port's kernels launched")
+    npz = np.load(npz_path)
+    att_c, cw_c, pw_c = real(copy.deepcopy(model).cpu(), fg)
+    for key, want in (("Coeff12_heads", att_c), ("city_w_heads", cw_c),
+                      ("province_w_heads", pw_c)):
+        close(f"recorded {key} {tuple(want.shape)}, card vs CPU",
+              torch.from_numpy(npz[key]), torch.from_numpy(want),
+              EXPLAIN_RTOL, EXPLAIN_ATOL)
+    t0 = time.perf_counter()
+    with open(json_path) as f:
+        data = json.load(f)
+    _, _, names = load_index_match(os.path.join(data_dir,
+                                                "Adjacent2015.json"))
+    att = att_c[-1]
+    k_src = len(data["InterAttS"]["0"])
+    idx = np.asarray([[names[s] for s in data["InterAttS"][str(i)]]
+                      for i in range(fg.n_src)])
+    want = -np.sort(-att, axis=1)[:, :k_src]
+    close(f"InterAttS: CPU attention at the card's top {k_src} of each of "
+          f"{fg.n_src} sources vs the CPU's top {k_src}",
+          torch.from_numpy(np.take_along_axis(att, idx, axis=1)),
+          torch.from_numpy(want), EXPLAIN_RTOL, EXPLAIN_ATOL)
+    k_rec = min(EXPLAIN_TOP_K, fg.n_src)
+    ridx = np.asarray([data["InterAttR"][n] for n in sorted(
+        names, key=names.get)])
+    want = -np.sort(-att.T, axis=1)[:, :k_rec]
+    close(f"InterAttR: CPU attention at the card's top {k_rec} sources of "
+          f"each of {fg.n_dst} recipients vs the CPU's",
+          torch.from_numpy(np.take_along_axis(att.T, ridx, axis=1)),
+          torch.from_numpy(want), EXPLAIN_RTOL, EXPLAIN_ATOL)
+    if data["InterAttS"] != data["InterAttS_heads"][-1] or \
+            len(data["InterAttS_heads"]) != 2 or ridx.shape[1] != k_rec:
+        raise AssertionError("explain.json: heads or list lengths")
+    gid = npz["city_gid"]
+    for i in (0, fg.n_src // 2, fg.n_src - 1):
+        row = explain.reconstruct_intra_row(npz, "city", i)
+        if not (np.array_equal(np.flatnonzero(row),
+                               np.flatnonzero(gid == gid[i]))
+                and np.all(row[row != 0] == npz["city_w_heads"][-1][i])):
+            raise AssertionError(f"reconstruct_intra_row({i})")
+    log(f"  explain.json ({os.path.getsize(json_path) / 2**20:.1f} MiB) "
+        f"read and checked in {time.perf_counter() - t0:.2f} s; clique rows "
+        f"rebuilt from the npz")
+
+
+class SpmmRows(TorchDispatchMode):
+    """Records the ``n_rows`` of each call of the registered operator
+    ``msha_gnn_torch::csr_spmm`` (an exported program calls the kernel
+    through it): ``n_dst`` for gc1's ``A^T x``, ``n_src`` for gc2's
+    ``A x``."""
+
+    def __init__(self):
+        super().__init__()
+        self.rows = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket.__name__ == "csr_spmm":
+            self.rows.append(args[4])
+        return func(*args, **(kwargs or {}))
+
+
+def phase_export(data_dir, td):
+    """Phase 16d: ``cli export`` of a GCN checkpoint (``cli train --model
+    gcn``, 1 epoch) as a portable table and of a full MSHA checkpoint (64
+    steps at ``TrainConfig()``) as batches of ``PREDICT_BATCH``; each
+    loaded afresh from its file and held to the live ``Predictor`` on
+    ``EXPORT_IDS`` ids.  One exported GCN table call launches exactly one
+    transposed (gc1) and one plain (gc2) ``csr_spmm_f32``; the portable
+    table loaded on the CPU launches none.  Returns the launches of that
+    call by layer, from the rows of its operator calls."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from msha_gnn_torch import cli
+    from msha_gnn_torch.cli import _build_task
+    from msha_gnn_torch.data import load_flow_graph, train_test_split_records
+    from msha_gnn_torch.export import load_scorer
+    from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
+    from msha_gnn_torch.ops.cuda.spmm import operator_for
+    from msha_gnn_torch.serving import restore_predictor
+    from msha_gnn_torch.training import Trainer, TrainState, save_checkpoint
+    from msha_gnn_torch.utils import TrainConfig
+
+    def run_cli(args):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(args)
+        secs = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"cli {args[0]} exited {rc}")
+        return json.loads(out.getvalue().strip().splitlines()[-1]), secs
+
+    rng = np.random.default_rng(0)
+    fg = load_flow_graph("2015", data_dir)
+    ids = rng.integers(0, fg.n_src, EXPORT_IDS)
+    results = {}
+    gcn = ["--model", "gcn", "--in_features", str(NFEAT), "--data_dir",
+           data_dir, "--checkpoint_dir", os.path.join(td, "ckpt_gcn")]
+    report, secs = run_cli(["train", *gcn, "--epochs", "1"])
+    log(f"  cli train --model gcn --epochs 1: {secs:.2f} s, accuracy "
+        f"{report['accuracy']:.4f}")
+
+    cfg = dataclasses.replace(TrainConfig(), model="msha", data_dir=data_dir,
+                              checkpoint_dir=os.path.join(td, "ckpt_msha"))
+    task, model = _build_task(cfg, fg, DEVICE)
+    state = TrainState.create(model, task.optimizer)
+    trainer = Trainer(task=task, src=fg.edge_src.numpy(),
+                      labels=fg.edge_dst.numpy(), seed=cfg.seed)
+    train_ids, _ = train_test_split_records(fg.num_records,
+                                            cfg.train_fraction, cfg.seed)
+    state, _ = trainer.train_epoch(
+        state, train_ids[:MSHA_TRAIN_IDS],
+        torch.Generator(device=DEVICE).manual_seed(cfg.seed), 0)
+    save_checkpoint(cfg.checkpoint_dir, state, step=state.step)
+    msha = ["--data_dir", data_dir, "--checkpoint_dir", cfg.checkpoint_dir]
+
+    for name, args, kind in (
+            ("gcn", [*gcn, "--kind", "table", "--portable", "1"], "table"),
+            ("msha", [*msha, "--kind", "batch", "--predict_batch",
+                      str(PREDICT_BATCH)], "batch")):
+        path = os.path.join(td, f"{name}.mshax")
+        summary, export_s = run_cli(["export", *args, "--output", path])
+        t0 = time.perf_counter()
+        with open(path, "rb") as f:
+            blob = f.read()
+        scorer = load_scorer(blob)
+        load_s = time.perf_counter() - t0
+        cfg_p = dataclasses.replace(
+            TrainConfig(), model=name, data_dir=data_dir,
+            in_features=NFEAT if name == "gcn" else TrainConfig().in_features,
+            checkpoint_dir=(gcn[-1] if name == "gcn" else
+                            cfg.checkpoint_dir))
+        predictor, _, _ = restore_predictor(cfg_p, PREDICT_BATCH, DEVICE)
+        zero_counts()
+        with SpmmRows() as calls:
+            got = scorer(ids)
+            torch.cuda.synchronize()
+        launches, rows = read_counts(), calls.rows
+        want = predictor.log_scores(ids)
+        err = float(np.abs(got.cpu().numpy() - want).max())
+        log(f"  {name}: cli export --kind {kind} {export_s:.2f} s "
+            f"({summary['bytes'] / 2**20:.2f} MiB, platforms "
+            f"{summary['platforms']}), load_scorer {load_s:.2f} s; "
+            f"{EXPORT_IDS} ids against the live Predictor: max abs err "
+            f"{err:.3e} (rtol {EXPORT_RTOL}, atol {EXPORT_ATOL}); the call's "
+            f"launches: csr_spmm_f32 {launches['csr_spmm_f32']} (rows "
+            f"{rows})")
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=EXPORT_RTOL,
+                                   atol=EXPORT_ATOL, err_msg=name)
+        if summary["kind"] != kind or \
+                scorer.device.type != torch.device(DEVICE).type:
+            raise AssertionError(f"{name}: {summary}, {scorer.device}")
+        if name == "msha":
+            if any(launches.values()):
+                raise AssertionError(f"msha export launched {launches}")
+            continue
+        want_launches = {k: v for k, v in expected(csr_spmm_f32=2).items()
+                         if k in launches}
+        if launches != want_launches or rows != [fg.n_dst, fg.n_src]:
+            raise AssertionError(f"an exported gcn table call launched "
+                                 f"{launches}, rows {rows}")
+        results = {"gc1": rows.count(fg.n_dst), "gc2": rows.count(fg.n_src)}
+        table = scorer._fn
+        fill = (lambda: predictor.task.full_scores(predictor.model))
+        ms = {"exported": (time_ms(table), device_ms(table)),
+              "eager": (time_ms(fill), device_ms(fill))}
+        log(f"  gcn table [{fg.n_src}, {fg.n_dst}]: the exported call "
+            f"{ms['exported'][0]:.4f} ms (device "
+            f"{fmt(ms['exported'][1])}), the eager fill (phase 4's path) "
+            f"{ms['eager'][0]:.4f} ms (device {fmt(ms['eager'][1])})")
+        # the operator's host cost a call: the same launch back to back
+        # through the wrapper and through the registered operator
+        x = torch.rand((fg.n_src, fg.n_dst), device=DEVICE)
+        op = operator_for(predictor.task.graph)
+        args = (op.t_ptr, op.t_col, op.t_w, x, fg.n_dst)
+        direct = time_ms(lambda: cuda_spmm.csr_spmm(*args))
+        through = time_ms(lambda: cuda_spmm.csr_spmm_op(*args))
+        # in a fresh interpreter: the operator's first call (the device
+        # warmed first) and that it imports no torch._dynamo
+        # (torch.library.custom_op's kernels run under
+        # torch._dynamo.disable, which imports it at their first call)
+        script = (
+            "import sys, time, torch\n"
+            "from msha_gnn_torch.ops.cuda import spmm\n"
+            f"dev = torch.device({DEVICE!r})\n"
+            "ptr = torch.tensor([0, 2, 3], dtype=torch.int32, device=dev)\n"
+            "col = torch.tensor([0, 1, 1], dtype=torch.int32, device=dev)\n"
+            "x = torch.ones((2, 4), device=dev)\n"
+            "spmm.csr_spmm(ptr, col, None, x, 2).sum().item()\n"
+            "t0 = time.perf_counter()\n"
+            "spmm.csr_spmm_op(ptr, col, None, x, 2).sum().item()\n"
+            "t1 = time.perf_counter()\n"
+            "print(t1 - t0, 'torch._dynamo' in sys.modules)\n")
+        first = subprocess.run(
+            [sys.executable, "-c", script], check=True, capture_output=True,
+            text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        first_s, loaded = first.stdout.split()
+        log(f"  csr_spmm_f32 [gc1 A^T x] back to back: the wrapper "
+            f"{direct:.4f} ms a call, the registered operator "
+            f"{through:.4f} ms (events; below about 20 us a call they "
+            f"measure the host); in a fresh interpreter the operator's "
+            f"first call {float(first_s) * 1e3:.2f} ms, torch._dynamo "
+            f"imported by it: {loaded}")
+        if loaded != "False":
+            raise AssertionError("the operator's first call imported "
+                                 "torch._dynamo")
+        zero_counts()
+        on_cpu = load_scorer(blob, device="cpu")(ids)
+        if any(read_counts().values()):
+            raise AssertionError("the portable table on the cpu launched "
+                                 f"{read_counts()}")
+        close("gcn: the portable table loaded on the cpu (the plain SpMM) "
+              "vs the card", on_cpu, got.cpu(), SLICE_TOL, SLICE_TOL)
+    return results
+
+
+def phase_nan_guard(data_dir):
+    """Phase 16e: a NaN put into one source feature of full MSHA raises
+    under ``nan_guard()`` naming an operator, and the same forward runs
+    without the guard; a NaN row into ``csr_spmm_f32`` raises from the
+    kernel's own check under the guard (the kernel is outside the
+    dispatcher)."""
+    from msha_gnn_torch import normalize_by_dst_degree
+    from msha_gnn_torch.data import load_flow_graph
+    from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
+    from msha_gnn_torch.training import msha_task
+    from msha_gnn_torch.utils.debug import nan_guard
+
+    fg = load_flow_graph("2015", data_dir)
+    task, model = msha_task(fg, device=DEVICE)
+    with torch.no_grad():
+        model.Sfeatures[7, 3] = float("nan")
+    batch = torch.arange(PREDICT_BATCH, device=DEVICE)
+    op = cuda_spmm.SpmmOperator(normalize_by_dst_degree(fg.inter).to(DEVICE),
+                                DEVICE)
+    x = torch.rand((fg.n_dst, M), device=DEVICE)
+    x[3, 0] = float("nan")
+    cases = (("msha forward", "aten.",
+              lambda: task.forward(model, batch, train=False)[0]),
+             ("csr_spmm_f32", "kernel csr_spmm_f32",
+              lambda: cuda_spmm.csr_spmm(op.ptr, op.col, op.w, x, fg.n_src)))
+    messages = []
+    for label, named, fn in cases:
+        try:
+            with nan_guard():
+                fn()
+        except FloatingPointError as e:
+            messages.append(f"{label}: {e}")
+        else:
+            raise AssertionError(f"{label}: no error under nan_guard()")
+        if named not in messages[-1]:
+            raise AssertionError(f"nan_guard named no {named!r}: "
+                                 f"{messages[-1]}")
+        out = fn()
+        torch.cuda.synchronize()
+        if not bool(torch.isnan(out).any()):
+            raise AssertionError(f"{label}: no NaN reached the output")
+    log(f"  under nan_guard(): {'; '.join(messages)}; without it both run "
+        "and the NaN reaches their outputs")
+
+
 def dense_reference(fg, model):
     """Float64 dense GCN forward from the model's weights (numpy)."""
     from msha_gnn_torch import normalize_by_dst_degree
@@ -4878,6 +5456,30 @@ def main() -> int:
     log("phase 15d: SGAE (run_sgae, temporal pretrain) on the phase-3 graph")
     phase_sgae(fg)
     log(f"  phase 15: {time.perf_counter() - t15:.1f} s")
+
+    t16 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        log("phase 16a: a dataset from raw records (anonymize, "
+            "write_anonymous_dataset, load_flow_graph)")
+        data_dir, train_dir = phase_raw_dataset(td)
+        log(f"phase 16b: cli train --years {','.join(TEMPORAL_YEARS)} "
+            f"(TrainConfig defaults, 1 epoch, the first {TEMPORAL_RECORDS} "
+            "records a year)")
+        phase_temporal(train_dir)
+        log("phase 16c: cli explain --npz_path on 2015")
+        phase_explain(data_dir, td)
+        log("phase 16d: cli export (gcn table through csr_spmm_f32, msha "
+            "batches)")
+        exported = phase_export(data_dir, td)
+        log("phase 16e: the NaN guard")
+        phase_nan_guard(data_dir)
+    # the exported GCN table's call: gc1 transposed, gc2 plain
+    for k in kernels:
+        if k["name"] == "csr_spmm_f32[gc1 A^T x]":
+            k["launches"] += exported["gc1"]
+        elif k["name"] == "csr_spmm_f32[gc2 A x]":
+            k["launches"] += exported["gc2"]
+    log(f"  phase 16: {time.perf_counter() - t16:.1f} s")
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{kernels}")

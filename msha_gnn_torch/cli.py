@@ -2,13 +2,18 @@
 
 Commands of ``msha_gnn_tpu/cli.py`` with the same flags, plus
 ``--device``: ``train`` (flow classification: train, evaluate every epoch,
-optionally checkpoint), ``eval`` (evaluate a checkpoint), ``predict``
-(batch inference from a checkpoint), ``serve`` (HTTP server from a
-checkpoint), ``linkpred`` (ogbl-ddi-style link prediction, trained and
-evaluated), ``llp`` (KD link prediction on the flow graph) and ``sgae``
-(autoencoder pretrain and GraphSAGE fine-tune).  The port has every model
-preset of the JAX package (:data:`PORTED_MODELS`); ``train --years`` and
-a ``linkpred --impl`` the port lacks exit with code 2.
+optionally checkpoint; ``--years`` trains MSHA jointly over several
+years), ``eval`` (evaluate a checkpoint), ``predict`` (batch inference
+from a checkpoint), ``export`` (a checkpoint's scorer as a
+``torch.export`` artifact), ``serve`` (HTTP server from a checkpoint),
+``explain`` (attention top-K extraction), ``linkpred`` (ogbl-ddi-style
+link prediction, trained and evaluated), ``llp`` (KD link prediction on
+the flow graph) and ``sgae`` (autoencoder pretrain and GraphSAGE
+fine-tune).  The port has every model preset of the JAX package
+(:data:`PORTED_MODELS`); a ``linkpred --impl`` the port lacks exits with
+code 2.  ``cli bench`` is not ported yet.  With the environment variable
+``MSHA_NAN_GUARD`` set, every command runs under
+:func:`~msha_gnn_torch.utils.debug.nan_guard`.
 """
 
 from __future__ import annotations
@@ -87,7 +92,10 @@ def _ported_config(args, cmd: str, needs_checkpoint: bool = True):
 def cmd_train(args) -> int:
     """Train a flow model, evaluating after every epoch; prints the last
     epoch's record as JSON and, with ``--checkpoint_dir``, saves the
-    model, its optimiser and the step."""
+    model, its optimiser and the step.  ``--years 2015,2016,...`` trains
+    an MSHA preset jointly over those years instead
+    (``training/temporal.py``) and prints the last epoch's per-year
+    reports."""
     from .data import load_flow_graph, train_test_split_records
     from .training import Trainer, TrainState, save_checkpoint
     from .utils import JsonlLogger
@@ -95,11 +103,28 @@ def cmd_train(args) -> int:
     cfg = _ported_config(args, "train", needs_checkpoint=False)
     if cfg is None:
         return 2
-    if [y for y in (cfg.years or "").split(",") if y]:
-        print("not ported: --years (joint multi-year training, "
-              "training/temporal.py)", file=sys.stderr)
-        return 2
     log = JsonlLogger(cfg.log_path)
+    years = [y for y in (cfg.years or "").split(",") if y]
+    if years:
+        # joint multi-year MSHA training (BASELINE config #3)
+        if cfg.model not in MSHA_PRESETS:
+            print("--years joint training supports the MSHA family only",
+                  file=sys.stderr)
+            return 2
+        from .training import run_temporal_train
+
+        flags = cfg.model_flags()
+        n_heads = flags.pop("n_heads", cfg.n_heads)
+        _, history = run_temporal_train(
+            years=tuple(years), data_dir=cfg.data_dir, log=log,
+            device=args.device, in_features=cfg.in_features,
+            out_features=cfg.out_features, n_heads=n_heads,
+            dropout=cfg.dropout, epochs=cfg.epochs,
+            batch_size=cfg.batch_size, lr=cfg.lr,
+            weight_decay=cfg.weight_decay,
+            train_fraction=cfg.train_fraction, seed=cfg.seed, **flags)
+        print(json.dumps(history[-1]))
+        return 0
     fg = load_flow_graph(cfg.year, cfg.data_dir)
     log({"event": "data", "n": fg.n_src, "m": fg.n_dst,
          "records": fg.num_records, "edges": fg.inter.num_edges})
@@ -167,6 +192,21 @@ def cmd_predict(args) -> int:
     return 0
 
 
+def cmd_export(args) -> int:
+    """Write a checkpoint's scorer as a ``torch.export`` artifact
+    (``export.py``); prints a summary as JSON."""
+    from .export import run_export
+
+    cfg = _ported_config(args, "export")
+    if cfg is None:
+        return 2
+    summary = run_export(cfg, output=args.output, kind=args.kind,
+                         batch_size=args.predict_batch,
+                         portable=bool(args.portable), device=args.device)
+    print(json.dumps(summary))
+    return 0
+
+
 def cmd_serve(args) -> int:
     """HTTP model server from a checkpoint (see ``server.py``)."""
     from .server import run_serve
@@ -176,6 +216,19 @@ def cmd_serve(args) -> int:
         return 2
     run_serve(cfg, host=args.host, port=args.port,
               batch_size=args.predict_batch, device=args.device)
+    return 0
+
+
+def cmd_explain(args) -> int:
+    """Train MSHA briefly, record its attention and write the top-K
+    explanation JSON (``explain.py``)."""
+    from .explain import run_explain
+
+    out = run_explain(year=args.year, data_dir=args.data_dir,
+                      model=args.model, epochs=args.epochs,
+                      top_k=args.top_k, output=args.output,
+                      npz_path=args.npz_path, device=args.device)
+    print(json.dumps({"written": out}))
     return 0
 
 
@@ -228,8 +281,11 @@ def cmd_sgae(args) -> int:
 
 
 def main(argv=None) -> int:
+    from .data.flow import DEFAULT_DATA_DIR
     from .utils import LLPConfig, SGAEConfig, TrainConfig
+    from .utils.debug import nan_guard_from_env
 
+    nan_guard_from_env()
     parser = argparse.ArgumentParser(prog="msha_gnn_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -252,6 +308,18 @@ def main(argv=None) -> int:
     p_pred.add_argument("--predict_batch", type=int, default=1024)
     p_pred.set_defaults(fn=cmd_predict)
 
+    p_xp = sub.add_parser(
+        "export", help="a torch.export scorer artifact from a checkpoint"
+    )
+    _add_dataclass_args(p_xp, TrainConfig)
+    p_xp.add_argument("--output", default="scorer.mshax")
+    p_xp.add_argument("--kind", default="auto",
+                      choices=["auto", "table", "batch"])
+    p_xp.add_argument("--predict_batch", type=int, default=1024)
+    p_xp.add_argument("--portable", type=int, default=0,
+                      help="1: loadable on both cpu and cuda")
+    p_xp.set_defaults(fn=cmd_export)
+
     p_srv = sub.add_parser(
         "serve", help="HTTP model server from a checkpoint"
     )
@@ -260,6 +328,16 @@ def main(argv=None) -> int:
     p_srv.add_argument("--port", type=int, default=8000)
     p_srv.add_argument("--predict_batch", type=int, default=1024)
     p_srv.set_defaults(fn=cmd_serve)
+
+    p_exp = sub.add_parser("explain", help="attention top-K extraction")
+    p_exp.add_argument("--year", default="2015")
+    p_exp.add_argument("--data_dir", default=DEFAULT_DATA_DIR)
+    p_exp.add_argument("--model", default="msha")
+    p_exp.add_argument("--epochs", type=int, default=1)
+    p_exp.add_argument("--top_k", type=int, default=100)
+    p_exp.add_argument("--output", default="explain.json")
+    p_exp.add_argument("--npz_path", default=None)
+    p_exp.set_defaults(fn=cmd_explain)
 
     p_llp = sub.add_parser("llp", help="KD link prediction")
     _add_dataclass_args(p_llp, LLPConfig)
@@ -287,7 +365,8 @@ def main(argv=None) -> int:
     p_lp.add_argument("--log_path", default=None)
     p_lp.set_defaults(fn=cmd_linkpred)
 
-    for p in (p_train, p_eval, p_pred, p_srv, p_llp, p_sgae, p_lp):
+    for p in (p_train, p_eval, p_pred, p_xp, p_srv, p_exp, p_llp, p_sgae,
+              p_lp):
         p.add_argument("--device", default="cuda",
                        help="torch device: cuda (default) or cpu")
 

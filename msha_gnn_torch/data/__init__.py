@@ -7,6 +7,7 @@ from .flow import (
     train_test_split_records,
 )
 from .ogb import load_ddi, load_ogbl_ddi, split_edges, synthetic_ddi
+from .raw import classify_major, derive_prefix_table, load_major_table
 from .sampler import (
     neighbor_sample_subgraph,
     sample_negatives,
@@ -15,6 +16,8 @@ from .sampler import (
 )
 
 __all__ = [
+    "classify_major",
+    "derive_prefix_table",
     "load_ddi",
     "load_ogbl_ddi",
     "split_edges",
@@ -23,6 +26,7 @@ __all__ = [
     "load_flow_records",
     "load_gdp",
     "load_index_match",
+    "load_major_table",
     "neighbor_sample_subgraph",
     "sample_negatives",
     "sample_positives_nearby",

@@ -138,7 +138,6 @@ def llp_params_from_jax(trees: Mapping) -> dict:
     return sd
 
 
-
 def msha_layer_params_from_jax(params: Mapping,
                                batch_stats: Mapping) -> dict:
     """A flax ``MSHALayer``'s ``params`` (``W1``, ``W2``, ``a``, and
@@ -155,13 +154,11 @@ def msha_layer_params_from_jax(params: Mapping,
     return sd
 
 
-def msha_params_from_jax(variables: Mapping) -> dict:
-    """A flax ``MSHA``'s variables ``{"params", "batch_stats"}`` -> the
-    port's ``MSHA`` ``state_dict``: ``Sfeatures``, ``Rfeatures``, the
-    layer ``attention`` (:func:`msha_layer_params_from_jax`) and, with the
-    output layer, ``out_att`` (``W``, ``a``)."""
+def _msha_from_jax(variables: Mapping, tables) -> dict:
+    """The feature tables ``tables`` (names of ``params``), the layer
+    ``attention`` and, with the output layer, ``out_att``."""
     params, stats = variables["params"], variables["batch_stats"]
-    sd = {k: _tensor(params[k]) for k in ("Sfeatures", "Rfeatures")}
+    sd = {k: _tensor(params[k]) for k in tables}
     for k, v in msha_layer_params_from_jax(params["attention"],
                                            stats["attention"]).items():
         sd[f"attention.{k}"] = v
@@ -169,6 +166,23 @@ def msha_params_from_jax(variables: Mapping) -> dict:
         sd["out_att.W"] = _tensor(params["out_att"]["W"])
         sd["out_att.a"] = _tensor(params["out_att"]["a"])
     return sd
+
+
+def msha_params_from_jax(variables: Mapping) -> dict:
+    """A flax ``MSHA``'s variables ``{"params", "batch_stats"}`` -> the
+    port's ``MSHA`` ``state_dict``: ``Sfeatures``, ``Rfeatures``, the
+    layer ``attention`` (:func:`msha_layer_params_from_jax`) and, with the
+    output layer, ``out_att`` (``W``, ``a``)."""
+    return _msha_from_jax(variables, ("Sfeatures", "Rfeatures"))
+
+
+def temporal_msha_params_from_jax(variables: Mapping) -> dict:
+    """A flax ``TemporalMSHA``'s variables ``{"params", "batch_stats"}``
+    -> the port's ``TemporalMSHA`` ``state_dict``: every year's
+    ``Sfeatures_<year>``, ``Rfeatures``, and the year-shared
+    ``attention`` and ``out_att`` as in :func:`msha_params_from_jax`."""
+    tables = [k for k in variables["params"] if k.startswith("Sfeatures_")]
+    return _msha_from_jax(variables, (*tables, "Rfeatures"))
 
 
 def scale_params_from_jax(params: Mapping) -> dict:

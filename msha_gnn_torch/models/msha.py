@@ -80,13 +80,18 @@ class MSHALayer(nn.Module):
     def forward(self, s_input: torch.Tensor, r_input: torch.Tensor,
                 inter_mask: torch.Tensor, city: Grouping,
                 province: Grouping, batch: torch.Tensor, *, train: bool,
+                record: bool = False,
                 rows: Optional[torch.Tensor] = None,
                 pair: Optional[PairGrouping] = None,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None):
         """``s_input`` [N, in], ``r_input`` [M, in], ``inter_mask`` [N, M]
         bool, ``batch`` [B] the minibatch's source rows; the output's rows
-        are ``rows`` (all N when None)."""
+        are ``rows`` (all N when None).
+
+        ``record=True`` returns ``(h_prime, aux_heads)``: per head a dict
+        with ``att_inter``, the head's [N, M] attention after its dropout,
+        and with the intra channels ``intra_city_weight`` and
+        ``intra_province_weight``, its [B] weights after theirs."""
         d, nh, din = self.out_features, self.n_heads, self.in_features
         n, m = inter_mask.shape
 
@@ -107,6 +112,7 @@ class MSHALayer(nn.Module):
         e12 = torch.where(inter_mask[:, None, :], e12, MASK_VALUE)
         att = drop(torch.softmax(e12, dim=-1))
         attc = att.reshape(n, nh * m)
+        aux_heads = [{} for _ in range(nh)]
 
         if self.use_intra:
             a3, a4 = self.a3[..., 0], self.a4[..., 0]
@@ -146,6 +152,10 @@ class MSHALayer(nn.Module):
             else:
                 intra_nc = (group_scatter(contrib3, city, batch)
                             + group_scatter(contrib4, province, batch))
+            if record:
+                for i, aux in enumerate(aux_heads):
+                    aux.update(intra_city_weight=w3[:, i],
+                               intra_province_weight=w4[:, i])
         else:
             intra_nc = 0.0
 
@@ -167,10 +177,68 @@ class MSHALayer(nn.Module):
             u = take_rows(u, rows)
         bd_v = torch.einsum("mhd,hk->hdkm", v.reshape(m, nh, d),
                             eye).reshape(nh * d, nh * m)
-        return elu(u @ bd_v)  # [R, HM]: the heads' u_h @ v_h.T, concat
+        h_prime = elu(u @ bd_v)  # [R, HM]: the heads' u_h @ v_h.T, concat
+        if record:
+            for i, aux in enumerate(aux_heads):
+                aux["att_inter"] = att[:, i]
+            return h_prime, aux_heads
+        return h_prime
 
 
-class MSHA(nn.Module):
+class MSHABase(nn.Module):
+    """What :class:`MSHA` and the multi-year ``TemporalMSHA``
+    (``training/temporal.py``) share: the recipient features, the
+    attention layer and the output layer, and the scoring of given source
+    features (:meth:`scores`)."""
+
+    def _build(self, in_features: int, out_features: int, n_classes: int,
+               n_heads: int, dropout: float, use_intra: bool,
+               joint_softmax: bool, use_out_att: bool,
+               generator: Optional[torch.Generator]) -> None:
+        self.n_classes, self.n_heads = n_classes, n_heads
+        self.dropout = dropout
+        self.use_out_att = use_out_att
+        self.Rfeatures = nn.Parameter(
+            torch.rand((n_classes, in_features), generator=generator))
+        self.attention = MSHALayer(
+            in_features, out_features, dropout, use_intra=use_intra,
+            joint_softmax=joint_softmax, n_heads=n_heads,
+            generator=generator)
+        if use_out_att:
+            self.out_att = MaskedGATLayer(n_classes * n_heads, n_classes,
+                                          dropout, generator=generator)
+
+    def scores(self, s_feat: torch.Tensor, inter_mask: torch.Tensor,
+               city: Grouping, province: Grouping, batch: torch.Tensor, *,
+               train: bool, record: bool = False,
+               rows: Optional[torch.Tensor] = None,
+               pair: Optional[PairGrouping] = None,
+               generator: Optional[torch.Generator] = None):
+        """Log-probabilities ``[R, M]`` of ``rows`` (all N when None) for
+        the source features ``s_feat`` [N, in]; ``(logp, auxes)`` with
+        ``record=True``, ``auxes`` the attention layer's per-head records
+        (:meth:`MSHALayer.forward`)."""
+        def drop(x):
+            return dropout(x, self.dropout, train, generator)
+
+        x = self.attention(drop(s_feat), drop(self.Rfeatures),
+                           inter_mask, city, province, batch, train=train,
+                           record=record, rows=rows, pair=pair,
+                           generator=generator)
+        if record:
+            x, auxes = x
+        x = drop(x)
+        out_mask = inter_mask if rows is None else inter_mask[rows.long()]
+        if self.use_out_att:
+            x = elu(self.out_att(x, out_mask, train=train,
+                                 generator=generator))
+        else:
+            x = elu(x)  # ablation1
+        logp = F.log_softmax(x, dim=1)
+        return (logp, auxes) if record else logp
+
+
+class MSHA(MSHABase):
     """The multi-head wrapper: learnable source features with the GDP
     scalar in the last column and learnable recipient features, the
     attention layer (heads concat to ``[N, M H]``), then the masked
@@ -183,39 +251,18 @@ class MSHA(nn.Module):
                  use_out_att: bool = True, gdp: torch.Tensor,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.n_classes, self.n_heads = n_classes, n_heads
-        self.dropout = dropout
-        self.use_out_att = use_out_att
         self.Sfeatures = nn.Parameter(
             gdp_feature_init(gdp, in_features, generator))
-        self.Rfeatures = nn.Parameter(
-            torch.rand((n_classes, in_features), generator=generator))
-        self.attention = MSHALayer(
-            in_features, out_features, dropout, use_intra=use_intra,
-            joint_softmax=joint_softmax, n_heads=n_heads,
-            generator=generator)
-        if use_out_att:
-            self.out_att = MaskedGATLayer(n_classes * n_heads, n_classes,
-                                          dropout, generator=generator)
+        self._build(in_features, out_features, n_classes, n_heads, dropout,
+                    use_intra, joint_softmax, use_out_att, generator)
 
     def forward(self, inter_mask: torch.Tensor, city: Grouping,
                 province: Grouping, batch: torch.Tensor, *, train: bool,
+                record: bool = False,
                 rows: Optional[torch.Tensor] = None,
                 pair: Optional[PairGrouping] = None,
-                generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
-        """Log-probabilities ``[R, M]`` of ``rows`` (all N when None)."""
-        def drop(x):
-            return dropout(x, self.dropout, train, generator)
-
-        x = self.attention(drop(self.Sfeatures), drop(self.Rfeatures),
-                           inter_mask, city, province, batch, train=train,
-                           rows=rows, pair=pair, generator=generator)
-        x = drop(x)
-        out_mask = inter_mask if rows is None else inter_mask[rows.long()]
-        if self.use_out_att:
-            x = elu(self.out_att(x, out_mask, train=train,
-                                 generator=generator))
-        else:
-            x = elu(x)  # ablation1
-        return F.log_softmax(x, dim=1)
+                generator: Optional[torch.Generator] = None):
+        """:meth:`MSHABase.scores` of ``Sfeatures``."""
+        return self.scores(self.Sfeatures, inter_mask, city, province,
+                           batch, train=train, record=record, rows=rows,
+                           pair=pair, generator=generator)

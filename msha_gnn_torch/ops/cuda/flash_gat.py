@@ -32,6 +32,7 @@ from typing import TYPE_CHECKING, Optional
 
 import torch
 
+from ...utils import debug
 from .rank1_gat import (NEG, _edge_walk, _fwd_runs_plain, _group, _keep,
                         _scale)
 from .spmm import (SpmmOperator, edge_rows, n_runs, operator_for, warp_run,
@@ -306,6 +307,7 @@ def flash_fwd(ptr, col, logits, x, seed, rate: float, n_rows: int,
             lse.data_ptr(), ws.data_ptr(), n_rows, e, run, group, d, WARPS,
             stream)
     _raise_on(lib, rc, "flash_fwd_f32")
+    debug.check_kernel("flash_fwd_f32", out, lse)
     fwd_launches += 1
     return out, lse
 
@@ -348,6 +350,7 @@ def flash_bwd(ptr, col, logits, x, gout, out, lse, seed, rate: float,
             rate, _scale(rate), dl.data_ptr(), q.data_ptr(), n_rows, n_out,
             run, group, d, WARPS, stream)
     _raise_on(lib, rc, "flash_bwd_f32")
+    debug.check_kernel("flash_bwd_f32", dl, q)
     bwd_launches += 1
     return dl, q
 

@@ -64,6 +64,7 @@ from typing import TYPE_CHECKING, Optional
 import numpy as np
 import torch
 
+from ...utils import debug
 from ..sparse import PRECISIONS
 from .spmm import (ROW_TYPES, SpmmOperator, edge_rows, n_runs, operator_for,
                    warp_run, widen)
@@ -609,6 +610,7 @@ def r1l_fwd(ptr, col, c, a, x, seed, rate: float, slope: float, n_rows: int,
             out.data_ptr(), lse.data_ptr(), ws.data_ptr(), n_rows, e, run,
             group, d, _warps(d), stream)
     _raise_on(lib, rc, name)
+    debug.check_kernel(name, out, lse)
     if bf16:
         fwd_bf16_launches += 1
     else:
@@ -661,6 +663,7 @@ def r1l_bwd(ptr, col, c, a, x, gout, out, lse, seed, rate: float,
             dpre.data_ptr(), dc.data_ptr(), ws.data_ptr(), da.data_ptr(),
             n_rows, e, run, d, _warps(d), stream)
     _raise_on(lib, rc, name)
+    debug.check_kernel(name, q, dpre, dc, da)
     if bf16:
         bwd_bf16_launches += 1
     else:
@@ -716,6 +719,7 @@ def r1_fwd(ptr, col, c, t, x, slope: float, n_rows: int,
             x.data_ptr(), slope, out.data_ptr(), lse.data_ptr(),
             ws.data_ptr(), n_rows, e, run, group, d, _warps(d), stream)
     _raise_on(lib, rc, name)
+    debug.check_kernel(name, out, lse)
     if bf16:
         r1_fwd_bf16_launches += 1
     else:
@@ -770,6 +774,7 @@ def r1_bwd(ptr, col, c, t, x, gout, out, lse, slope: float, n_rows: int,
             ws.data_ptr(), n_rows, e, run, group, d, flash_gat.WARPS,
             stream)
     flash_gat._raise_on(lib, rc, name)
+    debug.check_kernel(name, att, dpre, dc)
     if bf16:
         r1_bwd_bf16_launches += 1
     else:

@@ -33,6 +33,7 @@ from typing import TYPE_CHECKING, Optional
 
 import torch
 
+from ...utils import debug
 from .rank1_gat import _edge_walk, _group
 from .spmm import SpmmOperator, edge_rows, operator_for
 
@@ -152,6 +153,7 @@ def csr_sddmm(ptr: torch.Tensor, col: torch.Tensor, a: torch.Tensor,
     if rc != 0:
         msg = lib.csr_sddmm_error_string(rc).decode()
         raise RuntimeError(f"csr_sddmm_f32 launch failed: {msg} (error {rc})")
+    debug.check_kernel("csr_sddmm_f32", out)
     launches += 1
     return out
 

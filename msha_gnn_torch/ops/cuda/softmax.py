@@ -48,6 +48,7 @@ from typing import TYPE_CHECKING, Callable, Optional
 import torch
 
 from ... import resolve_device
+from ...utils import debug
 from .rank1_gat import _scale, keep_scale_plain
 from .spmm import cached_for, edge_rows, n_runs, row_sums
 
@@ -167,6 +168,7 @@ def seg_expand(ptr: torch.Tensor, v: torch.Tensor, n_out: int,
         rc = lib.seg_expand_f32(ptr.data_ptr(), v.data_ptr(), out.data_ptr(),
                                 n_rows, n_edges, n_out, run, stream)
     _raise_on(lib, rc, "seg_expand_f32")
+    debug.check_kernel("seg_expand_f32", out)
     expand_launches += 1
     return out
 
@@ -485,6 +487,8 @@ def _fwd(ptr, logits, mask, n_edges: int, run, ws, seed, rate: float):
             ws.data_ptr(), None if seed is None else seed.data_ptr(), rate,
             _scale(rate), n_rows, n_edges, n_out, run, stream)
     _raise_on(lib, rc, "seg_softmax_fwd_f32")
+    debug.check_kernel("seg_softmax_fwd_f32", att, lse,
+                       *(() if att_k is None else (att_k,)))
     fwd_launches += 1
     fwd_drop_launches += seed is not None
     return att, att_k, lse
@@ -547,6 +551,7 @@ def _bwd(ptr, att, g, n_edges: int, run, ws, seed, rate: float):
             ws.data_ptr(), None if seed is None else seed.data_ptr(), rate,
             _scale(rate), n_rows, n_edges, n_out, run, stream)
     _raise_on(lib, rc, "seg_softmax_bwd_f32")
+    debug.check_kernel("seg_softmax_bwd_f32", dl)
     bwd_launches += 1
     bwd_drop_launches += seed is not None
     return dl

@@ -64,6 +64,7 @@ import numpy as np
 import torch
 
 from ... import resolve_device
+from ...utils import debug
 from ..sparse import PRECISIONS
 
 if TYPE_CHECKING:
@@ -304,11 +305,38 @@ def csr_spmm(ptr: torch.Tensor, col: torch.Tensor, w: Optional[torch.Tensor],
                                 x.data_ptr(), out.data_ptr(), ws.data_ptr(),
                                 n_rows, n_slots, run, d, stream)
     _raise_on(lib, rc, name)
+    debug.check_kernel(name, out)
     if bf16:
         bf16_launches += 1
     else:
         launches += 1
     return out
+
+
+# csr_spmm as the operator torch.ops.msha_gnn_torch.csr_spmm, so that
+# torch.export records the kernel (csr_spmm_f32, or csr_spmm_bf16 for
+# bfloat16 rows) as one node of a graph (it cannot trace a ctypes call).
+# Registered through torch.library.Library, not torch.library.custom_op:
+# custom_op runs each kernel under torch._dynamo.disable, whose first call
+# imports torch._dynamo (7.84 s in a fresh interpreter on an H100 machine)
+# and which adds 17-27 us a call there (PERF.md).  Which registration runs
+# follows the tensors' device: csr_spmm on CUDA ones (the kernel, counted
+# in launches / bf16_launches), csr_spmm_plain on CPU ones, none on any
+# other.  The operator has no autograd formula (SpmmOperator's _SpmmFn
+# differentiates the SpMM).
+_LIB = torch.library.Library("msha_gnn_torch", "DEF")
+_LIB.define("csr_spmm(Tensor ptr, Tensor col, Tensor? w, Tensor x, "
+            "int n_rows) -> Tensor")
+_LIB.impl("csr_spmm", csr_spmm, "CUDA")
+_LIB.impl("csr_spmm", csr_spmm_plain, "CPU")
+
+
+@torch.library.register_fake("msha_gnn_torch::csr_spmm")
+def _csr_spmm_fake(ptr, col, w, x, n_rows):
+    return x.new_empty((n_rows, x.shape[1]), dtype=torch.float32)
+
+
+csr_spmm_op = torch.ops.msha_gnn_torch.csr_spmm
 
 
 def _raise_on(lib, rc: int, name: str) -> None:
@@ -404,6 +432,7 @@ def row_sums(values: torch.Tensor, row_ptr: torch.Tensor, *, n_rows: int,
                                 out.data_ptr(), ws.data_ptr(), n_rows,
                                 n_slots, run, d, stream)
     _raise_on(lib, rc, "seg_reduce_f32")
+    debug.check_kernel("seg_reduce_f32", out)
     seg_launches += 1
     return out
 
@@ -553,6 +582,7 @@ def csr_spmm_dw(ptr, col, eid, w, g, x, n_rows: int, n_dw: int,
             g.data_ptr(), x.data_ptr(), dx.data_ptr(), dw.data_ptr(),
             ws.data_ptr(), n_rows, n_dw, run, group, d, stream)
     _raise_on(lib, rc, name)
+    debug.check_kernel(name, dx, dw)
     if bf16:
         dw_bf16_launches += 1
     else:
@@ -628,7 +658,7 @@ class SpmmOperator:
 
     def _launch(self, ptr, col, w, x, n_out, transpose):
         before = launches + bf16_launches
-        out = csr_spmm(ptr, col, w, x, n_out)
+        out = csr_spmm_op(ptr, col, w, x, n_out)
         if launches + bf16_launches != before:
             self.launches += 1
             self.launches_transposed += int(transpose)

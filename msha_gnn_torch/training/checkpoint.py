@@ -7,8 +7,10 @@ optimiser's ``state_dict``), with every tensor on the CPU, and
 ``<directory>/extra_<n>.json`` the optional extra dict.  The model's
 ``state_dict`` sits under the same key either way, so a checkpoint that
 training writes restores into a bare model for serving.  The newest
-``max_to_keep`` steps are kept.  Reading the JAX package's orbax
-checkpoints is not supported yet.
+``max_to_keep`` steps are kept.  The port does not read the JAX package's
+orbax checkpoints itself (it never imports JAX):
+``scripts_torch_convert_checkpoint.py``, where JAX is installed, turns one
+into this layout, parameters, running statistics and Adam moments.
 """
 
 from __future__ import annotations

@@ -114,9 +114,12 @@ def test_unported_models_exit_2(data_dir, tmp_path, capsys, cmd, model):
 
 
 def test_years_exits_2(data_dir, capsys):
-    assert cli.main(["train", "--years", "2015,2016", "--data_dir", data_dir,
-                     "--device", "cpu"]) == 2
-    assert "--years" in capsys.readouterr().err
+    """``--years`` trains the MSHA family only (``training/temporal.py``;
+    ``tests/test_torch_temporal.py`` holds the joint run itself)."""
+    assert cli.main(["train", "--years", "2015,2016", "--model", "gcn",
+                     "--data_dir", data_dir, "--device", "cpu"]) == 2
+    assert "--years joint training supports the MSHA family only" in \
+        capsys.readouterr().err
 
 
 def test_a_year_without_flows_exits_2(tmp_path, capsys):

@@ -1759,3 +1759,51 @@ def test_chunked_operators_on_card_match_the_cpu(precision):
     assert runs[0][3] == (2 * k, k) and runs[1][3] == (0, 0)
     for got, want in zip(runs[0][:3], runs[1][:3]):
         sums_close(got, want)
+
+
+@pytest.mark.cuda
+def test_registered_spmm_operator_launches_the_kernel():
+    """``torch.ops.msha_gnn_torch.csr_spmm`` on CUDA tensors is the kernel
+    (``csr_spmm_f32`` for float32 rows, ``csr_spmm_bf16`` for bfloat16
+    ones: one launch counted, the plain version's values at the sums'
+    tolerance), on their CPU copies the plain version (no launch)."""
+    g = card_graph(5, 400, 40, 0.1)
+    op = cuda_spmm.SpmmOperator(g, "cuda")
+    x32 = torch.rand((g.n_dst, 16), device="cuda") - 0.5
+    for x in (x32, x32.to(torch.bfloat16)):
+        before = cuda_spmm.launches, cuda_spmm.bf16_launches
+        got = torch.ops.msha_gnn_torch.csr_spmm(op.ptr, op.col, op.w, x,
+                                                g.n_src)
+        torch.cuda.synchronize()
+        bf16 = int(x.dtype == torch.bfloat16)
+        after = (before[0] + 1 - bf16, before[1] + bf16)
+        assert (cuda_spmm.launches, cuda_spmm.bf16_launches) == after
+        assert got.dtype == torch.float32
+        want = cuda_spmm.csr_spmm_plain(op.ptr, op.col, op.w, x, g.n_src)
+        sums_close(got, want)
+        on_cpu = torch.ops.msha_gnn_torch.csr_spmm(
+            op.ptr.cpu(), op.col.cpu(), op.w.cpu(), x.cpu(), g.n_src)
+        assert (cuda_spmm.launches, cuda_spmm.bf16_launches) == after
+        sums_close(on_cpu, want.cpu())
+
+
+@pytest.mark.cuda
+def test_exported_gcn_table_launches_the_kernel_twice():
+    """A GCN table exported on the card calls the operator twice; loaded
+    back, each call launches ``csr_spmm_f32`` twice and gives the eager
+    fill's scores."""
+    from msha_gnn_torch.data import synthetic_flow
+    from msha_gnn_torch.export import export_scorer, load_scorer
+    from msha_gnn_torch.training import gcn_task
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    fg = synthetic_flow(600, 8, 20, 6, 4000, seed=2)
+    task, model = gcn_task(fg, nfeat=16, device="cuda")
+    scorer = load_scorer(export_scorer(task, model))
+    before = cuda_spmm.launches
+    got = scorer(np.arange(fg.n_src))
+    torch.cuda.synchronize()
+    assert cuda_spmm.launches == before + 2
+    torch.testing.assert_close(got, task.full_scores(model), rtol=1e-5,
+                               atol=1e-6)

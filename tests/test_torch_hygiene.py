@@ -3,21 +3,25 @@
 
 One test imports every module of ``msha_gnn_torch`` (and the port's
 scripts, ``chip_smoke``, ``scripts_torch_profile``,
-``scripts_torch_epoch_drift`` and ``scripts_torch_kernel_ab``) in a
-fresh interpreter in which a ``sys.meta_path`` finder refuses those packages;
-another scans the sources for such imports.
+``scripts_torch_epoch_drift``, ``scripts_torch_kernel_ab`` and
+``scripts_torch_step_ab``) in a fresh interpreter in which a ``sys.meta_path`` finder refuses those packages;
+another scans the sources for such imports.  A third reads the package
+data that ``pyproject.toml`` ships: every file a kernel source includes,
+and the raw pipeline's asset.
 """
 
+import fnmatch
 import pathlib
 import re
 import subprocess
 import sys
 import textwrap
+import tomllib
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "msha_gnn_tpu")
 SCRIPTS = ("chip_smoke", "scripts_torch_profile", "scripts_torch_epoch_drift",
-           "scripts_torch_kernel_ab")
+           "scripts_torch_kernel_ab", "scripts_torch_step_ab")
 
 
 def _port_sources():
@@ -55,8 +59,10 @@ def test_every_module_imports_with_jax_blocked():
     visited = set(out.stdout.split())
     assert len(visited) >= 20  # every module was visited
     assert {"msha_gnn_torch.models.msha", "msha_gnn_torch.ops.dense",
-            "msha_gnn_torch.ops.grouped", "msha_gnn_torch.ops.cuda"
-            } <= visited
+            "msha_gnn_torch.ops.grouped", "msha_gnn_torch.ops.cuda",
+            "msha_gnn_torch.training.temporal", "msha_gnn_torch.explain",
+            "msha_gnn_torch.export", "msha_gnn_torch.data.raw",
+            "msha_gnn_torch.utils.debug"} <= visited
 
 
 def test_sources_name_no_jax_package():
@@ -66,3 +72,28 @@ def test_sources_name_no_jax_package():
                  if pattern.search(p.read_text())]
     assert offenders == []
     assert len(_port_sources()) >= 20
+
+
+def test_package_data_ships_every_kernel_include_and_asset():
+    """An installed wheel holds what the kernels' build reads: each
+    ``#include "..."`` of ``csrc/*.cu`` (and of the headers) names a file
+    that a pattern of ``msha_gnn_torch``'s package data matches, as do the
+    package's data assets."""
+    conf = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    patterns = conf["tool"]["setuptools"]["package-data"]["msha_gnn_torch"]
+    pkg = ROOT / "msha_gnn_torch"
+
+    def shipped(path):
+        rel = path.relative_to(pkg).as_posix()
+        return any(fnmatch.fnmatch(rel, p) for p in patterns)
+
+    csrc = pkg / "csrc"
+    sources = sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
+    includes = {m for src in sources for m in re.findall(
+        r'^\s*#include\s+"([^"]+)"', src.read_text(), re.M)}
+    assert {"runs.cuh", "gat_common.cuh"} <= includes
+    for name in includes:
+        assert (csrc / name).exists(), name
+        assert shipped(csrc / name), f"csrc/{name} is not package data"
+    for path in sources + sorted((pkg / "data" / "assets").glob("*")):
+        assert shipped(path), path
