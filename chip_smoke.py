@@ -231,6 +231,29 @@ over the same 20 calls, as is their library yardstick.
    the table loaded on the CPU launches none.  16e: ``nan_guard()`` raises
    at an operator of an MSHA forward with a NaN feature and at
    ``csr_spmm_f32``'s own check; without it both run.
+17. ``cli bench``, the benchmarks module, in phase 16's directory.  17a:
+   ``csr_spmm_f32`` (``A x``; its float4 rows, ``x`` 16-byte aligned) and
+   ``csr_sddmm_f32`` at d 128 on the benchmark's own inputs
+   (``make_powerlaw_graph(131072, 131072, 2_000_000)``, column 0 about 38%
+   of the edges), each against its plain version, twice bit for bit, once
+   through its C entry into a NaN-filled output, with times, bound and
+   yardstick (``torch.sparse.mm``, ``torch.sparse.sampled_addmm``).  17b:
+   the attention benchmark's sparse path (the kernels: the d = 2 logits by
+   ``csr_sddmm_f32``, ``seg_softmax_fwd_f32``, the att-weighted
+   ``csr_spmm_f32`` both ways; under autograd ``seg_softmax_bwd_f32``,
+   each SpMM's ``dw`` and ``dx``, the logits' adjoints) against its dense
+   path on the 2015 inter graph at d 64, outputs and both gradients, with
+   exact launches; each of those kernels against its plain version on the
+   path's inputs; then ``bench_flagship_attention_paths``, its launches
+   counted.  17c: ``python -m msha_gnn_torch.cli bench --which all`` in
+   this process: one JSON line with every key of the JAX package's output
+   (``xla`` -> ``torch``, ``pallas`` -> ``cuda``, no ``prng``), times
+   finite and positive, ``records_per_s == batch_size / step_seconds``,
+   ``mfu`` a number, exactly 23 launches each of ``csr_spmm_f32`` and
+   ``csr_sddmm_f32`` and nothing else, the peak memory; then
+   ``bench_serving`` at batch 1,024 and ``bench_flagship_size_sweep`` at
+   39,179, 156,716 and 626,864 sources, launching no kernel of the port.
+   The phase's seconds and the script's are printed.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -386,6 +409,31 @@ EXPLAIN_RTOL, EXPLAIN_ATOL = 1e-5, 1e-6
 # (tests/test_export.py)
 EXPORT_IDS = 4096
 EXPORT_RTOL, EXPORT_ATOL = 1e-5, 1e-6
+# phase 17: cli bench.  bench_spmm / bench_sddmm's defaults (the kernels
+# at d 128 on 2 M power-law edges), the attention benchmark's width, and
+# bench_flagship_size_sweep's default sizes
+BENCH_NODES, BENCH_EDGES, BENCH_D = 131072, 2_000_000, 128
+ATTENTION_D = 64
+SWEEP_SIZES = (39179, 156716, 626864)
+# the keys of the JAX package's benchmarks (msha_gnn_tpu/bench.py), which
+# this script does not import; cli bench's with xla -> torch, pallas ->
+# cuda and no prng
+FLAGSHIP_KEYS = {"n", "m", "batch_size", "step_seconds",
+                 "single_dispatch_step_seconds", "records_per_s",
+                 "flops_per_step", "mfu", "dense_baseline_step_seconds",
+                 "dense_baseline_n", "speedup_vs_dense_reference"}
+SPMM_KEYS = {"impl", "edges", "d", "seconds", "edges_per_s",
+             "effective_gbps", "roofline_fraction", "strict_roofline_fraction"}
+SDDMM_KEYS = {"impl", "edges", "d", "seconds", "edges_per_s",
+              "roofline_fraction"}
+BENCH_KEYS = {"flagship": FLAGSHIP_KEYS, "spmm": SPMM_KEYS,
+              "spmm_torch": SPMM_KEYS, "sddmm": SDDMM_KEYS,
+              "sddmm_cuda": SDDMM_KEYS}
+ATTENTION_KEYS = {"n", "m", "edges", "e_pad", "d", "dense_fwd", "sparse_fwd",
+                  "dense_fwd_grad", "sparse_fwd_grad",
+                  "dense_over_sparse_fwd", "dense_over_sparse_fwd_grad"}
+SERVING_KEYS = {"batch_seconds", "predictions_per_s"}
+SWEEP_KEYS = {"step_seconds", "records_per_s", "ns_per_node_per_step"}
 # the fused epoch's metrics before the redesign of csr_spmm_f32 and
 # r1l_bwd_f32 (the same data, seed and state), for comparison by eye
 BEFORE_METRICS = ("before the edge-run kernels: Hits@20 0.0090, Hits@50 "
@@ -783,43 +831,59 @@ def phase_rank1_kernels(split):
     return results
 
 
+def kernel_use(name, source, replaces, kernel, plain, bnd, rtol, atol_rel,
+               library=None):
+    """One use of a kernel on the card, on the inputs its caller closed
+    over: ``kernel()`` against ``plain()`` (the first output of each) at
+    ``rtol`` and ``atol_rel`` times the largest plain value, two launches
+    bit for bit, the yardstick ``library = (call, values, lib_name)``
+    (``values(call())`` held to the plain output at rtol 1e-4) where there
+    is one, event and device times of kernel, plain version and yardstick,
+    the bound ``bnd``; returns its entry of the kernels line."""
+    def first(out):
+        return out[0] if isinstance(out, tuple) else out
+
+    got, want = first(kernel()), first(plain())
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    err = close(name, got, want, rtol, atol_rel * scale)
+    same_bits(name, kernel)
+    ms, dev_ms = time_ms(kernel), device_ms(kernel)
+    plain_ms = time_ms(plain)
+    library_ms = lib_dev_ms = None
+    lib_name = "none"
+    if library is not None:
+        call, values, lib_name = library
+        if not torch.allclose(values(call()), want, rtol=1e-4,
+                              atol=1e-5 * max(1.0, scale)):
+            raise AssertionError(f"{name}: the {lib_name} yardstick "
+                                 "disagrees with the plain version")
+        library_ms, lib_dev_ms = time_ms(call), device_ms(call)
+    log(f"  {name}: kernel {ms:.4f} ms (device {fmt(dev_ms)}), plain "
+        f"{plain_ms:.4f} ms, {lib_name} {fmt(library_ms)} (device "
+        f"{fmt(lib_dev_ms)}), bound {bnd[0]:.5f} ms ({bnd[1]})")
+    return {**entry(name, source, replaces, err, ms, plain_ms, bnd,
+                    library_ms),
+            "device_ms": dev_ms, "library_device_ms": lib_dev_ms}
+
+
 def spmm_use(label, args, library, lib_name):
-    """One use of ``csr_spmm_f32`` on the card: against its plain version
-    at the sums' tolerance (sums of up to 3,842 terms), two launches bit
-    for bit, the library yardstick against the plain version, event and
-    device times of the kernel and the yardstick, the bound; returns its
-    entry of the kernels line."""
+    """One use of ``csr_spmm_f32`` on the card (:func:`kernel_use`): at the
+    sums' tolerance (sums of up to 3,842 terms), its library yardstick a
+    dense result; returns its entry of the kernels line."""
     from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
 
     ptr, col, w, x, n_rows = args
-    got = cuda_spmm.csr_spmm(*args)
-    want = cuda_spmm.csr_spmm_plain(*args)
-    torch.cuda.synchronize()
-    err = close(f"csr_spmm_f32[{label}]", got, want, SUM_RTOL,
-                SUM_ATOL_REL * float(want.abs().max()))
-    same_bits(f"csr_spmm_f32[{label}]", lambda: cuda_spmm.csr_spmm(*args))
-    if not torch.allclose(library(), want, rtol=1e-4, atol=1e-5 * max(
-            1.0, float(want.abs().max()))):
-        raise AssertionError(f"{lib_name} yardstick disagrees with the "
-                             "plain version")
-    kernel = (lambda: cuda_spmm.csr_spmm(*args))
-    ms, dev_ms = time_ms(kernel), device_ms(kernel)
-    plain_ms = time_ms(lambda: cuda_spmm.csr_spmm_plain(*args))
-    library_ms, lib_dev_ms = time_ms(library), device_ms(library)
-    bnd = spmm_bound(ptr, col, x, n_rows, weighted=w is not None)
     e, d = col.numel(), x.shape[1]
     log(f"  csr_spmm_f32[{label}]: rows {n_rows}, edges {e}, d {d}, "
-        f"{cuda_spmm.run_for(e, d)} slots a run: kernel {ms:.4f} ms (device "
-        f"{fmt(dev_ms)}), plain {plain_ms:.4f} ms, {lib_name} "
-        f"{library_ms:.4f} ms (device {fmt(lib_dev_ms)}), bound "
-        f"{bnd[0]:.5f} ms ({bnd[1]})")
-    return {"name": f"csr_spmm_f32[{label}]", "route": "cuda",
-            "source": "msha_gnn_torch/csrc/spmm.cu",
-            "replaces": "msha_gnn_tpu/ops/pallas/spmm.py:244 _visit_kernel",
-            "launches": None, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
-            "library_ms": library_ms, "device_ms": dev_ms,
-            "library_device_ms": lib_dev_ms}
+        f"{cuda_spmm.run_for(e, d)} slots a run")
+    return kernel_use(
+        f"csr_spmm_f32[{label}]", "spmm.cu",
+        "msha_gnn_tpu/ops/pallas/spmm.py:244 _visit_kernel",
+        lambda: cuda_spmm.csr_spmm(*args),
+        lambda: cuda_spmm.csr_spmm_plain(*args),
+        spmm_bound(ptr, col, x, n_rows, weighted=w is not None), SUM_RTOL,
+        SUM_ATOL_REL, (library, lambda out: out, lib_name))
 
 
 def sddmm_bound(ptr, col, a, b, n_out):
@@ -5289,7 +5353,387 @@ def phase_slice(fg):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: cli bench, the benchmarks module on the card
+# ---------------------------------------------------------------------------
+
+def coalesced_csr(ptr, col, w, shape):
+    """The CSR matrix of these slots with duplicate pairs summed, the
+    library yardsticks' operand (their invariants want each pair once)."""
+    from msha_gnn_torch.ops.cuda.spmm import edge_rows
+
+    rows = edge_rows(ptr, col.numel())
+    return torch.sparse_coo_tensor(torch.stack([rows, col.long()]), w,
+                                   shape).coalesce().to_sparse_csr()
+
+
+def sddmm_library(ptr, col, a, b, n_out):
+    """``torch.sparse.sampled_addmm`` on the CSR pattern of these slots,
+    ``(call, values, name)`` for :func:`kernel_use`, or None where this
+    PyTorch refuses it."""
+    e = col.numel()
+    pattern = torch.sparse_csr_tensor(ptr, col, torch.zeros(e, device=DEVICE),
+                                      size=(ptr.numel() - 1, b.shape[0]))
+    bt = b.t()
+
+    def call():
+        return torch.sparse.sampled_addmm(pattern, a, bt, beta=0.0)
+
+    try:
+        call()
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"  torch.sparse.sampled_addmm does not run here: {exc}")
+        return None
+    return (call,
+            lambda out: torch.cat([out.values(), out.values().new_zeros(
+                n_out - e)]),
+            "torch.sparse.sampled_addmm")
+
+
+def phase_bench_kernels():
+    """Phase 17a: ``csr_spmm_f32`` and ``csr_sddmm_f32`` at d 128 on
+    ``bench_spmm`` / ``bench_sddmm``'s own inputs, before any timing:
+    ``make_powerlaw_graph(131072, 131072, 2_000_000)`` (its x 16-byte
+    aligned, so the SpMM takes its float4 rows), each against its plain
+    version at the sums' tolerance (dots and row sums of 128 standard
+    normal products), twice bit for bit, once through its C entry into a
+    NaN-filled output; times, bounds and yardsticks as in phase 3."""
+    from msha_gnn_torch import bench
+    from msha_gnn_torch.ops.cuda import sddmm as cuda_sddmm
+    from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
+    from msha_gnn_torch.ops.cuda.rank1_gat import group_for
+    from msha_gnn_torch.ops.cuda.spmm import SpmmOperator
+
+    n, e, d = BENCH_NODES, BENCH_EDGES, BENCH_D
+    g, x = bench.make_powerlaw_graph(n, n, e, d, device=DEVICE)
+    op = SpmmOperator.build(g)
+    e_pad = g.num_padded_edges
+    hub = torch.bincount(op.col.long(), minlength=n)
+    log(f"  graph: {n} x {n}, {e} edges ({e_pad} padded), rows {e / n:.1f} "
+        f"edges on average, {int(op.ptr.diff().max())} at most; column 0 "
+        f"takes {int(hub[0])} edges ({float(hub[0]) / e:.3f}), "
+        f"{int((op.t_ptr.diff() > 0).sum())} columns any; x [{n}, {d}] at "
+        f"{x.data_ptr() % 256} bytes past a 256-byte boundary")
+    if x.data_ptr() % 16:
+        raise AssertionError("x is not 16-byte aligned: csr_spmm_f32 would "
+                             "skip its float4 rows")
+
+    args = (op.ptr, op.col, op.w, x, n)
+    a_csr = coalesced_csr(op.ptr, op.col, op.w, (n, n))
+    spmm_entry = spmm_use("bench A x d128", args,
+                          lambda: torch.sparse.mm(a_csr, x),
+                          "torch.sparse.mm (duplicate pairs summed)")
+    spmm_entry["replaces"] = "msha_gnn_tpu/ops/pallas/spmm.py:747 _hub_kernel"
+    run = cuda_spmm.run_for(e, d)
+    nan_filled(
+        "csr_spmm_f32[bench A x d128]",
+        ((n, d), (cuda_spmm.sums_ws_floats(e, run, d),)),
+        lambda out, ws: cuda_spmm._kernel_lib().csr_spmm_f32(
+            op.ptr.data_ptr(), op.col.data_ptr(), op.w.data_ptr(),
+            x.data_ptr(), out.data_ptr(), ws.data_ptr(), n, e, run, d,
+            torch.cuda.current_stream().cuda_stream),
+        (cuda_spmm.csr_spmm(*args),), what="out")
+
+    # bench_sddmm's rows: the same graph, a and b drawn from seed 1
+    rng = np.random.default_rng(1)
+    a = torch.as_tensor(rng.standard_normal((n, d)), dtype=torch.float32,
+                        device=DEVICE)
+    b = torch.as_tensor(rng.standard_normal((n, d)), dtype=torch.float32,
+                        device=DEVICE)
+    sd_args = (op.ptr, op.col, a, b, e_pad)
+    sd_run, sd_group = cuda_sddmm.RUN, group_for(d)
+    log(f"  csr_sddmm_f32: {sd_run} slots a run, {sd_group} lanes an edge")
+    prime_nan((e_pad,))
+    if cuda_sddmm.csr_sddmm(*sd_args)[e:].any():
+        raise AssertionError("csr_sddmm_f32 wrote a pad slot")
+    sddmm_entry = kernel_use(
+        "csr_sddmm_f32[bench d128]", "sddmm.cu",
+        "msha_gnn_tpu/ops/pallas/spmm.py:1428 _sddmm_kernel and :1294 "
+        "_sddmm_hub_kernel",
+        lambda: cuda_sddmm.csr_sddmm(*sd_args),
+        lambda: cuda_sddmm.csr_sddmm_plain(*sd_args),
+        sddmm_bound(*sd_args), SUM_RTOL, SUM_ATOL_REL,
+        sddmm_library(*sd_args))
+    nan_filled(
+        "csr_sddmm_f32[bench d128]", ((e_pad,),),
+        lambda out: cuda_sddmm._kernel_lib().csr_sddmm_f32(
+            op.ptr.data_ptr(), op.col.data_ptr(), a.data_ptr(), b.data_ptr(),
+            out.data_ptr(), n, e_pad, sd_run, sd_group, d,
+            torch.cuda.current_stream().cuda_stream),
+        (cuda_sddmm.csr_sddmm(*sd_args),), what="out (pads included)")
+    return [spmm_entry, sddmm_entry]
+
+
+def phase_bench_attention(data_dir):
+    """Phase 17b: the attention benchmark's two paths on the 2015 inter
+    graph of ``data_dir`` at d 64.  The sparse path (the kernels) against
+    the dense one: outputs and both gradients at the sums' tolerance (the
+    columns' sums run over thousands of edges), with exact launches; each
+    kernel of the path against its plain version on the path's inputs;
+    then ``bench_flagship_attention_paths`` itself, its launches counted
+    (the sparse path's operators caught as the benchmark builds them)."""
+    import functools
+
+    from msha_gnn_torch import bench
+    from msha_gnn_torch.data import load_flow_graph
+    from msha_gnn_torch.ops.cuda import sddmm as cuda_sddmm
+    from msha_gnn_torch.ops.cuda import softmax as sm
+
+    fg = load_flow_graph("2015", data_dir)
+    host = fg.inter
+    g = host.to(DEVICE)
+    n, m, e, e_pad, d = (g.n_src, g.n_dst, g.num_edges, g.num_padded_edges,
+                         ATTENTION_D)
+    if not bool((host.row_ptr.diff() > 0).all()):
+        raise AssertionError("a source without edges: the dense path's row "
+                             "would be uniform, the sparse path's zero")
+    x = bench.attention_inputs(g, d)
+    ops = bench.attention_operators(g, host=host)
+    op, _, sop = ops
+    log(f"  graph: {n} x {m}, {e} edges ({e_pad} padded), no empty row, "
+        f"d {d}; columns {int(op.t_ptr.diff().min())} to "
+        f"{int(op.t_ptr.diff().max())} edges")
+    kw = dict(a_src=x["a_src"], a_dst=x["a_dst"])
+    dense = functools.partial(bench.attention_dense_path, mask=x["mask"],
+                              **kw)
+    sparse = functools.partial(bench.attention_sparse_path, ops=ops, **kw)
+    h1, h2, ct_n, ct_m = x["h1"], x["h2"], x["ct_n"], x["ct_m"]
+
+    zero_counts(op)
+    got = sparse(h1, h2)
+    torch.cuda.synchronize()
+    fwd_counts = read_counts(op)
+    zero_counts(op)
+    got += tuple(bench.attention_grads(sparse, h1, h2, ct_n, ct_m))
+    torch.cuda.synchronize()
+    grad_counts = read_counts(op)
+    # forward: the logits, the softmax, the two att-weighted SpMMs; with
+    # the backward also each SpMM's dw, the softmax VJP, each SpMM's dx and
+    # the logits' two d = 2 adjoints
+    fwd_want = expected(csr_sddmm_f32=1, seg_softmax_fwd_f32=1,
+                        csr_spmm_f32=2, csr_spmm_f32_transposed=1)
+    grad_want = expected(csr_sddmm_f32=3, seg_softmax_fwd_f32=1,
+                         seg_softmax_bwd_f32=1, csr_spmm_f32=6,
+                         csr_spmm_f32_transposed=3)
+    for label, have, want in (("forward", fwd_counts, fwd_want),
+                              ("forward and gradients", grad_counts,
+                               grad_want)):
+        if have != want:
+            raise AssertionError(f"sparse attention {label} launched "
+                                 f"{have}, not {want}")
+        log(f"  sparse path, {label}: launches "
+            f"{ {k: v for k, v in have.items() if v} } exactly")
+    want = (*dense(h1, h2),
+            *bench.attention_grads(dense, h1, h2, ct_n, ct_m))
+    for label, t, w in zip(("u = att h1", "v = att^T h2", "dh1", "dh2"),
+                           got, want):
+        close(f"sparse vs dense attention {label}", t, w, SUM_RTOL,
+              SUM_ATOL_REL * float(w.abs().max()))
+
+    # each kernel on the path's own inputs
+    s_src, s_dst = h2 @ x["a_src"], h1 @ x["a_dst"]
+    lhs = torch.stack([s_src, torch.ones_like(s_src)], dim=1)
+    rhs = torch.stack([torch.ones_like(s_dst), s_dst], dim=1)
+    sddmm_repl = ("msha_gnn_tpu/ops/pallas/spmm.py:1428 _sddmm_kernel and "
+                  ":1294 _sddmm_hub_kernel")
+    results = []
+    for label, sd_args in (("attention logits d2", (op.ptr, op.col, lhs, rhs,
+                                                    e_pad)),
+                           ("attention dw d64", (op.ptr, op.col, ct_n, h1,
+                                                 e_pad))):
+        results.append(kernel_use(
+            f"csr_sddmm_f32[{label}]", "sddmm.cu", sddmm_repl,
+            lambda sd_args=sd_args: cuda_sddmm.csr_sddmm(*sd_args),
+            lambda sd_args=sd_args: cuda_sddmm.csr_sddmm_plain(*sd_args),
+            sddmm_bound(*sd_args), SUM_RTOL, SUM_ATOL_REL,
+            sddmm_library(*sd_args)))
+    logits = torch.nn.functional.leaky_relu(
+        cuda_sddmm.csr_sddmm(op.ptr, op.col, lhs, rhs, e_pad), 0.2)
+    fwd_args = (sop.ptr, logits, None, e)
+    coo = torch.sparse_coo_tensor(
+        torch.stack([g.senders[:e].long(), g.receivers[:e].long()]),
+        logits[:e], size=(n, m)).coalesce()
+    fwd_b, bwd_b = softmax_bounds(n, e, e_pad, masked=False)
+    results.append(kernel_use(
+        "seg_softmax_fwd_f32[attention]", "softmax.cu",
+        "msha_gnn_tpu/ops/pallas/softmax.py:56 _stats_kernel and :86 "
+        "_expand_kernel",
+        lambda: sm.seg_softmax_fwd(*fwd_args, sop.run, sop.ws),
+        lambda: sm.seg_softmax_fwd_plain(*fwd_args), fwd_b, KERNEL_RTOL,
+        KERNEL_ATOL, (lambda: torch.sparse.softmax(coo, 1),
+                      lambda out: torch.cat([out.values(),
+                                             logits.new_zeros(e_pad - e)]),
+                      "torch.sparse.softmax")))
+    att = sm.seg_softmax_fwd_plain(*fwd_args)[0]
+    gatt = torch.randn(e_pad, device=DEVICE,
+                       generator=torch.Generator(device=DEVICE).manual_seed(3))
+    bwd_args = (sop.ptr, att, gatt, e)
+    att_coo = torch.sparse.softmax(coo, 1)
+    g_coo = torch.sparse_coo_tensor(att_coo.indices(), gatt[:e],
+                                    size=(n, m)).coalesce()
+    results.append(kernel_use(
+        "seg_softmax_bwd_f32[attention]", "softmax.cu",
+        "msha_gnn_tpu/ops/pallas/softmax.py:102 _rowsum_kernel and :86 "
+        "_expand_kernel",
+        lambda: sm.seg_softmax_bwd(*bwd_args, sop.run, sop.ws),
+        lambda: sm.seg_softmax_bwd_plain(*bwd_args), bwd_b, SUM_RTOL,
+        SUM_ATOL_REL,
+        (lambda: torch._sparse_softmax_backward_data(g_coo, att_coo, 1, coo),
+         lambda out: torch.cat([out.coalesce().values(),
+                                gatt.new_zeros(e_pad - e)]),
+         "torch.sparse.softmax backward")))
+    for label, transpose, inp in (("attention att A h1 d64", False, h1),
+                                  ("attention att A^T h2 d64", True, h2)):
+        ptr, col = (op.t_ptr, op.t_col) if transpose else (op.ptr, op.col)
+        ww = op.weights(att, transpose)
+        shape = (m, n) if transpose else (n, m)
+        a_csr = torch.sparse_csr_tensor(ptr, col, ww, size=shape)
+        results.append(spmm_use(
+            label, (ptr, col, ww, inp, shape[0]),
+            lambda a_csr=a_csr, inp=inp: torch.sparse.mm(a_csr, inp),
+            "torch.sparse.mm"))
+        if not transpose:
+            results[-1]["replaces"] = ("msha_gnn_tpu/ops/pallas/spmm.py:747 "
+                                       "_hub_kernel")
+
+    caught = []
+
+    def catch(graph, host=None):
+        caught.append(build_ops(graph, host=host))
+        return caught[-1]
+
+    build_ops = bench.attention_operators
+    bench.attention_operators = catch
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        out = bench.bench_flagship_attention_paths(d=d, data_dir=data_dir)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts(caught[0][0])
+    finally:
+        bench.attention_operators = build_ops
+    log(f"  bench_flagship_attention_paths ({seconds:.1f} s): "
+        f"{json.dumps(out)}")
+    for k in ("dense_fwd", "sparse_fwd", "dense_fwd_grad", "sparse_fwd_grad",
+              "dense_over_sparse_fwd", "dense_over_sparse_fwd_grad"):
+        if not (np.isfinite(out[k]) and out[k] > 0):
+            raise AssertionError(f"bench_flagship_attention_paths: {k} "
+                                 f"{out[k]}")
+    if set(out) != ATTENTION_KEYS or (out["n"], out["m"], out["edges"]) != (
+            n, m, e):
+        raise AssertionError(f"bench_flagship_attention_paths returned {out}")
+    # a forward runs one logits SDDMM beside its one softmax (the exact
+    # counts above); the other SDDMMs are the SpMMs' dw
+    transposed = counts["csr_spmm_f32 transposed"]
+    launches = {
+        "csr_sddmm_f32[attention logits d2]": counts["seg_softmax_fwd_f32"],
+        "csr_sddmm_f32[attention dw d64]":
+            counts["csr_sddmm_f32"] - counts["seg_softmax_fwd_f32"],
+        "seg_softmax_fwd_f32[attention]": counts["seg_softmax_fwd_f32"],
+        "seg_softmax_bwd_f32[attention]": counts["seg_softmax_bwd_f32"],
+        "csr_spmm_f32[attention att A h1 d64]":
+            counts["csr_spmm_f32"] - transposed,
+        "csr_spmm_f32[attention att A^T h2 d64]": transposed}
+    log(f"  its launches: {launches} (the SpMMs' counts take their dx and "
+        "the logits' d = 2 adjoints)")
+    for k in results:
+        k["launches"] = launches[k["name"]]
+    return results
+
+
+def is_time(v):
+    return isinstance(v, float) and np.isfinite(v) and v > 0
+
+
+def phase_cli_bench(data_dir):
+    """Phase 17c: ``python -m msha_gnn_torch.cli bench --which all
+    --data_dir <16a>`` in this process, its one JSON line read back: every
+    key of the JAX package's output (``xla`` -> ``torch``, ``pallas`` ->
+    ``cuda``, no ``prng``), every time finite and positive,
+    ``records_per_s == batch_size / step_seconds``, ``mfu`` a number,
+    exactly 23 launches (3 warm-up, 20 timed) of each of ``csr_spmm_f32``
+    and ``csr_sddmm_f32`` and none of the other kernels (the flagship's
+    MSHA and the torch rows launch none), the peak memory (the dense
+    baseline's concat tensors); then ``bench_serving`` at batch 1,024 and
+    ``bench_flagship_size_sweep`` at ``SWEEP_SIZES``.  Returns the kernel
+    launches of the CLI run."""
+    import contextlib
+    import io
+
+    from msha_gnn_torch import bench, cli
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench", "--which", "all", "--data_dir", data_dir])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    lines = buf.getvalue().splitlines()
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"cli bench: rc {rc}, {len(lines)} lines")
+    out = json.loads(lines[0])
+    log(f"  cli bench --which all: {seconds:.1f} s, peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    for k, v in out.items():
+        log(f"    {k}: {json.dumps(v)}")
+    if set(out) != set(BENCH_KEYS) | {"device"} or \
+            out["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"cli bench keys {sorted(out)}")
+    for k, keys in BENCH_KEYS.items():
+        if set(out[k]) != keys:
+            raise AssertionError(f"cli bench {k}: keys {sorted(out[k])}")
+    flag = out["flagship"]
+    for k in ("step_seconds", "single_dispatch_step_seconds",
+              "dense_baseline_step_seconds", "records_per_s",
+              "flops_per_step", "mfu", "speedup_vs_dense_reference"):
+        if not is_time(flag[k]):
+            raise AssertionError(f"flagship {k} {flag[k]!r}")
+    if flag["records_per_s"] != flag["batch_size"] / flag["step_seconds"]:
+        raise AssertionError("records_per_s is not batch_size / step_seconds")
+    if not flag["mfu"] < 1.0:
+        raise AssertionError(f"flagship mfu {flag['mfu']}")
+    for k in ("spmm", "spmm_torch", "sddmm", "sddmm_cuda"):
+        if not all(is_time(v) for kk, v in out[k].items()
+                   if kk not in ("impl", "edges", "d")):
+            raise AssertionError(f"{k}: {out[k]}")
+    want = expected(csr_spmm_f32=23, csr_sddmm_f32=23)
+    del want["csr_spmm_f32 transposed"], want["csr_spmm_f32 reduce_edges"]
+    if counts != want:
+        raise AssertionError(f"cli bench launched {counts}, not {want}")
+    log("  cli bench launched exactly 23 csr_spmm_f32 and 23 csr_sddmm_f32, "
+        "nothing else of the port's kernels")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    serving = bench.bench_serving(batch_size=PREDICT_BATCH, data_dir=data_dir)
+    log(f"  bench_serving (batch {PREDICT_BATCH}, "
+        f"{time.perf_counter() - t0:.1f} s): {json.dumps(serving)}")
+    t0 = time.perf_counter()
+    sweep = bench.bench_flagship_size_sweep(sizes=SWEEP_SIZES)
+    log(f"  bench_flagship_size_sweep {SWEEP_SIZES} "
+        f"({time.perf_counter() - t0:.1f} s): {json.dumps(sweep)}")
+    if any(read_counts().values()):
+        raise AssertionError("serving or the sweep launched a kernel of the "
+                             "port")
+    if list(serving) != ["full_scores_cache", "per_batch"] or \
+            list(sweep) != [str(s) for s in SWEEP_SIZES]:
+        raise AssertionError("bench_serving / size sweep rows")
+    for row in (*serving.values(), *sweep.values()):
+        if set(row) not in (SERVING_KEYS, SWEEP_KEYS) or \
+                not all(is_time(v) for v in row.values()):
+            raise AssertionError(f"bench row {row}")
+    return {"csr_spmm_f32": counts["csr_spmm_f32"],
+            "csr_sddmm_f32": counts["csr_sddmm_f32"]}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -5473,13 +5917,29 @@ def main() -> int:
         exported = phase_export(data_dir, td)
         log("phase 16e: the NaN guard")
         phase_nan_guard(data_dir)
+        log(f"  phase 16: {time.perf_counter() - t16:.1f} s")
+
+        t17 = time.perf_counter()
+        log(f"phase 17a: csr_spmm_f32 and csr_sddmm_f32 at d {BENCH_D} on "
+            f"the benchmark's power-law graph ({BENCH_EDGES} edges)")
+        bench_kernels = phase_bench_kernels()
+        log(f"phase 17b: the attention paths, sparse (the kernels) vs "
+            f"dense, on the 2015 inter graph at d {ATTENTION_D}")
+        kernels += phase_bench_attention(data_dir)
+        log("phase 17c: cli bench --which all, bench_serving, "
+            "bench_flagship_size_sweep")
+        bench_launches = phase_cli_bench(data_dir)
+        for k in bench_kernels:
+            k["launches"] = bench_launches[k["name"].split("[")[0]]
+        kernels += bench_kernels
+        log(f"  phase 17: {time.perf_counter() - t17:.1f} s")
     # the exported GCN table's call: gc1 transposed, gc2 plain
     for k in kernels:
         if k["name"] == "csr_spmm_f32[gc1 A^T x]":
             k["launches"] += exported["gc1"]
         elif k["name"] == "csr_spmm_f32[gc2 A x]":
             k["launches"] += exported["gc2"]
-    log(f"  phase 16: {time.perf_counter() - t16:.1f} s")
+    log(f"  script: {time.perf_counter() - t_start:.1f} s")
     if any(k["launches"] < 1 for k in kernels):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{kernels}")

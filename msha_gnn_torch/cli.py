@@ -8,11 +8,13 @@ from a checkpoint), ``export`` (a checkpoint's scorer as a
 ``torch.export`` artifact), ``serve`` (HTTP server from a checkpoint),
 ``explain`` (attention top-K extraction), ``linkpred`` (ogbl-ddi-style
 link prediction, trained and evaluated), ``llp`` (KD link prediction on
-the flow graph) and ``sgae`` (autoencoder pretrain and GraphSAGE
-fine-tune).  The port has every model preset of the JAX package
-(:data:`PORTED_MODELS`); a ``linkpred --impl`` the port lacks exits with
-code 2.  ``cli bench`` is not ported yet.  With the environment variable
-``MSHA_NAN_GUARD`` set, every command runs under
+the flow graph), ``sgae`` (autoencoder pretrain and GraphSAGE fine-tune)
+and ``bench`` (the benchmarks of :mod:`msha_gnn_torch.bench` as one JSON
+line, with ``--data_dir`` for the dataset the flagship reads).  The port
+has every model preset of the JAX package (:data:`PORTED_MODELS`); a
+``linkpred --impl`` the port lacks exits with code 2, as does ``bench
+--which scaling`` (the multi-GPU modules are not ported).  With the
+environment variable ``MSHA_NAN_GUARD`` set, every command runs under
 :func:`~msha_gnn_torch.utils.debug.nan_guard`.
 """
 
@@ -280,7 +282,21 @@ def cmd_sgae(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    """Run the benchmarks of ``--which``; prints them as one JSON line."""
+    from .bench import SCALING_NOT_PORTED, run_bench
+
+    if args.which == "scaling":
+        print(f"not ported: --which scaling ({SCALING_NOT_PORTED})",
+              file=sys.stderr)
+        return 2
+    print(json.dumps(run_bench(which=args.which, data_dir=args.data_dir,
+                               device=args.device)))
+    return 0
+
+
 def main(argv=None) -> int:
+    from .bench import VALID_WHICH
     from .data.flow import DEFAULT_DATA_DIR
     from .utils import LLPConfig, SGAEConfig, TrainConfig
     from .utils.debug import nan_guard_from_env
@@ -365,8 +381,13 @@ def main(argv=None) -> int:
     p_lp.add_argument("--log_path", default=None)
     p_lp.set_defaults(fn=cmd_linkpred)
 
+    p_bench = sub.add_parser("bench", help="microbenchmarks")
+    p_bench.add_argument("--which", default="all", choices=VALID_WHICH)
+    p_bench.add_argument("--data_dir", default=DEFAULT_DATA_DIR)
+    p_bench.set_defaults(fn=cmd_bench)
+
     for p in (p_train, p_eval, p_pred, p_xp, p_srv, p_exp, p_llp, p_sgae,
-              p_lp):
+              p_lp, p_bench):
         p.add_argument("--device", default="cuda",
                        help="torch device: cuda (default) or cpu")
 

@@ -1807,3 +1807,77 @@ def test_exported_gcn_table_launches_the_kernel_twice():
     assert cuda_spmm.launches == before + 2
     torch.testing.assert_close(got, task.full_scores(model), rtol=1e-5,
                                atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["csr_spmm_f32", "csr_sddmm_f32"])
+def test_bench_kernels_at_d128_match_plain(kernel):
+    """``bench_spmm`` / ``bench_sddmm``'s kernels at d = 128 on a smaller
+    power-law graph (``csr_spmm_f32``'s float4 rows: ``x`` 16-byte
+    aligned), twice bit for bit, against their plain versions at the sums'
+    tolerance (dots and row sums of 128 terms and more)."""
+    from msha_gnn_torch.bench import make_powerlaw_graph
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g, x = make_powerlaw_graph(8192, 8192, 200_000, d=128, device="cuda")
+    op = cuda_spmm.SpmmOperator(g, "cuda")
+    if kernel == "csr_spmm_f32":
+        assert x.data_ptr() % 16 == 0
+        args = (op.ptr, op.col, op.w, x, g.n_src)
+        launch, plain = cuda_spmm.csr_spmm, cuda_spmm.csr_spmm_plain
+    else:
+        a = torch.randn((g.n_src, 128), device="cuda")
+        args = (op.ptr, op.col, a, x, g.num_padded_edges)
+        launch, plain = cuda_sddmm.csr_sddmm, cuda_sddmm.csr_sddmm_plain
+    got, again = launch(*args), launch(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    sums_close(got, plain(*args))
+
+
+@pytest.mark.cuda
+def test_bench_attention_sparse_path_matches_dense_on_card():
+    """The benchmark's sparse attention path (the kernels) against its
+    dense path on the card, outputs and both gradients, on a graph without
+    empty rows, with its exact launches: the forward 1 ``csr_sddmm_f32``
+    (the logits), 1 ``seg_softmax_fwd_f32`` and 2 ``csr_spmm_f32``; the
+    forward and backward 3 (the logits, each SpMM's ``dw``), 1, 1
+    ``seg_softmax_bwd_f32`` and 6 (the two SpMMs, their ``dx``, the
+    logits' two d = 2 adjoints)."""
+    import functools
+
+    from msha_gnn_torch import bench
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(4)
+    src = np.concatenate([np.arange(500), rng.integers(0, 500, 3500)])
+    dense = np.zeros((500, 32), np.float32)
+    np.add.at(dense, (src, rng.integers(0, 32, 4000)), 1.0)
+    g = tg.BipartiteGraph.from_dense(dense).to("cuda")
+    x = bench.attention_inputs(g, 64)
+    ops = bench.attention_operators(g)
+    kw = dict(a_src=x["a_src"], a_dst=x["a_dst"])
+    dense_path = functools.partial(bench.attention_dense_path,
+                                   mask=x["mask"], **kw)
+    sparse_path = functools.partial(bench.attention_sparse_path, ops=ops,
+                                    **kw)
+    counts = (cuda_sddmm.launches, sm.fwd_launches, sm.bwd_launches,
+              cuda_spmm.launches)
+    got = sparse_path(x["h1"], x["h2"])
+    torch.cuda.synchronize()
+    after = (cuda_sddmm.launches, sm.fwd_launches, sm.bwd_launches,
+             cuda_spmm.launches)
+    assert [b - a for a, b in zip(counts, after)] == [1, 1, 0, 2]
+    grads = bench.attention_grads(sparse_path, x["h1"], x["h2"], x["ct_n"],
+                                  x["ct_m"])
+    torch.cuda.synchronize()
+    final = (cuda_sddmm.launches, sm.fwd_launches, sm.bwd_launches,
+             cuda_spmm.launches)
+    assert [b - a for a, b in zip(after, final)] == [3, 1, 1, 6]
+    want = (*dense_path(x["h1"], x["h2"]),
+            *bench.attention_grads(dense_path, x["h1"], x["h2"], x["ct_n"],
+                                   x["ct_m"]))
+    for w, t in zip(want, (*got, *grads)):
+        sums_close(t, w)
