@@ -253,7 +253,36 @@ over the same 20 calls, as is their library yardstick.
    ``csr_sddmm_f32`` and nothing else, the peak memory; then
    ``bench_serving`` at batch 1,024 and ``bench_flagship_size_sweep`` at
    39,179, 156,716 and 626,864 sources, launching no kernel of the port.
-   The phase's seconds and the script's are printed.
+   The phase's seconds are printed.
+18. the parallel layer (``msha_gnn_torch/parallel``) on this one card, world
+   size 1 over NCCL through ``parallel.initialize()`` (an in-process store,
+   no second process).  18a: on the linkpred graph at d 64,
+   ``ShardedRank1Gat`` against ``Rank1GatOperator(dst_linear=True)`` and
+   ``ShardedCsrSpmm`` against ``SpmmOperator`` (static and runtime
+   weights), outputs and gradients bit for bit (the same kernels on the
+   same CSR), with exact launches (1 ``r1l_fwd_f32``, 1 ``r1l_bwd_f32`` and
+   2 ``csr_spmm_f32``; 2 ``csr_spmm_f32``; 2 and 1 ``csr_sddmm_f32``);
+   ``DistributedSpmm`` and ``RingSpmm`` (forward, transpose, runtime
+   weights, gradients) at the JAX tests' 1e-5, launching no kernel; each
+   kernel the sharded operators launch against its plain version on the
+   shard's arrays, with times, bound and yardstick.  18b:
+   ``train_distributed`` on phase 14's 50 M-edge graph, ``ScaleConfig()``,
+   5 steps fused (exactly 5 + 5 + 10 launches) and 5 materialised (none),
+   each held to phase 14's ``train_chunked`` losses (same graph, seed and
+   batches) at the JAX test's rtol and atol 2e-4; step wall p50, edges/s,
+   peak memory; then the fused run's four kernels on its own shard at d 32
+   (one launch the whole 50 M-edge graph) against their plain versions
+   (the two dx SpMMs, whose transposed hub row has 19 M edges, against
+   float64), with times, bound and yardstick, as entries of their own
+   whose launches are the run's (the dx SpMM's two uses read from the
+   shard operator's counts).  18c: ``python -m msha_gnn_torch.cli bench --which
+   scaling`` in this process (one JSON line, JAX's keys, the key ``"1"``
+   only, efficiency null, ``records_per_s == 1024 / step_seconds``, no
+   kernel launched), and the sharded MSHA step against the single-card
+   step's first loss at 5e-5.  18d: ``device_health_check()`` ok, one
+   ``run_with_restarts`` with a failure injected in epoch 1 and the resume
+   from its checkpoint.  ``shutdown()`` at the end.  The phase's seconds
+   and the script's are printed.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -393,6 +422,17 @@ SCALE_CARD_CPU_RTOL = 1e-5
 # one step an epoch runs under the profiler (left out of the wall p50)
 SAMPLED_FANOUT, SAMPLED_EPOCHS, SAMPLED_PROFILED_STEP = 16, 2, 10
 LLP_EPOCHS = 2                         # run_llp at LLPConfig(), cut from 10
+# phase 18: the parallel layer at world size 1 over NCCL.  DistributedSpmm
+# and RingSpmm (plain per-shard sums) against SpmmOperator at the JAX
+# package's bound (tests/test_dist_spmm.py); train_distributed against
+# train_chunked's losses at the JAX package's bound
+# (tests/test_scale_training.py:29-30)
+DIST_TOL = 1e-5
+DIST_TRAIN_TOL = 2e-4
+# the sharded MSHA step against the single-card step, first loss
+# (tests/test_parallel.py:93)
+SHARDED_MSHA_RTOL = 5e-5
+SCALING_KEYS = {"step_seconds", "records_per_s", "scaling_efficiency"}
 # phase 16: two years of raw records at the 2015 data's shape (233,887
 # records over about 39 K of RAW_POOL node identities, 32 recipients) and a
 # year without records; the joint training's records cut to the first
@@ -832,33 +872,38 @@ def phase_rank1_kernels(split):
 
 
 def kernel_use(name, source, replaces, kernel, plain, bnd, rtol, atol_rel,
-               library=None):
+               library=None, reference=None, reps=15, iters=20):
     """One use of a kernel on the card, on the inputs its caller closed
     over: ``kernel()`` against ``plain()`` (the first output of each) at
     ``rtol`` and ``atol_rel`` times the largest plain value, two launches
     bit for bit, the yardstick ``library = (call, values, lib_name)``
     (``values(call())`` held to the plain output at rtol 1e-4) where there
-    is one, event and device times of kernel, plain version and yardstick,
-    the bound ``bnd``; returns its entry of the kernels line."""
+    is one, event and device times of kernel, plain version and yardstick
+    (``reps`` x ``iters`` calls), the bound ``bnd``; returns its entry of
+    the kernels line.  ``reference()``, where given, is the plain version
+    in float64, held in place of ``plain()``'s value (sums over millions
+    of edges, which a float32 plain version rounds past the bound)."""
     def first(out):
         return out[0] if isinstance(out, tuple) else out
 
-    got, want = first(kernel()), first(plain())
+    got = first(kernel())
+    want = first(plain() if reference is None else reference())
     torch.cuda.synchronize()
     scale = float(want.abs().max())
-    err = close(name, got, want, rtol, atol_rel * scale)
+    err = close(name, got.to(want.dtype), want, rtol, atol_rel * scale)
     same_bits(name, kernel)
-    ms, dev_ms = time_ms(kernel), device_ms(kernel)
-    plain_ms = time_ms(plain)
+    ms, dev_ms = time_ms(kernel, reps, iters), device_ms(kernel, iters)
+    plain_ms = time_ms(plain, reps, iters)
     library_ms = lib_dev_ms = None
     lib_name = "none"
     if library is not None:
         call, values, lib_name = library
-        if not torch.allclose(values(call()), want, rtol=1e-4,
-                              atol=1e-5 * max(1.0, scale)):
+        if not torch.allclose(values(call()).to(want.dtype), want,
+                              rtol=1e-4, atol=1e-5 * max(1.0, scale)):
             raise AssertionError(f"{name}: the {lib_name} yardstick "
                                  "disagrees with the plain version")
-        library_ms, lib_dev_ms = time_ms(call), device_ms(call)
+        library_ms = time_ms(call, reps, iters)
+        lib_dev_ms = device_ms(call, iters)
     log(f"  {name}: kernel {ms:.4f} ms (device {fmt(dev_ms)}), plain "
         f"{plain_ms:.4f} ms, {lib_name} {fmt(library_ms)} (device "
         f"{fmt(lib_dev_ms)}), bound {bnd[0]:.5f} ms ({bnd[1]})")
@@ -4154,7 +4199,8 @@ def phase_out_of_core():
                                                 "per_step", "prof")}
                for label, v in runs.items()}
     log(f"  out-of-core summary: {json.dumps(summary)}")
-    return launches
+    return launches, {"edges": (src, dst), "losses": {
+        label: v["res"]["loss_history"] for label, v in runs.items()}}
 
 
 def profile_calls(name, fn, calls):
@@ -5732,6 +5778,513 @@ def phase_cli_bench(data_dir):
             "csr_sddmm_f32": counts["csr_sddmm_f32"]}
 
 
+def grads_of(fn, *inputs, ct=None):
+    """``fn(*inputs)`` and the gradients of ``sum(out * ct)`` (``ct`` ones
+    by default) with respect to the inputs: ``[out, d_1, ...]``."""
+    inputs = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*inputs)
+    out.backward(torch.ones_like(out) if ct is None else ct)
+    return [out.detach()] + [t.grad for t in inputs]
+
+
+def parallel_kernels(g, sh_r1, sh_csr, c, a, x, gout, w):
+    """Each kernel the sharded operators launch, on the shard's own arrays
+    (world size 1: the whole graph) against its plain version, as phases
+    3 and 3b hold them; returns their entries of the kernels line."""
+    from msha_gnn_torch.ops.cuda import rank1_gat as r1
+    from msha_gnn_torch.ops.cuda import sddmm as cuda_sddmm
+
+    n, e, d = g.n_src, g.num_edges, x.shape[1]
+    loc = sh_r1.local
+    seed = loc.ptr.new_zeros(1)
+    fwd_args = (loc.ptr, loc.col, c, a, x, seed, 0.0, sh_r1.slope,
+                sh_r1.row_blk)
+    out, lse = r1.rank1_gat_plain(*fwd_args)
+    bwd_args = (loc.ptr, loc.col, c, a, x, gout, out, lse, seed, 0.0,
+                sh_r1.slope, sh_r1.row_blk)
+    (fwd_b, fwd_by), (bwd_b, bwd_by) = r1l_bounds(n, e, d)
+    src = "msha_gnn_tpu/ops/pallas/rank1_gat.py"
+    kernels = [
+        kernel_use("r1l_fwd_f32[shard, K=1]", "rank1_gat.cu",
+                   f"{src}:234 _r1l_fwd_kernel",
+                   lambda: r1.r1l_fwd(*fwd_args),
+                   lambda: r1.rank1_gat_plain(*fwd_args), (fwd_b, fwd_by),
+                   KERNEL_RTOL, KERNEL_ATOL),
+        kernel_use("r1l_bwd_f32[shard, K=1]", "rank1_gat.cu",
+                   f"{src}:305 _r1l_bwd_kernel",
+                   lambda: r1.r1l_bwd(*bwd_args),
+                   lambda: r1.rank1_gat_bwd_plain(*bwd_args),
+                   (bwd_b, bwd_by), KERNEL_RTOL, KERNEL_ATOL)]
+    q, dpre, _, _ = r1.rank1_gat_bwd_plain(*bwd_args)
+    w_q = loc.weights(q, True)
+    dcol = dpre[:, None].contiguous()
+    rcv = loc.col.long()
+    kernels += [
+        spmm_use("shard r1l dx q A^T g", (loc.t_ptr, loc.t_col, w_q, gout, n),
+                 lambda: torch.sparse.mm(torch.sparse_csr_tensor(
+                     loc.t_ptr, loc.t_col, w_q, size=(n, n)), gout),
+                 "torch.sparse.mm"),
+        spmm_use("shard r1l dpre column sum",
+                 (loc.t_ptr, loc.t_edge, None, dcol, n),
+                 lambda: dcol.new_zeros((n, 1)).index_add_(0, rcv, dcol),
+                 "index_add_")]
+    sp = sh_csr.local
+    w_e, w_t = sp.weights(w, False), sp.weights(w, True)
+    kernels += [
+        spmm_use("shard A x", (sp.ptr, sp.col, w_e, x, n),
+                 lambda: torch.sparse.mm(torch.sparse_csr_tensor(
+                     sp.ptr, sp.col, w_e, size=(n, n)), x),
+                 "torch.sparse.mm"),
+        spmm_use("shard dx A^T g", (sp.t_ptr, sp.t_col, w_t, gout, n),
+                 lambda: torch.sparse.mm(torch.sparse_csr_tensor(
+                     sp.t_ptr, sp.t_col, w_t, size=(n, n)), gout),
+                 "torch.sparse.mm")]
+    sd_args = (sp.ptr, sp.col, gout, x, e)
+    kernels.append(kernel_use(
+        "csr_sddmm_f32[shard dw]", "sddmm.cu",
+        "msha_gnn_tpu/ops/pallas/spmm.py:1428 _sddmm_kernel",
+        lambda: cuda_sddmm.csr_sddmm(*sd_args),
+        lambda: cuda_sddmm.csr_sddmm_plain(*sd_args),
+        sddmm_bound(*sd_args), SUM_RTOL, SUM_ATOL_REL,
+        sddmm_library(*sd_args)))
+    return kernels
+
+
+def phase_parallel_ops(split, mesh):
+    """Phase 18a: the sharded operators at world size 1 on the linkpred
+    graph at d 64 against the single-card ones on the same inputs:
+    ShardedRank1Gat against Rank1GatOperator(dst_linear=True) and
+    ShardedCsrSpmm against SpmmOperator bit for bit (outputs and
+    gradients), with exact launches; DistributedSpmm and RingSpmm
+    (forward, transpose, runtime weights, gradients) at DIST_TOL,
+    launching no kernel.  Returns the kernels' entries (their launches
+    those of the sharded operators here) and the per-entry launches."""
+    from msha_gnn_torch import parallel as par
+    from msha_gnn_torch.ops.cuda.rank1_gat import Rank1GatOperator
+    from msha_gnn_torch.ops.cuda.spmm import SpmmOperator
+    from msha_gnn_torch.parallel.comm import gather_rows, scatter_rows
+
+    g = split["graph"].to(DEVICE)
+    n, e, d = g.n_src, g.num_edges, LP_D
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+    c = torch.randn(n, generator=gen, device=DEVICE)
+    a = torch.randn(d, generator=gen, device=DEVICE) * 0.3
+    x = torch.rand((n, d), generator=gen, device=DEVICE) - 0.5
+    gout = torch.rand((n, d), generator=gen, device=DEVICE) - 0.5
+    w = torch.rand(g.num_padded_edges, generator=gen, device=DEVICE)
+    log(f"  linkpred graph: {n} rows, {e} edges; d {d}; world {mesh.world}, "
+        f"backend {torch.distributed.get_backend()}")
+
+    def whole(fn, n_out):
+        return lambda *t: gather_rows(fn(*t), n_out, mesh)
+
+    sh_r1 = par.ShardedRank1Gat(g, mesh)
+    sh_csr = par.ShardedCsrSpmm(g, mesh)
+    cases = [
+        ("ShardedRank1Gat", ("out", "dc", "da", "dx"),
+         lambda: grads_of(Rank1GatOperator(g, dst_linear=True), c, a, x,
+                          ct=gout),
+         lambda: grads_of(whole(lambda c, a, x: sh_r1(
+             scatter_rows(c, mesh), a, scatter_rows(x, mesh)), n), c, a, x,
+             ct=gout),
+         dict(r1l_fwd_f32=1, r1l_bwd_f32=1, csr_spmm_f32=2)),
+        ("ShardedCsrSpmm static", ("out", "dx"),
+         lambda: grads_of(SpmmOperator(g, DEVICE), x, ct=gout),
+         lambda: grads_of(whole(lambda x: sh_csr(scatter_rows(x, mesh)), n),
+                          x, ct=gout),
+         dict(csr_spmm_f32=2)),
+        ("ShardedCsrSpmm runtime weights", ("out", "dx", "dw"),
+         lambda: grads_of(lambda x, w: SpmmOperator(g, DEVICE)(
+             x, edge_weight=w), x, w, ct=gout),
+         lambda: grads_of(whole(lambda x, w: sh_csr(
+             scatter_rows(x, mesh), edge_weight=w), n), x, w, ct=gout),
+         dict(csr_spmm_f32=2, csr_sddmm_f32=1)),
+    ]
+    launches = {}
+    for name, keys, single, sharded, want_n in cases:
+        want = single()
+        torch.cuda.synchronize()
+        zero_counts()
+        got = sharded()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want_c = {k: v for k, v in expected(**want_n).items() if k in counts}
+        if counts != want_c:
+            raise AssertionError(f"{name}: launched {counts}, not {want_c}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        for key, u, v in zip(keys, want, got):
+            if key == "dw":
+                u, v = u[:e], v[:e]
+            if not torch.equal(u, v):
+                raise AssertionError(f"{name} {key}: not bit for bit equal "
+                                     f"to the single-card operator (max "
+                                     f"diff {float((u - v).abs().max()):.3e})")
+        log(f"  {name}: {', '.join(keys)} bit for bit equal to the "
+            f"single-card operator's; launches {want_n}")
+    loc = sh_r1.local
+    r1_reduce = loc.launches_reduce
+    r1_q = loc.launches_transposed - loc.launches_reduce
+    csr_fwd = sh_csr.local.launches - sh_csr.local.launches_transposed
+    csr_dx = sh_csr.local.launches_transposed
+
+    ref = SpmmOperator(g, DEVICE)
+    xt = torch.rand((n, d), generator=gen, device=DEVICE) - 0.5
+    for name, op in (("DistributedSpmm", par.DistributedSpmm(g, mesh)),
+                     ("RingSpmm", par.RingSpmm(g, mesh,
+                                               runtime_weights=True))):
+        for kind, weighted, transpose in (("forward", False, False),
+                                          ("runtime weights", True, False),
+                                          ("transpose", True, True)):
+            inp = (xt, w) if weighted else (xt,)
+            want = grads_of(lambda x, *w: ref(
+                x, edge_weight=w[0] if w else None, transpose=transpose),
+                *inp, ct=gout)
+            torch.cuda.synchronize()
+            zero_counts()
+            got = grads_of(whole(lambda x, *w: op(
+                scatter_rows(x, mesh), edge_weight=w[0] if w else None,
+                transpose=transpose), n), *inp, ct=gout)
+            torch.cuda.synchronize()
+            if any(read_counts().values()):
+                raise AssertionError(f"{name} launched a kernel of the port")
+            for key, u, v in zip(("out", "dx", "dw"), want, got):
+                if key == "dw":
+                    u, v = u[:e], v[:e]
+                close(f"{name} {kind} {key}", v, u, DIST_TOL,
+                      DIST_TOL * max(1.0, float(u.abs().max())))
+    kernels = parallel_kernels(g, sh_r1, sh_csr, c, a, x, gout, w)
+    per_entry = {"r1l_fwd_f32[shard, K=1]": launches["r1l_fwd_f32"],
+                 "r1l_bwd_f32[shard, K=1]": launches["r1l_bwd_f32"],
+                 "csr_spmm_f32[shard r1l dx q A^T g]": r1_q,
+                 "csr_spmm_f32[shard r1l dpre column sum]": r1_reduce,
+                 "csr_spmm_f32[shard A x]": csr_fwd,
+                 "csr_spmm_f32[shard dx A^T g]": csr_dx,
+                 "csr_sddmm_f32[shard dw]": launches["csr_sddmm_f32"]}
+    return kernels, per_entry
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def shard_train_kernels(op, d):
+    """18b's kernels on the fused run's own shard (world size 1: phase
+    14's whole 50 M-edge graph in one launch each, the hub receiver's
+    19 M edges in one row of the transposed SpMMs) at ``ScaleConfig``'s
+    ``d``, on seeded inputs, against their plain versions: the rank-1
+    kernels as 18a holds them (float32 plain, rows of about 25 edges),
+    the two dx SpMMs against the float64 plain version at the sums'
+    tolerance, as phase 14 holds its slices.  Times over 5 x 5 calls.
+    Returns their entries of the kernels line."""
+    from msha_gnn_torch.ops.cuda import rank1_gat as r1
+    from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
+
+    loc = op.local
+    n, e = op.row_blk, loc.num_edges
+    gen = torch.Generator(device=DEVICE).manual_seed(181)
+    c = torch.randn(n, generator=gen, device=DEVICE)
+    a = torch.randn(d, generator=gen, device=DEVICE) * 0.3
+    x = torch.rand((n, d), generator=gen, device=DEVICE) - 0.5
+    gout = torch.rand((n, d), generator=gen, device=DEVICE) - 0.5
+    seed = loc.ptr.new_zeros(1)
+    log(f"  the shard: {n} rows, {e} edges, d {d}; longest transposed row "
+        f"{int((loc.t_ptr[1:] - loc.t_ptr[:-1]).max())} edges")
+    fwd_args = (loc.ptr, loc.col, c, a, x, seed, 0.0, op.slope, n)
+    out, lse = r1.r1l_fwd(*fwd_args)
+    bwd_args = (loc.ptr, loc.col, c, a, x, gout, out, lse, seed, 0.0,
+                op.slope, n)
+    (fwd_b, fwd_by), (bwd_b, bwd_by) = r1l_bounds(n, e, d)
+    src = "msha_gnn_tpu/ops/pallas/rank1_gat.py"
+    timing = dict(reps=5, iters=5)
+    kernels = [
+        kernel_use("r1l_fwd_f32[shard train, K=1]", "rank1_gat.cu",
+                   f"{src}:234 _r1l_fwd_kernel",
+                   lambda: r1.r1l_fwd(*fwd_args),
+                   lambda: r1.rank1_gat_plain(*fwd_args), (fwd_b, fwd_by),
+                   KERNEL_RTOL, KERNEL_ATOL, **timing),
+        kernel_use("r1l_bwd_f32[shard train, K=1]", "rank1_gat.cu",
+                   f"{src}:305 _r1l_bwd_kernel",
+                   lambda: r1.r1l_bwd(*bwd_args),
+                   lambda: r1.rank1_gat_bwd_plain(*bwd_args),
+                   (bwd_b, bwd_by), KERNEL_RTOL, KERNEL_ATOL, **timing)]
+    q, dpre, _, _ = r1.r1l_bwd(*bwd_args)
+    del out, lse
+    w_q = loc.weights(q, True)
+    dcol = dpre[:, None].contiguous()
+    dsorted = dpre.index_select(0, loc.t_edge)
+    t_off = loc.t_ptr.long()
+    g64 = gout.double()
+    spmm = "msha_gnn_tpu/ops/pallas/spmm.py:244 _visit_kernel"
+    for label, args, ref_args, weighted, library in (
+            ("shard train dx q A^T g", (loc.t_ptr, loc.t_col, w_q, gout, n),
+             (loc.t_ptr, loc.t_col, w_q.double(), g64, n), True,
+             (lambda: torch.sparse.mm(torch.sparse_csr_tensor(
+                 loc.t_ptr, loc.t_col, w_q, size=(n, n)), gout),
+              lambda v: v, "torch.sparse.mm")),
+            ("shard train dpre column sum",
+             (loc.t_ptr, loc.t_edge, None, dcol, n),
+             (loc.t_ptr, loc.t_edge, None, dcol.double(), n), False,
+             (lambda: torch.segment_reduce(dsorted, "sum", offsets=t_off),
+              lambda v: v[:, None],
+              "torch.segment_reduce (on dpre gathered to CSC order)"))):
+        kernels.append(kernel_use(
+            f"csr_spmm_f32[{label}]", "spmm.cu", spmm,
+            lambda args=args: cuda_spmm.csr_spmm(*args),
+            lambda args=args: cuda_spmm.csr_spmm_plain(*args),
+            spmm_bound(args[0], args[1], args[3], n, weighted=weighted),
+            SUM_RTOL, SUM_ATOL_REL, library,
+            reference=lambda ref_args=ref_args: cuda_spmm.csr_spmm_plain(
+                *ref_args), **timing))
+    return kernels
+
+
+def phase_parallel_train(mesh, scale_runs):
+    """Phase 18b: ``train_distributed`` at world size 1 on phase 14's
+    graph, ``ScaleConfig()``, 5 steps fused and 5 materialised, each held
+    to ``train_chunked``'s losses of phase 14 (same graph, seed and
+    batches) at DIST_TRAIN_TOL, with exact launches; the step wall p50,
+    edges/s and peak memory; then the fused run's kernels on its own
+    shard (:func:`shard_train_kernels`).  Returns those kernels' entries
+    and their launches in the fused run, the dx SpMM's two uses read from
+    the shard operator's own counts."""
+    from msha_gnn_torch.training import scale
+
+    src, dst = scale_runs["edges"]
+    cfg = scale.ScaleConfig(steps=SCALE_STEPS)
+    built = []
+    real_build = scale.build_distributed
+
+    def build(*args, **kwargs):
+        out = real_build(*args, **kwargs)
+        built.append(out[3])
+        return out
+
+    kernels, launches = [], {}
+    scale.build_distributed = build
+    try:
+        for label, fused, chunked in (("fused", True, "fused f32"),
+                                      ("materialised", False,
+                                       "materialised f32")):
+            gc_cuda()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            steps = []
+            t0 = time.perf_counter()
+            res = scale.train_distributed(src, dst, SCALE_NODES, mesh, cfg,
+                                          fused=fused, log=steps.append)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            want = {k: v for k, v in (expected(
+                r1l_fwd_f32=cfg.steps, r1l_bwd_f32=cfg.steps,
+                csr_spmm_f32=2 * cfg.steps) if fused else expected()).items()
+                if k in counts}
+            if counts != want:
+                raise AssertionError(f"train_distributed {label}: launched "
+                                     f"{counts}, not {want}")
+            got = np.array(res["loss_history"])
+            ref = np.array(scale_runs["losses"][chunked])
+            diff = np.abs(got - ref)
+            log(f"  train_distributed {label} ({res['topology']}, "
+                f"{res['attention']}): {wall:.1f} s; losses "
+                f"{[round(float(v), 6) for v in got]}; train_chunked "
+                f"{chunked}: {[round(float(v), 6) for v in ref]}; max "
+                f"|diff| {diff.max():.2e} (rtol and atol {DIST_TRAIN_TOL})")
+            if not np.all(diff <= DIST_TRAIN_TOL
+                          + DIST_TRAIN_TOL * np.abs(ref)):
+                raise AssertionError(f"train_distributed {label} leaves "
+                                     "train_chunked's losses")
+            p50 = statistics.median(v["seconds"] for v in steps[2:])
+            log(f"  train_distributed {label} on {card()}: steady step wall "
+                f"p50 {p50 * 1e3:.1f} ms (steps 2-{cfg.steps - 1}), "
+                f"{SCALE_EDGES / p50:.4g} edges/s; peak "
+                f"torch.cuda.max_memory_allocated {peak / 2**30:.2f} GiB; "
+                f"launches {counts}")
+            op = built.pop()
+            if fused:
+                loc = op.local
+                q_dx = loc.launches_transposed - loc.launches_reduce
+                if (loc.launches != loc.launches_transposed
+                        or q_dx + loc.launches_reduce
+                        != counts["csr_spmm_f32"]):
+                    raise AssertionError(
+                        f"the shard operator counted {loc.launches} "
+                        f"launches, {loc.launches_transposed} transposed, "
+                        f"{loc.launches_reduce} column sums; the run "
+                        f"{counts['csr_spmm_f32']}")
+                launches = {
+                    "r1l_fwd_f32[shard train, K=1]": counts["r1l_fwd_f32"],
+                    "r1l_bwd_f32[shard train, K=1]": counts["r1l_bwd_f32"],
+                    "csr_spmm_f32[shard train dx q A^T g]": q_dx,
+                    "csr_spmm_f32[shard train dpre column sum]":
+                        loc.launches_reduce}
+                del res
+                gc_cuda()
+                kernels = shard_train_kernels(op, cfg.d)
+            del op
+    finally:
+        scale.build_distributed = real_build
+    gc_cuda()
+    return kernels, launches
+
+
+def phase_parallel_bench(mesh):
+    """Phase 18c: ``python -m msha_gnn_torch.cli bench --which scaling`` in
+    this process, on the group of 18a: one JSON line with the JAX keys,
+    finite times, ``records_per_s == batch_size / step_seconds``, no
+    kernel of the port launched (the MSHA step is PyTorch); then the
+    sharded MSHA step at world size 1 against the single-card step from
+    the same weights, batch and dropout generator (first loss at
+    SHARDED_MSHA_RTOL)."""
+    import contextlib
+    import io
+
+    from msha_gnn_torch import cli
+    from msha_gnn_torch.data import synthetic_flow
+    from msha_gnn_torch.parallel.sharded import make_sharded_msha_step
+    from msha_gnn_torch.training import (TrainState, make_train_step,
+                                         msha_task)
+
+    zero_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench", "--which", "scaling"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    if rc != 0 or len(lines) != 1:
+        raise AssertionError(f"cli bench --which scaling: rc {rc}, "
+                             f"{len(lines)} lines")
+    log(f"  cli bench --which scaling on {card()} ({seconds:.1f} s): "
+        f"{lines[0]}")
+    out = json.loads(lines[0])
+    if set(out) != {"device", "scaling"} or list(out["scaling"]) != ["1"]:
+        raise AssertionError(f"cli bench --which scaling: {out}")
+    row = out["scaling"]["1"]
+    if set(row) != SCALING_KEYS or not is_time(row["step_seconds"]) \
+            or row["scaling_efficiency"] is not None \
+            or row["records_per_s"] != 1024 / row["step_seconds"]:
+        raise AssertionError(f"cli bench --which scaling row {row}")
+    if any(read_counts().values()):
+        raise AssertionError("the sharded MSHA step launched a kernel")
+
+    fg = synthetic_flow(8192, 32, 64, 25, 65536)
+    ids = np.random.default_rng(0).integers(0, fg.edge_src.numel(), 1024)
+    batch = [torch.as_tensor(t.numpy()[ids], device=DEVICE)
+             for t in (fg.edge_src, fg.edge_dst)]
+    ones = torch.ones(1024, device=DEVICE)
+    step, state, _ = make_sharded_msha_step(fg, mesh)
+    sharded = float(step(state, *batch, ones,
+                         torch.Generator(device=DEVICE).manual_seed(0)))
+    task, model = msha_task(fg, device=DEVICE)
+    single = float(make_train_step(task)(
+        TrainState.create(model, task.optimizer), *batch, ones,
+        torch.Generator(device=DEVICE).manual_seed(0)))
+    rel = abs(sharded - single) / abs(single)
+    log(f"  sharded MSHA step (world size 1) vs the single-card step, first "
+        f"loss: {sharded:.7f} / {single:.7f}, rel diff {rel:.2e} (bound "
+        f"{SHARDED_MSHA_RTOL})")
+    if rel > SHARDED_MSHA_RTOL:
+        raise AssertionError("the sharded MSHA step leaves the single-card "
+                             "step")
+
+
+def phase_parallel_runtime():
+    """Phase 18d: ``device_health_check()`` reports ok for the card; one
+    ``run_with_restarts`` around ``fault_tolerant_fit`` (MSHA, 3 epochs)
+    with a failure injected in epoch 1 of the first life, and the resume
+    from the epoch-1 checkpoint."""
+    from msha_gnn_torch.data import synthetic_flow
+    from msha_gnn_torch.parallel import (device_health_check,
+                                         fault_tolerant_fit,
+                                         run_with_restarts)
+    from msha_gnn_torch.training import Trainer, TrainState, msha_task
+
+    health = device_health_check(timeout_s=60.0, device=DEVICE)
+    log(f"  device_health_check: {health}")
+    if not health or set(health.values()) != {"ok"}:
+        raise AssertionError(f"device_health_check: {health}")
+    fg = synthetic_flow(2000, 32, 40, 25, 12000)
+    task, model = msha_task(fg, in_features=16, out_features=8,
+                            device=DEVICE)
+    src, dst = fg.edge_src.numpy(), fg.edge_dst.numpy()
+    trainer = Trainer(task=task, src=src, labels=dst, batch_size=512, seed=0)
+    ids = np.arange(len(src))
+    lives = []
+
+    class CrashOnce:
+        def __getattr__(self, name):
+            return getattr(trainer, name)
+
+        def train_epoch(self, state, train_ids, generator, epoch):
+            if not lives and epoch == 1:
+                lives.append(epoch)
+                raise RuntimeError("injected worker failure")
+            return trainer.train_epoch(state, train_ids, generator, epoch)
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        state, history, report = run_with_restarts(
+            lambda: fault_tolerant_fit(
+                CrashOnce(), TrainState.create(model, task.optimizer),
+                ids[:8192], ids[8192:], epochs=3, checkpoint_dir=ckpt))
+    epochs = [h["epoch"] for h in history]
+    log(f"  run_with_restarts: {report['restarts']} restart "
+        f"({report['failures'][0]['error'] if report['failures'] else ''}); "
+        f"the resumed life ran epochs {epochs}, losses "
+        f"{[round(h['train_loss'], 5) for h in history]}")
+    if report["restarts"] != 1 or epochs != [1, 2] or \
+            not all(np.isfinite(h["train_loss"]) for h in history):
+        raise AssertionError(f"run_with_restarts: {report}, {epochs}")
+
+
+def phase_parallel(split, scale_runs):
+    """Phase 18: the parallel layer on this one card, world size 1 over
+    NCCL through ``parallel.initialize()`` (no second process): 18a the
+    operators, 18b ``train_distributed``, 18c ``cli bench --which
+    scaling``, 18d the runtime.  Returns the kernels' entries, their
+    launches those of 18a's sharded operators and 18b's fused run."""
+    import torch.distributed as dist
+
+    from msha_gnn_torch import parallel as par
+    from msha_gnn_torch.parallel.mesh import backend_for
+
+    rank, world = par.initialize(device=DEVICE)
+    try:
+        want = backend_for(torch.device(DEVICE))  # nccl on the card
+        if (rank, world) != (0, 1) or dist.get_backend() != want:
+            raise AssertionError(f"expected rank 0 of 1 over {want}, got "
+                                 f"{rank} of {world} over "
+                                 f"{dist.get_backend()}")
+        mesh = par.make_mesh()
+        log("phase 18a: the sharded operators at world size 1 (NCCL) vs the "
+            "single-card operators, linkpred graph")
+        kernels, per_entry = phase_parallel_ops(split, mesh)
+        log(f"phase 18b: train_distributed on phase 14's graph "
+            f"({SCALE_NODES} nodes, {SCALE_EDGES} edges), ScaleConfig(), "
+            f"{SCALE_STEPS} steps fused and materialised")
+        train_kernels, train_launches = phase_parallel_train(mesh,
+                                                             scale_runs)
+        kernels += train_kernels
+        per_entry.update(train_launches)
+        log("phase 18c: cli bench --which scaling")
+        phase_parallel_bench(mesh)
+        log("phase 18d: device_health_check, run_with_restarts")
+        phase_parallel_runtime()
+    finally:
+        par.shutdown()
+    for k in kernels:
+        k["launches"] = per_entry[k["name"]]
+    return kernels
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5884,7 +6437,8 @@ def main() -> int:
 
     log("phase 14: out-of-core training (train_chunked, ScaleConfig "
         "defaults, 50 M edges)")
-    per_name.update(phase_out_of_core())
+    launches14, scale_runs = phase_out_of_core()
+    per_name.update(launches14)
     for k in bf16_kernels:
         k["launches"] = per_name[k["name"]]
     kernels += bf16_kernels
@@ -5933,6 +6487,11 @@ def main() -> int:
             k["launches"] = bench_launches[k["name"].split("[")[0]]
         kernels += bench_kernels
         log(f"  phase 17: {time.perf_counter() - t17:.1f} s")
+
+        t18 = time.perf_counter()
+        kernels += phase_parallel(split, scale_runs)
+        scale_runs = None
+        log(f"  phase 18: {time.perf_counter() - t18:.1f} s")
     # the exported GCN table's call: gc1 transposed, gc2 plain
     for k in kernels:
         if k["name"] == "csr_spmm_f32[gc1 A^T x]":

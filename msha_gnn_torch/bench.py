@@ -14,9 +14,9 @@ synchronise; on the CPU (the tests) ``time.perf_counter``.  Every entry
 point runs on ``"cuda"`` unless the caller passes ``device="cpu"``.
 ``run_bench``'s keys are the JAX package's, with ``xla`` read as ``torch``
 and ``pallas`` as ``cuda`` (``spmm_torch``, ``sddmm_cuda``), and without
-``prng`` (a JAX generator setting).  ``bench_scaling`` needs the
-multi-GPU modules, which the port does not have yet (ROADMAP.md, queue 1
-item 9).
+``prng`` (a JAX generator setting).  ``bench_scaling`` times the sharded
+MSHA step (:mod:`msha_gnn_torch.parallel`) on the ranks of the process
+group, at world size 1 without ``torchrun``.
 """
 
 from __future__ import annotations
@@ -51,9 +51,6 @@ DEVICE_PEAK_FLOPS = {
 # (the JAX package's scan lengths)
 FLAGSHIP_SCAN_STEPS, SWEEP_SCAN_STEPS, DENSE_SCAN_STEPS = 64, 32, 8
 VALID_WHICH = ("all", "flagship", "spmm", "sddmm", "size_sweep", "scaling")
-SCALING_NOT_PORTED = (
-    "bench_scaling needs the multi-GPU modules (msha_gnn_tpu/parallel/), "
-    "which the port does not have yet: ROADMAP.md, queue 1 item 9")
 
 
 def device_name(device="cuda") -> str:
@@ -721,12 +718,98 @@ def bench_serving(
     return out
 
 
+def bench_scaling(
+    n: int = 8192,
+    records: int = 65536,
+    batch_size: int = 1024,
+    device_counts=None,
+    iters: int = 10,
+    device="cuda",
+    **model_kwargs,
+):
+    """Records/s of the sharded MSHA train step
+    (:func:`~msha_gnn_torch.parallel.sharded.make_sharded_msha_step`) at
+    each mesh size of ``device_counts`` (default: 1 and the process
+    group's size), on a synthetic flow graph of ``ceil(n / k) k`` sources
+    (32 recipients, 64 cities, 25 provinces, ``records`` records).  Every
+    rank of the group calls it; size ``k`` runs on ranks ``0 .. k - 1``
+    (a subgroup when ``k`` is less than the group), and the result is the
+    first rank's.  Joins the process group :func:`~msha_gnn_torch.
+    parallel.initialize` makes for ``device`` (a world of one without
+    ``torchrun``), and destroys it after if it made it.
+    ``scaling_efficiency`` is ``records_per_s`` over the first size's
+    scaled by the device ratio (None for the first).  Target: >= 80%."""
+    import torch.distributed as dist
+
+    from .data import synthetic_flow
+    from .parallel import initialize, make_mesh, shutdown
+
+    made = not dist.is_initialized()
+    initialize(device=device)
+    try:
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if device_counts is None:
+            device_counts = sorted({1, world})
+        results, base = {}, None
+        for nd in device_counts:
+            if nd > world:
+                raise ValueError(f"{nd} devices asked for, the process "
+                                 f"group has {world}")
+            group = None if nd == world else dist.new_group(list(range(nd)))
+            if rank < nd:
+                t = _scaling_step_seconds(
+                    synthetic_flow(_cdiv(n, nd) * nd, 32, 64, 25, records),
+                    make_mesh(nd, group=group, device=device), batch_size,
+                    iters, model_kwargs)
+                rps = batch_size / t
+                eff = None
+                if base is None:
+                    base = (nd, rps)
+                else:
+                    eff = rps / (base[1] * nd / base[0])
+                results[str(nd)] = {"step_seconds": t,
+                                    "records_per_s": rps,
+                                    "scaling_efficiency": eff}
+            if group is not None:
+                dist.destroy_process_group(group)
+        return results
+    finally:
+        if made:
+            shutdown()
+
+
+def _scaling_step_seconds(fg, mesh, batch_size, iters,
+                          model_kwargs) -> float:
+    """Mean seconds of one sharded MSHA step (a batch drawn from
+    ``np.random.default_rng(0)``)."""
+    from .parallel.sharded import make_sharded_msha_step
+
+    step, state, _ = make_sharded_msha_step(fg, mesh, **model_kwargs)
+    dev = mesh.device
+    rng = np.random.default_rng(0)
+    src = fg.edge_src.numpy()
+    dst = fg.edge_dst.numpy()
+    ids = rng.integers(0, len(src), batch_size)
+    batch = torch.as_tensor(src[ids], dtype=torch.int64, device=dev)
+    labels = torch.as_tensor(dst[ids], dtype=torch.int64, device=dev)
+    weights = torch.ones(batch_size, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def run(batch):
+        return step(state, batch, labels, weights, gen)
+
+    return _timeit(run, batch, iters=iters)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
 def run_bench(which: str = "all", data_dir: str = DEFAULT_DATA_DIR,
               device="cuda"):
     """The benchmarks of ``which`` (``all``, ``flagship``, ``spmm``,
-    ``sddmm`` or ``size_sweep``) as one dict, under ``device``'s name."""
-    if which == "scaling":
-        raise NotImplementedError(SCALING_NOT_PORTED)
+    ``sddmm``, ``size_sweep`` or ``scaling``) as one dict, under
+    ``device``'s name."""
     if which not in VALID_WHICH:
         raise ValueError(f"unknown benchmark {which!r} "
                          f"({' | '.join(VALID_WHICH)})")
@@ -741,4 +824,6 @@ def run_bench(which: str = "all", data_dir: str = DEFAULT_DATA_DIR,
         out["sddmm_cuda"] = bench_sddmm(impl="cuda", device=device)
     if which == "size_sweep":
         out["flagship_size_sweep"] = bench_flagship_size_sweep(device=device)
+    if which == "scaling":
+        out["scaling"] = bench_scaling(device=device)
     return out

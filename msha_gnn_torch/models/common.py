@@ -1,5 +1,6 @@
 """Initialisers, activations and the batch norm shared by the models
-(``msha_gnn_tpu/models/common.py``, plus flax's ``Dense`` defaults).
+(``msha_gnn_tpu/models/common.py``, plus flax's ``Dense`` defaults), and
+:class:`Shard`, the row collectives a model's forward takes.
 
 Every initialiser draws from an explicit :class:`torch.Generator`, and so
 does :func:`dropout`: two runs from the same generator state draw the same
@@ -80,6 +81,46 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
                          deterministic=not training)
 
 
+class Shard:
+    """Where the rows of a model's row-indexed tensors live, and the
+    collectives that cross them.  This one is a single process holding
+    every row, and each method is the identity (or the single-device
+    operation); :class:`msha_gnn_torch.parallel.sharded.MeshShard` holds a
+    block of rows per rank of a mesh.  The rows of an ``[n, ...]`` tensor
+    are either *whole* (replicated) or *local* (this process's block)."""
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        """A whole tensor entering a computation on local rows."""
+        return t
+
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the processes of a partial sum over local rows."""
+        return t
+
+    def scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """The local rows of a whole ``[n, ...]`` tensor."""
+        return t
+
+    def take(self, x: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        """``X[rows]`` (whole) of the tensor whose local rows are ``x``."""
+        return x[rows.long()]
+
+    def dropout(self, x: torch.Tensor, rate: float, training: bool,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        """:func:`dropout` of the local rows ``x``, the mask that of the
+        whole tensor."""
+        return dropout(x, rate, training, generator)
+
+    def moments(self, x: torch.Tensor):
+        """The mean and biased variance over all rows of the tensor whose
+        local rows are ``x``."""
+        mean = x.mean(dim=0)
+        return mean, (x - mean).square().mean(dim=0)
+
+
+WHOLE = Shard()
+
+
 class BatchNorm(nn.Module):
     """flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the rows of
     a ``[rows, features]`` input, with flax's names: ``scale``, ``bias``
@@ -101,10 +142,12 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(num_features))
         self.register_buffer("var", torch.ones(num_features))
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool,
+                shard: Shard = WHOLE) -> torch.Tensor:
+        """``x`` the local rows (:class:`Shard`) of the input; its
+        statistics are those of all rows."""
         if train:
-            mean = x.mean(dim=0)
-            var = (x - mean).square().mean(dim=0)
+            mean, var = shard.moments(x)
             with torch.no_grad():
                 self.mean.mul_(self.momentum).add_(
                     mean.detach(), alpha=1.0 - self.momentum)
@@ -112,5 +155,7 @@ class BatchNorm(nn.Module):
                     var.detach(), alpha=1.0 - self.momentum)
         else:
             mean, var = self.mean, self.var
-        return (x - mean) * (torch.rsqrt(var + self.epsilon) * self.scale) \
-            + self.bias
+        loc = shard.local
+        return (x - loc(mean)) \
+            * loc(torch.rsqrt(var + self.epsilon) * self.scale) \
+            + loc(self.bias)

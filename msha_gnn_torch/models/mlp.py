@@ -9,9 +9,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from .common import dropout, lecun_normal
+from .common import WHOLE, Shard, dropout, lecun_normal
 
 
 def dense(in_features: int, out_features: int,
@@ -73,13 +74,22 @@ class LinkPredictor(nn.Module):
         self.lins = nn.ModuleList(lins)
 
     def forward(self, x_i: torch.Tensor, x_j: torch.Tensor, *, train: bool,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                shard: Shard = WHOLE) -> torch.Tensor:
+        """Scores of the pairs ``(x_i, x_j)``: ``shard``'s rows of the
+        batch (:class:`~msha_gnn_torch.models.common.Shard`), each dropout
+        mask that of the whole batch."""
         x = x_i * x_j
         if self.predictor == "inner":
             return torch.sigmoid(x.sum(-1))
+
+        def linear(lin, x):
+            return F.linear(x, shard.local(lin.weight), shard.local(lin.bias))
+
         n_hidden = len(self.lins) - int(self.final_linear)
         for lin in self.lins[:n_hidden]:
-            x = dropout(torch.relu(lin(x)), self.dropout, train, generator)
+            x = shard.dropout(torch.relu(linear(lin, x)), self.dropout, train,
+                              generator)
         if self.final_linear:
-            x = self.lins[n_hidden](x)[..., 0]
+            x = linear(self.lins[n_hidden], x)[..., 0]
         return torch.sigmoid(x)

@@ -44,9 +44,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..graph import Grouping, PairGrouping
-from ..ops import MASK_VALUE, group_scatter, pair_scatter, take_rows
-from .common import (BatchNorm, dropout, elu, gdp_feature_init, leaky_relu,
-                     xavier_uniform_stacked)
+from ..ops import MASK_VALUE, group_scatter, pair_scatter
+from .common import (WHOLE, BatchNorm, Shard, dropout, elu, gdp_feature_init,
+                     leaky_relu, xavier_uniform_stacked)
 from .gat import MaskedGATLayer
 
 
@@ -83,17 +83,25 @@ class MSHALayer(nn.Module):
                 record: bool = False,
                 rows: Optional[torch.Tensor] = None,
                 pair: Optional[PairGrouping] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                shard: Shard = WHOLE):
         """``s_input`` [N, in], ``r_input`` [M, in], ``inter_mask`` [N, M]
         bool, ``batch`` [B] the minibatch's source rows; the output's rows
         are ``rows`` (all N when None).
+
+        ``shard`` (:class:`~msha_gnn_torch.models.common.Shard`) says which
+        rows of ``s_input`` and of every ``[N, ...]`` quantity this process
+        holds; what couples the rows (``att.T @ h2``, ``bn2``'s
+        statistics, the minibatch's rows) is formed over all of them
+        through its collectives.  ``inter_mask`` and the groupings are
+        whole.
 
         ``record=True`` returns ``(h_prime, aux_heads)``: per head a dict
         with ``att_inter``, the head's [N, M] attention after its dropout,
         and with the intra channels ``intra_city_weight`` and
         ``intra_province_weight``, its [B] weights after theirs."""
         d, nh, din = self.out_features, self.n_heads, self.in_features
-        n, m = inter_mask.shape
+        m = inter_mask.shape[1]
 
         def drop(x):
             return dropout(x, self.dropout, train, generator)
@@ -101,22 +109,26 @@ class MSHALayer(nn.Module):
         w1c = self.W1.permute(1, 0, 2).reshape(din, nh * d)
         w2c = self.W2.permute(1, 0, 2).reshape(din, nh * d)
         h1c = r_input @ w1c  # [M, Hd]
-        h2c = s_input @ w2c  # [N, Hd]
+        h2c = s_input @ shard.local(w2c)  # [N, Hd]
 
         # the inter (bipartite) channel: [h1_j || h2_i] . a_h split as
         # h1_j . a_h[:d] + h2_i . a_h[d:] (the recipient's projection first)
         a = self.a[..., 0]
         s_dst = torch.einsum("mhd,hd->mh", h1c.reshape(m, nh, d), a[:, :d])
-        s_src = torch.einsum("nhd,hd->nh", h2c.reshape(n, nh, d), a[:, d:])
-        e12 = leaky_relu(s_src[:, :, None] + s_dst.T[None, :, :])  # [N,H,M]
-        e12 = torch.where(inter_mask[:, None, :], e12, MASK_VALUE)
-        att = drop(torch.softmax(e12, dim=-1))
-        attc = att.reshape(n, nh * m)
+        s_src = torch.einsum("nhd,hd->nh", h2c.reshape(-1, nh, d),
+                             shard.local(a[:, d:]))
+        e12 = leaky_relu(s_src[:, :, None]
+                         + shard.local(s_dst).T[None, :, :])  # [N, H, M]
+        e12 = torch.where(shard.scatter(inter_mask)[:, None, :], e12,
+                          MASK_VALUE)
+        att = shard.dropout(torch.softmax(e12, dim=-1), self.dropout, train,
+                            generator)
+        attc = att.reshape(-1, nh * m)
         aux_heads = [{} for _ in range(nh)]
 
         if self.use_intra:
             a3, a4 = self.a3[..., 0], self.a4[..., 0]
-            h2_bh = take_rows(h2c, batch).reshape(-1, nh, d)
+            h2_bh = shard.take(h2c, batch).reshape(-1, nh, d)
             # self-concat logits, constant per row: [h_b || h_b] . a3 ==
             # h_b . (a3_lo + a3_hi)
             c3 = leaky_relu(torch.einsum("bhd,hd->bh", h2_bh,
@@ -132,7 +144,7 @@ class MSHALayer(nn.Module):
                 # masked entries add exp(-9e15) = 0, its |clique| unmasked
                 # ones exp(c) each; the inter term sums exp() of the
                 # softmaxed, post-dropout attention (the reference's quirk)
-                att_b = take_rows(attc, batch).reshape(-1, nh, m)
+                att_b = shard.take(attc, batch).reshape(-1, nh, m)
                 denom = (cnt_city[:, None] * torch.exp(c3)
                          + cnt_prov[:, None] * torch.exp(c4)
                          + torch.exp(att_b).sum(dim=-1))
@@ -152,6 +164,7 @@ class MSHALayer(nn.Module):
             else:
                 intra_nc = (group_scatter(contrib3, city, batch)
                             + group_scatter(contrib4, province, batch))
+            intra_nc = shard.scatter(intra_nc)
             if record:
                 for i, aux in enumerate(aux_heads):
                     aux.update(intra_city_weight=w3[:, i],
@@ -164,17 +177,17 @@ class MSHALayer(nn.Module):
         eye = torch.eye(nh, dtype=h1c.dtype, device=h1c.device)
         bd_h1 = torch.einsum("mhd,hk->hmkd", h1c.reshape(m, nh, d),
                              eye).reshape(nh * m, nh * d)
-        inter_rc = attc @ bd_h1                  # [N, Hd]: att_inter @ h1
-        vfull = attc.T @ h2c                     # [HM, Hd]
+        inter_rc = attc @ shard.local(bd_h1)     # [N, Hd]: att_inter @ h1
+        vfull = shard.reduce(attc.T @ h2c)       # [HM, Hd]
         heads = torch.arange(nh, device=h1c.device)
         v = vfull.reshape(nh, m, nh, d)[heads, :, heads, :]  # [H, M, d]
         v = v.transpose(0, 1).reshape(m, nh * d)  # att_inter.T @ h2
         v = leaky_relu(self.bn1(v, train))       # [M, Hd]
-        u = leaky_relu(self.bn2(inter_rc + intra_nc, train))  # [N, Hd]
+        u = leaky_relu(self.bn2(inter_rc + intra_nc, train, shard))  # [N, Hd]
         # row-local from here: both norms took their statistics over all
         # N rows, so scoring only ``rows`` is exact
         if rows is not None:
-            u = take_rows(u, rows)
+            u = shard.take(u, rows)
         bd_v = torch.einsum("mhd,hk->hdkm", v.reshape(m, nh, d),
                             eye).reshape(nh * d, nh * m)
         h_prime = elu(u @ bd_v)  # [R, HM]: the heads' u_h @ v_h.T, concat
@@ -213,18 +226,22 @@ class MSHABase(nn.Module):
                train: bool, record: bool = False,
                rows: Optional[torch.Tensor] = None,
                pair: Optional[PairGrouping] = None,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               shard: Shard = WHOLE):
         """Log-probabilities ``[R, M]`` of ``rows`` (all N when None) for
         the source features ``s_feat`` [N, in]; ``(logp, auxes)`` with
         ``record=True``, ``auxes`` the attention layer's per-head records
-        (:meth:`MSHALayer.forward`)."""
+        (:meth:`MSHALayer.forward`).  ``s_feat`` is ``shard``'s rows
+        (:meth:`MSHALayer.forward`); a shard of a mesh needs ``rows``, so
+        that the rows scored are whole."""
         def drop(x):
             return dropout(x, self.dropout, train, generator)
 
-        x = self.attention(drop(s_feat), drop(self.Rfeatures),
-                           inter_mask, city, province, batch, train=train,
-                           record=record, rows=rows, pair=pair,
-                           generator=generator)
+        x = self.attention(shard.dropout(s_feat, self.dropout, train,
+                                         generator),
+                           drop(self.Rfeatures), inter_mask, city, province,
+                           batch, train=train, record=record, rows=rows,
+                           pair=pair, generator=generator, shard=shard)
         if record:
             x, auxes = x
         x = drop(x)
@@ -261,8 +278,9 @@ class MSHA(MSHABase):
                 record: bool = False,
                 rows: Optional[torch.Tensor] = None,
                 pair: Optional[PairGrouping] = None,
-                generator: Optional[torch.Generator] = None):
-        """:meth:`MSHABase.scores` of ``Sfeatures``."""
+                generator: Optional[torch.Generator] = None,
+                shard: Shard = WHOLE):
+        """:meth:`MSHABase.scores` of ``Sfeatures`` (``shard``'s rows)."""
         return self.scores(self.Sfeatures, inter_mask, city, province,
                            batch, train=train, record=record, rows=rows,
-                           pair=pair, generator=generator)
+                           pair=pair, generator=generator, shard=shard)

@@ -1,6 +1,5 @@
-"""Out-of-core large-graph training on one card
-(``msha_gnn_tpu/training/scale.py``, the single-chip half of BASELINE
-config #5).
+"""Out-of-core and edge-partitioned large-graph training
+(``msha_gnn_tpu/training/scale.py``, BASELINE config #5).
 
 The model: learnable node features -> a projection -> rank-1 GAT
 attention over each sender's edges -> the attention-weighted aggregation
@@ -21,9 +20,18 @@ positive and random negative edges, Adam.
   (``csr_spmm_f32`` a slice; ``dx`` the transposed slices, ``dw``
   ``csr_sddmm_f32`` a slice).
 
+* :func:`train_distributed` runs the same model over the ranks of a
+  mesh (:mod:`msha_gnn_torch.parallel`), the edges partitioned by source
+  row: ``fused=True`` through
+  :class:`~msha_gnn_torch.parallel.rank1_dist.ShardedRank1Gat` (a rank's
+  ``r1l_fwd_f32`` / ``r1l_bwd_f32``), ``fused=False`` the materialised
+  encoding (the logits by gathers, the plain segment softmax) over
+  :class:`~msha_gnn_torch.parallel.dist_spmm.DistributedSpmm`.  The
+  parameters are replicated; the aggregation's input and output rows are
+  each rank's block.
+
 The JAX package's ``hoist`` (lifting the closure's constants into the
-compiled step) is JAX-only; ``train_distributed`` (many devices) is not
-ported here.
+compiled step) is JAX-only.
 """
 
 from __future__ import annotations
@@ -241,4 +249,85 @@ def train_chunked(senders, receivers, n_nodes: int,
     out["num_slices"] = num_slices
     out["topology"] = "single-chip out-of-core"
     out["attention"] = "fused-rank1-chunked" if fused else "materialized"
+    return out
+
+
+def build_distributed(senders, receivers, n_nodes: int, mesh,
+                      cfg: ScaleConfig, *, fused: bool = True):
+    """The operators and loss of :func:`train_distributed` -> ``(loss_fn,
+    senders, receivers, op)``, ``op`` the sharded attention operator
+    (``ShardedRank1Gat``) or aggregation (``DistributedSpmm``), the edges
+    in CSR order: sorted by sender,
+    stable, as :func:`build_chunked` sorts them (the JAX function draws
+    its batches from the (sender, receiver) order of its graph; the two
+    agree on edges given in that order), so both drivers draw the same
+    batches from one seed."""
+    from ..graph import BipartiteGraph
+    from ..parallel.comm import gather_rows, scatter_rows
+
+    s = np.ascontiguousarray(senders, np.int32)
+    r = np.ascontiguousarray(receivers, np.int32)
+    order = np.argsort(s, kind="stable")
+    s, r = s[order], r[order]
+    g = BipartiteGraph.from_coo(s, r, np.ones(len(s), np.float32),
+                                n_src=n_nodes, n_dst=n_nodes,
+                                assume_sorted=True)
+    d = cfg.d
+    if fused:
+        from ..parallel.rank1_dist import ShardedRank1Gat
+
+        op = ShardedRank1Gat(g, mesh, negative_slope=cfg.negative_slope)
+
+        def aggregate(h, s_src, params):
+            return op(scatter_rows(s_src, mesh), params["a"][d:],
+                      scatter_rows(h, mesh))
+    else:
+        from ..parallel.dist_spmm import DistributedSpmm
+
+        op = DistributedSpmm(g, mesh)
+        gd = g.to(mesh.device)
+        senders_dev = gd.senders.long().clamp_max(n_nodes - 1)
+        receivers_dev = gd.receivers.long().clamp_max(n_nodes - 1)
+        mask = gd.edge_mask
+
+        def aggregate(h, s_src, params):
+            s_dst = h @ params["a"][d:]
+            logits = F.leaky_relu(s_src.index_select(0, senders_dev)
+                                  + s_dst.index_select(0, receivers_dev),
+                                  cfg.negative_slope)
+            att = segment_softmax(logits, gd.senders, n_nodes, mask=mask)
+            return op(scatter_rows(h, mesh), edge_weight=att)
+
+    def loss_fn(params, pos_s, pos_r, neg_s, neg_r):
+        h = params["feat"] @ params["W"]
+        s_src = h @ params["a"][:d]
+        agg = gather_rows(aggregate(h, s_src, params), n_nodes, mesh)
+        z = F.elu(agg) + h
+        pos = (z[pos_s] * z[pos_r]).sum(1)
+        neg = (z[neg_s] * z[neg_r]).sum(1)
+        return (F.binary_cross_entropy_with_logits(pos, torch.ones_like(pos))
+                + F.binary_cross_entropy_with_logits(
+                    neg, torch.zeros_like(neg)))
+
+    return loss_fn, s, r, op
+
+
+def train_distributed(senders, receivers, n_nodes: int, mesh,
+                      cfg: ScaleConfig = ScaleConfig(), *,
+                      fused: bool = True,
+                      log: Optional[Callable] = None) -> Dict:
+    """Edge-partitioned training over the ranks of ``mesh`` (every rank
+    calls it with the same edges), on the mesh's device, from
+    :func:`_init_params` of a CPU generator seeded ``cfg.seed``; every
+    rank draws the same batches.  ``fused=True``: the attention layer is
+    ``ShardedRank1Gat``; ``fused=False``: the materialised encoding over
+    ``DistributedSpmm``."""
+    loss_fn, s, r, _ = build_distributed(senders, receivers, n_nodes,
+                                         mesh, cfg, fused=fused)
+    params = _init_params(torch.Generator().manual_seed(cfg.seed), n_nodes,
+                          cfg.d)
+    params = {k: v.to(mesh.device) for k, v in params.items()}
+    out = _train(loss_fn, params, s, r, n_nodes, cfg, log)
+    out["topology"] = f"edge-partitioned x{mesh.world}"
+    out["attention"] = "fused-rank1-sharded" if fused else "materialized"
     return out

@@ -415,7 +415,7 @@ def test_attention_paths_return_jax_keys(data_dir):
 
 
 @pytest.mark.parametrize("which", ["all", "flagship", "spmm", "sddmm",
-                                   "size_sweep"])
+                                   "size_sweep", "scaling"])
 def test_run_bench_keys_follow_jax(monkeypatch, which):
     """Both ``run_bench``s with their benchmarks stubbed (and JAX's
     generator setting kept out of the test process): the port's keys are
@@ -423,7 +423,7 @@ def test_run_bench_keys_follow_jax(monkeypatch, which):
     ``prng``."""
     for mod in (jb, tb):
         for name in ("bench_flagship", "bench_spmm", "bench_sddmm",
-                     "bench_flagship_size_sweep"):
+                     "bench_flagship_size_sweep", "bench_scaling"):
             monkeypatch.setattr(mod, name,
                                 lambda *a, name=name, **kw: {"of": name})
     monkeypatch.setattr(jax.config, "update", lambda *a: None)
@@ -434,9 +434,22 @@ def test_run_bench_keys_follow_jax(monkeypatch, which):
     assert got == {**want, "device": "cpu"}
 
 
-def test_run_bench_refuses_scaling_and_unknown_names():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tb.run_bench("scaling", device="cpu")
+# bench_scaling at a size the CPU takes in a fraction of a second
+SMALL_SCALING = dict(n=64, records=256, batch_size=16, iters=2,
+                     in_features=8, out_features=4)
+
+
+def test_run_bench_refuses_scaling_and_unknown_names(monkeypatch):
+    """Scaling runs now (the sharded MSHA step at world size 1); an
+    unknown name is still refused."""
+    real = tb.bench_scaling
+    monkeypatch.setattr(tb, "bench_scaling",
+                        lambda **kw: real(**kw, **SMALL_SCALING))
+    out = tb.run_bench("scaling", device="cpu")
+    assert list(out) == ["device", "scaling"] and list(out["scaling"]) == [
+        "1"]
+    assert set(out["scaling"]["1"]) == {"step_seconds", "records_per_s",
+                                        "scaling_efficiency"}
     with pytest.raises(ValueError, match="unknown benchmark"):
         tb.run_bench("attention", device="cpu")
 
@@ -458,7 +471,15 @@ def test_cli_bench_prints_one_json_line(monkeypatch, capsys):
     assert seen == dict(which="spmm", data_dir="somewhere", device="cpu")
 
 
-def test_cli_bench_scaling_exits_2(capsys):
-    assert cli.main(["bench", "--which", "scaling", "--device", "cpu"]) == 2
+def test_cli_bench_scaling_exits_2(monkeypatch, capsys):
+    """``bench --which scaling`` no longer exits 2: it prints its one JSON
+    line and exits 0."""
+    real = tb.bench_scaling
+    monkeypatch.setattr(tb, "bench_scaling",
+                        lambda **kw: real(**kw, **SMALL_SCALING))
+    assert cli.main(["bench", "--which", "scaling", "--device", "cpu"]) == 0
     captured = capsys.readouterr()
-    assert captured.out == "" and "item 9" in captured.err
+    out = json.loads(captured.out.strip())
+    row = out["scaling"]["1"]
+    assert row["scaling_efficiency"] is None
+    assert row["records_per_s"] == 16 / row["step_seconds"]

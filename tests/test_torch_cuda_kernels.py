@@ -1881,3 +1881,50 @@ def test_bench_attention_sparse_path_matches_dense_on_card():
                                    x["ct_m"]))
     for w, t in zip(want, (*got, *grads)):
         sums_close(t, w)
+
+
+@pytest.mark.cuda
+def test_sharded_operators_bit_equal_on_the_card():
+    """At world size 1 over NCCL the sharded operators run the
+    single-device operators' kernels on the same CSR: outputs and
+    gradients bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from msha_gnn_torch.parallel import (ShardedCsrSpmm, ShardedRank1Gat,
+                                         initialize, make_mesh, shutdown)
+
+    rng = np.random.default_rng(0)
+    n, e, d = 300, 4000, 64
+    g = tg.BipartiteGraph.from_coo(rng.integers(0, n, e),
+                                   rng.integers(0, n, e),
+                                   rng.random(e).astype(np.float32),
+                                   n_src=n, n_dst=n).to("cuda")
+    initialize(device="cuda")
+    try:
+        mesh = make_mesh()
+
+        def run(fn, *inputs):
+            inputs = [t.detach().clone().requires_grad_() for t in inputs]
+            out = fn(*inputs)
+            out.backward(torch.ones_like(out))
+            return [out] + [t.grad for t in inputs]
+
+        x = torch.rand(n, d, device="cuda")
+        c = torch.rand(n, device="cuda")
+        a = torch.rand(d, device="cuda")
+        w = torch.rand(g.num_padded_edges, device="cuda")
+        pairs = [
+            (run(r1.Rank1GatOperator(g, dst_linear=True), c, a, x),
+             run(ShardedRank1Gat(g, mesh), c, a, x)),
+            (run(lambda x, w: cuda_spmm.SpmmOperator(g, "cuda")(
+                x, edge_weight=w), x, w),
+             run(lambda x, w: ShardedCsrSpmm(g, mesh)(x, edge_weight=w),
+                 x, w)),
+        ]
+        for want, got in pairs:
+            for i, (u, v) in enumerate(zip(want, got)):
+                if i and u.shape == w.shape:  # dw: the real edges
+                    u, v = u[:g.num_edges], v[:g.num_edges]
+                assert torch.equal(u, v)
+    finally:
+        shutdown()
