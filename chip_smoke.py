@@ -161,7 +161,10 @@ over the same 20 calls, as is their library yardstick.
    and idle share beside the float32 step's.
 14. out-of-core training (``training/scale.py::train_chunked``) at the
    repo's own size: ``scripts_scale_train.py``'s 50 M-edge power-law graph
-   (2 M nodes, seed 0, its ``build_edges`` copied here), ``ScaleConfig()``
+   (2 M nodes, seed 0, its ``build_edges`` copied here), its edges put in
+   (sender, receiver) order once on the host (``scale.sort_edges``, the
+   order ``train_distributed`` draws from; its seconds printed on a line
+   of their own), shared with phase 18b, ``ScaleConfig()``
    (d 32, batch 8192), 12 slices from the formula, 5 steps each of
    ``fused`` f32, ``fused`` bf16 and the materialised pipeline
    (``ChunkedSpmm``, the row softmax, ``broadcast_rows``): layout seconds,
@@ -268,10 +271,12 @@ over the same 20 calls, as is their library yardstick.
    shard's arrays, with times, bound and yardstick.  18b:
    ``train_distributed`` on phase 14's 50 M-edge graph, ``ScaleConfig()``,
    5 steps fused (exactly 5 + 5 + 10 launches) and 5 materialised (none),
-   each held to phase 14's ``train_chunked`` losses (same graph, seed and
-   batches) at the JAX test's rtol and atol 2e-4; step wall p50, edges/s,
-   peak memory; then the fused run's four kernels on its own shard at d 32
-   (one launch the whole 50 M-edge graph) against their plain versions
+   each held to phase 14's ``train_chunked`` losses at the JAX test's rtol
+   and atol 2e-4: the same edges, in the same (sender, receiver) order,
+   for both drivers, so both draw the same batches from the seed; step
+   wall p50, edges/s, peak memory; then the fused run's four kernels on
+   its own shard at d 32 (one launch the whole 50 M-edge graph) against
+   their plain versions
    (the two dx SpMMs, whose transposed hub row has 19 M edges, against
    float64), with times, bound and yardstick, as entries of their own
    whose launches are the run's (the dx SpMM's two uses read from the
@@ -4058,11 +4063,14 @@ def gc_cuda():
 
 def phase_out_of_core():
     """Phase 14: single-card out-of-core training (``train_chunked``) at
-    the repo's own size, fused f32 and bf16 and materialised; the 12-slice
-    step against a 1-slice one, every slice's kernels and the layers'
-    gradients against float64 plain versions, the modes against each
-    other, and a cut graph against the CPU.  Returns the launches of the
-    materialised run's broadcast kernels (its main path)."""
+    the repo's own size, on edges put in (sender, receiver) order once
+    (phase 18b's ``train_distributed`` draws its batches from that order,
+    so the two drivers' losses agree), fused f32 and bf16 and
+    materialised; the 12-slice step against a 1-slice one, every slice's
+    kernels and the layers' gradients against float64 plain versions, the
+    modes against each other, and a cut graph against the CPU.  Returns
+    the launches of the materialised run's broadcast kernels (its main
+    path)."""
     import dataclasses
 
     from msha_gnn_torch.training import scale
@@ -4073,6 +4081,10 @@ def phase_out_of_core():
     log(f"  graph: {SCALE_NODES} nodes, {SCALE_EDGES} edges (build_edges of "
         f"scripts_scale_train.py, seed 0) in {time.perf_counter() - t0:.1f} "
         f"s; receiver 0 takes {hub:.3f} of the edges")
+    t0 = time.perf_counter()
+    src, dst = scale.sort_edges(src, dst, SCALE_NODES)
+    log(f"  edges put in (sender, receiver) order on the host (sort_edges, "
+        f"for phases 14 and 18b): {time.perf_counter() - t0:.2f} s")
     base = scale.ScaleConfig(steps=SCALE_STEPS)
     k = scale.num_slices_for(SCALE_EDGES, base.d)
     log(f"  ScaleConfig(): d {base.d}, batch {base.batch_edges}, lr "
@@ -6046,12 +6058,12 @@ def shard_train_kernels(op, d):
 def phase_parallel_train(mesh, scale_runs):
     """Phase 18b: ``train_distributed`` at world size 1 on phase 14's
     graph, ``ScaleConfig()``, 5 steps fused and 5 materialised, each held
-    to ``train_chunked``'s losses of phase 14 (same graph, seed and
-    batches) at DIST_TRAIN_TOL, with exact launches; the step wall p50,
-    edges/s and peak memory; then the fused run's kernels on its own
-    shard (:func:`shard_train_kernels`).  Returns those kernels' entries
-    and their launches in the fused run, the dx SpMM's two uses read from
-    the shard operator's own counts."""
+    to ``train_chunked``'s losses of phase 14 (the same edges in the same
+    (sender, receiver) order, seed and batches) at DIST_TRAIN_TOL, with
+    exact launches; the step wall p50, edges/s and peak memory; then the
+    fused run's kernels on its own shard (:func:`shard_train_kernels`).
+    Returns those kernels' entries and their launches in the fused run,
+    the dx SpMM's two uses read from the shard operator's own counts."""
     from msha_gnn_torch.training import scale
 
     src, dst = scale_runs["edges"]

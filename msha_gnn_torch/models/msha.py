@@ -262,6 +262,10 @@ class MSHA(MSHABase):
     :class:`~msha_gnn_torch.models.gat.MaskedGATLayer` back to ``[N, M]``
     (``use_out_att``), elu, log-softmax."""
 
+    # the tables whose rows are the source nodes: a sharded step holds a
+    # rank's rows of them (``parallel/sharded.py::state_shardings``)
+    node_rows = ("Sfeatures",)
+
     def __init__(self, in_features: int, out_features: int, n_classes: int,
                  n_heads: int = 2, dropout: float = 0.5, *,
                  use_intra: bool = True, joint_softmax: bool = True,

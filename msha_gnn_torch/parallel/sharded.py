@@ -27,8 +27,14 @@ own rows of the node-sharded ones.
 In both, each dropout mask of a sharded tensor is drawn for the whole
 tensor and each rank takes its rows, so the masks are the single-device
 step's for one generator seeded alike on every rank.
-:func:`state_shardings` gives each parameter's :class:`~.mesh.Placement`
-(leading dim ``n_nodes``: rows over the ranks; else replicated).
+:func:`state_shardings` gives each parameter's :class:`~.mesh.Placement`:
+the node-row tables the model names in ``node_rows`` (``MSHA.Sfeatures``,
+``LinkPredModel.features``) rows over the ranks, every other parameter
+and buffer replicated, whatever its shape.  JAX places by shape (any leaf
+whose leading dim is ``n_nodes``), but there a placement is only a layout
+and XLA computes on the whole value; here a row placement cuts the value
+to the rank's rows, which is right only for the tensors the model's
+:class:`~msha_gnn_torch.models.common.Shard` hooks treat as local rows.
 """
 
 from __future__ import annotations
@@ -50,16 +56,19 @@ from .mesh import Mesh, Placement, data_sharded, replicated
 def state_shardings(state: Union[TrainState, nn.Module], mesh: Mesh,
                     n_nodes: int) -> Dict[str, Placement]:
     """``{name: Placement}`` of the model's parameters and buffers (an
-    optimiser moment follows its parameter)."""
+    optimiser moment follows its parameter): the tables named in the
+    model's ``node_rows`` rows over the ranks, every other one
+    replicated."""
     model = state.model if isinstance(state, TrainState) else state
-
-    def place(shape):
-        if len(shape) >= 1 and shape[0] == n_nodes:
-            return data_sharded(mesh, len(shape))
-        return replicated(mesh)
-
-    named = list(model.named_parameters()) + list(model.named_buffers())
-    return {name: place(tuple(t.shape)) for name, t in named}
+    rows = set(getattr(model, "node_rows", ()))
+    named = dict(model.named_parameters())
+    named.update(model.named_buffers())
+    for name in rows:
+        if name not in named or named[name].shape[0] != n_nodes:
+            raise ValueError(f"node-row table {name!r} is not "
+                             f"[{n_nodes}, ...]")
+    return {name: (data_sharded(mesh, t.dim()) if name in rows
+                   else replicated(mesh)) for name, t in named.items()}
 
 
 def _shard_parameters(model: nn.Module, placements: Dict[str, Placement]
@@ -162,20 +171,21 @@ def sharded_linkpred_loss(model, graph, batch, mesh: Mesh, *, impl: str,
                           ) -> torch.Tensor:
     """``linkpred_loss``'s label loss (``0.5 (BCE(pos) + BCE(neg))``) with
     ``model.features`` this rank's rows and the batch ``(pos_s, pos_r,
-    neg_s, neg_r)`` (whole, on every rank) split over the ranks."""
+    neg_s, neg_r)`` (whole, on every rank) split over the ranks: each side
+    in blocks of its own length and averaged over it, its dropout masks
+    drawn for the whole side (positives, then negatives)."""
     pos_s, pos_r, neg_s, neg_r = (t.long() for t in batch)
     n = graph.n_src
     feats = gather_rows(model.features, n, mesh)
     h = copy_to_local(model.encoder(graph, feats, train=True, impl=impl,
                                     generator=generator), mesh)
-    b = pos_s.shape[0]
-    shard = MeshShard(mesh, b)
-    lo, hi = shard.lo, shard.hi
     part = h.new_zeros(())
     for s_idx, r_idx, target in ((pos_s, pos_r, 1.0), (neg_s, neg_r, 0.0)):
+        shard = MeshShard(mesh, s_idx.shape[0])
+        lo, hi = shard.lo, shard.hi
         scores = model.predictor(h[s_idx[lo:hi]], h[r_idx[lo:hi]],
                                  train=True, generator=generator, shard=shard)
-        part = part + _bce_sum(scores, target) / b
+        part = part + _bce_sum(scores, target) / shard.n
     return reduce_from_local(0.5 * part, mesh)
 
 

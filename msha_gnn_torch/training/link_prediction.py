@@ -75,6 +75,10 @@ class LinkPredModel(nn.Module):
     ``{"features", "encoder", "predictor", "student"}`` tree of the JAX
     run, as one module."""
 
+    # the tables whose rows are the graph's nodes: a sharded step holds a
+    # rank's rows of them (``parallel/sharded.py::state_shardings``)
+    node_rows = ("features",)
+
     def __init__(self, n: int, cfg: LinkPredConfig, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()

@@ -252,23 +252,30 @@ def train_chunked(senders, receivers, n_nodes: int,
     return out
 
 
+def sort_edges(senders, receivers, n_nodes: int):
+    """``(senders, receivers)`` as int32 in (sender, receiver) order: one
+    stable sort of the key ``s * n_nodes + r``, the permutation of
+    ``np.lexsort((r, s))`` (``msha_gnn_tpu/graph.py:122-125``)."""
+    s = np.ascontiguousarray(senders, np.int32)
+    r = np.ascontiguousarray(receivers, np.int32)
+    order = np.argsort(s.astype(np.int64) * n_nodes + r, kind="stable")
+    return s[order], r[order]
+
+
 def build_distributed(senders, receivers, n_nodes: int, mesh,
                       cfg: ScaleConfig, *, fused: bool = True):
     """The operators and loss of :func:`train_distributed` -> ``(loss_fn,
     senders, receivers, op)``, ``op`` the sharded attention operator
     (``ShardedRank1Gat``) or aggregation (``DistributedSpmm``), the edges
-    in CSR order: sorted by sender,
-    stable, as :func:`build_chunked` sorts them (the JAX function draws
-    its batches from the (sender, receiver) order of its graph; the two
-    agree on edges given in that order), so both drivers draw the same
-    batches from one seed."""
+    in the (sender, receiver) order of the JAX function's graph
+    (:func:`sort_edges`), from which both draw their batches.
+    :func:`build_chunked` sorts by sender only, stably, as its JAX source
+    does, so the two drivers draw the same batches from one seed only on
+    edges already in (sender, receiver) order."""
     from ..graph import BipartiteGraph
     from ..parallel.comm import gather_rows, scatter_rows
 
-    s = np.ascontiguousarray(senders, np.int32)
-    r = np.ascontiguousarray(receivers, np.int32)
-    order = np.argsort(s, kind="stable")
-    s, r = s[order], r[order]
+    s, r = sort_edges(senders, receivers, n_nodes)
     g = BipartiteGraph.from_coo(s, r, np.ones(len(s), np.float32),
                                 n_src=n_nodes, n_dst=n_nodes,
                                 assume_sorted=True)

@@ -94,18 +94,65 @@ def _tiny_msha(**kw):
     return fg, task, model, a["src"], a["dst"]
 
 
+def _colliding(model, n, table):
+    """The parameters and buffers other than the node-row ``table`` with
+    ``n`` rows."""
+    return {name for name, t in list(model.named_parameters())
+            + list(model.named_buffers())
+            if name != table and t.dim() and t.shape[0] == n}
+
+
 def test_state_shardings_place_the_node_rows():
+    from tests.test_torch_gcn import flow_arrays
+
     fg, task, model, _, _ = _tiny_msha()
-    for world in (1, 2):
-        mesh = Mesh(group=None, rank=0, world=world,
-                    device=torch.device("cpu"))
-        places = state_shardings(TrainState.create(model, task.optimizer),
-                                 mesh, fg.n_src)
-        assert set(places) == {n for n, _ in model.named_parameters()} | {
-            n for n, _ in model.named_buffers()}
-        assert places["Sfeatures"].rows
-        assert not any(p.rows for n, p in places.items()
-                       if n != "Sfeatures")
+    # 16 sources, 8 recipients, in_features 16, H d 16, M H 16: the norms
+    # and out_att have as many rows as there are sources
+    fg16 = port_flow(flow_arrays(0, n=16, m=8))
+    task16, model16 = msha_task(fg16, in_features=16, out_features=8,
+                                device="cpu")
+    assert {"out_att.W", "out_att.a", "attention.bn1.scale",
+            "attention.bn2.mean"} <= _colliding(model16, 16, "Sfeatures")
+    for fg, task, model in ((fg, task, model), (fg16, task16, model16)):
+        for world in (1, 2):
+            mesh = Mesh(group=None, rank=0, world=world,
+                        device=torch.device("cpu"))
+            places = state_shardings(
+                TrainState.create(model, task.optimizer), mesh, fg.n_src)
+            assert set(places) == {n for n, _ in model.named_parameters()} | {
+                n for n, _ in model.named_buffers()}
+            assert places["Sfeatures"].rows
+            assert not any(p.rows for n, p in places.items()
+                           if n != "Sfeatures")
+
+
+@pytest.mark.parametrize("world", [1, 2, 4])
+def test_state_shardings_place_the_linkpred_features(world):
+    """n = hidden: the encoder's and predictor's [hidden, ...] weights stay
+    whole, only ``features`` is cut to the ranks' rows."""
+    from msha_gnn_torch.training.link_prediction import (LinkPredConfig,
+                                                         LinkPredModel)
+
+    cfg = LinkPredConfig(hidden=16)
+    model = LinkPredModel(16, cfg, generator=torch.Generator().manual_seed(0))
+    assert len(_colliding(model, 16, "features")) >= 3
+    mesh = Mesh(group=None, rank=world - 1, world=world,
+                device=torch.device("cpu"))
+    places = state_shardings(model, mesh, 16)
+    assert [n for n, p in places.items() if p.rows] == ["features"]
+    t = torch.arange(16 * 3).reshape(16, 3)
+    for name, p in places.items():
+        want = t[16 - 16 // world:] if name == "features" else t
+        assert torch.equal(p.local(t), want)
+
+
+def test_state_shardings_check_the_node_rows():
+    """A node-row table that does not have ``n_nodes`` rows is an error,
+    not a replicated table."""
+    fg, task, model, _, _ = _tiny_msha()
+    mesh = Mesh(group=None, rank=0, world=2, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="Sfeatures"):
+        state_shardings(model, mesh, fg.n_src + 1)
 
 
 def test_fault_tolerant_fit_resumes(tmp_path):

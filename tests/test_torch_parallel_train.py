@@ -8,20 +8,28 @@ Each K spawns its ranks once (``tests/torch_parallel_workers.py``, a
 * ``make_sharded_msha_step`` (BatchNorm and the intra channels on): at
   dropout 0 from the JAX initial weights, the first loss against the JAX
   ``make_sharded_msha_step`` at ``tests/test_parallel.py:93``'s rtol 5e-5
-  (64 sources: the JAX mesh needs K to divide them); on 61 sources (no K
+  (64 sources: the JAX mesh needs K to divide them), and on a flow of 16
+  sources and 8 recipients, where ``in_features``, ``H d`` and ``M H``
+  are 16 too (``bn1``, ``bn2``, ``out_att.W`` and ``out_att.a`` have 16
+  rows: only ``Sfeatures`` may be cut to a rank's rows); on 61 sources (no K
   divides them) at dropout 0.5, three steps
   of full MSHA and of each ablation against the port's single-device
   step (``make_train_step``) from the same weights, batches and dropout
   generator: the losses at 5e-5, the parameters and running statistics
   after at 1e-4 (``tests/test_torch_trainer.py``'s bound: Adam turns
   last-bit differences of small gradients into a share of ``lr``);
-* ``make_sharded_linkpred_step``: at dropout 0 from the JAX weights, the
-  first loss against the JAX step at 5e-5; at dropout 0.5, two steps
-  against the port's single-device ``linkpred_loss`` step at 5e-5;
-* ``train_distributed``, fused and materialised: from the JAX initial
-  parameters against the JAX ``train_distributed``, and from the port's
-  own against the port's ``train_chunked``, at
-  ``tests/test_scale_training.py:29-30``'s rtol and atol 2e-4.
+* ``make_sharded_linkpred_step``, on 32 positives with 32 negatives and
+  with 96 (each side split over the ranks and averaged over its own
+  length): at dropout 0 from the JAX weights, the first loss against the
+  JAX step at 5e-5; at dropout 0.5, two steps against the port's
+  single-device ``linkpred_loss`` step at 5e-5;
+* ``train_distributed``, fused and materialised, on edges in (sender,
+  receiver) order and on the same edges shuffled: the edges its batches
+  are drawn from against the JAX graph's CSR order, bit for bit; from the
+  JAX initial
+  parameters against the JAX ``train_distributed`` on the same input, and
+  from the port's own against the port's ``train_chunked`` on the ordered
+  edges, at ``tests/test_scale_training.py:29-30``'s rtol and atol 2e-4.
 """
 
 import jax
@@ -61,6 +69,9 @@ PRESETS = {
     "ablation3": dict(MSHA_KW, use_intra=False),
 }
 STEPS, BATCH = 3, 16
+# n_src = in_features = H d = M H: parameters other than Sfeatures have
+# n_src rows
+COLLIDE = dict(n=16, m=8, records=400)
 LP = dict(ddi=dict(n=64, n_edges=600, seed=3),
           split=dict(num_neg=100, seed=3, pad_to_multiple=64),
           kwargs=dict(hidden=16, seed=5))
@@ -82,6 +93,15 @@ def setup():
     _, jvars, _ = jax_msha_task(make_flow(jg, flow_jax), **MSHA_KW,
                                 dropout=0.0)
     jax_state = msha_params_from_jax(jvars)
+    flow_c = flow_arrays(7, **COLLIDE)
+    ids_c = np.random.default_rng(17).integers(0, len(flow_c["src"]), BATCH)
+    _, jvars_c, _ = jax_msha_task(make_flow(jg, flow_c), **MSHA_KW,
+                                  dropout=0.0)
+    collide = dict(flow=flow_c,
+                   batch=[torch.from_numpy(flow_c["src"][ids_c]).long(),
+                          torch.from_numpy(flow_c["dst"][ids_c]).long(),
+                          torch.ones(BATCH)],
+                   jax_state=msha_params_from_jax(jvars_c))
 
     jsplit = jax_split_edges(jax_synthetic_ddi(**LP["ddi"]), **LP["split"])
     b = 32
@@ -89,6 +109,9 @@ def setup():
                     for a in jsplit["train_pos"])
     neg = rng.integers(0, LP["ddi"]["n"], (2, b)).astype(np.int64)
     lp_batch = [pos_s, pos_r, neg[0], neg[1]]
+    neg3 = np.random.default_rng(19).integers(
+        0, LP["ddi"]["n"], (2, 3 * b)).astype(np.int64)
+    lp_unequal = [pos_s, pos_r, neg3[0], neg3[1]]
     jstep, (jparams, _, _), _ = jpar.make_sharded_linkpred_step(
         jsplit, jpar.make_mesh(1, data_axis=1), **LP["kwargs"])
     lp_state = linkpred_params_from_jax(jparams)
@@ -97,15 +120,18 @@ def setup():
     r = rng.integers(0, SCALE_N, SCALE_E).astype(np.int32)
     order = np.lexsort((r, s))  # the JAX graph's CSR order
     s, r = s[order], r[order]
+    shuffle = np.random.default_rng(13).permutation(SCALE_E)
     jcfg = jax_scale.ScaleConfig(**SCALE_CFG)
     jparams0 = jax_scale._init_params(jax.random.key(jcfg.seed), SCALE_N,
                                       jcfg.d)
     inputs = dict(
         flow=flow, flow_jax=flow_jax, msha_presets=PRESETS,
         msha_batches=batches,
-        msha_jax_state=jax_state,
-        linkpred=dict(LP, batch=lp_batch, jax_state=lp_state),
-        scale=dict(s=s, r=r, n=SCALE_N, cfg=SCALE_CFG,
+        msha_jax_state=jax_state, msha_collide=collide,
+        linkpred=dict(LP, batch=lp_batch, unequal=lp_unequal,
+                      jax_state=lp_state),
+        scale=dict(s=s, r=r, s_shuffled=s[shuffle], r_shuffled=r[shuffle],
+                   n=SCALE_N, cfg=SCALE_CFG,
                    jax_params={k: v.numpy() for k, v in
                                scale_params_from_jax(jparams0).items()}))
     return dict(inputs=inputs, jsplit=jsplit, jcfg=jcfg)
@@ -127,7 +153,7 @@ def port(setup, tmp_path_factory):
 @pytest.fixture(scope="module")
 def jax_ref(setup):
     """The JAX sharded steps' first losses and ``train_distributed``'s
-    losses at ``k`` devices."""
+    losses (ordered and shuffled edges) at ``k`` devices."""
     inp = setup["inputs"]
 
     def run(k):
@@ -142,20 +168,31 @@ def jax_ref(setup):
             b[key].astype(jnp.int32 if key != "weights" else jnp.float32),
             data_s) for key in ("batch", "labels", "weights")),
             jax.device_put(jax.random.key(0), repl))
-        step, (params, opt, graph), (data_s, repl) = \
-            jpar.make_sharded_linkpred_step(setup["jsplit"], mesh,
-                                            **LP["kwargs"])
-        batch = [jax.device_put(jnp.asarray(v.astype(np.int32)), data_s)
-                 for v in inp["linkpred"]["batch"]]
-        _, _, lp_loss = step(params, opt, graph, *batch,
-                             jax.device_put(jax.random.key(0), repl))
+        c = inp["msha_collide"]
+        step, state, (data_s, repl) = jpar.make_sharded_msha_step(
+            make_flow(jg, c["flow"]), mesh, **MSHA_KW, dropout=0.0)
+        _, collide_loss = step(state, *(jax.device_put(
+            jnp.asarray(v.numpy().astype(dt)), data_s) for v, dt in
+            zip(c["batch"], (np.int32, np.int32, np.float32))),
+            jax.device_put(jax.random.key(0), repl))
+        lp = {}
+        for key in ("batch", "unequal"):
+            step, (params, opt, graph), (data_s, repl) = \
+                jpar.make_sharded_linkpred_step(setup["jsplit"], mesh,
+                                                **LP["kwargs"])
+            batch = [jax.device_put(jnp.asarray(v.astype(np.int32)), data_s)
+                     for v in inp["linkpred"][key]]
+            _, _, lp[key] = step(params, opt, graph, *batch,
+                                 jax.device_put(jax.random.key(0), repl))
         sc = inp["scale"]
-        hist = {key: jax_scale.train_distributed(
-            sc["s"], sc["r"], SCALE_N, mesh, setup["jcfg"],
+        hist = {f"{key}{edges}": jax_scale.train_distributed(
+            sc[f"s{edges}"], sc[f"r{edges}"], SCALE_N, mesh, setup["jcfg"],
             fused=fused)["loss_history"]
-            for key, fused in (("fused", True), ("materialised", False))}
-        _JAX[k] = dict(msha=float(msha_loss), linkpred=float(lp_loss),
-                       scale=hist)
+            for key, fused in (("fused", True), ("materialised", False))
+            for edges in ("", "_shuffled")}
+        _JAX[k] = dict(msha=float(msha_loss), msha_collide=float(collide_loss),
+                       linkpred=float(lp["batch"]),
+                       linkpred_unequal=float(lp["unequal"]), scale=hist)
         return _JAX[k]
     return run
 
@@ -180,19 +217,21 @@ def single(setup):
     lp = inp["linkpred"]
     split = split_edges(synthetic_ddi(**lp["ddi"]), **lp["split"])
     cfg = LinkPredConfig(hidden=16, dropout=0.5, seed=5)
-    model = LinkPredModel(split["n"], cfg,
-                          generator=torch.Generator().manual_seed(5))
-    opt = adam_l2(model.parameters(), cfg.lr)
-    gen = torch.Generator().manual_seed(0)
-    batch = [torch.from_numpy(v) for v in lp["batch"]]
-    lp_losses = []
-    for _ in range(2):
-        opt.zero_grad(set_to_none=True)
-        loss = linkpred_loss(model, split["graph"], batch, impl="torch",
-                             generator=gen)
-        loss.backward()
-        opt.step()
-        lp_losses.append(float(loss.detach()))
+    lp_losses = {}
+    for key in ("batch", "unequal"):
+        model = LinkPredModel(split["n"], cfg,
+                              generator=torch.Generator().manual_seed(5))
+        opt = adam_l2(model.parameters(), cfg.lr)
+        gen = torch.Generator().manual_seed(0)
+        batch = [torch.from_numpy(v) for v in lp[key]]
+        lp_losses[key] = []
+        for _ in range(2):
+            opt.zero_grad(set_to_none=True)
+            loss = linkpred_loss(model, split["graph"], batch, impl="torch",
+                                 generator=gen)
+            loss.backward()
+            opt.step()
+            lp_losses[key].append(float(loss.detach()))
 
     sc = inp["scale"]
     cfg = scale.ScaleConfig(**SCALE_CFG)
@@ -236,6 +275,23 @@ def test_sharded_msha_steps_match_single_device(port, single, k, preset):
 
 
 @pytest.mark.parametrize("k", KS)
+def test_sharded_msha_step_with_colliding_shapes_matches_jax(setup, port,
+                                                            jax_ref, k):
+    """Parameters other than ``Sfeatures`` with ``n_src`` rows stay whole:
+    only the node-row table is cut to the ranks' rows."""
+    n = COLLIDE["n"]
+    collide = [name for name, v in
+               setup["inputs"]["msha_collide"]["jax_state"].items()
+               if name != "Sfeatures" and v.dim() and v.shape[0] == n]
+    assert {"out_att.W", "out_att.a", "attention.bn1.scale"} <= set(collide)
+    want = jax_ref(k)["msha_collide"]
+    for res in port(k):
+        assert res["msha_collide/rows"] == ["Sfeatures"]
+        np.testing.assert_allclose(res["msha_collide_jax_loss"], want,
+                                   rtol=LOSS_RTOL)
+
+
+@pytest.mark.parametrize("k", KS)
 def test_sharded_linkpred_step_matches_jax(port, jax_ref, k):
     want = jax_ref(k)["linkpred"]
     for res in port(k):
@@ -246,7 +302,31 @@ def test_sharded_linkpred_step_matches_jax(port, jax_ref, k):
 @pytest.mark.parametrize("k", KS)
 def test_sharded_linkpred_dropout_matches_single_device(port, single, k):
     for res in port(k):
-        np.testing.assert_allclose(res["linkpred_losses"], single["linkpred"],
+        np.testing.assert_allclose(res["linkpred_losses"],
+                                   single["linkpred"]["batch"],
+                                   rtol=LOSS_RTOL)
+
+
+@pytest.mark.parametrize("k", KS)
+def test_sharded_linkpred_unequal_sides_match_jax(setup, port, jax_ref, k):
+    """32 positives, 96 negatives: each side averaged over its own
+    length."""
+    pos_s, _, neg_s, _ = setup["inputs"]["linkpred"]["unequal"]
+    assert 3 * len(pos_s) == len(neg_s)
+    want = jax_ref(k)["linkpred_unequal"]
+    for res in port(k):
+        np.testing.assert_allclose(res["linkpred_unequal_jax_loss"], want,
+                                   rtol=LOSS_RTOL)
+
+
+@pytest.mark.parametrize("k", KS)
+def test_sharded_linkpred_unequal_sides_dropout_match_single_device(
+        port, single, k):
+    """The negatives' masks are drawn for all 96 rows, after the
+    positives'."""
+    for res in port(k):
+        np.testing.assert_allclose(res["linkpred_unequal_losses"],
+                                   single["linkpred"]["unequal"],
                                    rtol=LOSS_RTOL)
 
 
@@ -257,6 +337,48 @@ def test_train_distributed_matches_jax(port, jax_ref, k, mode):
     for res in port(k):
         np.testing.assert_allclose(res[f"scale_jax/{mode}"], want,
                                    rtol=SCALE_TOL, atol=SCALE_TOL)
+
+
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("mode", ["fused", "materialised"])
+def test_train_distributed_draws_from_the_jax_edge_order(setup, port, k,
+                                                         mode):
+    """Given shuffled edges, ``build_distributed`` hands the batch draw the
+    edges in the JAX graph's CSR order, (sender, receiver)."""
+    sc = setup["inputs"]["scale"]
+    g = jg.BipartiteGraph.from_coo(
+        sc["s_shuffled"], sc["r_shuffled"], np.ones(SCALE_E, np.float32),
+        n_src=SCALE_N, n_dst=SCALE_N, combine_duplicates=False)
+    want = np.stack([np.asarray(g.senders)[:SCALE_E],
+                     np.asarray(g.receivers)[:SCALE_E]])
+    for res in port(k):
+        np.testing.assert_array_equal(res[f"scale_shuffled_edges/{mode}"],
+                                      want)
+        np.testing.assert_array_equal(res[f"scale_edges/{mode}"], want)
+
+
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("mode", ["fused", "materialised"])
+def test_train_distributed_on_shuffled_edges_matches_jax(port, jax_ref, k,
+                                                         mode):
+    """Both packages draw their batches from the (sender, receiver) order,
+    whatever the order of the input."""
+    want = jax_ref(k)["scale"][f"{mode}_shuffled"]
+    for res in port(k):
+        np.testing.assert_allclose(res[f"scale_jax_shuffled/{mode}"], want,
+                                   rtol=SCALE_TOL, atol=SCALE_TOL)
+
+
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("mode", ["fused", "materialised"])
+def test_train_distributed_on_shuffled_edges_matches_train_chunked(
+        port, single, k, mode):
+    """Shuffled, ``train_distributed`` draws the batches ``train_chunked``
+    draws from the same edges in (sender, receiver) order."""
+    for res in port(k):
+        np.testing.assert_allclose(
+            res[f"scale_shuffled/{mode}"]["loss_history"],
+            single["chunked"][mode], rtol=SCALE_TOL, atol=SCALE_TOL)
 
 
 @pytest.mark.parametrize("k", KS)

@@ -182,35 +182,49 @@ def task_train(inp, mesh):
         dropout=0.0)
     load_whole(state.model, place, inp["msha_jax_state"])
     res["msha_jax_loss"] = float(step(state, *(b[0] for b in batches)))
+    # parameters other than Sfeatures with n_src rows
+    c = inp["msha_collide"]
+    step, state, place = make_sharded_msha_step(
+        port_flow(c["flow"]), mesh, **inp["msha_presets"]["msha"],
+        dropout=0.0)
+    res["msha_collide/rows"] = sorted(n for n, p in place.items() if p.rows)
+    load_whole(state.model, place, c["jax_state"])
+    res["msha_collide_jax_loss"] = float(step(state, *c["batch"]))
 
     # link prediction: the JAX weights at dropout 0, then dropout 0.5
+    # (32 positives and 32 negatives, then 96 negatives)
     lp = inp["linkpred"]
     split = split_edges(synthetic_ddi(**lp["ddi"]), **lp["split"])
-    batch = [torch.from_numpy(v) for v in lp["batch"]]
-    step, (model, opt, graph), place = make_sharded_linkpred_step(
-        split, mesh, **lp["kwargs"])
-    load_whole(model, place, lp["jax_state"])
-    res["linkpred_jax_loss"] = float(step(model, opt, graph, *batch))
-    step, (model, opt, graph), place = make_sharded_linkpred_step(
-        split, mesh, **lp["kwargs"], dropout=0.5)
-    gen = torch.Generator().manual_seed(0)
-    res["linkpred_losses"] = [float(step(model, opt, graph, *batch, gen))
-                              for _ in range(2)]
+    for key, tag in (("batch", "linkpred"), ("unequal", "linkpred_unequal")):
+        batch = [torch.from_numpy(v) for v in lp[key]]
+        step, (model, opt, graph), place = make_sharded_linkpred_step(
+            split, mesh, **lp["kwargs"])
+        load_whole(model, place, lp["jax_state"])
+        res[f"{tag}_jax_loss"] = float(step(model, opt, graph, *batch))
+        step, (model, opt, graph), place = make_sharded_linkpred_step(
+            split, mesh, **lp["kwargs"], dropout=0.5)
+        gen = torch.Generator().manual_seed(0)
+        res[f"{tag}_losses"] = [float(step(model, opt, graph, *batch, gen))
+                                for _ in range(2)]
 
     # out-of-core model over the partition: train_distributed, and the
-    # JAX initial parameters through the same loss
+    # JAX initial parameters through the same loss, on the edges in
+    # (sender, receiver) order and shuffled
     sc = inp["scale"]
     cfg = scale.ScaleConfig(**sc["cfg"])
     for fused in (True, False):
         key = "fused" if fused else "materialised"
-        out = scale.train_distributed(sc["s"], sc["r"], sc["n"], mesh, cfg,
-                                      fused=fused)
-        res[f"scale/{key}"] = out
-        loss_fn, s, r, _ = scale.build_distributed(
-            sc["s"], sc["r"], sc["n"], mesh, cfg, fused=fused)
-        params = {k: torch.from_numpy(v) for k, v in sc["jax_params"].items()}
-        res[f"scale_jax/{key}"] = scale._train(loss_fn, params, s, r,
-                                               sc["n"], cfg)["loss_history"]
+        for edges in ("", "_shuffled"):
+            s, r = sc[f"s{edges}"], sc[f"r{edges}"]
+            res[f"scale{edges}/{key}"] = scale.train_distributed(
+                s, r, sc["n"], mesh, cfg, fused=fused)
+            loss_fn, s, r, _ = scale.build_distributed(s, r, sc["n"], mesh,
+                                                       cfg, fused=fused)
+            res[f"scale{edges}_edges/{key}"] = np.stack([s, r])
+            params = {k: torch.from_numpy(v)
+                      for k, v in sc["jax_params"].items()}
+            res[f"scale_jax{edges}/{key}"] = scale._train(
+                loss_fn, params, s, r, sc["n"], cfg)["loss_history"]
     return res
 
 
