@@ -2681,21 +2681,22 @@ def stacked_batches(trainer, ids, seed):
 
 
 def profile_steps(name, step, state, batches, generator):
-    """Step wall p50 (20 timed steps, each ended by a synchronise, after 5
-    of warm-up), then ``torch.profiler`` over 20 steps: device kernels a
+    """Step wall p50 (20 timed steps, each between two synchronises, after
+    6 of warm-up), then ``torch.profiler`` over 20 steps: device kernels a
     step, device ms a step and the idle share of their wall."""
     from torch.profiler import ProfilerActivity, profile
 
-    from msha_gnn_torch.utils import StepTimer
-
     if len(batches) < 46:
         raise AssertionError(f"{name}: {len(batches)} batches, want 46")
-    for b in batches[:5]:
+    for b in batches[:6]:
         step(state, *b, generator)
-    timer = StepTimer()
-    for b in batches[5:26]:
-        with timer.step():
-            step(state, *b, generator)
+    times = []
+    for b in batches[6:26]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, *b, generator)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -2710,7 +2711,7 @@ def profile_steps(name, step, state, batches, generator):
     busy_us = sum(getattr(evt, "self_device_time_total", 0.0)
                   or getattr(evt, "self_cuda_time_total", 0.0)
                   for evt in on_card)
-    out = {"step_wall_ms_p50": statistics.median(timer.times) * 1e3,
+    out = {"step_wall_ms_p50": statistics.median(times) * 1e3,
            "device_kernels_per_step": sum(e.count for e in on_card) / 20,
            "device_ms_per_step": busy_us / 1e3 / 20 if busy_us else None,
            "device_idle_share": (max(0.0, 1 - busy_us / 1e3 / wall_ms)

@@ -30,6 +30,13 @@ a power-law graph).  No ``[E, d]`` tensor exists.  At ``precision="bf16"``
 cotangent stays float32, as JAX's ``z`` is float32-grade (hi/lo ``gout``,
 ``rank1_gat.py:366-371``) at both precisions.
 
+Spans (:mod:`msha_gnn_torch.utils.prof`): ``msha.r1gat.fwd`` the forward,
+``msha.r1gat.bwd`` the backward and, in it, ``msha.r1gat.bwd.dx`` each
+slice's ``dx`` (the ``q`` gather, both transposed SpMMs with the hub rows'
+fix-up grids, the ``index_add_``).  Unprofiled, each times its work on
+the card by CUDA events; under a profiler each is an annotation of the
+trace.
+
 The JAX operator's ``interpret`` is a JAX dispatch option and is left out.
 """
 
@@ -41,6 +48,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..utils import prof
 from .chunked import EdgeSlice, csr_of_sorted, edge_slices
 from .cuda.rank1_gat import NEG, r1l_bwd, r1l_fwd
 from .cuda.spmm import csr_spmm
@@ -138,41 +146,48 @@ class ChunkedRank1Gat:
 
     def forward_state(self, c, a, xk):
         """``(out [n_src, d], lse [n_src])`` float32 of the merged slices,
-        no autograd; ``xk`` the rows as the kernels read them."""
-        out = torch.zeros((self.n_src, xk.shape[1]), dtype=torch.float32,
-                          device=self.device)
-        lse = torch.full((self.n_src,), NEG, dtype=torch.float32,
-                         device=self.device)
-        for rs in self.slices:
-            sl = rs.sl
-            o, l = r1l_fwd(sl.ptr, sl.col, c.index_select(0, sl.rows), a, xk,
-                           self._seed, 0.0, self.slope, sl.n_rows)
-            _merge_first_row(out, lse, rs, o, l)
-        return out, lse
+        no autograd; ``xk`` the rows as the kernels read them.  Span
+        ``msha.r1gat.fwd``."""
+        with prof.span("msha.r1gat.fwd", self.device):
+            out = torch.zeros((self.n_src, xk.shape[1]), dtype=torch.float32,
+                              device=self.device)
+            lse = torch.full((self.n_src,), NEG, dtype=torch.float32,
+                             device=self.device)
+            for rs in self.slices:
+                sl = rs.sl
+                o, l = r1l_fwd(sl.ptr, sl.col, c.index_select(0, sl.rows), a,
+                               xk, self._seed, 0.0, self.slope, sl.n_rows)
+                _merge_first_row(out, lse, rs, o, l)
+            return out, lse
 
     def backward_state(self, c, a, xk, out, lse, gout):
         """``(dc, da, dx)`` for the cotangent ``gout`` of the merged
-        ``out``."""
-        dc = torch.zeros(self.n_src, dtype=torch.float32, device=self.device)
-        da = torch.zeros_like(a)
-        dx = torch.zeros((self.n_dst, xk.shape[1]), dtype=torch.float32,
-                         device=self.device)
-        for rs in self.slices:
-            sl = rs.sl
-            c_s, g_s, o_s, l_s = (v.index_select(0, sl.rows)
-                                  for v in (c, gout, out, lse))
-            q, dpre, dc_i, da_i = r1l_bwd(
-                sl.ptr, sl.col, c_s, a, xk, g_s, o_s, l_s, self._seed, 0.0,
-                self.slope, sl.n_rows)
-            dc.index_add_(0, sl.rows, dc_i)
-            da += da_i
-            n_t = rs.t_rows.numel()
-            part = csr_spmm(rs.t_ptr, rs.t_col,
-                            torch.index_select(q, 0, rs.t_edge), gout, n_t)
-            part.addcmul_(csr_spmm(rs.t_ptr, rs.t_edge, None, dpre[:, None],
-                                   n_t), a[None, :])
-            dx.index_add_(0, rs.t_rows, part)
-        return dc, da, dx
+        ``out``.  Spans ``msha.r1gat.bwd`` (all of it) and, a slice,
+        ``msha.r1gat.bwd.dx`` (the slice's ``dx`` after its ``r1l_bwd``)."""
+        with prof.span("msha.r1gat.bwd", self.device):
+            dc = torch.zeros(self.n_src, dtype=torch.float32,
+                             device=self.device)
+            da = torch.zeros_like(a)
+            dx = torch.zeros((self.n_dst, xk.shape[1]), dtype=torch.float32,
+                             device=self.device)
+            for rs in self.slices:
+                sl = rs.sl
+                c_s, g_s, o_s, l_s = (v.index_select(0, sl.rows)
+                                      for v in (c, gout, out, lse))
+                q, dpre, dc_i, da_i = r1l_bwd(
+                    sl.ptr, sl.col, c_s, a, xk, g_s, o_s, l_s, self._seed,
+                    0.0, self.slope, sl.n_rows)
+                dc.index_add_(0, sl.rows, dc_i)
+                da += da_i
+                with prof.span("msha.r1gat.bwd.dx", self.device):
+                    n_t = rs.t_rows.numel()
+                    part = csr_spmm(rs.t_ptr, rs.t_col,
+                                    torch.index_select(q, 0, rs.t_edge),
+                                    gout, n_t)
+                    part.addcmul_(csr_spmm(rs.t_ptr, rs.t_edge, None,
+                                           dpre[:, None], n_t), a[None, :])
+                    dx.index_add_(0, rs.t_rows, part)
+            return dc, da, dx
 
     def __call__(self, c: torch.Tensor, a: torch.Tensor,
                  x: torch.Tensor) -> torch.Tensor:

@@ -46,6 +46,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from ..ops.segment import segment_softmax
+from ..utils import prof
 
 
 @dataclasses.dataclass
@@ -131,12 +132,22 @@ def _make_loss(senders, receivers, n_nodes: int, aggregate, cfg,
 def draw_batch(rng: np.random.Generator, senders_np, receivers_np,
                n_nodes: int, batch_edges: int, device):
     """One step's ``(pos_s, pos_r, neg_s, neg_r)`` as the JAX ``_train`` draws
-    them from ``rng`` (``scale.py:182-193``), int64 on ``device``."""
-    ids = rng.integers(0, len(senders_np), batch_edges)
-    neg_s = rng.integers(0, n_nodes, batch_edges, dtype=np.int64)
-    neg_r = rng.integers(0, n_nodes, batch_edges, dtype=np.int64)
-    return tuple(torch.from_numpy(np.asarray(v, np.int64)).to(device)
-                 for v in (senders_np[ids], receivers_np[ids], neg_s, neg_r))
+    them from ``rng`` (``scale.py:182-193``), int64 on ``device``.
+
+    Spans: ``msha.scale.batch`` the whole draw, ``msha.scale.batch.copy``
+    the four copies to ``device`` alone.  The arrays are in pageable host
+    memory, so on a card each copy first waits for the work already queued
+    there: the copy span's host time holds the host's wait for the
+    previous step, its CUDA events the copies alone."""
+    with prof.span("msha.scale.batch"):
+        ids = rng.integers(0, len(senders_np), batch_edges)
+        neg_s = rng.integers(0, n_nodes, batch_edges, dtype=np.int64)
+        neg_r = rng.integers(0, n_nodes, batch_edges, dtype=np.int64)
+        host = [torch.from_numpy(np.asarray(v, np.int64)) for v in
+                (senders_np[ids], receivers_np[ids], neg_s, neg_r)]
+        device = torch.device(device)
+        with prof.span("msha.scale.batch.copy", device):
+            return tuple(v.to(device) for v in host)
 
 
 def _train(loss_fn, params, senders_np, receivers_np, n_nodes: int, cfg,

@@ -270,17 +270,17 @@ class Trainer:
         "train_loss", **report}`` an epoch.  ``generator`` (default: seeded
         from ``seed`` on the model's device) draws the dropout masks;
         ``profile_dir`` captures a ``torch.profiler`` trace of the epochs
-        (phases annotated ``train_epoch_<i>`` / ``eval_<i>``)."""
+        (the spans ``train_epoch_<i>`` / ``eval_<i>``)."""
         if generator is None:
             generator = torch.Generator(device=state.device).manual_seed(
                 self.seed)
         history = []
         with prof.trace(profile_dir):
             for epoch in range(epochs):
-                with prof.annotate(f"train_epoch_{epoch}"):
+                with prof.span(f"train_epoch_{epoch}"):
                     state, loss = self.train_epoch(state, train_ids,
                                                    generator, epoch)
-                with prof.annotate(f"eval_{epoch}"):
+                with prof.span(f"eval_{epoch}"):
                     report = self.evaluate(state, test_ids)
                 history.append({"epoch": epoch, "train_loss": loss,
                                 **report})

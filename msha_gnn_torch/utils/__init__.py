@@ -1,6 +1,6 @@
 from .config import LLPConfig, SGAEConfig, TrainConfig
 from .logging import JsonlLogger
-from .prof import StepTimer, annotate, trace
+from .prof import span, trace
 
-__all__ = ["JsonlLogger", "LLPConfig", "SGAEConfig", "StepTimer",
-           "TrainConfig", "annotate", "trace"]
+__all__ = ["JsonlLogger", "LLPConfig", "SGAEConfig", "TrainConfig", "span",
+           "trace"]

@@ -42,7 +42,6 @@ from msha_gnn_torch.training import (Trainer, TrainState, adam_l2,
                                      make_train_multi_step, make_train_step,
                                      msha_task, nll_loss, sgd_momentum)
 from msha_gnn_torch.training import trainer as port_trainer
-from msha_gnn_torch.utils import StepTimer
 from tests.test_torch_gcn import flow_arrays, make_flow
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -142,16 +141,6 @@ def test_batches_are_the_jax_packages(n, bs, shuffle):
     assert gi.dtype == wi.dtype and gw.dtype == ww.dtype
     np.testing.assert_array_equal(gi, wi)
     np.testing.assert_array_equal(gw, ww)
-
-
-def test_step_timer_sets_the_first_step_aside():
-    timer = StepTimer()
-    for _ in range(3):
-        with timer.step():
-            pass
-    assert timer.first_step_seconds is not None
-    assert len(timer.times) == 2
-    assert timer.mean_step_seconds >= 0
 
 
 # ---------------------------------------------------------------------------
