@@ -1563,7 +1563,7 @@ def phase_generic_kernels(split):
     nan_filled(
         "r1_bwd_f32",
         ((n_slots,), (n_slots,), (n,),
-         (3 * cuda_spmm.n_runs(n_slots, b_run),)),
+         (cuda_spmm.sums_ws_floats(n_slots, b_run, 1),)),
         lambda att, dpre, dc, ws: fg._kernel_lib().r1_bwd_f32(
             op.ptr.data_ptr(), op.col.data_ptr(), c.data_ptr(), t.data_ptr(),
             h.data_ptr(), gout.data_ptr(), out.data_ptr(), lse.data_ptr(),

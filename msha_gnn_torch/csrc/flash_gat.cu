@@ -76,7 +76,7 @@
 // shuffle sum, and one lane of the group does the edge's scalar work and
 // its two stores.  The same grid zeroes the pads.  flash_bwd_f32 sums
 // nothing over a row and has one grid; r1_bwd_f32's dc is summed by row
-// piece, and a second grid adds the rows that cross runs in run order.
+// piece, and the fix-up grids of runs.cuh add the rows that cross runs.
 //
 // No float atomics, so results are deterministic.
 
@@ -136,12 +136,13 @@ extern "C" int flash_bwd_f32(const int* ptr, const int* col,
                                               n_warps, stream);
 }
 
-// The generic rank-1 GAT backward, two grids: the runs (att, dpre, the dc
-// of the rows inside a run and the crossing rows' pieces), then the
-// crossing rows' dc added in run order.  att and dpre [n_out] (n_out >=
+// The generic rank-1 GAT backward: the runs (att, dpre, the dc of the rows
+// inside a run and the crossing rows' pieces), then the crossing rows' dc
+// added by the fix-up grids (runs.cuh).  att and dpre [n_out] (n_out >=
 // ptr[n_rows], the pads 0), dc [n_rows]; gout, out [n_rows, d] and lse
-// [n_rows] as r1_fwd_f32 gave them; ws [3 n_runs] float32 with n_runs =
-// max(1, ceil(n_out / run)); group the lanes an edge, 8, 16 or 32.
+// [n_rows] as r1_fwd_f32 gave them; ws float32 as gat_bwd::launch sizes
+// it at width 1 (spmm.py's sums_ws_floats(n_out, run, 1)); group the
+// lanes an edge, 8, 16 or 32.
 extern "C" int r1_bwd_f32(const int* ptr, const int* col, const float* c,
                           const float* t, const float* x, const float* gout,
                           const float* out, const float* lse, float slope,

@@ -51,9 +51,10 @@
 // (group 0 with group 1, then with the sum of 2 and 3, ...), the plain-sum
 // counterpart of gat_runs::merge_groups.  runs.cuh says where the piece
 // goes (its row, or the run's head or tail partial with cross[k]) and which
-// run zeroes an empty row; grid 2 (runs::fixup_kernel: a thread a run for
-// dc, a warp a run for dx) adds the rows that cross runs in run order.  The
-// other sources sum nothing over a row and have one grid.
+// run zeroes an empty row; the fix-up grids (runs::fixup_kernel, two
+// levels: threads over runs for dc, warps over runs for dx) add the rows
+// that cross runs.  The other sources sum nothing over a row and have one
+// grid.
 //
 // A width d above what one group's registers hold takes several tiles:
 // the lanes keep the first tile of a[r] and stream the others
@@ -315,7 +316,7 @@ __device__ __forceinline__ void walk(
   if constexpr (kDc || kDx) {
     if (lead && lane == 0) {
       reinterpret_cast<int*>(ws + 2 * n_runs * width)[k] =
-          runs::target(rb, re, first, last) == runs::kTail ? row : -1;
+          runs::cross_code(row, rb, re, first, last);
     }
     if (last == n_edges) {  // the empty rows after the last edge
       for (int r = row + 1; r < n_rows; ++r) zero_row(r);
@@ -408,15 +409,14 @@ Kernel<TA, TB> kernel_for(int group, int per) {
   }
 }
 
-constexpr int kFixThreads = 256;
-
 // The grids on `stream`, no synchronisation; returns cudaGetLastError()
 // after the launches (0 = launched).  col [>= ptr[n_rows]] in CSR order (the
 // edge count is read from ptr on the card), a [n_rows, d], b [n_cols, d];
 // o1 (and o2) [n_slots] with n_slots >= ptr[n_rows]; group the lanes an
-// edge, 8, 16 or 32.  kRank1: sums = dc [n_rows] and ws [3 n_runs]; kDw:
-// sums = dx [n_rows, d] and ws [n_runs (2 d + 1)]; float32, n_runs = max(1,
-// ceil(n_slots / run)).  Dropout (rate > 0) is kRead's only; rows of a
+// edge, 8, 16 or 32.  kRank1: sums = dc [n_rows]; kDw: sums = dx [n_rows,
+// d]; ws float32, the runs' and the fix-up chunks' partials at the sums'
+// width w (1 or d): (n_runs + n_chunks) (2 w + 1) floats, n_runs = max(1,
+// ceil(n_slots / run)), n_chunks = ceil(n_runs / runs::chunk_runs(w)).  Dropout (rate > 0) is kRead's only; rows of a
 // type other than float are kDw's (a and b, TA = TB) and kRank1's b.
 template <Src kSrc, typename TA = float, typename TB = TA>
 int launch(const int* ptr, const int* col, const TA* a, const TB* b,
@@ -453,17 +453,8 @@ int launch(const int* ptr, const int* col, const TA* a, const TB* b,
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if constexpr (kSrc == Src::kRank1 || kSrc == Src::kDw) {
-    // a thread a run for dc, a warp a run for dx
-    constexpr int kLanes = kSrc == Src::kDw ? kWarp : 1;
-    const int width = kSrc == Src::kDw ? d : 1;
-    runs::fixup_kernel<kLanes>
-        <<<static_cast<unsigned>((n_runs * kLanes + kFixThreads - 1) /
-                                 kFixThreads),
-           kFixThreads, 0, stream>>>(
-            ptr, p.ws, p.ws + n_runs * width,
-            reinterpret_cast<const int*>(p.ws + 2 * n_runs * width), p.sums,
-            n_rows, run, width);
-    return static_cast<int>(cudaGetLastError());
+    return runs::fixup(ptr, p.ws, p.sums, n_rows, n_runs, run,
+                       kSrc == Src::kDw ? d : 1, stream);
   }
   return 0;
 }

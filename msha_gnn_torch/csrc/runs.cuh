@@ -16,16 +16,54 @@
 //   * a row that crosses a run boundary leaves one piece in each run it
 //     touches: the run where it begins writes its piece to that run's tail
 //     partial, every later run to its head partial (a run that the row
-//     covers from end to end has only that one piece, a head).  A second
-//     grid adds them in run order: out[r] = tail[k] + head[k + 1] + ... +
-//     head[k_end], by the worker of run k, where r begins (run k records
-//     r in cross[k], -1 when its last row ends inside it);
+//     covers from end to end has only that one piece, a head).  Run k
+//     records in cross[k] the row that begins in it and leaves it (its
+//     tail's row), kThrough when its one piece continues a row from before
+//     it past its end, kClosed when its last row ends inside it
+//     (cross_code).  The fix-up grids below add the pieces up;
 //   * an empty row sits between two slots and has none of its own: it is
 //     zeroed by the run that holds slot ptr[r] (at the run's start when
 //     ptr[r] is the run's first slot, where the binary search lands past
 //     it), and the rows with ptr[r] == n_edges by the run that holds the
 //     last slot.  With no edges at all, run 0 zeroes every row.
 // Slots past ptr[n_rows] (pads) are never read.
+//
+// The fix-up of the sums (fixup_kernel, two levels).  Read in run order,
+// the pieces form segments: a crossing row's tail, then its heads up to the
+// run where it ends.  Level 1: a block of kFixThreads threads takes a
+// chunk of consecutive runs, Fix<>::kChunk of them: 512 at d = 1 (256
+// threads over runs, 2 runs a thread) and 64 above (8 warps over runs, 8
+// runs a warp, lanes over a tile of 32 features, a block a tile).  Each
+// worker adds its runs' pieces left to right, then the block joins the
+// workers' stretches in a fixed binary tree (join below: worker w with
+// w + 1, then pairs with pairs).  A
+// segment that ends inside the chunk is written to its row when the join
+// that holds its last piece takes place; the chunk leaves, one level up,
+// the same three things a run leaves: the pieces of the row entering it
+// (its head), those of the row leaving it (its tail) and its cross code.
+// Level 2: a worker a chunk adds, for each row that leaves chunk c, the
+// chunk's tail and the heads of chunks c + 1 .. c_end in chunk order (a
+// thread at d = 1, a warp above).  Rows that begin and end in one chunk,
+// the rows of every graph without a hub, end at level 1; a row's order of
+// additions is fixed by the chunks, workers and tree, so two launches give
+// the same bits, whatever the card's scheduling.
+//
+// Bound of the fix-up: latency, not bytes.  Its bytes are those of the
+// partials, two rows a run (about 4 MB a launch at 16,300 runs of d 32).
+// The first design gave each crossing row to one worker, which added
+// tail[k] + head[k + 1] + ... + head[k_end] alone, a few loads in flight at
+// a time: receiver 0 of the 50 M-edge benchmark graph holds about 1.6 M
+// slots of each of its 12 slices, so one warp walked about 6,200 partials
+// of d 32 (0.613 ms a launch, about 99 ns a partial) and one thread about
+// 50,000 at d = 1 (1.230 ms, about 25 ns), while the other 131 SMs idled:
+// 22.5 ms of a 53.5 ms training step.  Now a worker adds at most 8 runs'
+// partials at level 1, with all their loads in flight, the block's tree 8
+// levels deep at most, and one partial a chunk at level 2 (about 98 for
+// that row at both widths): 7.4 and 8.6 us a launch there.  The chunk
+// sizes come from a sweep (PERF.md): at d = 1, 512 runs cost the hub 1.6
+// us more than 1,024 and the short rows 1-2% less; above, 64 runs beat 256
+// by 1.1 us on the hub and 10% on the linkpred graph's short rows, whose
+// fix-up time is a warp's walk of its runs at level 1.
 //
 // Rows of x (and the other gathered rows) come as float or, for the
 // bfloat16 payload, as __nv_bfloat16: ldg_vec loads either into float
@@ -112,22 +150,36 @@ __device__ __forceinline__ bool bounds(int64_t k, int run, int n_edges,
   return true;
 }
 
-// The row that begins in run k and ends after it, as the run recorded it
-// in cross[k] (-1 for none, or k past the runs that hold edges); k_end is
-// the run that holds its last slot.
+// What cross[k] holds besides a row (the walks that sum rows; the GAT
+// forwards' and r1l_bwd_f32's walks record kClosed for both).
+constexpr int kClosed = -1;   // no row leaves the run across its end
+constexpr int kThrough = -2;  // the run's one piece continues a row past it
+
+// cross[k] of the run [first, last) whose last row piece is that of row
+// `row` [begin, end).
+__device__ __forceinline__ int cross_code(int row, int begin, int end,
+                                          int first, int last) {
+  if (end <= last) return kClosed;
+  return begin < first ? kThrough : row;
+}
+
+// The row that begins in unit k and ends after it, as the unit recorded it
+// in cross[k] (negative for none, or k past the units that hold edges);
+// k_end is the unit that holds its last slot.  A unit is `span` slots: a
+// run, or a chunk of runs.
 __device__ __forceinline__ int crossing_row(const int* __restrict__ ptr,
                                             const int* __restrict__ cross,
-                                            int n_edges, int run, int64_t k,
-                                            int64_t& k_end) {
-  if (k * run >= n_edges) return -1;
+                                            int n_edges, int64_t span,
+                                            int64_t k, int64_t& k_end) {
+  if (k * span >= n_edges) return -1;
   const int r = cross[k];
-  if (r >= 0) k_end = (__ldg(ptr + r + 1) - 1) / run;
+  if (r >= 0) k_end = (__ldg(ptr + r + 1) - 1) / span;
   return r;
 }
 
 // The d = 1 sum of the row that begins in run k and ends after it:
 // out[r] = tail[k] + head[k + 1] + ... + head[k_end], added in run order;
-// nothing when no row crosses out of run k.
+// nothing when no row crosses out of run k (r1l_bwd_f32's dc).
 __device__ __forceinline__ void add_crossing(const int* __restrict__ ptr,
                                              const float* __restrict__ head,
                                              const float* __restrict__ tail,
@@ -143,32 +195,262 @@ __device__ __forceinline__ void add_crossing(const int* __restrict__ ptr,
   out[r] = v;
 }
 
-// The grid that adds up the rows crossing runs at width d: for each run k,
-// out[r] = tail[k] + head[k + 1] + ... + head[k_end] for the row r that
-// begins in it (head and tail [n_runs, d]), kLanes workers a run (a warp,
-// lanes over features, or one thread at d = 1).  The sums of csr_spmm_f32
-// and seg_reduce_f32 (spmm.cu), r1_bwd_f32's dc and csr_spmm_dw_f32's dx
-// (gat_bwd.cuh) take it as their second grid.
+// The fix-up's shape (the design note above): threads a block, and runs a
+// worker of level 1 at d = 1 and above.  spmm.py's FIX_THREADS, FIX_PER_D1
+// and FIX_PER size the workspace from the same numbers.
+constexpr int kFixThreads = 256;
+constexpr int kFixPerD1 = 2;
+constexpr int kFixPer = 8;
+
+// kLanes: the lanes a worker, 1 at d = 1 (a thread), 32 above (a warp).
 template <int kLanes>
-__global__ void fixup_kernel(const int* __restrict__ ptr,
-                             const float* __restrict__ head,
-                             const float* __restrict__ tail,
-                             const int* __restrict__ cross,
-                             float* __restrict__ out, int n_rows, int run,
-                             int d) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+struct Fix {
+  static constexpr int kWorkers = kFixThreads / kLanes;
+  static constexpr int kPer = kLanes == 1 ? kFixPerD1 : kFixPer;
+  static constexpr int kChunk = kWorkers * kPer;  // runs a chunk
+};
+
+// Runs a chunk at width d.
+inline int chunk_runs(int d) {
+  return d == 1 ? Fix<1>::kChunk : Fix<32>::kChunk;
+}
+
+// One level's partials in the workspace, n units (runs or chunks) of width
+// d: head and tail [n, d] each, then cross [n] (int32).
+struct Level {
+  float* head;
+  float* tail;
+  int* cross;
+};
+
+__host__ __device__ inline int64_t level_floats(int64_t n, int d) {
+  return n * (2 * d + 1);
+}
+
+__host__ __device__ inline Level level_at(float* ws, int64_t n, int d) {
+  return {ws, ws + n * d, reinterpret_cast<int*>(ws + 2 * n * d)};
+}
+
+// A stretch of consecutive runs (or chunks), its pieces added as far as
+// they go: x its cross code (kClosed, kThrough, or the row that leaves
+// across its end), e the pieces of the row that enters across its start
+// (read only when one does), t those of row x.  join makes (x, e, t) the
+// stretch followed by (xr, er, tr), and writes the row that the left one
+// lets out and the right one ends (out_f: out's column of this lane's
+// feature, rows d apart).
+__device__ __forceinline__ void join(int& x, float& e, float& t, int xr,
+                                     float er, float tr,
+                                     float* __restrict__ out_f, int d,
+                                     bool mine) {
+  if (x == kThrough) {
+    e += er;
+    x = xr;
+    t = tr;
+  } else if (x >= 0) {
+    if (xr == kThrough) {
+      t += er;
+    } else {
+      if (mine) out_f[static_cast<int64_t>(x) * d] = t + er;
+      x = xr;
+      t = tr;
+    }
+  } else {
+    x = xr;
+    t = tr;
+  }
+}
+
+// Level 1, a block a chunk of the runs that hold edges (above d = 1, a tile
+// of 32 features on blockIdx.y).  Each worker loads all its runs' partials
+// at once and joins them left to right; the tree over the workers takes
+// its steps inside a warp by shuffles (d = 1: threads are the workers) or
+// in warp 0's registers (the warps are the workers), after one barrier.
+template <int kLanes>
+__device__ __forceinline__ void sum_chunk(const int* __restrict__ ptr,
+                                          float* __restrict__ ws,
+                                          float* __restrict__ out, int n_rows,
+                                          int64_t n_runs, int run, int d) {
+  using F = Fix<kLanes>;
+  constexpr int kWarps = kFixThreads / 32;
+  constexpr unsigned kAll = 0xffffffffu;
+  __shared__ int sx[kWarps];
+  __shared__ float se[kWarps][kLanes];
+  __shared__ float st[kWarps][kLanes];
+  const int64_t c = blockIdx.x;
+  const int64_t held = (__ldg(ptr + n_rows) + static_cast<int64_t>(run) - 1) /
+                       run;  // runs that hold edges
+  if (c * F::kChunk >= held) return;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int f = kLanes == 1 ? 0 : blockIdx.y * 32 + lane;
+  const bool mine = f < d;
+  float* out_f = out + f;
+  const Level lo = level_at(ws, n_runs, d);
+  const Level hi = level_at(ws + level_floats(n_runs, d),
+                            (n_runs + F::kChunk - 1) / F::kChunk, d);
+  const int64_t j0 =
+      c * F::kChunk + static_cast<int64_t>(threadIdx.x / kLanes) * F::kPer;
+  const int n_mine = static_cast<int>(
+      held - j0 < F::kPer ? (held > j0 ? held - j0 : 0) : F::kPer);
+  // the worker's runs; an idle one (past the last run with edges) is
+  // (kClosed, 0, 0)
+  int xs[F::kPer];
+  float es[F::kPer];
+  float ts[F::kPer];
+#pragma unroll
+  for (int u = 0; u < F::kPer; ++u) {
+    const int64_t j = j0 + u;
+    const bool ok = u < n_mine;
+    xs[u] = ok ? lo.cross[j] : kClosed;
+    es[u] = ok && mine ? lo.head[j * d + f] : 0.0f;
+    ts[u] = ok && mine ? lo.tail[j * d + f] : 0.0f;
+  }
+  int x = xs[0];
+  float e = es[0];
+  float t = ts[0];
+#pragma unroll
+  for (int u = 1; u < F::kPer; ++u) {
+    if (u < n_mine) join(x, e, t, xs[u], es[u], ts[u], out_f, d, mine);
+  }
+  // the tree: at step s, worker w (a multiple of 2 s) takes in w + s
+  if constexpr (kLanes == 1) {
+#pragma unroll
+    for (int s = 1; s < 32; s *= 2) {
+      const int xr = __shfl_down_sync(kAll, x, s);
+      const float er = __shfl_down_sync(kAll, e, s);
+      const float tr = __shfl_down_sync(kAll, t, s);
+      if (lane % (2 * s) == 0) join(x, e, t, xr, er, tr, out_f, d, mine);
+    }
+    if (lane == 0) {
+      sx[warp] = x;
+      se[warp][0] = e;
+      st[warp][0] = t;
+    }
+  } else {
+    if (lane == 0) sx[warp] = x;
+    se[warp][lane] = e;
+    st[warp][lane] = t;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  if constexpr (kLanes == 1) {  // lane i: the stretch of worker 32 i
+    const bool live = lane < kWarps;
+    x = live ? sx[lane] : kClosed;
+    e = live ? se[lane][0] : 0.0f;
+    t = live ? st[lane][0] : 0.0f;
+#pragma unroll
+    for (int s = 1; s < kWarps; s *= 2) {
+      const int xr = __shfl_down_sync(kAll, x, s);
+      const float er = __shfl_down_sync(kAll, e, s);
+      const float tr = __shfl_down_sync(kAll, t, s);
+      if (live && lane % (2 * s) == 0) {
+        join(x, e, t, xr, er, tr, out_f, d, mine);
+      }
+    }
+    if (lane != 0) return;
+  } else {  // the warps' stretches, this lane's feature
+    int xw[kWarps];
+    float ew[kWarps];
+    float tw[kWarps];
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) {
+      xw[i] = sx[i];
+      ew[i] = se[i][lane];
+      tw[i] = st[i][lane];
+    }
+#pragma unroll
+    for (int s = 1; s < kWarps; s *= 2) {
+#pragma unroll
+      for (int i = 0; i < kWarps; i += 2 * s) {
+        join(xw[i], ew[i], tw[i], xw[i + s], ew[i + s], tw[i + s], out_f, d,
+             mine);
+      }
+    }
+    x = xw[0];
+    e = ew[0];
+    t = tw[0];
+  }
+  if (lane == 0 && blockIdx.y == 0) hi.cross[c] = x;
+  if (mine) {
+    hi.head[c * d + f] = e;
+    hi.tail[c * d + f] = t;
+  }
+}
+
+// Level 2, a worker a chunk: out[r] = tail[c] + head[c + 1] + ... +
+// head[c_end] over the chunks' partials, for the row r that leaves chunk c.
+template <int kLanes>
+__device__ __forceinline__ void sum_chain(const int* __restrict__ ptr,
+                                          float* __restrict__ ws,
+                                          float* __restrict__ out, int n_rows,
+                                          int64_t n_runs, int run, int d) {
+  using F = Fix<kLanes>;
+  const int64_t n_chunks = (n_runs + F::kChunk - 1) / F::kChunk;
+  const Level hi = level_at(ws + level_floats(n_runs, d), n_chunks, d);
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
-  const int64_t k = t / kLanes;
-  const int lane = static_cast<int>(t % kLanes);
-  int64_t k_end = 0;
-  const int r = crossing_row(ptr, cross, __ldg(ptr + n_rows), run, k, k_end);
+  const int64_t c = i / kLanes;
+  if (c >= n_chunks) return;
+  int64_t c_end = 0;
+  const int r =
+      crossing_row(ptr, hi.cross, __ldg(ptr + n_rows),
+                   static_cast<int64_t>(run) * F::kChunk, c, c_end);
   if (r < 0) return;
-  for (int f = lane; f < d; f += kLanes) {
-    float v = tail[k * d + f];
-#pragma unroll 8
-    for (int64_t j = k + 1; j <= k_end; ++j) v += head[j * d + f];
+  for (int f = static_cast<int>(i % kLanes); f < d; f += kLanes) {
+    float v = hi.tail[c * d + f];
+#pragma unroll 16
+    for (int64_t j = c + 1; j <= c_end; ++j) v += hi.head[j * d + f];
     out[static_cast<int64_t>(r) * d + f] = v;
   }
+}
+
+// The fix-up grids of the sums of csr_spmm_f32 and seg_reduce_f32
+// (spmm.cu), r1_bwd_f32's dc and csr_spmm_dw_f32's dx (gat_bwd.cuh): level
+// kLevel (1 or 2) at kLanes lanes a worker.  One name for both levels, so
+// that a trace reads the whole fix-up under runs::fixup_kernel.
+template <int kLevel, int kLanes>
+__global__ void __launch_bounds__(kFixThreads)
+fixup_kernel(const int* __restrict__ ptr, float* __restrict__ ws,
+             float* __restrict__ out, int n_rows, int64_t n_runs, int run,
+             int d) {
+  if constexpr (kLevel == 1) {
+    sum_chunk<kLanes>(ptr, ws, out, n_rows, n_runs, run, d);
+  } else {
+    sum_chain<kLanes>(ptr, ws, out, n_rows, n_runs, run, d);
+  }
+}
+
+template <int kLanes>
+int launch_fixup(const int* ptr, float* ws, float* out, int n_rows,
+                 int64_t n_runs, int run, int d, cudaStream_t stream) {
+  const int64_t n_chunks =
+      (n_runs + Fix<kLanes>::kChunk - 1) / Fix<kLanes>::kChunk;
+  const dim3 grid(static_cast<unsigned>(n_chunks),
+                  kLanes == 1 ? 1u : static_cast<unsigned>((d + 31) / 32));
+  fixup_kernel<1, kLanes><<<grid, kFixThreads, 0, stream>>>(
+      ptr, ws, out, n_rows, n_runs, run, d);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_chunks == 1) return static_cast<int>(err);
+  fixup_kernel<2, kLanes>
+      <<<static_cast<unsigned>((n_chunks * kLanes + kFixThreads - 1) /
+                               kFixThreads),
+         kFixThreads, 0, stream>>>(ptr, ws, out, n_rows, n_runs, run, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fix-up of a walk that has summed rows of width d over n_runs runs of
+// `run` slots into out and the runs' partials at ws, which holds the
+// chunks' after them: (n_runs + n_chunks) (2 d + 1) floats, n_chunks =
+// ceil(n_runs / chunk_runs(d)).  Level 1, then level 2 where there is more
+// than one chunk.
+// Returns cudaGetLastError() after the launches (0 = launched).
+inline int fixup(const int* ptr, float* ws, float* out, int n_rows,
+                 int64_t n_runs, int run, int d, cudaStream_t stream) {
+  if (d == 0) return 0;
+  if (d == 1) {
+    return launch_fixup<1>(ptr, ws, out, n_rows, n_runs, run, d, stream);
+  }
+  return launch_fixup<32>(ptr, ws, out, n_rows, n_runs, run, d, stream);
 }
 
 // kVec consecutive floats of a read-only global row, through the

@@ -66,12 +66,17 @@
 // rows of about 3,168 edges on 32 of the 132 SMs, set the kernel's time
 // alone, each warp reloading col and w for every 32-feature tile and each
 // x load waiting on its own col load.  Now each warp takes a run of `run`
-// consecutive slots, whatever the rows; a row crossing runs is added up by
-// a second grid of the same entry point from the runs' head and tail
-// partials in run order.  Inside a run, edges are the outer loop and
-// features the inner: the warp loads 32 edges' col and w in one coalesced
-// load and hands them to the lanes with __shfl_sync, then keeps kGroup
-// edges' rows of x in flight; each lane loads kVec floats of a row (float4
+// consecutive slots, whatever the rows; a row crossing runs is added up
+// from the runs' head and tail partials by the two-level fix-up of
+// runs.cuh (a block a chunk of 512 runs at d = 1 and 64 above, joined in a
+// fixed tree, then a worker a chunk over the chunks' partials).  Its
+// first design, a worker a crossing row adding every partial in run order,
+// left the out-of-core benchmark's hub row to one thread or warp: 1.230 /
+// 0.613 ms a slice at d = 1 / 32, 42% of the step.  Inside a run, edges
+// are the outer loop and features the inner: the warp loads 32 edges' col
+// and w in one coalesced load and hands them to the lanes with
+// __shfl_sync, then keeps kGroup edges' rows of x in flight; each lane
+// loads kVec floats of a row (float4
 // where d % 4 == 0 and d >= 128, float2 where d is even and d >= 64).  At
 // d = 1 (a column sum of per-edge scalars) a warp would leave 31 lanes
 // idle, so there a thread takes a run of its own.  No atomics: two
@@ -89,8 +94,8 @@
 // group dot (a log2(G)-round shuffle sum, one lane storing dw[id_e]) and
 // the group's own sum acc += w[id_e] g[col[e]].  At the end of a row piece
 // the groups' sums are added in a fixed order and the row is written, or
-// left as the run's head or tail partial; the fix-up grid of the sums
-// (runs::fixup_kernel) adds the rows that cross runs in run order.  Widths
+// left as the run's head or tail partial; the fix-up grids of the sums
+// (runs::fixup_kernel) add the rows that cross runs.  Widths
 // above one group's tile (G x 8 floats, 64 at G 8 and 256 at G 32; fewer
 // where the rows are not 16-byte aligned) take dx in tiles on blockIdx.y:
 // each tile's blocks sum their features and form the full dot again
@@ -235,8 +240,7 @@ csr_spmm_runs_kernel(const int* __restrict__ ptr, const int* __restrict__ col,
       }
     }
     if (lane == 0 && f0 == 0) {
-      cross[k] = runs::target(begin, end, first, last) == runs::kTail ? row
-                                                                      : -1;
+      cross[k] = runs::cross_code(row, begin, end, first, last);
     }
     if (mine) {
       runs::store_vec<kVec>(piece_dst(out, head, tail, row, begin, end,
@@ -307,14 +311,15 @@ csr_spmm_runs_d1_kernel(const int* __restrict__ ptr,
     }
   }
   *piece_dst(out, head, tail, row, begin, end, first, last, k, 1) = acc;
-  cross[k] = runs::target(begin, end, first, last) == runs::kTail ? row : -1;
+  cross[k] = runs::cross_code(row, begin, end, first, last);
   if (last == n_edges) {
     for (int r = row + 1; r < n_rows; ++r) out[r] = 0.0f;
   }
 }
 
-// Both grids of one CSR sum; ws holds head [n_runs, d] | tail [n_runs, d] |
-// cross [n_runs] (int32).
+// The grids of one CSR sum: the runs, then the fix-up of the rows that
+// cross runs; ws holds the runs' head [n_runs, d] | tail [n_runs, d] |
+// cross [n_runs] (int32), then the same for the fix-up's chunks.
 template <bool kWeighted, bool kIdentity, typename T>
 int launch_runs(const int* ptr, const int* col, const float* w, const T* x,
                 float* out, float* ws, int n_rows, int n_slots, int run,
@@ -328,35 +333,28 @@ int launch_runs(const int* ptr, const int* col, const float* w, const T* x,
     csr_spmm_runs_d1_kernel<kWeighted, kIdentity, T>
         <<<static_cast<unsigned>(blocks), kD1Threads, 0, stream>>>(
             ptr, col, w, x, out, head, tail, cross, n_rows, run);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    runs::fixup_kernel<1>
-        <<<static_cast<unsigned>(blocks), kD1Threads, 0, stream>>>(
-            ptr, head, tail, cross, out, n_rows, run, d);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const uintptr_t at = runs::float_at(x);
-  const int64_t blocks = (n_runs + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const unsigned grid = static_cast<unsigned>(blocks);
-  const int threads = kWarpsPerBlock * kWarp;
-  if (d >= 128 && d % 4 == 0 && at % 16 == 0) {
-    csr_spmm_runs_kernel<4, kWeighted, kIdentity, T>
-        <<<grid, threads, 0, stream>>>(ptr, col, w, x, out, head, tail,
-                                       cross, n_rows, run, d);
-  } else if (d >= 64 && d % 2 == 0 && at % 8 == 0) {
-    csr_spmm_runs_kernel<2, kWeighted, kIdentity, T>
-        <<<grid, threads, 0, stream>>>(ptr, col, w, x, out, head, tail,
-                                       cross, n_rows, run, d);
   } else {
-    csr_spmm_runs_kernel<1, kWeighted, kIdentity, T>
-        <<<grid, threads, 0, stream>>>(ptr, col, w, x, out, head, tail,
-                                       cross, n_rows, run, d);
+    const uintptr_t at = runs::float_at(x);
+    const int64_t blocks = (n_runs + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    const unsigned grid = static_cast<unsigned>(blocks);
+    const int threads = kWarpsPerBlock * kWarp;
+    if (d >= 128 && d % 4 == 0 && at % 16 == 0) {
+      csr_spmm_runs_kernel<4, kWeighted, kIdentity, T>
+          <<<grid, threads, 0, stream>>>(ptr, col, w, x, out, head, tail,
+                                         cross, n_rows, run, d);
+    } else if (d >= 64 && d % 2 == 0 && at % 8 == 0) {
+      csr_spmm_runs_kernel<2, kWeighted, kIdentity, T>
+          <<<grid, threads, 0, stream>>>(ptr, col, w, x, out, head, tail,
+                                         cross, n_rows, run, d);
+    } else {
+      csr_spmm_runs_kernel<1, kWeighted, kIdentity, T>
+          <<<grid, threads, 0, stream>>>(ptr, col, w, x, out, head, tail,
+                                         cross, n_rows, run, d);
+    }
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  runs::fixup_kernel<kWarp><<<grid, threads, 0, stream>>>(
-      ptr, head, tail, cross, out, n_rows, run, d);
-  return static_cast<int>(cudaGetLastError());
+  return runs::fixup(ptr, ws, out, n_rows, n_runs, run, d, stream);
 }
 
 }  // namespace
@@ -365,11 +363,13 @@ int launch_runs(const int* ptr, const int* col, const float* w, const T* x,
 // cudaGetLastError() after its launch (0 = launched), so a refused launch
 // is reported.
 
-// Both sums take ws [2 n_runs d + n_runs] float32 with n_runs = max(1,
-// ceil(n_slots / run)): n_slots >= ptr[n_rows] bounds the slots (the
+// Both sums take ws [(n_runs + n_chunks) (2 d + 1)] float32 with n_runs =
+// max(1, ceil(n_slots / run)) and n_chunks = ceil(n_runs /
+// csr_fix_chunk_runs(d)): n_slots >= ptr[n_rows] bounds the slots (the
 // number of edges itself is read from ptr on the card), run >= 1 is the
-// run length in slots.  Two grids: the runs, then the fix-up of the rows
-// that cross runs.  Every row of out is written.
+// run length in slots.  Up to three grids: the runs, then the fix-up of the
+// rows that cross runs (runs.cuh: level 1, and level 2 where there is more
+// than one chunk).  Every row of out is written.
 
 namespace {
 
@@ -422,10 +422,9 @@ extern "C" int seg_reduce_f32(const int* ptr, const float* values,
 // dx [n_rows, d] and dw [n_slots] (n_slots >= ptr[n_rows], the slots past
 // it 0) of a weighted SpMM's backward: g [n_cols, d] gathered by col, x
 // [n_rows, d] the rows' own, w [> max id] read at id_e = eid[e] (e when eid
-// is null); ws [n_runs (2 d + 1)] float32 with n_runs = max(1, ceil(n_slots
-// / run)); `group` the lanes an edge, 8, 16 or 32.  Two grids: the runs,
-// then the fix-up of the rows of dx that cross runs.  d = 0 is a shape (dw
-// = 0).
+// is null); ws as the sums above take it; `group` the lanes an edge, 8, 16
+// or 32.  The runs' grid, then the fix-up of the rows of dx that cross
+// runs.  d = 0 is a shape (dw = 0).
 extern "C" int csr_spmm_dw_f32(const int* ptr, const int* col, const int* eid,
                                const float* w, const float* g, const float* x,
                                float* dx, float* dw, float* ws, int n_rows,
@@ -460,6 +459,10 @@ extern "C" int csr_spmm_dw_bf16(const int* ptr, const int* col,
                                             n_slots, run, group, d,
                                             kDwWarps, stream);
 }
+
+// Runs a chunk of the fix-up's first level at width d (the workspace's
+// n_chunks above).
+extern "C" int csr_fix_chunk_runs(int d) { return runs::chunk_runs(d); }
 
 extern "C" const char* csr_spmm_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -51,7 +51,7 @@ from .. import resolve_device
 from ..utils import prof
 from .chunked import EdgeSlice, csr_of_sorted, edge_slices
 from .cuda.rank1_gat import NEG, r1l_bwd, r1l_fwd
-from .cuda.spmm import csr_spmm
+from .cuda.spmm import chunk_runs, crossing_spans, csr_spmm, run_for
 from .sparse import PRECISIONS
 
 
@@ -60,13 +60,16 @@ class _RankSlice:
     receiver-sorted CSR of its ``dx`` sums over the distinct receivers it
     holds: ``t_rows`` (int64), ``t_ptr`` [len(t_rows) + 1], ``t_col`` the
     global senders, ``t_edge`` the slice-local edge ids, in (receiver,
-    sender) order."""
+    sender) order.  ``spans``: ``spmm.crossing_spans`` of ``t_ptr`` for
+    the two ``dx`` sums, at d = 1 and at d > 1."""
 
     def __init__(self, sl: EdgeSlice, s: np.ndarray, r: np.ndarray,
                  device: torch.device):
         self.sl, self.row0 = sl, int(s[0])
         order = np.argsort(r, kind="stable")   # s is sorted: (r, s) order
         t_rows, t_ptr = csr_of_sorted(r[order])
+        self.spans = [crossing_spans(t_ptr, run_for(len(s), d),
+                                     chunk_runs(d)) for d in (1, 2)]
 
         def put(a, dtype=np.int32):
             return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
@@ -117,6 +120,10 @@ class ChunkedRank1Gat:
     all three.  Edges are sorted by sender (stable) unless
     ``assume_sorted``.  ``precision="bf16"`` streams ``x`` in bfloat16
     (``r1l_fwd_bf16``, ``r1l_bwd_bf16``), every sum float32.
+    ``long_crossings`` and ``longest_crossing_runs`` (plain integers, at
+    d = 1 and at d > 1) count the ``dx`` sums' receivers whose edges span
+    more runs than one chunk of their fix-up holds, and the most runs one
+    spans, over the slices (``spmm.crossing_spans``).
     """
 
     def __init__(self, senders, receivers, *, n_src: int, n_dst: int,
@@ -142,6 +149,13 @@ class ChunkedRank1Gat:
         self.slices: List[_RankSlice] = [
             _RankSlice(sl, s[sl.lo:sl.hi], r[sl.lo:sl.hi], self.device)
             for sl in edge_slices(s, r, self.num_slices, self.device)]
+        # the dx sums' rows that only the fix-up's second level adds up, and
+        # the most runs one row spans, over the slices: at d = 1 and d > 1
+        self.long_crossings = tuple(
+            sum(rs.spans[i][0] for rs in self.slices) for i in (0, 1))
+        self.longest_crossing_runs = tuple(
+            max((rs.spans[i][1] for rs in self.slices), default=0)
+            for i in (0, 1))
         self._seed = torch.zeros(1, dtype=torch.int32, device=self.device)
 
     def forward_state(self, c, a, xk):

@@ -35,8 +35,9 @@ import torch
 from ...utils import debug
 from .rank1_gat import (NEG, _edge_walk, _fwd_runs_plain, _group, _keep,
                         _scale)
-from .spmm import (SpmmOperator, edge_rows, n_runs, operator_for, warp_run,
-                   widen)
+from .spmm import (CLOSED, SpmmOperator, cross_code, edge_rows,
+                   fix_shape, fixup_runs_plain, n_runs, operator_for,
+                   warp_run, widen)
 
 if TYPE_CHECKING:
     from ...graph import BipartiteGraph
@@ -182,15 +183,16 @@ def flash_gat_bwd_runs_plain(ptr, col, logits, x, gout, out, lse, seed,
 
 def rank1_gat_generic_bwd_runs_plain(ptr, col, c, t, x, gout, out, lse,
                                      slope: float, n_rows: int, run: int,
-                                     group: int):
+                                     group: int, fix=None):
     """The walk of ``r1_bwd_f32`` (``csrc/gat_bwd.cuh``, the source
     ``kRank1``) in plain PyTorch, step by step as the kernel takes it:
     :func:`flash_gat_bwd_runs_plain` on the logits ``leaky(c[r] + t[j])``,
     ``dpre`` from its ``dl``, and ``dc`` summed by row piece
     (``rank1_gat._edge_walk``): a row inside a run is written, a crossing
-    row leaves head and tail pieces that the fix-up adds in run order, and
-    the empty rows are zeroed by the runs that own them.  ``col`` [n_out]
-    may run past ``ptr[n_rows]``.
+    row leaves head and tail pieces that the fix-up adds
+    (``spmm.fixup_runs_plain``, ``fix`` as there, default its d = 1
+    shape), and the empty rows are zeroed by the runs that own them.
+    ``col`` [n_out] may run past ``ptr[n_rows]``.
 
     Returns ``(att [n_out], dpre [n_out], dc [n_rows], writes [n_out],
     dc_writes [n_rows])``, the ``writes`` counting how often each slot and
@@ -210,33 +212,31 @@ def rank1_gat_generic_bwd_runs_plain(ptr, col, c, t, x, gout, out, lse,
     dc = x.new_full((n_rows,), float("nan"))
     dc_writes = torch.zeros(n_rows, dtype=torch.int64)
     n = n_runs(n_out, run)
-    head, tail, cross = [None] * n, [None] * n, [-1] * n
+    head, tail, cross = [None] * n, [None] * n, [CLOSED] * n
+    pl = [int(v) for v in ptr.tolist()]
+
+    def put(r, v):
+        dc[r] = v
+        dc_writes[r] += 1
+
     piece = x.new_zeros(())
     for event, *at in _edge_walk(ptr, n_out, run, group, x.shape[1]):
         if event == "empty":
-            dc[at[0]] = 0.0
-            dc_writes[at[0]] += 1
+            put(at[0], 0.0)
         elif event == "step":
             piece = piece + dpre[at[1]].sum()
         elif event == "piece":
             k, row, target = at
             if target == "out":
-                dc[row] = piece
-                dc_writes[row] += 1
+                put(row, piece)
             elif target == "head":
                 head[k] = piece
             else:
-                tail[k], cross[k] = piece, row
+                tail[k] = piece
+            cross[k] = cross_code(pl, row, k * run,
+                                  min(k * run + run, n_edges))
             piece = x.new_zeros(())
-    ends = [int(v) for v in ptr[1:].tolist()]
-    for k, r in enumerate(cross):
-        if r < 0:
-            continue
-        v = tail[k]
-        for j in range(k + 1, (ends[r] - 1) // run + 1):
-            v = v + head[j]
-        dc[r] = v
-        dc_writes[r] += 1
+    fixup_runs_plain(pl, head, tail, cross, run, put, fix or fix_shape(1))
     return att, dpre, dc, writes, dc_writes
 
 

@@ -67,7 +67,7 @@ import torch
 from ...utils import debug
 from ..sparse import PRECISIONS
 from .spmm import (ROW_TYPES, SpmmOperator, edge_rows, n_runs, operator_for,
-                   warp_run, widen)
+                   sums_ws_floats, warp_run, widen)
 
 if TYPE_CHECKING:
     from ...graph import BipartiteGraph
@@ -761,7 +761,8 @@ def r1_bwd(ptr, col, c, t, x, gout, out, lse, slope: float, n_rows: int,
     if n_rows == 0:
         return att.zero_(), dpre.zero_(), dc
     run = R1_BWD_RUN if run is None else int(run)
-    ws = torch.empty(3 * n_runs(e, run), dtype=torch.float32, device=dev)
+    ws = torch.empty(sums_ws_floats(e, run, 1), dtype=torch.float32,
+                     device=dev)
     lib = flash_gat._kernel_lib()
     bf16 = x.dtype == torch.bfloat16
     name = "r1_bwd_bf16" if bf16 else "r1_bwd_f32"

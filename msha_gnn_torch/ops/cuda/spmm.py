@@ -52,7 +52,9 @@ Each wrapper counts its launches (:data:`launches`, :data:`seg_launches`,
 :data:`dw_launches`) and runs its plain PyTorch version, the kernel's
 oracle, for tensors on the CPU.  :func:`csr_spmm_runs_plain` and
 :func:`csr_spmm_dw_runs_plain` mirror the kernels' edge-run walks step by
-step, for tests.
+step, for tests, and :func:`fixup_runs_plain` the fix-up of the rows that
+cross runs that they share; :func:`crossing_spans` counts the rows a
+pointer leaves to the fix-up's second level.
 """
 
 from __future__ import annotations
@@ -78,6 +80,16 @@ RUN_D1 = 32     # at d = 1 a thread takes a run
 # Slots a warp of csr_spmm_dw_f32 by default (PERF.md, the sweep of run
 # lengths and groups of lanes at the linkpred shapes).
 DW_RUN = 128
+# The fix-up of the rows that cross runs (csrc/runs.cuh): a block of
+# FIX_THREADS threads a chunk of runs, each worker (a thread at d = 1, a
+# warp above) FIX_PER_D1 / FIX_PER consecutive runs (PERF.md, the sweep).
+# The kernels hold the same numbers (csr_fix_chunk_runs).
+FIX_THREADS = 256
+FIX_PER_D1 = 2
+FIX_PER = 8
+# cross[k] besides a row: no row leaves run k across its end, or run k's
+# one piece continues a row past it (runs::kClosed, runs::kThrough)
+CLOSED, THROUGH = -1, -2
 
 # Launches of csr_spmm_f32, seg_reduce_f32, csr_spmm_dw_f32, csr_spmm_bf16
 # and csr_spmm_dw_bf16 in this process (plain counts, reset by callers that
@@ -109,6 +121,8 @@ def _kernel_lib() -> ctypes.CDLL:
         for fn in (lib.csr_spmm_f32, lib.seg_reduce_f32, lib.csr_spmm_dw_f32,
                    lib.csr_spmm_bf16, lib.csr_spmm_dw_bf16):
             fn.restype = ctypes.c_int
+        lib.csr_fix_chunk_runs.argtypes = [i]
+        lib.csr_fix_chunk_runs.restype = ctypes.c_int
         lib.csr_spmm_error_string.argtypes = [ctypes.c_int]
         lib.csr_spmm_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -162,24 +176,129 @@ def n_runs(n_slots: int, run: int) -> int:
     return max(1, -(-n_slots // run))
 
 
+def fix_shape(d: int):
+    """``(workers, runs a worker)`` of the fix-up's first level at width
+    ``d``: threads at ``d = 1``, warps above."""
+    if d == 1:
+        return FIX_THREADS, FIX_PER_D1
+    return FIX_THREADS // 32, FIX_PER
+
+
+def chunk_runs(d: int) -> int:
+    """Runs a chunk of the fix-up's first level at width ``d``."""
+    workers, per = fix_shape(d)
+    return workers * per
+
+
 def sums_ws_floats(n_slots: int, run: int, d: int) -> int:
     """Floats of the workspace of a walk that sums rows of width ``d`` over
     runs of ``run`` of ``n_slots`` slots (``csr_spmm_f32``,
-    ``seg_reduce_f32``, ``csr_spmm_dw_f32``'s dx): the head and tail
-    partials ``[n_runs, d]`` each and ``cross`` (int32)."""
-    return n_runs(n_slots, run) * (2 * d + 1)
+    ``seg_reduce_f32``, ``csr_spmm_dw_f32``'s dx, ``r1_bwd_f32``'s dc at
+    ``d = 1``): the runs' head and tail partials ``[n_runs, d]`` each and
+    ``cross`` (int32), then the same for the fix-up's chunks of
+    :func:`chunk_runs` runs."""
+    n = n_runs(n_slots, run)
+    return (n + -(-n // chunk_runs(d))) * (2 * d + 1)
+
+
+def crossing_spans(ptr: np.ndarray, run: int, chunk: int):
+    """``(long_crossings, longest_crossing_runs)`` of a CSR pointer summed
+    over runs of ``run`` slots and fix-up chunks of ``chunk`` runs: the
+    rows whose partials span more runs than a chunk holds (a hub's rows,
+    which only the fix-up's second level can add up) and the most runs one
+    row's partials span (0 when no row crosses a run)."""
+    ptr = np.asarray(ptr, np.int64)
+    begin, end = ptr[:-1], ptr[1:]
+    spans = ((end - 1) // run - begin // run + 1)[end > begin]
+    spans = spans[spans > 1]
+    return int((spans > chunk).sum()), int(spans.max(initial=0))
+
+
+def cross_code(pl, row: int, first: int, last: int) -> int:
+    """``runs::cross_code``: ``cross[k]`` of the run ``[first, last)`` whose
+    last row piece is ``row``'s (``pl`` the pointer as a list)."""
+    if pl[row + 1] <= last:
+        return CLOSED
+    return THROUGH if pl[row] < first else row
+
+
+def _join(left, right, put):
+    """``runs::join``: the stretch ``left`` followed by ``right``, each
+    ``(x, e, t)``; writes the row that ``left`` lets out and ``right``
+    ends through ``put(row, value)``."""
+    x, e, t = left
+    xr, er, tr = right
+    if x == THROUGH:
+        return xr, e + er, tr
+    if x >= 0:
+        if xr == THROUGH:
+            return x, e, t + er
+        put(x, t + er)
+    return xr, e, tr
+
+
+def fixup_runs_plain(pl, head, tail, cross, run: int, put, fix):
+    """The fix-up grids of ``csrc/runs.cuh`` in plain Python, in the
+    kernels' order of additions: the runs that hold edges cut into chunks of
+    ``workers * per`` runs (``fix``); in each, every worker joins its
+    ``per`` runs left to right, then the workers' stretches are joined in a
+    binary tree (worker ``w`` takes in ``w + s`` at step ``s``); a row that
+    leaves its chunk is added over the chunks' partials at level 2.  ``pl``
+    the pointer as a list; ``head``, ``tail`` the runs' partials (``None``
+    where a run left none: the kernels' workspace holds stale floats there,
+    which the fix-up must not read, and a read of ``None`` fails);
+    ``cross`` the runs' codes.  Returns ``(long_crossings,
+    longest_crossing_runs)`` as the rows were added (:func:`crossing_spans`
+    counts them from the pointer): the rows written at level 2 whose
+    partials span more runs than a chunk holds, and the most runs one
+    crossing row's partials span."""
+    workers, per = fix
+    chunk = workers * per
+    held = -(-pl[-1] // run)
+    chunks = []
+    for c in range(-(-held // chunk)):
+        stretches = []
+        for w in range(workers):
+            j0 = c * chunk + w * per
+            s = (CLOSED, 0.0, 0.0)   # an idle worker
+            for j in range(j0, min(j0 + per, held)):
+                leaf = (cross[j], head[j], tail[j])
+                s = leaf if j == j0 else _join(s, leaf, put)
+            stretches.append(s)
+        step = 1
+        while step < workers:
+            for w in range(0, workers, 2 * step):
+                stretches[w] = _join(stretches[w], stretches[w + step], put)
+            step *= 2
+        chunks.append(stretches[0])
+    long = 0
+    for c, (x, _, t) in enumerate(chunks):
+        if x < 0:
+            continue
+        v = t
+        for j in range(c + 1, (pl[x + 1] - 1) // (run * chunk) + 1):
+            v = v + chunks[j][1]
+        put(x, v)
+        long += (pl[x + 1] - 1) // run - pl[x] // run + 1 > chunk
+    spans = [(pl[r + 1] - 1) // run - k + 1
+             for k, r in enumerate(cross[:held]) if r >= 0]
+    return long, max(spans, default=0)
 
 
 def csr_spmm_runs_plain(ptr: torch.Tensor, col: Optional[torch.Tensor],
                         w: Optional[torch.Tensor], x: torch.Tensor,
-                        n_rows: int, run: int):
+                        n_rows: int, run: int, fix=None,
+                        spans: Optional[dict] = None):
     """The schedule of ``csr_spmm_f32`` and ``seg_reduce_f32`` in plain
     PyTorch, step by step as the kernels take it (``msha_gnn_torch/csrc/
     runs.cuh``): each run of ``run`` consecutive slots sums its pieces of
     rows, writing a row that lies inside it and leaving the head and tail
-    partials of rows that cross its ends; empty rows are zeroed by the run
-    that holds their slot; then the crossing rows are added up in run
-    order.  ``col`` None: the identity (``seg_reduce_f32``).
+    partials of rows that cross its ends and its cross code; empty rows
+    are zeroed by the run that holds their slot; then the crossing rows are
+    added up by :func:`fixup_runs_plain` (``fix``: its ``(workers, runs a
+    worker)``, default :func:`fix_shape`).  ``col`` None: the identity
+    (``seg_reduce_f32``).  ``spans``, a dict, receives the fix-up's
+    ``long_crossings`` and ``longest_crossing_runs``.
 
     Returns ``(out [n_rows, d], writes [n_rows])``, ``writes`` counting how
     often each row was written (the kernels write each row once).  Slow: a
@@ -194,7 +313,7 @@ def csr_spmm_runs_plain(ptr: torch.Tensor, col: Optional[torch.Tensor],
     out = x.new_full((n_rows, d), float("nan"))
     writes = torch.zeros(n_rows, dtype=torch.int64)
     n = n_runs(n_edges, run)
-    head, tail = x.new_zeros((n, d)), x.new_zeros((n, d))
+    head, tail, cross = [None] * n, [None] * n, [CLOSED] * n
 
     def put(r, v):
         out[r] = v
@@ -231,19 +350,14 @@ def csr_spmm_runs_plain(ptr: torch.Tensor, col: Optional[torch.Tensor],
             else:
                 put(rr, s)
             prev = rr
+        cross[k] = cross_code(pl, prev, first, last)
         if last == n_edges:
             for empty in range(prev + 1, n_rows):
                 put(empty, 0.0)
-    for k in range(n):
-        first, last = k * run, min(k * run + run, n_edges)
-        if first >= n_edges:
-            break
-        r = int(rows[last - 1])
-        if pl[r + 1] > last and pl[r] >= first:
-            v = tail[k].clone()
-            for j in range(k + 1, (pl[r + 1] - 1) // run + 1):
-                v = v + head[j]
-            put(r, v)
+    long, longest = fixup_runs_plain(pl, head, tail, cross, run, put,
+                                     fix or fix_shape(d))
+    if spans is not None:
+        spans.update(long_crossings=long, longest_crossing_runs=longest)
     return out, writes
 
 
@@ -457,7 +571,7 @@ def csr_spmm_dw_plain(ptr, col, eid, w, g, x, n_rows: int, n_dw: int):
 
 
 def csr_spmm_dw_runs_plain(ptr, col, eid, w, g, x, n_rows: int, n_dw: int,
-                           run: int, group: int):
+                           run: int, group: int, fix=None):
     """The walk of ``csr_spmm_dw_f32`` (``csrc/gat_bwd.cuh``, the source
     ``kDw``) in plain PyTorch, step by step as the kernel takes it
     (``rank1_gat._edge_walk``): runs of ``run`` slots of ``[0, n_dw)``, each
@@ -465,8 +579,9 @@ def csr_spmm_dw_runs_plain(ptr, col, eid, w, g, x, n_rows: int, n_dw: int,
     the edges of each row piece to ``32 / group`` groups (each edge's dot
     stored at its id, its ``w g`` row added to the piece), writing a row
     that lies inside the run and leaving the head and tail partials of
-    rows that cross its ends, empty rows zeroed by the run that owns them;
-    then the crossing rows are added up in run order.
+    rows that cross its ends and its cross code, empty rows zeroed by the
+    run that owns them; then the crossing rows are added up by
+    :func:`fixup_runs_plain` (``fix`` as there).
 
     Returns ``(dx [n_rows, d], dw [n_dw], dx_writes, dw_writes)``, the
     writes counting how often each row of dx and slot of dw was written
@@ -483,7 +598,7 @@ def csr_spmm_dw_runs_plain(ptr, col, eid, w, g, x, n_rows: int, n_dw: int,
     dx_writes = torch.zeros(n_rows, dtype=torch.int64)
     dw_writes = torch.zeros(n_dw, dtype=torch.int64)
     n = n_runs(n_dw, run)
-    head, tail, cross = g.new_zeros((n, d)), g.new_zeros((n, d)), [-1] * n
+    head, tail, cross = [None] * n, [None] * n, [CLOSED] * n
     piece = g.new_zeros(d)
 
     def put(r, v):
@@ -507,16 +622,13 @@ def csr_spmm_dw_runs_plain(ptr, col, eid, w, g, x, n_rows: int, n_dw: int,
             if target == "head":
                 head[k] = piece
             elif target == "tail":
-                tail[k], cross[k] = piece, row
+                tail[k] = piece
             else:
                 put(row, piece)
+            cross[k] = cross_code(pl, row, k * run,
+                                  min(k * run + run, n_edges))
             piece = g.new_zeros(d)
-    for k, r in enumerate(cross):
-        if r >= 0:
-            v = tail[k].clone()
-            for j in range(k + 1, (pl[r + 1] - 1) // run + 1):
-                v = v + head[j]
-            put(r, v)
+    fixup_runs_plain(pl, head, tail, cross, run, put, fix or fix_shape(d))
     return dx, dw, dx_writes, dw_writes
 
 

@@ -7,7 +7,8 @@ the plain versions and the JAX package's operators in interpret mode.
 The CSR row pointers are drawn by hypothesis (``pointers`` of
 ``tests/test_torch_fwd_runs.py``: empty rows at the start, in the middle
 and at the end, a row across several runs, pad slots past ``ptr[n_rows]``,
-graphs with no edges at all).  Each mirror must write every slot of
+graphs with no edges at all; with the fix-up's chunks cut small, also rows
+that cross chunks).  Each mirror must write every slot of
 ``[0, n_out)`` exactly once, the pads as 0, and ``r1_bwd_f32``'s mirror
 every row of ``dc`` exactly once, an empty row as 0.  Tolerances against
 the plain versions: ``att`` at rtol 1e-5 (one exp, the same order);
@@ -69,11 +70,12 @@ def generic_inputs(lengths, pad, seed, d=D, scale=1.0, dead=()):
     return ptr, col, c, t, x, gout, out, lse
 
 
-def check_generic(lengths, pad, seed, run, group, d=D, scale=1.0, dead=()):
+def check_generic(lengths, pad, seed, run, group, d=D, scale=1.0, dead=(),
+                  fix=None):
     ptr, col, *rest = generic_inputs(lengths, pad, seed, d, scale, dead)
     n_rows, e = len(lengths), int(ptr[-1])
     att, dpre, dc, writes, dc_writes = fg.rank1_gat_generic_bwd_runs_plain(
-        ptr, col, *rest, SLOPE, n_rows, run, group)
+        ptr, col, *rest, SLOPE, n_rows, run, group, fix)
     assert bool((writes == 1).all()), f"slots written {writes.tolist()}"
     assert bool((dc_writes == 1).all()), f"dc written {dc_writes.tolist()}"
     for v in (att, dpre, dc):
@@ -100,6 +102,22 @@ def test_generic_backward_walk_matches_plain(run, group):
     @given(case=pointers(run), seed=st.integers(0, 2**16))
     def check(case, seed):
         check_generic(*case, seed, run, group)
+
+    check()
+
+
+@pytest.mark.parametrize("fix", [(1, 3), (2, 2), (4, 1)],
+                         ids=lambda f: f"fix{f[0]}x{f[1]}")
+@pytest.mark.parametrize("run", [4, 32])
+def test_generic_backward_walk_across_chunks(run, fix):
+    """dc's fix-up with its chunks cut small (``fix``), on pointers with
+    rows that cross them: added by both levels, each row once."""
+    @settings(max_examples=4, deadline=None, database=None,
+              derandomize=True)
+    @given(case=pointers(run, chunk=fix[0] * fix[1] * run),
+           seed=st.integers(0, 2**16))
+    def check(case, seed):
+        check_generic(*case, seed, run, 4, fix=fix)
 
     check()
 

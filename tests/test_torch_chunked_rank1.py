@@ -221,3 +221,32 @@ def test_chunked_rank1_checks():
                          device="cpu")
     with pytest.raises(ValueError, match="for 30 x 20"):
         op(torch.zeros(30), torch.zeros(4), torch.zeros(19, 4))
+
+
+@pytest.mark.parametrize("graph", ["hub", "uniform"])
+def test_chunked_rank1_counts_the_hub_rows(graph):
+    """``long_crossings`` reads the receivers whose edges in a slice span
+    more runs than one fix-up chunk holds (16,384 slots at d = 1, 2,048 at
+    d > 1 on these 32-slot runs), at both widths: receiver 0 of a hub
+    graph in each of its 2 slices, no receiver of a uniform one."""
+    rng = np.random.default_rng(11)
+    e, n = 160_000, 5_000
+    s = np.sort(rng.integers(0, n, e))
+    r = rng.integers(0, n, e)
+    if graph == "hub":
+        r[rng.random(e) < 0.5] = 0
+    op = ChunkedRank1Gat(s, r, n_src=n, n_dst=n, num_slices=2,
+                         assume_sorted=True, device="cpu")
+    spans = [[cuda_spmm.crossing_spans(rs.t_ptr.numpy(),
+                                       cuda_spmm.run_for(rs.t_col.numel(), d),
+                                       cuda_spmm.chunk_runs(d))
+              for rs in op.slices] for d in (1, 2)]
+    assert op.long_crossings == tuple(sum(v[0] for v in w) for w in spans)
+    assert op.longest_crossing_runs == tuple(max(v[1] for v in w)
+                                             for w in spans)
+    if graph == "hub":
+        assert op.long_crossings == (2, 2)
+        assert min(op.longest_crossing_runs) > 512
+    else:
+        assert op.long_crossings == (0, 0)
+        assert max(op.longest_crossing_runs) <= 2

@@ -594,6 +594,68 @@ def test_seg_reduce_runs_kernel_matches_plain(d, run):
     assert not got[[0, 150, 299]].any()
 
 
+def hub_pointer(hub=2_000_000, n_rows=3_000, n_cols=500, seed=0):
+    """A CSR pointer (int32, on the card) of one ``hub``-slot row (row
+    1,500) among rows of 0 to 5 slots (rows 0, 1,499 and the last empty),
+    and columns drawn over ``n_cols``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, 6, n_rows)
+    lengths[[0, n_rows // 2 - 1, n_rows - 1]] = 0
+    lengths[n_rows // 2] = hub
+    ptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    col = rng.integers(0, n_cols, int(ptr[-1])).astype(np.int32)
+    return (torch.from_numpy(ptr).cuda(), torch.from_numpy(col).cuda(),
+            n_rows, n_cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 32, 64])
+def test_sums_of_a_hub_row_match_float64(d):
+    """A 2 M-slot row among short and empty rows, whose crossing pieces
+    the fix-up adds over about 62,500 runs (d = 1) or 7,800 (d > 1): the
+    sums of csr_spmm_f32, seg_reduce_f32 and csr_spmm_dw_f32 against
+    float64 sums at the sums' tolerance, over NaN-primed outputs (every row
+    written), twice bit for bit; the kernels' chunk of runs is the
+    workspace's."""
+    ptr, col, n_rows, n_cols = hub_pointer(seed=d)
+    e = col.numel()
+    assert (cuda_spmm._kernel_lib().csr_fix_chunk_runs(d)
+            == cuda_spmm.chunk_runs(d))
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    w = torch.rand(e, generator=gen, device="cuda") + 0.5
+    x = torch.rand(n_cols, d, generator=gen, device="cuda") - 0.5
+    ws = cuda_spmm.sums_ws_floats(e, cuda_spmm.run_for(e, d), d)
+    prime_nan((n_rows, d), (ws,))
+    got = twice_same(lambda: cuda_spmm.csr_spmm(ptr, col, w, x, n_rows))
+    assert not got.isnan().any()
+    sums_close(got.double(), cuda_spmm.csr_spmm_plain(
+        ptr, col, w.double(), x.double(), n_rows))
+
+    values = torch.rand(e + 8, d, generator=gen, device="cuda") - 0.5
+    values[e:] = float("nan")
+    prime_nan((n_rows, d), (ws,))
+    got = twice_same(lambda: cuda_spmm.row_sums(values, ptr, n_rows=n_rows))
+    assert not got.isnan().any()
+    sums_close(got.double(), cuda_spmm.segment_reduce_sorted_plain(
+        values.double(), None, ptr, n_src=n_rows))
+    del values
+
+    g = torch.rand(n_cols, d, generator=gen, device="cuda") - 0.5
+    xr = torch.rand(n_rows, d, generator=gen, device="cuda") - 0.5
+    prime_nan((n_rows, d), (e,),
+              (cuda_spmm.sums_ws_floats(e, cuda_spmm.DW_RUN, d),))
+    dx, dw = twice_same(lambda: cuda_spmm.csr_spmm_dw(
+        ptr, col, None, w, g, xr, n_rows, e))
+    assert not dx.isnan().any() and not dw.isnan().any()
+    want_dx, want_dw = cuda_spmm.csr_spmm_dw_plain(
+        ptr, col, None, w.double(), g.double(), xr.double(), n_rows, e)
+    sums_close(dx.double(), want_dx)
+    torch.testing.assert_close(dw.double(), want_dw, rtol=1e-5,
+                               atol=1e-6 * max(1, d / 64))
+
+
 @pytest.mark.cuda
 def test_spmm_runs_kernel_with_no_edges():
     """A graph without edges: every row written as 0, at d 1 and d 64."""

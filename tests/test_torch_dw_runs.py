@@ -8,7 +8,8 @@ The CSR row pointers are drawn by hypothesis (``pointers`` of
 rows at the start, in the middle and at the end, a row across several
 runs, pad slots past ``ptr[n_rows]``, graphs with no edges at all; at
 widths 0, 1, 8, 64 and 129 (above one group's tile at every group of
-lanes).  The mirror must write every row of ``dx`` once (an empty row as
+lanes); with the fix-up's chunks cut small, also rows that cross chunks
+(``chunk_rows``).  The mirror must write every row of ``dx`` once (an empty row as
 0) and every slot of ``dw`` once (the pads as 0), both with an edge map
 (the ``A @ x`` direction's CSC walk, ``dw`` through ``eid``) and without.
 Tolerances against the plain version: ``dw`` at rtol 1e-6, atol 1e-6 (the
@@ -45,9 +46,10 @@ def sums_close(got, want):
                                atol=1e-5 * max(scale, 1.0))
 
 
-def check_dw(lengths, pad, seed, run, group, d, mapped):
+def check_dw(lengths, pad, seed, run, group, d, mapped, fix=None):
     """The mirror at (run, group) against the plain version, every row of
-    dx and slot of dw written once; ``mapped``: a shuffled edge map."""
+    dx and slot of dw written once; ``mapped``: a shuffled edge map;
+    ``fix``: the fix-up's (workers, runs a worker)."""
     rng = np.random.default_rng(seed)
     ptr, col = csr(lengths, pad, rng)
     n_rows, e = len(lengths), int(ptr[-1])
@@ -59,7 +61,7 @@ def check_dw(lengths, pad, seed, run, group, d, mapped):
     x = torch.from_numpy(rng.standard_normal((n_rows, d))
                          .astype(np.float32))
     dx, dw, dx_writes, dw_writes = cuda_spmm.csr_spmm_dw_runs_plain(
-        ptr, col, eid, w, g, x, n_rows, n_dw, run, group)
+        ptr, col, eid, w, g, x, n_rows, n_dw, run, group, fix)
     assert bool((dx_writes == 1).all()), f"rows {dx_writes.tolist()}"
     assert bool((dw_writes == 1).all()), f"slots {dw_writes.tolist()}"
     want_dx, want_dw = cuda_spmm.csr_spmm_dw_plain(ptr, col[:e], eid, w, g,
@@ -84,6 +86,23 @@ def test_dw_walk_matches_plain(run, group, mapped):
     check()
 
 
+@pytest.mark.parametrize("fix", [(1, 3), (2, 2), (4, 1)],
+                         ids=lambda f: f"fix{f[0]}x{f[1]}")
+@pytest.mark.parametrize("run", [4, 16])
+def test_dw_walk_across_chunks(run, fix):
+    """The fix-up's chunks cut small (``fix``), on pointers with rows that
+    cross them: dx's crossing rows added by both levels, each once."""
+    @settings(max_examples=4, deadline=None, database=None,
+              derandomize=True)
+    @given(case=pointers(run, chunk=fix[0] * fix[1] * run),
+           seed=st.integers(0, 2**16), d=st.sampled_from([1, 8]),
+           mapped=st.booleans())
+    def check(case, seed, d, mapped):
+        check_dw(*case, seed, run, 8, d, mapped, fix)
+
+    check()
+
+
 @pytest.mark.parametrize("d", WIDTHS)
 def test_dw_walk_corners(d):
     """No edges at all (with and without pads); every row empty but the
@@ -101,11 +120,15 @@ def test_dw_walk_corners(d):
 
 def test_sums_workspace_size_and_defaults():
     """The workspace of the walks that sum rows of width d: the head and
-    tail partials ``[n_runs, d]`` and ``cross``, at least one run; the dw
-    walk's default run length is one the sweep covers."""
-    assert cuda_spmm.sums_ws_floats(20, 4, 64) == 5 * 129
-    assert cuda_spmm.sums_ws_floats(0, 64, 8) == 17
-    assert cuda_spmm.sums_ws_floats(129, 128, 0) == 2
+    tail partials ``[n, d]`` and ``cross`` of the runs (at least one) and
+    of the fix-up's chunks (512 runs at d = 1, 64 above); the dw walk's
+    default run length is one the sweep covers."""
+    assert cuda_spmm.sums_ws_floats(20, 4, 64) == (5 + 1) * 129
+    assert cuda_spmm.sums_ws_floats(0, 64, 8) == (1 + 1) * 17
+    assert cuda_spmm.sums_ws_floats(129, 128, 0) == (2 + 1) * 1
+    assert cuda_spmm.sums_ws_floats(5000, 1, 1) == (5000 + 10) * 3
+    assert cuda_spmm.sums_ws_floats(65 * 32, 32, 32) == (65 + 2) * 65
+    assert cuda_spmm.chunk_runs(1) == 512 and cuda_spmm.chunk_runs(64) == 64
     assert cuda_spmm.DW_RUN in cuda_spmm.RUN_SLOTS
 
 

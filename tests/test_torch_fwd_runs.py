@@ -43,9 +43,38 @@ def close(got, want, rtol=1e-4):
 
 
 @st.composite
-def pointers(draw, run):
+def chunk_rows(draw, run, chunk, at):
+    """Rows that cross the sums' fix-up chunks of ``chunk`` slots
+    (``csrc/runs.cuh``), placed after ``at`` slots in a drawn order with
+    empty rows between them: one spanning several chunks, one that begins
+    inside a chunk and ends inside the next, three short rows that cross
+    runs (several segments to a chunk), and one that ends exactly on a
+    chunk boundary."""
+    rows = []
+    for kind in draw(st.permutations(["span", "straddle", "several",
+                                      "boundary"])):
+        rows += draw(st.sampled_from([[], [0]]))
+        if kind == "span":
+            new = [draw(st.integers(2 * chunk + 1, 4 * chunk))]
+        elif kind == "several":
+            new = [run + 1 + draw(st.integers(0, run)) for _ in range(3)]
+        else:
+            if at % chunk == 0:   # begin inside a chunk
+                rows.append(1)
+                at += 1
+            to_edge = chunk - at % chunk
+            new = [to_edge + (draw(st.integers(1, chunk - 1))
+                              if kind == "straddle" else 0)]
+        rows += new
+        at += sum(new)
+    return rows
+
+
+@st.composite
+def pointers(draw, run, chunk=None):
     """(row lengths, pad slots): empty rows at the start, in the middle and
-    at the end, one row across several runs, or no edges at all."""
+    at the end, one row across several runs, or no edges at all; given
+    ``chunk`` (slots a fix-up chunk), also the rows of ``chunk_rows``."""
     pad = draw(st.integers(0, 2 * run))
     if draw(st.integers(0, 7)) == 0:
         return [0] * draw(st.integers(1, 6)), pad
@@ -54,8 +83,10 @@ def pointers(draw, run):
     mid = draw(st.integers(0, len(body)))
     crossing = draw(st.integers(2 * run + 1, 4 * run))
     lengths = (draw(st.sampled_from([[], [0], [0, 0]])) + body[:mid]
-               + [0, crossing] + body[mid:]
-               + draw(st.sampled_from([[], [0], [0, 0]])))
+               + [0, crossing] + body[mid:])
+    if chunk is not None:
+        lengths += draw(chunk_rows(run, chunk, sum(lengths)))
+    lengths += draw(st.sampled_from([[], [0], [0, 0]]))
     return lengths, pad
 
 

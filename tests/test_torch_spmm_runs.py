@@ -5,7 +5,9 @@ segment sum and the JAX package's ``spmm``.
 
 The CSR row pointers are drawn by hypothesis (fixed seed, no example
 database): empty rows anywhere (first, last, runs of them, every row),
-and one row longer than ten runs.  The mirror must write every output row
+and one row longer than ten runs; with the fix-up's chunks cut small
+(``FIXES``), also rows that cross chunks (``chunk_rows`` of
+``tests/test_torch_fwd_runs.py``).  The mirror must write every output row
 exactly once, and hold the sums at the card tests' tolerance for sums:
 rtol 1e-4, atol 1e-5 of the largest value (float32 sums of up to 3,000
 terms, added by pieces in another order).  The kernels themselves are held against the
@@ -22,8 +24,12 @@ from hypothesis import strategies as st
 import msha_gnn_tpu.graph as jg
 from msha_gnn_tpu.ops import spmm as jax_spmm
 from msha_gnn_torch.ops.cuda import spmm as cuda_spmm
+from tests.test_torch_fwd_runs import chunk_rows
 
 RTOL = 1e-4
+# (workers, runs a worker) of the fix-up's first level, cut small so that
+# the tests' rows cross chunks
+FIXES = [(1, 3), (2, 2), (4, 1)]
 
 
 def sums_close(got, want):
@@ -35,13 +41,18 @@ N_COLS = 9
 
 
 @st.composite
-def row_lengths(draw, run):
-    """Row lengths with empty rows and one row longer than ten runs."""
+def row_lengths(draw, run, chunk=None):
+    """Row lengths with empty rows and one row longer than ten runs; given
+    ``chunk`` (slots a fix-up chunk), also the rows of ``chunk_rows``: one
+    spanning several chunks, one from inside a chunk to inside the next,
+    several segments in a chunk, one ending on a chunk boundary."""
     lengths = draw(st.lists(st.one_of(st.just(0), st.integers(1, 40)),
                             min_size=1, max_size=25))
     if draw(st.booleans()):
         at = draw(st.integers(0, len(lengths) - 1))
         lengths[at] = 10 * run + draw(st.integers(1, 2 * run))
+    if chunk is not None:
+        lengths += draw(chunk_rows(run, chunk, sum(lengths)))
     return lengths
 
 
@@ -136,3 +147,106 @@ def test_run_lengths():
     assert cuda_spmm.run_for(328012, 1) == cuda_spmm.RUN_D1
     assert cuda_spmm.n_runs(0, 32) == 1
     assert cuda_spmm.n_runs(65, 32) == 3
+
+
+def check_spans(spans, ptr, run, fix):
+    """The mirror's own count of the rows it added at level 2 is the
+    pointer's, by ``crossing_spans``."""
+    want = cuda_spmm.crossing_spans(ptr.numpy(), run, fix[0] * fix[1])
+    assert (spans["long_crossings"], spans["longest_crossing_runs"]) == want
+
+
+@pytest.mark.parametrize("d", [1, 8])
+@pytest.mark.parametrize("fix", FIXES, ids=lambda f: f"fix{f[0]}x{f[1]}")
+@pytest.mark.parametrize("run", [1, 4])
+def test_schedule_across_chunks(run, fix, d):
+    """Rows that cross the fix-up's chunks, added by its two levels."""
+    @settings(max_examples=6, deadline=None, database=None,
+              derandomize=True)
+    @given(lengths=row_lengths(run, chunk=fix[0] * fix[1] * run),
+           seed=st.integers(0, 2**16), weighted=st.booleans())
+    def check(lengths, seed, weighted):
+        ptr, col, w = csr(lengths, seed)
+        n_rows = len(lengths)
+        rng = np.random.default_rng(seed + 1)
+        x = torch.from_numpy(rng.standard_normal((N_COLS, d))
+                             .astype(np.float32))
+        ww = w if weighted else None
+        spans = {}
+        got, writes = cuda_spmm.csr_spmm_runs_plain(ptr, col, ww, x, n_rows,
+                                                    run, fix, spans)
+        check_once(writes)
+        sums_close(got, cuda_spmm.csr_spmm_plain(ptr, col, ww, x, n_rows))
+        check_spans(spans, ptr, run, fix)
+        assert spans["long_crossings"] > 0
+
+    check()
+
+
+@pytest.mark.parametrize("fix", FIXES, ids=lambda f: f"fix{f[0]}x{f[1]}")
+@pytest.mark.parametrize("run", [1, 4])
+def test_identity_schedule_across_chunks(run, fix):
+    """``seg_reduce_f32``'s schedule over rows that cross chunks."""
+    @settings(max_examples=4, deadline=None, database=None,
+              derandomize=True)
+    @given(lengths=row_lengths(run, chunk=fix[0] * fix[1] * run),
+           seed=st.integers(0, 2**16))
+    def check(lengths, seed):
+        ptr, _, _ = csr(lengths, seed)
+        n_rows, e = len(lengths), int(ptr[-1])
+        rng = np.random.default_rng(seed + 2)
+        values = torch.from_numpy(rng.standard_normal((e + 4, 3))
+                                  .astype(np.float32))
+        values[e:] = float("nan")
+        got, writes = cuda_spmm.csr_spmm_runs_plain(ptr, None, None, values,
+                                                    n_rows, run, fix)
+        check_once(writes)
+        sums_close(got, cuda_spmm.segment_reduce_sorted_plain(
+            values, None, ptr, n_src=n_rows))
+
+    check()
+
+
+# At run 2 and 2 workers of 2 runs, a chunk is 8 slots.
+CHUNK_CORNERS = {
+    "spans_several_chunks": [3, 30, 2],
+    "inside_one_chunk_to_inside_the_next": [5, 6, 1],
+    "several_segments_in_a_chunk": [1, 3, 3, 1, 4, 0, 3],
+    "ends_on_a_chunk_boundary": [3, 13, 0, 8, 8, 2],
+}
+
+
+@pytest.mark.parametrize("d", [1, 3])
+@pytest.mark.parametrize("case", sorted(CHUNK_CORNERS))
+def test_schedule_chunk_corners(case, d):
+    """Each way a row meets the chunks, alone, written once."""
+    lengths = CHUNK_CORNERS[case]
+    ptr, col, w = csr(lengths, 3)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (N_COLS, d)).astype(np.float32))
+    spans = {}
+    got, writes = cuda_spmm.csr_spmm_runs_plain(ptr, col, w, x, len(lengths),
+                                                2, (2, 2), spans)
+    check_once(writes)
+    sums_close(got, cuda_spmm.csr_spmm_plain(ptr, col, w, x, len(lengths)))
+    check_spans(spans, ptr, 2, (2, 2))
+
+
+@pytest.mark.parametrize("pointer", ["hub", "uniform"])
+def test_crossing_spans_count_the_hub_rows(pointer):
+    """``crossing_spans`` against the mirror's own count: a hub row longer
+    than a chunk reads above 0, rows of 8 slots over runs of 4 (each
+    crossing one run boundary, none a chunk's) read 0."""
+    lengths = ([5, 0, 700, 9, 3, 250, 0, 4] if pointer == "hub"
+               else [8] * 40)
+    ptr, col, w = csr(lengths, 5)
+    x = torch.ones(N_COLS, 2)
+    spans = {}
+    cuda_spmm.csr_spmm_runs_plain(ptr, col, w, x, len(lengths), 4, (2, 4),
+                                  spans)
+    check_spans(spans, ptr, 4, (2, 4))
+    long, longest = cuda_spmm.crossing_spans(ptr.numpy(), 4, 8)
+    if pointer == "hub":
+        assert long == 2 and longest == 176
+    else:
+        assert long == 0 and longest == 2
